@@ -1,17 +1,24 @@
-"""Smoke run of oddio_tpu_torch on one CUDA card: builds the ring kernels,
-checks each against its plain PyTorch version at the main path's shapes,
-drives the SpatialScene render path at 4096 voices, and times it.
+"""Smoke run of oddio_tpu_torch on one CUDA card: builds every kernel,
+checks each against its plain PyTorch version at its path's shapes, drives
+the SpatialScene render path and the AGC mixer path (BASELINE config 5's
+scene) at 4096 voices, and times them.
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure exits non-zero):
+Phases (each prints one or more lines; any failure exits non-zero):
  1. the card: name and power limit (nvidia-smi);
- 2. the kernel build (nvcc, sm_90a);
+ 2. the kernel build (one nvcc per csrc/*.cu, all at once, sm_90a);
  3. K1/K2/K3 against their plain versions at V = 4096, n = 512;
  4. the 4096-voice buffered and seek scenes through render_frames and
     render_frames_device, counting kernel launches on that run;
  5. a 256-voice buffered scene on the card against the CPU (plain) render;
- 6. real-time factors of both 4096-voice scenes.
+ 6. real-time factors of both 4096-voice scenes;
+ 7. K4/K6/K7 against their plain versions at the mixer path's shapes;
+ 8. the 4096-voice config-5 mixer (512 Adapt(Stream), 3584 Adapt(Sine))
+    through render_frames and render_frames_device with new stream PCM
+    between them, counting kernel launches on that run;
+ 9. the 256-voice config-5 mixer on the card against the CPU render;
+10. the real-time factor of the 4096-voice mixer.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -82,6 +89,171 @@ def check_select(RK, got, plain, samps, gs, n, label):
     return float(diff.max()), worst
 
 
+def stream_agc_kernels(dev, kern, tag):
+    """Phase 7: K4, K6 and K7 against their plain versions at the shapes the
+    config-5 mixer gives them (ring 2816 floats per stream, 2401-wide
+    ingest chunks, n = 512)."""
+    from oddio_tpu_torch.ops import agc as A
+    from oddio_tpu_torch.ops import stream_kernels as SK
+    from oddio_tpu_torch.ops._dev import device_split_ds
+
+    rng = np.random.default_rng(7)
+    SIZE, n = 2816, BLOCK
+
+    def t(x, dtype=np.float32):
+        return torch.tensor(np.asarray(x, dtype), device=dev)
+
+    # K4: a 2401-wide prefill chunk and a 128-wide steady one, half wrapping
+    V = 512
+    for mw in (2401, 128):
+        ring = torch.randn((V, SIZE), device=dev)
+        chunk = torch.randn((V, mw), device=dev)
+        wpos = t(np.where(np.arange(V) % 2, rng.integers(SIZE - mw + 1, SIZE, V),
+                          rng.integers(0, SIZE - mw, V)), np.int32)
+        wcount = t(rng.integers(0, mw + 1, V), np.int32)
+        plain = SK.ring_place_plain(ring.clone(), chunk, wpos, wcount)
+        got = SK.ring_place(ring.clone(), chunk, wpos, wcount)
+        torch.cuda.synchronize()
+        err = float((got - plain).abs().max())
+        if err != 0.0:
+            raise AssertionError(f"ring_place (mw={mw}) differs from its plain version by {err}")
+        ms = time_ms(lambda: SK.ring_place(ring, chunk, wpos, wcount))
+        pms = time_ms(lambda: SK.ring_place_plain(ring, chunk, wpos, wcount))
+        print(f"K4 ring_place V={V} mw={mw}: max|diff| {err} (tolerance 0, exact); "
+              f"{ms:.4f} ms vs plain {pms:.4f} ms {tag}")
+        if mw == 2401:
+            kern["ring_place"] = dict(replaces="oddio_tpu/ops/pallas_ring.py:148",
+                                      source="oddio_tpu_torch/csrc/stream_kernels.cu",
+                                      err=err, ms=ms, plain_ms=pms)
+
+    # K6: V = 512 (the stream pool) and 4096, ds in {1/6, 1, 4}
+    worst = 0.0
+    for V in (512, 4096):
+        ring = torch.randn((V, SIZE), device=dev)
+        for ds in (8000.0 / 48000.0, 1.0, 4.0):
+            dsv = t(np.full(V, np.float32(ds)))
+            di, fh, fl = device_split_ds(dsv)
+            args = (ring, t(rng.uniform(0, 1, V)), di, fh, fl,
+                    t(rng.integers(0, SIZE, V), np.int32),
+                    t(rng.integers(0, int(n * ds) + 3, V), np.int32), n)
+            plain = SK.ring_resample_plain(*args)
+            got = SK.ring_resample(*args)
+            torch.cuda.synchronize()
+            err = float((got - plain).abs().max())
+            if err != 0.0:
+                raise AssertionError(f"ring_resample V={V} ds={ds} differs from its plain version by {err}")
+            worst = max(worst, err)
+            ms = time_ms(lambda: SK.ring_resample(*args))
+            pms = time_ms(lambda: SK.ring_resample_plain(*args))
+            print(f"K6 ring_resample V={V} ds={ds:.4f}: max|diff| {err} (tolerance 0, exact); "
+                  f"{ms:.4f} ms vs plain {pms:.4f} ms {tag}")
+            if V == 512 and ds < 1.0:
+                kern["ring_resample"] = dict(replaces="oddio_tpu/ops/pallas_ring.py:1203",
+                                             source="oddio_tpu_torch/csrc/stream_kernels.cu",
+                                             err=worst, ms=ms, plain_ms=pms)
+    kern["ring_resample"]["err"] = worst
+
+    # K7: V = 4096, n = 512, the scene's tau and one near the closed form's gate
+    V = 4096
+    iv = np.float32(1.0 / RATE)
+    worst = 0.0
+    for tau in (0.1, 3.34e-4):
+        alpha = np.float32(1.0) - np.exp(-iv / np.float32(tau), dtype=np.float32)
+        s_ = torch.randn((V, n), device=dev) * 0.3
+        count = t(np.where(np.arange(V) < V // 2, n, rng.integers(0, n + 1, V)), np.int32)
+        scal = A.pack_agc_scalars(
+            t(rng.uniform(1e-3, 0.3, V)), t(np.full(V, alpha)), count,
+            t(np.full(V, 0.1 / np.sqrt(2))), t(np.full(V, 0.5 / np.sqrt(2))),
+            t(np.full(V, 4.0)),
+        )
+        gp, cp = A.agc_gains_plain(s_, scal, n)
+        g, c = A.agc_gains(s_, scal, n)
+        torch.cuda.synchronize()
+        tol_g, tol_c = A.agc_tolerance(s_, scal, n)
+        dg = (g - gp).abs().double()
+        dc = (c - cp).abs().double()
+        ratio = max(float((dg / tol_g.clamp_min(1e-300)).max()),
+                    float((dc / tol_c.clamp_min(1e-300)).max()))
+        err = max(float(dg.max()), float(dc.max()))
+        if not ratio <= 1.0:
+            raise AssertionError(
+                f"agc_gains tau={tau}: kernel disagrees with its plain version: "
+                f"max|diff| {err:.3e}, {ratio:.1f}x its tolerance")
+        worst = max(worst, err)
+        ms = time_ms(lambda: A.agc_gains(s_, scal, n))
+        pms = time_ms(lambda: A.agc_gains_plain(s_, scal, n))
+        print(f"K7 agc_gains V={V} tau={tau}: max|diff| {err:.3e} ({ratio:.3f} of its "
+              f"tolerance, largest tolerance {float(tol_g.max()):.3e}); "
+              f"{ms:.4f} ms vs plain {pms:.4f} ms {tag}")
+        if tau == 0.1:
+            kern["agc_gains"] = dict(replaces="oddio_tpu/ops/pallas_agc.py:155",
+                                     source="oddio_tpu_torch/csrc/agc_kernel.cu",
+                                     err=0.0, ms=ms, plain_ms=pms)
+    kern["agc_gains"]["err"] = worst
+
+
+def mixer_path(pt, dev, kern, tag):
+    """Phases 8-10: the config-5 mixer at 4096 voices (launch counts), at
+    256 voices card vs CPU, and its real-time factor."""
+    from oddio_tpu_torch.ops import agc as A
+    from oddio_tpu_torch.ops import ring_kernels as RK
+    from oddio_tpu_torch.ops import stream_kernels as SK
+    from oddio_tpu_torch.utils.scene_profile import build_mixer_agc, feed
+
+    t0 = time.perf_counter()
+    _, mixer, ctls, rng = build_mixer_agc(VOICES, dev)
+    r = pt.Renderer(mixer, RATE)
+    print(f"mixer: {VOICES} voices ({len(ctls)} Adapt(Stream), {VOICES - len(ctls)} "
+          f"Adapt(Sine)) built in {time.perf_counter() - t0:.2f} s {tag}")
+    for reset in (RK.reset_launches, SK.reset_launches, A.reset_launches):
+        reset()
+    a = r.render_frames(RATE)
+    feed(ctls, rng, 1024)
+    dev_out = r.render_frames_device(BLOCK * 94)
+    torch.cuda.synchronize()
+    launches = {**SK.LAUNCHES, **A.LAUNCHES}
+    ring_launches = dict(RK.LAUNCHES)
+    mixer.sync()
+    b = torch.cat([o.permute(0, 2, 1).reshape(-1, 1) for o in dev_out]).cpu().numpy()
+    for name, x in (("mixer render_frames", a), ("mixer render_frames_device", b)):
+        if not np.isfinite(x).all() or np.abs(x).max() <= 1e-3:
+            raise AssertionError(f"{name}: non-finite or silent output")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the mixer path never launched: {launches}")
+    if any(ring_launches.values()):
+        raise AssertionError(f"the mixer path launched ring kernels: {ring_launches}")
+    for name in launches:
+        kern[name]["launches"] = launches[name]
+    print(f"mixer path: 1 s + {BLOCK * 94 / RATE:.3f} s, peak |out| {np.abs(a).max():.4f}/"
+          f"{np.abs(b).max():.4f}; launches {launches} {tag}")
+
+    # -- 9. 256 voices on the card vs the CPU ----------------------------------
+    outs = []
+    for device in (dev, "cpu"):
+        _, m256, c256, rng256 = build_mixer_agc(256, device)
+        r256 = pt.Renderer(m256, RATE)
+        x = r256.render_frames(BLOCK * 24)
+        feed(c256, rng256, 1024)
+        outs.append(np.concatenate([x, r256.render_frames(BLOCK * 24)]))
+    err = float(np.abs(outs[0] - outs[1]).max())
+    if not err <= TOL:
+        raise AssertionError(f"256-voice mixer card render differs from the CPU render by {err}")
+    print(f"reference: 256-voice mixer, card vs CPU plain, 48 blocks, max|diff| {err:.3e} "
+          f"(<= {TOL}) {tag}")
+
+    # -- 10. real-time factor ---------------------------------------------------
+    r.render_frames_device(BLOCK * 94, sync=False)
+    feed(ctls, rng, 1024)  # the timed run starts with an ingest block
+    torch.cuda.synchronize()
+    nblk = 188
+    t0 = time.perf_counter()
+    r.render_frames_device(BLOCK * nblk, sync=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"xRT mixer {VOICES} voices: {(nblk * BLOCK / RATE) / wall:.2f}x "
+          f"({nblk} blocks in {wall:.3f} s) {tag}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card",
@@ -100,11 +272,15 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     # -- 2. build ------------------------------------------------------------------
-    so, secs, ptxas = _build.build()
-    _build.lib()
-    print(f"build: {so.name} in {secs:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS[:2])}) {tag}")
-    if ptxas:
-        print(ptxas.strip(), file=sys.stderr)
+    t0 = time.perf_counter()
+    built = _build.build()
+    wall = time.perf_counter() - t0
+    for name, (so, secs, ptxas) in built.items():
+        _build.lib(name)
+        print(f"build: {so.name} in {secs:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS[:2])}) {tag}")
+        if ptxas:
+            print(ptxas.strip(), file=sys.stderr)
+    print(f"build: {len(built)} libraries in {wall:.2f} s wall (parallel) {tag}")
 
     # -- 3. kernels vs plain at main-path shapes -------------------------------------
     rng = np.random.default_rng(0)
@@ -217,12 +393,19 @@ def main():
         xrt = (nblk * BLOCK / RATE) / wall
         print(f"xRT {label} {VOICES} voices: {xrt:.2f}x ({nblk} blocks in {wall:.3f} s) {tag}")
 
+    for name, key in zip(("rows_append", "window_select_ears", "window_select_multi"),
+                         ("append", "select_ears", "select_multi")):
+        kern[name].update(launches=launches[key], source="oddio_tpu_torch/csrc/ring_kernels.cu")
+
+    # -- 7-10. the config-5 mixer path ----------------------------------------------
+    stream_agc_kernels(dev, kern, tag)
+    mixer_path(pt, dev, kern, tag)
+
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": "oddio_tpu_torch/csrc/ring_kernels.cu",
-         "replaces": k["replaces"], "launches": launches[key],
+        {"name": name, "route": "cuda", "source": k["source"],
+         "replaces": k["replaces"], "launches": k["launches"],
          "max_abs_err": k["err"], "ms": k["ms"], "plain_ms": k["plain_ms"]}
-        for (name, k), key in zip(kern.items(), ("append", "select_ears", "select_multi"))
+        for name, k in kern.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,13 +2,19 @@
 hand-written CUDA kernels for NVIDIA Hopper.
 
 A port of ``oddio_tpu`` (the JAX/TPU package beside it, which stays the
-reference), slice by slice, main path first.  This slice renders the
-device-resident ``SpatialScene``: ``play()`` voices in the seek pool
-(doppler by time warp, elementwise tensor math) and ``play_buffered()``
-voices in the delay-ring pool, whose ring append and ear-select reads run
-on the kernels of ``ops/ring_kernels.py`` (plain PyTorch on the CPU, CUDA
-on a GPU).  The device is explicit: ``SpatialScene.new(device=...)``,
-default CPU.
+reference), slice by slice, main path first.  It renders:
+
+* the device-resident ``SpatialScene``: ``play()`` voices in the seek pool
+  (doppler by time warp, elementwise tensor math) and ``play_buffered()``
+  voices in the delay-ring pool, whose ring append and ear-select reads run
+  on the kernels of ``ops/ring_kernels.py``;
+* the device-resident ``Mixer`` of ``Adapt(Stream)``, ``Adapt(Sine)``,
+  ``Stream`` and ``Sine`` voices: stream ingest and reads on the kernels of
+  ``ops/stream_kernels.py``, the AGC gains on ``ops/agc.py``'s.
+
+Every kernel runs its plain PyTorch version on the CPU and its CUDA kernel
+on a GPU.  The device is explicit: ``SpatialScene.new(device=...)``,
+``Mixer.new(channels, device=...)``, default CPU.
 
 Imports torch and numpy only — never jax or oddio_tpu.
 """
@@ -16,6 +22,9 @@ Imports torch and numpy only — never jax or oddio_tpu.
 from .core.signal import Signal, ControlBlock
 from .core.run import Renderer, run
 from .ops.sine import Sine
+from .ops.stream import Stream, StreamControl
+from .ops.adapt import Adapt, AdaptOptions
+from .mixer import Mixer, MixerControl, Mixed
 from .spatial import (
     SpatialScene,
     SpatialSceneControl,
@@ -31,6 +40,13 @@ __all__ = [
     "Renderer",
     "run",
     "Sine",
+    "Stream",
+    "StreamControl",
+    "Adapt",
+    "AdaptOptions",
+    "Mixer",
+    "MixerControl",
+    "Mixed",
     "SpatialScene",
     "SpatialSceneControl",
     "Spatial",

@@ -42,6 +42,12 @@ def walk_ctrl_keys(proto):
     return keys
 
 
+def _at_path(node, path):
+    for k in path:
+        node = node.children()[k]
+    return node
+
+
 def host_lanes(idx, V):
     """Host-side lane filter: (kept positions, their row indices) for a
     padded numpy index array whose padding lanes hold ``V``."""
@@ -127,6 +133,20 @@ class DRCtrlMixin:
     def _init_ctrl(self, proto):
         self.ctrl_keys = walk_ctrl_keys(proto)
         self.pending_ctrl = {k: {} for k in self.ctrl_keys}
+        #: live slots' spec chains (their control mirrors stay current:
+        #: ControlBlock.set always writes the spec's own field); they feed
+        #: host_ds_bound / host_ema_bound
+        self._slot_specs = {}
+        self._ds_fields = {
+            k for k in self.ctrl_keys
+            if k[1] in getattr(_at_path(proto, k[0]), "_dr_ds_fields", ())
+        }
+        self._ds_dirty = True
+        self._ds_small = True
+        self._ema_fast = False
+        #: no fader in the pool has pending or in-flight fades (always true
+        #: until fades are ported, ROADMAP P4)
+        self._fade_quiet = True
 
     def _rebind_ctrl(self, spec, slot, gen, prefix=()):
         """Point every control handle in ``spec``'s chain at this pool."""
@@ -142,6 +162,56 @@ class DRCtrlMixin:
 
     def push_ctrl(self, path, field, slot, value):
         self.pending_ctrl[(path, field)][slot] = np.float32(value)
+        if (path, field) in self._ds_fields:
+            self._ds_dirty = True
+
+    # -- read-path flags (step bound, AGC gate) ------------------------------
+
+    def _track_spec(self, slot, spec):
+        """Keep a played spec for the bound queries."""
+        self._slot_specs[int(slot)] = spec
+        self._ds_dirty = True
+
+    def _ds_bound_small(self, interval):
+        """True when every live voice's per-frame source step fits the
+        stream resample kernel; also sets ``_ema_fast`` and ``_ds_tier``.
+        Recomputed only after plays or step-class control writes."""
+        if self._ds_dirty or getattr(self, "_ds_interval", None) != interval:
+            from ..ops import agc, stream_kernels
+
+            b = 0.0
+            be = 0.0
+            for slot, spec in self._slot_specs.items():
+                if self.mask_host[slot]:
+                    b = max(b, spec.host_ds_bound(interval))
+                    be = max(be, spec.host_ema_bound(interval))
+            self._ds_small = bool(b <= stream_kernels.RESAMPLE_DSMAX)
+            # every live Adapt tau admits the closed-form AGC kernel
+            self._ema_fast = bool(agc.EMA_NMAX * be <= agc.EMA_GATE)
+            # window tier of the step bound; 1e-5 absorbs the one-ulp f32
+            # wobble of rate-matched ratios
+            self._ds_tier = 1 if b <= 1.0 + 1e-5 else 2 if b <= 2.0 else 4
+            self._ds_dirty = False
+            self._ds_interval = interval
+        return self._ds_small
+
+    def _ds_flag_sync(self, interval):
+        """Resolve the pool's read-path flags and stamp them onto every node
+        of the proto chain (part of the pool archetype)."""
+        small = self._ds_bound_small(float(interval))
+        tier = self._ds_tier
+        fast = self._ema_fast
+        if (getattr(self.proto, "_pool_ds_small", True) != small
+                or getattr(self.proto, "_pool_ds_tier", 4) != tier
+                or getattr(self.proto, "_pool_ema_fast", None) is not fast):
+            stack = [self.proto]
+            while stack:
+                node = stack.pop()
+                node._pool_ds_small = small
+                node._pool_ds_tier = tier
+                node._pool_ema_fast = fast
+                stack.extend(node.children().values())
+        return small
 
     def _ctrl_pending_any(self):
         return any(self.pending_ctrl.values())

@@ -118,7 +118,8 @@ class Renderer:
                 self._dispatch(seg, block_size, consume)
 
         event = getattr(sig, "host_structure_event", None)
-        for _ in range(nblocks):
+        bulk = getattr(sig, "host_idle_bulk", None)
+        for bi in range(nblocks):
             if pend and event is not None and event():
                 flush()
             p = sig.host_prepare(self.interval, block_size)
@@ -127,6 +128,16 @@ class Renderer:
                 flush()
             pend.append(p)
             pend_arch = a
+            # run-length idle path: a block that prepared EMPTY params on an
+            # engine whose pools all pass the idle gate proves every
+            # remaining block of this call is the same (the host is
+            # single-threaded: no control traffic arrives mid-call), so
+            # their host_prepare is skipped; they still render one by one
+            remaining = nblocks - bi - 1
+            if (remaining and bulk is not None and not tree_leaves(p)
+                    and bulk(self.interval, block_size, remaining)):
+                pend.extend([p] * remaining)
+                break
         flush()
 
     def render_frames(self, total, block_size=512):

@@ -13,9 +13,11 @@ with three separated aspects:
   tensors, channels-first ``(C, n)``.
 
 Device-resident (``dr_*``) sources keep their whole playback state on the
-device; engines then ship only sparse control deltas.  Streams, host pools
-and fades are not in this package yet (ROADMAP P2.4, P3, P4), so the ingest
-and slot-reset plumbing of the JAX base class has no counterpart here.
+device; engines then ship only sparse control deltas.  Streams carry a
+per-block host->device ingest channel through the chain (``dr_ingest_*``,
+routed through interval-preserving wrappers such as Adapt).  Host pools and
+fades are not in this package yet (ROADMAP P2.4, P4), so the host-pool slot
+writes (``write_slot``, ``device_reset_slot``) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -36,7 +38,17 @@ class ControlBlock:
     def __init__(self, sig):
         self.sig = sig
         self.idx = ()  # () indexes the 0-d arrays of a standalone signal
+        self.pool = None
+        self.gen = 0
         self._dr = None  # (pool, slot, gen, path) when in a DR pool
+
+    def rebind(self, sig, idx, pool, gen):
+        """Point the handle's host fields at column ``idx`` of a batched
+        signal (a stream pool's host mirror columns)."""
+        self.sig = sig
+        self.idx = idx
+        self.pool = pool
+        self.gen = gen
 
     def rebind_dr(self, pool, slot, gen, path):
         self._dr = (pool, slot, gen, path)
@@ -45,20 +57,34 @@ class ControlBlock:
         if self._dr is not None:
             pool, slot, gen, _ = self._dr
             return pool.slot_gen[slot] == gen
-        return True
+        return self.pool is None or self.pool.slot_gen[self.idx] == self.gen
+
+    def _flush_sig(self):
+        # stream mirrors may carry deferred idle ticks: replay them before
+        # any handle read or write of a host field
+        flush = getattr(self.sig, "_flush_tick_debt", None)
+        if flush is not None:
+            flush()
 
     def set(self, field, value):
-        getattr(self.sig, field)[self.idx] = value  # handle mirror
+        self._flush_sig()
         if self._dr is not None:
             pool, slot, gen, path = self._dr
             # like the reference's orphaned Arc'd atomics (gain.rs:130-139):
             # set-after-death still updates the mirror; only the device
             # delta is skipped when stale
+            getattr(self.sig, field)[self.idx] = value  # handle mirror
             if pool.slot_gen[slot] == gen:
                 pool.push_ctrl(path, field, slot, value)
+            return
+        if self.live():
+            getattr(self.sig, field)[self.idx] = value
 
     def get(self, field, default=None):
-        return getattr(self.sig, field)[self.idx]
+        self._flush_sig()
+        if self._dr is not None or self.live():
+            return getattr(self.sig, field)[self.idx]
+        return default
 
 
 class Signal:
@@ -94,6 +120,43 @@ class Signal:
         """Whether this chain can stack into a multi-voice pool.  Engines
         themselves (SpatialScene) cannot."""
         return all(c.host_batchable() for c in self.children().values())
+
+    # -- host state lifecycle -------------------------------------------------
+
+    #: names of numpy host-state attributes, each shaped ``batch + extra``
+    _host_fields = ()
+
+    def _alloc_host(self, batch):
+        """Allocate default host-state arrays for ``batch``.  Per-class."""
+        raise NotImplementedError
+
+    def clone_batched(self, V):
+        """A batched (pool) template with the same structure: the host
+        columns of a device-resident stream pool."""
+        new = object.__new__(type(self))
+        Signal.__init__(new)
+        new.batch = (V,)
+        new.channels = self.channels
+        new._copy_static_from(self)
+        new._alloc_host((V,))
+        for k, c in self.children().items():
+            setattr(new, k, c.clone_batched(V))
+        return new
+
+    def _copy_static_from(self, other):
+        """Copy static (archetype-level) config when cloning.  Per-class."""
+
+    def grow_batched(self, new_V):
+        """Grow this batched template's host columns in place (set.rs:57-63);
+        ControlBlocks stay valid because they reference the signal object,
+        not the arrays.  Device state of DR pools grows with the pool."""
+        add = new_V - self.batch[0]
+        fresh = self.clone_batched(add)
+        for f in self._host_fields:
+            setattr(self, f, np.concatenate([getattr(self, f), getattr(fresh, f)]))
+        for c in self.children().values():
+            c.grow_batched(new_V)
+        self.batch = (new_V,)
 
     # -- host per-block protocol ---------------------------------------------
 
@@ -164,8 +227,89 @@ class Signal:
     #: a device-resident pool (sparse control deltas, core/drctrl.py)
     _dr_ctrl_fields = ()
 
+    #: subset of _dr_ctrl_fields whose writes change how fast a sampler in
+    #: the chain steps through its source; DR pools watching these
+    #: re-derive their step bound (host_ds_bound)
+    _dr_ds_fields = ()
+
+    def host_ds_bound(self, interval):
+        """Upper bound on the per-frame source step (samples/frame) of any
+        sampler in this chain at ``interval`` seconds/frame, from the
+        chain's current control mirrors.  DR pools use it to route stream
+        reads through the resample kernel (ds <= RESAMPLE_DSMAX)."""
+        return max(
+            (c.host_ds_bound(interval) for c in self.children().values()),
+            default=0.0,
+        )
+
+    def host_ema_bound(self, interval):
+        """Upper bound on interval/tau over any Adapt in this chain; DR
+        pools gate the closed-form AGC kernel on it (ops/agc.py)."""
+        return max(
+            (c.host_ema_bound(interval) for c in self.children().values()),
+            default=0.0,
+        )
+
     def dr_supported(self):
         return False
+
+    def dr_needs_ingest(self):
+        """Whether this chain needs a per-block host->device data channel
+        while device-resident (Stream PCM ingest)."""
+        return any(c.dr_needs_ingest() for c in self.children().values())
+
+    #: True on wrappers whose ``dr_render`` passes (interval, n, count)
+    #: unchanged to a single, structurally fixed child (Adapt): the
+    #: condition for routing a pool's ingest channel through the node
+    _dr_ingest_transparent = False
+
+    def dr_ingest_ok(self):
+        """True when a DR pool may take this chain with its ingest channel:
+        at most one ingest-needing subtree, and every wrapper on the path to
+        it interval-preserving.  Chains this rejects (Speed/Fader over a
+        Stream) need the host pools (ROADMAP P2.4, D4)."""
+        ing = [c for c in self.children().values() if c.dr_needs_ingest()]
+        if not ing:
+            return True
+        return (
+            len(ing) == 1
+            and self._dr_ingest_transparent
+            and ing[0].dr_ingest_ok()
+        )
+
+    # Ingest plumbing: pools call these on the BATCHED proto chain; the
+    # generic forms route through transparent wrappers to the Stream leaf,
+    # which overrides them with the real channel logic.
+
+    def dr_ingest_params(self):
+        """Drain producer queues into this block's ingest chunk (or None)."""
+        for c in self.children().values():
+            if c.dr_needs_ingest():
+                return c.dr_ingest_params()
+        return None
+
+    def dr_host_tick(self, interval, counts):
+        """Advance host cursor mirrors by ``counts`` consumed frames."""
+        for c in self.children().values():
+            if c.dr_needs_ingest():
+                c.dr_host_tick(interval, counts)
+
+    def dr_ingest(self, state, ing):
+        """Place the shipped chunk at the leaf's device write cursors,
+        routed through the chain's state tree."""
+        out = dict(state)
+        for k, c in self.children().items():
+            if c.dr_needs_ingest():
+                out[k] = c.dr_ingest(state[k], ing)
+        return out
+
+    def dr_bind_slot(self, i, spec, pool, gen):
+        """Adopt a played spec's host mirrors into slot ``i`` of this
+        BATCHED proto chain; the Stream leaf overrides it."""
+        for mine, theirs in zip(
+            self.children().values(), spec.children().values()
+        ):
+            mine.dr_bind_slot(i, theirs, pool, gen)
 
     def dr_state_init(self, V):
         """Benign default device state for V slots (numpy tree)."""

@@ -1,10 +1,13 @@
-"""Build and load the CUDA kernels of ``csrc/ring_kernels.cu``.
+"""Build and load the CUDA kernels of ``csrc/*.cu``.
 
-The source is compiled at first use with ``nvcc`` into a shared library
-with a plain C interface, keyed by a hash of the source and the flags (so a
-stale library is never loaded), under ``oddio_tpu_torch/_build/`` (listed
-in ``.gitignore``), and loaded with ``ctypes``.  Nothing here runs at
-import time: the package imports on machines without ``nvcc``.
+Each source is compiled at first use with ``nvcc`` into its own shared
+library with a plain C interface, under ``oddio_tpu_torch/_build/`` (listed
+in ``.gitignore``), and loaded with ``ctypes``.  Every library's file name
+carries one hash of ALL the ``csrc/`` sources and the flags, so a change to
+any source rebuilds every library and a stale library is never loaded
+beside a newer wrapper.  ``build()`` starts one ``nvcc`` per source, all
+at once.  Nothing here runs at import time: the package imports on
+machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -17,10 +20,10 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["build", "lib", "NVCC_FLAGS"]
+__all__ = ["build", "lib", "sources", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "ring_kernels.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = (
@@ -30,7 +33,39 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_lib = None
+_vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_iarr = ctypes.POINTER(ctypes.c_int)
+
+#: C entry points of each library: name -> (argtypes, restype); every entry
+#: point returns its launches' cudaError_t as an int
+_SIGNATURES = {
+    "ring_kernels": {
+        "rows_append": [_vp, _vp, _i64, _vp, _i32, _i32, _i32, _vp],
+        "window_select": [
+            _vp, _i64, _i32, _vp,          # wide, stride, S2, rowshift
+            _vp, _vp, _vp, _vp,            # scal0, scal1, g0, g1
+            _vp, _vp, _vp, _vp,            # e0, e1, f0, f1
+            _vp, _vp,                      # part, out
+            _i32, _i32, _i32, _i32,        # V, n, K, nb
+            _iarr, _iarr,                  # col0s, hcaps (host arrays)
+            _vp,                           # stream
+        ],
+    },
+    "stream_kernels": {
+        # ring, chunk, chunk_stride, wpos, wcount, rows, size_pad, mw, stream
+        "ring_place": [_vp, _vp, _i64, _vp, _vp, _i32, _i32, _i32, _vp],
+        # ring, t, ds_int, f_hi, f_lo, start, len, out, rows, size_pad, n,
+        # stream
+        "ring_resample": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                          _i32, _i32, _i32, _vp],
+    },
+    "agc_kernel": {
+        # s, scal, gains, carry, V, n, stream
+        "agc_gains": [_vp, _vp, _vp, _vp, _i32, _i32, _vp],
+    },
+}
+
+_libs = {}
 
 
 def _nvcc():
@@ -46,49 +81,64 @@ def _nvcc():
     )
 
 
-def build():
-    """Compile the kernels if no library for this source exists yet.
-    Returns ``(path, seconds, ptxas_log)``; seconds is 0.0 on a cache hit."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"ring_kernels_{tag}.so"
-    if so.exists():
-        return so, 0.0, ""
+def _tag():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        if p.suffix in (".cu", ".cuh", ".h"):
+            h.update(p.name.encode() + b"\0" + p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def sources():
+    """Names of the kernel sources, ``csrc/<name>.cu``."""
+    return tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
+
+
+def build(names=None):
+    """Compile the given sources (default: every ``csrc/*.cu``) where no
+    library for the current sources exists yet, one ``nvcc`` per source,
+    all started together.  Returns ``{name: (path, seconds, ptxas_log)}``;
+    seconds is 0.0 on a cache hit.  Raises if any build fails."""
+    if names is None:
+        names = sources()
+    tag = _tag()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+    out, procs = {}, {}
+    for name in names:
+        so = BUILD_DIR / f"{name}_{tag}.so"
+        if so.exists():
+            out[name] = (so, 0.0, "")
+            continue
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        p = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
-    os.replace(tmp, so)
-    return so, time.perf_counter() - t0, proc.stderr
+        procs[name] = (p, so, tmp, time.perf_counter())
+    errors = []
+    for name, (p, so, tmp, t0) in procs.items():
+        stdout, stderr = p.communicate()
+        if p.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            errors.append(f"nvcc {name}.cu failed ({p.returncode}):\n{stdout}\n{stderr}")
+            continue
+        os.replace(tmp, so)
+        out[name] = (so, time.perf_counter() - t0, stderr)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return out
 
 
-def lib():
-    """The loaded kernel library (built on first use)."""
-    global _lib
-    if _lib is None:
-        so, _, _ = build()
+def lib(name):
+    """The loaded kernel library built from ``csrc/<name>.cu`` (built on
+    first use)."""
+    L = _libs.get(name)
+    if L is None:
+        so, _, _ = build((name,))[name]
         L = ctypes.CDLL(str(so))
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        L.rows_append.argtypes = [vp, vp, i64, vp, i32, i32, i32, vp]
-        L.rows_append.restype = i32
-        iarr = ctypes.POINTER(ctypes.c_int)
-        L.window_select.argtypes = [
-            vp, i64, i32, vp,          # wide, stride, S2, rowshift
-            vp, vp, vp, vp,            # scal0, scal1, g0, g1
-            vp, vp, vp, vp,            # e0, e1, f0, f1
-            vp, vp,                    # part, out
-            i32, i32, i32, i32,        # V, n, K, nb
-            iarr, iarr,                # col0s, hcaps (host arrays)
-            vp,                        # stream
-        ]
-        L.window_select.restype = i32
-        _lib = L
-    return _lib
+        for fn, argtypes in _SIGNATURES[name].items():
+            f = getattr(L, fn)
+            f.argtypes = argtypes
+            f.restype = _i32
+        _libs[name] = L
+    return L

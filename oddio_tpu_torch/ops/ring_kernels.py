@@ -195,7 +195,7 @@ def rows_append(ring3, slab, r0, rmir0):
     rows = _rows_index(r0, rmir0, dev)
     from ._build import lib
 
-    L = lib()
+    L = lib("ring_kernels")
     rc = L.rows_append(
         _ptr(ring3), _ptr(slab), slab.stride(0), _ptr(rows),
         V, RPV, nr, _stream_ptr(dev),
@@ -364,7 +364,7 @@ def _select_cuda(name, wide, rowshift, scal01, g01, e01, frz01, n, K, nb,
     f0, f1 = (None, None) if frz01 is None else frz01
     from ._build import lib
 
-    L = lib()
+    L = lib("ring_kernels")
     rc = L.window_select(
         _ptr(wide), wide.stride(0), S2, _ptr(rowshift),
         _ptr(scal01[0]), _ptr(scal01[1]), _ptr(g01[0]), _ptr(g01[1]),

@@ -1,18 +1,21 @@
 """Where a block's time goes on a CUDA card: the bench scenes at 4096 voices
 through ``Renderer.render_frames_device``, timed and traced.
 
-    python -m oddio_tpu_torch.utils.scene_profile
+    python -m oddio_tpu_torch.utils.scene_profile [buffered|seek|mixer ...]
 
 For the buffered and the seek scene (``bench.py``'s ``build_spatial``,
-4096 voices) it prints, for each of three timed 188-block runs, the wall
-time per 512-frame block, the host time per block spent in
-``SpatialScene.host_prepare`` and the real-time factor (xRT, after
+4096 voices) and the AGC mixer scene (``build_mixer_agc``, BASELINE config
+5's scene at 4096 voices) it prints, for each of three timed 188-block
+runs, the wall time per 512-frame block, the host time per block spent in
+the engine's ``host_prepare`` and the real-time factor (xRT, after
 ``torch.cuda.synchronize()``); then, for one 47-block run under
 ``torch.profiler``, the device kernel time per block, the device's busy
 share of the wall time (kernel time / wall time), the device kernels per
 block, the kernels with the most device time and the host-side torch ops
-with the most self time.  The card's name and power limit head the
-output.
+with the most self time.  The mixer scene's streams get 1024 new samples
+before each run, so the traced run includes an ingest block.  The card's
+name and power limit head the output.  With no arguments all three scenes
+run.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch
 
 import oddio_tpu_torch as pt
 
-__all__ = ["build_spatial", "card_line", "main"]
+__all__ = ["build_spatial", "build_mixer_agc", "feed", "card_line", "main"]
 
 RATE = 48000
 BLOCK = 512
@@ -54,6 +57,46 @@ def build_spatial(buffered, voices, device):
                                      velocity=rng.uniform(-5, 5, 3))
             control.play(sig, opts)
     return control, scene
+
+
+#: samples each config-5 stream is prefilled with: 0.3 s at 8 kHz
+FILL = 2400
+
+
+def build_mixer_agc(voices, device, seed=0):
+    """BASELINE config 5's scene (``bench.py:324-356`` ``_build_pack``) as one
+    ``Mixer`` of ``voices`` voices: the first eighth ``Adapt(Stream)``, the
+    rest ``Adapt(Sine)``.  Streams are ``Stream(8000, FILL + 128,
+    max_write_per_block=FILL)`` prefilled with FILL samples of N(0, 0.1²)
+    PCM; sines have phases uniform in [0, 6) and frequencies uniform in
+    [50, 2000) Hz; every Adapt has ``AdaptOptions(tau=0.1, max_gain=4.0)``
+    and initial rms 0.1; all drawn from ``seed``.  Renders at 48 kHz.
+    Returns ``(control, mixer, stream_controls, rng)``; ``rng`` continues
+    the draws (for ``feed``)."""
+    rng = np.random.default_rng(seed)
+    ns = voices // 8
+    mixer = pt.Mixer(1, initial_capacity=max(ns, 1), device=device)
+    control = pt.MixerControl(mixer)
+    ctls = []
+    for i in range(voices):
+        opt = pt.AdaptOptions(tau=0.1, max_gain=4.0)
+        if i < ns:
+            stream = pt.Stream(8000, FILL + 128, max_write_per_block=FILL)
+            ctls.append(stream.control)
+            control.play(pt.Adapt(stream, 0.1, opt))
+        else:
+            control.play(pt.Adapt(
+                pt.Sine(rng.uniform(0, 6), rng.uniform(50, 2000)), 0.1, opt
+            ))
+    feed(ctls, rng, FILL)
+    return control, mixer, ctls, rng
+
+
+def feed(ctls, rng, k):
+    """Write ``k`` more N(0, 0.1²) samples to every stream (as many as each
+    has room for); returns the samples each took."""
+    pcm = (rng.standard_normal((len(ctls), k)) * 0.1).astype(np.float32)
+    return [c.write(x) for c, x in zip(ctls, pcm)]
 
 
 def card_line():
@@ -89,20 +132,31 @@ def _run(renderer, nblocks):
     return time.perf_counter() - t0
 
 
-def profile_scene(label, buffered):
+def profile_scene(label):
     nblocks = BLOCKS
-    _, scene = build_spatial(buffered, VOICES, "cuda")
+    before = None
+    if label == "mixer":
+        _, scene, ctls, rng = build_mixer_agc(VOICES, "cuda")
+
+        def before():
+            feed(ctls, rng, 1024)
+    else:
+        _, scene = build_spatial(label == "buffered", VOICES, "cuda")
     spent = _timed_prepare(scene)
     r = pt.Renderer(scene, RATE)
     _run(r, nblocks // 2)  # warm-up
     for _ in range(RUNS):
         spent[0] = 0.0
+        if before is not None:
+            before()
         wall = _run(r, nblocks)
         print(f"{label}: wall/block {1e3 * wall / nblocks:.3f} ms, "
               f"host_prepare/block {1e3 * spent[0] / nblocks:.3f} ms, "
               f"xRT {nblocks * BLOCK / RATE / wall:.2f}")
     ntr = max(nblocks // 4, 1)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    if before is not None:
+        before()
     with torch.profiler.profile(activities=acts) as prof:
         wall = _run(r, ntr)
     kern_us = collections.Counter()
@@ -127,12 +181,21 @@ def profile_scene(label, buffered):
               f"x{e.count / ntr:5.1f}  {e.key}")
 
 
-def main():
+SCENES = ("buffered", "seek", "mixer")
+
+
+def main(argv=None):
+    import sys
+
+    labels = (sys.argv[1:] if argv is None else argv) or SCENES
+    for label in labels:
+        if label not in SCENES:
+            raise SystemExit(f"scene_profile: unknown scene {label!r}; one of {SCENES}")
     if not torch.cuda.is_available():
         raise SystemExit("scene_profile: needs a CUDA card")
     print(f"card: {card_line()}")
-    for label, buffered in (("buffered", True), ("seek", False)):
-        profile_scene(label, buffered)
+    for label in labels:
+        profile_scene(label)
 
 
 if __name__ == "__main__":

@@ -68,3 +68,45 @@ def test_port_continues_from_jax_state():
         state_to_numpy(sp.device_collect())["b0"]["ring"], after["b0"]["ring"],
         rtol=0, atol=TOL,
     )
+
+
+def test_port_mixer_continues_from_jax_mixer():
+    """A JAX config-5 Mixer (streams mid-buffer, Adapt carries set, a
+    closed stream, queued PCM) carried across with ``carry_mixer``: both
+    render the same 8 blocks, with a write between them."""
+    from test_torch_mixer import _jax_mixer_agc
+
+    from oddio_tpu_torch.utils.convert import carry_mixer
+    from oddio_tpu_torch.utils.scene_profile import build_mixer_agc, feed
+
+    cj, mj, kj, rngj = _jax_mixer_agc(64)
+    rj = ot.Renderer(mj, RATE)
+    for b in range(5):
+        if b == 2:
+            feed(kj, rngj, 500)
+            kj[1].close()
+        rj.render_block(BLOCK)
+    feed(kj, rngj, 300)  # still queued at the hand-over
+    cp, mp, kp, rngp = build_mixer_agc(64, "cpu")
+    carry_mixer(mj, mp)
+    pool = next(iter(mp._pools.values()))
+    assert pool._ingest_leaves[0]._dirty and not pool.pending_plays
+    np.testing.assert_array_equal(
+        state_to_numpy(mp.device_collect())["p0"]["inner"]["inner"]["ring"],
+        np.asarray(mj.device_collect()["p0"]["inner"]["inner"]["ring"]),
+    )
+    rp = pt.Renderer(mp, RATE)
+    pcm = np.random.default_rng(9)
+    a, b = [], []
+    for i in range(8):
+        if i == 4:
+            x = (pcm.standard_normal((len(kj), 200)) * 0.1).astype(np.float32)
+            for cj_, cp_, row in zip(kj, kp, x):
+                assert cj_.write(row) == cp_.write(row)
+        a.append(rj.render_block(BLOCK))
+        b.append(rp.render_block(BLOCK))
+    a, b = np.concatenate(a), np.concatenate(b)
+    assert np.abs(a).max() > 0.1
+    assert np.abs(a - b).max() <= TOL, np.abs(a - b).max()
+    for cj_, cp_ in zip(kj, kp):
+        assert cj_.free() == cp_.free()

@@ -8,7 +8,9 @@ Every test skips without a CUDA card.  Bounds: K1 exact (a copy); K2/K3
 within ``ring_kernels.mix_tolerance`` elementwise (the kernel sums the same
 products in another, fixed order; the tolerance follows how float32
 rounding errors of such a sum grow, and fails a dropped voice or bf16
-partial sums); the scene within the PARITY.md 1e-5.
+partial sums); K4 exact (a copy); K6 exact (the same f32 operations, each
+rounded once); K7 within ``agc.agc_tolerance`` elementwise (another order
+of the prefix sum); the scenes within the PARITY.md 1e-5.
 """
 
 import numpy as np
@@ -16,8 +18,11 @@ import pytest
 import torch
 
 import oddio_tpu_torch as pt
+from oddio_tpu_torch.ops import agc as A
 from oddio_tpu_torch.ops import ring_kernels as RK
+from oddio_tpu_torch.ops import stream_kernels as SK
 from oddio_tpu_torch.ops._dev import device_split_ds
+from oddio_tpu_torch.utils.scene_profile import build_mixer_agc, feed
 
 torch.set_num_threads(1)
 
@@ -193,4 +198,89 @@ def test_subpass_scene_on_card_matches_cpu(cuda):
             subs.append(pool._sub_cfg)
         outs.append(np.concatenate(blocks))
     assert any(s is not None for s in subs)
+    assert np.abs(outs[0] - outs[1]).max() <= 1e-5
+
+
+# --- stream and AGC kernels (config 5's shapes) --------------------------------
+
+SIZE_PAD = 2816  # Stream(8000, 2528): the config-5 stream ring
+
+
+@pytest.mark.parametrize("mw", [128, 2401])
+def test_ring_place_exact(cuda, mw):
+    rng = np.random.default_rng(40 + mw)
+    V = 4096
+    ring = torch.tensor(rng.standard_normal((V, SIZE_PAD)).astype(np.float32), device=cuda)
+    chunk = torch.tensor(rng.standard_normal((V, mw)).astype(np.float32), device=cuda)
+    wpos = torch.tensor(rng.integers(0, SIZE_PAD, V).astype(np.int32), device=cuda)
+    wcount = torch.tensor(rng.integers(0, mw + 1, V).astype(np.int32), device=cuda)
+    plain = SK.ring_place_plain(ring.clone(), chunk, wpos, wcount)
+    before = SK.LAUNCHES["ring_place"]
+    got = SK.ring_place(ring.clone(), chunk, wpos, wcount)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES["ring_place"] == before + 1
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("ds", [1.0 / 6.0, 1.0, 4.0])
+def test_ring_resample_exact(cuda, ds):
+    rng = np.random.default_rng(50)
+    V, n = 4096, 512
+    ring = torch.tensor(rng.standard_normal((V, SIZE_PAD)).astype(np.float32), device=cuda)
+    dsv = torch.tensor(rng.uniform(ds * 0.9, ds, V).astype(np.float32), device=cuda)
+    di, fh, fl = device_split_ds(dsv)
+    t = torch.tensor(rng.uniform(-0.99, 1.0, V).astype(np.float32), device=cuda)
+    start = torch.tensor(rng.integers(0, SIZE_PAD, V).astype(np.int32), device=cuda)
+    len_ = torch.tensor(rng.integers(0, int(n * ds) + 3, V).astype(np.int32), device=cuda)
+    args = (ring, t, di, fh, fl, start, len_, n)
+    plain = SK.ring_resample_plain(*args)
+    before = SK.LAUNCHES["ring_resample"]
+    got = SK.ring_resample(*args)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES["ring_resample"] == before + 1
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("tau", [0.1, 3.34e-4])
+def test_agc_gains_within_tolerance(cuda, tau):
+    rng = np.random.default_rng(60)
+    V, n = 4096, 512
+    iv = np.float32(1.0 / 48000.0)
+    alpha = np.float32(1.0) - np.exp(-iv / np.float32(tau), dtype=np.float32)
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=cuda)
+
+    s = t(rng.standard_normal((V, n)) * 0.3)
+    count = torch.tensor(rng.integers(0, n + 1, V).astype(np.int32), device=cuda)
+    count[: V // 2] = n
+    scal = A.pack_agc_scalars(
+        t(rng.uniform(1e-3, 0.3, V)), t(np.full(V, alpha)), count,
+        t(np.full(V, 0.1 / np.sqrt(2))), t(np.full(V, 0.5 / np.sqrt(2))),
+        t(np.full(V, 4.0)),
+    )
+    gp, cp = A.agc_gains_plain(s, scal, n)
+    before = A.LAUNCHES["agc_gains"]
+    g, c = A.agc_gains(s, scal, n)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["agc_gains"] == before + 1
+    tol_g, tol_c = A.agc_tolerance(s, scal, n)
+    assert bool(((g - gp).abs().double() <= tol_g).all())
+    assert bool(((c - cp).abs().double() <= tol_c).all())
+
+
+def test_mixer_agc_scene_on_card_matches_cpu(cuda):
+    """BASELINE config 5's scene at 256 voices on the card (K4, K6, K7)
+    against the same scene on the CPU (plain versions), with a feed."""
+    outs = []
+    for device in ("cpu", cuda):
+        SK.reset_launches()
+        A.reset_launches()
+        _, mixer, ctls, rng = build_mixer_agc(256, device)
+        r = pt.Renderer(mixer, 48000)
+        a = r.render_frames(512 * 24)
+        feed(ctls, rng, 1024)
+        outs.append(np.concatenate([a, r.render_frames(512 * 24)]))
+    assert min(SK.LAUNCHES.values()) > 0 and A.LAUNCHES["agc_gains"] > 0
+    assert np.abs(outs[0]).max() > 0.1
     assert np.abs(outs[0] - outs[1]).max() <= 1e-5
