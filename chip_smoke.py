@@ -1,7 +1,7 @@
 """Smoke run of oddio_tpu_torch on one CUDA card: builds every kernel,
 checks each against its plain PyTorch version at its path's shapes, drives
-the SpatialScene render path and the AGC mixer path (BASELINE config 5's
-scene) at 4096 voices, and times them.
+the SpatialScene render path, the AGC mixer path (BASELINE config 5's
+scene) and the host-pool path at 4096 voices, and times them.
 
     python3 chip_smoke.py
 
@@ -18,8 +18,20 @@ Phases (each prints one or more lines; any failure exits non-zero):
     through render_frames and render_frames_device with new stream PCM
     between them, counting kernel launches on that run;
  9. the 256-voice config-5 mixer on the card against the CPU render;
-10. the real-time factor of the 4096-voice mixer.
-The line before the last is the kernels' JSON record; the last line is
+10. the real-time factor of the 4096-voice mixer;
+11. K5 against its plain version at the host pool's shapes (4096 voices,
+    the singleton, and near the gate where its walk clamp binds);
+12. the 4096-voice host-pool scene (4096 Speed(Stream) voices in the host
+    buffered pool, 512 Adapt(Stream) in the device-resident one, a
+    256-voice config-5 submix) through render_frames and
+    render_frames_device with new stream PCM and set_speed changes
+    between them, counting kernel launches on that run;
+13. the same scene at 256 / 32 / 64 voices on the card against the CPU;
+14. the real-time factor of the 4096-voice host-pool scene.
+Each kernel's bound is the larger of the bytes it must move over the
+card's 3.35 TB/s and its float32 operations over 67 TFLOP/s (the
+published H100 SXM peaks), from the timed case's own inputs.  The line
+before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -34,6 +46,22 @@ VOICES = 4096
 RATE = 48000
 BLOCK = 512
 TOL = 1e-5  # PARITY.md contract, port on the card vs port on the CPU
+HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
+F32_OPS = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
+
+
+def bound(nbytes, nops):
+    """(ms, "bytes" or "operations"): the least time the card could take."""
+    tb, to = 1e3 * nbytes / HBM_BPS, 1e3 * nops / F32_OPS
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def span_bytes(idx):
+    """Bytes a gather must read: per row of the (R, ...) int index tensor,
+    the span from its smallest index to its largest plus the lerp's next
+    sample."""
+    flat = idx.reshape(idx.shape[0], -1)
+    return 4 * int((flat.max(dim=1).values - flat.min(dim=1).values + 2).sum())
 
 
 def time_ms(fn, reps=50):
@@ -73,6 +101,23 @@ def select_operands(rng, dev, V, n, K, S2, nb, hcap):
     wide = torch.randn((V, S2), device=dev)
     rowshift = t(rng.integers(0, hcap, (V, nb)).astype(np.int32))
     return wide, rowshift, scal01, g01, e01, frz01
+
+
+def select_bytes(RK, wide, col0s, rowshift, hs, scal01, e01, n, K, nb):
+    """Bytes K2/K3 must move: each voice's read span per block (both ears),
+    its operand rows (16 + 8 + 4 + 4 + 4 bytes per ear and block), the
+    (2, nb*n) output."""
+    total = 0
+    for b in range(nb):
+        idx = []
+        for e in range(2):
+            kk, _ = RK._positions(scal01[e][:, 4 * b:4 * b + 4], n, K)
+            sh = rowshift[:, b].long().clamp(0, hs[b] - 1)
+            j = torch.arange(n, device=wide.device)
+            idx.append((col0s[b] + 128 * sh)[:, None] + e01[e][:, b:b + 1].long() + j + kk.long())
+        total += span_bytes(torch.stack(idx, 1))
+    V = wide.shape[0]
+    return total + 36 * 2 * V * nb + 4 * V * nb + 2 * nb * n * 4
 
 
 def check_select(RK, got, plain, samps, gs, n, label):
@@ -119,12 +164,24 @@ def stream_agc_kernels(dev, kern, tag):
             raise AssertionError(f"ring_place (mw={mw}) differs from its plain version by {err}")
         ms = time_ms(lambda: SK.ring_place(ring, chunk, wpos, wcount))
         pms = time_ms(lambda: SK.ring_place_plain(ring, chunk, wpos, wcount))
+        # the library yardstick: one index_put_ of the written lanes (their
+        # flat indices and values prepared outside the timed call)
+        j = torch.arange(mw, device=dev)
+        keep = j[None, :] < wcount.long()[:, None]
+        flat_idx = (torch.arange(V, device=dev)[:, None] * SIZE
+                    + torch.remainder(wpos.long()[:, None] + j, SIZE))[keep]
+        vals = chunk[keep]
+        lms = time_ms(lambda: ring.view(-1).index_put_((flat_idx,), vals))
+        nw = int(wcount.sum())
+        bms, by = bound(8 * nw + 8 * V, 0)
         print(f"K4 ring_place V={V} mw={mw}: max|diff| {err} (tolerance 0, exact); "
-              f"{ms:.4f} ms vs plain {pms:.4f} ms {tag}")
+              f"{ms:.4f} ms vs plain {pms:.4f} ms, index_put_ {lms:.4f} ms, bound {bms:.4f} ms "
+              f"({by}) {tag}")
         if mw == 2401:
             kern["ring_place"] = dict(replaces="oddio_tpu/ops/pallas_ring.py:148",
                                       source="oddio_tpu_torch/csrc/stream_kernels.cu",
-                                      err=err, ms=ms, plain_ms=pms)
+                                      err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                                      library_ms=lms)
 
     # K6: V = 512 (the stream pool) and 4096, ds in {1/6, 1, 4}
     worst = 0.0
@@ -148,9 +205,12 @@ def stream_agc_kernels(dev, kern, tag):
             print(f"K6 ring_resample V={V} ds={ds:.4f}: max|diff| {err} (tolerance 0, exact); "
                   f"{ms:.4f} ms vs plain {pms:.4f} ms {tag}")
             if V == 512 and ds < 1.0:
+                _, pos, _ = SK._positions(args[1], di, fh, fl, n)
+                bms, by = bound(span_bytes(pos) + V * n * 4 + 7 * 4 * V, 16 * V * n)
                 kern["ring_resample"] = dict(replaces="oddio_tpu/ops/pallas_ring.py:1203",
                                              source="oddio_tpu_torch/csrc/stream_kernels.cu",
-                                             err=worst, ms=ms, plain_ms=pms)
+                                             err=worst, ms=ms, plain_ms=pms, bound_ms=bms,
+                                             bound_by=by, library_ms=None)
     kern["ring_resample"]["err"] = worst
 
     # K7: V = 4096, n = 512, the scene's tau and one near the closed form's gate
@@ -186,9 +246,13 @@ def stream_agc_kernels(dev, kern, tag):
               f"tolerance, largest tolerance {float(tol_g.max()):.3e}); "
               f"{ms:.4f} ms vs plain {pms:.4f} ms {tag}")
         if tau == 0.1:
+            # s read, gains written, 8 scalars in, the carry out; ~20 f32
+            # operations per frame (square, prefix sum, exp, sqrt, clamps)
+            bms, by = bound(8 * V * n + 36 * V, 20 * V * n)
             kern["agc_gains"] = dict(replaces="oddio_tpu/ops/pallas_agc.py:155",
                                      source="oddio_tpu_torch/csrc/agc_kernel.cu",
-                                     err=0.0, ms=ms, plain_ms=pms)
+                                     err=0.0, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                                     library_ms=None)
     kern["agc_gains"]["err"] = worst
 
 
@@ -254,6 +318,136 @@ def mixer_path(pt, dev, kern, tag):
           f"({nblk} blocks in {wall:.3f} s) {tag}")
 
 
+def strip_select_kernel(dev, kern, tag):
+    """Phase 11: K5 against its plain version at the host pool's shapes
+    (V = 4096, n = 512, L = 16384, K = 64, read windows within emax =
+    128 + 33 of their row at 48 kHz), at V = 1 (the singleton), and near
+    the strip gate (|ds - 1| in [0.119, 0.125]), where its SELECT_R walk
+    clamp binds, elementwise within ``ring_kernels.strip_tolerance``."""
+    from oddio_tpu_torch.ops import ring_kernels as RK
+    from oddio_tpu_torch.ops._dev import device_split_ds
+
+    rng = np.random.default_rng(11)
+    n, K = BLOCK, 64
+
+    def t(x, dtype=np.float32):
+        return torch.tensor(np.asarray(x, dtype), device=dev)
+
+    for label, V, L, lo, hi in (("main", VOICES, 16384, 0.0, 0.09),
+                                ("singleton", 1, 2048, 0.0, 0.09),
+                                ("near-gate", 1024, 16384, 0.119, 0.125)):
+        mag = rng.uniform(lo, hi, (V, 2)) * rng.choice([-1.0, 1.0], (V, 2))
+        di, fh, fl = device_split_ds(t(1.0 + mag))
+        scal = torch.stack([t(rng.uniform(0, 1, (V, 2))), fh, fl, di.float()], -1).contiguous()
+        ops = (t(rng.standard_normal((V, L))), t(rng.integers(0, L // 128, V), np.int32),
+               t(rng.integers(0, 161, (V, 2)), np.int32), scal,
+               t(rng.uniform(0, 0.1, (V, 2))), t(rng.uniform(-1e-4, 1e-4, (V, 2))),
+               t(rng.uniform(0, 1, V) > 0.2))
+        plain = RK.strip_select_plain(*ops, n=n, K=K)
+        got = RK.strip_select(*ops, n=n, K=K)
+        torch.cuda.synchronize()
+        diff = (got - plain).abs().double()
+        share = float((diff / RK.strip_tolerance(*ops, n=n, K=K).clamp_min(1e-300)).max())
+        err = float(diff.max())
+        if not share <= 1.0:
+            raise AssertionError(f"strip_select ({label}): kernel disagrees with its plain version: "
+                                 f"max|diff| {err:.3e}, {share:.1f}x its tolerance")
+        binds = 0
+        for e in range(2):
+            off, _ = RK.strip_positions(scal[:, e], n, K)
+            kk, _ = RK._positions(scal[:, e], n, K)
+            binds += int((off != kk.long()).sum())
+        if (binds > 0) != (label == "near-gate"):
+            raise AssertionError(f"strip_select ({label}): the SELECT_R clamp binds on {binds} reads")
+        ms = time_ms(lambda: RK.strip_select(*ops, n=n, K=K))
+        pms = time_ms(lambda: RK.strip_select_plain(*ops, n=n, K=K))
+        print(f"K5 strip_select {label} V={V} L={L}: max|diff| {err:.3e} ({share:.3f} of its "
+              f"tolerance); clamp binds on {binds} reads; {ms:.4f} ms vs plain {pms:.4f} ms {tag}")
+        if label == "main":
+            idx = []
+            for e in range(2):
+                off, _ = RK.strip_positions(scal[:, e], n, K)
+                idx.append(128 * ops[1].long()[:, None] + ops[2][:, e:e + 1].long()
+                           + torch.arange(n, device=dev) + off)
+            # spans, 44 bytes of operands per voice, the (2, n) output;
+            # 22 f32 operations per (voice, ear, frame)
+            bms, by = bound(span_bytes(torch.stack(idx, 1)) + 44 * V + 8 * n, 22 * V * 2 * n)
+            kern["strip_select"] = dict(replaces="oddio_tpu/ops/pallas_ring.py:392",
+                                        source="oddio_tpu_torch/csrc/select_kernel.cu",
+                                        err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                                        library_ms=None)
+        kern["strip_select"]["err"] = max(kern["strip_select"]["err"], err)
+
+
+def host_pool_path(pt, dev, kern, tag):
+    """Phases 12-14: the host-pool scene at 4096 voices (launch counts), at
+    256 voices card vs CPU, and its real-time factor."""
+    from oddio_tpu_torch.ops import agc as A
+    from oddio_tpu_torch.ops import ring_kernels as RK
+    from oddio_tpu_torch.ops import stream_kernels as SK
+    from oddio_tpu_torch.utils.scene_profile import build_host_pools, feed
+
+    t0 = time.perf_counter()
+    _, scene, ctls, speeds, rng = build_host_pools(VOICES, dev)
+    r = pt.Renderer(scene, RATE)
+    kinds = {p.name: f"{type(p).__name__}({p.capacity})" for p in scene._buffered_pools.values()}
+    print(f"host pools: {VOICES} Speed(Stream) + {VOICES // 8} Adapt(Stream) + a "
+          f"{max(VOICES // 16, 64)}-voice submix built in {time.perf_counter() - t0:.2f} s; "
+          f"pools {kinds} {tag}")
+    for reset in (RK.reset_launches, SK.reset_launches, A.reset_launches):
+        reset()
+    a = r.render_frames(RATE)
+    feed(ctls, rng, 1024)
+    for sc in speeds[:64]:
+        sc.set_speed(float(rng.uniform(0.8, 1.25)))
+    dev_out = r.render_frames_device(BLOCK * 94)
+    torch.cuda.synchronize()
+    launches = {**RK.LAUNCHES, **SK.LAUNCHES, **A.LAUNCHES}
+    scene.sync()
+    b = torch.cat([o.permute(0, 2, 1).reshape(-1, 2) for o in dev_out]).cpu().numpy()
+    for name, x in (("host pools render_frames", a), ("host pools render_frames_device", b)):
+        if not np.isfinite(x).all() or np.abs(x).max() <= 1e-3:
+            raise AssertionError(f"{name}: non-finite or silent output")
+    # the kernels of this path; K3 needs an all-device-resident scene (the
+    # JAX package's gate) and K7 a block of a multiple of 128 frames (a
+    # buffered pool renders 513), so they launch on their own paths
+    path = ("append", "select_ears", "strip_select", "ring_place", "ring_resample")
+    if min(launches[k] for k in path) < 1:
+        raise AssertionError(f"a kernel of the host-pool path never launched: {launches}")
+    kern["strip_select"]["launches"] = launches["strip_select"]
+    print(f"host-pool path: 1 s + {BLOCK * 94 / RATE:.3f} s, peak |out| {np.abs(a).max():.4f}/"
+          f"{np.abs(b).max():.4f}; launches {launches} {tag}")
+
+    # -- 13. 256 voices on the card vs the CPU -------------------------------------
+    outs = []
+    for device in (dev, "cpu"):
+        _, s256, c256, sp256, rng256 = build_host_pools(256, device, dr_voices=32,
+                                                        submix_voices=64)
+        r256 = pt.Renderer(s256, RATE)
+        x = r256.render_frames(BLOCK * 24)
+        feed(c256, rng256, 1024)
+        for sc in sp256[:16]:
+            sc.set_speed(1.1)
+        outs.append(np.concatenate([x, r256.render_frames(BLOCK * 24)]))
+    err = float(np.abs(outs[0] - outs[1]).max())
+    if not err <= TOL:
+        raise AssertionError(f"256-voice host-pool scene card render differs from the CPU by {err}")
+    print(f"reference: host-pool scene 256/32/64 voices, card vs CPU plain, 48 blocks, max|diff| "
+          f"{err:.3e} (<= {TOL}) {tag}")
+
+    # -- 14. real-time factor ----------------------------------------------------
+    r.render_frames_device(BLOCK * 94, sync=False)
+    feed(ctls, rng, 1024)  # the timed run starts with an ingest block
+    torch.cuda.synchronize()
+    nblk = 188
+    t0 = time.perf_counter()
+    r.render_frames_device(BLOCK * nblk, sync=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"xRT host pools {VOICES} voices: {(nblk * BLOCK / RATE) / wall:.2f}x "
+          f"({nblk} blocks in {wall:.3f} s) {tag}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card",
@@ -299,8 +493,16 @@ def main():
         raise AssertionError(f"rows_append differs from its plain version by {err}")
     ms = time_ms(lambda: RK.rows_append(ring, samples[:, :512], rows[0], rows[1]))
     pms = time_ms(lambda: RK.rows_append_plain(ring, samples[:, :512], rows[0], rows[1]))
-    kern["rows_append"] = dict(replaces="oddio_tpu/ops/pallas_ring.py:932", err=err, ms=ms, plain_ms=pms)
-    print(f"K1 rows_append: max|diff| {err} (tolerance 0, exact); {ms:.4f} ms vs plain {pms:.4f} ms {tag}")
+    # the library yardstick: one index_copy_ of both legs (index and the
+    # doubled slab prepared outside the timed call)
+    both = torch.cat([torch.arange(4, device=dev) + 48, torch.arange(4, device=dev) + 136])
+    slab2 = torch.cat([samples[:, :512].reshape(V, 4, 128)] * 2, dim=1)
+    lms = time_ms(lambda: ring.index_copy_(1, both, slab2))
+    bms, by = bound(3 * V * 512 * 4 + 8, 0)
+    kern["rows_append"] = dict(replaces="oddio_tpu/ops/pallas_ring.py:932", err=err, ms=ms, plain_ms=pms,
+                               bound_ms=bms, bound_by=by, library_ms=lms)
+    print(f"K1 rows_append: max|diff| {err} (tolerance 0, exact); {ms:.4f} ms vs plain {pms:.4f} ms, "
+          f"index_copy_ {lms:.4f} ms, bound {bms:.4f} ms ({by}) {tag}")
 
     S2 = 2048
     wide, rowshift, scal01, g01, e01, frz01 = select_operands(rng, dev, V, n, K, S2, 1, 8)
@@ -320,7 +522,10 @@ def main():
         pms = time_ms(lambda: RK.window_select_ears_plain(*args, **kw))
         print(f"K2 window_select_ears frz={frz is not None}: max|diff| {e_:.3e} "
               f"({b_:.3f} of its tolerance); {ms:.4f} ms vs plain {pms:.4f} ms {tag}")
-    kern["window_select_ears"] = dict(replaces="oddio_tpu/ops/pallas_ring.py:724", err=max(errs), ms=ms, plain_ms=pms)
+    bms, by = bound(select_bytes(RK, wide, [0], args[1][:, None], [8], scal01, e01, n, K, 1),
+                    21 * V * 2 * n)
+    kern["window_select_ears"] = dict(replaces="oddio_tpu/ops/pallas_ring.py:724", err=max(errs), ms=ms,
+                                      plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None)
 
     nb = 4
     row0s = [max(0, int(np.floor(b * (n - K) / 128))) for b in range(nb)]
@@ -342,7 +547,10 @@ def main():
         err, bnd = max(err, e_), max(bnd, b_)
     ms = time_ms(lambda: RK.window_select_multi(*args, **kw))
     pms = time_ms(lambda: RK.window_select_multi_plain(*args, **kw))
-    kern["window_select_multi"] = dict(replaces="oddio_tpu/ops/pallas_ring.py:843", err=err, ms=ms, plain_ms=pms)
+    bms, by = bound(select_bytes(RK, wide, [128 * r for r in row0s], rowshift, hs, scal01, e01, n, K, nb),
+                    21 * V * 2 * n * nb)
+    kern["window_select_multi"] = dict(replaces="oddio_tpu/ops/pallas_ring.py:843", err=err, ms=ms,
+                                       plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None)
     print(f"K3 window_select_multi nb=4: max|diff| {err:.3e} ({bnd:.3f} of its tolerance); "
           f"{ms:.4f} ms vs plain {pms:.4f} ms {tag}")
     del ring, samples, wide, plain, got
@@ -359,7 +567,7 @@ def main():
     a = rb.render_frames(RATE)
     dev_out = rb.render_frames_device(BLOCK * 94)
     torch.cuda.synchronize()
-    launches = dict(RK.LAUNCHES)
+    launches = {k: RK.LAUNCHES[k] for k in ("append", "select_ears", "select_multi")}
     b = torch.cat([o.permute(0, 2, 1).reshape(-1, 2) for o in dev_out]).cpu().numpy()
     c = rs.render_frames(RATE)
     for name, x in (("buffered render_frames", a), ("buffered render_frames_device", b),
@@ -401,10 +609,15 @@ def main():
     stream_agc_kernels(dev, kern, tag)
     mixer_path(pt, dev, kern, tag)
 
+    # -- 11-14. the host-pool path ----------------------------------------------------
+    strip_select_kernel(dev, kern, tag)
+    host_pool_path(pt, dev, kern, tag)
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": k["launches"],
-         "max_abs_err": k["err"], "ms": k["ms"], "plain_ms": k["plain_ms"]}
+         "max_abs_err": k["err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
         for name, k in kern.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -10,11 +10,20 @@ reference), slice by slice, main path first.  It renders:
   on the kernels of ``ops/ring_kernels.py``;
 * the device-resident ``Mixer`` of ``Adapt(Stream)``, ``Adapt(Sine)``,
   ``Stream`` and ``Sine`` voices: stream ingest and reads on the kernels of
-  ``ops/stream_kernels.py``, the AGC gains on ``ops/agc.py``'s.
+  ``ops/stream_kernels.py``, the AGC gains on ``ops/agc.py``'s;
+* the host pools of both engines, for chains that are not device-resident
+  capable (``Speed`` over a ``Stream``, user signals, a seekable signal
+  with its own finish rule) and for submixes (a ``Mixer`` played as one
+  voice): the host buffered pool writes its rings through ``ring_place``
+  and reads them through ``strip_select`` (``ops/ring_kernels.py``);
+* streams in the scene's device-resident buffered pool, and ``Speed``.
 
 Every kernel runs its plain PyTorch version on the CPU and its CUDA kernel
-on a GPU.  The device is explicit: ``SpatialScene.new(device=...)``,
-``Mixer.new(channels, device=...)``, default CPU.
+on a GPU.  Engines run on the CUDA card unless the caller passes another
+device (``SpatialScene.new(device="cpu")``, ``Mixer.new(channels,
+device=...)``, ``Renderer(signal, rate, device=...)`` and ``run(...,
+device=...)`` for a standalone signal); without a card they raise rather
+than fall back to the CPU.
 
 Imports torch and numpy only — never jax or oddio_tpu.
 """
@@ -24,6 +33,7 @@ from .core.run import Renderer, run
 from .ops.sine import Sine
 from .ops.stream import Stream, StreamControl
 from .ops.adapt import Adapt, AdaptOptions
+from .ops.speed import Speed, SpeedControl
 from .mixer import Mixer, MixerControl, Mixed
 from .spatial import (
     SpatialScene,
@@ -44,6 +54,8 @@ __all__ = [
     "StreamControl",
     "Adapt",
     "AdaptOptions",
+    "Speed",
+    "SpeedControl",
     "Mixer",
     "MixerControl",
     "Mixed",

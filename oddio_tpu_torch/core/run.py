@@ -3,7 +3,9 @@
 Reference: oddio's src/lib.rs:90-93 — ``run(signal, rate, out)``
 pulls one block from the signal graph.  A ``Renderer`` walks the graph on
 the host once per block (advancing host state, producing per-block
-parameters) and renders the block on the signal's device.
+parameters) and renders the block on the signal's device: an engine's own,
+or for a standalone signal the Renderer's (the CUDA card unless the caller
+passes ``device``).
 
 The JAX package groups runs of blocks with equal archetype into jitted
 ``lax.scan`` dispatches; here a dispatch is a Python loop over the same
@@ -21,6 +23,7 @@ import torch
 
 from ..utils.tree import tree_leaves
 from .hostmath import f32
+from .signal import default_device, same_device
 
 __all__ = ["Renderer", "run"]
 
@@ -30,9 +33,15 @@ MULTI_MIN_BLOCKS = 16
 
 class Renderer:
     def __init__(self, signal, rate, sync_every=16, scan_unroll=1,
-                 scan_buckets=None):
+                 scan_buckets=None, device=None):
         if signal._moved:
             raise RuntimeError("signal was moved into an engine; render the engine")
+        own = signal.device
+        if own is None:
+            # a standalone signal renders on the Renderer's device
+            signal._set_device(default_device(device))
+        elif device is not None and not same_device(device, own):
+            raise ValueError(f"the signal renders on {own}, not on {device}")
         self.signal = signal
         self.rate = int(rate)
         # lib.rs:91: interval = 1.0 / sample_rate as f32
@@ -186,13 +195,14 @@ class Renderer:
         return out
 
 
-def run(signal, sample_rate, n):
+def run(signal, sample_rate, n, device=None):
     """Populate and return an (n, C) float32 block from ``signal``
-    (oddio::run, lib.rs:90-93); keeps a Renderer cached on the signal so
-    repeated calls stream correctly."""
+    (oddio::run, lib.rs:90-93), rendered on ``device`` (the CUDA card
+    unless given; an engine renders on its own); keeps a Renderer cached on
+    the signal so repeated calls stream correctly."""
     key = "_renderer_%d" % int(sample_rate)
     r = getattr(signal, key, None)
     if r is None:
-        r = Renderer(signal, sample_rate)
+        r = Renderer(signal, sample_rate, device=device)
         setattr(signal, key, r)
     return r.render_block(n)

@@ -15,18 +15,48 @@ with three separated aspects:
 Device-resident (``dr_*``) sources keep their whole playback state on the
 device; engines then ship only sparse control deltas.  Streams carry a
 per-block host->device ingest channel through the chain (``dr_ingest_*``,
-routed through interval-preserving wrappers such as Adapt).  Host pools and
-fades are not in this package yet (ROADMAP P2.4, P4), so the host-pool slot
-writes (``write_slot``, ``device_reset_slot``) have no counterpart here.
+routed through interval-preserving wrappers such as Adapt).  Host pools
+hold a *batched* template (``clone_batched``): plays copy a spec's host
+state into its slot (``write_slot``, ``device_reset_slot``) and a block
+renders every slot at once (``render_host``, the counterpart of the JAX
+package's ``jax.vmap(sig.render)``).  A standalone signal's ``render`` is
+the one-voice case of the same code.  Fades are not in this package yet
+(ROADMAP P4).
+
+Tensors live on the node's ``device``: a pool stamps its own on the batched
+template, a ``Renderer`` the one it drives a standalone signal on.  With no
+device given, the port runs on the CUDA card (``default_device``).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..utils.tree import tree_map
 
-__all__ = ["Signal", "ControlBlock"]
+__all__ = ["Signal", "Engine", "ControlBlock", "default_device", "same_device"]
+
+
+def default_device(device=None):
+    """``device`` as a ``torch.device``; None means the CUDA card.  Without
+    a card, None raises: the port never carries on quietly on the CPU, and
+    a caller that wants the CPU (the tests) asks for it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "oddio_tpu_torch runs on the CUDA card by default and "
+            "torch.cuda.is_available() is false; pass device='cpu' to "
+            "render on the CPU"
+        )
+    return torch.device("cuda")
+
+
+def same_device(a, b):
+    """Whether two device specs name the same device (``cuda`` is card 0)."""
+    a, b = torch.device(a), torch.device(b)
+    return a.type == b.type and (a.index or 0) == (b.index or 0)
 
 
 class ControlBlock:
@@ -95,6 +125,9 @@ class Signal:
     #: whether the signal supports deterministic time-shifted evaluation
     #: (oddio's ``Seek``, signal.rs:48-58)
     seekable = False
+    #: device of this node's tensors (set on the whole chain by
+    #: ``_set_device``: the pool's device, or the driving Renderer's)
+    device = None
 
     def __init__(self):
         self.batch = ()
@@ -130,12 +163,21 @@ class Signal:
         """Allocate default host-state arrays for ``batch``.  Per-class."""
         raise NotImplementedError
 
+    def _set_device(self, device):
+        """Place this chain's tensors on ``device`` (before its first
+        render)."""
+        self.device = torch.device(device)
+        for c in self.children().values():
+            c._set_device(device)
+
     def clone_batched(self, V):
-        """A batched (pool) template with the same structure: the host
-        columns of a device-resident stream pool."""
+        """A batched (pool) template with the same structure: a host pool's
+        voice columns, or the host mirrors of a device-resident stream
+        pool."""
         new = object.__new__(type(self))
         Signal.__init__(new)
         new.batch = (V,)
+        new.device = self.device
         new.channels = self.channels
         new._copy_static_from(self)
         new._alloc_host((V,))
@@ -146,14 +188,36 @@ class Signal:
     def _copy_static_from(self, other):
         """Copy static (archetype-level) config when cloning.  Per-class."""
 
+    def write_slot(self, i, spec, pool, gen):
+        """Copy ``spec``'s (batch ()) host state into slot ``i`` of this
+        batched template and rebind its controls (oddio's move of the
+        signal into the Set)."""
+        if spec._moved:
+            raise RuntimeError("signal was already played (moved); construct a new one")
+        spec._moved = True  # the recursion marks every node
+        for f in self._host_fields:
+            v = getattr(spec, f)
+            getattr(self, f)[i] = v[()] if v.ndim == 0 else v
+        cb = getattr(spec, "_cb", None)
+        if cb is not None:
+            cb.rebind(self, i, pool, gen)
+        for mine, theirs in zip(self.children().values(), spec.children().values()):
+            mine.write_slot(i, theirs, pool, gen)
+
     def grow_batched(self, new_V):
-        """Grow this batched template's host columns in place (set.rs:57-63);
-        ControlBlocks stay valid because they reference the signal object,
-        not the arrays.  Device state of DR pools grows with the pool."""
+        """Grow this batched template in place (set.rs:57-63): host columns
+        and, once allocated, its device leaves.  ControlBlocks stay valid
+        because they reference the signal object, not the arrays.  Device
+        state of DR pools grows with the pool."""
         add = new_V - self.batch[0]
         fresh = self.clone_batched(add)
         for f in self._host_fields:
             setattr(self, f, np.concatenate([getattr(self, f), getattr(fresh, f)]))
+        if self._dev is not None:
+            fresh_dev = fresh._own_device_init()
+            self._dev = {
+                k: torch.cat([v, fresh_dev[k]]) for k, v in self._dev.items()
+            }
         for c in self.children().values():
             c.grow_batched(new_V)
         self.batch = (new_V,)
@@ -191,7 +255,12 @@ class Signal:
     # -- device state ---------------------------------------------------------
 
     def _own_device_init(self):
-        """This node's own device-state leaves (tensors)."""
+        """This node's own device-state leaves (tensors on ``device``,
+        shapes including the batch)."""
+        return {}
+
+    def _own_slot_init(self, i):
+        """Numpy row values that reset this node's own leaves at slot ``i``."""
         return {}
 
     def _own_device_data(self):
@@ -212,6 +281,17 @@ class Signal:
         for k, c in kids.items():
             if k in d:
                 c.device_store(d[k])
+
+    def device_reset_slot(self, i):
+        """Reset this chain's device leaves at pool slot ``i`` after a play,
+        in place."""
+        if self._dev is None:
+            self._dev = self._own_device_init()
+        for k, v in self._own_slot_init(i).items():
+            leaf = self._dev[k]
+            leaf[i] = torch.as_tensor(np.asarray(v), dtype=leaf.dtype).to(leaf.device)
+        for c in self.children().values():
+            c.device_reset_slot(i)
 
     def device_data(self):
         d = dict(self._own_device_data())
@@ -267,7 +347,7 @@ class Signal:
         """True when a DR pool may take this chain with its ingest channel:
         at most one ingest-needing subtree, and every wrapper on the path to
         it interval-preserving.  Chains this rejects (Speed/Fader over a
-        Stream) need the host pools (ROADMAP P2.4, D4)."""
+        Stream) take the host pools."""
         ing = [c for c in self.children().values() if c.dr_needs_ingest()]
         if not ing:
             return True
@@ -338,8 +418,6 @@ class Signal:
         raise NotImplementedError
 
     def dr_is_finished(self, state):
-        import torch
-
         leaf = next(iter(state.values()))
         return torch.zeros(leaf.shape[0], dtype=torch.bool, device=leaf.device)
 
@@ -360,6 +438,45 @@ class Signal:
 
     # -- device render ---------------------------------------------------------
 
+    def render_host(self, dstate, ddata, params, n):
+        """Batched render of a host pool's template: ``dstate`` holds its
+        device leaves (leading axis V, on ``device``), ``params`` the numpy
+        output of ``host_prepare`` (batch (V,)).  The counterpart of the
+        JAX package's ``jax.vmap(sig.render)``; returns ``(dstate', (V, C,
+        n))`` float32."""
+        raise NotImplementedError(f"{type(self).__name__} has no batched render")
+
     def render(self, dstate, ddata, params, n):
-        """Returns ``(dstate', block)`` with block ``(C, n)`` float32."""
-        raise NotImplementedError
+        """Standalone render of a batch () signal, the one-voice case of
+        ``render_host``.  Returns ``(dstate', block)`` with block ``(C, n)``
+        float32."""
+        d2, block = self.render_host(
+            tree_map(lambda x: x[None], dstate), ddata,
+            tree_map(lambda x: np.asarray(x)[None], params), n,
+        )
+        return tree_map(lambda x: x[0], d2), block[0]
+
+
+class Engine(Signal):
+    """A Signal that owns pools of voices (Mixer, SpatialScene).  It is
+    built on its device and never stacks into a batched pool: played into
+    another engine it is one voice (a submix, in a singleton pool), and
+    under a wrapper (an Adapt over a Mixer) it renders as the one voice of
+    the wrapper's standalone path."""
+
+    def host_batchable(self):
+        return False
+
+    def _set_device(self, device):
+        """An engine keeps the device it was built on."""
+        if not same_device(device, self.device):
+            raise ValueError(f"the engine renders on {self.device}, not on {device}")
+
+    def render_host(self, dstate, ddata, params, n):
+        """The one-voice case a wrapper's standalone render hands down:
+        drop the voice axis the wrapper added, render, put it back."""
+        d2, block = self.render(
+            tree_map(lambda x: x[0], dstate), ddata,
+            tree_map(lambda x: x[0], params), n,
+        )
+        return tree_map(lambda x: x[None], d2), block[None]

@@ -5,19 +5,20 @@ same-frame-type signals (mixer.rs:89-120): drain control messages, drop
 stopped/finished voices (setting their stop flag so handles observe it,
 mixer.rs:102-105), then sample each voice and accumulate.
 
-Voices of equal archetype (graph structure) live in one device-resident
-pool (``PoolDR``): mask, stop flags and the inner chains' whole state are
-tensors on the mixer's device; the host ships sparse play, stop and
-control-field deltas (padding lanes filtered on the host) and each
-stream's queued PCM, and observes handle state at sync points with the
-reference's one-scan-late reclamation (mixer.rs:129-147).  Capacity
+Voices of equal archetype (graph structure) live in one pool, routed as
+the JAX package routes them.  Device-resident capable chains play in a
+``PoolDR``: mask, stop flags and the inner chains' whole state are tensors
+on the mixer's device; the host ships sparse play, stop and control-field
+deltas (padding lanes filtered on the host) and each stream's queued PCM,
+and observes handle state at sync points with the reference's
+one-scan-late reclamation (mixer.rs:129-147).  Other chains (a Speed over
+a Stream, a user signal) play in a host ``Pool``: a batched template whose
+host columns the host advances and whose device leaves the block renders
+at once (``render_host``).  A non-batchable signal (a submix: an engine
+played into the mixer) plays alone in a ``PoolSingleton``.  Capacity
 doubles on demand (set.rs:57-63); bulk plays beyond ``k_play`` apply
 eagerly.  The voice sum is a masked ``where`` + ``sum``, accumulated in
 float64 so that it does not depend on the device's reduction order.
-
-Host pools (``Pool`` for chains that are not device-resident capable,
-``PoolSingleton`` for submixes) are not in this package yet: playing such
-a signal raises ``NotImplementedError`` (ROADMAP P1, P2.4).
 """
 
 from __future__ import annotations
@@ -26,11 +27,14 @@ import numpy as np
 import torch
 
 from .core.drctrl import DRCtrlMixin, _upload, host_lanes, rows_scatter
-from .core.signal import Signal
+from .core.hostmath import f32
+from .core.signal import Engine, default_device
+from .ops._dev import masked_voice_sum
 from .parallel.context import localize_index
 from .utils.tree import tree_map, tree_stack
 
-__all__ = ["Mixer", "MixerControl", "Mixed", "PoolDR", "DEFAULT_CAPACITY"]
+__all__ = ["Mixer", "MixerControl", "Mixed", "Pool", "PoolSingleton", "PoolDR",
+           "DEFAULT_CAPACITY"]
 
 DEFAULT_CAPACITY = 16
 
@@ -45,6 +49,111 @@ def _ingest_leaves(node):
     for c in kids.values():
         out.extend(_ingest_leaves(c))
     return out
+
+
+class Pool:
+    """A host pool of voices sharing one archetype (the JAX package's
+    ``Pool``): mask, stop flags and the chains' host state are numpy
+    columns of one batched template, whose device leaves live on the
+    mixer's device."""
+
+    is_dr = False
+
+    def __init__(self, name, spec, capacity, device):
+        self.name = name
+        self.proto = spec  # structure donor for clone/grow
+        self.device = torch.device(device)
+        self.sig = spec.clone_batched(capacity)
+        self.sig._set_device(self.device)
+        self.capacity = capacity
+        self.mask = np.zeros(capacity, dtype=bool)
+        self.stop = np.zeros(capacity, dtype=bool)
+        self.slot_gen = np.zeros(capacity, dtype=np.int64)
+        self._free = list(range(capacity - 1, -1, -1))
+
+    def grow(self):
+        old = self.capacity
+        new = old * 2
+        self.sig.grow_batched(new)
+        self.mask = np.concatenate([self.mask, np.zeros(old, bool)])
+        self.stop = np.concatenate([self.stop, np.zeros(old, bool)])
+        self.slot_gen = np.concatenate([self.slot_gen, np.zeros(old, np.int64)])
+        self._free = list(range(new - 1, old - 1, -1)) + self._free
+        self.capacity = new
+
+    def play(self, spec):
+        if not self._free:
+            self.grow()
+        i = self._free.pop()
+        gen = int(self.slot_gen[i])
+        self.sig.write_slot(i, spec, self, gen)
+        spec._moved = True
+        self.sig.device_reset_slot(i)
+        self.mask[i] = True
+        self.stop[i] = False
+        return i, gen
+
+    def reap(self):
+        """Drop stopped/finished voices before rendering (mixer.rs:100-105)."""
+        fin = self.sig.host_is_finished()
+        drop = self.mask & (self.stop | fin)
+        if drop.any():
+            self.stop |= drop
+            self.mask &= ~drop
+            for i in np.nonzero(drop)[0]:
+                self.slot_gen[i] += 1
+                self._free.append(int(i))
+
+    # handle interface shared with PoolDR
+    def push_stop(self, slot, gen):
+        if self.slot_gen[slot] == gen:
+            self.stop[slot] = True
+
+    def handle_stopped(self, slot, gen):
+        if self.slot_gen[slot] != gen:
+            return True
+        return bool(self.stop[slot])
+
+
+class PoolSingleton(Pool):
+    """A one-voice pool for a non-batchable signal: a submix (an engine
+    played into the mixer), which the reference boxes like any Signal
+    (mixer.rs:18-26).  The voice renders unbatched, on its own device (the
+    mixer's)."""
+
+    is_singleton = True
+
+    def __init__(self, name, spec):
+        self.name = name
+        self.proto = spec
+        self.sig = spec
+        #: the archetype AS PLAYED: a fresh same-construction signal matches
+        #: it, so a replay rebinds the freed pool (Mixer.play)
+        self._arch0 = spec.archetype()
+        self.capacity = 1
+        self.mask = np.zeros(1, dtype=bool)
+        self.stop = np.zeros(1, dtype=bool)
+        self.slot_gen = np.zeros(1, dtype=np.int64)
+        self._free = [0]
+
+    def grow(self):
+        raise RuntimeError("singleton pools hold exactly one voice")
+
+    def play(self, spec):
+        i = self._free.pop()
+        gen = int(self.slot_gen[i])
+        spec._moved = True
+        self.mask[i] = True
+        self.stop[i] = False
+        return i, gen
+
+    def rebind(self, spec):
+        """Reuse this freed one-voice pool for a fresh same-archetype
+        signal: the subtree swaps wholesale (fresh host and device state),
+        the singleton's counterpart of a batched pool's slot reuse."""
+        self.proto = self.sig = spec
+        self._arch0 = spec.archetype()
+        return self.play(spec)
 
 
 class PoolDR(DRCtrlMixin):
@@ -318,35 +427,26 @@ class PoolDR(DRCtrlMixin):
         S["inner"] = inner2
         if samples.dim() == 2:
             samples = samples[:, None, :]
-        # the voice sum accumulates in float64 and rounds once: CPU and CUDA
-        # reductions add in different orders, which moves a float32 sum of
-        # config 5's 256 voices by up to ~1e-5; the float64 sum rounds to
-        # the same float32 value in any order
-        out = torch.where(S["mask"][:, None, None], samples, 0.0).sum(
-            dim=0, dtype=torch.float64
-        ).to(torch.float32)
-        return S, out
+        return S, masked_voice_sum(S["mask"], samples)
 
 
-class Mixer(Signal):
+class Mixer(Engine):
     """A Signal that mixes a dynamic set of Signals (mixer.rs:60-120), on
-    ``device`` (default CPU)."""
+    ``device``: the CUDA card unless the caller passes another; without a
+    card and without ``device`` it raises."""
 
     def __init__(self, channels=1, initial_capacity=DEFAULT_CAPACITY, device=None):
         super().__init__()
         self.channels = channels
         self.initial_capacity = initial_capacity
-        self.device = torch.device("cpu" if device is None else device)
-        self._pools = {}  # archetype -> PoolDR, insertion-ordered
+        self.device = default_device(device)
+        self._pools = {}  # archetype -> pool, insertion-ordered
 
     @classmethod
     def new(cls, channels=1, device=None):
         """mixer.rs:70-82: returns (MixerControl, Mixer)."""
         sig = cls(channels, device=device)
         return MixerControl(sig), sig
-
-    def host_batchable(self):
-        return False
 
     # -- control side -------------------------------------------------------
 
@@ -357,23 +457,33 @@ class Mixer(Signal):
                 f"signal has {spec.channels} channels, mixer expects {self.channels}"
             )
         if not spec.host_batchable():
-            raise NotImplementedError(
-                "submixes (an engine played into a Mixer) need the host "
-                "singleton pool, which is not ported yet (ROADMAP P1)"
-            )
-        # ingest-needing chains go device-resident when the route to the
-        # stream leaf is clean (dr_ingest_ok)
-        if not (spec.dr_supported() and spec.dr_ingest_ok()):
-            raise NotImplementedError(
-                f"{type(spec).__name__} chain is not device-resident capable; "
-                "it needs the host mixer pool, which is not ported yet "
-                "(ROADMAP P1, P2.4)"
-            )
-        arch = (spec.archetype(), True)
+            spec._set_device(self.device)  # raises for an engine elsewhere
+            # reuse a freed same-archetype singleton first: the replay
+            # rebinds the subtree in place (no new pool)
+            arch = spec.archetype()
+            for pool in self._pools.values():
+                if (
+                    getattr(pool, "is_singleton", False)
+                    and pool._free
+                    and getattr(pool, "_arch0", None) == arch
+                ):
+                    slot, gen = pool.rebind(spec)
+                    return Mixed(pool, slot, gen)
+            name = f"p{len(self._pools)}"
+            pool = PoolSingleton(name, spec)
+            self._pools[("singleton", name)] = pool
+            slot, gen = pool.play(spec)
+            return Mixed(pool, slot, gen)
+        # ingest-needing chains (streams) go device-resident when the route
+        # to the stream leaf is clean (dr_ingest_ok); Speed/Fader-wrapped
+        # streams keep the host pool
+        dr = spec.dr_supported() and spec.dr_ingest_ok()
+        arch = (spec.archetype(), dr)
         pool = self._pools.get(arch)
         if pool is None:
-            pool = PoolDR(f"p{len(self._pools)}", spec, self.initial_capacity,
-                          device=self.device)
+            cls = PoolDR if dr else Pool
+            pool = cls(f"p{len(self._pools)}", spec, self.initial_capacity,
+                       device=self.device)
             self._pools[arch] = pool
         slot, gen = pool.play(spec)
         return Mixed(pool, slot, gen)
@@ -387,11 +497,13 @@ class Mixer(Signal):
         return (self.initial_capacity,)
 
     def archetype(self):
+        # host pools' batched templates carry per-block flags (a stream's
+        # write-free variant) in their archetypes
         pools = tuple(
             (
                 p.name,
-                p.proto.archetype(),
-                p._interval,
+                p.proto.archetype() if p.is_dr else p.sig.archetype(),
+                getattr(p, "_interval", None),
                 getattr(p, "_count", None),
                 getattr(p, "_has_play", False),
                 getattr(p, "_has_stop", False),
@@ -403,23 +515,32 @@ class Mixer(Signal):
         return ("Mixer", self.channels, pools)
 
     def host_structure_event(self):
-        # bulk plays apply eagerly outside the per-block step
-        return any(len(p.pending_plays) > p.k_play for p in self._pools.values())
+        for p in self._pools.values():
+            if p.is_dr:
+                # bulk plays apply eagerly outside the per-block step
+                if len(p.pending_plays) > p.k_play:
+                    return True
+            elif p.sig.host_structure_event():
+                return True
+        return False
 
     def host_wants_deltas(self):
-        """Whether any pool has control events queued for the next block."""
+        """Whether any device-resident pool has control events queued for
+        the next block."""
         return any(
             bool(p.pending_plays) or bool(p.pending_stops)
             or p._ctrl_pending_any() or p.force_deltas
             for p in self._pools.values()
+            if p.is_dr
         )
 
     def host_idle_bulk_ok(self, interval):
         """True when ``host_prepare`` would take the idle path for every
-        pool.  The host is single-threaded, so no control traffic arrives
-        inside one render call: a True gate holds for the rest of it."""
+        pool (host pools never do).  The host is single-threaded, so no
+        control traffic arrives inside one render call: a True gate holds
+        for the rest of it."""
         iv = float(np.float32(interval))
-        return all(p._idle_gate(iv) for p in self._pools.values())
+        return all(p.is_dr and p._idle_gate(iv) for p in self._pools.values())
 
     def host_idle_bulk(self, interval, n, times, count=None):
         """Advance ``times`` idle blocks at O(1) host cost; returns False
@@ -436,41 +557,97 @@ class Mixer(Signal):
             bool(p.pending_plays) or bool(p.pending_stops)
             or p._ctrl_pending_any()
             for p in self._pools.values()
+            if p.is_dr
         )
+        out = {}
+        for pool in self._pools.values():
+            if pool.is_dr:
+                out[pool.name] = pool.host_prepare(interval, n, force, count=count)
+                continue
+            pool.reap()
+            if getattr(pool, "is_singleton", False):
+                out[pool.name] = {
+                    "mask": pool.mask.copy(),
+                    "p": pool.sig.host_prepare(
+                        f32(interval), n, None if count is None else int(count),
+                    ),
+                }
+                continue
+            V = pool.capacity
+            iv = np.broadcast_to(f32(interval), (V,)).astype(np.float32)
+            cnt = None if count is None else np.broadcast_to(count, (V,))
+            out[pool.name] = {
+                "mask": pool.mask.copy(),
+                "p": pool.sig.host_prepare(iv, n, cnt),
+            }
+        return out
+
+    def device_collect(self):
         return {
-            p.name: p.host_prepare(interval, n, force, count=count)
+            p.name: (p.dr_state() if p.is_dr else p.sig.device_collect())
             for p in self._pools.values()
         }
 
-    def device_collect(self):
-        return {p.name: p.dr_state() for p in self._pools.values()}
-
     def device_store(self, d):
         for p in self._pools.values():
-            p.state = d[p.name]
+            if p.is_dr:
+                p.state = d[p.name]
+            else:
+                p.sig.device_store(d[p.name])
+
+    def device_reset_slot(self, i):
+        """An engine plays only through a singleton pool, whose replay
+        rebinds the whole subtree; a batched slot reset of a Mixer would
+        be a bug."""
+        raise RuntimeError(
+            "engines render through singleton pools; batched slot reset "
+            "is not applicable to a Mixer"
+        )
 
     def device_data(self):
-        return {p.name: p.proto.device_data() for p in self._pools.values()}
+        return {
+            p.name: (p.proto if p.is_dr else p.sig).device_data()
+            for p in self._pools.values()
+        }
 
     def sync(self):
-        """Pull device-resident handle state back (is_stopped, reclamation)."""
+        """Pull device-resident handle state back (is_stopped, reclamation);
+        a submix syncs its own pools."""
         for p in self._pools.values():
-            p.sync()
+            if p.is_dr:
+                p.sync()
+            elif isinstance(p.sig, Engine):
+                p.sig.sync()
 
     def sync_prefetch(self):
         for p in self._pools.values():
-            p.sync_prefetch()
+            if p.is_dr:
+                p.sync_prefetch()
+            elif isinstance(p.sig, Engine):
+                p.sig.sync_prefetch()
 
     def render(self, dstate, ddata, params, n):
         out = torch.zeros((self.channels, n), dtype=torch.float32, device=self.device)
         d2 = {}
         for pool in self._pools.values():
-            dsub, block = pool.render(
-                dstate[pool.name], {"inner": ddata.get(pool.name, {})},
-                params[pool.name], n,
-            )
+            ps = params[pool.name]
+            dd = ddata.get(pool.name, {})
+            if pool.is_dr:
+                dsub, block = pool.render(dstate[pool.name], {"inner": dd}, ps, n)
+                d2[pool.name] = dsub
+                out = out + block
+                continue
+            if getattr(pool, "is_singleton", False):
+                dsub, block1 = pool.sig.render(dstate[pool.name], dd, ps["p"], n)
+                blocks = block1[None]
+            elif (rb := getattr(pool.sig, "render_batched", None)) is not None:
+                # pool-level render of a bare Stream chain (K4/K6)
+                dsub, blocks = rb(dstate[pool.name], dd, ps["p"], n)
+            else:
+                dsub, blocks = pool.sig.render_host(dstate[pool.name], dd, ps["p"], n)
             d2[pool.name] = dsub
-            out = out + block
+            mask = _upload(ps["mask"], self.device)
+            out = out + masked_voice_sum(mask, blocks)
         return d2, out
 
     def host_snapshot(self):

@@ -63,6 +63,12 @@ _SIGNATURES = {
         # s, scal, gains, carry, V, n, stream
         "agc_gains": [_vp, _vp, _vp, _vp, _i32, _i32, _vp],
     },
+    "select_kernel": {
+        # ring, L, rrow, extra, scal, gain0, d_gain, maskf, part, out,
+        # V, n, K, stream
+        "strip_select": [_vp, _i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                         _i32, _i32, _i32, _vp],
+    },
 }
 
 _libs = {}

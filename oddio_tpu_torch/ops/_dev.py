@@ -61,6 +61,16 @@ def device_split_ds(ds):
     return ds_int.to(torch.int32), f_hi, f_lo
 
 
+def masked_voice_sum(mask, x):
+    """Sum of ``x`` (V, ...) over the voices where ``mask`` (V,) holds,
+    accumulated in float64 and rounded once to float32: garbage in free
+    slots never reaches the output, and the sum does not depend on the
+    device's reduction order (CPU and CUDA add in different orders, which
+    moves a float32 sum of a few hundred voices by up to ~1e-5)."""
+    m = mask.reshape(mask.shape + (1,) * (x.dim() - 1))
+    return torch.where(m, x, 0.0).sum(dim=0, dtype=torch.float64).to(torch.float32)
+
+
 def device_advance(base, frac, count, ds_int, f_hi, f_lo):
     """Advance an (int32 base, f32 frac) cursor by ``count*ds`` with
     near-exact arithmetic (count < 4096; an int or an int32 tensor).

@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.drctrl import _upload
 from ..core.hostmath import f32, full
 from ..core.signal import Signal
 from .agc import EMA_NMAX, _gain, agc_gains, pack_agc_scalars
@@ -71,8 +72,11 @@ def _ema_gain(avg0, s, alpha, count, low, high, max_gain, n):
 def _alpha(interval, tau):
     """adapt.rs:70: 1 - exp(-interval/tau), with one f32 division (a Python
     scalar over a tensor would take a reciprocal and a product) and no
-    host-to-device copy (the numerator is filled on the device)."""
-    return 1.0 - torch.exp(torch.full_like(tau, -float(interval)) / tau)
+    host-to-device copy (the numerator is filled on the device).  Under
+    Speed ``interval`` is a per-voice tensor."""
+    if isinstance(interval, torch.Tensor):
+        return 1.0 - torch.exp(-interval / tau)
+    return 1.0 - torch.exp(torch.full_like(tau, -float(np.float32(interval))) / tau)
 
 
 class AdaptOptions:
@@ -113,8 +117,10 @@ class Adapt(Signal):
         self.avg0 = full(batch, 1.0)
 
     def _own_device_init(self):
-        # a standalone Adapt renders on the CPU
-        return {"avg": torch.tensor(self.avg0)}
+        return {"avg": torch.tensor(self.avg0, device=self.device)}
+
+    def _own_slot_init(self, i):
+        return {"avg": np.float32(self.avg0[i])}
 
     def host_prepare(self, interval, n, count=None):
         interval = np.broadcast_to(f32(interval), self.batch).astype(np.float32)
@@ -146,19 +152,18 @@ class Adapt(Signal):
         # the pool-stamped closed-form flag selects the gain path
         return (bool(getattr(self, "_pool_ema_fast", False)),)
 
-    def render(self, dstate, ddata, params, n):
-        """Standalone render (on the CPU)."""
-        d2, block = self.inner.render(
+    def render_host(self, dstate, ddata, params, n):
+        d2, block = self.inner.render_host(
             dstate.get("inner", {}), ddata.get("inner", {}), params["inner"], n
         )
-        s = torch.sum(block, dim=0)  # (n,) sum of channels (adapt.rs:73)
-        col = lambda k: torch.as_tensor(np.asarray(params[k])).reshape(1)  # noqa: E731
+        s = torch.sum(block, dim=1)  # (V, n) sum of channels (adapt.rs:73)
+        col = {k: _upload(params[k], self.device)
+               for k in ("alpha", "count", "low", "high", "max_gain")}
         gain, avg = _ema_gain(
-            dstate["avg"].reshape(1), s[None], col("alpha"),
-            col("count").to(torch.int32), col("low"), col("high"),
-            col("max_gain"), n,
+            dstate["avg"], s, col["alpha"], col["count"], col["low"],
+            col["high"], col["max_gain"], n,
         )
-        return {"avg": avg[0], "inner": d2}, block * gain[0][None, :]
+        return {"avg": avg, "inner": d2}, block * gain[:, None, :]
 
     # -- device-resident mode ------------------------------------------------
     # The option columns join the EMA carry in the pool state; the gains come
@@ -191,7 +196,7 @@ class Adapt(Signal):
         d2, samples = self.inner.dr_render(
             state["inner"], ddata.get("inner", {}), interval, n, count
         )
-        alpha = _alpha(np.float32(interval), state["tau"])
+        alpha = _alpha(interval, state["tau"])
         cnt = count.to(torch.int32).expand(state["avg"].shape)
         # the level is the summed-channel frame (adapt.rs:73); one gain per
         # frame scales every channel (adapt.rs:84-86)

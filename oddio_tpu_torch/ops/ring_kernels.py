@@ -1,9 +1,10 @@
-"""Delay-ring kernels of the buffered spatial pool, for Hopper (counterpart
+"""Delay-ring kernels of the buffered spatial pools, for Hopper (counterpart
 of oddio_tpu/ops/pallas_ring.py).
 
-Three of the JAX package's Pallas kernels sit on the buffered pool's path;
-each has a plain PyTorch version here and a hand-written CUDA kernel in
-``csrc/ring_kernels.cu``:
+Four of the JAX package's Pallas kernels sit on the buffered pools' paths;
+each has a plain PyTorch version here and a hand-written CUDA kernel, K1-K3
+in ``csrc/ring_kernels.cu`` (the device-resident pool) and K5 in
+``csrc/select_kernel.cu`` (the host pool):
 
 * ``rows_append`` (K1, for ``rows_append_dma``): in-place copy of a
   ``(V, W)`` slab into every voice's rows-native ring ``(V, RPV, 128)`` at
@@ -14,6 +15,11 @@ each has a plain PyTorch version here and a hand-written CUDA kernel in
   into ``(2, n)``.
 * ``window_select_multi`` (K3, for ``window_select_tiles_multi``): K2 for
   ``nb`` consecutive blocks read from one superwindow per voice.
+* ``strip_select`` (K5, for ``strip_select``): the host buffered pool's
+  read, each voice's ring ``(V, L)`` addressed directly at ``128*rrow +
+  extra_e`` onward (mod L), with the TPU kernel's per-sub-block walk
+  clamp ``min(kk - kmin, SELECT_R - 1)``; gain-ramped, masked and summed
+  over voices into ``(2, n)``.
 
 A wrapper runs the plain version for tensors on the CPU and launches the
 kernel for tensors on a CUDA device; it never falls back from one to the
@@ -56,6 +62,12 @@ __all__ = [
     "window_select_multi_plain",
     "ear_samples",
     "mix_tolerance",
+    "SELECT_R",
+    "strip_positions",
+    "strip_samples",
+    "strip_select",
+    "strip_select_plain",
+    "strip_tolerance",
 ]
 
 PAGE = 1024  # ring page size (samples)
@@ -69,8 +81,13 @@ MAX_NB = 8
 #: (``mix_tolerance``)
 MIX_TOL_SIGMAS = 8.0
 
+#: K5's residual doppler-walk clamp per sub-block (``SELECT_R``,
+#: pallas_ring.py:258): a read lands at most SELECT_R - 1 past the
+#: sub-block's smallest walk offset
+SELECT_R = 16
+
 #: launches per kernel since the last reset (CUDA launches only)
-LAUNCHES = {"append": 0, "select_ears": 0, "select_multi": 0}
+LAUNCHES = {"append": 0, "select_ears": 0, "select_multi": 0, "strip_select": 0}
 
 
 def reset_launches():
@@ -421,3 +438,112 @@ def window_select_multi(wide, rowshift, scal01, g01, e01, frz01, *, n, K,
         "select_multi", wide, rowshift, scal01, g01, e01, frz01, n, K, nb,
         [128 * r for r in row0s] + pad, list(hs) + pad,
     )
+
+
+# --- K5: strip select (the host buffered pool's read) ---------------------------
+
+
+def strip_positions(scal, n, K):
+    """K5's read offsets for one ear (``_ear_pipeline``, pallas_ring.py:313):
+    per 128-frame sub-block, ``kk = clip(whole - j + K, 0, 2K)``, its minimum
+    over the whole sub-block (frames past ``n`` included, as the TPU kernel
+    computes them), and the offset ``kmin + min(kk - kmin, SELECT_R - 1)``.
+    ``scal`` (V, 4).  Returns (offset (V, n) int64, fr (V, n))."""
+    V = scal.shape[0]
+    nsb = -(-n // SELECT_SB)
+    kk, fr = _positions(scal, nsb * SELECT_SB, K)
+    kk = kk.to(torch.int64).view(V, nsb, SELECT_SB)
+    kmin = kk.min(dim=2, keepdim=True).values
+    off = kmin + torch.clamp(kk - kmin, max=SELECT_R - 1)
+    return off.reshape(V, nsb * SELECT_SB)[:, :n], fr[:, :n]
+
+
+def strip_samples(ring, rrow, extra, scal, n, K):
+    """(V, 2, n) fractional reads of both ears before gains: ``a_j =
+    ring[v, (128*rrow + extra_e + j + offset_j) mod L]``, ``b_j`` the next
+    sample (mod L), ``s = a + fr*(b - a)``."""
+    V, L = ring.shape
+    j = torch.arange(n, dtype=torch.int64, device=ring.device)
+    base = 128 * rrow.to(torch.int64)
+    outs = []
+    for e in range(2):
+        off, fr = strip_positions(scal[:, e], n, K)
+        idx = torch.remainder(
+            (base + extra[:, e].to(torch.int64))[:, None] + j + off, L
+        )
+        a = torch.gather(ring, 1, idx)
+        b = torch.gather(ring, 1, torch.remainder(idx + 1, L))
+        outs.append(a + fr * (b - a))
+    return torch.stack(outs, dim=1)
+
+
+def _strip_products(ring, rrow, extra, scal, gain0, d_gain, maskf, n, K):
+    """The per-voice summands ``(s * (g0 + j*dg)) * mask``, (V, 2, n)."""
+    jn = torch.arange(n, dtype=torch.float32, device=ring.device)
+    gains = gain0[:, :, None] + jn * d_gain[:, :, None]
+    s = strip_samples(ring, rrow, extra, scal, n, K)
+    return s * gains * maskf[:, None, None]
+
+
+def strip_select_plain(ring, rrow, extra, scal, gain0, d_gain, maskf, *, n, K):
+    """Plain version of K5: the same index formula as a torch gather, the
+    lerp, ramp and mask, and a float32 sum over voices.  (2, n)."""
+    return _strip_products(ring, rrow, extra, scal, gain0, d_gain, maskf, n, K).sum(dim=0)
+
+
+def strip_tolerance(ring, rrow, extra, scal, gain0, d_gain, maskf, *, n, K):
+    """Elementwise tolerance on |kernel - plain| for K5's (2, n) mix.  Both
+    versions form the same float32 summands x_v, each rounded op by op, and
+    add them in different orders; the error of such a sum grows like a
+    random walk over its roundings, scale ``2^-24·sqrt(Σ_k x_k² + P_k²)``
+    with P_k the running sums in voice order (``mix_tolerance``'s argument).
+    The tolerance is ``MIX_TOL_SIGMAS`` times that scale; a dropped voice or
+    an unclamped walk moves the sum by whole summands and fails it."""
+    x = _strip_products(ring, rrow, extra, scal, gain0, d_gain, maskf, n, K).double()
+    walk = (x.square() + x.cumsum(0).square()).sum(0).sqrt()
+    return MIX_TOL_SIGMAS * 2.0**-24 * walk
+
+
+def strip_select(ring, rrow, extra, scal, gain0, d_gain, maskf, *, n, K):
+    """K5 (oddio_tpu/ops/pallas_ring.py ``strip_select``), reading the
+    rings directly.
+
+    ring (V, L) f32: each voice's delay ring; rrow (V,) int32 and extra
+    (V, 2) int32: each ear's read window starts at ``128*rrow + extra_e``
+    (the JAX package's row strip and in-strip start); scal (V, 2, 4) f32
+    packed cursor scalars [frac, f_hi, f_lo, ds_int]; gain0, d_gain (V, 2)
+    f32; maskf (V,) f32; K the walk bound.  Returns the mixed (2, n)."""
+    if not isinstance(ring, torch.Tensor) or ring.dim() != 2:
+        raise ValueError("ring must be a (V, L) tensor")
+    V, L = ring.shape
+    dev = ring.device
+    _check(ring, "ring", torch.float32, (V, L), dev)
+    _check(rrow, "rrow", torch.int32, (V,), dev)
+    _check(extra, "extra", torch.int32, (V, 2), dev)
+    _check(scal, "scal", torch.float32, (V, 2, 4), dev)
+    _check(gain0, "gain0", torch.float32, (V, 2), dev)
+    _check(d_gain, "d_gain", torch.float32, (V, 2), dev)
+    _check(maskf, "maskf", torch.float32, (V,), dev)
+    if not 1 <= n <= 4096:
+        raise ValueError(f"n={n} outside [1, 4096] (exact split products)")
+    if V < 1 or L < 2:
+        raise ValueError("empty select")
+    if dev.type == "cpu":
+        return strip_select_plain(ring, rrow, extra, scal, gain0, d_gain, maskf, n=n, K=K)
+    _cuda_device(ring)
+    for x, nm in ((ring, "ring"), (rrow, "rrow"), (extra, "extra"), (scal, "scal"),
+                  (gain0, "gain0"), (d_gain, "d_gain"), (maskf, "maskf")):
+        _check_contig(x, nm)
+    nchunks = -(-V // VOICE_CHUNK)
+    part = torch.empty(nchunks * 2 * n, dtype=torch.float32, device=dev)
+    out = torch.empty((2, n), dtype=torch.float32, device=dev)
+    from ._build import lib
+
+    rc = lib("select_kernel").strip_select(
+        _ptr(ring), L, _ptr(rrow), _ptr(extra), _ptr(scal), _ptr(gain0),
+        _ptr(d_gain), _ptr(maskf), _ptr(part), _ptr(out), V, n, K,
+        _stream_ptr(dev),
+    )
+    LAUNCHES["strip_select"] += 1
+    _raise_rc(rc, "strip_select")
+    return out

@@ -8,6 +8,8 @@ numpy code unchanged; the device side runs on tensors.
 Device-resident mode keeps a 48-bit fixed-point cycle accumulator in two
 24-bit int32 limbs (``acc_a`` in 2^-24 cycles, ``acc_b`` in 2^-48),
 advanced with exact integer limb arithmetic, so the cursor never drifts.
+Under Speed the pool interval becomes a per-voice tensor, and the step is
+re-derived on the device each block.
 Integer ``//`` and ``%`` there are floor division and divisor-sign
 remainder (``torch.div(..., rounding_mode="floor")``, ``torch.remainder``).
 """
@@ -17,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.drctrl import _upload
 from ..core.hostmath import TAU32, f32, full, rust_rem
 from ..core.signal import Signal
 from ._dev import (
@@ -34,6 +37,7 @@ _INV_TAU = float(np.float32(1.0 / np.float64(TAU32)))
 _M24 = 1 << 24
 _P24 = float(np.float32(2.0**-24))
 _P48 = float(np.float32(2.0**-48))
+_T24 = float(2.0**24)
 
 
 def _fdiv(a, b):
@@ -42,6 +46,7 @@ def _fdiv(a, b):
 
 class Sine(Signal):
     seekable = True
+    _host_fields = ("phase", "freq")
 
     def __init__(self, phase=0.0, frequency_hz=440.0):
         super().__init__()
@@ -102,12 +107,11 @@ class Sine(Signal):
     def host_seek(self, seconds):
         self._seek_to(f32(seconds))
 
-    def render(self, dstate, ddata, params, n):
-        # sine.rs:34-40: sin(TAU * frac(c0 + i*dc)), near-exact positions;
-        # a standalone signal renders on the CPU
-        t = {k: torch.as_tensor(np.asarray(v)) for k, v in params.items()}
+    def render_host(self, dstate, ddata, params, n):
+        # sine.rs:34-40: sin(TAU * frac(c0 + i*dc)), near-exact positions
+        t = {k: _upload(params[k], self.device) for k in ("c0", "dc_int", "f_hi", "f_lo")}
         _, frac = exact_positions(t["c0"], t["dc_int"], t["f_hi"], t["f_lo"], n)
-        return dstate, sin_turns(frac)[None, :]
+        return dstate, sin_turns(frac)[:, None, :]
 
     # -- device-resident mode ------------------------------------------------
 
@@ -174,16 +178,34 @@ class Sine(Signal):
         return a2, torch.remainder(b2, _M24)
 
     def dr_render(self, state, ddata, interval, n, count):
-        if not isinstance(interval, (int, float, np.floating)):
-            # per-voice intervals exist only under Speed (ROADMAP P4)
-            raise NotImplementedError(
-                "Sine.dr_render takes a static pool interval; per-voice "
-                "intervals come with Speed (ROADMAP P4)"
-            )
         out = dict(state)
         c0 = self._acc_c0(state)
-        _, frac = exact_positions(c0, state["dc_int"], state["f_hi"], state["f_lo"], n)
-        out["acc_a"], out["acc_b"] = self._acc_advance(state, count)
+        if not isinstance(interval, torch.Tensor):
+            # static pool interval: the slot row's exact f64-derived step
+            _, frac = exact_positions(
+                c0, state["dc_int"], state["f_hi"], state["f_lo"], n
+            )
+            out["acc_a"], out["acc_b"] = self._acc_advance(state, count)
+            out["cyc"] = self._acc_c0(out)
+            return out, sin_turns(frac)
+        # per-voice interval under Speed (speed.rs:32-36): the step is
+        # re-derived on the device; its f32 quantization costs <= n*eps*dc
+        # per block, and the advance re-quantizes onto the 48-bit
+        # accumulator (no drift beyond the f32 step itself)
+        dc = state["freq"] * interval * _INV_TAU
+        dc_int, f_hi, f_lo = device_split_ds(dc)
+        _, frac = exact_positions(c0, dc_int, f_hi, f_lo, n)
+        cf = count.to(torch.float32)
+        H = cf * f_hi  # exact
+        adv = (H - torch.floor(H)) + cf * f_lo
+        adv = adv - torch.floor(adv)
+        a48 = torch.floor(adv * _T24)
+        lo48 = torch.floor((adv * _T24 - a48) * _T24)
+        b2 = state["acc_b"] + lo48.to(torch.int32)
+        a2 = torch.remainder(
+            state["acc_a"] + a48.to(torch.int32) + _fdiv(b2, _M24), _M24
+        )
+        out["acc_a"], out["acc_b"] = a2, torch.remainder(b2, _M24)
         out["cyc"] = self._acc_c0(out)
         return out, sin_turns(frac)
 

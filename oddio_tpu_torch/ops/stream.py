@@ -18,12 +18,16 @@ queued frames.
 
 The ring state keeps the JAX package's rows-native shape ``(V, C*R, 128)``
 (``R = size_pad / 128``), so state carries across unchanged; the kernels
-see it as ``(V*C, size_pad)`` rows.  In a device-resident pool the read
-goes through K6 (``ring_resample``) for mono streams whose step fits the
-kernel's window, and through the plain per-voice read otherwise (stereo
-streams, steps past ``RESAMPLE_DSMAX``): the two round their positions
-differently (split-ds exact positions against ``t + ds*j``), so this is
-semantic routing, kept as the JAX package has it.
+see it as ``(V*C, size_pad)`` rows.  Every chunk is placed through K4.
+The pool-level read (``render_batched``: device-resident pools, and host
+pools whose chain is a bare Stream) goes through K6 (``ring_resample``)
+for mono streams whose step fits the kernel's window, and through the
+plain per-voice read otherwise (stereo streams, steps past
+``RESAMPLE_DSMAX``); a stream under a wrapper in a host pool reads through
+the plain per-voice read (``render_host``, the JAX package's vmapped
+``Stream.render``).  The two reads round their positions differently
+(split-ds exact positions against ``t + ds*j``), so this is semantic
+routing, kept as the JAX package has it.
 """
 
 from __future__ import annotations
@@ -148,12 +152,26 @@ class Stream(Signal):
         return self.size_pad // 128
 
     def _own_device_init(self):
-        # a standalone stream renders on the CPU
         return {
             "ring": torch.zeros(
-                self.batch + (self.channels * self._rows, 128), dtype=torch.float32
+                self.batch + (self.channels * self._rows, 128),
+                dtype=torch.float32, device=self.device,
             )
         }
+
+    def _own_slot_init(self, i):
+        return {"ring": np.zeros((self.channels * self._rows, 128), np.float32)}
+
+    def write_slot(self, i, spec, pool, gen):
+        super().write_slot(i, spec, pool, gen)
+        # the slot adopts the spec's producer queue; the handle keeps
+        # writing into the same list
+        self._pending[i] = spec._cb.pending
+        spec._cb.pending = self._pending[i]
+        if self._pending[i]:
+            self._dirty.add(int(i))
+        else:
+            self._dirty.discard(int(i))
 
     def _drain(self, V):
         """Drain the dirty voices' producer queues into a (V, C, mw+1)
@@ -268,25 +286,33 @@ class Stream(Signal):
         b = get(x0 + 1)
         return a + (s - torch.trunc(s))[:, None, :] * (b - a)
 
-    def render(self, dstate, ddata, params, n):
-        """Standalone render (one voice, on the CPU)."""
-        ring = dstate["ring"][None]
-        p = {k: torch.as_tensor(np.asarray(v)).reshape(1, *np.shape(v))
+    def _placed(self, ring, params):
+        """Params as tensors on the ring's device, with a host pool's
+        shipped chunk (Receiver::update) placed first through K4."""
+        dev = ring.device
+        p = {k: v if isinstance(v, torch.Tensor) else _upload(v, dev)
              for k, v in params.items()}
         if "chunk" in p:
             self._write(ring, p["chunk"], p["wpos"].to(torch.int32),
                         p["wcount"].to(torch.int32))
+        return p
+
+    def render_host(self, dstate, ddata, params, n):
+        """The JAX package's per-voice ``Stream.render``, batched: the
+        shipped chunk placed, then the plain lerp read.  (V, C, n)."""
+        ring = dstate["ring"]
+        p = self._placed(ring, params)
         out = self._read_plain(ring, p["t"], p["ds"], p["len"], p["start"], n)
-        return {"ring": ring[0]}, out[0]
+        return {"ring": ring}, out
 
     def render_batched(self, dstate, ddata, params, n):
-        """Pool-level read of every voice's ring (tensors ``t``, ``ds``,
-        ``len``, ``start`` of shape (V,)).  Mono streams whose step and
-        block fit the kernel's window read through K6; the rest take the
-        plain per-voice read.  Returns ``({"ring"}, (V, C, n))``.  (The
-        JAX form also places a host pool's chunk first; host pools are not
-        ported, and device-resident pools ingest in ``dr_ingest``.)"""
+        """Pool-level render of every voice's ring (``t``, ``ds``, ``len``,
+        ``start`` of shape (V,), tensors or a host pool's numpy params,
+        whose chunk is placed first).  Mono streams whose step and block
+        fit the kernel's window read through K6; the rest take the plain
+        per-voice read.  Returns ``({"ring"}, (V, C, n))``."""
         ring = dstate["ring"]
+        params = self._placed(ring, params)
         # window sized for the tightest step bound available: the spec's own
         # tier (standalone prepare) or the pool-stamped one (DR pools)
         tiers = [

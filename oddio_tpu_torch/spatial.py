@@ -2,25 +2,29 @@
 
 Reference: oddio's src/spatial.rs — ``SpatialScene`` spatializes
 mono signals into stereo with panning, distance attenuation, doppler and
-propagation delay.  Two voice families, each in a device-resident pool:
+propagation delay.  Two voice families:
 
 * ``play`` (spatial.rs:289-302): seekable sources re-sampled per ear at
   time-shifted, rate-warped positions (doppler by time warp) — the seek
-  pool, pure elementwise tensor math.
+  pools, elementwise tensor math.
 * ``play_buffered`` (spatial.rs:314-340): sources pre-rendered into a
   per-voice delay ring and read back at fractional, time-varying offsets —
-  the buffered pool, on the ring kernels of ``ops/ring_kernels.py``.
+  the buffered pools, on the ring kernels of ``ops/ring_kernels.py``.
 
-The host keeps the JAX package's exact bookkeeping (shared ring cursor,
-walk-bound mirrors, read-tier ladder, family sub-pass plan) in numpy; the
-device state is a dict of tensors under the JAX package's keys, on the
-scene's ``device``.  Per-block parameters stay numpy on the host and are
+Chains that are device-resident capable play in device-resident pools
+(``_SeekPoolDR``, ``_BufferedPoolDR``, streams included): their control
+state lives on the device and the host keeps the JAX package's exact
+bookkeeping (shared ring cursor, walk-bound mirrors, read-tier ladder,
+family sub-pass plan, stream cursor mirrors) in numpy.  The rest play in
+host pools, routed as the JAX package routes them: ``_SeekPool`` (seekable
+chains with their own finish rule), ``_BufferedPool`` (Speed- or
+Fader-wrapped streams, user signals; per-voice write cursors on the host,
+K4 write and K5 read) and ``_BufferedPoolSingleton`` (a whole engine, such
+as a Mixer, as one voice).  Device state is a dict of tensors under the JAX
+package's keys, on the scene's ``device`` (the CUDA card unless the caller
+passes another).  Per-block parameters stay numpy on the host and are
 uploaded where a render uses them; padding lanes of the delta arrays are
-filtered on the host.  The ring is updated in place.
-
-Host pools (``_VoicePool``, ``_BufferedPool``, ``_BufferedPoolSingleton``,
-``_SeekPool``) are ROADMAP P2.4: a spec that would need one raises
-``NotImplementedError``.
+filtered on the host.  Rings are updated in place.
 """
 
 from __future__ import annotations
@@ -29,9 +33,24 @@ import numpy as np
 import torch
 
 from .core.drctrl import DRCtrlMixin, _upload, host_lanes, rows_scatter
-from .core.hostmath import f32, quat_invert, v3_norm
-from .core.signal import Signal
-from .ops._dev import device_advance, device_split_ds, exact_positions
+from .core.hostmath import (
+    f32,
+    full,
+    quat_invert,
+    quat_rotate,
+    rem_euclid,
+    rust_rem,
+    v3_dot,
+    v3_norm,
+)
+from .core.signal import Engine, default_device
+from .ops._dev import (
+    device_advance,
+    device_split_ds,
+    exact_positions,
+    masked_voice_sum,
+    split_ds,
+)
 from .ops.geometry import (  # noqa: F401  (re-exported API surface)
     EAR_DIR,
     EAR_POS,
@@ -49,9 +68,11 @@ from .ops.ring_kernels import (
     PAGE,
     rows_append,
     select_window,
+    strip_select,
     window_select_ears,
     window_select_multi,
 )
+from .ops.stream_kernels import ring_place
 from .parallel.context import localize_index
 from .utils.tree import tree_map, tree_stack
 
@@ -66,11 +87,21 @@ __all__ = [
 
 DEFAULT_CAPACITY = 16
 
-#: bounds the per-block doppler walk handled by the select kernel
+#: bounds the per-block doppler walk handled by the select kernels
 K_DOPPLER = 64
+
+#: row granularity of the host buffered pool's read-window cursors
+RING_ROW = 128
 
 _F32 = torch.float32
 _I32 = torch.int32
+
+
+def _emax(rate):
+    """Per-ear start offsets within a shared read window sit in [0, emax):
+    row granularity + the inter-ear distance in samples (|d_L - d_R| <=
+    0.215 m, spatial.rs:571-598) + slack."""
+    return RING_ROW + int(np.ceil(0.215 / float(SPEED_OF_SOUND) * rate)) + 2
 
 
 def _fdiv(a, b):
@@ -98,6 +129,500 @@ class SpatialOptions:
         self.radius = np.float32(radius)
 
 
+def _ear_states(position, radius):
+    """EarState::new for both ears (spatial.rs:530-550), numpy: offsets
+    (V, 2) seconds (negative) and gains (V, 2)."""
+    rel = position[:, None, :] - EAR_POS[None, :, :]  # (V, 2, 3)
+    distance = v3_norm(rel)  # (V, 2)
+    offset = distance * (np.float32(-1.0) / SPEED_OF_SOUND)
+    distance_gain = radius[:, None] / np.maximum(distance, radius[:, None])
+    inv = (np.float32(0.5) / distance).astype(np.float32)
+    scaled = position[:, None, :] * inv[:, :, None]
+    d = v3_dot(EAR_DIR[None, :, :], scaled)
+    stereo_gain = np.float32(0.5) + np.where(
+        distance < np.float32(1e-3), np.float32(0.5), d
+    )
+    return offset.astype(np.float32), (stereo_gain * distance_gain).astype(np.float32)
+
+
+class _VoicePool:
+    """Host pools' shared voice bookkeeping (the JAX package's
+    ``_VoicePool``): the motion swap channels, smoothing state, lingering
+    reclamation and slot lifecycle, all numpy columns on the host.  The
+    voices' chain is one batched template (``sig``) whose device leaves
+    live on the pool's device."""
+
+    is_dr = False
+
+    def __init__(self, name, spec, capacity, device):
+        self.name = name
+        self.proto = spec
+        self.device = torch.device(device)
+        self.sig = spec.clone_batched(capacity)
+        self.sig._set_device(self.device)
+        self.capacity = capacity
+        self._alloc_cols(capacity)
+        self._free = list(range(capacity - 1, -1, -1))
+
+    def _alloc_cols(self, V):
+        self.mask = np.zeros(V, dtype=bool)
+        self.stopped = np.zeros(V, dtype=bool)
+        self.slot_gen = np.zeros(V, dtype=np.int64)
+        self.radius = full((V,), 0.1)
+        self.motion_pos = full((V,), 0.0, extra=(3,))
+        self.motion_vel = full((V,), 0.0, extra=(3,))
+        self.pend_flag = np.zeros(V, dtype=bool)
+        self.pend_pos = full((V,), 0.0, extra=(3,))
+        self.pend_vel = full((V,), 0.0, extra=(3,))
+        self.pend_disc = np.zeros(V, dtype=bool)
+        self.prev_position = full((V,), 0.0, extra=(3,))
+        self.dt = full((V,), 0.0)
+        self.finished_for = full((V,), np.nan)
+
+    _COL_NAMES = (
+        "mask stopped slot_gen radius motion_pos motion_vel pend_flag pend_pos "
+        "pend_vel pend_disc prev_position dt finished_for"
+    ).split()
+
+    def grow(self):
+        old = self.capacity
+        new = old * 2
+        self.sig.grow_batched(new)
+        saved = {c: getattr(self, c) for c in self._COL_NAMES}
+        self._alloc_cols(new)
+        for c, v in saved.items():
+            getattr(self, c)[:old] = v
+        self._free = list(range(new - 1, old - 1, -1)) + self._free
+        self.capacity = new
+
+    def claim(self, spec, options):
+        if not self._free:
+            self.grow()
+        i = self._free.pop()
+        gen = int(self.slot_gen[i])
+        self.sig.write_slot(i, spec, self, gen)
+        spec._moved = True
+        self.sig.device_reset_slot(i)
+        self.mask[i] = True
+        self.stopped[i] = False
+        self.radius[i] = options.radius
+        self.motion_pos[i] = options.position
+        self.motion_vel[i] = options.velocity
+        self.pend_flag[i] = False
+        self.prev_position[i] = options.position  # State::new (spatial.rs:494-499)
+        self.dt[i] = 0.0
+        self.finished_for[i] = np.nan
+        return i, gen
+
+    def common_walk(self, prev_rot, rot, elapsed):
+        """walk_set's per-voice prologue (spatial.rs:204-261), vectorized:
+        motion refresh + smoothing, rotation into listener space, lingering
+        reclamation.  Returns (prev_position, next_position) in listener
+        space, both (V, 3)."""
+        inner_finished = self.sig.host_is_finished()
+        upd = self.pend_flag.copy()
+        # spatial.rs:216-227: on refresh, prev_position snaps to the
+        # discontinuity target or to the smoothed estimate under the OLD motion
+        sm_orig = _smooth_host(
+            self.prev_position, self.dt, 0.0, self.motion_pos, self.motion_vel
+        )
+        new_prev = np.where(self.pend_disc[:, None], self.pend_pos, sm_orig)
+        self.prev_position = np.where(upd[:, None], new_prev, self.prev_position).astype(
+            np.float32
+        )
+        self.dt = np.where(upd, np.float32(0.0), self.dt).astype(np.float32)
+        self.motion_pos = np.where(upd[:, None], self.pend_pos, self.motion_pos).astype(
+            np.float32
+        )
+        self.motion_vel = np.where(upd[:, None], self.pend_vel, self.motion_vel).astype(
+            np.float32
+        )
+        self.pend_flag[:] = False
+
+        # spatial.rs:228-235: rotate smoothed start/end positions
+        sm0 = _smooth_host(
+            self.prev_position, self.dt, 0.0, self.motion_pos, self.motion_vel
+        )
+        sm1 = _smooth_host(
+            self.prev_position, self.dt, elapsed, self.motion_pos, self.motion_vel
+        )
+        prev_position = quat_rotate(prev_rot[None, :], sm0)
+        next_position = quat_rotate(rot[None, :], sm1)
+        self.dt = (self.dt + np.float32(elapsed)).astype(np.float32)
+
+        # spatial.rs:241-261: lingering reclamation with propagation delay
+        distance = v3_norm(prev_position)
+        lingering = ~np.isnan(self.finished_for)
+        expire = lingering & (self.finished_for > distance / SPEED_OF_SOUND)
+        self.stopped |= expire & self.mask
+        self.finished_for = np.where(
+            lingering & ~expire,
+            (self.finished_for + np.float32(elapsed)).astype(np.float32),
+            self.finished_for,
+        )
+        newly = self.mask & ~lingering & inner_finished
+        self.finished_for = np.where(newly, np.float32(elapsed), self.finished_for)
+
+        drop = self.mask & self.stopped
+        if drop.any():
+            self.mask &= ~drop
+            for i in np.nonzero(drop)[0]:
+                self.slot_gen[i] += 1
+                self._free.append(int(i))
+        return prev_position, next_position
+
+    # handle interface shared with the DR pools
+    def push_motion(self, slot, gen, pos, vel, disc):
+        if self.slot_gen[slot] == gen:
+            self.pend_pos[slot] = f32(pos)
+            self.pend_vel[slot] = f32(vel)
+            self.pend_disc[slot] = bool(disc)
+            self.pend_flag[slot] = True
+
+    def handle_finished(self, slot, gen):
+        if self.slot_gen[slot] != gen:
+            return True
+        return bool(self.stopped[slot])
+
+    def sync(self):
+        """Host pools keep their handle state on the host."""
+
+    def sync_prefetch(self):
+        """Nothing to prefetch (see ``sync``)."""
+
+    def _upload(self, x, dtype=None):
+        return _upload(x, self.device, dtype)
+
+
+class _BufferedPool(_VoicePool):
+    """``play_buffered`` voices whose chains are not device-resident
+    capable (Speed- or Fader-wrapped streams, user signals): per-voice
+    delay rings on the device, per-voice write cursors and the geometry on
+    the host (the JAX package's ``_BufferedPool``, cursor math term for
+    term).
+
+    The ring is ``(V, L)``: both kernels address each voice's ring
+    directly, K4 (``ring_place``) writing ``n_write`` samples at
+    ``start mod L`` and K5 (``strip_select``) reading both ears from
+    ``128*rrow + extra_e`` onward, so the TPU's row strips (gathered,
+    placed, scattered back) have no counterpart.  Its bytes are the JAX
+    package's ``(V*L/128, 128)`` ring in the same order, so state carries
+    across by a reshape.  Blocks outside the strip gate (fast movers, odd
+    block sizes) take the exact elementwise read, plain torch as it is
+    plain XLA in the JAX package."""
+
+    def __init__(self, name, spec, capacity, rate, ring_len, device):
+        self.rate = int(rate)
+        self.ring_len = int(ring_len)
+        if self.ring_len % RING_ROW:
+            raise ValueError(f"ring length {ring_len} must be a multiple of {RING_ROW}")
+        self._n_inner = 1
+        self._use_strips = True
+        super().__init__(name, spec, capacity, device)
+        self.ring = None  # (V, ring_len) on the device, created lazily
+
+    def _alloc_cols(self, V):
+        super()._alloc_cols(V)
+        self.write = full((V,), 0.0)
+        self.max_delay = full((V,), 0.0)
+
+    _COL_NAMES = _VoicePool._COL_NAMES + ["write", "max_delay"]
+
+    def grow(self):
+        old = self.capacity
+        super().grow()
+        if self.ring is not None:
+            add = torch.zeros((self.capacity - old, self.ring_len), dtype=_F32,
+                              device=self.device)
+            self.ring = torch.cat([self.ring, add])
+
+    def ring_state(self):
+        if self.ring is None:
+            self.ring = torch.zeros((self.capacity, self.ring_len), dtype=_F32,
+                                    device=self.device)
+        return self.ring
+
+    def play(self, spec, options, max_delay):
+        i, gen = self.claim(spec, options)
+        cap = int(np.ceil(np.float32(max_delay) * np.float32(self.rate))) + 1
+        if cap > self.ring_len:
+            raise ValueError("max_delay exceeds the pool's ring length")
+        self.max_delay[i] = np.float32(max_delay)
+        # SpatialSignalBuffered::new (spatial.rs:39-43): pre-delay the ring by
+        # min(|position|/c, max_delay), with the pool's uniform modulus
+        d = np.minimum(
+            v3_norm(f32(options.position)[None, :])[0] / SPEED_OF_SOUND,
+            np.float32(max_delay),
+        )
+        self.write[i] = rust_rem(
+            np.float32(self.rate) * np.float32(d), np.float32(self.ring_len)
+        )
+        self.ring_state()[i] = 0.0
+        return i, gen
+
+    def host_prepare(self, prev_rot, rot, interval, n):
+        elapsed = (f32(interval) * np.float32(n)).astype(np.float32)
+        prev_position, next_position = self.common_walk(prev_rot, rot, elapsed)
+        V = self.capacity
+        ratef = np.float32(self.rate)
+        L = self.ring_len
+        capf = np.float32(L)
+
+        # Ring::write bookkeeping (ring.rs:18-41), uniform modulus; the
+        # UNWRAPPED end keeps n_write right when a block advances by >= L
+        w = self.write
+        w_un = (w + elapsed * ratef).astype(np.float32)
+        end = rust_rem(w_un, capf)
+        start_idx = np.ceil(w).astype(np.int64)
+        n_write = (np.ceil(w_un).astype(np.int64) - start_idx).astype(np.int32)
+        self.write = end.astype(np.float32)
+        # static per (block size, interval): upper bound on any voice's write
+        self._n_inner = int(np.ceil(np.float64(elapsed) * self.rate)) + 1 if n > 0 else 1
+        inner_interval = np.full(V, np.float32(1.0) / ratef, np.float32)
+        inner_params = self._inner_prepare(inner_interval, self._n_inner, n_write)
+
+        # per-ear offsets/gains (spatial.rs:409-431)
+        prev_off, prev_gain = _ear_states(prev_position, self.radius)
+        next_off, next_gain = _ear_states(next_position, self.radius)
+        prev_off = np.maximum((prev_off - elapsed).astype(np.float32), -self.max_delay[:, None])
+        next_off = np.maximum(next_off, -self.max_delay[:, None])
+        nf = np.float32(n) if n > 0 else np.float32(1.0)
+        dt_e = ((next_off - prev_off) / nf).astype(np.float32)
+        d_gain = ((next_gain - prev_gain) / nf).astype(np.float32)
+        # Ring::sample base offset (ring.rs:57): (write' + t*rate) rem_euclid cap
+        offset0 = rem_euclid(
+            (self.write[:, None] + prev_off * ratef).astype(np.float32), capf
+        )
+        # an exact integer base and a fractional start (ops/_dev.py)
+        obase = np.floor(offset0)
+        ds = (dt_e * ratef).astype(np.float32)
+        ds_int, f_hi, f_lo = split_ds(ds)
+        params = {
+            "mask": self.mask.copy(),
+            "n_write": n_write,
+            "gain0": prev_gain,
+            "d_gain": d_gain,
+            "inner": inner_params,
+        }
+        # the strip read needs the walk bound: positions step at ds =
+        # (ring rate / scene rate) x doppler, so |ds - 1| * n must stay
+        # under K; supersonic motion or a frozen -max_delay clamp (ds = 0,
+        # spatial.rs:414-415) takes the exact elementwise read
+        live = self.mask
+        walk = (
+            float(np.abs(ds[live] - np.float32(1.0)).max()) * n
+            if live.any()
+            else 0.0
+        )
+        self._use_strips = bool(
+            self._n_inner <= PAGE + 1
+            and 0 < n <= 640
+            and walk <= K_DOPPLER
+        )
+        start_i = start_idx.astype(np.int32)
+        ob = obase.astype(np.int32)
+        if self._use_strips:
+            # one write cursor per voice, ONE shared read window for both ears
+            K = K_DOPPLER
+            params["wrow"] = start_i // RING_ROW
+            params["extra_w"] = start_i - params["wrow"] * RING_ROW
+            dlr = np.mod(ob[:, 0] - ob[:, 1], L)
+            DMAX = _emax(self.rate) - RING_ROW
+            l_ahead = dlr <= DMAX
+            cm = np.where(l_ahead, ob[:, 1], ob[:, 0])
+            dstart = np.stack(
+                [np.where(l_ahead, dlr, 0), np.where(l_ahead, 0, L - dlr)],
+                axis=-1,
+            )
+            dstart = np.clip(dstart, 0, DMAX)
+            rstart = np.mod(cm - K, L)
+            params["rrow"] = (rstart // RING_ROW).astype(np.int32)
+            params["extra_r"] = (
+                (rstart - params["rrow"] * RING_ROW)[:, None] + dstart
+            ).astype(np.int32)
+            params["scal"] = np.stack(
+                [
+                    (offset0 - obase).astype(np.float32),
+                    f_hi, f_lo, ds_int.astype(np.float32),
+                ],
+                axis=-1,
+            )
+        else:
+            params["start"] = start_i
+            params["obase"] = ob
+            params["ofrac"] = (offset0 - obase).astype(np.float32)
+            params["ds_int"] = ds_int
+            params["f_hi"] = f_hi
+            params["f_lo"] = f_lo
+        return params
+
+    def _inner_prepare(self, inner_interval, n_inner, n_write):
+        return self.sig.host_prepare(inner_interval, n_inner, count=n_write)
+
+    def _inner_render(self, dstate, ddata, params, n_inner):
+        dd = ddata.get("inner", {})
+        rb = getattr(self.sig, "render_batched", None)
+        if rb is not None:
+            # pool-level read of a bare Stream chain (K6 where it fits)
+            return rb(dstate["inner"], dd, params["inner"], n_inner)
+        return self.sig.render_host(dstate["inner"], dd, params["inner"], n_inner)
+
+    def render(self, dstate, ddata, params, n):
+        n_inner = self._n_inner
+        up = self._upload
+        dsub, blocks = self._inner_render(dstate, ddata, params, n_inner)
+        samples = blocks[:, 0, :].contiguous()  # (V, n_inner) mono
+        ring = dstate["ring"]  # (V, L), updated in place
+        V, L = ring.shape
+        n_write = up(params["n_write"], _I32)
+
+        if not self._use_strips:
+            # exact elementwise write and read (any ratio, any walk)
+            j = torch.arange(n_inner, dtype=torch.int64, device=self.device)
+            idx = torch.remainder(up(params["start"], torch.int64)[:, None] + j, L)
+            keep = j[None, :] < n_write[:, None]
+            rows = torch.arange(V, device=self.device)[:, None].expand(V, n_inner)
+            ring[rows[keep], idx[keep]] = samples[keep]
+            whole, fr = exact_positions(
+                up(params["ofrac"]), up(params["ds_int"]), up(params["f_hi"]),
+                up(params["f_lo"]), n,
+            )
+            x = torch.remainder(up(params["obase"])[:, :, None] + whole, L).to(torch.int64)
+
+            def look(ix):
+                return torch.gather(ring, 1, ix.reshape(V, 2 * n)).reshape(V, 2, n)
+
+            a = look(x)
+            b = look(torch.remainder(x + 1, L))
+            s = a + fr * (b - a)
+            jn = torch.arange(n, dtype=_F32, device=self.device)
+            gains = up(params["gain0"])[:, :, None] + jn * up(params["d_gain"])[:, :, None]
+            out = masked_voice_sum(up(params["mask"]), s * gains)
+            return {"ring": ring, "inner": dsub}, out
+
+        # ring write (ring.rs:18-41) through K4 at start mod L, then the
+        # two-ear read through K5 (ring.rs:51-79, spatial.rs:409-431)
+        wpos = torch.remainder(
+            up(params["wrow"], _I32) * RING_ROW + up(params["extra_w"], _I32), L
+        ).to(_I32)
+        ring_place(ring, samples, wpos, n_write)
+        out = strip_select(
+            ring, up(params["rrow"], _I32), up(params["extra_r"], _I32),
+            up(params["scal"], _F32), up(params["gain0"], _F32),
+            up(params["d_gain"], _F32), up(params["mask"], _F32),
+            n=n, K=K_DOPPLER,
+        )
+        return {"ring": ring, "inner": dsub}, out
+
+
+class _BufferedPoolSingleton(_BufferedPool):
+    """A one-voice buffered pool for a non-batchable signal: a whole engine
+    (a ``Mixer`` submix, a nested scene) played into the scene, which the
+    reference allows for any Signal (spatial.rs:314-340).  The voice's
+    signal renders unbatched on its own device (the scene's); the geometry
+    walk, ring cursors and the K4/K5 pair at V = 1 are the host buffered
+    pool's."""
+
+    is_singleton = True
+
+    def __init__(self, name, spec, rate, ring_len, device):
+        self.name = name
+        self.proto = spec
+        self.sig = spec
+        self.device = torch.device(device)
+        self.capacity = 1
+        self._alloc_cols(1)
+        self._free = [0]
+        self.rate = int(rate)
+        self.ring_len = int(ring_len)
+        if self.ring_len % RING_ROW:
+            raise ValueError(f"ring length {ring_len} must be a multiple of {RING_ROW}")
+        self._n_inner = 1
+        self._use_strips = True
+        self.ring = None
+
+    def grow(self):
+        raise RuntimeError("singleton pools hold exactly one voice")
+
+    def claim(self, spec, options):
+        i = 0
+        gen = int(self.slot_gen[i])
+        spec._moved = True
+        self.mask[i] = True
+        self.stopped[i] = False
+        self.radius[i] = options.radius
+        self.motion_pos[i] = options.position
+        self.motion_vel[i] = options.velocity
+        self.pend_flag[i] = False
+        self.prev_position[i] = options.position
+        self.dt[i] = 0.0
+        self.finished_for[i] = np.nan
+        return i, gen
+
+    def _inner_prepare(self, inner_interval, n_inner, n_write):
+        # an engine takes a scalar interval and count
+        return self.sig.host_prepare(
+            np.float32(inner_interval[0]), n_inner, count=int(n_write[0])
+        )
+
+    def _inner_render(self, dstate, ddata, params, n_inner):
+        dsub, block = self.sig.render(
+            dstate["inner"], ddata.get("inner", {}), params["inner"], n_inner
+        )
+        return dsub, block[None]  # (1, C, n_inner)
+
+    def sync(self):
+        """A submix engine's own handle state (its device-resident pools)."""
+        if isinstance(self.sig, Engine):
+            self.sig.sync()
+
+    def sync_prefetch(self):
+        if isinstance(self.sig, Engine):
+            self.sig.sync_prefetch()
+
+
+class _SeekPool(_VoicePool):
+    """``play()`` voices whose chains are not device-resident capable (a
+    seekable signal with its own finish rule): deterministic sources
+    re-sampled per ear with warped time (doppler by time warp,
+    spatial.rs:438-470), as two batched renders per block; no kernel."""
+
+    def host_prepare(self, prev_rot, rot, interval, n):
+        elapsed = (f32(interval) * np.float32(n)).astype(np.float32)
+        prev_position, next_position = self.common_walk(prev_rot, rot, elapsed)
+        prev_off, prev_gain = _ear_states(prev_position, self.radius)
+        next_off, next_gain = _ear_states(next_position, self.radius)
+        nf = np.float32(n) if n > 0 else np.float32(1.0)
+        # spatial.rs:449-453
+        effective = ((np.float32(elapsed) + next_off) - prev_off).astype(np.float32)
+        dt_e = (effective / nf).astype(np.float32)
+        d_gain = ((next_gain - prev_gain) / nf).astype(np.float32)
+        ear_params = []
+        for e in (0, 1):
+            self.sig.host_seek(prev_off[:, e])  # initial real time -> delayed
+            ear_params.append(self.sig.host_prepare(dt_e[:, e], n))
+            # final delayed -> initial real time (spatial.rs:465)
+            self.sig.host_seek((-effective[:, e] - prev_off[:, e]).astype(np.float32))
+        self.sig.host_seek(np.full(self.capacity, elapsed, np.float32))
+        return {
+            "mask": self.mask.copy(),
+            "earL": ear_params[0],
+            "earR": ear_params[1],
+            "gain0": prev_gain,
+            "d_gain": d_gain,
+        }
+
+    def render(self, dstate, ddata, params, n):
+        dd = ddata.get("inner", {})
+        up = self._upload
+        d2, bL = self.sig.render_host(dstate["inner"], dd, params["earL"], n)
+        d3, bR = self.sig.render_host(d2, dd, params["earR"], n)
+        s = torch.stack([bL[:, 0, :], bR[:, 0, :]], dim=1)  # (V, 2, n)
+        jn = torch.arange(n, dtype=_F32, device=self.device)
+        gains = up(params["gain0"])[:, :, None] + jn * up(params["d_gain"])[:, :, None]
+        return {"inner": d3}, masked_voice_sum(up(params["mask"]), s * gains)
+
+
 class _DRPoolBase(DRCtrlMixin):
     """Shared device-resident control plane for spatial voice pools.
 
@@ -121,7 +646,12 @@ class _DRPoolBase(DRCtrlMixin):
 
     def _init_base(self, name, spec, capacity, k_motion, k_play, device):
         self.name = name
-        self.proto = spec
+        # ingest-needing chains (streams) keep BATCHED host mirror columns:
+        # the pool's shadow of the device cursors plus the per-slot
+        # producer queues (Stream.dr_bind_slot)
+        self.proto = (
+            spec.clone_batched(capacity) if spec.dr_needs_ingest() else spec
+        )
         self.device = torch.device(device)
         self.capacity = capacity
         self.k_motion = k_motion
@@ -197,6 +727,8 @@ class _DRPoolBase(DRCtrlMixin):
         self._g_mvel = np.concatenate([self._g_mvel, np.zeros((old, 3), np.float32)])
         self._g_smdt = np.concatenate([self._g_smdt, np.zeros(old, np.float32)])
         self._b_cache = None
+        if self.proto.batch:
+            self.proto.grow_batched(new)
         self.capacity = new
 
     # -- control side ----------------------------------------------------------
@@ -216,6 +748,9 @@ class _DRPoolBase(DRCtrlMixin):
             s._moved = True
             stack.extend(s.children().values())
         self._rebind_ctrl(spec, i, gen)
+        self._track_spec(i, spec)
+        if self.proto.batch:
+            self.proto.dr_bind_slot(i, spec, self, gen)
         return i, gen
 
     def _geom_row(self, options):
@@ -481,6 +1016,9 @@ class _SeekPoolDR(_DRPoolBase):
 
     def host_prepare(self, prev_rot, rot, interval, n, force=False):
         self._elapsed = float(np.float32(f32(interval) * np.float32(n)))
+        # warp steps are the scene interval times the doppler factor; 1.25
+        # covers the clamped |v|/c range (K_DOPPLER) with margin
+        self._ds_small = self._ds_flag_sync(float(f32(interval)) * 1.25)
         params = self._delta_params({}, force)
         self._g_smdt = (self._g_smdt + np.float32(self._elapsed)).astype(np.float32)
         return params
@@ -908,6 +1446,9 @@ class _BufferedPoolDR(_DRPoolBase):
         # deltas ship (and mirror-update) BEFORE the tier choice: shipped
         # motion applies on this block
         params = self._delta_params(params, force)
+        # the chain's read-path flags (stream step bound, AGC gate) at the
+        # inner timebase, after this block's plays and control writes
+        self._ds_small = self._ds_flag_sync(self.interval_inner)
         # read-path tier from the rate ratio and the scene's actual motion
         if prev_rot is rot:
             rot_sin_half = 0.0
@@ -927,6 +1468,23 @@ class _BufferedPoolDR(_DRPoolBase):
         # mirror the walk's smoothing-clock advance (step 3)
         self._g_smdt = self._g_smdt + np.float32(elapsed)
         self._t_scene += elapsed
+        # stream ingest and the cursor-mirror shadow, in the render's order
+        # (ingest grows len, then the advance releases); counts mirror the
+        # device's mask gate (idle slots hold their cursors).  A block with
+        # queued PCM ships it, so it is never param-free or fused below.
+        if self.proto.batch:
+            ing = self.proto.dr_ingest_params()
+            if ing is not None:
+                params["ing"] = ing
+            if self.mask_host.all():
+                # uniform tick: deferred as O(1) debt, replayed exactly at
+                # the first mirror read
+                self.proto.dr_host_tick(self.interval_inner, int(n_write))
+            else:
+                self.proto.dr_host_tick(
+                    self.interval_inner,
+                    np.where(self.mask_host, np.int32(n_write), np.int32(0)),
+                )
         # param-free idle blocks: on the integer fast path with an aligned
         # append whose advance divides the modulus, the device derives
         # (w, nw, wstart) from its cursor and the block ships nothing
@@ -1122,7 +1680,11 @@ class _BufferedPoolDR(_DRPoolBase):
 
         # 6. inner source render; slab append (ring.rs:18-41).  All n_inner
         # frames are written every block; the <=1-frame overlap past
-        # n_write is recomputed identically next block.
+        # n_write is recomputed identically next block.  Stream PCM is
+        # placed at the device write cursors first (K4), as the host pools
+        # write before they read.
+        if "ing" in params:
+            S["inner"] = self.proto.dr_ingest(S["inner"], params["ing"])
         inner2, samples = self.proto.dr_render(
             S["inner"], ddata.get("inner", {}), self.interval_inner, n_inner,
             n_write,
@@ -1442,19 +2004,19 @@ def _next_pow2(x):
     return p
 
 
-class SpatialScene(Signal):
+class SpatialScene(Engine):
     """Signal for stereo output from a spatial scene (spatial.rs:159-188).
 
-    ``device`` places the scene's device state (default: the CPU, like
-    torch's own factories); the ring kernels run on CUDA devices and their
-    plain versions on the CPU."""
+    ``device`` places the scene's device state: the CUDA card unless the
+    caller passes another (``device="cpu"`` runs every kernel's plain
+    version); without a card and without ``device`` it raises."""
 
     channels = 2
 
     def __init__(self, initial_capacity=DEFAULT_CAPACITY, device=None):
         super().__init__()
         self.initial_capacity = initial_capacity
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = default_device(device)
         self._rot = np.array([1.0, 0.0, 0.0, 0.0], dtype=np.float32)
         self._rot_pending = None
         self._rot_dev = None  # device copy ("_rot" state leaf)
@@ -1468,9 +2030,6 @@ class SpatialScene(Signal):
         sig = cls(initial_capacity, device)
         return SpatialSceneControl(sig), sig
 
-    def host_batchable(self):
-        return False
-
     # -- control side ---------------------------------------------------------
 
     def _play(self, spec, options):
@@ -1481,20 +2040,18 @@ class SpatialScene(Signal):
                 "play() requires a seekable (deterministic) signal; "
                 "use play_buffered() for arbitrary signals"
             )
-        if not spec.dr_seek_supported():
-            raise NotImplementedError(
-                "this source needs the host seek pool (_SeekPool), which "
-                "is not ported yet (ROADMAP P2.4)"
-            )
-        key = (spec.archetype(), True)
+        dr = spec.dr_seek_supported()
+        key = (spec.archetype(), dr)
         pool = self._seek_pools.get(key)
         if pool is None:
-            pool = _SeekPoolDR(
-                f"s{len(self._seek_pools)}", spec, self.initial_capacity,
-                device=self.device,
-            )
+            cls = _SeekPoolDR if dr else _SeekPool
+            pool = cls(f"s{len(self._seek_pools)}", spec, self.initial_capacity,
+                       device=self.device)
             self._seek_pools[key] = pool
-        i, gen = pool.play(spec, options)
+        if dr:
+            i, gen = pool.play(spec, options)
+        else:
+            i, gen = pool.claim(spec, options)
         return Spatial(pool, i, gen)
 
     def _play_buffered(self, spec, options, max_distance, rate, buffer_duration):
@@ -1506,15 +2063,24 @@ class SpatialScene(Signal):
         )
         cap = int(np.ceil(np.float32(max_delay) * np.float32(rate))) + 1
         bucket = max(2048, _next_pow2(cap))  # pool modulus / storage bucket
-        if not (spec.host_batchable() and spec.dr_supported()):
-            raise NotImplementedError(
-                "this source needs a host buffered pool (_BufferedPool or "
-                "_BufferedPoolSingleton), which is not ported yet (ROADMAP P2.4)"
-            )
-        key = (spec.archetype(), int(rate), bucket, True)
+        if not spec.host_batchable():
+            # a submix (Mixer, or a chain holding an engine): a one-voice
+            # pool, rendered unbatched (spatial.rs:314-340 takes any Signal)
+            spec._set_device(self.device)  # raises for an engine elsewhere
+            name = f"b{len(self._buffered_pools)}"
+            pool = _BufferedPoolSingleton(name, spec, rate, bucket, self.device)
+            self._buffered_pools[("singleton", name)] = pool
+            i, gen = pool.play(spec, options, max_delay)
+            return Spatial(pool, i, gen)
+        # ingest-needing chains (streams) go device-resident when the route
+        # to the stream leaf is clean (dr_ingest_ok); Speed/Fader-wrapped
+        # streams keep the host pool
+        dr = spec.dr_supported() and spec.dr_ingest_ok()
+        key = (spec.archetype(), int(rate), bucket, dr)
         pool = self._buffered_pools.get(key)
         if pool is None:
-            pool = _BufferedPoolDR(
+            cls = _BufferedPoolDR if dr else _BufferedPool
+            pool = cls(
                 f"b{len(self._buffered_pools)}", spec, self.initial_capacity,
                 rate, bucket, device=self.device,
             )
@@ -1547,24 +2113,34 @@ class SpatialScene(Signal):
         pools = tuple(
             (
                 p.name,
-                p.proto.archetype(),
+                (p.proto if p.is_dr else p.sig).archetype(),
                 getattr(p, "ring_len", 0),
                 getattr(p, "_n_inner", 0),
-                p._elapsed,
+                p.is_dr,
+                getattr(p, "_elapsed", 0.0),
                 getattr(p, "_has_play", False),
                 getattr(p, "_has_mot", False),
                 getattr(p, "_w_aligned", 0),
                 getattr(p, "_w_free", False),
+                getattr(p, "_ds_small", True),
+                getattr(p, "_ds_tier", 4),
                 getattr(p, "_read_cfg", None),
                 getattr(p, "_sub_cfg", None),
+                getattr(p, "_use_strips", True),
             )
             for p in self._all_pools()
         )
         return ("SpatialScene", self._has_rot, pools)
 
     def host_structure_event(self):
-        # bulk plays apply eagerly outside the per-block step
-        return any(len(p.pending_plays) > p.k_play for p in self._all_pools())
+        for p in self._all_pools():
+            if p.is_dr:
+                # bulk plays apply eagerly outside the per-block step
+                if len(p.pending_plays) > p.k_play:
+                    return True
+            elif p.sig.host_structure_event():
+                return True
+        return False
 
     def host_prepare(self, interval, n, count=None):
         # listener rotation swap refresh (spatial.rs:382-386): the host keeps
@@ -1584,13 +2160,17 @@ class SpatialScene(Signal):
             or p._ctrl_pending_any()
             or getattr(p, "force_needed", lambda: False)()
             for p in self._all_pools()
+            if p.is_dr
         )
         self._has_rot = force
         out = {}
         if force:
             out["_rot_new"] = rot.copy()
         for p in self._all_pools():
-            out[p.name] = p.host_prepare(prev_rot, rot, f32(interval), n, force)
+            if p.is_dr:
+                out[p.name] = p.host_prepare(prev_rot, rot, f32(interval), n, force)
+            else:
+                out[p.name] = p.host_prepare(prev_rot, rot, f32(interval), n)
         return out
 
     def device_collect(self):
@@ -1598,23 +2178,41 @@ class SpatialScene(Signal):
             self._rot_dev = _upload(self._rot, self.device)
         out = {"_rot": self._rot_dev}
         for p in self._all_pools():
-            out[p.name] = p.dr_state()
+            if p.is_dr:
+                out[p.name] = p.dr_state()
+            else:
+                d = {"inner": p.sig.device_collect()}
+                if isinstance(p, _BufferedPool):
+                    d["ring"] = p.ring_state()
+                out[p.name] = d
         return out
 
     def device_store(self, d):
         self._rot_dev = d["_rot"]
         for p in self._all_pools():
-            p.state = d[p.name]
+            if p.is_dr:
+                p.state = d[p.name]
+            else:
+                p.sig.device_store(d[p.name]["inner"])
+                if isinstance(p, _BufferedPool):
+                    p.ring = d[p.name]["ring"]
 
     def device_data(self):
-        return {p.name: {"inner": p.proto.device_data()} for p in self._all_pools()}
+        return {
+            p.name: {"inner": (p.proto if p.is_dr else p.sig).device_data()}
+            for p in self._all_pools()
+        }
 
     def host_multiblock(self, interval, n):
-        """Fused idle-group width the Renderer may dispatch (0 = off): at
-        least one buffered pool must profit, and each buffered pool must
-        pass its superwindow gate (_BufferedPoolDR.host_multiblock)."""
+        """Fused idle-group width the Renderer may dispatch (0 = off):
+        every pool must be device-resident (host pools ship per-voice
+        params every block), at least one buffered pool must profit, and
+        each buffered pool must pass its superwindow gate
+        (_BufferedPoolDR.host_multiblock)."""
         nb = 0
         for p in self._all_pools():
+            if not p.is_dr:
+                return 0
             m = getattr(p, "host_multiblock", None)
             if m is None:
                 continue
@@ -1648,9 +2246,11 @@ class SpatialScene(Signal):
         out = torch.zeros((2, n), dtype=_F32, device=self.device)
         d2 = {"_rot": rot_cur}
         for p in self._all_pools():
-            pp = dict(params[p.name])
-            pp["rot_prev"] = rot_prev
-            pp["rot"] = rot_cur
+            pp = params[p.name]
+            if p.is_dr:
+                pp = dict(pp)
+                pp["rot_prev"] = rot_prev
+                pp["rot"] = rot_cur
             dsub, block = p.render(dstate[p.name], ddata[p.name], pp, n)
             d2[p.name] = dsub
             out = out + block
@@ -1684,6 +2284,9 @@ class SpatialSceneControl:
         off the tight 512-frame tier."""
         out = {}
         for p in self._scene._buffered_pools.values():
+            if not p.is_dr:
+                out[p.name] = {"kind": "host"}
+                continue
             cfg = p._read_cfg
             pv = (p._b_cache or {}).get("pv") or {}
             frozen = pv.get("frozen")
@@ -1704,7 +2307,7 @@ class SpatialSceneControl:
         listed), ...]}``; ``drain=True`` clears it."""
         out = {}
         for p in self._scene._buffered_pools.values():
-            log = p._tier_log
+            log = getattr(p, "_tier_log", None)
             if log:
                 out[p.name] = list(log)
                 if drain:

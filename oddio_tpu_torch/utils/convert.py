@@ -3,9 +3,14 @@
 ``state_from_numpy`` takes a JAX scene's ``device_collect()`` tree after
 ``jax.device_get`` (plain numpy arrays) and returns the same tree of
 tensors on ``device``, same keys and dtypes; ``state_to_numpy`` goes the
-other way.  ``carry_mixer`` carries a JAX ``Mixer``'s device-resident pools
-into a port ``Mixer`` built by the same control script.  None of them
-imports JAX: JAX arrays convert through ``numpy.asarray``.
+other way.  ``carry_mixer`` carries a JAX ``Mixer``'s pools into a port
+``Mixer`` built by the same control script, and ``carry_scene`` a JAX
+``SpatialScene``'s into a port scene.  None of them imports JAX: JAX
+arrays convert through ``numpy.asarray``.
+
+The host buffered pool's ring is ``(V*L/128, 128)`` in the JAX package
+and ``(V, L)`` here: the same bytes in the same order, carried by a
+reshape.
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["state_from_numpy", "state_to_numpy", "carry_mixer"]
+__all__ = ["state_from_numpy", "state_to_numpy", "carry_mixer", "carry_scene"]
 
 
 def state_from_numpy(tree, device="cpu"):
@@ -37,26 +42,89 @@ def _numpy_tree(tree):
     return np.asarray(tree)
 
 
-def carry_mixer(src, dst):
-    """Carry the device-resident pools of ``src`` (a JAX package ``Mixer``)
-    into ``dst`` (this package's ``Mixer``), which the same control script
-    built: the same plays in the same order, so the pools line up by name.
+def _chain(sig):
+    """Every node of a signal chain, parents first."""
+    out = [sig]
+    for c in sig.children().values():
+        out.extend(_chain(c))
+    return out
 
-    Carried per pool: the device state (mask, stopped, each voice's chain
-    state: stream rings and cursors ``t``/``len``/``start``/``closed``/
-    ``rate``, the Adapt columns and ``avg``, the Sine accumulators), the
-    slot bookkeeping, queued stops and control writes, and, for stream
-    pools, the host mirrors that must agree with the device: the batched
-    proto's cursor mirrors, producer queues and dirty set.  ``src`` must
-    have no plays pending (render it once after its last play); the plays
-    ``dst`` queued while it was built are dropped, since the carried state
-    holds them.  After the carry both mixers render the same blocks."""
+
+def _carry_host_fields(a, b):
+    """Copy the host state of chain ``a`` (JAX) onto chain ``b`` (port):
+    every node's host columns and a stream's producer queues (refilled in
+    place, since its handles alias the lists) and dirty set."""
+    for na, nb in zip(_chain(a), _chain(b)):
+        if type(na).__name__ != type(nb).__name__:
+            raise ValueError(f"chains differ: {type(na).__name__} vs {type(nb).__name__}")
+        for x in (na, nb):
+            flush = getattr(x, "_flush_tick_debt", None)
+            if flush is not None:
+                flush()
+        for f in na._host_fields:
+            setattr(nb, f, np.array(getattr(na, f), copy=True))
+        if hasattr(na, "_pending"):
+            for q_dst, q_src in zip(nb._pending.flat, na._pending.flat):
+                q_dst[:] = [np.array(c, copy=True) for c in q_src]
+            nb._dirty = set(na._dirty)
+
+
+def _carry_batched(a, b):
+    """A host pool's batched template: host columns, queues, device leaves."""
+    _carry_host_fields(a, b)
+    b.device_store(state_from_numpy(_numpy_tree(a.device_collect()), b.device))
+
+
+def _carry_host_pool(a, b, columns):
+    """Carry a JAX host pool ``a`` into the port's ``b`` (the same kind):
+    the slot columns, the chain's host and device state, and a buffered
+    pool's ring."""
+    if type(a).__name__ != type(b).__name__:
+        raise ValueError(f"pool {a.name}: {type(a).__name__} vs {type(b).__name__}")
+    while b.capacity < a.capacity:
+        b.grow()
+    if b.capacity != a.capacity:
+        raise ValueError(f"pool {a.name}: capacity {b.capacity} > {a.capacity}")
+    for c in columns:
+        setattr(b, c, np.array(getattr(a, c), copy=True))
+    b._free = list(a._free)
+    if getattr(a, "is_singleton", False):
+        # the one voice is an engine: carry it whole
+        carry = carry_scene if hasattr(a.sig, "_buffered_pools") else carry_mixer
+        carry(a.sig, b.sig)
+    else:
+        _carry_batched(a.sig, b.sig)
+    if hasattr(a, "ring_state"):
+        ring = np.asarray(a.ring_state()).reshape(a.capacity, a.ring_len)
+        b.ring = torch.from_numpy(ring.copy()).to(b.device)
+        b._n_inner = a._n_inner
+        b._use_strips = a._use_strips
+
+
+def carry_mixer(src, dst):
+    """Carry the pools of ``src`` (a JAX package ``Mixer``) into ``dst``
+    (this package's ``Mixer``), which the same control script built: the
+    same plays in the same order, so the pools line up by name.
+
+    Carried per device-resident pool: the device state (mask, stopped,
+    each voice's chain state: stream rings and cursors ``t``/``len``/
+    ``start``/``closed``/``rate``, the Adapt columns and ``avg``, the Sine
+    accumulators), the slot bookkeeping, queued stops and control writes,
+    and, for stream pools, the host mirrors that must agree with the
+    device: the batched proto's cursor mirrors, producer queues and dirty
+    set.  Per host pool: the slot columns, the batched template's host
+    columns, queues and device leaves (a submix is carried whole).  ``src``
+    must have no plays pending (render it once after its last play); the
+    plays ``dst`` queued while it was built are dropped, since the carried
+    state holds them.  After the carry both mixers render the same
+    blocks."""
     sp, dp = list(src._pools.values()), list(dst._pools.values())
     if [p.name for p in sp] != [p.name for p in dp]:
         raise ValueError("the two mixers hold different pools")
     for a, b in zip(sp, dp):
         if not a.is_dr:
-            raise ValueError(f"pool {a.name} is a host pool, which is not ported")
+            _carry_host_pool(a, b, ("mask", "stop", "slot_gen"))
+            continue
         if a.pending_plays:
             raise ValueError(f"pool {a.name} has plays pending: render it once first")
         while b.capacity < a.capacity:
@@ -82,3 +150,27 @@ def carry_mixer(src, dst):
             for q_dst, q_src in zip(lb._pending, la._pending):
                 q_dst[:] = [np.array(c, copy=True) for c in q_src]
             lb._dirty = set(la._dirty)
+
+
+def carry_scene(src, dst):
+    """Carry the pools of ``src`` (a JAX package ``SpatialScene``) into
+    ``dst`` (this package's), built by the same control script.
+
+    Host pools are carried whole: the ``_VoicePool`` columns (mask, stop
+    and motion state, smoothing clock, lingering), a buffered pool's write
+    cursors, ``max_delay`` and ring, and the batched template's host
+    columns, producer queues and device leaves (a submix is carried
+    whole).  Device-resident pools carry their device state; their host
+    mirrors are the port's own, stepped through the same block
+    preparations (``dst.host_prepare`` once per block ``src`` rendered).
+    The listener rotation's device copy is carried too."""
+    sp, dp = src._all_pools(), dst._all_pools()
+    if [p.name for p in sp] != [p.name for p in dp]:
+        raise ValueError("the two scenes hold different pools")
+    tree = _numpy_tree(src.device_collect())
+    dst._rot_dev = state_from_numpy(tree["_rot"], dst.device)
+    for a, b in zip(sp, dp):
+        if getattr(a, "is_dr", False):
+            b.state = state_from_numpy(tree[a.name], b.device)
+        else:
+            _carry_host_pool(a, b, a._COL_NAMES)

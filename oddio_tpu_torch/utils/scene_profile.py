@@ -1,21 +1,24 @@
 """Where a block's time goes on a CUDA card: the bench scenes at 4096 voices
 through ``Renderer.render_frames_device``, timed and traced.
 
-    python -m oddio_tpu_torch.utils.scene_profile [buffered|seek|mixer ...]
+    python -m oddio_tpu_torch.utils.scene_profile [buffered|seek|mixer|hostpools ...]
 
 For the buffered and the seek scene (``bench.py``'s ``build_spatial``,
-4096 voices) and the AGC mixer scene (``build_mixer_agc``, BASELINE config
-5's scene at 4096 voices) it prints, for each of three timed 188-block
+4096 voices), the AGC mixer scene (``build_mixer_agc``, BASELINE config
+5's scene at 4096 voices) and the host-pool scene (``build_host_pools``:
+4096 Speed(Stream) voices in the host buffered pool, 512 Adapt(Stream) in
+the device-resident one and a 256-voice config-5 submix) it prints, for
+each of three timed 188-block
 runs, the wall time per 512-frame block, the host time per block spent in
 the engine's ``host_prepare`` and the real-time factor (xRT, after
 ``torch.cuda.synchronize()``); then, for one 47-block run under
 ``torch.profiler``, the device kernel time per block, the device's busy
 share of the wall time (kernel time / wall time), the device kernels per
 block, the kernels with the most device time and the host-side torch ops
-with the most self time.  The mixer scene's streams get 1024 new samples
-before each run, so the traced run includes an ingest block.  The card's
-name and power limit head the output.  With no arguments all three scenes
-run.
+with the most self time.  The mixer and host-pool scenes' streams get 1024
+new samples before each run, so the traced run includes an ingest block.
+The card's name and power limit head the output.  With no arguments every
+scene runs.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import torch
 
 import oddio_tpu_torch as pt
 
-__all__ = ["build_spatial", "build_mixer_agc", "feed", "card_line", "main"]
+__all__ = ["build_spatial", "build_mixer_agc", "build_host_pools", "feed", "card_line",
+           "main"]
 
 RATE = 48000
 BLOCK = 512
@@ -92,6 +96,54 @@ def build_mixer_agc(voices, device, seed=0):
     return control, mixer, ctls, rng
 
 
+def build_host_pools(voices, device, seed=0, dr_voices=None, submix_voices=None):
+    """A scene that exercises every buffered pool kind at once, at 48 kHz:
+    ``voices`` ``Speed(Stream)`` voices (speeds uniform in [0.8, 1.25];
+    Speed over a Stream is not device-resident capable, so they take the
+    host buffered pool: K4 ring writes, K5 reads), ``dr_voices`` (default
+    ``voices // 8``) ``Adapt(Stream)`` voices (tau 0.1 s, max_gain 4) in the
+    device-resident buffered pool, and one ``build_mixer_agc`` mixer of
+    ``submix_voices`` voices (default ``max(voices // 16, 64)``) played as a
+    submix (the singleton pool).  Streams are config 5's: ``Stream(8000,
+    FILL + 128, max_write_per_block=FILL)`` prefilled with FILL samples of
+    N(0, 0.1²) PCM.  Voices sit uniformly in [-15, 15]³ m moving at up to
+    0.2 m/s per axis, ``max_distance`` 50 m, ``buffer_duration`` 0.1 s.
+    All drawn from ``seed``.  Returns ``(control, scene, stream_controls,
+    speed_controls, rng)``; ``stream_controls`` covers every stream,
+    the submix's included, and ``rng`` continues the draws (for
+    ``feed``)."""
+    rng = np.random.default_rng(seed)
+    nd = voices // 8 if dr_voices is None else dr_voices
+    ns = max(voices // 16, 64) if submix_voices is None else submix_voices
+    # the device-resident pool holds exactly its voices; the host pool
+    # doubles up to its own
+    control, scene = pt.SpatialScene.new(initial_capacity=max(nd, 1), device=device)
+    ctls, speeds = [], []
+
+    def opts():
+        return pt.SpatialOptions(position=rng.uniform(-15, 15, 3),
+                                 velocity=rng.uniform(-0.2, 0.2, 3))
+
+    kw = dict(max_distance=50.0, rate=RATE, buffer_duration=0.1)
+    for _ in range(voices):
+        stream = pt.Stream(8000, FILL + 128, max_write_per_block=FILL)
+        sc, sp = pt.Speed.new(stream)
+        sc.set_speed(rng.uniform(0.8, 1.25))
+        control.play_buffered(sp, opts(), **kw)
+        ctls.append(stream.control)
+        speeds.append(sc)
+    for _ in range(nd):
+        stream = pt.Stream(8000, FILL + 128, max_write_per_block=FILL)
+        control.play_buffered(
+            pt.Adapt(stream, 0.1, pt.AdaptOptions(tau=0.1, max_gain=4.0)), opts(), **kw
+        )
+        ctls.append(stream.control)
+    feed(ctls, rng, FILL)
+    _, mixer, mctls, _ = build_mixer_agc(ns, device, seed + 1)  # prefilled
+    control.play_buffered(mixer, opts(), **kw)
+    return control, scene, ctls + mctls, speeds, rng
+
+
 def feed(ctls, rng, k):
     """Write ``k`` more N(0, 0.1²) samples to every stream (as many as each
     has room for); returns the samples each took."""
@@ -140,6 +192,11 @@ def profile_scene(label):
 
         def before():
             feed(ctls, rng, 1024)
+    elif label == "hostpools":
+        _, scene, ctls, _, rng = build_host_pools(VOICES, "cuda")
+
+        def before():
+            feed(ctls, rng, 1024)
     else:
         _, scene = build_spatial(label == "buffered", VOICES, "cuda")
     spent = _timed_prepare(scene)
@@ -181,7 +238,7 @@ def profile_scene(label):
               f"x{e.count / ntr:5.1f}  {e.key}")
 
 
-SCENES = ("buffered", "seek", "mixer")
+SCENES = ("buffered", "seek", "mixer", "hostpools")
 
 
 def main(argv=None):

@@ -110,3 +110,78 @@ def test_port_mixer_continues_from_jax_mixer():
     assert np.abs(a - b).max() <= TOL, np.abs(a - b).max()
     for cj_, cp_ in zip(kj, kp):
         assert cj_.free() == cp_.free()
+
+
+def _host_pool_scene(m):
+    """Every host pool kind beside a device-resident stream pool: Speed
+    (Stream) voices (host buffered pool), Sines with their own finish rule
+    (host seek pool), a Mixer submix (singleton) and Adapt(Stream) voices
+    (device-resident buffered pool), on seeded draws."""
+    kw = {"device": "cpu"} if m is pt else {}
+
+    class Finite(m.Sine):
+        def host_is_finished(self):
+            return np.asarray(self.phase) > 2.5
+
+    rng = np.random.default_rng(12)
+    control, scene = m.SpatialScene.new(**kw)
+    ctls, speeds = [], []
+    for _ in range(4):
+        st = m.Stream(8000, 2528, max_write_per_block=2400)
+        sc, sp = m.Speed.new(st)
+        sc.set_speed(rng.uniform(0.8, 1.25))
+        control.play_buffered(sp, m.SpatialOptions(position=rng.uniform(-8, 8, 3)),
+                              max_distance=50.0, rate=RATE, buffer_duration=0.1)
+        ctls.append(st.control)
+        speeds.append(sc)
+    for _ in range(2):
+        st = m.Stream(8000, 2528, max_write_per_block=2400)
+        control.play_buffered(m.Adapt(st, 0.1, m.AdaptOptions(tau=0.1, max_gain=4.0)),
+                              m.SpatialOptions(position=rng.uniform(-8, 8, 3)),
+                              max_distance=50.0, rate=RATE, buffer_duration=0.1)
+        ctls.append(st.control)
+    for _ in range(2):
+        control.play(Finite(rng.uniform(0, 1), rng.uniform(100, 900)),
+                     m.SpatialOptions(position=rng.uniform(-8, 8, 3)))
+    mc, mixer = m.Mixer.new(channels=1, **kw)
+    mc.play(m.Sine(0.0, 330.0))
+    control.play_buffered(mixer, m.SpatialOptions(position=[2.0, 0.0, -1.0]),
+                          max_distance=20.0, rate=RATE)
+    for c in ctls:
+        c.write((rng.standard_normal(2400) * 0.2).astype(np.float32))
+    return scene, ctls, speeds
+
+
+def test_port_continues_a_jax_host_pool_scene():
+    """``carry_scene`` hands a JAX scene with host pools to the port after
+    k blocks (the port's host side steps through the same preparations
+    for its device-resident pool); both render the next blocks, with a
+    write and a set_speed between them."""
+    from oddio_tpu_torch.utils.convert import carry_scene
+
+    k, more = 3, 5
+    sj, cj, vj = _host_pool_scene(ot)
+    sp, cp, vp = _host_pool_scene(pt)
+    rj, rp = ot.Renderer(sj, RATE), pt.Renderer(sp, RATE)
+    for _ in range(k):
+        rj.render_block(BLOCK)
+        sp.host_prepare(rp.interval, BLOCK)
+    carry_scene(sj, sp)
+    np.testing.assert_array_equal(
+        sp._buffered_pools[next(iter(sp._buffered_pools))].ring.numpy().reshape(-1),
+        np.asarray(sj.device_collect()["b0"]["ring"]).reshape(-1),
+    )
+    a, b = [], []
+    for i in range(more):
+        if i == 2:
+            pcm = (np.random.default_rng(3).standard_normal(500) * 0.2).astype(np.float32)
+            for c in (cj[0], cp[0], cj[4], cp[4]):
+                c.write(pcm)
+            vj[1].set_speed(1.1)
+            vp[1].set_speed(1.1)
+        a.append(rj.render_block(BLOCK))
+        b.append(rp.render_block(BLOCK))
+    a, b = np.concatenate(a), np.concatenate(b)
+    assert np.abs(a).max() > 1e-3
+    assert np.abs(a - b).max() <= TOL, np.abs(a - b).max()
+    assert [c.free() for c in cj] == [c.free() for c in cp]

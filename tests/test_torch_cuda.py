@@ -10,7 +10,9 @@ products in another, fixed order; the tolerance follows how float32
 rounding errors of such a sum grow, and fails a dropped voice or bf16
 partial sums); K4 exact (a copy); K6 exact (the same f32 operations, each
 rounded once); K7 within ``agc.agc_tolerance`` elementwise (another order
-of the prefix sum); the scenes within the PARITY.md 1e-5.
+of the prefix sum); K5 within ``ring_kernels.strip_tolerance``
+elementwise (its voice sum in another, fixed order); the scenes within the
+PARITY.md 1e-5.
 """
 
 import numpy as np
@@ -22,7 +24,7 @@ from oddio_tpu_torch.ops import agc as A
 from oddio_tpu_torch.ops import ring_kernels as RK
 from oddio_tpu_torch.ops import stream_kernels as SK
 from oddio_tpu_torch.ops._dev import device_split_ds
-from oddio_tpu_torch.utils.scene_profile import build_mixer_agc, feed
+from oddio_tpu_torch.utils.scene_profile import build_host_pools, build_mixer_agc, feed
 
 torch.set_num_threads(1)
 
@@ -154,7 +156,7 @@ def test_entry_scene_on_card_matches_cpu(cuda):
     a = pt.Renderer(_entry_scene("cpu"), 48000).render_frames(512 * 20)
     RK.reset_launches()
     b = pt.Renderer(_entry_scene(cuda), 48000).render_frames(512 * 20)
-    assert all(RK.LAUNCHES[k] > 0 for k in RK.LAUNCHES), RK.LAUNCHES
+    assert all(RK.LAUNCHES[k] > 0 for k in ("append", "select_ears", "select_multi")), RK.LAUNCHES
     assert np.abs(a - b).max() <= 1e-5
 
 
@@ -283,4 +285,59 @@ def test_mixer_agc_scene_on_card_matches_cpu(cuda):
         outs.append(np.concatenate([a, r.render_frames(512 * 24)]))
     assert min(SK.LAUNCHES.values()) > 0 and A.LAUNCHES["agc_gains"] > 0
     assert np.abs(outs[0]).max() > 0.1
+    assert np.abs(outs[0] - outs[1]).max() <= 1e-5
+
+
+# --- K5 and the host pools ------------------------------------------------------
+
+
+def _strip_operands(rng, dev, V, n, L, lo, hi):
+    def t(x, dtype=np.float32):
+        return torch.tensor(np.asarray(x, dtype), device=dev)
+
+    mag = rng.uniform(lo, hi, (V, 2)) * rng.choice([-1.0, 1.0], (V, 2))
+    di, fh, fl = device_split_ds(t(1.0 + mag))
+    scal = torch.stack([t(rng.uniform(0, 1, (V, 2))), fh, fl, di.float()], -1).contiguous()
+    return (t(rng.standard_normal((V, L))), t(rng.integers(0, L // 128, V), np.int32),
+            t(rng.integers(0, 161, (V, 2)), np.int32), scal,
+            t(rng.uniform(0, 0.1, (V, 2))), t(rng.uniform(-1e-4, 1e-4, (V, 2))),
+            t(rng.uniform(0, 1, V) > 0.2))
+
+
+@pytest.mark.parametrize("V,n,L,lo,hi", [
+    (4096, 512, 16384, 0.0, 0.09),    # the host pool's main path
+    (1, 512, 2048, 0.0, 0.09),        # the singleton (a submix)
+    (1024, 512, 16384, 0.119, 0.125),  # near the gate: the SELECT_R clamp binds
+])
+def test_strip_select_within_tolerance(cuda, V, n, L, lo, hi):
+    ops = _strip_operands(np.random.default_rng(70 + V), cuda, V, n, L, lo, hi)
+    plain = RK.strip_select_plain(*ops, n=n, K=64)
+    before = RK.LAUNCHES["strip_select"]
+    got = RK.strip_select(*ops, n=n, K=64)
+    torch.cuda.synchronize()
+    assert RK.LAUNCHES["strip_select"] == before + 1
+    tol = RK.strip_tolerance(*ops, n=n, K=64)
+    assert bool(((got - plain).abs().double() <= tol).all())
+
+
+def test_host_pool_scene_on_card_matches_cpu(cuda):
+    """The host-pool scene at 256 Speed(Stream) voices, 32 Adapt(Stream)
+    and a 64-voice submix on the card (K1, K2, K4, K5, K6) against the
+    same scene on the CPU (plain versions), over 48 blocks with a feed and
+    a set_speed between."""
+    outs = []
+    for device in ("cpu", cuda):
+        RK.reset_launches()
+        SK.reset_launches()
+        _, scene, ctls, speeds, rng = build_host_pools(256, device, dr_voices=32,
+                                                       submix_voices=64)
+        r = pt.Renderer(scene, 48000)
+        a = r.render_frames(512 * 24)
+        feed(ctls, rng, 1024)
+        for sc in speeds[:16]:
+            sc.set_speed(1.1)
+        outs.append(np.concatenate([a, r.render_frames(512 * 24)]))
+    assert RK.LAUNCHES["strip_select"] > 0 and RK.LAUNCHES["append"] > 0
+    assert min(SK.LAUNCHES.values()) > 0
+    assert np.abs(outs[0]).max() > 1e-2
     assert np.abs(outs[0] - outs[1]).max() <= 1e-5

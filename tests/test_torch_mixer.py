@@ -34,11 +34,16 @@ TOL = 1e-5
 RATE = 48000
 
 
+def kw(m):
+    """The port renders on the CPU only when asked to."""
+    return {"device": "cpu"} if m is pt else {}
+
+
 def sample(sig, interval, n):
     """Drive a signal like oddio's tests drive ``Signal::sample``."""
     r = getattr(sig, "_test_renderer", None)
     if r is None:
-        r = pt.Renderer(sig, 1)
+        r = pt.Renderer(sig, 1, device="cpu")
         sig._test_renderer = r
     return r.render_block(n, interval=np.float32(interval))
 
@@ -64,7 +69,7 @@ def test_port_mixer_is_stopped_one_scan_late():
     port's handle sequence equals the JAX package's on the same script."""
     seqs = []
     for m in (ot, pt):
-        control, mixer = m.Mixer.new(channels=1)
+        control, mixer = m.Mixer.new(channels=1, **kw(m))
         ctl, s = m.Stream.new(1, 8)
         ctl.write([0.0, 0.0])
         ctl.close()
@@ -81,7 +86,7 @@ def test_port_mixer_is_stopped_one_scan_late():
 
 
 def test_port_mixer_sums_voices():
-    control, mixer = pt.Mixer.new(channels=1)
+    control, mixer = pt.Mixer.new(channels=1, device="cpu")
     control.play(held(1.0, 8)[1])
     control.play(held(2.0, 8)[1])
     np.testing.assert_array_equal(mono(sample(mixer, 1.0, 4)), [3.0] * 4)
@@ -92,7 +97,7 @@ def test_port_mixer_sums_voices():
 
 
 def test_port_mixer_stop_and_reuse():
-    control, mixer = pt.Mixer.new(channels=1)
+    control, mixer = pt.Mixer.new(channels=1, device="cpu")
     h1 = control.play(held(1.0, 16)[1])
     sample(mixer, 1.0, 2)
     h1.stop()
@@ -105,7 +110,7 @@ def test_port_mixer_stop_and_reuse():
 
 
 def test_port_mixer_growth():
-    control, mixer = pt.Mixer.new(channels=1)
+    control, mixer = pt.Mixer.new(channels=1, device="cpu")
     handles = [control.play(held(1.0, 4)[1]) for _ in range(40)]
     pool = next(iter(mixer._pools.values()))
     assert pool.capacity == 64
@@ -118,7 +123,7 @@ def test_port_mixer_growth():
 def test_port_mixer_masked_equals_naive():
     """The masked dense mixer equals a naive per-voice loop."""
     rng = np.random.default_rng(0)
-    control, mixer = pt.Mixer.new(channels=1)
+    control, mixer = pt.Mixer.new(channels=1, device="cpu")
     freqs = rng.uniform(50, 1000, size=8)
     for f in freqs:
         control.play(pt.Sine(0.0, f))
@@ -140,7 +145,7 @@ def test_port_dr_pool_matches_jax_host_pool():
     freqs = rng.uniform(50, 800, 6)
 
     def build(m, dr):
-        control, mixer = m.Mixer.new(channels=1)
+        control, mixer = m.Mixer.new(channels=1, **kw(m))
         hs = []
         for f in freqs:
             sig = m.Sine(0.1, f)
@@ -166,7 +171,7 @@ def test_port_mixer_dr_growth_and_finish():
     """Pool growth (plays beyond capacity) and natural-finish reclamation
     through a render_block-only loop (FramesSignal of 400 ones in the JAX
     test; here a closed stream of 400 ones)."""
-    control, mixer = pt.Mixer.new(channels=1)
+    control, mixer = pt.Mixer.new(channels=1, device="cpu")
     handles = []
     for _ in range(40):
         ctl, s = held(1.0, 400, rate=8000)
@@ -186,13 +191,22 @@ def test_port_mixer_dr_growth_and_finish():
 
 
 def test_port_mixer_rejects_host_pool_chains():
-    control, mixer = pt.Mixer.new(channels=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        control.play(pt.Mixer(1))  # a submix
-    sine = pt.Sine(0.0, 100.0)
-    sine.dr_supported = lambda: False
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Chains that are not device-resident capable once raised here; now
+    they take the same pools as in the JAX package: a submix the
+    singleton, a forced-host Sine and a Speed(Stream) the host pool, a
+    Speed(Sine) and an Adapt(Stream) device-resident pools."""
+    kinds = []
+    for m in (ot, pt):
+        control, mixer = m.Mixer.new(channels=1, **kw(m))
+        control.play(m.Mixer(1, **kw(m)))  # a submix
+        sine = m.Sine(0.0, 100.0)
+        sine.dr_supported = lambda: False
         control.play(sine)
+        control.play(m.Speed(m.Stream(8000, 256)))
+        control.play(m.Speed(m.Sine(0.0, 100.0)))
+        control.play(m.Adapt(m.Stream(8000, 256), 0.1))
+        kinds.append([type(p).__name__ for p in mixer._pools.values()])
+    assert kinds[0] == kinds[1] == ["PoolSingleton", "Pool", "Pool", "PoolDR", "PoolDR"]
 
 
 # --- Stream (test_stream_adapt_fader.py, stream.rs:115-149) ----------------------
@@ -232,7 +246,7 @@ def test_port_stream_resampling_lerp():
 
 
 def test_port_stream_in_mixer_pool():
-    control, mixer = pt.Mixer.new(channels=1)
+    control, mixer = pt.Mixer.new(channels=1, device="cpu")
     sc1, s1 = pt.Stream.new(1, 8)
     sc2, s2 = pt.Stream.new(1, 8)
     control.play(s1)
@@ -245,7 +259,7 @@ def test_port_stream_in_mixer_pool():
 def test_port_stream_many_voices_ingest():
     """512 streams in one mixer: ingest is O(active writers); sustained
     block-by-block writes keep every written stream fed."""
-    control, mixer = pt.Mixer.new(channels=1)
+    control, mixer = pt.Mixer.new(channels=1, device="cpu")
     controls = []
     for _ in range(512):
         sc, s = pt.Stream.new(1, 64)
@@ -265,7 +279,7 @@ def test_port_stream_dr_close_reclaims_and_slot_reuse():
     """stream.rs:88-91 in a DR pool: close() + drain finishes the voice
     (observed one sync late), the slot is reclaimed, and a new stream in
     the slot never hears the previous tenant's ring."""
-    control, mixer = pt.Mixer.new(channels=1)
+    control, mixer = pt.Mixer.new(channels=1, device="cpu")
     ctl, s = pt.Stream.new(1, 64)
     h = control.play(s)
     r = pt.Renderer(mixer, 1)
@@ -347,7 +361,7 @@ def test_port_adapt_matches_scalar_reference():
 
 
 def _adapt_scene(taus, freqs):
-    control, mixer = pt.Mixer.new(channels=1)
+    control, mixer = pt.Mixer.new(channels=1, device="cpu")
     for tau, f in zip(taus, freqs):
         control.play(pt.Adapt(
             pt.Sine(0.3, f), 0.1,
@@ -451,7 +465,7 @@ def test_adapt_sine_mixer_matches_oracle():
     oracle's alpha = 1 - exp(...) is off by ~1e-4 relative)."""
     specs = [(0.1, 220.0, 0.1), (1.3, 440.0, 0.2), (2.2, 97.0, 0.4), (4.0, 1500.0, 0.5)]
     low, high = np.float32(0.1 / np.sqrt(2.0)), np.float32(0.5 / np.sqrt(2.0))
-    control, mixer = pt.Mixer.new(channels=1)
+    control, mixer = pt.Mixer.new(channels=1, device="cpu")
     omix = ref.OMixer()
     for ph, f, tau in specs:
         control.play(pt.Adapt(pt.Sine(ph, f), 0.3, pt.AdaptOptions(tau=tau, max_gain=4.0)))

@@ -10,6 +10,11 @@ them.
   the interpreted position math.
 * K3 ``window_select_multi``: equal to four K2 calls on the same blocks
   (bit for bit, same arithmetic), and <= 1e-6 abs of the Pallas kernel.
+* K5 ``strip_select`` (reading the ring directly) vs ``strip_select`` on
+  the row strips gathered from the same ring at the same ``rrow``: <= 1e-6
+  abs (the voice-sum order and XLA's fused multiply-adds), including
+  near the strip gate, where the TPU kernel's ``SELECT_R - 1`` walk clamp
+  binds and both depart from the unclamped read alike (ROADMAP R10).
 
 The CUDA kernels are held to these plain versions in test_torch_cuda.py.
 """
@@ -203,3 +208,155 @@ def test_wrappers_reject_bad_operands():
             [torch.zeros((2, 1), dtype=torch.int32)] * 2, n=128, K=32,
             emax2=EMAX2,
         )  # span narrower than the select window
+
+
+# --- K5: strip select ---------------------------------------------------------------
+
+EMAX = 128 + 33  # spatial._emax(48000)
+
+
+def _strip_inputs(rng, V, n, L, dsm1_lo, dsm1_hi):
+    """Seeded K5 operands in the host buffered pool's layout: per-ear
+    steps with |ds - 1| in [dsm1_lo, dsm1_hi] (either sign), read windows
+    anywhere in the ring (wrapping), gains of spatial size."""
+    mag = rng.uniform(dsm1_lo, dsm1_hi, (V, 2))
+    ds = (1.0 + mag * rng.choice([-1.0, 1.0], (V, 2))).astype(np.float32)
+    di, fh, fl = (np.asarray(x) for x in device_split_ds(jnp.asarray(ds)))
+    ofrac = rng.uniform(0, 1, (V, 2)).astype(np.float32)
+    scal = np.stack([ofrac, fh, fl, di.astype(np.float32)], -1)  # (V, 2, 4)
+    gain0 = rng.uniform(0, 0.1, (V, 2)).astype(np.float32)
+    d_gain = rng.uniform(-1e-4, 1e-4, (V, 2)).astype(np.float32)
+    maskf = (rng.uniform(0, 1, V) > 0.2).astype(np.float32)
+    rrow = rng.integers(0, L // 128, V).astype(np.int32)
+    extra = rng.integers(0, EMAX, (V, 2)).astype(np.int32)
+    ring = rng.standard_normal((V, L)).astype(np.float32)
+    return ring, rrow, extra, scal, gain0, d_gain, maskf
+
+
+def _pallas_strip_select(ring, rrow, extra, scal, gain0, d_gain, maskf, n, K):
+    """The JAX package's K5 as ``_BufferedPool.render`` calls it: row strips
+    gathered from the ring at ``rrow`` (spatial.py:532-546), interpreted."""
+    V, L = ring.shape
+    rpv = L // 128
+    H7 = (EMAX - 1 + 2 * K) // 128 + 1
+    need = (-(-n // 128) - 1) * 128 + 128 * (H7 - 1) + 384
+    rows = (rrow[:, None] + np.arange(-(-need // 128))) % rpv
+    strips = np.stack([ring[v].reshape(rpv, 128)[rows[v]].reshape(-1) for v in range(V)])
+    return np.asarray(PR.strip_select(
+        jnp.asarray(strips), jnp.asarray(scal), jnp.asarray(gain0),
+        jnp.asarray(d_gain), jnp.asarray(maskf), jnp.asarray(extra),
+        n=n, K=K, emax=EMAX, interpret=True,
+    ))
+
+
+def _clamp_binds(scal, n, K):
+    """Frames whose walk within their sub-block passes SELECT_R - 1."""
+    V = scal.shape[0]
+    nsb = -(-n // 128)
+    hits = 0
+    for e in range(2):
+        kk, _ = RK._positions(_t(scal[:, e]), nsb * 128, K)
+        kk = kk.view(V, nsb, 128)
+        r = kk - kk.min(dim=2, keepdim=True).values
+        hits += int((r.reshape(V, -1)[:, :n] > RK.SELECT_R - 1).sum())
+    return hits
+
+
+STRIP_CASES = {
+    "main": (16, 512, 16384, 0.0, 0.09),
+    "singleton": (1, 512, 2048, 0.0, 0.09),
+    "partial_subblock": (24, 200, 4096, 0.0, 0.09),
+    "near_gate": (32, 512, 16384, 0.119, 0.125),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STRIP_CASES))
+def test_strip_select_matches_pallas(case):
+    V, n, L, lo, hi = STRIP_CASES[case]
+    K = 64
+    rng = np.random.default_rng(V + n)
+    ops = _strip_inputs(rng, V, n, L, lo, hi)
+    ref = _pallas_strip_select(*ops, n, K)
+    before = RK.LAUNCHES["strip_select"]
+    got = RK.strip_select(*_t(list(ops)), n=n, K=K).numpy()
+    assert RK.LAUNCHES["strip_select"] == before  # the plain version launches nothing
+    assert got.shape == (2, n) and np.abs(ref).max() > 0.1
+    assert (_clamp_binds(ops[3], n, K) > 0) == (case == "near_gate")
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+
+
+def test_strip_select_clamp_departs_from_the_exact_read_like_pallas():
+    """Near the gate (|ds - 1| up to 0.125, about 43 m/s radially at equal
+    rates) the TPU kernel reads at most SELECT_R - 1 past the sub-block's
+    smallest walk offset, so frames whose walk reaches 16 read one sample
+    early.  Against the exact read (the oracle: whole positions in
+    float64, no clamp) the port's plain version departs exactly where and
+    as much as the JAX kernel does: a reference-side effect (ROADMAP R10)."""
+    V, n, L, lo, hi = STRIP_CASES["near_gate"]
+    K = 64
+    ring, rrow, extra, scal, gain0, d_gain, maskf = _strip_inputs(
+        np.random.default_rng(V + n), V, n, L, lo, hi
+    )
+    ref = _pallas_strip_select(ring, rrow, extra, scal, gain0, d_gain, maskf, n, K)
+    got = RK.strip_select(*_t([ring, rrow, extra, scal, gain0, d_gain, maskf]),
+                          n=n, K=K).numpy()
+    # the exact read: position o0 + j*ds in float64, lerp, ramp, mask, sum
+    j = np.arange(n)
+    exact = np.zeros((2, n))
+    for e in range(2):
+        ds = scal[:, e, 3].astype(np.float64) + scal[:, e, 1] + scal[:, e, 2]
+        pos = scal[:, e, 0][:, None].astype(np.float64) + j * ds[:, None]
+        whole = np.floor(pos).astype(np.int64)
+        fr = pos - whole
+        idx = (128 * rrow[:, None].astype(np.int64) + extra[:, e:e + 1]
+               + whole - j + K + j) % L
+        a = np.take_along_axis(ring, idx, 1).astype(np.float64)
+        b = np.take_along_axis(ring, (idx + 1) % L, 1).astype(np.float64)
+        g = gain0[:, e:e + 1] + j * d_gain[:, e:e + 1].astype(np.float64)
+        exact[e] = ((a + fr * (b - a)) * g * maskf[:, None]).sum(0)
+    dev_port, dev_jax = np.abs(got - exact), np.abs(ref - exact)
+    assert dev_port.max() > 1e-3  # the clamp binds, by whole samples
+    np.testing.assert_allclose(dev_port, dev_jax, rtol=0, atol=2e-6)
+
+
+def _chunk_order_sum(x, drop=None):
+    """The CUDA K5's voice sum in torch: float32 summands added voice by
+    voice within 16-voice chunks, then the chunks in order; ``drop``
+    zeroes one voice, as a kernel that skips it would."""
+    x = x.clone()
+    if drop is not None:
+        x[drop] = 0.0
+    V = x.shape[0]
+    pad = (-V) % RK.VOICE_CHUNK
+    xc = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])]).reshape(
+        -1, RK.VOICE_CHUNK, *x.shape[1:])
+    part = torch.zeros_like(xc[:, 0])
+    for i in range(RK.VOICE_CHUNK):
+        part = part + xc[:, i]
+    acc = torch.zeros_like(part[0])
+    for c in range(part.shape[0]):
+        acc = acc + part[c]
+    return acc
+
+
+@pytest.mark.parametrize("fault", [None, "drop_voice", "no_clamp"])
+def test_strip_tolerance_fails_planted_faults(fault):
+    """At the main path's width (4096 voices, spatial gains) and near the
+    gate, the kernel's voice-sum order stays within ``strip_tolerance`` of
+    the plain version, while a kernel that drops a voice or reads without
+    the SELECT_R clamp does not."""
+    V, n, L, K = 4096, 512, 2048, 64
+    ops = _t(list(_strip_inputs(np.random.default_rng(41), V, n, L, 0.1, 0.125)))
+    plain = RK.strip_select_plain(*ops, n=n, K=K)
+    tol = RK.strip_tolerance(*ops, n=n, K=K)
+    R = RK.SELECT_R
+    if fault == "no_clamp":
+        RK.SELECT_R = 10**6
+    try:
+        x = RK._strip_products(*ops, n, K)
+    finally:
+        RK.SELECT_R = R
+    loudest = int(torch.argmax(ops[4][:, 0] * ops[6]))
+    got = _chunk_order_sum(x, drop=loudest if fault == "drop_voice" else None)
+    within = bool(((got - plain).abs().double() <= tol).all())
+    assert within == (fault is None)

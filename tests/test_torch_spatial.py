@@ -24,8 +24,11 @@ TOL = 1e-5
 
 
 def build_entry(m, n_buffered=64, n_seek=32, **scene_kw):
-    """The entry() scene (``__graft_entry__._build_scene``) in package ``m``."""
+    """The entry() scene (``__graft_entry__._build_scene``) in package ``m``
+    (the port's on the CPU)."""
     rng = np.random.default_rng(0)
+    if m is pt:
+        scene_kw.setdefault("device", "cpu")
     control, scene = m.SpatialScene.new(**scene_kw)
     handles = []
     for _ in range(n_buffered):
@@ -105,7 +108,7 @@ def test_grouped_path_matches_per_block_path():
 def test_multiblock_gate_rejects_tight_rings():
     """host_multiblock refuses when the ring lacks slack for a group's
     batched appends (test_run_modes.py:185 in the JAX package)."""
-    control, scene = pt.SpatialScene.new()
+    control, scene = pt.SpatialScene.new(device="cpu")
     control.play_buffered(
         pt.Sine(0.0, 440.0), pt.SpatialOptions(position=[2.0, 1.0, -3.0]),
         max_distance=10.0, rate=8000, buffer_duration=0.1,  # cap 2048
@@ -130,15 +133,32 @@ def test_render_frames_device_matches_render_frames():
 
 
 def test_specs_needing_host_pools_raise():
-    class Finite(pt.Sine):
-        def host_is_finished(self):
-            return np.ones(self.batch, bool)
+    """Specs that are not device-resident capable once raised here; now
+    they take the same host pools as in the JAX package: a Sine with its
+    own finish rule the host seek and buffered pools, a Speed(Stream) the
+    host buffered pool, a Mixer the singleton, an Adapt(Stream) the
+    device-resident pool."""
+    kinds = []
+    for m in (ot, pt):
+        class Finite(m.Sine):
+            def host_is_finished(self):
+                return np.ones(self.batch, bool)
 
-    control, _ = pt.SpatialScene.new()
-    with pytest.raises(NotImplementedError, match="P2.4"):
+        control, scene = m.SpatialScene.new(**({"device": "cpu"} if m is pt else {}))
         control.play(Finite(0.0, 440.0))
-    with pytest.raises(NotImplementedError, match="P2.4"):
+        control.play(m.Sine(0.0, 440.0))
         control.play_buffered(Finite(0.0, 440.0))
+        control.play_buffered(m.Speed(m.Stream(8000, 256)))
+        control.play_buffered(m.Adapt(m.Stream(8000, 256), 0.1))
+        control.play_buffered(m.Mixer(1, **({"device": "cpu"} if m is pt else {})))
+        kinds.append(
+            [type(p).__name__ for p in scene._seek_pools.values()]
+            + [type(p).__name__ for p in scene._buffered_pools.values()]
+        )
+    assert kinds[0] == kinds[1] == [
+        "_SeekPool", "_SeekPoolDR", "_BufferedPool", "_BufferedPool",
+        "_BufferedPoolDR", "_BufferedPoolSingleton",
+    ]
 
 
 
@@ -146,6 +166,6 @@ def test_run_renders_a_bare_sine():
     """``run`` drives a standalone signal through the host protocol."""
     sj, sp = ot.Sine(0.4, 440.0), pt.Sine(0.4, 440.0)
     a = np.concatenate([ot.run(sj, 8000, 256) for _ in range(3)])
-    b = np.concatenate([pt.run(sp, 8000, 256) for _ in range(3)])
+    b = np.concatenate([pt.run(sp, 8000, 256, device="cpu") for _ in range(3)])
     assert b.shape == (768, 1)
     assert np.abs(a - b).max() <= 1e-6  # XLA's fused multiply-adds (R7)

@@ -30,7 +30,7 @@ def test_control_deltas_match_jax():
                 super().__init__(phase, hz)
                 self._cb = m.ControlBlock(self)
 
-        control, scene = m.SpatialScene.new()
+        control, scene = m.SpatialScene.new(**({"device": "cpu"} if m is pt else {}))
         sigs = [Tunable(0.1 * k, 200.0 + 50.0 * k) for k in range(3)]
         for k, s in enumerate(sigs):
             control.play(s, m.SpatialOptions(position=[k + 1.0, 0.0, -2.0]))
@@ -55,7 +55,7 @@ def test_rate_mismatch_paths_match_jax(scene_rate, ring_rate):
     outs = []
     for m in (ot, pt):
         rng = np.random.default_rng(5)
-        control, scene = m.SpatialScene.new()
+        control, scene = m.SpatialScene.new(**({"device": "cpu"} if m is pt else {}))
         for _ in range(3):
             control.play_buffered(
                 m.Sine(rng.uniform(0, 6), rng.uniform(100, 1500)),

@@ -31,7 +31,7 @@ def test_golden_spatial_flyby_sine(buffered):
     pos, vel = [-20.0, 5.0, 0.0], [30.0, 0.0, 0.0]
     rot = [np.cos(0.15), 0.0, np.sin(0.15), 0.0]
 
-    control, scene = pt.SpatialScene.new()
+    control, scene = pt.SpatialScene.new(device="cpu")
     sig = pt.Sine(0.3, 500.0)
     opts = pt.SpatialOptions(position=pos, velocity=vel)
     if buffered:
@@ -110,7 +110,7 @@ def _subpass_scene(m):
         ([4.0, 0.0, 0.0], [100.0, 0.0, 0.0]),
         ([43.8, 0.0, 0.0], [2.0, 0.0, 0.0]),
     ]
-    control, scene = m.SpatialScene.new()
+    control, scene = m.SpatialScene.new(**({"device": "cpu"} if m is pt else {}))
     hs = [
         control.play_buffered(
             m.Sine(0.1 * k, 300.0 + 70.0 * k),
