@@ -27,7 +27,19 @@ Phases (each prints one or more lines; any failure exits non-zero):
     render_frames_device with new stream PCM and set_speed changes
     between them, counting kernel launches on that run;
 13. the same scene at 256 / 32 / 64 voices on the card against the CPU;
-14. the real-time factor of the 4096-voice host-pool scene.
+14. the real-time factor of the 4096-voice host-pool scene;
+15. K8, K9 and K10 against their plain versions at V = 4096, n = 512 (no
+    path calls them: their launches, counted on every path run of phases
+    4, 8, 12 and 17, must be 0);
+16. K1 and K2 with a ScenePack's scene axis (16 scenes of 256 voices);
+17. the config-5 ScenePack at 16 and 64 scenes of 256 voices through
+    render_block and render_frames_device with new stream PCM between,
+    counting K4/K6/K7 launches per block (equal at both sizes), and the
+    16-scene spatial pack counting K1/K2;
+18. a 4 x 64-voice config-5 pack and a 4-scene spatial pack on the card
+    against the same packs on the CPU and per-scene Renderers on the card;
+19. real-time factors per scene of the config-5 pack at 16, 64 and 256
+    scenes and of the 16-scene spatial pack.
 Each kernel's bound is the larger of the bytes it must move over the
 card's 3.35 TB/s and its float32 operations over 67 TFLOP/s (the
 published H100 SXM peaks), from the timed case's own inputs.  The line
@@ -62,6 +74,33 @@ def span_bytes(idx):
     sample."""
     flat = idx.reshape(idx.shape[0], -1)
     return 4 * int((flat.max(dim=1).values - flat.min(dim=1).values + 2).sum())
+
+
+#: K8-K10's LAUNCHES keys and their names in the kernels line
+FLAT_KERNELS = {"window_select": "window_select", "flat_append": "flat_append_aligned",
+                "dma_window_select": "dma_window_select"}
+#: K8-K10's launches summed over the path runs (they belong to no path)
+FLAT_PATH_LAUNCHES = dict.fromkeys(FLAT_KERNELS, 0)
+
+
+def reset_launches():
+    """Every kernel's launch count to 0, just before a path's run."""
+    from oddio_tpu_torch.ops import agc, flat_kernels, ring_kernels, stream_kernels
+
+    for m in (ring_kernels, stream_kernels, agc, flat_kernels):
+        m.reset_launches()
+
+
+def read_flat_launches(label):
+    """Add K8-K10's launches on the path run just made to
+    ``FLAT_PATH_LAUNCHES``; none of the package's paths calls them, so a
+    launch fails the run."""
+    from oddio_tpu_torch.ops import flat_kernels as FK
+
+    for k, v in FK.LAUNCHES.items():
+        FLAT_PATH_LAUNCHES[k] += v
+    if any(FK.LAUNCHES.values()):
+        raise AssertionError(f"{label} launched K8-K10: {FK.LAUNCHES}")
 
 
 def time_ms(fn, reps=50):
@@ -269,14 +308,14 @@ def mixer_path(pt, dev, kern, tag):
     r = pt.Renderer(mixer, RATE)
     print(f"mixer: {VOICES} voices ({len(ctls)} Adapt(Stream), {VOICES - len(ctls)} "
           f"Adapt(Sine)) built in {time.perf_counter() - t0:.2f} s {tag}")
-    for reset in (RK.reset_launches, SK.reset_launches, A.reset_launches):
-        reset()
+    reset_launches()
     a = r.render_frames(RATE)
     feed(ctls, rng, 1024)
     dev_out = r.render_frames_device(BLOCK * 94)
     torch.cuda.synchronize()
     launches = {**SK.LAUNCHES, **A.LAUNCHES}
     ring_launches = dict(RK.LAUNCHES)
+    read_flat_launches("the mixer path")
     mixer.sync()
     b = torch.cat([o.permute(0, 2, 1).reshape(-1, 1) for o in dev_out]).cpu().numpy()
     for name, x in (("mixer render_frames", a), ("mixer render_frames_device", b)):
@@ -394,8 +433,7 @@ def host_pool_path(pt, dev, kern, tag):
     print(f"host pools: {VOICES} Speed(Stream) + {VOICES // 8} Adapt(Stream) + a "
           f"{max(VOICES // 16, 64)}-voice submix built in {time.perf_counter() - t0:.2f} s; "
           f"pools {kinds} {tag}")
-    for reset in (RK.reset_launches, SK.reset_launches, A.reset_launches):
-        reset()
+    reset_launches()
     a = r.render_frames(RATE)
     feed(ctls, rng, 1024)
     for sc in speeds[:64]:
@@ -403,6 +441,7 @@ def host_pool_path(pt, dev, kern, tag):
     dev_out = r.render_frames_device(BLOCK * 94)
     torch.cuda.synchronize()
     launches = {**RK.LAUNCHES, **SK.LAUNCHES, **A.LAUNCHES}
+    read_flat_launches("the host-pool path")
     scene.sync()
     b = torch.cat([o.permute(0, 2, 1).reshape(-1, 2) for o in dev_out]).cpu().numpy()
     for name, x in (("host pools render_frames", a), ("host pools render_frames_device", b)):
@@ -446,6 +485,356 @@ def host_pool_path(pt, dev, kern, tag):
     wall = time.perf_counter() - t0
     print(f"xRT host pools {VOICES} voices: {(nblk * BLOCK / RATE) / wall:.2f}x "
           f"({nblk} blocks in {wall:.3f} s) {tag}")
+
+
+def within(got, plain, tol, label):
+    """Max |kernel - plain| and its largest share of the elementwise
+    tolerance ``tol``; raises past it."""
+    diff = (got - plain).abs().double()
+    share = float((diff / tol.clamp_min(1e-300)).max())
+    err = float(diff.max())
+    if not share <= 1.0:
+        raise AssertionError(f"{label}: kernel disagrees with its plain version: "
+                             f"max|diff| {err:.3e}, {share:.1f}x its tolerance")
+    return err, share
+
+
+def flat_select_operands(rng, dev, V, n, K, emax2):
+    """K8/K10 operands: scal (V, 2, 4) for |ds - 1| <= K/n, gains, a 0/1
+    mask, staggers below ``emax2``."""
+    def t(x, dtype=np.float32):
+        return torch.tensor(np.asarray(x, dtype), device=dev)
+
+    from oddio_tpu_torch.ops._dev import device_split_ds
+
+    di, fh, fl = device_split_ds(t(rng.uniform(1 - K / n, 1 + K / n, (V, 2))))
+    scal = torch.stack([t(rng.uniform(0, 1, (V, 2))), fh, fl, di.float()], -1).contiguous()
+    return (scal, t(rng.uniform(0, 0.1, (V, 2))), t(rng.uniform(-1e-4, 1e-4, (V, 2))),
+            t(rng.uniform(0, 1, V) > 0.2), t(rng.integers(0, emax2, (V, 2)), np.int32))
+
+
+def flat_read_span(RK, base, scal, extra, n, K):
+    """Bytes K8/K10 must read: each voice's span over both ears' reads
+    from ``base`` (V,) plus the lerp's next sample."""
+    j = torch.arange(n, device=scal.device)
+    idx = []
+    for e in range(2):
+        kk, _ = RK._positions(scal[:, e], n, K)
+        idx.append((base + extra[:, e].long())[:, None] + j + kk.long())
+    return span_bytes(torch.stack(idx, 1))
+
+
+def flat_kernels(dev, kern, tag):
+    """Phase 15: K8, K9 and K10 against their plain versions at V = 4096,
+    n = 512.  No path of the package calls them (nor of the JAX package:
+    K2's test reference, a superseded append, a probe): their launches are
+    those counted on the path runs (``read_flat_launches``), not these."""
+    from oddio_tpu_torch.ops import flat_kernels as FK
+    from oddio_tpu_torch.ops import ring_kernels as RK
+
+    rng = np.random.default_rng(15)
+    V, n, K = VOICES, BLOCK, 64
+    zero = torch.zeros(V, dtype=torch.int64, device=dev)
+
+    # K8 at both table widths test_ops.py holds the TPU kernel at
+    errs = []
+    for emax2 in (36, 163):
+        win = torch.randn((V, RK.select_window(n, emax2, K)), device=dev)
+        ops = (win,) + flat_select_operands(rng, dev, V, n, K, emax2)
+        kw = dict(n=n, K=K, emax2=emax2)
+        plain = FK.window_select_plain(*ops, **kw)
+        got = FK.window_select(*ops, **kw)
+        torch.cuda.synchronize()
+        err, share = within(got, plain, FK.window_select_tolerance(*ops, n=n, K=K),
+                            f"window_select emax2={emax2}")
+        errs.append(err)
+        ms = time_ms(lambda: FK.window_select(*ops, **kw))
+        pms = time_ms(lambda: FK.window_select_plain(*ops, **kw))
+        # read spans, 60 bytes of operands per voice, the (2, n) output;
+        # 21 f32 operations per (voice, ear, frame), as K2
+        bms, by = bound(flat_read_span(RK, zero, ops[1], ops[5], n, K) + 60 * V + 8 * n,
+                        21 * V * 2 * n)
+        print(f"K8 window_select emax2={emax2} V={V} n={n} K={K}: max|diff| {err:.3e} "
+              f"({share:.3f} of its tolerance); {ms:.4f} ms vs plain {pms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}); launches: no path {tag}")
+    kern["window_select"] = dict(replaces="oddio_tpu/ops/pallas_ring.py:604",
+                                 source="oddio_tpu_torch/csrc/ring_kernels.cu", err=max(errs),
+                                 ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                                 library_ms=None)
+
+    # K9: a 512-wide slab at page 2 and mirror page 6 of a 4096-float row
+    rowlen, W = 4096, BLOCK
+    ring = torch.randn((V, rowlen), device=dev)
+    slab = torch.randn((V, W), device=dev)
+    pages = torch.tensor([2, 6], dtype=torch.int32, device=dev)
+    plain = FK.flat_append_aligned_plain(ring.clone(), slab, 2, 6)
+    err = 0.0
+    for form in ((2, 6), (pages,)):
+        got = FK.flat_append_aligned(ring.clone(), slab, *form)
+        torch.cuda.synchronize()
+        err = max(err, float((got - plain).abs().max()))
+    if err != 0.0:
+        raise AssertionError(f"flat_append_aligned differs from its plain version by {err}")
+    # the pages as a (2,) device pair (the form a device-resident cursor
+    # gives) and as host ints (the plain version's form, passed by value);
+    # the host time to issue a call, to set beside the device time
+    ms = time_ms(lambda: FK.flat_append_aligned(ring, slab, pages))
+    ims = time_ms(lambda: FK.flat_append_aligned(ring, slab, 2, 6))
+    pms = time_ms(lambda: FK.flat_append_aligned_plain(ring, slab, 2, 6))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        FK.flat_append_aligned(ring, slab, pages)
+    hms = 1e3 * (time.perf_counter() - t0) / 50
+    torch.cuda.synchronize()
+    # the library yardstick: one index_copy_ of both legs (index and the
+    # doubled slab prepared outside the timed call)
+    cols = torch.cat([torch.arange(W, device=dev) + 2 * FK.APPEND_PW,
+                      torch.arange(W, device=dev) + 6 * FK.APPEND_PW])
+    slab2 = torch.cat([slab, slab], dim=1)
+    lms = time_ms(lambda: ring.index_copy_(1, cols, slab2))
+    bms, by = bound(12 * V * W + 8, 0)
+    kern["flat_append_aligned"] = dict(replaces="oddio_tpu/ops/pallas_ring.py:209",
+                                       source="oddio_tpu_torch/csrc/flat_kernels.cu", err=err,
+                                       ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                                       library_ms=lms)
+    print(f"K9 flat_append_aligned V={V} W={W}: max|diff| {err} (tolerance 0, exact); "
+          f"{ms:.4f} ms (device page pair; host ints {ims:.4f} ms; host issue {hms:.4f} ms "
+          f"per call) vs plain {pms:.4f} ms, index_copy_ {lms:.4f} ms, bound {bms:.4f} ms "
+          f"({by}); launches: no path {tag}")
+
+    # K10: windows anywhere in a 4096-float row, some past its end (they read
+    # the next row, as the TPU's fetch from the flat ring does)
+    emax2 = 36
+    rstart = torch.tensor(rng.integers(0, rowlen - 2048 + 600, V).astype(np.int32), device=dev)
+    rstart[-1] = 0
+    ops = (ring, rstart) + flat_select_operands(rng, dev, V, n, K, emax2)
+    kw = dict(n=n, K=K, emax2=emax2)
+    plain = FK.dma_window_select_plain(*ops, **kw)
+    got = FK.dma_window_select(*ops, **kw)
+    torch.cuda.synchronize()
+    err, share = within(got, plain, FK.dma_tolerance(*ops, n=n, K=K), "dma_window_select")
+    ms = time_ms(lambda: FK.dma_window_select(*ops, **kw))
+    pms = time_ms(lambda: FK.dma_window_select_plain(*ops, **kw))
+    base = torch.arange(V, device=dev) * rowlen + rstart.long()
+    # read spans, 64 bytes of operands per voice, the (2, n) output; 23 f32
+    # operations per (voice, ear, frame)
+    bms, by = bound(flat_read_span(RK, base, ops[2], ops[6], n, K) + 64 * V + 8 * n,
+                    23 * V * 2 * n)
+    kern["dma_window_select"] = dict(replaces="oddio_tpu/ops/pallas_ring.py:1039",
+                                     source="oddio_tpu_torch/csrc/flat_kernels.cu", err=err,
+                                     ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                                     library_ms=None)
+    print(f"K10 dma_window_select V={V} n={n} K={K} emax2={emax2}: max|diff| {err:.3e} "
+          f"({share:.3f} of its tolerance); {ms:.4f} ms vs plain {pms:.4f} ms, bound "
+          f"{bms:.4f} ms ({by}); launches: no path {tag}")
+
+
+def scene_axis_kernels(dev, tag):
+    """Phase 16: K1 and K2 with a ScenePack's scene axis, S = 16 scenes of
+    V = 256 voices, against their plain versions (K1 exact, K2 within
+    ``mix_tolerance`` per scene), one launch per call."""
+    from oddio_tpu_torch.ops import ring_kernels as RK
+
+    rng = np.random.default_rng(16)
+    S, Vs, n, K = 16, 256, BLOCK, 32
+    V = S * Vs
+    RPV = (1024 + 16384 + 1024 + 1024) // 128
+    ring = torch.randn((V, RPV, 128), device=dev)
+    slab = torch.randn((V, 512), device=dev)
+    r0 = torch.tensor(rng.integers(0, RPV - 4, S).astype(np.int32), device=dev)
+    rm = torch.tensor(rng.integers(0, RPV - 4, S).astype(np.int32), device=dev)
+    plain = RK.rows_append_plain(ring.clone(), slab, r0, rm)
+    before = RK.LAUNCHES["append"]
+    got = RK.rows_append(ring.clone(), slab, r0, rm)
+    torch.cuda.synchronize()
+    err = float((got - plain).abs().max())
+    if err != 0.0 or RK.LAUNCHES["append"] != before + 1:
+        raise AssertionError(f"rows_append with {S} scenes: max|diff| {err}, "
+                             f"{RK.LAUNCHES['append'] - before} launches")
+    ms = time_ms(lambda: RK.rows_append(ring, slab, r0, rm))
+    pms = time_ms(lambda: RK.rows_append_plain(ring, slab, r0, rm))
+    print(f"K1 rows_append S={S} x V={Vs}: max|diff| {err} (exact), one launch; {ms:.4f} ms vs "
+          f"plain {pms:.4f} ms {tag}")
+    del ring, slab
+
+    wide, rowshift, scal01, g01, e01, frz01 = select_operands(rng, dev, V, n, K, 2048, 1, 8)
+    rs = rowshift[:, 0].contiguous()
+    kw = dict(n=n, K=K, emax2=127 + 33, hmax=8, frz01=frz01, scenes=S)
+    plain = RK.window_select_ears_plain(wide, rs, scal01, g01, e01, **kw)
+    before = RK.LAUNCHES["select_ears"]
+    got = RK.window_select_ears(wide, rs, scal01, g01, e01, **kw)
+    torch.cuda.synchronize()
+    if got.shape != (S, 2, n) or RK.LAUNCHES["select_ears"] != before + 1:
+        raise AssertionError(f"window_select_ears with {S} scenes: shape {tuple(got.shape)}, "
+                             f"{RK.LAUNCHES['select_ears'] - before} launches")
+    samps = [RK.ear_samples(wide, 0, rs, 8, scal01[e], e01[e], frz01[e], n, K) for e in range(2)]
+    err, share = within(got, plain, RK.mix_tolerance(samps, g01, n, scenes=S),
+                        f"window_select_ears S={S}")
+    ms = time_ms(lambda: RK.window_select_ears(wide, rs, scal01, g01, e01, **kw))
+    pms = time_ms(lambda: RK.window_select_ears_plain(wide, rs, scal01, g01, e01, **kw))
+    print(f"K2 window_select_ears S={S} x V={Vs}: max|diff| {err:.3e} ({share:.3f} of its "
+          f"per-scene tolerance), one launch; {ms:.4f} ms vs plain {pms:.4f} ms {tag}")
+
+
+def drain(batches):
+    """A pack's ``render_frames_device`` list of (B, S, C, n) tensors as
+    numpy (S, B*n, C)."""
+    x = torch.cat(list(batches)).cpu().numpy()  # (B, S, C, n)
+    B, S, C, n = x.shape
+    return x.transpose(1, 0, 3, 2).reshape(S, B * n, C)
+
+
+def config5_pack_run(pack, ctls, pcm, nb0=4, nb1=60):
+    """``nb0`` blocks through ``render_block``, one write of ``pcm`` (one
+    row per stream), ``nb1`` blocks through ``render_frames_device``:
+    (S, (nb0 + nb1)*n, C) numpy."""
+    a = np.concatenate([pack.render_block(BLOCK) for _ in range(nb0)], axis=1)
+    for c, x in zip(ctls, pcm):
+        c.write(x)
+    return np.concatenate([a, drain(pack.render_frames_device(BLOCK * nb1))], axis=1)
+
+
+def pack_path(pt, dev, tag):
+    """Phase 17: the config-5 pack (S Mixers of 256 voices) at S = 16 and 64
+    through render_block and render_frames_device with new stream PCM
+    between them, counting K4/K6/K7 launches (equal per block at both S:
+    one launch per pool per block, whatever S is); the 16-scene spatial
+    pack the same way with K1/K2.  Returns the built packs for phase 19."""
+    from oddio_tpu_torch.ops import agc as A
+    from oddio_tpu_torch.ops import ring_kernels as RK
+    from oddio_tpu_torch.ops import stream_kernels as SK
+    from oddio_tpu_torch.utils.scene_profile import build_config5_pack, build_spatial_pack
+
+    nb0, nb1 = 4, 60
+    packs, per_block = {}, {}
+    for S in (16, 64):
+        t0 = time.perf_counter()
+        pack, ctls, rng = build_config5_pack(S, dev)
+        built = time.perf_counter() - t0
+        pcm = (rng.standard_normal((len(ctls), 1024)) * 0.1).astype(np.float32)
+        reset_launches()
+        out = config5_pack_run(pack, ctls, pcm, nb0, nb1)
+        torch.cuda.synchronize()
+        launches = {**SK.LAUNCHES, **A.LAUNCHES}
+        read_flat_launches(f"the config-5 pack path (S={S})")
+        if any(RK.LAUNCHES.values()):
+            raise AssertionError(f"the config-5 pack launched ring kernels: {RK.LAUNCHES}")
+        if out.shape != (S, (nb0 + nb1) * BLOCK, 1) or not np.isfinite(out).all():
+            raise AssertionError(f"config-5 pack S={S}: shape {out.shape} or non-finite output")
+        if np.abs(out).max(axis=(1, 2)).min() <= 1e-3:
+            raise AssertionError(f"config-5 pack S={S}: a silent scene")
+        if min(launches.values()) < 1:
+            raise AssertionError(f"a kernel of the pack path never launched: {launches}")
+        per_block[S] = {k: v / (nb0 + nb1) for k, v in launches.items()}
+        packs[S] = (pack, ctls, rng)
+        print(f"config-5 pack S={S} x 256 voices (built in {built:.2f} s): {nb0} blocks "
+              f"render_block + {nb1} render_frames_device, a 1024-sample write between; peak "
+              f"|out| {np.abs(out).max():.4f}; launches {launches}, per block "
+              f"{per_block[S]} {tag}")
+    if per_block[16] != per_block[64]:
+        raise AssertionError(f"launches per block differ: S=16 {per_block[16]}, S=64 {per_block[64]}")
+
+    t0 = time.perf_counter()
+    sp = build_spatial_pack(16, dev)
+    built = time.perf_counter() - t0
+    reset_launches()
+    a = np.concatenate([sp.render_block(BLOCK) for _ in range(nb0)], axis=1)
+    out = np.concatenate([a, drain(sp.render_frames_device(BLOCK * nb1))], axis=1)
+    torch.cuda.synchronize()
+    launches = dict(RK.LAUNCHES)
+    read_flat_launches("the spatial pack path")
+    if not np.isfinite(out).all() or np.abs(out).max(axis=(1, 2)).min() <= 1e-3:
+        raise AssertionError("spatial pack: non-finite output or a silent scene")
+    if launches["append"] < 1 or launches["select_ears"] < 1:
+        raise AssertionError(f"a kernel of the spatial pack path never launched: {launches}")
+    print(f"spatial pack S=16 x (64 buffered + 192 seek) (built in {built:.2f} s): "
+          f"{nb0 + nb1} blocks, peak |out| {np.abs(out).max():.4f}; launches {launches}, per "
+          f"block { {k: v / (nb0 + nb1) for k, v in launches.items()} } {tag}")
+    packs["spatial"] = sp
+    return packs
+
+
+def pack_reference(pt, dev, tag):
+    """Phase 18: a 4-scene x 64-voice config-5 pack and a 4-scene spatial
+    pack on the card against the same packs on the CPU and against
+    per-scene Renderers on the card, each within TOL."""
+    from oddio_tpu_torch.utils.scene_profile import (build_config5_pack, build_mixer_agc,
+                                                     build_pack_scene, build_spatial_pack)
+
+    S, nb0, nb1 = 4, 12, 12
+    pcm = None
+    outs = []
+    for device in (dev, "cpu"):
+        pack, ctls, rng = build_config5_pack(S, device, voices=64)
+        if pcm is None:
+            pcm = (rng.standard_normal((len(ctls), 1024)) * 0.1).astype(np.float32)
+        outs.append(config5_pack_run(pack, ctls, pcm, nb0, nb1))
+    singles = []
+    for s in range(S):
+        _, mixer, ctls, _ = build_mixer_agc(64, dev, s)
+        r = pt.Renderer(mixer, RATE)
+        a = np.stack([r.render_block(BLOCK) for _ in range(nb0)])
+        for c, x in zip(ctls, pcm[len(ctls) * s:]):
+            c.write(x)
+        b = r.render_frames(BLOCK * nb1)
+        singles.append(np.concatenate([a.reshape(-1, a.shape[-1]), b]))
+    errs = (float(np.abs(outs[0] - outs[1]).max()), float(np.abs(outs[0] - np.stack(singles)).max()))
+    if not max(errs) <= TOL or np.abs(outs[1]).max() <= 1e-2:
+        raise AssertionError(f"config-5 pack 4 x 64: card vs CPU {errs[0]}, vs per-scene "
+                             f"Renderers {errs[1]}")
+    print(f"reference: config-5 pack 4 x 64 voices, {nb0 + nb1} blocks with a write: card vs "
+          f"CPU plain max|diff| {errs[0]:.3e}, vs per-scene Renderers on the card "
+          f"{errs[1]:.3e} (<= {TOL}) {tag}")
+
+    outs = []
+    for device in (dev, "cpu"):
+        pack = build_spatial_pack(S, device)
+        outs.append(np.concatenate([pack.render_block(BLOCK) for _ in range(nb0)]
+                                   + [drain(pack.render_frames_device(BLOCK * nb1))], axis=1))
+    singles = []
+    for s in range(S):
+        r = pt.Renderer(build_pack_scene(dev, s), RATE)
+        singles.append(np.concatenate([r.render_block(BLOCK) for _ in range(nb0 + nb1)]))
+    errs = (float(np.abs(outs[0] - outs[1]).max()), float(np.abs(outs[0] - np.stack(singles)).max()))
+    if not max(errs) <= TOL or np.abs(outs[1]).max() <= 1e-2:
+        raise AssertionError(f"spatial pack 4 scenes: card vs CPU {errs[0]}, vs per-scene "
+                             f"Renderers {errs[1]}")
+    print(f"reference: spatial pack 4 x (64 buffered + 192 seek), {nb0 + nb1} blocks: card vs "
+          f"CPU plain max|diff| {errs[0]:.3e}, vs per-scene Renderers on the card "
+          f"{errs[1]:.3e} (<= {TOL}) {tag}")
+
+
+def pack_xrt(packs, dev, tag):
+    """Phase 19: real-time factor per scene (one scene's audio seconds per
+    wall second, as bench.py counts a pack) of the config-5 pack at S = 16,
+    64 and 256 (BASELINE config 5's 256 x 256, built and timed once) and
+    of the 16-scene spatial pack, 188 blocks each after a warm-up; each
+    config-5 run starts with a 1024-sample write to every stream."""
+    from oddio_tpu_torch.utils.scene_profile import build_config5_pack, feed
+
+    nblk = 188
+    runs = [(S, packs[S]) for S in (16, 64)]
+    t0 = time.perf_counter()
+    runs.append((256, build_config5_pack(256, dev)))
+    print(f"config-5 pack S=256 x 256 voices (65,536) built in {time.perf_counter() - t0:.2f} s "
+          f"{tag}")
+    runs.append(("spatial 16", (packs["spatial"], None, None)))
+    for label, (pack, ctls, rng) in runs:
+        pack.render_frames_device(BLOCK * 8)
+        if ctls is not None:
+            feed(ctls, rng, 1024)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pack.render_frames_device(BLOCK * nblk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not bool(torch.isfinite(out[-1]).all()):
+            raise AssertionError(f"pack {label}: non-finite output")
+        kind = "spatial pack" if ctls is None else "config-5 pack"
+        print(f"xRT per scene {kind} S={label if ctls is not None else 16}: "
+              f"{(nblk * BLOCK / RATE) / wall:.2f}x ({nblk} blocks in {wall:.3f} s, "
+              f"{1e3 * wall / nblk:.3f} ms per block) {tag}")
 
 
 def main():
@@ -563,11 +952,12 @@ def main():
     rs = pt.Renderer(ss, RATE)
     print(f"scenes: {VOICES} buffered + {VOICES} seek voices built in "
           f"{time.perf_counter() - t0:.2f} s {tag}")
-    RK.reset_launches()
+    reset_launches()
     a = rb.render_frames(RATE)
     dev_out = rb.render_frames_device(BLOCK * 94)
     torch.cuda.synchronize()
     launches = {k: RK.LAUNCHES[k] for k in ("append", "select_ears", "select_multi")}
+    read_flat_launches("the spatial path")
     b = torch.cat([o.permute(0, 2, 1).reshape(-1, 2) for o in dev_out]).cpu().numpy()
     c = rs.render_frames(RATE)
     for name, x in (("buffered render_frames", a), ("buffered render_frames_device", b),
@@ -612,6 +1002,15 @@ def main():
     # -- 11-14. the host-pool path ----------------------------------------------------
     strip_select_kernel(dev, kern, tag)
     host_pool_path(pt, dev, kern, tag)
+
+    # -- 15-19. K8-K10, the scene axis, the ScenePack paths ----------------------------
+    flat_kernels(dev, kern, tag)
+    scene_axis_kernels(dev, tag)
+    packs = pack_path(pt, dev, tag)
+    for key, name in FLAT_KERNELS.items():
+        kern[name]["launches"] = FLAT_PATH_LAUNCHES[key]
+    pack_reference(pt, dev, tag)
+    pack_xrt(packs, dev, tag)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k["source"],

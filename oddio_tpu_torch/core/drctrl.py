@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["DRCtrlMixin", "walk_ctrl_keys", "rows_scatter", "host_lanes"]
+__all__ = ["DRCtrlMixin", "walk_ctrl_keys", "rows_scatter", "host_lanes", "read_handle_state"]
 
 
 def walk_ctrl_keys(proto):
@@ -88,13 +88,74 @@ def _sync_digest(mask, stopped):
     return (bits.view(-1, 8) * w).sum(dim=1, dtype=torch.uint8)
 
 
+def read_handle_state(mask, stopped):
+    """(mask, stopped) numpy bool columns of two device columns, through
+    one packed digest and one (waiting) copy."""
+    bits = np.unpackbits(_sync_digest(mask, stopped).cpu().numpy())
+    V = mask.shape[0]
+    return bits[:V].astype(bool), bits[V : 2 * V].astype(bool)
+
+
 class DRCtrlMixin:
     """Shared by device-resident voice pools."""
 
     #: per-block delta-channel capacity per controllable field
     k_ctrl = 64
 
+    #: set by a ScenePack holding this pool's state: called before any
+    #: change of ``state`` outside the pack's render (growth, eager plays),
+    #: so that the pack's carried state comes back first
+    _unpack_hook = None
+
+    #: per-block params holding slot indices (padding lanes hold the
+    #: capacity), beside one ``ctrl_idx{j}`` per controllable field: a
+    #: ScenePack maps them to stacked rows
+    INDEX_PARAMS = ()
+    #: per-block params holding one value per scene: a ScenePack stacks
+    #: them (every other param is per lane, and concatenated)
+    SCENE_PARAMS = ()
+
+    def params_index_keys(self):
+        """Every per-block param key that holds slot indices."""
+        return self.INDEX_PARAMS + tuple(f"ctrl_idx{j}" for j in range(len(self.ctrl_keys)))
+
+    def cursor_params(self):
+        """This block's scene-level cursor params, shipped or not (a
+        ScenePack ships every scene's when any scene ships its own); none
+        for a pool without a shared ring cursor."""
+        return {}
+
+    def _pull_pack(self):
+        if self._unpack_hook is not None:
+            self._unpack_hook()
+
     # -- packed handle-state sync ------------------------------------------
+
+    def sync(self):
+        """Pull mask/stopped back from the device; reclaim freed slots."""
+        if self.state is None:
+            return
+        self._sync_apply(*self._sync_read())
+
+    def _sync_apply(self, mask, stopped):
+        """Reclaim the slots whose voice the device has stopped and
+        dropped (mixer.rs:129-147: one scan late); slots with a play
+        still queued keep their claim.  ``mask``/``stopped`` are numpy
+        bool columns of at least ``capacity`` rows."""
+        cap = self.capacity
+        free = self.mask_host & stopped[:cap] & ~mask[:cap]
+        for i, _ in self.pending_plays:
+            free[i] = False
+        idx = np.nonzero(free)[0]
+        if idx.size:
+            self.mask_host[idx] = False
+            self.stopped_host[idx] = True
+            self.slot_gen[idx] += 1
+            self._free.extend(idx.tolist())
+            self._on_freed()
+
+    def _on_freed(self):
+        """Hook: slots were reclaimed at a sync."""
 
     def _state_key(self):
         m = self.state["mask"]
@@ -199,8 +260,14 @@ class DRCtrlMixin:
         """Resolve the pool's read-path flags and stamp them onto every node
         of the proto chain (part of the pool archetype)."""
         small = self._ds_bound_small(float(interval))
-        tier = self._ds_tier
-        fast = self._ema_fast
+        self._stamp_flags(small, self._ds_tier, self._ema_fast)
+        return small
+
+    def _stamp_flags(self, small, tier, fast):
+        """Stamp read-path flags onto the pool and every node of its proto
+        chain (a ScenePack stamps the pack-wide ones on the pool that
+        renders the pack)."""
+        self._ds_small, self._ds_tier, self._ema_fast = small, tier, fast
         if (getattr(self.proto, "_pool_ds_small", True) != small
                 or getattr(self.proto, "_pool_ds_tier", 4) != tier
                 or getattr(self.proto, "_pool_ema_fast", None) is not fast):
@@ -211,7 +278,6 @@ class DRCtrlMixin:
                 node._pool_ds_tier = tier
                 node._pool_ema_fast = fast
                 stack.extend(node.children().values())
-        return small
 
     def _ctrl_pending_any(self):
         return any(self.pending_ctrl.values())

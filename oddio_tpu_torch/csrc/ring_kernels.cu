@@ -37,13 +37,18 @@
 // the caller never reads them back to the host (idle blocks derive them
 // on the device).  A leg whose rows fall outside the ring trips a
 // device-side assert, as the plain version's index_copy_ raises.
+//
+// Scene axis (ScenePack): the V rows are S scenes of vps voices each, and
+// rows holds one [r0, rmir0] pair per scene; voice v writes at its scene's
+// pair, rows[2*(v / vps)].  One scene is S = 1, vps = V.
 // ---------------------------------------------------------------------------
 
 __global__ void rows_append_kernel(float* __restrict__ ring,
                                    const float* __restrict__ slab,
                                    long long slab_stride,
                                    const int* __restrict__ rows,
-                                   int V, int RPV, int nr, int vec_src) {
+                                   int V, int RPV, int nr, int vps,
+                                   int vec_src) {
   const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int w4 = nr * 32;  // float4 vectors per voice row
   if (q >= (long long)V * w4) return;
@@ -57,8 +62,9 @@ __global__ void rows_append_kernel(float* __restrict__ ring,
     x = make_float4(src[0], src[1], src[2], src[3]);
   }
   float* base = ring + (long long)v * RPV * 128 + c;
-  const int r0 = rows[0];
-  const int r1 = rows[1];
+  const int s = v / vps;
+  const int r0 = rows[2 * s];
+  const int r1 = rows[2 * s + 1];
   assert(r0 >= 0 && r0 + nr <= RPV && r1 >= 0 && r1 + nr <= RPV);
   *reinterpret_cast<float4*>(base + (long long)r0 * 128) = x;
   *reinterpret_cast<float4*>(base + (long long)r1 * 128) = x;
@@ -66,7 +72,8 @@ __global__ void rows_append_kernel(float* __restrict__ ring,
 
 extern "C" int rows_append(float* ring, const float* slab,
                            long long slab_stride, const int* rows, int V,
-                           int RPV, int nr, cudaStream_t stream) {
+                           int RPV, int nr, int vps, cudaStream_t stream) {
+  if (vps < 1 || V % vps) return (int)cudaErrorInvalidValue;
   const long long total = (long long)V * nr * 32;
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
@@ -74,7 +81,7 @@ extern "C" int rows_append(float* ring, const float* slab,
       (slab_stride % 4 == 0) && ((uintptr_t)slab % 16 == 0) ? 1 : 0;
   if (blocks > 0)
     rows_append_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
-        ring, slab, slab_stride, rows, V, RPV, nr, vec_src);
+        ring, slab, slab_stride, rows, V, RPV, nr, vps, vec_src);
   return (int)cudaGetLastError();
 }
 
@@ -104,6 +111,16 @@ extern "C" int rows_append(float* ring, const float* slab,
 // (ear, frame), and a second small kernel adds the chunks in a fixed
 // order — no atomics, whose order would change from run to run.  The
 // block index of K3 is the grid's z dimension.
+//
+// Scene axis (ScenePack, K2): the V rows are S scenes of vps voices each
+// and the output is (S, 2, nb*n), each scene's voices summed apart, as a
+// vmapped pallas_call sums them.  A scene has its own ceil(vps / VC)
+// chunks, so no chunk straddles two scenes, and the reduction adds each
+// scene's chunks in order.  One scene is S = 1, vps = V.
+//
+// K8: window_select (_select_flat_kernel) is this kernel on flat windows:
+// rowshift absent (0), H = 1, the window at column 0, no frozen flags;
+// window_select_flat below is its entry.
 // ---------------------------------------------------------------------------
 
 struct BlockCfg {
@@ -137,7 +154,7 @@ __global__ void select_partial_kernel(
     const float* __restrict__ sc1, const float* __restrict__ g0,
     const float* __restrict__ g1, const int* __restrict__ e0,
     const int* __restrict__ e1, const float* __restrict__ f0,
-    const float* __restrict__ f1, float* __restrict__ part, int V, int n,
+    const float* __restrict__ f1, float* __restrict__ part, int vps, int n,
     int K, int nb, BlockCfg cfg) {
   __shared__ float s_sc[2][VC][4];
   __shared__ float s_g[2][VC][2];
@@ -147,8 +164,10 @@ __global__ void select_partial_kernel(
   const int chunk = blockIdx.y;
   const int nchunks = gridDim.y;
   const int b = blockIdx.z;
-  const int v0 = chunk * VC;
-  const int nv = min(VC, V - v0);
+  const int cps = (vps + VC - 1) / VC;  // chunks per scene
+  const int lc = chunk % cps;
+  const int v0 = (chunk / cps) * vps + lc * VC;
+  const int nv = min(VC, vps - lc * VC);
   const int t = threadIdx.x;
 
   if (t < 2 * VC) {
@@ -163,7 +182,7 @@ __global__ void select_partial_kernel(
       for (int k = 0; k < 4; ++k) s_sc[e][i][k] = sc[(long long)v * 4 * nb + 4 * b + k];
       s_g[e][i][0] = g[(long long)v * 2 * nb + 2 * b];
       s_g[e][i][1] = g[(long long)v * 2 * nb + 2 * b + 1];
-      int sh = rowshift[(long long)v * nb + b];
+      int sh = rowshift != nullptr ? rowshift[(long long)v * nb + b] : 0;
       sh = min(max(sh, 0), cfg.hcap[b] - 1);
       s_base[e][i] = cfg.col0[b] + 128 * sh + ex[(long long)v * nb + b];
       s_frz[e][i] = (fz != nullptr && fz[(long long)v * nb + b] > 0.0f) ? 1 : 0;
@@ -198,47 +217,84 @@ __global__ void select_partial_kernel(
 
 __global__ void select_reduce_kernel(const float* __restrict__ part,
                                      float* __restrict__ out, int n, int nb,
-                                     int nchunks) {
+                                     int S, int cps) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= 2 * nb * n) return;
-  const int e = idx / (nb * n);
-  const int r = idx % (nb * n);
+  if (idx >= S * 2 * nb * n) return;
+  const int s = idx / (2 * nb * n);
+  const int q = idx % (2 * nb * n);
+  const int e = q / (nb * n);
+  const int r = q % (nb * n);
   const int b = r / n;
   const int j = r % n;
+  const int nchunks = S * cps;
   float m0 = 0.0f;
   float m1 = 0.0f;
-  for (int c = 0; c < nchunks; ++c) {
+  for (int c = s * cps; c < (s + 1) * cps; ++c) {
     const float* p = part + (((long long)b * nchunks + c) * 2 + e) * 2 * n;
     m0 = __fadd_rn(m0, p[j]);
     m1 = __fadd_rn(m1, p[n + j]);
   }
-  out[(long long)e * nb * n + (long long)b * n + j] =
+  out[(long long)s * 2 * nb * n + (long long)e * nb * n + (long long)b * n + j] =
       __fadd_rn(m0, __fmul_rn((float)j, m1));
 }
 
+static int launch_select(const float* wide, long long wide_stride, int S2,
+                         const int* rowshift, const float* sc0,
+                         const float* sc1, const float* g0, const float* g1,
+                         const int* e0, const int* e1, const float* f0,
+                         const float* f1, float* part, float* out, int V,
+                         int vps, int n, int K, int nb, const BlockCfg& cfg,
+                         cudaStream_t stream) {
+  if (nb < 1 || nb > MAX_NB || V < 1 || n < 1 || vps < 1 || V % vps)
+    return (int)cudaErrorInvalidValue;
+  const int S = V / vps;
+  const int cps = (vps + VC - 1) / VC;
+  dim3 grid((n + SB - 1) / SB, S * cps, nb);
+  select_partial_kernel<<<grid, SB, 0, stream>>>(
+      wide, wide_stride, S2, rowshift, sc0, sc1, g0, g1, e0, e1, f0, f1,
+      part, vps, n, K, nb, cfg);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int total = S * 2 * nb * n;
+  select_reduce_kernel<<<(total + 255) / 256, 256, 0, stream>>>(
+      part, out, n, nb, S, cps);
+  return (int)cudaGetLastError();
+}
+
+// K2/K3.  part holds nb * S * ceil(vps / VC) * 4 * n floats; out (S, 2, nb*n).
 extern "C" int window_select(const float* wide, long long wide_stride, int S2,
                              const int* rowshift, const float* sc0,
                              const float* sc1, const float* g0,
                              const float* g1, const int* e0, const int* e1,
                              const float* f0, const float* f1, float* part,
-                             float* out, int V, int n, int K, int nb,
+                             float* out, int V, int vps, int n, int K, int nb,
                              const int* col0s, const int* hcaps,
                              cudaStream_t stream) {
-  if (nb < 1 || nb > MAX_NB || V < 1 || n < 1) return (int)cudaErrorInvalidValue;
   BlockCfg cfg;
   for (int b = 0; b < MAX_NB; ++b) {
     cfg.col0[b] = col0s[b];
     cfg.hcap[b] = hcaps[b] > 0 ? hcaps[b] : 1;
   }
-  const int nchunks = (V + VC - 1) / VC;
-  dim3 grid((n + SB - 1) / SB, nchunks, nb);
-  select_partial_kernel<<<grid, SB, 0, stream>>>(
-      wide, wide_stride, S2, rowshift, sc0, sc1, g0, g1, e0, e1, f0, f1,
-      part, V, n, K, nb, cfg);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int total = 2 * nb * n;
-  select_reduce_kernel<<<(total + 255) / 256, 256, 0, stream>>>(
-      part, out, n, nb, nchunks);
-  return (int)cudaGetLastError();
+  return launch_select(wide, wide_stride, S2, rowshift, sc0, sc1, g0, g1, e0,
+                       e1, f0, f1, part, out, V, vps, n, K, nb, cfg, stream);
+}
+
+// K8 (oddio_tpu/ops/pallas_ring.py::window_select): both ears' reads from
+// one flat window per voice starting at column 0, no realign, no frozen
+// flags; the mask rides folded into g0/g1.  part holds
+// ceil(V / VC) * 4 * n floats; out (2, n).
+extern "C" int window_select_flat(const float* windows, long long stride,
+                                  int S, const float* sc0, const float* sc1,
+                                  const float* g0, const float* g1,
+                                  const int* e0, const int* e1, float* part,
+                                  float* out, int V, int n, int K,
+                                  cudaStream_t stream) {
+  BlockCfg cfg;
+  for (int b = 0; b < MAX_NB; ++b) {
+    cfg.col0[b] = 0;
+    cfg.hcap[b] = 1;
+  }
+  return launch_select(windows, stride, S, nullptr, sc0, sc1, g0, g1, e0, e1,
+                       nullptr, nullptr, part, out, V, V, n, K, 1, cfg,
+                       stream);
 }

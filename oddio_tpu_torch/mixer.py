@@ -30,7 +30,7 @@ from .core.drctrl import DRCtrlMixin, _upload, host_lanes, rows_scatter
 from .core.hostmath import f32
 from .core.signal import Engine, default_device
 from .ops._dev import masked_voice_sum
-from .parallel.context import localize_index
+from .parallel.context import current_scenes, localize_index
 from .utils.tree import tree_map, tree_stack
 
 __all__ = ["Mixer", "MixerControl", "Mixed", "Pool", "PoolSingleton", "PoolDR",
@@ -160,6 +160,7 @@ class PoolDR(DRCtrlMixin):
     """Device-resident voice pool of one archetype (mixer.rs:92-118)."""
 
     is_dr = True
+    INDEX_PARAMS = ("play_idx", "stop_idx")
 
     def __init__(self, name, spec, capacity, k_play=8, k_stop=64, device="cpu"):
         self.name = name
@@ -205,6 +206,7 @@ class PoolDR(DRCtrlMixin):
 
     def grow(self):
         """set-realloc analogue (set.rs:57-63): double capacity."""
+        self._pull_pack()
         old = self.capacity
         new = old * 2
         self.dr_state()
@@ -273,6 +275,7 @@ class PoolDR(DRCtrlMixin):
     def _apply_plays_eager(self, interval):
         """Bulk plays: apply all pending plays directly to the device state,
         outside the per-block step."""
+        self._pull_pack()
         self.dr_state()
         idx = np.array([i for i, _ in self.pending_plays], np.int64)
         rows = tree_stack(self._rows(self.pending_plays, interval))
@@ -283,21 +286,6 @@ class PoolDR(DRCtrlMixin):
 
     def sync_prefetch(self):
         self._sync_start()
-
-    def sync(self):
-        """Pull mask/stopped back from the device; reclaim freed slots."""
-        if self.state is None:
-            return
-        mask, stopped = self._sync_read()
-        pending = {i for i, _ in self.pending_plays}
-        for i in range(self.capacity):
-            if i in pending:
-                continue
-            if self.mask_host[i] and stopped[i] and not mask[i]:
-                self.mask_host[i] = False
-                self.stopped_host[i] = True
-                self.slot_gen[i] += 1
-                self._free.append(i)
 
     def _idle_gate(self, iv):
         """True when this block needs no params, cannot change the
@@ -427,7 +415,8 @@ class PoolDR(DRCtrlMixin):
         S["inner"] = inner2
         if samples.dim() == 2:
             samples = samples[:, None, :]
-        return S, masked_voice_sum(S["mask"], samples)
+        # a pack's rows are its scenes' pools end to end: mix each apart
+        return S, masked_voice_sum(S["mask"], samples, current_scenes())
 
 
 class Mixer(Engine):
@@ -526,7 +515,8 @@ class Mixer(Engine):
 
     def host_wants_deltas(self):
         """Whether any device-resident pool has control events queued for
-        the next block."""
+        the next block (a ScenePack ORs it over its scenes, so that every
+        scene ships deltas on the same blocks)."""
         return any(
             bool(p.pending_plays) or bool(p.pending_stops)
             or p._ctrl_pending_any() or p.force_deltas
@@ -590,6 +580,8 @@ class Mixer(Engine):
 
     def device_store(self, d):
         for p in self._pools.values():
+            if p.name not in d:  # opened after ``d`` was collected
+                continue
             if p.is_dr:
                 p.state = d[p.name]
             else:
@@ -626,8 +618,14 @@ class Mixer(Engine):
             elif isinstance(p.sig, Engine):
                 p.sig.sync_prefetch()
 
+    def _all_pools(self):
+        return list(self._pools.values())
+
     def render(self, dstate, ddata, params, n):
-        out = torch.zeros((self.channels, n), dtype=torch.float32, device=self.device)
+        # a ScenePack renders its scenes' pools stacked: (S, C, n)
+        S = current_scenes()
+        shape = (self.channels, n) if S is None else (S, self.channels, n)
+        out = torch.zeros(shape, dtype=torch.float32, device=self.device)
         d2 = {}
         for pool in self._pools.values():
             ps = params[pool.name]

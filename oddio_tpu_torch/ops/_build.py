@@ -40,14 +40,35 @@ _iarr = ctypes.POINTER(ctypes.c_int)
 #: point returns its launches' cudaError_t as an int
 _SIGNATURES = {
     "ring_kernels": {
-        "rows_append": [_vp, _vp, _i64, _vp, _i32, _i32, _i32, _vp],
+        # ring, slab, slab_stride, rows, V, RPV, nr, vps, stream
+        "rows_append": [_vp, _vp, _i64, _vp, _i32, _i32, _i32, _i32, _vp],
         "window_select": [
             _vp, _i64, _i32, _vp,          # wide, stride, S2, rowshift
             _vp, _vp, _vp, _vp,            # scal0, scal1, g0, g1
             _vp, _vp, _vp, _vp,            # e0, e1, f0, f1
             _vp, _vp,                      # part, out
-            _i32, _i32, _i32, _i32,        # V, n, K, nb
+            _i32, _i32, _i32, _i32, _i32,  # V, vps, n, K, nb
             _iarr, _iarr,                  # col0s, hcaps (host arrays)
+            _vp,                           # stream
+        ],
+        "window_select_flat": [
+            _vp, _i64, _i32,               # windows, stride, S
+            _vp, _vp, _vp, _vp,            # scal0, scal1, g0, g1
+            _vp, _vp,                      # e0, e1
+            _vp, _vp,                      # part, out
+            _i32, _i32, _i32,              # V, n, K
+            _vp,                           # stream
+        ],
+    },
+    "flat_kernels": {
+        # ring, rowlen, samples, stride, pages (or null), p0, p1, V, W, stream
+        "flat_append": [_vp, _i64, _vp, _i64, _vp, _i32, _i32, _i32, _i32, _vp],
+        "dma_window_select": [
+            _vp, _i64, _vp,                # ring, rowlen, rstart
+            _vp, _vp, _vp, _vp, _vp,       # scal0, scal1, g0, g1, maskf
+            _vp, _vp,                      # e0, e1
+            _vp, _vp,                      # part, out
+            _i32, _i32, _i32,              # V, n, K
             _vp,                           # stream
         ],
     },

@@ -61,14 +61,34 @@ def device_split_ds(ds):
     return ds_int.to(torch.int32), f_hi, f_lo
 
 
-def masked_voice_sum(mask, x):
+def masked_voice_sum(mask, x, scenes=None):
     """Sum of ``x`` (V, ...) over the voices where ``mask`` (V,) holds,
     accumulated in float64 and rounded once to float32: garbage in free
     slots never reaches the output, and the sum does not depend on the
     device's reduction order (CPU and CUDA add in different orders, which
-    moves a float32 sum of a few hundred voices by up to ~1e-5)."""
+    moves a float32 sum of a few hundred voices by up to ~1e-5).  With
+    ``scenes`` = S the V rows are S scenes of V/S voices, summed apart
+    into (S, ...)."""
     m = mask.reshape(mask.shape + (1,) * (x.dim() - 1))
-    return torch.where(m, x, 0.0).sum(dim=0, dtype=torch.float64).to(torch.float32)
+    x = torch.where(m, x, 0.0)
+    if scenes is None:
+        return x.sum(dim=0, dtype=torch.float64).to(torch.float32)
+    x = x.reshape((scenes, -1) + x.shape[1:])
+    return x.sum(dim=1, dtype=torch.float64).to(torch.float32)
+
+
+def scene_sum(x, scenes=None):
+    """Float32 sum of ``x`` (V, ...) over voices, or with ``scenes`` = S
+    over each scene's V/S rows apart, into (S, ...)."""
+    if scenes is None:
+        return x.sum(dim=0)
+    return x.reshape((scenes, -1) + x.shape[1:]).sum(dim=1)
+
+
+def per_voice(x, V):
+    """A per-scene (S,) tensor repeated for each scene's V/S voice rows
+    (an (1,) tensor broadcasts as it is)."""
+    return x if x.shape[0] == 1 else x.repeat_interleave(V // x.shape[0])
 
 
 def device_advance(base, frac, count, ds_int, f_hi, f_lo):

@@ -85,9 +85,10 @@ def smoothed_position_c(prev3, state_dt, dt_extra, mp3, mv3):
 
 def quat_rotate_c(rot, p3):
     """Rotate component-tuple points by a SHARED quaternion ``rot`` (4,),
-    mirroring quat_mul(rot, quat_mul(pq, quat_invert(rot)))[1:] term for
-    term (including the literal zero products of pq's scalar part)."""
-    rs, rx, ry, rz = rot[0], rot[1], rot[2], rot[3]
+    or by one per point (V, 4), mirroring quat_mul(rot, quat_mul(pq,
+    quat_invert(rot)))[1:] term for term (including the literal zero
+    products of pq's scalar part)."""
+    rs, rx, ry, rz = rot.unbind(-1)
     nrx, nry, nrz = rx * -1.0, ry * -1.0, rz * -1.0
     x, y, z = p3
     z0 = torch.zeros_like(x)

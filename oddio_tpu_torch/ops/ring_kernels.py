@@ -21,6 +21,11 @@ in ``csrc/ring_kernels.cu`` (the device-resident pool) and K5 in
   clamp ``min(kk - kmin, SELECT_R - 1)``; gain-ramped, masked and summed
   over voices into ``(2, n)``.
 
+K1 and K2 also take a ScenePack's scene axis: the V rows are S scenes of
+V/S voices each, K1 writes each scene at its own row pair and K2 mixes
+each scene apart into (S, 2, n); one launch per call whatever S is.  K8
+(``window_select``, ``ops/flat_kernels.py``) shares K2's CUDA body.
+
 A wrapper runs the plain version for tensors on the CPU and launches the
 kernel for tensors on a CUDA device; it never falls back from one to the
 other.  Each launch adds one to ``LAUNCHES[name]``.
@@ -159,37 +164,55 @@ def _raise_rc(rc, name):
 
 
 def _rows_index(r0, rmir0, device):
-    """(2,) int32 device tensor [r0, rmir0]; device scalars stay on the
-    device (no host read), host ints are uploaded."""
+    """(S, 2) int32 device tensor of [r0, rmir0] pairs, one per scene:
+    ints and 0-d tensors give S = 1, (S,) tensors S scenes.  Device
+    tensors stay on the device (no host read), host ints are uploaded."""
     parts = [
-        r.reshape(()).to(device=device, dtype=torch.int32)
+        r.reshape(-1).to(device=device, dtype=torch.int32)
         if isinstance(r, torch.Tensor)
-        else torch.tensor(int(r), dtype=torch.int32, device=device)
+        else torch.tensor([int(r)], dtype=torch.int32, device=device)
         for r in (r0, rmir0)
     ]
-    return torch.stack(parts)
+    if parts[0].shape != parts[1].shape:
+        raise ValueError("r0 and rmir0 must name the same number of scenes")
+    return torch.stack(parts, dim=1)
+
+
+def _scene_count(V, S):
+    if S < 1 or V % S:
+        raise ValueError(f"{V} voice rows do not split into {S} scenes")
+    return V // S
 
 
 def rows_append_plain(ring3, slab, r0, rmir0):
-    """Plain version of K1: ``ring3[:, r:r+W/128] = slab`` for r in (r0,
-    rmir0), in place.  r0/rmir0 are ints or int32 scalar tensors."""
+    """Plain version of K1: ``ring3[v, r:r+W/128] = slab[v]`` for r in
+    (r0, rmir0) of voice v's scene, in place."""
     V, RPV, PW = ring3.shape
-    nr = slab.shape[1] // PW
-    src = slab.reshape(V, nr, PW)
+    W = slab.shape[1]
     rows = _rows_index(r0, rmir0, ring3.device).to(torch.int64)
-    lanes = torch.arange(nr, dtype=torch.int64, device=ring3.device)
+    vps = _scene_count(V, rows.shape[0])
+    rows = rows.repeat_interleave(vps, dim=0)  # (V, 2)
+    flat = ring3.view(V, RPV * PW)
+    lanes = torch.arange(W, dtype=torch.int64, device=ring3.device)
     for leg in range(2):
-        ring3.index_copy_(1, rows[leg] + lanes, src)
+        cols = (rows[:, leg] * PW)[:, None] + lanes
+        if bool((cols[:, -1] >= RPV * PW).any()) or bool((cols[:, 0] < 0).any()):
+            raise IndexError("rows_append: a leg leaves the ring")
+        flat.scatter_(1, cols, slab)
     return ring3
 
 
 def rows_append(ring3, slab, r0, rmir0):
     """K1 (oddio_tpu/ops/pallas_ring.py ``rows_append_dma``): write ``slab``
     (V, W), W a multiple of 128, into every voice of ``ring3`` (V, RPV, 128)
-    at row ``r0`` and at row ``rmir0``, in place; returns ``ring3``.  A row
-    outside ``[0, RPV - W/128]`` fails: the plain version raises, the
-    kernel trips a device-side assert (the rows live on the device, and a
-    host check would stall every block)."""
+    at row ``r0`` and at row ``rmir0``, in place; returns ``ring3``.
+
+    Scene axis (ScenePack): ``r0``/``rmir0`` are ints, 0-d tensors (one
+    scene) or (S,) int32 tensors, one pair per scene, and the V rows are S
+    scenes of V/S voices each, in order.  A row outside ``[0, RPV -
+    W/128]`` fails: the plain version raises, the kernel trips a
+    device-side assert (the rows live on the device, and a host check
+    would stall every block)."""
     if not isinstance(ring3, torch.Tensor) or ring3.dim() != 3:
         raise ValueError("ring3 must be a (V, RPV, 128) tensor")
     V, RPV, PW = ring3.shape
@@ -209,13 +232,14 @@ def rows_append(ring3, slab, r0, rmir0):
         raise ValueError("ring3 must be 16-byte aligned")
     if slab.stride(1) != 1:
         raise ValueError("slab rows must be unit-stride")
-    rows = _rows_index(r0, rmir0, dev)
+    rows = _rows_index(r0, rmir0, dev).contiguous()
+    vps = _scene_count(V, rows.shape[0])
     from ._build import lib
 
     L = lib("ring_kernels")
     rc = L.rows_append(
         _ptr(ring3), _ptr(slab), slab.stride(0), _ptr(rows),
-        V, RPV, nr, _stream_ptr(dev),
+        V, RPV, nr, vps, _stream_ptr(dev),
     )
     LAUNCHES["append"] += 1
     _raise_rc(rc, "rows_append")
@@ -271,10 +295,23 @@ def _mix_rows(samps, gs, n):
     return torch.stack(rows)
 
 
-def mix_tolerance(samps, gs, n):
+def _per_scene(fn, samps, gs, n, scenes):
+    """``fn(samps, gs, n)`` over each scene's rows: (S, 2, n), or fn's own
+    (2, n) when ``scenes`` is None."""
+    if scenes is None:
+        return fn(samps, gs, n)
+    vps = _scene_count(samps[0].shape[0], scenes)
+    return torch.stack([
+        fn([x[s * vps:(s + 1) * vps] for x in samps],
+           [g[s * vps:(s + 1) * vps] for g in gs], n)
+        for s in range(scenes)
+    ])
+
+
+def mix_tolerance(samps, gs, n, scenes=None):
     """Elementwise tolerance on |kernel - plain| for one block's voice mix
     (2, n), from the per-ear samples ``samps`` (V, n) and gains ``gs``
-    (V, 2).
+    (V, 2); with ``scenes``, per scene: (S, 2, n).
 
     Both versions round the same V products g·s and add them in float32,
     in different orders.  Each rounding errs by at most 2^-24 of its result,
@@ -286,6 +323,10 @@ def mix_tolerance(samps, gs, n):
     dg sum, plus both sides' roundings of the final ``m0 + j·m1``.  The
     worst-case bound ``2(V-1)·2^-24·Σ|g·s|`` grows with V instead and,
     at 4096 voices, passes a kernel that drops a voice."""
+    return _per_scene(_mix_tolerance, samps, gs, n, scenes)
+
+
+def _mix_tolerance(samps, gs, n):
     u = 2.0**-24
     jn = torch.arange(n, dtype=torch.float64, device=samps[0].device)
     rows = []
@@ -314,15 +355,16 @@ def _geometry(S2, n, K, emax2, hmax):
 
 
 def window_select_ears_plain(wide, rowshift, scal01, g01, e01, *, n, K,
-                             emax2, hmax=None, frz01=None):
-    """Plain version of K2, same signature as the JAX wrapper."""
+                             emax2, hmax=None, frz01=None, scenes=None):
+    """Plain version of K2, same signature as the JAX wrapper; with
+    ``scenes``, each scene's rows mixed apart, as S single-scene calls."""
     _, H = _geometry(wide.shape[1], n, K, emax2, hmax)
     samps = [
         ear_samples(wide, 0, rowshift, H, scal01[e], e01[e],
                     None if frz01 is None else frz01[e], n, K)
         for e in range(2)
     ]
-    return _mix_rows(samps, g01, n)
+    return _per_scene(_mix_rows, samps, g01, n, scenes)
 
 
 def window_select_multi_plain(wide, rowshift, scal01, g01, e01, frz01, *, n,
@@ -349,9 +391,10 @@ def window_select_multi_plain(wide, rowshift, scal01, g01, e01, frz01, *, n,
 
 
 def _select_cuda(name, wide, rowshift, scal01, g01, e01, frz01, n, K, nb,
-                 col0s, hcaps):
+                 col0s, hcaps, scenes=1):
     """Validate the (V, k*nb) operands and launch the select kernel pair
-    (per-chunk partial sums, then the fixed-order chunk reduction)."""
+    (per-chunk partial sums, then the fixed-order chunk reduction).
+    Returns (scenes, 2, nb*n)."""
     V, S2 = wide.shape
     dev = wide.device
     _cuda_device(wide)
@@ -359,6 +402,7 @@ def _select_cuda(name, wide, rowshift, scal01, g01, e01, frz01, n, K, nb,
         raise ValueError(f"nb={nb} > MAX_NB={MAX_NB}")
     if n < 1 or V < 1:
         raise ValueError("empty select")
+    vps = _scene_count(V, scenes)
     if wide.stride(1) != 1:
         raise ValueError("wide rows must be unit-stride")
     _check(wide, "wide", torch.float32, (V, S2), dev)
@@ -373,9 +417,9 @@ def _select_cuda(name, wide, rowshift, scal01, g01, e01, frz01, n, K, nb,
             _check(frz01[e], f"frz01[{e}]", torch.float32, (V, nb), dev)
             _check_contig(frz01[e], "frz01")
     _check_contig(rowshift, "rowshift")
-    nchunks = -(-V // VOICE_CHUNK)
+    nchunks = scenes * -(-vps // VOICE_CHUNK)
     part = torch.empty(nb * nchunks * 4 * n, dtype=torch.float32, device=dev)
-    out = torch.empty((2, nb * n), dtype=torch.float32, device=dev)
+    out = torch.empty((scenes, 2, nb * n), dtype=torch.float32, device=dev)
     c0 = (ctypes.c_int * MAX_NB)(*col0s)
     hc = (ctypes.c_int * MAX_NB)(*hcaps)
     f0, f1 = (None, None) if frz01 is None else frz01
@@ -386,7 +430,7 @@ def _select_cuda(name, wide, rowshift, scal01, g01, e01, frz01, n, K, nb,
         _ptr(wide), wide.stride(0), S2, _ptr(rowshift),
         _ptr(scal01[0]), _ptr(scal01[1]), _ptr(g01[0]), _ptr(g01[1]),
         _ptr(e01[0]), _ptr(e01[1]), _ptr(f0), _ptr(f1),
-        _ptr(part), _ptr(out), V, n, K, nb, c0, hc, _stream_ptr(dev),
+        _ptr(part), _ptr(out), V, vps, n, K, nb, c0, hc, _stream_ptr(dev),
     )
     LAUNCHES[name] += 1
     _raise_rc(rc, name)
@@ -394,26 +438,32 @@ def _select_cuda(name, wide, rowshift, scal01, g01, e01, frz01, n, K, nb,
 
 
 def window_select_ears(wide, rowshift, scal01, g01, e01, *, n, K, emax2,
-                       hmax=None, frz01=None):
+                       hmax=None, frz01=None, scenes=None):
     """K2 (oddio_tpu/ops/pallas_ring.py ``window_select_tiles_ears``).
 
     wide (V, S2): each voice's read window embedded at column
     128*rowshift (rowshift (V,) int32, clamped into [0, H)); scal01: two
     (V, 4) packed cursor rows; g01: two (V, 2) [gain0, d_gain] rows with
     the voice mask folded in; e01: two (V, 1) int32 per-ear staggers;
-    frz01: optional two (V, 1) f32 frozen flags.  Returns (2, n)."""
+    frz01: optional two (V, 1) f32 frozen flags.  Returns (2, n).
+
+    Scene axis (ScenePack): with ``scenes`` = S, the V rows are S scenes of
+    V/S voices each, in order, and each scene's voices are summed apart,
+    as a vmapped ``pallas_call`` sums them: returns (S, 2, n), in one
+    launch whatever S is."""
     V, S2 = wide.shape
     WIN, H = _geometry(S2, n, K, emax2, hmax)
     if wide.device.type == "cpu":
         return window_select_ears_plain(
             wide, rowshift, scal01, g01, e01, n=n, K=K, emax2=emax2,
-            hmax=hmax, frz01=frz01,
+            hmax=hmax, frz01=frz01, scenes=scenes,
         )
     pad = [0] * (MAX_NB - 1)
-    return _select_cuda(
+    out = _select_cuda(
         "select_ears", wide, rowshift.reshape(V, 1), scal01, g01, e01,
-        frz01, n, K, 1, [0] + pad, [H] + pad,
+        frz01, n, K, 1, [0] + pad, [H] + pad, 1 if scenes is None else scenes,
     )
+    return out[0] if scenes is None else out
 
 
 def window_select_multi(wide, rowshift, scal01, g01, e01, frz01, *, n, K,
@@ -437,7 +487,7 @@ def window_select_multi(wide, rowshift, scal01, g01, e01, frz01, *, n, K,
     return _select_cuda(
         "select_multi", wide, rowshift, scal01, g01, e01, frz01, n, K, nb,
         [128 * r for r in row0s] + pad, list(hs) + pad,
-    )
+    )[0]
 
 
 # --- K5: strip select (the host buffered pool's read) ---------------------------

@@ -49,6 +49,8 @@ from .ops._dev import (
     device_split_ds,
     exact_positions,
     masked_voice_sum,
+    per_voice,
+    scene_sum,
     split_ds,
 )
 from .ops.geometry import (  # noqa: F401  (re-exported API surface)
@@ -73,7 +75,7 @@ from .ops.ring_kernels import (
     window_select_multi,
 )
 from .ops.stream_kernels import ring_place
-from .parallel.context import localize_index
+from .parallel.context import current_scenes, localize_index
 from .utils.tree import tree_map, tree_stack
 
 __all__ = [
@@ -106,6 +108,12 @@ def _emax(rate):
 
 def _fdiv(a, b):
     return torch.div(a, b, rounding_mode="floor")
+
+
+def _rot_rows(rot, V):
+    """The listener rotation a walk applies: one shared (4,) quaternion, or
+    a ScenePack's (S, 4), one per scene, repeated for its V/S voice rows."""
+    return rot if rot.dim() == 1 else rot.repeat_interleave(V // rot.shape[0], dim=0)
 
 
 def _smooth_host(prev, smdt, dt_extra, mpos, mvel):
@@ -635,6 +643,7 @@ class _DRPoolBase(DRCtrlMixin):
     """
 
     is_dr = True
+    INDEX_PARAMS = ("play_idx", "mot_idx")
 
     #: per-voice geometry/lifecycle columns common to every DR pool kind
     GEOM_KEYS = (
@@ -713,6 +722,7 @@ class _DRPoolBase(DRCtrlMixin):
 
     def grow(self):
         """set-realloc analogue (set.rs:57-63): double capacity."""
+        self._pull_pack()
         old = self.capacity
         new = old * 2
         self.dr_state()
@@ -822,6 +832,7 @@ class _DRPoolBase(DRCtrlMixin):
     def _apply_plays_eager(self):
         """Apply all pending plays directly to device state (the bulk-setup
         path, outside the per-block step)."""
+        self._pull_pack()
         self.dr_state()
         idx = np.array([i for i, _ in self.pending_plays], np.int64)
         rows = tree_stack([r for _, r in self.pending_plays])
@@ -835,21 +846,8 @@ class _DRPoolBase(DRCtrlMixin):
         handle-visible state so a following sync() need not stall."""
         self._sync_start()
 
-    def sync(self):
-        """Pull mask/stopped back from the device; reclaim freed slots."""
-        if self.state is None:
-            return
-        mask, stopped = self._sync_read()
-        pending = {i for i, _ in self.pending_plays}
-        for i in range(self.capacity):
-            if i in pending:
-                continue
-            if self.mask_host[i] and stopped[i] and not mask[i]:
-                self.mask_host[i] = False
-                self.stopped_host[i] = True
-                self.slot_gen[i] += 1
-                self._free.append(i)
-                self._b_cache = None  # the live set shrank; re-bound
+    def _on_freed(self):
+        self._b_cache = None  # the live set shrank; re-bound
 
     # -- per block ---------------------------------------------------------------
 
@@ -964,8 +962,9 @@ class _DRPoolBase(DRCtrlMixin):
         mv3 = unstack3(S["motion_vel"])
         sm0 = smoothed_position_c(prev3, S["smdt"], 0.0, mp3, mv3)
         sm1 = smoothed_position_c(prev3, S["smdt"], elapsed, mp3, mv3)
-        prev_pos = quat_rotate_c(params["rot_prev"], sm0)
-        next_pos = quat_rotate_c(params["rot"], sm1)
+        # a pack's rotations are per scene, (S, 4): one per voice row
+        prev_pos = quat_rotate_c(_rot_rows(params["rot_prev"], V), sm0)
+        next_pos = quat_rotate_c(_rot_rows(params["rot"], V), sm1)
         ef = float(np.float32(elapsed))
         S["smdt"] = S["smdt"] + ef
 
@@ -1052,7 +1051,7 @@ class _SeekPoolDR(_DRPoolBase):
         jn = torch.arange(n, dtype=_F32, device=self.device)
         gains = p_gain[:, :, None] + jn * d_gain[:, :, None]
         contrib = torch.where(mask[:, None, None], samples * gains, 0.0)
-        return S, contrib.sum(dim=0)
+        return S, scene_sum(contrib, current_scenes())
 
 
 class _BufferedPoolDR(_DRPoolBase):
@@ -1070,6 +1069,8 @@ class _BufferedPoolDR(_DRPoolBase):
     """
 
     ROW_KEYS = _DRPoolBase.GEOM_KEYS + ("max_delay", "phase", "tight")
+    #: the family sub-pass list (slot numbers of the scene's own pool)
+    SCENE_PARAMS = ("sub_idx", "sub_on")
 
     #: ratio-1 flagship read tier's walk bound (see the JAX package)
     K_DOPPLER = 64
@@ -1114,6 +1115,9 @@ class _BufferedPoolDR(_DRPoolBase):
         #: tier-transition log (SpatialSceneControl.tier_events)
         self._tier_log = []
         self._tier_last = None
+        #: pack-wide walk-bound floor (a ScenePack renders its scenes'
+        #: pools as one, so they must agree on the read tier)
+        self._dmax_floor = 0.0
 
     # -- state ---------------------------------------------------------------
 
@@ -1321,9 +1325,11 @@ class _BufferedPoolDR(_DRPoolBase):
 
     def force_needed(self):
         """Whether this pool wants the delta step even without queued
-        events (a decaying smoothing transition, or a pending sub-pass
-        membership change)."""
+        events (a decaying smoothing transition, a pending sub-pass
+        membership change, or a sub-pass list a pack-wide floor clears)."""
         if getattr(self, "_sub_dirty", False):
+            return True
+        if self._dmax_floor > 0.0 and self._sub_list.size:
             return True
         c = self._b_cache
         if c is None:
@@ -1388,6 +1394,54 @@ class _BufferedPoolDR(_DRPoolBase):
             self._pvb_memo = (memo_key, out)
         return out
 
+    def cursor_params(self):
+        """The write cursor's per-block scalars ``w``, ``nw``, ``wstart``
+        of the last ``host_prepare``, shipped or not."""
+        return dict(self._w_last)
+
+    def tier_bound(self, interval, n):
+        """PRE-drain conservative walk bound for pack-wide tier agreement
+        (a ScenePack renders every scene's pool as one): the post-drain
+        bound any aligned pool can compute this block is <= this value, so
+        max-over-pack of tier_bound is a sound shared floor.  Transient
+        terms are capped exactly like ``_block_b``."""
+        elapsed = float(np.float32(f32(interval) * np.float32(n)))
+        ratio = float(np.float32(self.rate) * f32(interval))
+        C = float(SPEED_OF_SOUND)
+        T = float(POSITION_SMOOTHING_PERIOD)
+        b_cap = max(
+            0.0, (64.0 / min(512, max(n, 1)) - abs(ratio - 1.0)) / max(ratio, 1e-9)
+        )
+        b = self._block_b(elapsed, n, ratio, 0.0)
+        margin = 2.0 / self.rate + 1e-4
+        for slot, (p, v, d) in self.pending_motion.items():
+            sm = _smooth_host(
+                self._g_prev[slot : slot + 1],
+                self._g_smdt[slot : slot + 1],
+                0.0,
+                self._g_mpos[slot : slot + 1],
+                self._g_mvel[slot : slot + 1],
+            )[0]
+            vn = float(np.linalg.norm(np.asarray(v, np.float64)))
+            trans = (
+                0.0 if d else float(np.linalg.norm(np.asarray(p, np.float64) - sm)) / T
+            )
+            steady_p = (1.05 * vn + 0.5) / C
+            full_p = (1.05 * (vn + trans) + 0.5) / C
+            np_ = float(np.linalg.norm(np.asarray(p, np.float64)))
+            ns_ = float(np.linalg.norm(sm.astype(np.float64)))
+            d_hi = max(np_, ns_) + float(HEAD_RADIUS) + (vn + trans) * elapsed
+            d_lo = min(np_, ns_) - float(HEAD_RADIUS) - (vn + trans) * elapsed
+            if d_lo / C >= float(self._md_host[slot]) + margin:
+                # certainly frozen for this block: rides the select
+                # kernel's frozen branch, exempt from the walk bound
+                steady_p = full_p = 0.0
+            elif d_hi / C >= float(self._md_host[slot]) - elapsed - margin:
+                steady_p = max(steady_p, 1.0)
+                full_p = max(full_p, 1.0)
+            b = max(b, max(steady_p, min(full_p, max(b_cap, steady_p))))
+        return b
+
     def host_prepare(self, prev_rot, rot, interval, n, force=False):
         # per-(interval, n) invariants: elapsed, inner frame count, cursor
         # advance, rate ratio
@@ -1443,6 +1497,7 @@ class _BufferedPoolDR(_DRPoolBase):
             "nw": np.int32(n_write),
             "wstart": np.int32(start_i),
         }
+        self._w_last = dict(params)
         # deltas ship (and mirror-update) BEFORE the tier choice: shipped
         # motion applies on this block
         params = self._delta_params(params, force)
@@ -1542,7 +1597,9 @@ class _BufferedPoolDR(_DRPoolBase):
         512-frame tier (see the JAX package for the full rationale)."""
         desired = None  # None = keep the shipped list as-is
         pvb = None
-        if n > 0:
+        if self._dmax_floor > 0.0 and self._sub_list.size:
+            desired = self._EMPTY_SUB  # packs demote; no sub-pass under floors
+        if self._dmax_floor == 0.0 and n > 0:
             b_all = self._block_b(elapsed, n, ratio, rot_sin_half)
             cfg_all = self._pick_tier(abs(ratio - 1.0) + b_all * ratio, n, tiers)
             if cfg_all is None or cfg_all[0] < 512 or self._sub_list.size:
@@ -1624,7 +1681,7 @@ class _BufferedPoolDR(_DRPoolBase):
             else:
                 mb, sd = 0.0, 0.0
             self._read_cfg = self._pick_tier(
-                abs(ratio - 1.0) + mb * ratio,
+                abs(ratio - 1.0) + max(mb, float(self._dmax_floor)) * ratio,
                 n, tiers,
             )
             self._sub_cfg = self._pick_tier(sd, n, self.SUB_TIERS)
@@ -1633,7 +1690,10 @@ class _BufferedPoolDR(_DRPoolBase):
                 self._read_cfg = None
                 self._sub_cfg = None
         else:
-            b = self._block_b(elapsed, n, ratio, rot_sin_half)
+            b = max(
+                self._block_b(elapsed, n, ratio, rot_sin_half),
+                float(self._dmax_floor),
+            )
             self._read_cfg = self._pick_tier(abs(ratio - 1.0) + b * ratio, n, tiers)
             self._sub_cfg = None
         cur = (self._read_cfg, self._sub_cfg, int(self._sub_list.size))
@@ -1660,23 +1720,25 @@ class _BufferedPoolDR(_DRPoolBase):
 
         # 5. shared ring cursor: host scalars on delta blocks (resyncing the
         # device cursor), derived on the device from "wcur" on param-free
-        # idle blocks (exact on the integer fast path)
+        # idle blocks (exact on the integer fast path).  One cursor per
+        # scene: (1,), or a ScenePack's (S,)
         cap = self.cap_pool
         capf = float(cap)
+        V = mask.shape[0]
         if "w" in params:
-            w_end = _upload(params["w"], dev, _F32)
-            nw_s = _upload(params["nw"], dev, _I32)
-            start_i = _upload(params["wstart"], dev, _I32)
+            w_end = _upload(params["w"], dev, _F32).reshape(-1)
+            nw_s = _upload(params["nw"], dev, _I32).reshape(-1)
+            start_i = _upload(params["wstart"], dev, _I32).reshape(-1)
         else:
             adv = float(np.float32(self._prep_inv[2]))
-            w0 = S["wcur"][0]
+            w0 = S["wcur"]
             w_un = w0 + adv
             w_end = torch.remainder(w_un, capf)
             start_i = torch.ceil(w0).to(_I32)
             nw_s = torch.ceil(w_un).to(_I32) - start_i
-        S["wcur"] = w_end.reshape(1)
+        S["wcur"] = w_end
         # dead/unplayed slots do not advance their inner cursors
-        n_write = torch.where(mask, nw_s, 0)
+        n_write = torch.where(mask, per_voice(nw_s, V), 0)
 
         # 6. inner source render; slab append (ring.rs:18-41).  All n_inner
         # frames are written every block; the <=1-frame overlap past
@@ -1705,17 +1767,18 @@ class _BufferedPoolDR(_DRPoolBase):
             # into the mirror when it touches [0, M), onto the canonical
             # home when it wrapped past L, or into the dump slack otherwise
             flat = ring.view(ring.shape[0], self.rowlen)
+            start_v = per_voice(start_i, V).expand(V).to(torch.int64)
             for k in range(0, n_inner, self.W_CHUNK):
                 chunk = samples[:, k : k + self.W_CHUNK]
                 width = chunk.shape[1]
                 lanes = torch.arange(width, dtype=torch.int64, device=dev)
-                ck = torch.remainder(start_i + k, cap)
-                flat.index_copy_(1, (FP + ck).to(torch.int64) + lanes, chunk)
+                ck = torch.remainder(start_v + k, cap)
+                flat.scatter_(1, (FP + ck)[:, None] + lanes, chunk)
                 c2 = FP + torch.where(
                     ck + width > cap, ck - cap,
                     torch.where(ck < M, ck + cap, cap + M),
                 )
-                flat.index_copy_(1, c2.to(torch.int64) + lanes, chunk)
+                flat.scatter_(1, c2[:, None] + lanes, chunk)
         S["ring"] = ring
 
         # 7. per-ear read operands (spatial.rs:409-431), component-split
@@ -1726,7 +1789,7 @@ class _BufferedPoolDR(_DRPoolBase):
         n_off_c = [torch.maximum(no, nmd) for no in n_off_c]
         nf = float(np.float32(n)) if n > 0 else 1.0
         d_gain_c = [(n_gain_c[e] - p_gain_c[e]) / nf for e in range(2)]
-        wp = w_end + S["phase"]
+        wp = per_voice(w_end, V) + S["phase"]
         offset0_c = [
             torch.remainder(wp + p_off_c[e] * ratef, capf) for e in range(2)
         ]
@@ -1789,13 +1852,17 @@ class _BufferedPoolDR(_DRPoolBase):
             b = look(torch.remainder(x + 1, cap))
             s = a + fr * (b - a)
             contrib = torch.where(ro["mask"][:, None, None], s * gains, 0.0)
-            return S, contrib.sum(dim=0)
+            return S, scene_sum(contrib, current_scenes())
         base_c = [o.to(_I32) for o in obase_c]
         frac_c = [offset0_c[e] - obase_c[e] for e in range(2)]
         RPV = self.rowlen // 128
         rows8 = ring.view(V * (RPV // 8), 8, 128)
         vb8 = torch.arange(V, dtype=_I32, device=dev) * (RPV // 8)
         sub_cfg = self._sub_cfg
+        if sub_cfg is not None and current_scenes() is not None:
+            # a pack-wide floor clears every list on a delta block first
+            # (force_needed)
+            raise RuntimeError("a packed buffered pool rendered with a family sub-pass")
         if "sub_idx" in params:
             # membership refresh (delta blocks): carry the list and the
             # derived per-voice tight flags in state
@@ -1947,7 +2014,8 @@ class _BufferedPoolDR(_DRPoolBase):
                       p_gain_c, d_gain_c, maskf, cfg, n, cap, FP,
                       frz_c=None):
         """Tile-granule window gather + per-ear select (K2) over one voice
-        set (the main pool or the family sub-pass list), mixed to (2, n).
+        set (the main pool or the family sub-pass list), mixed to (2, n),
+        or in a ScenePack to (S, 2, n), each scene's voices apart.
         ``rows8`` is the (8, 128)-tile view of the ring; ``vbase`` maps each
         rendered row to its voice's first granule.  Windows come off whole
         1024-column granules; the granule remainder becomes the kernel's
@@ -1986,7 +2054,7 @@ class _BufferedPoolDR(_DRPoolBase):
                 e01.append((exr + dstart[e]).to(_I32)[:, None])
             parts.append(window_select_ears(
                 wide, rowshift, scal01, g01, e01, n=n_c, K=K, emax2=emax2r,
-                hmax=GW // PW, frz01=frz_c,
+                hmax=GW // PW, frz01=frz_c, scenes=current_scenes(),
             ))
             if j0 + n_c < n:
                 for e in range(2):
@@ -2142,7 +2210,20 @@ class SpatialScene(Engine):
                 return True
         return False
 
-    def host_prepare(self, interval, n, count=None):
+    def host_wants_deltas(self):
+        """True when the NEXT block would ship control-delta arrays: the
+        pack-coordination predicate (a ScenePack ORs it over its scenes
+        and passes it as ``force``, so every scene ships deltas on the
+        same blocks, while all-idle pack blocks ship nothing)."""
+        return self._rot_pending is not None or any(
+            bool(p.pending_plays) or bool(p.pending_motion)
+            or p._ctrl_pending_any() or getattr(p, "force_deltas", False)
+            or getattr(p, "force_needed", lambda: False)()
+            for p in self._all_pools()
+            if p.is_dr
+        )
+
+    def host_prepare(self, interval, n, count=None, force=False):
         # listener rotation swap refresh (spatial.rs:382-386): the host keeps
         # the authoritative mirror; the pools read the device copy ("_rot")
         prev_rot = self._rot
@@ -2154,8 +2235,9 @@ class SpatialScene(Engine):
             self._rot_pending = None
         rot = self._rot
         # scene-global control-event flag: when ANY pool has queued events,
-        # every pool ships its (padded) delta arrays
-        force = rot_event or any(
+        # every pool ships its (padded) delta arrays; ``force`` adds a
+        # pack's (an event in a sibling scene)
+        force = force or rot_event or any(
             bool(p.pending_plays) or bool(p.pending_motion)
             or p._ctrl_pending_any()
             or getattr(p, "force_needed", lambda: False)()
@@ -2190,6 +2272,8 @@ class SpatialScene(Engine):
     def device_store(self, d):
         self._rot_dev = d["_rot"]
         for p in self._all_pools():
+            if p.name not in d:  # opened after ``d`` was collected
+                continue
             if p.is_dr:
                 p.state = d[p.name]
             else:
@@ -2237,14 +2321,21 @@ class SpatialScene(Engine):
         return d2, out
 
     def render(self, dstate, ddata, params, n):
-        # rotation refresh: prev = state, cur = delta (if any)
+        # rotation refresh: prev = state, cur = delta (if any).  A ScenePack
+        # stacks its scenes' pools: its "_rot" holds S rotations end to
+        # end, and the block is (S, 2, n)
+        S = current_scenes()
         rot_prev = dstate["_rot"]
         rot_cur = (
             _upload(params["_rot_new"], self.device)
             if "_rot_new" in params else rot_prev
         )
-        out = torch.zeros((2, n), dtype=_F32, device=self.device)
-        d2 = {"_rot": rot_cur}
+        shape = (2, n)
+        if S is not None:
+            rot_prev, rot_cur = rot_prev.reshape(S, 4), rot_cur.reshape(S, 4)
+            shape = (S, 2, n)
+        out = torch.zeros(shape, dtype=_F32, device=self.device)
+        d2 = {"_rot": rot_cur.reshape(dstate["_rot"].shape)}
         for p in self._all_pools():
             pp = params[p.name]
             if p.is_dr:

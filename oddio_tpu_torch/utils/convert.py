@@ -5,8 +5,9 @@
 tensors on ``device``, same keys and dtypes; ``state_to_numpy`` goes the
 other way.  ``carry_mixer`` carries a JAX ``Mixer``'s pools into a port
 ``Mixer`` built by the same control script, and ``carry_scene`` a JAX
-``SpatialScene``'s into a port scene.  None of them imports JAX: JAX
-arrays convert through ``numpy.asarray``.
+``SpatialScene``'s into a port scene, and ``carry_pack`` every scene of a
+JAX ``ScenePack`` into a port pack.  None of them imports JAX: JAX arrays
+convert through ``numpy.asarray``.
 
 The host buffered pool's ring is ``(V*L/128, 128)`` in the JAX package
 and ``(V, L)`` here: the same bytes in the same order, carried by a
@@ -18,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["state_from_numpy", "state_to_numpy", "carry_mixer", "carry_scene"]
+__all__ = ["state_from_numpy", "state_to_numpy", "carry_mixer", "carry_scene", "carry_pack"]
 
 
 def state_from_numpy(tree, device="cpu"):
@@ -174,3 +175,20 @@ def carry_scene(src, dst):
             b.state = state_from_numpy(tree[a.name], b.device)
         else:
             _carry_host_pool(a, b, a._COL_NAMES)
+
+
+def carry_pack(src, dst):
+    """Carry a JAX package ``ScenePack`` ``src`` into this package's
+    ``ScenePack`` ``dst``, whose scenes the same control scripts built:
+    ``src.sync()`` writes its carried (S, ...) state back into its scenes,
+    each scene carries across (``carry_scene`` or ``carry_mixer``), and
+    ``dst`` drops any stack it held, so that its next block stacks the
+    carried scenes.  The conditions of the per-scene carries hold (a
+    spatial scene's host mirrors are ``dst``'s own, stepped through the
+    same block preparations)."""
+    if len(src.scenes) != len(dst.scenes):
+        raise ValueError(f"{len(src.scenes)} scenes vs {len(dst.scenes)}")
+    src.sync()
+    dst.drop_stack()
+    for a, b in zip(src.scenes, dst.scenes):
+        (carry_scene if hasattr(a, "_buffered_pools") else carry_mixer)(a, b)

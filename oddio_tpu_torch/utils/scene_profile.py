@@ -1,17 +1,22 @@
 """Where a block's time goes on a CUDA card: the bench scenes at 4096 voices
 through ``Renderer.render_frames_device``, timed and traced.
 
-    python -m oddio_tpu_torch.utils.scene_profile [buffered|seek|mixer|hostpools ...]
+    python -m oddio_tpu_torch.utils.scene_profile [buffered|seek|mixer|hostpools|pack|pack256|spatialpack ...]
 
 For the buffered and the seek scene (``bench.py``'s ``build_spatial``,
 4096 voices), the AGC mixer scene (``build_mixer_agc``, BASELINE config
 5's scene at 4096 voices) and the host-pool scene (``build_host_pools``:
 4096 Speed(Stream) voices in the host buffered pool, 512 Adapt(Stream) in
-the device-resident one and a 256-voice config-5 submix) it prints, for
-each of three timed 188-block
+the device-resident one and a 256-voice config-5 submix), and the
+ScenePacks (``build_config5_pack``: BASELINE config 5's 256 x 256 pack at
+16 scenes, bench.py's ``scenepack_xrt`` line, as ``pack``, and at its
+stated 256 scenes as ``pack256``; ``build_spatial_pack``: 16 scenes of 64
+buffered + 192 seek Sine voices, as ``spatialpack``) it
+prints, for each of three timed 188-block
 runs, the wall time per 512-frame block, the host time per block spent in
 the engine's ``host_prepare`` and the real-time factor (xRT, after
-``torch.cuda.synchronize()``); then, for one 47-block run under
+``torch.cuda.synchronize()``; for a pack, per scene: one scene's audio
+seconds per wall second, as bench.py counts it); then, for one 47-block run under
 ``torch.profiler``, the device kernel time per block, the device's busy
 share of the wall time (kernel time / wall time), the device kernels per
 block, the kernels with the most device time and the host-side torch ops
@@ -32,8 +37,8 @@ import torch
 
 import oddio_tpu_torch as pt
 
-__all__ = ["build_spatial", "build_mixer_agc", "build_host_pools", "feed", "card_line",
-           "main"]
+__all__ = ["build_spatial", "build_mixer_agc", "build_host_pools", "build_config5_pack",
+           "build_pack_scene", "build_spatial_pack", "feed", "card_line", "main"]
 
 RATE = 48000
 BLOCK = 512
@@ -144,6 +149,55 @@ def build_host_pools(voices, device, seed=0, dr_voices=None, submix_voices=None)
     return control, scene, ctls + mctls, speeds, rng
 
 
+def build_config5_pack(scenes, device, voices=256, seed=0):
+    """BASELINE config 5 as a ScenePack (``bench.py:324-356``
+    ``_build_pack``): ``scenes`` config-5 mixers of ``voices`` voices each
+    (``build_mixer_agc``, scene s drawn from ``seed + s``: 1/8 Adapt(Stream)
+    prefilled with FILL samples, the rest Adapt(Sine) at 50-2000 Hz, tau
+    0.1 s, max_gain 4), on a 1 x 1 mesh at 48 kHz.  Returns ``(pack,
+    stream_controls, rng)``."""
+    from ..parallel.mesh import make_mesh
+    from ..parallel.sharded import ScenePack
+
+    mixers, ctls = [], []
+    for s in range(scenes):
+        _, mixer, c, rng = build_mixer_agc(voices, device, seed + s)
+        mixers.append(mixer)
+        ctls.extend(c)
+    return ScenePack(mixers, RATE, make_mesh(1, 1), scan_unroll=8), ctls, rng
+
+
+def build_pack_scene(device, seed, n_buffered=64, n_seek=192):
+    """One spatial scene of ``__graft_entry__._build_scene``'s make-up:
+    ``n_buffered`` buffered (delay-ring) Sine voices within 30 m moving at
+    up to 10 m/s per axis, max_distance 50 m, buffer_duration 0.1 s, and
+    ``n_seek`` seek (time-warp) Sine voices within 30 m; phases uniform in
+    [0, 6), frequencies in [100, 2000) Hz; drawn from ``seed``; 48 kHz."""
+    rng = np.random.default_rng(seed)
+    control, scene = pt.SpatialScene.new(initial_capacity=n_buffered, device=device)
+    for _ in range(n_buffered):
+        control.play_buffered(
+            pt.Sine(rng.uniform(0, 6), rng.uniform(100, 2000)),
+            pt.SpatialOptions(position=rng.uniform(-30, 30, 3),
+                              velocity=rng.uniform(-10, 10, 3)),
+            max_distance=50.0, rate=RATE, buffer_duration=0.1,
+        )
+    for _ in range(n_seek):
+        control.play(pt.Sine(rng.uniform(0, 6), rng.uniform(100, 2000)),
+                     pt.SpatialOptions(position=rng.uniform(-30, 30, 3)))
+    return scene
+
+
+def build_spatial_pack(scenes, device, n_buffered=64, n_seek=192, seed=0):
+    """A ScenePack of ``scenes`` ``build_pack_scene`` scenes, scene s drawn
+    from ``seed + s``, on a 1 x 1 mesh at 48 kHz."""
+    from ..parallel.mesh import make_mesh
+    from ..parallel.sharded import ScenePack
+
+    out = [build_pack_scene(device, seed + s, n_buffered, n_seek) for s in range(scenes)]
+    return ScenePack(out, RATE, make_mesh(1, 1))
+
+
 def feed(ctls, rng, k):
     """Write ``k`` more N(0, 0.1²) samples to every stream (as many as each
     has room for); returns the samples each took."""
@@ -160,26 +214,30 @@ def card_line():
     return out[0].strip()
 
 
-def _timed_prepare(scene):
-    """Wrap ``scene.host_prepare`` to add its host seconds to a list."""
+def _timed_prepare(scenes):
+    """Wrap each scene's ``host_prepare`` to add its host seconds to one
+    list."""
     spent = [0.0]
-    inner = scene.host_prepare
+    for scene in scenes:
+        inner = scene.host_prepare
 
-    def host_prepare(*a, **kw):
-        t0 = time.perf_counter()
-        try:
-            return inner(*a, **kw)
-        finally:
-            spent[0] += time.perf_counter() - t0
+        def host_prepare(*a, _inner=inner, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _inner(*a, **kw)
+            finally:
+                spent[0] += time.perf_counter() - t0
 
-    scene.host_prepare = host_prepare
+        scene.host_prepare = host_prepare
     return spent
 
 
 def _run(renderer, nblocks):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    renderer.render_frames_device(BLOCK * nblocks, sync=False)
+    # a Renderer skips its handle readback; a ScenePack starts none
+    kw = {"sync": False} if isinstance(renderer, pt.Renderer) else {}
+    renderer.render_frames_device(BLOCK * nblocks, **kw)
     torch.cuda.synchronize()
     return time.perf_counter() - t0
 
@@ -187,7 +245,14 @@ def _run(renderer, nblocks):
 def profile_scene(label):
     nblocks = BLOCKS
     before = None
-    if label == "mixer":
+    if label in ("pack", "pack256"):
+        r, ctls, rng = build_config5_pack(16 if label == "pack" else 256, "cuda")
+
+        def before():
+            feed(ctls, rng, 1024)
+    elif label == "spatialpack":
+        r = build_spatial_pack(16, "cuda")
+    elif label == "mixer":
         _, scene, ctls, rng = build_mixer_agc(VOICES, "cuda")
 
         def before():
@@ -199,8 +264,11 @@ def profile_scene(label):
             feed(ctls, rng, 1024)
     else:
         _, scene = build_spatial(label == "buffered", VOICES, "cuda")
-    spent = _timed_prepare(scene)
-    r = pt.Renderer(scene, RATE)
+    if label in ("pack", "pack256", "spatialpack"):
+        spent = _timed_prepare(r.scenes)
+    else:
+        spent = _timed_prepare([scene])
+        r = pt.Renderer(scene, RATE)
     _run(r, nblocks // 2)  # warm-up
     for _ in range(RUNS):
         spent[0] = 0.0
@@ -238,7 +306,7 @@ def profile_scene(label):
               f"x{e.count / ntr:5.1f}  {e.key}")
 
 
-SCENES = ("buffered", "seek", "mixer", "hostpools")
+SCENES = ("buffered", "seek", "mixer", "hostpools", "pack", "pack256", "spatialpack")
 
 
 def main(argv=None):

@@ -185,3 +185,45 @@ def test_port_continues_a_jax_host_pool_scene():
     assert np.abs(a).max() > 1e-3
     assert np.abs(a - b).max() <= TOL, np.abs(a - b).max()
     assert [c.free() for c in cj] == [c.free() for c in cp]
+
+
+def test_port_pack_continues_from_jax_pack():
+    """A JAX ScenePack of two config-5 mini mixers (Adapt(Stream) and
+    Adapt(Sine) voices) renders 3 blocks; ``carry_pack`` hands its carried
+    state, with PCM still queued, to a port pack of the same scenes; both
+    render the next 5 blocks with a write between them."""
+    from oddio_tpu.parallel.mesh import make_mesh as jax_mesh
+    from oddio_tpu.parallel.sharded import ScenePack as JaxPack
+    from test_torch_pack import PCM, config5_mini
+
+    from oddio_tpu_torch.parallel.mesh import make_mesh
+    from oddio_tpu_torch.parallel.sharded import ScenePack
+    from oddio_tpu_torch.utils.convert import carry_pack
+
+    def build(m):
+        scenes, ctls = zip(*[config5_mini(m, s) for s in range(2)])
+        return list(scenes), [c for group in ctls for c in group]
+
+    sj, cj = build(ot)
+    jp = JaxPack(sj, 8000, jax_mesh(1, 1))
+    for c, x in zip(cj, PCM):
+        c.write(x)
+    for _ in range(3):
+        jp.render_block(512)
+    for c, x in zip(cj, PCM):
+        c.write(x[:300])  # still queued at the hand-over
+    sp, cp = build(pt)
+    pp = ScenePack(sp, 8000, make_mesh(1, 1))
+    carry_pack(jp, pp)
+    a, b = [], []
+    for i in range(5):
+        if i == 2:
+            for c1, c2, x in zip(cj, cp, PCM):
+                assert c1.write(x[:400]) == c2.write(x[:400])
+        a.append(jp.render_block(512))
+        b.append(pp.render_block(512))
+    a, b = np.concatenate(a, axis=1), np.concatenate(b, axis=1)
+    assert a.shape == b.shape == (2, 2560, 1)
+    assert np.abs(a).max() > 0.05
+    assert np.abs(a - b).max() <= TOL, np.abs(a - b).max()
+    assert [c.free() for c in cj] == [c.free() for c in cp]

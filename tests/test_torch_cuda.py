@@ -11,7 +11,10 @@ rounding errors of such a sum grow, and fails a dropped voice or bf16
 partial sums); K4 exact (a copy); K6 exact (the same f32 operations, each
 rounded once); K7 within ``agc.agc_tolerance`` elementwise (another order
 of the prefix sum); K5 within ``ring_kernels.strip_tolerance``
-elementwise (its voice sum in another, fixed order); the scenes within the
+elementwise (its voice sum in another, fixed order); K8 within
+``flat_kernels.window_select_tolerance`` (K2's), K9 exact (a copy), K10
+within ``flat_kernels.dma_tolerance`` (as K5's); K1/K2 with a ScenePack's
+scene axis as without it, per scene; the scenes and packs within the
 PARITY.md 1e-5.
 """
 
@@ -21,10 +24,12 @@ import torch
 
 import oddio_tpu_torch as pt
 from oddio_tpu_torch.ops import agc as A
+from oddio_tpu_torch.ops import flat_kernels as FK
 from oddio_tpu_torch.ops import ring_kernels as RK
 from oddio_tpu_torch.ops import stream_kernels as SK
 from oddio_tpu_torch.ops._dev import device_split_ds
-from oddio_tpu_torch.utils.scene_profile import build_host_pools, build_mixer_agc, feed
+from oddio_tpu_torch.utils.scene_profile import (build_config5_pack, build_host_pools,
+                                                 build_mixer_agc, build_spatial_pack, feed)
 
 torch.set_num_threads(1)
 
@@ -341,3 +346,152 @@ def test_host_pool_scene_on_card_matches_cpu(cuda):
     assert min(SK.LAUNCHES.values()) > 0
     assert np.abs(outs[0]).max() > 1e-2
     assert np.abs(outs[0] - outs[1]).max() <= 1e-5
+
+
+# --- K8-K10 and the ScenePack ---------------------------------------------------
+
+
+def _flat_operands(rng, dev, V, n, K, emax2):
+    def t(x, dtype=np.float32):
+        return torch.tensor(np.asarray(x, dtype), device=dev)
+
+    di, fh, fl = device_split_ds(t(rng.uniform(1 - K / n, 1 + K / n, (V, 2))))
+    scal = torch.stack([t(rng.uniform(0, 1, (V, 2))), fh, fl, di.float()], -1).contiguous()
+    return (scal, t(rng.uniform(0, 1, (V, 2))), t(rng.uniform(-1e-3, 1e-3, (V, 2))),
+            t(rng.uniform(0, 1, V) > 0.3), t(rng.integers(0, emax2, (V, 2)), np.int32))
+
+
+@pytest.mark.parametrize("V", [1, 1000])
+@pytest.mark.parametrize("emax2", [36, 163])
+def test_window_select_flat_within_tolerance(cuda, V, emax2):
+    """K8 (K2's body on flat windows) against its plain version."""
+    rng = np.random.default_rng(80 + V + emax2)
+    n, K = 512, 64
+    win = torch.tensor(rng.standard_normal((V, RK.select_window(n, emax2, K))).astype(np.float32),
+                       device=cuda)
+    ops = (win,) + _flat_operands(rng, cuda, V, n, K, emax2)
+    plain = FK.window_select_plain(*ops, n=n, K=K, emax2=emax2)
+    before = FK.LAUNCHES["window_select"]
+    got = FK.window_select(*ops, n=n, K=K, emax2=emax2)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["window_select"] == before + 1
+    tol = FK.window_select_tolerance(*ops, n=n, K=K)
+    assert bool(((got - plain).abs().double() <= tol).all())
+
+
+@pytest.mark.parametrize("form", ["mixed", "ints", "pair"])
+def test_flat_append_aligned_exact(cuda, form):
+    rng = np.random.default_rng(90)
+    V, rowlen = 1000, 4096
+    ring = torch.tensor(rng.standard_normal((V, rowlen)).astype(np.float32), device=cuda)
+    slab = torch.tensor(rng.standard_normal((V, 1024)).astype(np.float32), device=cuda)
+    plain = FK.flat_append_aligned_plain(ring.clone(), slab, 1, 5)
+    pages = {"mixed": (1, torch.tensor(5, dtype=torch.int32, device=cuda)),
+             "ints": (1, 5),
+             "pair": (torch.tensor([1, 5], dtype=torch.int32, device=cuda),)}[form]
+    before = FK.LAUNCHES["flat_append"]
+    got = FK.flat_append_aligned(ring.clone(), slab, *pages)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["flat_append"] == before + 1
+    assert torch.equal(got, plain)
+
+
+def test_dma_window_select_within_tolerance(cuda):
+    """K10 against its plain version, windows past their row end included
+    (they read the next row of the flat ring)."""
+    rng = np.random.default_rng(100)
+    V, rowlen, n, K, emax2 = 1000, 4096, 512, 64, 36
+    ring = torch.tensor(rng.standard_normal((V, rowlen)).astype(np.float32), device=cuda)
+    rs = rng.integers(0, rowlen - 2048 + 600, V).astype(np.int32)
+    rs[-1] = 0
+    ops = (ring, torch.tensor(rs, device=cuda)) + _flat_operands(rng, cuda, V, n, K, emax2)
+    plain = FK.dma_window_select_plain(*ops, n=n, K=K, emax2=emax2)
+    before = FK.LAUNCHES["dma_window_select"]
+    got = FK.dma_window_select(*ops, n=n, K=K, emax2=emax2)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["dma_window_select"] == before + 1
+    tol = FK.dma_tolerance(*ops, n=n, K=K)
+    assert bool(((got - plain).abs().double() <= tol).all())
+
+
+def test_rows_append_scene_axis_exact(cuda):
+    rng = np.random.default_rng(110)
+    S, V, RPV = 16, 64, 160
+    ring = torch.tensor(rng.standard_normal((S * V, RPV, 128)).astype(np.float32), device=cuda)
+    slab = torch.tensor(rng.standard_normal((S * V, 512)).astype(np.float32), device=cuda)
+    r0 = torch.tensor(rng.integers(0, RPV - 4, S).astype(np.int32), device=cuda)
+    rm = torch.tensor(rng.integers(0, RPV - 4, S).astype(np.int32), device=cuda)
+    plain = RK.rows_append_plain(ring.clone(), slab, r0, rm)
+    before = RK.LAUNCHES["append"]
+    got = RK.rows_append(ring.clone(), slab, r0, rm)
+    torch.cuda.synchronize()
+    assert RK.LAUNCHES["append"] == before + 1
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("S,V", [(16, 256), (3, 17)])
+def test_window_select_ears_scene_axis(cuda, S, V):
+    """K2 with the scene axis: (S, 2, n) in one launch, each scene within
+    its own mix tolerance."""
+    rng = np.random.default_rng(120 + S)
+    n, K = 512, 32
+    WIN = RK.select_window(n, EMAX2, K)
+    S2 = -(-(GW - 1 + WIN) // GW) * GW
+    wide, rowshift, scal01, g01, e01, frz01 = _select_inputs(rng, cuda, S * V, n, K, S2)
+    rs = rowshift[:, 0].contiguous()
+    kw = dict(n=n, K=K, emax2=EMAX2, hmax=8, frz01=frz01, scenes=S)
+    plain = RK.window_select_ears_plain(wide, rs, scal01, g01, e01, **kw)
+    before = RK.LAUNCHES["select_ears"]
+    got = RK.window_select_ears(wide, rs, scal01, g01, e01, **kw)
+    torch.cuda.synchronize()
+    assert RK.LAUNCHES["select_ears"] == before + 1 and got.shape == (S, 2, n)
+    samps = [RK.ear_samples(wide, 0, rs, 8, scal01[e], e01[e], frz01[e], n, K) for e in range(2)]
+    tol = RK.mix_tolerance(samps, g01, n, scenes=S)
+    assert bool(((got - plain).abs().double() <= tol).all())
+
+
+def _pack_run(pack, ctls, pcm, nb0=4, nb1=8):
+    a = np.concatenate([pack.render_block(512) for _ in range(nb0)], axis=1)
+    for c, x in zip(ctls, pcm):
+        c.write(x)
+    b = torch.cat(pack.render_frames_device(512 * nb1)).cpu().numpy()  # (B, S, C, n)
+    B, S, C, n = b.shape
+    return np.concatenate([a, b.transpose(1, 0, 3, 2).reshape(S, B * n, C)], axis=1)
+
+
+def test_pack_on_card_matches_cpu(cuda):
+    """A 3 x 64-voice config-5 pack (K4, K6, K7) and a 3-scene spatial pack
+    (K1, K2) on the card against the same packs on the CPU."""
+    outs, pcm = [], None
+    for device in ("cpu", cuda):
+        SK.reset_launches()
+        A.reset_launches()
+        pack, ctls, rng = build_config5_pack(3, device, voices=64)
+        if pcm is None:
+            pcm = (rng.standard_normal((len(ctls), 1024)) * 0.1).astype(np.float32)
+        outs.append(_pack_run(pack, ctls, pcm))
+    assert min(SK.LAUNCHES.values()) > 0 and A.LAUNCHES["agc_gains"] > 0
+    assert np.abs(outs[0]).max() > 0.1
+    assert np.abs(outs[0] - outs[1]).max() <= 1e-5
+    outs = []
+    for device in ("cpu", cuda):
+        RK.reset_launches()
+        outs.append(_pack_run(build_spatial_pack(3, device, 16, 48), [], []))
+    assert RK.LAUNCHES["append"] > 0 and RK.LAUNCHES["select_ears"] > 0
+    assert np.abs(outs[0]).max() > 1e-2
+    assert np.abs(outs[0] - outs[1]).max() <= 1e-5
+
+
+def test_pack_launches_per_block_do_not_grow_with_scenes(cuda):
+    """One launch per pool per block whatever S is: the config-5 pack
+    launches K4/K6/K7 as often at 4 scenes as at 16."""
+    counts = []
+    for S in (4, 16):
+        pack, ctls, rng = build_config5_pack(S, cuda, voices=64)
+        pcm = (rng.standard_normal((len(ctls), 1024)) * 0.1).astype(np.float32)
+        SK.reset_launches()
+        A.reset_launches()
+        _pack_run(pack, ctls, pcm)
+        torch.cuda.synchronize()
+        counts.append({**SK.LAUNCHES, **A.LAUNCHES})
+    assert counts[0] == counts[1] and min(counts[0].values()) > 0, counts

@@ -360,3 +360,206 @@ def test_strip_tolerance_fails_planted_faults(fault):
     got = _chunk_order_sum(x, drop=loudest if fault == "drop_voice" else None)
     within = bool(((got - plain).abs().double() <= tol).all())
     assert within == (fault is None)
+
+
+# --- K8-K10: the flat-window and flat-ring kernels ----------------------------------
+
+from oddio_tpu_torch.ops import flat_kernels as FK  # noqa: E402
+
+
+def _flat_select_operands(rng, V, emax2, ds_lo, ds_hi):
+    """K8/K10 per-ear operands, as pallas_ring's wrappers take them."""
+    ds = rng.uniform(ds_lo, ds_hi, (V, 2)).astype(np.float32)
+    di, fh, fl = (np.asarray(x) for x in device_split_ds(jnp.asarray(ds)))
+    ofrac = rng.uniform(0, 1, (V, 2)).astype(np.float32)
+    scal = np.stack([ofrac, fh, fl, di.astype(np.float32)], -1)  # (V, 2, 4)
+    extra = rng.integers(0, emax2, (V, 2)).astype(np.int32)
+    gain0 = rng.uniform(0, 1, (V, 2)).astype(np.float32)
+    d_gain = rng.uniform(-1e-3, 1e-3, (V, 2)).astype(np.float32)
+    maskf = (rng.uniform(0, 1, V) > 0.3).astype(np.float32)
+    return scal, gain0, d_gain, maskf, extra
+
+
+@pytest.mark.parametrize("emax2", [36, 163])
+def test_window_select_matches_pallas(emax2):
+    """K8 against the interpreted ``window_select``, at both table widths
+    ``tests/test_ops.py:400`` holds it at; the launch counter does not move
+    on the CPU."""
+    rng = np.random.default_rng(emax2)
+    V, n, K = 8, 256, 64
+    win = rng.standard_normal((V, PR.select_window(n, emax2, K))).astype(np.float32)
+    scal, gain0, d_gain, maskf, extra = _flat_select_operands(rng, V, emax2, 0.99, 1.01)
+    ref = np.asarray(PR.window_select(
+        *(jnp.asarray(x) for x in (win, scal, gain0, d_gain, maskf, extra)),
+        n=n, K=K, emax2=emax2, interpret=True,
+    ))
+    before = dict(FK.LAUNCHES)
+    got = FK.window_select(*_t([win, scal, gain0, d_gain, maskf, extra]), n=n, K=K,
+                           emax2=emax2).numpy()
+    assert FK.LAUNCHES == before
+    assert got.shape == (2, n) and np.abs(ref).max() > 0.1
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+
+
+def test_flat_append_aligned_matches_pallas():
+    """K9 against the interpreted ``flat_append_aligned``: exact, both
+    legs; a page past the row raises."""
+    rng = np.random.default_rng(9)
+    V, rowlen = 8, 4096
+    ring = rng.standard_normal((V, rowlen)).astype(np.float32)
+    samples = rng.standard_normal((V, 1024)).astype(np.float32)
+    ref = np.asarray(PR.flat_append_aligned(jnp.asarray(ring), jnp.asarray(samples), 2, 6,
+                                            interpret=True))
+    got = FK.flat_append_aligned(torch.tensor(ring), torch.tensor(samples),
+                                 torch.tensor(2, dtype=torch.int32), 6).numpy()
+    np.testing.assert_array_equal(got, ref)
+    with pytest.raises(IndexError):
+        FK.flat_append_aligned(torch.tensor(ring), torch.tensor(samples), 2, 7)
+    with pytest.raises(ValueError):
+        FK.flat_append_aligned(torch.tensor(ring), torch.tensor(samples[:, :1000]), 2, 6)
+
+
+@pytest.mark.parametrize("form", ["ints", "scalars", "pair"])
+def test_flat_append_aligned_page_forms(form):
+    """K9's pages as host ints, int32 scalar tensors, or one (2,) int32
+    pair with ``pmir`` omitted write the same ring; a pair of another
+    shape is refused."""
+    rng = np.random.default_rng(19)
+    V, rowlen = 4, 4096
+    ring = rng.standard_normal((V, rowlen)).astype(np.float32)
+    samples = rng.standard_normal((V, 512)).astype(np.float32)
+    want = ring.copy()
+    want[:, 1024:1536] = samples
+    want[:, 3072:3584] = samples
+    pages = {"ints": (2, 6),
+             "scalars": (torch.tensor(2, dtype=torch.int32), torch.tensor(6, dtype=torch.int32)),
+             "pair": (torch.tensor([2, 6], dtype=torch.int32),)}[form]
+    got = FK.flat_append_aligned(torch.tensor(ring), torch.tensor(samples), *pages)
+    np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError):
+        FK.flat_append_aligned(torch.tensor(ring), torch.tensor(samples),
+                               torch.tensor([2, 6, 1], dtype=torch.int32))
+
+
+def _dma_operands(rng, V, rowlen, emax2):
+    ring = rng.standard_normal((V, rowlen)).astype(np.float32)
+    rstart = rng.integers(0, rowlen - 2048, V).astype(np.int32)
+    ops = _flat_select_operands(rng, V, emax2, 0.95, 1.05)
+    return (ring, rstart) + ops
+
+
+def _pallas_dma(ops, n, K, emax2):
+    return np.asarray(PR.dma_window_select(
+        *(jnp.asarray(x) for x in ops), n=n, K=K, emax2=emax2, interpret=True))
+
+
+@pytest.mark.parametrize("row_end", [False, True])
+def test_dma_window_select_matches_pallas(row_end):
+    """K10 against the interpreted ``dma_window_select`` (<= 1e-6); with
+    ``row_end`` one voice's window runs past its row end, where the TPU's
+    fetch from the flat ring reads the next voice's row, and so does the
+    port."""
+    rng = np.random.default_rng(10 + row_end)
+    V, rowlen, n, K, emax2 = 8, 4096, 512, 64, 36
+    ops = _dma_operands(rng, V, rowlen, emax2)
+    if row_end:
+        ops[1][3] = rowlen - 300  # voice 3 reads ~340 samples of row 4
+    ref = _pallas_dma(ops, n, K, emax2)
+    got = FK.dma_window_select(*_t(list(ops)), n=n, K=K, emax2=emax2).numpy()
+    assert got.shape == (2, n) and np.abs(ref).max() > 0.1
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+    if row_end:
+        # the same reads from the rows laid end to end, voice 3 alone
+        flat = ops[0].reshape(-1)
+        kk, fr = RK._positions(torch.tensor(ops[2][3:4, 0]), n, K)
+        idx = 3 * rowlen + ops[1][3] + ops[6][3, 0] + np.arange(n) + kk.numpy()[0].astype(int)
+        assert idx.max() > 4 * rowlen  # into row 4
+
+
+def test_dma_window_select_fetch_past_the_ring_raises():
+    """The last voice's fetch past the tensor (and a negative start) fail,
+    as the TPU's out-of-range DMA would; the kernel trips a device-side
+    assert there."""
+    rng = np.random.default_rng(12)
+    V, rowlen, n, K, emax2 = 4, 4096, 512, 64, 36
+    ops = list(_dma_operands(rng, V, rowlen, emax2))
+    ops[1][V - 1] = rowlen - 1000
+    with pytest.raises(IndexError, match="voice 3"):
+        FK.dma_window_select(*_t(ops), n=n, K=K, emax2=emax2)
+    ops[1][V - 1] = 0
+    ops[1][0] = -5
+    with pytest.raises(IndexError, match="voice 0"):
+        FK.dma_window_select(*_t(ops), n=n, K=K, emax2=emax2)
+    with pytest.raises(ValueError, match="too wide"):
+        FK.dma_window_select(*_t(ops), n=n, K=K, emax2=500)
+
+
+@pytest.mark.parametrize("fault", [None, "drop_voice"])
+def test_dma_tolerance_fails_a_dropped_voice(fault):
+    """At 4096 voices the kernel's chunked voice-sum order stays within
+    ``dma_tolerance`` of the plain version; a kernel that drops the loudest
+    voice does not."""
+    rng = np.random.default_rng(13)
+    V, rowlen, n, K, emax2 = 4096, 2048, 512, 64, 36
+    ops = _t(list(_dma_operands(rng, V, rowlen + 2048, emax2)))
+    ops[3] = ops[3] * 0.05
+    plain = FK.dma_window_select_plain(*ops, n=n, K=K, emax2=emax2)
+    tol = FK.dma_tolerance(*ops, n=n, K=K)
+    x = FK._dma_products(*ops, n, K)
+    loudest = int(torch.argmax(ops[3][:, 0] * ops[5]))
+    got = _chunk_order_sum(x, drop=loudest if fault else None)
+    within = bool(((got - plain).abs().double() <= tol).all())
+    assert within == (fault is None)
+
+
+# --- the scene axis of K1/K2 (ScenePack) ---------------------------------------------
+
+
+def test_rows_append_scene_axis_equals_single_scene_calls():
+    """K1 with one (r0, rmir0) pair per scene equals S single-scene calls on
+    each scene's rows."""
+    rng = np.random.default_rng(14)
+    S, V, RPV = 4, 6, 40
+    ring = torch.tensor(rng.standard_normal((S * V, RPV, 128)).astype(np.float32))
+    slab = torch.tensor(rng.standard_normal((S * V, 512)).astype(np.float32))
+    r0 = torch.tensor([8, 12, 16, 20], dtype=torch.int32)
+    rm = torch.tensor([30, 34, 30, 8], dtype=torch.int32)
+    got = RK.rows_append(ring.clone(), slab, r0, rm)
+    want = ring.clone()
+    for s in range(S):
+        rows = slice(s * V, (s + 1) * V)
+        want[rows] = RK.rows_append(want[rows].clone(), slab[rows], int(r0[s]), rm[s])
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        five = torch.arange(5, dtype=torch.int32)
+        RK.rows_append(ring.clone(), slab, five, five)  # 24 rows, 5 scenes
+
+
+@pytest.mark.parametrize("frz", [False, True])
+def test_window_select_ears_scene_axis_equals_single_scene_calls(frz):
+    """K2 with ``scenes`` mixes each scene's rows apart, (S, 2, n), equal to
+    S single-scene calls bit for bit; its tolerance is per scene too."""
+    rng = np.random.default_rng(15)
+    S, V, n, K = 4, 20, 512, 32
+    args = _select_inputs(rng, S * V, n, K, _ears_span(n, K))
+    wide, rowshift, scal01, g01, e01, frz01 = (_t(x) if not isinstance(x, list) else _t(x)
+                                                for x in args)
+    kw = dict(n=n, K=K, emax2=EMAX2, hmax=8, frz01=frz01 if frz else None)
+    got = RK.window_select_ears(wide, rowshift[:, 0], scal01, g01, e01, scenes=S, **kw)
+    assert got.shape == (S, 2, n)
+    for s in range(S):
+        r = slice(s * V, (s + 1) * V)
+        one = RK.window_select_ears(
+            wide[r], rowshift[r, 0], [x[r] for x in scal01], [x[r] for x in g01],
+            [x[r] for x in e01], n=n, K=K, emax2=EMAX2, hmax=8,
+            frz01=[x[r] for x in frz01] if frz else None,
+        )
+        assert torch.equal(got[s], one)
+    samps = [RK.ear_samples(wide, 0, rowshift[:, 0], 8, scal01[e], e01[e],
+                            frz01[e] if frz else None, n, K) for e in range(2)]
+    tol = RK.mix_tolerance(samps, g01, n, scenes=S)
+    assert tol.shape == (S, 2, n)
+    for s in range(S):
+        r = slice(s * V, (s + 1) * V)
+        assert torch.equal(tol[s], RK.mix_tolerance([x[r] for x in samps],
+                                                    [g[r] for g in g01], n))
