@@ -8,9 +8,11 @@ scene) and the host-pool path at 4096 voices, and times them.
 Phases (each prints one or more lines; any failure exits non-zero):
  1. the card: name and power limit (nvidia-smi);
  2. the kernel build (one nvcc per csrc/*.cu, all at once, sm_90a);
- 3. K1/K2/K3 against their plain versions at V = 4096, n = 512;
+ 3. K1 (both row forms and the cursor form)/K2/K3 against their plain
+    versions at V = 4096, n = 512;
  4. the 4096-voice buffered and seek scenes through render_frames and
-    render_frames_device, counting kernel launches on that run;
+    render_frames_device, counting kernel launches on that run (K1's all
+    through its cursor form);
  5. a 256-voice buffered scene on the card against the CPU (plain) render;
  6. real-time factors of both 4096-voice scenes;
  7. K4/K6/K7 against their plain versions at the mixer path's shapes;
@@ -28,10 +30,12 @@ Phases (each prints one or more lines; any failure exits non-zero):
     between them, counting kernel launches on that run;
 13. the same scene at 256 / 32 / 64 voices on the card against the CPU;
 14. the real-time factor of the 4096-voice host-pool scene;
-15. K8, K9 and K10 against their plain versions at V = 4096, n = 512 (no
-    path calls them: their launches, counted on every path run of phases
-    4, 8, 12 and 17, must be 0);
-16. K1 and K2 with a ScenePack's scene axis (16 scenes of 256 voices);
+15. K8, K9 (three page forms, W = 512 and 1024) and K10 against their
+    plain versions at V = 4096, n = 512 (no path calls them: their
+    launches, counted on every path run of phases 4, 8, 12 and 17, must
+    be 0);
+16. K1 (row and cursor forms) and K2 with a ScenePack's scene axis (16
+    scenes of 256 voices);
 17. the config-5 ScenePack at 16 and 64 scenes of 256 voices through
     render_block and render_frames_device with new stream PCM between,
     counting K4/K6/K7 launches per block (equal at both sizes), and the
@@ -42,14 +46,21 @@ Phases (each prints one or more lines; any failure exits non-zero):
     scenes and of the 16-scene spatial pack.
 Each kernel's bound is the larger of the bytes it must move over the
 card's 3.35 TB/s and its float32 operations over 67 TFLOP/s (the
-published H100 SXM peaks), from the timed case's own inputs.  The line
-before the last is the kernels' JSON record; the last line is
+published H100 SXM peaks), from the timed case's own inputs.  Each
+kernel and library yardstick is timed three ways over 50 back-to-back
+calls (``timed``): ``ms`` with CUDA events (host issue included),
+``device_ms`` the device work the calls launched (torch.profiler) and
+``host_ms`` the host's issue time.  K1 and K9, whose operands fit in the
+card's 50 MB L2, are timed again cold, each call on the next of
+``append_bench.SETS`` rings and slabs (``cold``, ``library_cold``).  The
+line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 import json
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -104,7 +115,10 @@ def read_flat_launches(label):
 
 
 def time_ms(fn, reps=50):
-    """Mean device time per call (CUDA events, after a warm-up call)."""
+    """Time per call of ``reps`` back-to-back calls, host issue included:
+    CUDA events recorded before and after the calls (after a warm-up
+    call), so where the host issues a call more slowly than the device
+    runs it, this is the host's time."""
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -115,6 +129,150 @@ def time_ms(fn, reps=50):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+#: (label, fn, reps, result) of every ``timed`` call, whose device_ms
+#: ``profile_device`` fills in at the end of the run
+DEFERRED = []
+
+
+def timed(label, fn, reps=50):
+    """``{"ms", "device_ms", "host_ms"}`` per call of ``fn``, each over
+    ``reps`` back-to-back calls: ``ms`` as ``time_ms``; ``host_ms`` the
+    wall clock of the calls with no synchronise, the host's issue time;
+    ``device_ms`` (None until ``profile_device`` runs) the summed duration
+    of every device activity the calls launch.  The profiler runs last:
+    after a ``torch.profiler`` run every later CUDA call cost the host
+    more, and with it every later host time and xRT of the run; ``fn`` is
+    kept with its free variables' values of now, as loops rebind them."""
+    ms = time_ms(fn, reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = 1e3 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    if fn.__closure__:
+        cells = tuple(types.CellType(c.cell_contents) for c in fn.__closure__)
+        fn = types.FunctionType(fn.__code__, fn.__globals__, closure=cells)
+    result = {"ms": ms, "device_ms": None, "host_ms": host}
+    DEFERRED.append((label, fn, reps, result))
+    return result
+
+
+def profile_device(tag):
+    """Fill in device_ms of every ``timed`` call from ``torch.profiler``
+    over the same number of calls, and print them."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for label, fn, reps, result in DEFERRED:
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [ev.time_range.elapsed_us() for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+        result["device_ms"] = sum(us) / 1e3 / reps if us else None
+        dev = "not measured" if result["device_ms"] is None else f"{result['device_ms']:.4f}"
+        print(f"device time {label}: {dev} ms per call (ms {result['ms']:.4f}, host issue "
+              f"{result['host_ms']:.4f}) {tag}")
+    DEFERRED.clear()
+
+
+def times_str(t):
+    """A ``timed`` result as text (device_ms follows at the run's end)."""
+    return f"{t['ms']:.4f} ms (host issue {t['host_ms']:.4f})"
+
+
+def record(replaces, source, err, t, plain_ms, bound_ms, bound_by, library=None):
+    """One kernel's entry of the kernels line; ``t`` and ``library`` are
+    ``timed`` results, kept by reference until ``profile_device`` has
+    filled in their device_ms (``library`` None where no one PyTorch call
+    computes the function)."""
+    return dict(replaces=replaces, source=source, err=err, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, times=t, library=library or {})
+
+
+def kernel_line(name, k):
+    """A kernel's entry of the kernels JSON line (K1 and K9 add ``timed``
+    results: their other form's under "other_form", their cold times
+    under "cold" and "library_cold")."""
+    t, lib = k["times"], k["library"]
+    line = {"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
+            "launches": k.get("launches"), "max_abs_err": k["err"], "ms": t["ms"],
+            "device_ms": t["device_ms"], "host_ms": t["host_ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": lib.get("ms"), "library_device_ms": lib.get("device_ms"),
+            "library_host_ms": lib.get("host_ms")}
+    return {**line, **{key: k[key] for key in ("other_form", "cold", "library_cold")
+                     if key in k}}
+
+
+#: the buffered pool's ring geometry at 48 kHz: front pad, ring modulus,
+#: mirror (spatial.py W_CHUNK, cap_pool, M_PAD) and 1024 floats of slack
+FP, CAP, MPAD = 1024, 16384, 1024
+RPV_MAIN = (FP + CAP + MPAD + 1024) // 128
+
+
+def rows_append_check(dev, tag):
+    """Phase 3, K1 at the buffered pool's shapes: a 4096-voice ring of
+    ``RPV_MAIN`` rows, the 512-frame slab cut from the pool's 513-frame
+    render (row stride 513, not 16-byte aligned) and its contiguous copy,
+    exact against the plain versions with the rows as device int32
+    scalars and as host ints, and through the cursor form at write
+    cursors 0, M - 128, M, 5120 and cap - 512.  Timed with device rows and
+    through the cursor form on the stride-513 slab, the main path's call,
+    beside one ``index_copy_`` of both legs, warm (the same operands every
+    call) and, the cursor form and ``index_copy_``, cold.  Returns K1's
+    record: the cursor form's times, the row form's under "other_form"."""
+    from oddio_tpu_torch.ops import ring_kernels as RK
+    from oddio_tpu_torch.utils import append_bench as AB
+
+    V, W = VOICES, BLOCK
+    ring = torch.randn((V, RPV_MAIN, 128), device=dev)
+    slab = torch.randn((V, W + 1), device=dev)[:, :W]
+    rows = torch.tensor([48, 144], dtype=torch.int32, device=dev)
+    starts = [0, MPAD - 128, MPAD, 5120, CAP - W]
+    err = 0.0
+    for src in (slab, slab.contiguous()):
+        plain = RK.rows_append_plain(ring.clone(), src, 48, 144)
+        for form in ((rows[0], rows[1]), (48, 144)):
+            got = RK.rows_append(ring.clone(), src, *form)
+            torch.cuda.synchronize()
+            err = max(err, float((got - plain).abs().max()))
+        for st in starts:
+            start = torch.tensor([st], dtype=torch.int32, device=dev)
+            plain = RK.rows_append_cursor_plain(ring.clone(), src, start, FP, CAP, MPAD)
+            got = RK.rows_append_cursor(ring.clone(), src, start, FP, CAP, MPAD)
+            torch.cuda.synchronize()
+            err = max(err, float((got - plain).abs().max()))
+    if err != 0.0:
+        raise AssertionError(f"rows_append differs from its plain version by {err}")
+    start = torch.tensor([5120], dtype=torch.int32, device=dev)  # rows 48 and 144
+    trows = timed("K1 rows_append, device rows",
+                  lambda: RK.rows_append(ring, slab, rows[0], rows[1]))
+    tk = timed("K1 rows_append_cursor",
+               lambda: RK.rows_append_cursor(ring, slab, start, FP, CAP, MPAD))
+    pms = time_ms(lambda: RK.rows_append_plain(ring, slab, rows[0], rows[1]))
+    # the library yardstick: one index_copy_ of both legs (index and the
+    # doubled slab prepared outside the timed call)
+    both = torch.cat([torch.arange(4, device=dev) + 48, torch.arange(4, device=dev) + 144])
+    slab2 = torch.cat([slab.reshape(V, 4, 128)] * 2, dim=1)
+    lt = timed("index_copy_ (K1)", lambda: ring.index_copy_(1, both, slab2))
+    sets = AB.k1_sets(dev, AB.SETS)
+    tc = timed("K1 rows_append_cursor, cold", AB.cycling(
+        sets, lambda r, s, _: RK.rows_append_cursor(r, s, start, FP, CAP, MPAD)))
+    lc = timed("index_copy_ (K1), cold", AB.cycling(
+        sets, lambda r, _, s2: r.index_copy_(1, both, s2)))
+    bms, by = bound(3 * V * W * 4 + 8, 0)
+    print(f"K1 rows_append V={V} W={W} (slab stride {slab.stride(0)}): max|diff| {err} "
+          f"(tolerance 0, exact; device rows, host ints, cursor form at {len(starts)} "
+          f"cursors); device rows {times_str(trows)}; cursor form {times_str(tk)}, cold "
+          f"{times_str(tc)}; plain {pms:.4f} ms, index_copy_ {times_str(lt)}, cold "
+          f"{times_str(lc)}; bound {bms:.4f} ms ({by}) {tag}")
+    rec = record("oddio_tpu/ops/pallas_ring.py:932", "oddio_tpu_torch/csrc/ring_kernels.cu",
+                 err, tk, pms, bms, by, lt)
+    rec.update(other_form=trows, cold=tc, library_cold=lc)
+    return rec
 
 
 def select_operands(rng, dev, V, n, K, S2, nb, hcap):
@@ -201,7 +359,7 @@ def stream_agc_kernels(dev, kern, tag):
         err = float((got - plain).abs().max())
         if err != 0.0:
             raise AssertionError(f"ring_place (mw={mw}) differs from its plain version by {err}")
-        ms = time_ms(lambda: SK.ring_place(ring, chunk, wpos, wcount))
+        tk = timed(f"K4 ring_place mw={mw}", lambda: SK.ring_place(ring, chunk, wpos, wcount))
         pms = time_ms(lambda: SK.ring_place_plain(ring, chunk, wpos, wcount))
         # the library yardstick: one index_put_ of the written lanes (their
         # flat indices and values prepared outside the timed call)
@@ -210,17 +368,17 @@ def stream_agc_kernels(dev, kern, tag):
         flat_idx = (torch.arange(V, device=dev)[:, None] * SIZE
                     + torch.remainder(wpos.long()[:, None] + j, SIZE))[keep]
         vals = chunk[keep]
-        lms = time_ms(lambda: ring.view(-1).index_put_((flat_idx,), vals))
+        lt = timed(f"index_put_ (K4 mw={mw})",
+                   lambda: ring.view(-1).index_put_((flat_idx,), vals))
         nw = int(wcount.sum())
         bms, by = bound(8 * nw + 8 * V, 0)
         print(f"K4 ring_place V={V} mw={mw}: max|diff| {err} (tolerance 0, exact); "
-              f"{ms:.4f} ms vs plain {pms:.4f} ms, index_put_ {lms:.4f} ms, bound {bms:.4f} ms "
-              f"({by}) {tag}")
+              f"{times_str(tk)} vs plain {pms:.4f} ms, index_put_ {times_str(lt)}, bound "
+              f"{bms:.4f} ms ({by}) {tag}")
         if mw == 2401:
-            kern["ring_place"] = dict(replaces="oddio_tpu/ops/pallas_ring.py:148",
-                                      source="oddio_tpu_torch/csrc/stream_kernels.cu",
-                                      err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                                      library_ms=lms)
+            kern["ring_place"] = record("oddio_tpu/ops/pallas_ring.py:148",
+                                        "oddio_tpu_torch/csrc/stream_kernels.cu",
+                                        err, tk, pms, bms, by, lt)
 
     # K6: V = 512 (the stream pool) and 4096, ds in {1/6, 1, 4}
     worst = 0.0
@@ -239,17 +397,16 @@ def stream_agc_kernels(dev, kern, tag):
             if err != 0.0:
                 raise AssertionError(f"ring_resample V={V} ds={ds} differs from its plain version by {err}")
             worst = max(worst, err)
-            ms = time_ms(lambda: SK.ring_resample(*args))
+            tk = timed(f"K6 ring_resample V={V} ds={ds:.4f}", lambda: SK.ring_resample(*args))
             pms = time_ms(lambda: SK.ring_resample_plain(*args))
             print(f"K6 ring_resample V={V} ds={ds:.4f}: max|diff| {err} (tolerance 0, exact); "
-                  f"{ms:.4f} ms vs plain {pms:.4f} ms {tag}")
+                  f"{times_str(tk)} vs plain {pms:.4f} ms {tag}")
             if V == 512 and ds < 1.0:
                 _, pos, _ = SK._positions(args[1], di, fh, fl, n)
                 bms, by = bound(span_bytes(pos) + V * n * 4 + 7 * 4 * V, 16 * V * n)
-                kern["ring_resample"] = dict(replaces="oddio_tpu/ops/pallas_ring.py:1203",
-                                             source="oddio_tpu_torch/csrc/stream_kernels.cu",
-                                             err=worst, ms=ms, plain_ms=pms, bound_ms=bms,
-                                             bound_by=by, library_ms=None)
+                kern["ring_resample"] = record("oddio_tpu/ops/pallas_ring.py:1203",
+                                               "oddio_tpu_torch/csrc/stream_kernels.cu",
+                                               worst, tk, pms, bms, by)
     kern["ring_resample"]["err"] = worst
 
     # K7: V = 4096, n = 512, the scene's tau and one near the closed form's gate
@@ -279,19 +436,17 @@ def stream_agc_kernels(dev, kern, tag):
                 f"agc_gains tau={tau}: kernel disagrees with its plain version: "
                 f"max|diff| {err:.3e}, {ratio:.1f}x its tolerance")
         worst = max(worst, err)
-        ms = time_ms(lambda: A.agc_gains(s_, scal, n))
+        tk = timed(f"K7 agc_gains tau={tau}", lambda: A.agc_gains(s_, scal, n))
         pms = time_ms(lambda: A.agc_gains_plain(s_, scal, n))
         print(f"K7 agc_gains V={V} tau={tau}: max|diff| {err:.3e} ({ratio:.3f} of its "
               f"tolerance, largest tolerance {float(tol_g.max()):.3e}); "
-              f"{ms:.4f} ms vs plain {pms:.4f} ms {tag}")
+              f"{times_str(tk)} vs plain {pms:.4f} ms {tag}")
         if tau == 0.1:
             # s read, gains written, 8 scalars in, the carry out; ~20 f32
             # operations per frame (square, prefix sum, exp, sqrt, clamps)
             bms, by = bound(8 * V * n + 36 * V, 20 * V * n)
-            kern["agc_gains"] = dict(replaces="oddio_tpu/ops/pallas_agc.py:155",
-                                     source="oddio_tpu_torch/csrc/agc_kernel.cu",
-                                     err=0.0, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                                     library_ms=None)
+            kern["agc_gains"] = record("oddio_tpu/ops/pallas_agc.py:155",
+                                       "oddio_tpu_torch/csrc/agc_kernel.cu", 0.0, tk, pms, bms, by)
     kern["agc_gains"]["err"] = worst
 
 
@@ -398,10 +553,11 @@ def strip_select_kernel(dev, kern, tag):
             binds += int((off != kk.long()).sum())
         if (binds > 0) != (label == "near-gate"):
             raise AssertionError(f"strip_select ({label}): the SELECT_R clamp binds on {binds} reads")
-        ms = time_ms(lambda: RK.strip_select(*ops, n=n, K=K))
+        tk = timed(f"K5 strip_select {label}", lambda: RK.strip_select(*ops, n=n, K=K))
         pms = time_ms(lambda: RK.strip_select_plain(*ops, n=n, K=K))
         print(f"K5 strip_select {label} V={V} L={L}: max|diff| {err:.3e} ({share:.3f} of its "
-              f"tolerance); clamp binds on {binds} reads; {ms:.4f} ms vs plain {pms:.4f} ms {tag}")
+              f"tolerance); clamp binds on {binds} reads; {times_str(tk)} vs plain {pms:.4f} ms "
+              f"{tag}")
         if label == "main":
             idx = []
             for e in range(2):
@@ -411,10 +567,9 @@ def strip_select_kernel(dev, kern, tag):
             # spans, 44 bytes of operands per voice, the (2, n) output;
             # 22 f32 operations per (voice, ear, frame)
             bms, by = bound(span_bytes(torch.stack(idx, 1)) + 44 * V + 8 * n, 22 * V * 2 * n)
-            kern["strip_select"] = dict(replaces="oddio_tpu/ops/pallas_ring.py:392",
-                                        source="oddio_tpu_torch/csrc/select_kernel.cu",
-                                        err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                                        library_ms=None)
+            kern["strip_select"] = record("oddio_tpu/ops/pallas_ring.py:392",
+                                          "oddio_tpu_torch/csrc/select_kernel.cu",
+                                          err, tk, pms, bms, by)
         kern["strip_select"]["err"] = max(kern["strip_select"]["err"], err)
 
 
@@ -524,6 +679,59 @@ def flat_read_span(RK, base, scal, extra, n, K):
     return span_bytes(torch.stack(idx, 1))
 
 
+def flat_append_check(dev, tag):
+    """K9 exact against its plain version in every page form (host ints, a
+    (2,) device pair, int32 scalar tensors) at W = 512 and 1024, timed at
+    V = 4096, W = 512 with the pair (a device-resident cursor's form) and
+    host ints, beside one ``index_copy_`` of both legs, warm and, the pair
+    and ``index_copy_``, cold.  Returns K9's record: the pair's times, with
+    the host ints' under "other_form"."""
+    from oddio_tpu_torch.ops import flat_kernels as FK
+    from oddio_tpu_torch.utils import append_bench as AB
+
+    V, rowlen = VOICES, 4096
+    ring = torch.randn((V, rowlen), device=dev)
+    pages = torch.tensor([2, 6], dtype=torch.int32, device=dev)
+    err = 0.0
+    for W in (BLOCK, 2 * BLOCK):
+        slab = torch.randn((V, W), device=dev)
+        plain = FK.flat_append_aligned_plain(ring.clone(), slab, 2, 6)
+        for form in ((2, 6), (pages,), (pages[0], pages[1])):
+            got = FK.flat_append_aligned(ring.clone(), slab, *form)
+            torch.cuda.synchronize()
+            err = max(err, float((got - plain).abs().max()))
+    if err != 0.0:
+        raise AssertionError(f"flat_append_aligned differs from its plain version by {err}")
+    W = BLOCK
+    slab = torch.randn((V, W), device=dev)
+    tk = timed("K9 flat_append_aligned, device pair",
+               lambda: FK.flat_append_aligned(ring, slab, pages))
+    ti = timed("K9 flat_append_aligned, host ints",
+               lambda: FK.flat_append_aligned(ring, slab, 2, 6))
+    pms = time_ms(lambda: FK.flat_append_aligned_plain(ring, slab, 2, 6))
+    # the library yardstick: one index_copy_ of both legs (index and the
+    # doubled slab prepared outside the timed call)
+    cols = torch.cat([torch.arange(W, device=dev) + 2 * FK.APPEND_PW,
+                      torch.arange(W, device=dev) + 6 * FK.APPEND_PW])
+    slab2 = torch.cat([slab, slab], dim=1)
+    lt = timed("index_copy_ (K9)", lambda: ring.index_copy_(1, cols, slab2))
+    sets = AB.k9_sets(dev, AB.SETS)
+    tc = timed("K9 flat_append_aligned, device pair, cold", AB.cycling(
+        sets, lambda r, s, _: FK.flat_append_aligned(r, s, pages)))
+    lc = timed("index_copy_ (K9), cold", AB.cycling(
+        sets, lambda r, _, s2: r.index_copy_(1, cols, s2)))
+    bms, by = bound(12 * V * W + 8, 0)
+    print(f"K9 flat_append_aligned V={V} W={W}: max|diff| {err} (tolerance 0, exact, W = 512 "
+          f"and 1024, three page forms); device page pair {times_str(tk)}, cold "
+          f"{times_str(tc)}; host ints {times_str(ti)}; plain {pms:.4f} ms, index_copy_ "
+          f"{times_str(lt)}, cold {times_str(lc)}; bound {bms:.4f} ms ({by}); launches: no "
+          f"path {tag}")
+    rec = record("oddio_tpu/ops/pallas_ring.py:209", "oddio_tpu_torch/csrc/flat_kernels.cu",
+                 err, tk, pms, bms, by, lt)
+    rec.update(other_form=ti, cold=tc, library_cold=lc)
+    return rec
+
+
 def flat_kernels(dev, kern, tag):
     """Phase 15: K8, K9 and K10 against their plain versions at V = 4096,
     n = 512.  No path of the package calls them (nor of the JAX package:
@@ -548,64 +756,25 @@ def flat_kernels(dev, kern, tag):
         err, share = within(got, plain, FK.window_select_tolerance(*ops, n=n, K=K),
                             f"window_select emax2={emax2}")
         errs.append(err)
-        ms = time_ms(lambda: FK.window_select(*ops, **kw))
+        tk = timed(f"K8 window_select emax2={emax2}", lambda: FK.window_select(*ops, **kw))
         pms = time_ms(lambda: FK.window_select_plain(*ops, **kw))
         # read spans, 60 bytes of operands per voice, the (2, n) output;
         # 21 f32 operations per (voice, ear, frame), as K2
         bms, by = bound(flat_read_span(RK, zero, ops[1], ops[5], n, K) + 60 * V + 8 * n,
                         21 * V * 2 * n)
         print(f"K8 window_select emax2={emax2} V={V} n={n} K={K}: max|diff| {err:.3e} "
-              f"({share:.3f} of its tolerance); {ms:.4f} ms vs plain {pms:.4f} ms, bound "
+              f"({share:.3f} of its tolerance); {times_str(tk)} vs plain {pms:.4f} ms, bound "
               f"{bms:.4f} ms ({by}); launches: no path {tag}")
-    kern["window_select"] = dict(replaces="oddio_tpu/ops/pallas_ring.py:604",
-                                 source="oddio_tpu_torch/csrc/ring_kernels.cu", err=max(errs),
-                                 ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                                 library_ms=None)
+    kern["window_select"] = record("oddio_tpu/ops/pallas_ring.py:604",
+                                   "oddio_tpu_torch/csrc/ring_kernels.cu", max(errs), tk, pms,
+                                   bms, by)
 
-    # K9: a 512-wide slab at page 2 and mirror page 6 of a 4096-float row
-    rowlen, W = 4096, BLOCK
-    ring = torch.randn((V, rowlen), device=dev)
-    slab = torch.randn((V, W), device=dev)
-    pages = torch.tensor([2, 6], dtype=torch.int32, device=dev)
-    plain = FK.flat_append_aligned_plain(ring.clone(), slab, 2, 6)
-    err = 0.0
-    for form in ((2, 6), (pages,)):
-        got = FK.flat_append_aligned(ring.clone(), slab, *form)
-        torch.cuda.synchronize()
-        err = max(err, float((got - plain).abs().max()))
-    if err != 0.0:
-        raise AssertionError(f"flat_append_aligned differs from its plain version by {err}")
-    # the pages as a (2,) device pair (the form a device-resident cursor
-    # gives) and as host ints (the plain version's form, passed by value);
-    # the host time to issue a call, to set beside the device time
-    ms = time_ms(lambda: FK.flat_append_aligned(ring, slab, pages))
-    ims = time_ms(lambda: FK.flat_append_aligned(ring, slab, 2, 6))
-    pms = time_ms(lambda: FK.flat_append_aligned_plain(ring, slab, 2, 6))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(50):
-        FK.flat_append_aligned(ring, slab, pages)
-    hms = 1e3 * (time.perf_counter() - t0) / 50
-    torch.cuda.synchronize()
-    # the library yardstick: one index_copy_ of both legs (index and the
-    # doubled slab prepared outside the timed call)
-    cols = torch.cat([torch.arange(W, device=dev) + 2 * FK.APPEND_PW,
-                      torch.arange(W, device=dev) + 6 * FK.APPEND_PW])
-    slab2 = torch.cat([slab, slab], dim=1)
-    lms = time_ms(lambda: ring.index_copy_(1, cols, slab2))
-    bms, by = bound(12 * V * W + 8, 0)
-    kern["flat_append_aligned"] = dict(replaces="oddio_tpu/ops/pallas_ring.py:209",
-                                       source="oddio_tpu_torch/csrc/flat_kernels.cu", err=err,
-                                       ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                                       library_ms=lms)
-    print(f"K9 flat_append_aligned V={V} W={W}: max|diff| {err} (tolerance 0, exact); "
-          f"{ms:.4f} ms (device page pair; host ints {ims:.4f} ms; host issue {hms:.4f} ms "
-          f"per call) vs plain {pms:.4f} ms, index_copy_ {lms:.4f} ms, bound {bms:.4f} ms "
-          f"({by}); launches: no path {tag}")
+    kern["flat_append_aligned"] = flat_append_check(dev, tag)
 
     # K10: windows anywhere in a 4096-float row, some past its end (they read
     # the next row, as the TPU's fetch from the flat ring does)
-    emax2 = 36
+    emax2, rowlen = 36, 4096
+    ring = torch.randn((V, rowlen), device=dev)
     rstart = torch.tensor(rng.integers(0, rowlen - 2048 + 600, V).astype(np.int32), device=dev)
     rstart[-1] = 0
     ops = (ring, rstart) + flat_select_operands(rng, dev, V, n, K, emax2)
@@ -614,19 +783,17 @@ def flat_kernels(dev, kern, tag):
     got = FK.dma_window_select(*ops, **kw)
     torch.cuda.synchronize()
     err, share = within(got, plain, FK.dma_tolerance(*ops, n=n, K=K), "dma_window_select")
-    ms = time_ms(lambda: FK.dma_window_select(*ops, **kw))
+    tk = timed("K10 dma_window_select", lambda: FK.dma_window_select(*ops, **kw))
     pms = time_ms(lambda: FK.dma_window_select_plain(*ops, **kw))
     base = torch.arange(V, device=dev) * rowlen + rstart.long()
     # read spans, 64 bytes of operands per voice, the (2, n) output; 23 f32
     # operations per (voice, ear, frame)
     bms, by = bound(flat_read_span(RK, base, ops[2], ops[6], n, K) + 64 * V + 8 * n,
                     23 * V * 2 * n)
-    kern["dma_window_select"] = dict(replaces="oddio_tpu/ops/pallas_ring.py:1039",
-                                     source="oddio_tpu_torch/csrc/flat_kernels.cu", err=err,
-                                     ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                                     library_ms=None)
+    kern["dma_window_select"] = record("oddio_tpu/ops/pallas_ring.py:1039",
+                                       "oddio_tpu_torch/csrc/flat_kernels.cu", err, tk, pms, bms, by)
     print(f"K10 dma_window_select V={V} n={n} K={K} emax2={emax2}: max|diff| {err:.3e} "
-          f"({share:.3f} of its tolerance); {ms:.4f} ms vs plain {pms:.4f} ms, bound "
+          f"({share:.3f} of its tolerance); {times_str(tk)} vs plain {pms:.4f} ms, bound "
           f"{bms:.4f} ms ({by}); launches: no path {tag}")
 
 
@@ -639,7 +806,7 @@ def scene_axis_kernels(dev, tag):
     rng = np.random.default_rng(16)
     S, Vs, n, K = 16, 256, BLOCK, 32
     V = S * Vs
-    RPV = (1024 + 16384 + 1024 + 1024) // 128
+    RPV = RPV_MAIN
     ring = torch.randn((V, RPV, 128), device=dev)
     slab = torch.randn((V, 512), device=dev)
     r0 = torch.tensor(rng.integers(0, RPV - 4, S).astype(np.int32), device=dev)
@@ -652,10 +819,24 @@ def scene_axis_kernels(dev, tag):
     if err != 0.0 or RK.LAUNCHES["append"] != before + 1:
         raise AssertionError(f"rows_append with {S} scenes: max|diff| {err}, "
                              f"{RK.LAUNCHES['append'] - before} launches")
-    ms = time_ms(lambda: RK.rows_append(ring, slab, r0, rm))
+    tk = timed(f"K1 rows_append S={S}", lambda: RK.rows_append(ring, slab, r0, rm))
     pms = time_ms(lambda: RK.rows_append_plain(ring, slab, r0, rm))
-    print(f"K1 rows_append S={S} x V={Vs}: max|diff| {err} (exact), one launch; {ms:.4f} ms vs "
-          f"plain {pms:.4f} ms {tag}")
+    # the cursor form with one write cursor per scene, as the spatial pack
+    # calls it
+    start = torch.tensor(rng.integers(0, CAP - 512, S).astype(np.int32), device=dev)
+    plain = RK.rows_append_cursor_plain(ring.clone(), slab, start, FP, CAP, MPAD)
+    before = RK.LAUNCHES["append_cursor"]
+    got = RK.rows_append_cursor(ring.clone(), slab, start, FP, CAP, MPAD)
+    torch.cuda.synchronize()
+    cerr = float((got - plain).abs().max())
+    if cerr != 0.0 or RK.LAUNCHES["append_cursor"] != before + 1:
+        raise AssertionError(f"rows_append_cursor with {S} scenes: max|diff| {cerr}, "
+                             f"{RK.LAUNCHES['append_cursor'] - before} launches")
+    ctk = timed(f"K1 rows_append_cursor S={S}",
+                lambda: RK.rows_append_cursor(ring, slab, start, FP, CAP, MPAD))
+    print(f"K1 rows_append S={S} x V={Vs}: max|diff| {err} (exact), one launch; {times_str(tk)} "
+          f"vs plain {pms:.4f} ms; cursor form max|diff| {cerr} (exact), one launch; "
+          f"{times_str(ctk)} {tag}")
     del ring, slab
 
     wide, rowshift, scal01, g01, e01, frz01 = select_operands(rng, dev, V, n, K, 2048, 1, 8)
@@ -671,10 +852,11 @@ def scene_axis_kernels(dev, tag):
     samps = [RK.ear_samples(wide, 0, rs, 8, scal01[e], e01[e], frz01[e], n, K) for e in range(2)]
     err, share = within(got, plain, RK.mix_tolerance(samps, g01, n, scenes=S),
                         f"window_select_ears S={S}")
-    ms = time_ms(lambda: RK.window_select_ears(wide, rs, scal01, g01, e01, **kw))
+    tk = timed(f"K2 window_select_ears S={S}",
+               lambda: RK.window_select_ears(wide, rs, scal01, g01, e01, **kw))
     pms = time_ms(lambda: RK.window_select_ears_plain(wide, rs, scal01, g01, e01, **kw))
     print(f"K2 window_select_ears S={S} x V={Vs}: max|diff| {err:.3e} ({share:.3f} of its "
-          f"per-scene tolerance), one launch; {ms:.4f} ms vs plain {pms:.4f} ms {tag}")
+          f"per-scene tolerance), one launch; {times_str(tk)} vs plain {pms:.4f} ms {tag}")
 
 
 def drain(batches):
@@ -870,28 +1052,7 @@ def main():
     V, n, K = VOICES, BLOCK, 32
     kern = {}
 
-    RPV = (1024 + 16384 + 1024 + 1024) // 128
-    ring = torch.randn((V, RPV, 128), device=dev)
-    samples = torch.randn((V, 513), device=dev)
-    rows = torch.tensor([8 + 40, 136], dtype=torch.int32, device=dev)
-    plain = RK.rows_append_plain(ring.clone(), samples[:, :512], rows[0], rows[1])
-    got = RK.rows_append(ring.clone(), samples[:, :512], rows[0], rows[1])
-    torch.cuda.synchronize()
-    err = float((got - plain).abs().max())
-    if err != 0.0:
-        raise AssertionError(f"rows_append differs from its plain version by {err}")
-    ms = time_ms(lambda: RK.rows_append(ring, samples[:, :512], rows[0], rows[1]))
-    pms = time_ms(lambda: RK.rows_append_plain(ring, samples[:, :512], rows[0], rows[1]))
-    # the library yardstick: one index_copy_ of both legs (index and the
-    # doubled slab prepared outside the timed call)
-    both = torch.cat([torch.arange(4, device=dev) + 48, torch.arange(4, device=dev) + 136])
-    slab2 = torch.cat([samples[:, :512].reshape(V, 4, 128)] * 2, dim=1)
-    lms = time_ms(lambda: ring.index_copy_(1, both, slab2))
-    bms, by = bound(3 * V * 512 * 4 + 8, 0)
-    kern["rows_append"] = dict(replaces="oddio_tpu/ops/pallas_ring.py:932", err=err, ms=ms, plain_ms=pms,
-                               bound_ms=bms, bound_by=by, library_ms=lms)
-    print(f"K1 rows_append: max|diff| {err} (tolerance 0, exact); {ms:.4f} ms vs plain {pms:.4f} ms, "
-          f"index_copy_ {lms:.4f} ms, bound {bms:.4f} ms ({by}) {tag}")
+    kern["rows_append"] = rows_append_check(dev, tag)
 
     S2 = 2048
     wide, rowshift, scal01, g01, e01, frz01 = select_operands(rng, dev, V, n, K, S2, 1, 8)
@@ -907,14 +1068,16 @@ def main():
                                 None if frz is None else frz[e], n, K) for e in range(2)]
         e_, b_ = check_select(RK, got, plain, samps, g01, n, "window_select_ears")
         errs.append(e_)
-        ms = time_ms(lambda: RK.window_select_ears(*args, **kw))
+        tk = timed(f"K2 window_select_ears frz={frz is not None}",
+                   lambda: RK.window_select_ears(*args, **kw))
         pms = time_ms(lambda: RK.window_select_ears_plain(*args, **kw))
         print(f"K2 window_select_ears frz={frz is not None}: max|diff| {e_:.3e} "
-              f"({b_:.3f} of its tolerance); {ms:.4f} ms vs plain {pms:.4f} ms {tag}")
+              f"({b_:.3f} of its tolerance); {times_str(tk)} vs plain {pms:.4f} ms {tag}")
     bms, by = bound(select_bytes(RK, wide, [0], args[1][:, None], [8], scal01, e01, n, K, 1),
                     21 * V * 2 * n)
-    kern["window_select_ears"] = dict(replaces="oddio_tpu/ops/pallas_ring.py:724", err=max(errs), ms=ms,
-                                      plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None)
+    kern["window_select_ears"] = record("oddio_tpu/ops/pallas_ring.py:724",
+                                        "oddio_tpu_torch/csrc/ring_kernels.cu", max(errs), tk, pms,
+                                        bms, by)
 
     nb = 4
     row0s = [max(0, int(np.floor(b * (n - K) / 128))) for b in range(nb)]
@@ -934,15 +1097,15 @@ def main():
         e_, b_ = check_select(RK, got[:, sl], plain[:, sl], samps,
                               [g[:, 2 * b:2 * b + 2] for g in g01], n, "window_select_multi")
         err, bnd = max(err, e_), max(bnd, b_)
-    ms = time_ms(lambda: RK.window_select_multi(*args, **kw))
+    tk = timed("K3 window_select_multi", lambda: RK.window_select_multi(*args, **kw))
     pms = time_ms(lambda: RK.window_select_multi_plain(*args, **kw))
     bms, by = bound(select_bytes(RK, wide, [128 * r for r in row0s], rowshift, hs, scal01, e01, n, K, nb),
                     21 * V * 2 * n * nb)
-    kern["window_select_multi"] = dict(replaces="oddio_tpu/ops/pallas_ring.py:843", err=err, ms=ms,
-                                       plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None)
+    kern["window_select_multi"] = record("oddio_tpu/ops/pallas_ring.py:843",
+                                         "oddio_tpu_torch/csrc/ring_kernels.cu", err, tk, pms, bms, by)
     print(f"K3 window_select_multi nb=4: max|diff| {err:.3e} ({bnd:.3f} of its tolerance); "
-          f"{ms:.4f} ms vs plain {pms:.4f} ms {tag}")
-    del ring, samples, wide, plain, got
+          f"{times_str(tk)} vs plain {pms:.4f} ms {tag}")
+    del wide, plain, got
 
     # -- 4. the main path at 4096 voices ---------------------------------------------
     t0 = time.perf_counter()
@@ -966,6 +1129,9 @@ def main():
             raise AssertionError(f"{name}: non-finite or silent output")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    if RK.LAUNCHES["append_cursor"] != launches["append"]:
+        raise AssertionError(f"the main path launched K1 {launches['append']} times, "
+                             f"{RK.LAUNCHES['append_cursor']} through the cursor form")
     print(f"main path: 1 s + {BLOCK * 94 / RATE:.3f} s buffered, 1 s seek; peak "
           f"|out| {np.abs(a).max():.4f}/{np.abs(c).max():.4f}; launches {launches} {tag}")
 
@@ -993,7 +1159,7 @@ def main():
 
     for name, key in zip(("rows_append", "window_select_ears", "window_select_multi"),
                          ("append", "select_ears", "select_multi")):
-        kern[name].update(launches=launches[key], source="oddio_tpu_torch/csrc/ring_kernels.cu")
+        kern[name]["launches"] = launches[key]
 
     # -- 7-10. the config-5 mixer path ----------------------------------------------
     stream_agc_kernels(dev, kern, tag)
@@ -1012,13 +1178,8 @@ def main():
     pack_reference(pt, dev, tag)
     pack_xrt(packs, dev, tag)
 
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": k["source"],
-         "replaces": k["replaces"], "launches": k["launches"],
-         "max_abs_err": k["err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
-         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
-        for name, k in kern.items()
-    ]}))
+    profile_device(tag)
+    print(json.dumps({"kernels": [kernel_line(name, k) for name, k in kern.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,6 +1,6 @@
-// Flat-ring kernels, for Hopper (sm_90a): K9 flat_append_aligned and K10
-// dma_window_select.  (K8, the flat-window select, shares K2's body in
-// ring_kernels.cu.)
+// Flat-ring kernels, for Hopper (sm_90a): K9 flat_append_aligned (on
+// append.cuh, K1's slab append) and K10 dma_window_select.  (K8, the
+// flat-window select, shares K2's body in ring_kernels.cu.)
 //
 // Built by oddio_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
@@ -16,6 +16,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "append.cuh"
+
 #define SB 128       // frames per CUDA block (threads) in the select
 #define VC 16        // voices per CUDA block: one partial sum per chunk
 #define APPEND_PW 512  // K9's page width (pallas_ring.py APPEND_PW)
@@ -29,54 +31,36 @@
 // every voice's flat ring row at page pcol and again at page pmir, in
 // place.
 //
-// Bound on the H100: memory traffic only — the slab read once and written
-// twice, 12*V*W bytes, no arithmetic.  Design: one thread per 16-byte
-// vector of the slab, one column of CUDA blocks per voice (grid x; no
-// 64-bit index division), so loads and both stores coalesce.  The two
-// page indices come by value (host ints) or from a device int32 pair
-// (``pages`` non-null; no host read).  A device page whose span leaves the
-// row trips a device-side assert, as the plain version's slice assignment
-// raises (the wrapper checks host pages itself).
+// Bound on the H100: bytes only, the slab read once and written twice,
+// 12*V*W bytes, no arithmetic.  Design: append.cuh's slab append (the
+// same routine as K1): a column of CUDA blocks per voice, one thread per
+// 16-byte vector, both pages stored from one load.  The two pages come
+// by value (host ints) or from device int32 scalars (no host read).  A
+// device page whose span leaves the row trips a device-side assert, as
+// the plain version's slice assignment raises (the wrapper checks host
+// pages itself).
 // ---------------------------------------------------------------------------
 
-__global__ void flat_append_kernel(float* __restrict__ ring, long long rowlen,
-                                   const float* __restrict__ src,
-                                   long long src_stride,
-                                   const int* __restrict__ pages, int p0,
-                                   int p1, int W, int vec) {
-  const int v = blockIdx.x;
-  const int c = (blockIdx.y * blockDim.x + threadIdx.x) * 4;
-  if (c >= W) return;
-  const long long c0 = (long long)(pages ? pages[0] : p0) * APPEND_PW;
-  const long long c1 = (long long)(pages ? pages[1] : p1) * APPEND_PW;
-  assert(c0 >= 0 && c0 + W <= rowlen && c1 >= 0 && c1 + W <= rowlen);
-  const float* s = src + (long long)v * src_stride + c;
-  float* row = ring + (long long)v * rowlen + c;
-  if (vec) {
-    const float4 x = *reinterpret_cast<const float4*>(s);
-    *reinterpret_cast<float4*>(row + c0) = x;
-    *reinterpret_cast<float4*>(row + c1) = x;
-  } else {
-    for (int k = 0; k < 4; ++k) {
-      row[c0 + k] = s[k];
-      row[c1 + k] = s[k];
-    }
+struct PageLegs {
+  const int* p0p;  // device page, or null: p0
+  const int* p1p;
+  int p0, p1, W;
+  long long rowlen;
+  __device__ void operator()(int, long long& o0, long long& o1) const {
+    o0 = (long long)(p0p ? *p0p : p0) * APPEND_PW;
+    o1 = (long long)(p1p ? *p1p : p1) * APPEND_PW;
+    assert(o0 >= 0 && o0 + W <= rowlen && o1 >= 0 && o1 + W <= rowlen);
   }
-}
+};
 
-// pages: a device [pcol, pmir] int32 pair, or null to take p0, p1.
+// p0p/p1p: device int32 pages, or null to take p0/p1.
 extern "C" int flat_append(float* ring, long long rowlen, const float* src,
-                           long long src_stride, const int* pages, int p0,
-                           int p1, int V, int W, cudaStream_t stream) {
+                           long long src_stride, const int* p0p,
+                           const int* p1p, int p0, int p1, int V, int W,
+                           cudaStream_t stream) {
   if (V < 1 || W < 1 || W % APPEND_PW) return (int)cudaErrorInvalidValue;
-  const int vec = (rowlen % 4 == 0) && (src_stride % 4 == 0) &&
-                  ((uintptr_t)ring % 16 == 0) && ((uintptr_t)src % 16 == 0);
-  const int threads = 128;
-  dim3 grid(V, (W / 4 + threads - 1) / threads);
-  flat_append_kernel<<<grid, threads, 0, stream>>>(ring, rowlen, src,
-                                                   src_stride, pages, p0, p1,
-                                                   W, vec);
-  return (int)cudaGetLastError();
+  const append::Slab s{src, src_stride, ring, rowlen, V, W};
+  return append::launch(s, PageLegs{p0p, p1p, p0, p1, W, rowlen}, stream);
 }
 
 // ---------------------------------------------------------------------------

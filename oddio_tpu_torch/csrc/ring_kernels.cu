@@ -18,71 +18,92 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "append.cuh"
+
 #define SB 128      // frames per CUDA block (threads) in the select kernels
 #define VC 16       // voices per CUDA block: one partial sum per chunk
 #define MAX_NB 8    // blocks a multi-block select may fuse
 
 // ---------------------------------------------------------------------------
-// K1: rows_append
+// K1: rows_append, rows_append_cursor
 //
 // Replaces oddio_tpu/ops/pallas_ring.py::rows_append_dma
-// (_rows_append_kernel): two strided HBM->HBM DMAs per voice tile.
+// (_rows_append_kernel): two strided HBM->HBM DMAs per voice tile, the
+// (V, W) slab written into every voice's rows-native ring (V, RPV, 128)
+// at row r0 and at row rmir0.
 //
-// Bound on the H100: memory traffic only — it reads the (V, W) slab once
-// and writes it twice, 2*V*W*4 bytes (16.8 MB per block at V = 4096,
-// W = 512), no arithmetic.  Design: one thread per 16-byte vector of the
-// slab; neighbouring threads own neighbouring vectors of one voice row, so
-// loads and both 16-byte stores are fully coalesced, and the slab is read
-// once for both legs.  The row indices come from a device int32 pair, so
-// the caller never reads them back to the host (idle blocks derive them
-// on the device).  A leg whose rows fall outside the ring trips a
-// device-side assert, as the plain version's index_copy_ raises.
+// Bound on the H100: bytes only, the slab read once and written twice,
+// 12*V*W bytes (25.2 MB per block at V = 4096, W = 512), no arithmetic.
+// Design: append.cuh's slab append (a column of CUDA blocks per voice, one
+// thread per 16-byte vector, both legs stored from one load).  The main
+// path's slab is 512 frames of a 513-frame render, rows not 16-byte
+// aligned, which append.cuh loads as scalars.  A ring row is 128 floats
+// (512 bytes), so both legs take 16-byte stores.  The rows come by value
+// (host ints) or from device int32 arrays, so the caller never reads them
+// back to the host; the cursor form derives them on the device from the
+// pool's write cursor, as oddio_tpu/spatial.py derives them beside the
+// call:
+//   r0 = (FP + start) // 128,
+//   rm = (FP + (start < M ? start + cap : cap + M)) // 128
+// (floor division), so the caller launches nothing else.  A leg outside
+// the ring trips a device-side assert, as the plain version raises.
 //
 // Scene axis (ScenePack): the V rows are S scenes of vps voices each, and
-// rows holds one [r0, rmir0] pair per scene; voice v writes at its scene's
-// pair, rows[2*(v / vps)].  One scene is S = 1, vps = V.
+// each leg (or the cursor) holds one value per scene; voice v uses its
+// scene's, index v / vps.  One scene is S = 1, vps = V.
 // ---------------------------------------------------------------------------
 
-__global__ void rows_append_kernel(float* __restrict__ ring,
-                                   const float* __restrict__ slab,
-                                   long long slab_stride,
-                                   const int* __restrict__ rows,
-                                   int V, int RPV, int nr, int vps,
-                                   int vec_src) {
-  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int w4 = nr * 32;  // float4 vectors per voice row
-  if (q >= (long long)V * w4) return;
-  const int v = (int)(q / w4);
-  const int c = (int)(q % w4) * 4;
-  const float* src = slab + (long long)v * slab_stride + c;
-  float4 x;
-  if (vec_src) {
-    x = *reinterpret_cast<const float4*>(src);
-  } else {
-    x = make_float4(src[0], src[1], src[2], src[3]);
-  }
-  float* base = ring + (long long)v * RPV * 128 + c;
-  const int s = v / vps;
-  const int r0 = rows[2 * s];
-  const int r1 = rows[2 * s + 1];
-  assert(r0 >= 0 && r0 + nr <= RPV && r1 >= 0 && r1 + nr <= RPV);
-  *reinterpret_cast<float4*>(base + (long long)r0 * 128) = x;
-  *reinterpret_cast<float4*>(base + (long long)r1 * 128) = x;
+__device__ __forceinline__ int floor_div128(int x) {
+  return x >= 0 ? x / 128 : -((-x + 127) / 128);
 }
 
+// voice v's leg offsets from its rows a (primary) and b (mirror)
+__device__ __forceinline__ void row_legs(int a, int b, int RPV, int nr,
+                                         long long& o0, long long& o1) {
+  assert(a >= 0 && a + nr <= RPV && b >= 0 && b + nr <= RPV);
+  o0 = 128LL * a;
+  o1 = 128LL * b;
+}
+
+struct RowLegs {
+  const int* r0p;  // (S,) device rows, or null: r0 for every scene
+  const int* r1p;
+  int r0, r1, vps, RPV, nr;
+  __device__ void operator()(int v, long long& o0, long long& o1) const {
+    const int sc = v / vps;
+    row_legs(r0p ? r0p[sc] : r0, r1p ? r1p[sc] : r1, RPV, nr, o0, o1);
+  }
+};
+
+struct CursorLegs {
+  const int* start;  // (S,) device write cursors
+  int FP, cap, M, vps, RPV, nr;
+  __device__ void operator()(int v, long long& o0, long long& o1) const {
+    const int st = start[v / vps];
+    row_legs(floor_div128(FP + st),
+             floor_div128(FP + (st < M ? st + cap : cap + M)), RPV, nr, o0, o1);
+  }
+};
+
+// r0p/r1p: (S,) device int32 rows, or null to take r0/r1 for every scene.
 extern "C" int rows_append(float* ring, const float* slab,
-                           long long slab_stride, const int* rows, int V,
-                           int RPV, int nr, int vps, cudaStream_t stream) {
-  if (vps < 1 || V % vps) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)V * nr * 32;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  const int vec_src =
-      (slab_stride % 4 == 0) && ((uintptr_t)slab % 16 == 0) ? 1 : 0;
-  if (blocks > 0)
-    rows_append_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
-        ring, slab, slab_stride, rows, V, RPV, nr, vps, vec_src);
-  return (int)cudaGetLastError();
+                           long long slab_stride, const int* r0p,
+                           const int* r1p, int r0, int r1, int V, int RPV,
+                           int nr, int vps, cudaStream_t stream) {
+  if (vps < 1 || V % vps || nr < 1) return (int)cudaErrorInvalidValue;
+  const append::Slab s{slab, slab_stride, ring, RPV * 128LL, V, nr * 128};
+  return append::launch(s, RowLegs{r0p, r1p, r0, r1, vps, RPV, nr}, stream);
+}
+
+// start: (S,) device int32 write cursors.
+extern "C" int rows_append_cursor(float* ring, const float* slab,
+                                  long long slab_stride, const int* start,
+                                  int FP, int cap, int M, int V, int RPV,
+                                  int nr, int vps, cudaStream_t stream) {
+  if (vps < 1 || V % vps || nr < 1 || start == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const append::Slab s{slab, slab_stride, ring, RPV * 128LL, V, nr * 128};
+  return append::launch(s, CursorLegs{start, FP, cap, M, vps, RPV, nr}, stream);
 }
 
 // ---------------------------------------------------------------------------

@@ -40,8 +40,13 @@ _iarr = ctypes.POINTER(ctypes.c_int)
 #: point returns its launches' cudaError_t as an int
 _SIGNATURES = {
     "ring_kernels": {
-        # ring, slab, slab_stride, rows, V, RPV, nr, vps, stream
-        "rows_append": [_vp, _vp, _i64, _vp, _i32, _i32, _i32, _i32, _vp],
+        # ring, slab, slab_stride, r0p, r1p (or null), r0, r1, V, RPV, nr,
+        # vps, stream
+        "rows_append": [_vp, _vp, _i64, _vp, _vp, _i32, _i32, _i32, _i32, _i32,
+                        _i32, _vp],
+        # ring, slab, slab_stride, start, FP, cap, M, V, RPV, nr, vps, stream
+        "rows_append_cursor": [_vp, _vp, _i64, _vp, _i32, _i32, _i32, _i32, _i32,
+                               _i32, _i32, _vp],
         "window_select": [
             _vp, _i64, _i32, _vp,          # wide, stride, S2, rowshift
             _vp, _vp, _vp, _vp,            # scal0, scal1, g0, g1
@@ -61,8 +66,10 @@ _SIGNATURES = {
         ],
     },
     "flat_kernels": {
-        # ring, rowlen, samples, stride, pages (or null), p0, p1, V, W, stream
-        "flat_append": [_vp, _i64, _vp, _i64, _vp, _i32, _i32, _i32, _i32, _vp],
+        # ring, rowlen, samples, stride, p0p, p1p (or null), p0, p1, V, W,
+        # stream
+        "flat_append": [_vp, _i64, _vp, _i64, _vp, _vp, _i32, _i32, _i32, _i32,
+                        _vp],
         "dma_window_select": [
             _vp, _i64, _vp,                # ring, rowlen, rstart
             _vp, _vp, _vp, _vp, _vp,       # scal0, scal1, g0, g1, maskf

@@ -14,7 +14,8 @@ append and a probe).
 * ``flat_append_aligned`` (K9): the (V, W) slab, W a multiple of
   ``APPEND_PW`` = 512, copied into every row of a flat ring (V, rowlen) at
   page ``pcol`` and again at page ``pmir``, in place
-  (``csrc/flat_kernels.cu``).
+  (``csrc/flat_kernels.cu``, on K1's slab append in
+  ``csrc/append.cuh``).
 * ``dma_window_select`` (K10): K8's reads with the kernel fetching each
   voice's window itself from the flat ring, at ``v*rowlen + rstart_v +
   extra_e + j + kk_j`` of ``ring.reshape(-1)``; the mask multiplies
@@ -38,6 +39,7 @@ from __future__ import annotations
 
 import torch
 
+from ._build import lib
 from .ring_kernels import (
     MIX_TOL_SIGMAS,
     SELECT_SB,
@@ -162,8 +164,6 @@ def window_select(windows, scal, gain0, d_gain, maskf, extra, *, n, K,
     scal01, g01, e01 = _k8_operands(scal, gain0, d_gain, maskf, extra)
     part = torch.empty(-(-V // VOICE_CHUNK) * 4 * n, dtype=torch.float32, device=dev)
     out = torch.empty((1, 2, n), dtype=torch.float32, device=dev)
-    from ._build import lib
-
     rc = lib("ring_kernels").window_select_flat(
         _ptr(windows), windows.stride(0), S, _ptr(scal01[0]), _ptr(scal01[1]),
         _ptr(g01[0]), _ptr(g01[1]), _ptr(e01[0]), _ptr(e01[1]),
@@ -177,12 +177,16 @@ def window_select(windows, scal, gain0, d_gain, maskf, extra, *, n, K,
 # --- K9: aligned flat append ------------------------------------------------------
 
 
+def _check_pair(pair):
+    if not isinstance(pair, torch.Tensor) or pair.shape != (2,) or pair.dtype != torch.int32:
+        raise ValueError("without pmir, pcol must be a (2,) int32 tensor [pcol, pmir]")
+
+
 def _page_pair(pcol, pmir):
     """``pcol`` alone may be the [pcol, pmir] pair as a (2,) tensor."""
     if pmir is not None:
         return pcol, pmir
-    if not isinstance(pcol, torch.Tensor) or pcol.shape != (2,) or pcol.dtype != torch.int32:
-        raise ValueError("without pmir, pcol must be a (2,) int32 tensor [pcol, pmir]")
+    _check_pair(pcol)
     return pcol[0], pcol[1]
 
 
@@ -204,24 +208,19 @@ def flat_append_aligned_plain(ring, samples, pcol, pmir=None):
     return ring
 
 
-def _kernel_pages(pcol, pmir, device):
-    """The pages as the kernel takes them, (pair tensor or None, p0, p1):
-    host ints by value (no upload), a (2,) int32 pair on the device as it
-    is, int32 scalar tensors stacked into one on the device (no host
-    read)."""
-    if pmir is None:
-        _page_pair(pcol, pmir)
-        if pcol.device != device:
-            raise ValueError(f"pages on {pcol.device}, the ring on {device}")
-        return pcol.contiguous(), 0, 0
-    if not isinstance(pcol, torch.Tensor) and not isinstance(pmir, torch.Tensor):
-        return None, int(pcol), int(pmir)
-    return torch.stack([
-        p.reshape(()).to(device=device, dtype=torch.int32)
-        if isinstance(p, torch.Tensor)
-        else torch.tensor(int(p), dtype=torch.int32, device=device)
-        for p in (pcol, pmir)
-    ]), 0, 0
+def _page_leg(p, name, device, W, rowlen):
+    """One page as the kernel takes it: (pointer or None, value).  A CUDA
+    int32 scalar passes as it is (no host read); a host int, or a CPU
+    tensor, by value after a bounds check."""
+    if isinstance(p, torch.Tensor) and p.device.type != "cpu":
+        if p.device != device:
+            raise ValueError(f"{name} on {p.device}, the ring on {device}")
+        if p.dtype != torch.int32 or p.numel() != 1:
+            raise TypeError(f"{name} must be an int32 scalar, got {p.dtype} {tuple(p.shape)}")
+        return p.data_ptr(), 0
+    p = int(p)
+    _check_pages((p,), W, rowlen)
+    return None, p
 
 
 def flat_append_aligned(ring, samples, pcol, pmir=None):
@@ -229,35 +228,46 @@ def flat_append_aligned(ring, samples, pcol, pmir=None):
     ``samples`` (V, W), W a multiple of ``APPEND_PW``, into ``ring`` (V,
     rowlen) at column ``pcol*APPEND_PW`` and again at ``pmir*APPEND_PW``,
     in place; returns ``ring``.  pcol/pmir are ints or int32 scalar
-    tensors, or ``pcol`` alone is the (2,) int32 pair [pcol, pmir]; a page
-    whose span leaves the row fails (the plain version and the wrapper,
-    for host ints, raise; the kernel trips a device-side assert for pages
-    on the device)."""
-    if not isinstance(ring, torch.Tensor) or ring.dim() != 2:
-        raise ValueError("ring must be a (V, rowlen) tensor")
-    V, rowlen = ring.shape
+    tensors, or ``pcol`` alone is the (2,) int32 pair [pcol, pmir]; device
+    pages go to the kernel as they are (no stack, no host read), host ints
+    by value.  A page whose span leaves the row fails (the plain version
+    and the wrapper, for host ints, raise; the kernel trips a device-side
+    assert for pages on the device).  On the card the ring's rows must be
+    16-byte aligned (rowlen a multiple of 4): the kernel writes them with
+    16-byte stores."""
+    if not isinstance(ring, torch.Tensor) or not isinstance(samples, torch.Tensor):
+        raise TypeError("ring and samples must be tensors")
+    rs, ss = ring.shape, samples.shape
+    if len(rs) != 2:
+        raise ValueError(f"ring must be a (V, rowlen) tensor, got {tuple(rs)}")
+    V, rowlen = rs
+    if len(ss) != 2 or ss[0] != V or ss[1] % APPEND_PW or not 0 < ss[1] <= rowlen:
+        raise ValueError(f"samples must be (V, W) with W % {APPEND_PW} == 0 and "
+                         f"0 < W <= rowlen, got {tuple(ss)} for a ring {tuple(rs)}")
+    if ring.dtype is not torch.float32 or samples.dtype is not torch.float32:
+        raise TypeError(f"ring and samples must be float32, got {ring.dtype}, {samples.dtype}")
     dev = ring.device
-    _check(ring, "ring", torch.float32, (V, rowlen), dev)
-    if samples.dim() != 2 or samples.shape[0] != V or samples.shape[1] % APPEND_PW:
-        raise ValueError(
-            f"samples must be (V, W) with W % {APPEND_PW} == 0, got {tuple(samples.shape)}")
-    _check(samples, "samples", torch.float32, samples.shape, dev)
-    W = samples.shape[1]
-    if W > rowlen:
-        raise ValueError("slab wider than a ring row")
+    if samples.device != dev:
+        raise ValueError(f"samples is on {samples.device}, the ring on {dev}")
+    W = ss[1]
     if dev.type == "cpu":
         return flat_append_aligned_plain(ring, samples, pcol, pmir)
     _cuda_device(ring)
-    _check_contig(ring, "ring")
-    if samples.stride(1) != 1:
-        raise ValueError("samples rows must be unit-stride")
-    pages, p0, p1 = _kernel_pages(pcol, pmir, dev)
-    if pages is None:
-        _check_pages((p0, p1), W, rowlen)
-    from ._build import lib
-
+    if not ring.is_contiguous() or ring.data_ptr() % 16 or rowlen % 4 \
+            or samples.stride(1) != 1:
+        raise ValueError("ring must be contiguous with 16-byte aligned rows (rowlen % 4 == 0), "
+                         "samples rows unit-stride")
+    if pmir is None:
+        _check_pair(pcol)
+        if pcol.device != dev or not pcol.is_contiguous():
+            raise ValueError(f"the page pair must be contiguous on {dev}, got {pcol.device}")
+        p0 = pcol.data_ptr()
+        p1, v0, v1 = p0 + 4, 0, 0
+    else:
+        p0, v0 = _page_leg(pcol, "pcol", dev, W, rowlen)
+        p1, v1 = _page_leg(pmir, "pmir", dev, W, rowlen)
     rc = lib("flat_kernels").flat_append(
-        _ptr(ring), rowlen, _ptr(samples), samples.stride(0), _ptr(pages), p0, p1,
+        ring.data_ptr(), rowlen, samples.data_ptr(), samples.stride(0), p0, p1, v0, v1,
         V, W, _stream_ptr(dev),
     )
     LAUNCHES["flat_append"] += 1
@@ -358,8 +368,6 @@ def dma_window_select(ring, rstart, scal, gain0, d_gain, maskf, extra, *, n, K,
     e01 = [extra[:, e].contiguous() for e in range(2)]
     part = torch.empty(-(-V // VOICE_CHUNK) * 2 * n, dtype=torch.float32, device=dev)
     out = torch.empty((2, n), dtype=torch.float32, device=dev)
-    from ._build import lib
-
     rc = lib("flat_kernels").dma_window_select(
         _ptr(ring), rowlen, _ptr(rstart), _ptr(scal01[0]), _ptr(scal01[1]),
         _ptr(g01[0]), _ptr(g01[1]), _ptr(maskf), _ptr(e01[0]), _ptr(e01[1]),

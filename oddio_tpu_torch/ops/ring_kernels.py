@@ -8,7 +8,10 @@ in ``csrc/ring_kernels.cu`` (the device-resident pool) and K5 in
 
 * ``rows_append`` (K1, for ``rows_append_dma``): in-place copy of a
   ``(V, W)`` slab into every voice's rows-native ring ``(V, RPV, 128)`` at
-  row ``r0`` and again at row ``rmir0`` (mirror upkeep or a dump row).
+  row ``r0`` and again at row ``rmir0`` (mirror upkeep or a dump row);
+  ``rows_append_cursor`` derives both rows inside the kernel from the
+  pool's write cursor, as the buffered pool calls it.  Its CUDA kernel is
+  the slab append of ``csrc/append.cuh``, shared with K9.
 * ``window_select_ears`` (K2, for ``window_select_tiles_ears``): per voice
   and ear, fractional reads ``a + fr*(b - a)`` at positions rebuilt from 4
   scalars with the exact split-ds math, gain-ramped and summed over voices
@@ -52,6 +55,8 @@ import ctypes
 
 import torch
 
+from ._build import lib
+
 __all__ = [
     "PAGE",
     "SELECT_SB",
@@ -61,6 +66,9 @@ __all__ = [
     "pack_select_scalars",
     "rows_append",
     "rows_append_plain",
+    "rows_append_cursor",
+    "rows_append_cursor_plain",
+    "cursor_rows",
     "window_select_ears",
     "window_select_ears_plain",
     "window_select_multi",
@@ -91,8 +99,13 @@ MIX_TOL_SIGMAS = 8.0
 #: sub-block's smallest walk offset
 SELECT_R = 16
 
+_F32, _I32 = torch.float32, torch.int32
+
 #: launches per kernel since the last reset (CUDA launches only)
-LAUNCHES = {"append": 0, "select_ears": 0, "select_multi": 0, "strip_select": 0}
+#: ("append" counts every K1 launch, "append_cursor" those of them through
+#: the cursor form)
+LAUNCHES = {"append": 0, "append_cursor": 0, "select_ears": 0, "select_multi": 0,
+            "strip_select": 0}
 
 
 def reset_launches():
@@ -147,12 +160,24 @@ def _cuda_device(x):
         )
 
 
+#: the current CUDA stream's raw handle for a device index, without
+#: building a ``torch.cuda.Stream`` (PyTorch's own kernels' launch path)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def _stream_ptr(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """The current stream of a CUDA ``device`` as the int the ctypes
+    ``c_void_p`` arguments take."""
+    if _raw_stream is not None:
+        idx = device.index
+        return _raw_stream(torch.cuda.current_device() if idx is None else idx)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _ptr(x):
-    return ctypes.c_void_p(x.data_ptr()) if x is not None else ctypes.c_void_p(0)
+    """A tensor's data pointer as the int (None: null) a ``c_void_p``
+    argument takes."""
+    return None if x is None else x.data_ptr()
 
 
 def _raise_rc(rc, name):
@@ -164,9 +189,9 @@ def _raise_rc(rc, name):
 
 
 def _rows_index(r0, rmir0, device):
-    """(S, 2) int32 device tensor of [r0, rmir0] pairs, one per scene:
-    ints and 0-d tensors give S = 1, (S,) tensors S scenes.  Device
-    tensors stay on the device (no host read), host ints are uploaded."""
+    """(S, 2) int32 tensor of [r0, rmir0] pairs, one per scene, for the
+    plain version: ints and 0-d tensors give S = 1, (S,) tensors S
+    scenes."""
     parts = [
         r.reshape(-1).to(device=device, dtype=torch.int32)
         if isinstance(r, torch.Tensor)
@@ -202,6 +227,73 @@ def rows_append_plain(ring3, slab, r0, rmir0):
     return ring3
 
 
+def cursor_rows(start, FP, cap, M):
+    """The rows K1's cursor form writes at, derived from the pool's write
+    cursor ``start`` as oddio_tpu/spatial.py derives them beside
+    ``rows_append_dma``: ``r0 = (FP + start) // 128`` and ``rm = (FP +
+    where(start < M, start + cap, cap + M)) // 128``, floor division."""
+    r0 = torch.div(FP + start, 128, rounding_mode="floor")
+    rm = torch.div(FP + torch.where(start < M, start + cap, cap + M), 128,
+                   rounding_mode="floor")
+    return r0, rm
+
+
+def rows_append_cursor_plain(ring3, slab, start, FP, cap, M):
+    """Plain version of K1's cursor form: ``rows_append_plain`` at
+    ``cursor_rows(start, FP, cap, M)``."""
+    return rows_append_plain(ring3, slab, *cursor_rows(start, FP, cap, M))
+
+
+def _append_operands(ring3, slab):
+    """Check K1's ring and slab with a few cheap reads (K1 runs every
+    block); returns (V, RPV, nr, device)."""
+    if not isinstance(ring3, torch.Tensor) or not isinstance(slab, torch.Tensor):
+        raise TypeError("ring3 and slab must be tensors")
+    rs, ss = ring3.shape, slab.shape
+    if len(rs) != 3 or rs[2] != 128:
+        raise ValueError(f"ring3 must be a (V, RPV, 128) tensor, got {tuple(rs)}")
+    if len(ss) != 2 or ss[0] != rs[0] or ss[1] % 128 or not 0 < ss[1] <= 128 * rs[1]:
+        raise ValueError(f"slab must be (V, W) with W % 128 == 0 and 0 < W <= 128*RPV, "
+                         f"got {tuple(ss)} for a ring {tuple(rs)}")
+    if ring3.dtype is not _F32 or slab.dtype is not _F32:
+        raise TypeError(f"ring3 and slab must be float32, got {ring3.dtype}, {slab.dtype}")
+    dev = ring3.device
+    if slab.device != dev:
+        raise ValueError(f"slab is on {slab.device}, ring3 on {dev}")
+    if dev.type != "cpu":
+        _cuda_device(ring3)
+        if not ring3.is_contiguous() or ring3.data_ptr() % 16 or slab.stride(1) != 1:
+            raise ValueError("ring3 must be contiguous and 16-byte aligned, slab rows unit-stride")
+    return rs[0], rs[1], ss[1] // 128, dev
+
+
+def _device_int32(x, name, device):
+    """A device int32 tensor of at most one dimension, as the kernel reads
+    it: (pointer, count)."""
+    if x.dtype is not _I32:
+        raise TypeError(f"{name} must be int32, got {x.dtype}")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, the ring on {device}")
+    if x.dim() > 1 or not x.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 0-d or (S,) tensor")
+    return x.data_ptr(), x.numel()
+
+
+def _row_leg(r, name, device, RPV, nr):
+    """One leg's rows as the kernel takes them: (pointer or None, value,
+    scenes).  A CUDA tensor passes as it is (no host read); a host int, or
+    a one-value CPU tensor, by value after a bounds check."""
+    if isinstance(r, torch.Tensor) and r.device.type != "cpu":
+        ptr, S = _device_int32(r, name, device)
+        return ptr, 0, S
+    if isinstance(r, torch.Tensor) and r.numel() != 1:
+        raise ValueError(f"{name} is on the CPU, the ring on {device}")
+    r = int(r)
+    if r < 0 or r + nr > RPV:
+        raise IndexError(f"rows_append: {name} = {r} leaves the ring")
+    return None, r, 1
+
+
 def rows_append(ring3, slab, r0, rmir0):
     """K1 (oddio_tpu/ops/pallas_ring.py ``rows_append_dma``): write ``slab``
     (V, W), W a multiple of 128, into every voice of ``ring3`` (V, RPV, 128)
@@ -209,40 +301,51 @@ def rows_append(ring3, slab, r0, rmir0):
 
     Scene axis (ScenePack): ``r0``/``rmir0`` are ints, 0-d tensors (one
     scene) or (S,) int32 tensors, one pair per scene, and the V rows are S
-    scenes of V/S voices each, in order.  A row outside ``[0, RPV -
-    W/128]`` fails: the plain version raises, the kernel trips a
-    device-side assert (the rows live on the device, and a host check
-    would stall every block)."""
-    if not isinstance(ring3, torch.Tensor) or ring3.dim() != 3:
-        raise ValueError("ring3 must be a (V, RPV, 128) tensor")
-    V, RPV, PW = ring3.shape
-    dev = ring3.device
-    _check(ring3, "ring3", torch.float32, (V, RPV, 128), dev)
-    if slab.dim() != 2 or slab.shape[0] != V or slab.shape[1] % 128:
-        raise ValueError(f"slab must be (V, W) with W % 128 == 0, got {tuple(slab.shape)}")
-    _check(slab, "slab", torch.float32, slab.shape, dev)
-    nr = slab.shape[1] // 128
-    if nr > RPV:
-        raise ValueError("slab wider than a ring row span")
+    scenes of V/S voices each, in order.  Device rows go to the kernel as
+    they are, host ints by value.  A row outside ``[0, RPV - W/128]``
+    fails: the plain version and the wrapper (host ints) raise, the kernel
+    trips a device-side assert (device rows: a host check would stall
+    every block)."""
+    V, RPV, nr, dev = _append_operands(ring3, slab)
     if dev.type == "cpu":
         return rows_append_plain(ring3, slab, r0, rmir0)
-    _cuda_device(ring3)
-    _check_contig(ring3, "ring3")
-    if ring3.data_ptr() % 16:
-        raise ValueError("ring3 must be 16-byte aligned")
-    if slab.stride(1) != 1:
-        raise ValueError("slab rows must be unit-stride")
-    rows = _rows_index(r0, rmir0, dev).contiguous()
-    vps = _scene_count(V, rows.shape[0])
-    from ._build import lib
-
-    L = lib("ring_kernels")
-    rc = L.rows_append(
-        _ptr(ring3), _ptr(slab), slab.stride(0), _ptr(rows),
+    p0, v0, s0 = _row_leg(r0, "r0", dev, RPV, nr)
+    p1, v1, s1 = _row_leg(rmir0, "rmir0", dev, RPV, nr)
+    if s0 != s1:
+        raise ValueError("r0 and rmir0 must name the same number of scenes")
+    vps = _scene_count(V, s0)
+    rc = lib("ring_kernels").rows_append(
+        ring3.data_ptr(), slab.data_ptr(), slab.stride(0), p0, p1, v0, v1,
         V, RPV, nr, vps, _stream_ptr(dev),
     )
     LAUNCHES["append"] += 1
     _raise_rc(rc, "rows_append")
+    return ring3
+
+
+def rows_append_cursor(ring3, slab, start, FP, cap, M):
+    """K1's cursor form: ``rows_append`` at the rows ``cursor_rows(start,
+    FP, cap, M)``, derived inside the kernel from the pool's write cursor
+    ``start`` (0-d or (S,) int32, one per scene; FP, cap, M host ints: the
+    front pad, the ring modulus, the mirror width), so the caller launches
+    nothing to compute them.  Counts in ``LAUNCHES["append"]`` and
+    ``LAUNCHES["append_cursor"]``."""
+    V, RPV, nr, dev = _append_operands(ring3, slab)
+    if not isinstance(start, torch.Tensor) or start.dim() > 1:
+        raise ValueError("start must be a 0-d or (S,) int32 tensor")
+    if dev.type == "cpu":
+        if start.dtype != torch.int32:
+            raise TypeError(f"start must be int32, got {start.dtype}")
+        return rows_append_cursor_plain(ring3, slab, start, FP, cap, M)
+    ptr, S = _device_int32(start, "start", dev)
+    vps = _scene_count(V, S)
+    rc = lib("ring_kernels").rows_append_cursor(
+        ring3.data_ptr(), slab.data_ptr(), slab.stride(0), ptr, FP, cap, M,
+        V, RPV, nr, vps, _stream_ptr(dev),
+    )
+    LAUNCHES["append"] += 1
+    LAUNCHES["append_cursor"] += 1
+    _raise_rc(rc, "rows_append_cursor")
     return ring3
 
 
@@ -423,8 +526,6 @@ def _select_cuda(name, wide, rowshift, scal01, g01, e01, frz01, n, K, nb,
     c0 = (ctypes.c_int * MAX_NB)(*col0s)
     hc = (ctypes.c_int * MAX_NB)(*hcaps)
     f0, f1 = (None, None) if frz01 is None else frz01
-    from ._build import lib
-
     L = lib("ring_kernels")
     rc = L.window_select(
         _ptr(wide), wide.stride(0), S2, _ptr(rowshift),
@@ -587,8 +688,6 @@ def strip_select(ring, rrow, extra, scal, gain0, d_gain, maskf, *, n, K):
     nchunks = -(-V // VOICE_CHUNK)
     part = torch.empty(nchunks * 2 * n, dtype=torch.float32, device=dev)
     out = torch.empty((2, n), dtype=torch.float32, device=dev)
-    from ._build import lib
-
     rc = lib("select_kernel").strip_select(
         _ptr(ring), L, _ptr(rrow), _ptr(extra), _ptr(scal), _ptr(gain0),
         _ptr(d_gain), _ptr(maskf), _ptr(part), _ptr(out), V, n, K,

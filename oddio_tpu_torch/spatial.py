@@ -68,7 +68,7 @@ from .ops.geometry import (  # noqa: F401  (re-exported API surface)
 )
 from .ops.ring_kernels import (
     PAGE,
-    rows_append,
+    rows_append_cursor,
     select_window,
     strip_select,
     window_select_ears,
@@ -1062,8 +1062,8 @@ class _BufferedPoolDR(_DRPoolBase):
     cols ``[F+L, F+L+M)`` replicate ``[F, F+M)`` — and dump slack), the
     JAX package's layout, so state carries across leaf by leaf.  The pool
     shares one write cursor, so the per-block append is one slab write
-    (``rows_append``, K1) into every voice, primary and mirror legs, in
-    place.  Reads gather tile-granule windows and run the per-ear select
+    (``rows_append_cursor``, K1) into every voice, primary and mirror
+    legs, in place.  Reads gather tile-granule windows and run the per-ear select
     kernel (``window_select_ears``, K2; ``window_select_multi``, K3, for
     fused idle groups).
     """
@@ -1756,11 +1756,10 @@ class _BufferedPoolDR(_DRPoolBase):
         M = self.M_PAD
         ring = S["ring"]  # (V, RPV, 128)
         if self._w_aligned:
-            # row-aligned slab: primary + mirror-maintenance legs, in place
+            # row-aligned slab: primary + mirror-maintenance legs, in place,
+            # at rows K1 derives from the write cursor itself
             nw = self._w_aligned
-            r0 = _fdiv(FP + start_i, 128)
-            rm = _fdiv(FP + torch.where(start_i < M, start_i + cap, cap + M), 128)
-            ring = rows_append(ring, samples[:, :nw], r0, rm)
+            ring = rows_append_cursor(ring, samples[:, :nw], start_i, FP, cap, M)
         else:
             # general (unaligned/wrapping) path, exotic block configs only:
             # each <=W_CHUNK-wide sub-slab lands twice on the flat view —

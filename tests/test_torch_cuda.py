@@ -4,7 +4,8 @@ runs on a machine with the card:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Every test skips without a CUDA card.  Bounds: K1 exact (a copy); K2/K3
+Every test skips without a CUDA card.  Bounds: K1 exact (a copy, in its
+row and cursor forms, aligned and unaligned slabs); K2/K3
 within ``ring_kernels.mix_tolerance`` elementwise (the kernel sums the same
 products in another, fixed order; the tolerance follows how float32
 rounding errors of such a sum grow, and fails a dropped voice or bf16
@@ -17,6 +18,10 @@ within ``flat_kernels.dma_tolerance`` (as K5's); K1/K2 with a ScenePack's
 scene axis as without it, per scene; the scenes and packs within the
 PARITY.md 1e-5.
 """
+
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -89,6 +94,66 @@ def test_rows_append_exact(cuda):
     # vector-load path
     got2 = RK.rows_append(ring.clone(), samples[:, :512].contiguous(), 8, 136)
     assert torch.equal(got2, plain)
+
+
+@pytest.mark.parametrize("S", [1, 16])
+@pytest.mark.parametrize("W", [128, 512, 1024, 2048])
+@pytest.mark.parametrize("V", [1, 3, 1000, 4096])
+def test_rows_append_forms_exact(cuda, V, W, S):
+    """K1 through its row forms (device (S,) rows; host ints for one scene)
+    and its cursor form, each exact against the plain version and one
+    launch, with a stride-(W + 1) slab (the scalar-load form) and a
+    contiguous one (16-byte loads); S scenes of V voices.  W > 512 takes
+    more than one CUDA block per voice."""
+    rng = np.random.default_rng(V + W + S)
+    FP, cap, M = 1024, 4096, 1024
+    RPV = (FP + cap + M + max(W, 1024)) // 128
+    ring = torch.randn((S * V, RPV, 128), device=cuda)
+    base = torch.randn((S * V, W + 1), device=cuda)
+    start = torch.tensor(rng.integers(0, cap - W + 1, S).astype(np.int32), device=cuda)
+    start[0] = M - 128  # a cursor inside the mirror span
+    r0, rm = RK.cursor_rows(start, FP, cap, M)
+    forms = [(RK.rows_append, (r0, rm)), (RK.rows_append_cursor, (start, FP, cap, M))]
+    if S == 1:
+        forms.append((RK.rows_append, (int(r0), int(rm))))
+    for slab in (base[:, :W], base[:, :W].contiguous()):
+        want = RK.rows_append_plain(ring.clone(), slab, r0, rm)
+        for fn, args in forms:
+            before = RK.LAUNCHES["append"]
+            got = fn(ring.clone(), slab, *args)
+            torch.cuda.synchronize()
+            assert RK.LAUNCHES["append"] == before + 1
+            assert torch.equal(got, want), (fn.__name__, slab.stride(0))
+
+
+@pytest.mark.parametrize("form", ["rows", "cursor", "pages"])
+def test_append_leg_outside_the_ring_trips_the_assert(cuda, form):
+    """A device row, cursor or page whose leg leaves the ring trips K1's or
+    K9's device-side assert (in a subprocess: the assert poisons the CUDA
+    context)."""
+    code = f"""
+import torch
+from oddio_tpu_torch.ops import flat_kernels as FK, ring_kernels as RK
+dev, i32 = torch.device("cuda"), torch.int32
+form = {form!r}
+if form == "pages":
+    ring, slab = torch.zeros((64, 4096), device=dev), torch.ones((64, 512), device=dev)
+    FK.flat_append_aligned(ring, slab, torch.tensor([2, 8], dtype=i32, device=dev))
+else:
+    ring, slab = torch.zeros((64, 16, 128), device=dev), torch.ones((64, 512), device=dev)
+    if form == "rows":
+        RK.rows_append(ring, slab, torch.tensor(0, dtype=i32, device=dev),
+                       torch.tensor(13, dtype=i32, device=dev))
+    else:
+        RK.rows_append_cursor(ring, slab, torch.tensor([3000], dtype=i32, device=dev),
+                              1024, 4096, 1024)
+torch.cuda.synchronize()
+print("no assert")
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=300, cwd=Path(__file__).resolve().parents[1])
+    assert r.returncode != 0 and "no assert" not in r.stdout, (r.stdout, r.stderr[-2000:])
+    assert "assert" in r.stderr.lower(), r.stderr[-2000:]
 
 
 @pytest.mark.parametrize("V", [1, 3, 16, 1000])
@@ -379,16 +444,19 @@ def test_window_select_flat_within_tolerance(cuda, V, emax2):
     assert bool(((got - plain).abs().double() <= tol).all())
 
 
-@pytest.mark.parametrize("form", ["mixed", "ints", "pair"])
-def test_flat_append_aligned_exact(cuda, form):
+@pytest.mark.parametrize("W", [512, 1024])
+@pytest.mark.parametrize("form", ["mixed", "ints", "pair", "scalars"])
+def test_flat_append_aligned_exact(cuda, form, W):
     rng = np.random.default_rng(90)
     V, rowlen = 1000, 4096
     ring = torch.tensor(rng.standard_normal((V, rowlen)).astype(np.float32), device=cuda)
-    slab = torch.tensor(rng.standard_normal((V, 1024)).astype(np.float32), device=cuda)
+    slab = torch.tensor(rng.standard_normal((V, W)).astype(np.float32), device=cuda)
     plain = FK.flat_append_aligned_plain(ring.clone(), slab, 1, 5)
-    pages = {"mixed": (1, torch.tensor(5, dtype=torch.int32, device=cuda)),
+    dev_page = {p: torch.tensor(p, dtype=torch.int32, device=cuda) for p in (1, 5)}
+    pages = {"mixed": (1, dev_page[5]),
              "ints": (1, 5),
-             "pair": (torch.tensor([1, 5], dtype=torch.int32, device=cuda),)}[form]
+             "pair": (torch.tensor([1, 5], dtype=torch.int32, device=cuda),),
+             "scalars": (dev_page[1], dev_page[5])}[form]
     before = FK.LAUNCHES["flat_append"]
     got = FK.flat_append_aligned(ring.clone(), slab, *pages)
     torch.cuda.synchronize()
