@@ -8,11 +8,18 @@ scene) and the host-pool path at 4096 voices, and times them.
 Phases (each prints one or more lines; any failure exits non-zero):
  1. the card: name and power limit (nvidia-smi);
  2. the kernel build (one nvcc per csrc/*.cu, all at once, sm_90a);
- 3. K1 (both row forms and the cursor form)/K2/K3 against their plain
-    versions at V = 4096, n = 512;
+ 3. K1 (both row forms and the cursor form) against its plain version at
+    V = 4096, n = 512; K2/K3, reading straight from the ring, against
+    theirs on the 4096-voice buffered scene's own read operands (captured
+    blocks and a fused group), with frozen ears, windows ending in the
+    mirror, ``tight``, the family sub-pass list, three read chunks and a
+    group that wraps the ring's modulus;
  4. the 4096-voice buffered and seek scenes through render_frames and
     render_frames_device, counting kernel launches on that run (K1's all
-    through its cursor form);
+    through its cursor form); at the end of the run (a profiled session
+    slows every later host call), the device kernels per buffered block,
+    and one device kernel for one pool read alone, a delta block's read
+    and an idle fused group's (``render`` less ``_advance_block``);
  5. a 256-voice buffered scene on the card against the CPU (plain) render;
  6. real-time factors of both 4096-voice scenes;
  7. K4 against its plain version at the mixer path's shapes (and
@@ -39,7 +46,7 @@ Phases (each prints one or more lines; any failure exits non-zero):
     launches, counted on every path run of phases 4, 8, 12 and 17, must
     be 0);
 16. K1 (row and cursor forms) and K2 with a ScenePack's scene axis (16
-    scenes of 256 voices);
+    scenes of 256 voices; K2 on a 4096-row ring);
 17. the config-5 ScenePack at 16 and 64 scenes of 256 voices through
     render_block and render_frames_device with new stream PCM between,
     counting K4/K6/K7 launches per block (equal at both sizes), and the
@@ -57,7 +64,8 @@ calls (``timed``): ``ms`` with CUDA events (host issue included),
 ``host_ms`` the host's issue time.  K1, K4, K5 and K9, whose operands
 (or read spans) fit in the card's 50 MB L2, are timed again cold, each
 call on the next of several operand sets whose bytes pass the L2
-(``utils/kernel_bench.py``; ``cold``, ``library_cold``).  The
+(``utils/kernel_bench.py``; ``cold``, ``library_cold``); K2 and K3 are
+timed cold over 8 captured blocks and groups.  The
 line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -280,60 +288,156 @@ def rows_append_check(dev, tag):
     return rec
 
 
-def select_operands(rng, dev, V, n, K, S2, nb, hcap):
-    """Main-path-shaped K2/K3 operands (the layout the buffered pool builds)."""
-    def t(x):
-        return torch.tensor(x, device=dev)
-
-    ds = rng.uniform(1 - K / n, 1 + K / n, (V, 2 * nb)).astype(np.float32)
-    ds_t = t(ds)
-    ds_int = torch.floor(ds_t)
-    f = ds_t - ds_int
-    f_hi = torch.floor(f * 4096.0) * (1.0 / 4096.0)
-    f_lo = f - f_hi
-    ofrac = t(rng.uniform(0, 1, (V, 2 * nb)).astype(np.float32))
-    scal = torch.stack([ofrac, f_hi, f_lo, ds_int], -1)  # (V, 2nb, 4)
-    scal01 = [scal[:, e::2].reshape(V, 4 * nb).contiguous() for e in range(2)]
-    gain = rng.uniform(0, 0.05, (V, 2 * nb, 2)).astype(np.float32)
-    gain[..., 1] = rng.uniform(-1e-4, 1e-4, (V, 2 * nb))
-    g = t(gain)
-    g01 = [g[:, e::2].reshape(V, 2 * nb).contiguous() for e in range(2)]
-    e01 = [t(rng.integers(0, 160, (V, nb)).astype(np.int32)) for _ in range(2)]
-    frz01 = [t((rng.uniform(0, 1, (V, nb)) > 0.9).astype(np.float32)) for _ in range(2)]
-    wide = torch.randn((V, S2), device=dev)
-    rowshift = t(rng.integers(0, hcap, (V, nb)).astype(np.int32))
-    return wide, rowshift, scal01, g01, e01, frz01
+def read_geometry(pool):
+    """The pool's ring geometry as the K2/K3 wrappers take it."""
+    return dict(DMAX=pool.emax2, FP=pool.W_CHUNK, cap=pool.cap_pool)
 
 
-def select_bytes(RK, wide, col0s, rowshift, hs, scal01, e01, n, K, nb):
-    """Bytes K2/K3 must move: each voice's read span per block (both ears),
-    its operand rows (16 + 8 + 4 + 4 + 4 bytes per ear and block), the
-    (2, nb*n) output."""
-    total = 0
-    for b in range(nb):
-        idx = []
-        for e in range(2):
-            kk, _ = RK._positions(scal01[e][:, 4 * b:4 * b + 4], n, K)
-            sh = rowshift[:, b].long().clamp(0, hs[b] - 1)
-            j = torch.arange(n, device=wide.device)
-            idx.append((col0s[b] + 128 * sh)[:, None] + e01[e][:, b:b + 1].long() + j + kk.long())
-        total += span_bytes(torch.stack(idx, 1))
-    V = wide.shape[0]
-    return total + 36 * 2 * V * nb + 4 * V * nb + 2 * nb * n * 4
+def held(RK, key, label, call, plain, tol):
+    """Two calls of a K2/K3 wrapper: one launch each, bit-equal, within
+    ``tol`` of ``plain``; returns (max |diff|, share of the tolerance)."""
+    before = RK.LAUNCHES[key]
+    got = call()
+    again = call()
+    torch.cuda.synchronize()
+    if RK.LAUNCHES[key] != before + 2:
+        raise AssertionError(f"{label}: {RK.LAUNCHES[key] - before} launches for 2 calls")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two runs differ")
+    if not float(plain.abs().max()) > 1e-3:
+        raise AssertionError(f"{label}: a silent read")
+    return within(got, plain, tol, label)
 
 
-def check_select(RK, got, plain, samps, gs, n, label):
-    """|kernel - plain| against the voice-sum rounding tolerance
-    (``ring_kernels.mix_tolerance``); returns max |diff| and the largest
-    ratio |diff| / tolerance (at most 1 to pass)."""
-    diff = (got - plain).abs().double()
-    worst = float((diff / RK.mix_tolerance(samps, gs, n).clamp_min(1e-300)).max())
-    if not worst <= 1.0:
-        raise AssertionError(
-            f"{label}: kernel disagrees with its plain version: max|diff| "
-            f"{float(diff.max()):.3e}, {worst:.1f}x its tolerance"
-        )
-    return float(diff.max()), worst
+def ring_read_checks(dev, tag):
+    """Phase 3, K2 and K3 against their plain versions, on the operands of
+    the 4096-voice buffered scene itself (its pool's ``render`` and
+    ``render_multi`` arguments captured through a Renderer, their read
+    operands from ``_advance_block``): an idle block's read, the delta
+    block's, the same with frozen ears, with every window ending in the
+    mirror, the main pass with ``tight`` at K = 128, the family sub-pass
+    (a 256-entry list) at the two sub-pass tiers, three 512-frame chunks;
+    a captured fused group and a synthetic one that wraps the ring's
+    modulus.  Elementwise within ``mix_tolerance``; two runs bit-equal;
+    one launch per call.  Timed warm and cold (each call on the next of 8
+    captured blocks or groups).  Returns (K2 record, K3 record, the
+    captured scene's (pool, delta, singles, groups) for phase 4)."""
+    from oddio_tpu_torch.ops import ring_kernels as RK
+    from oddio_tpu_torch.utils import kernel_bench as KB
+    from oddio_tpu_torch.utils.scene_profile import build_spatial
+
+    rng = np.random.default_rng(3)
+    t0 = time.perf_counter()
+    captured = KB.capture_states(build_spatial(True, VOICES, dev)[1])
+    pool, delta, singles, groups = captured
+    geo = read_geometry(pool)
+    R, K = pool._read_cfg
+    n = BLOCK
+    S, ros = KB.block_reads(pool, *singles[0])
+    ring, ro = S["ring"], ros[0]
+    print(f"K2/K3 operands: {VOICES}-voice buffered scene, tier (R, K) = ({R}, {K}), captured "
+          f"in {time.perf_counter() - t0:.2f} s {tag}")
+
+    def k2(label, ro_, n_=n, **kw):
+        kw = {**dict(n=n_, K=K, R=R, **geo), **kw}
+        plain = RK.ring_select_ears_plain(ring, ro_, **kw)
+        err, share = held(RK, "select_ears", f"ring_select_ears {label}",
+                          lambda: RK.ring_select_ears(ring, ro_, **kw), plain,
+                          RK.ring_select_ears_tolerance(ring, ro_, **kw))
+        print(f"K2 ring_select_ears {label} (R, K) = ({kw['R']}, {kw['K']}) n={n_}: max|diff| "
+              f"{err:.3e} ({share:.3f} of its tolerance), one launch, two runs bit-equal {tag}")
+        return err
+
+    errs = [k2("idle block", ro), k2("delta block", KB.block_reads(pool, *delta)[1][0])]
+    frz = dict(ro, frz_c=[torch.tensor(rng.uniform(0, 1, VOICES) < 0.3, device=dev).float()
+                          for _ in range(2)])
+    errs.append(k2("frozen ears", frz))
+    end = geo["cap"] + K - torch.tensor(rng.integers(1, 48, VOICES), dtype=torch.int32, device=dev)
+    shift = end - ro["base_c"][0]
+    errs.append(k2("windows ending in the mirror", dict(ro, base_c=[b + shift for b in ro["base_c"]])))
+    syn = KB.read_operands(dev, rng, VOICES, 128, 512, frozen=0.3)
+    tight = torch.tensor(rng.uniform(0, 1, VOICES) > 0.1, device=dev).float()
+    errs.append(k2("tight", syn, K=128, tight=tight))
+    idx = np.zeros(256, np.int32)
+    idx[:200] = rng.choice(VOICES, 200, replace=False)
+    sub = dict(sub_idx=torch.tensor(idx, device=dev), sub_on=torch.tensor(
+        (np.arange(256) < 200).astype(np.float32), device=dev))
+    for r_, k_ in ((256, 256), (128, 192)):
+        errs.append(k2("sub-pass", KB.read_operands(dev, rng, VOICES, k_, r_), K=k_, R=r_, **sub))
+    errs.append(k2("three chunks", KB.read_operands(dev, rng, VOICES, 64, 512), n_=3 * n, K=64))
+
+    kw2 = dict(n=n, K=K, R=R, **geo)
+    reads = [(S_["ring"], ros_[0]) for S_, ros_ in (KB.block_reads(pool, *s) for s in singles)]
+    tk = timed("K2 ring_select_ears, idle block", lambda: RK.ring_select_ears(ring, ro, **kw2))
+    tc = timed("K2 ring_select_ears, idle block, cold", KB.cycling(
+        reads, lambda r_, o_: RK.ring_select_ears(r_, o_, **kw2)))
+    pms = time_ms(lambda: RK.ring_select_ears_plain(ring, ro, **kw2))
+    bms, by = bound(KB.read_bytes([ro], n), 21 * VOICES * 2 * n)
+    print(f"K2 ring_select_ears idle block V={VOICES}: {times_str(tk)}, cold {times_str(tc)} vs "
+          f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}) {tag}")
+    rec2 = record("oddio_tpu/ops/pallas_ring.py:724", "oddio_tpu_torch/csrc/ring_kernels.cu",
+                  max(errs), tk, pms, bms, by)
+    rec2["cold"] = tc
+
+    nb = groups[0][4]
+    row0s, hs = RK.multi_rows(pool._prep_inv[2], K, nb)
+    kw3 = dict(n=n, K=K, row0s=row0s, hs=hs, **geo)
+    gros = [KB.block_reads(pool, *g)[1] for g in groups]
+    errs = []
+    wrap_ros, w0s, whs = KB.group_operands(
+        dev, rng, VOICES, 64, n, geo["cap"] - rng.integers(200, 900, VOICES), nb=nb)
+    for label, ros_, kw in (("captured group", gros[0], kw3),
+                            ("group across the modulus", wrap_ros,
+                             dict(kw3, K=64, row0s=w0s, hs=whs))):
+        plain = RK.ring_select_multi_plain(ring, ros_, **kw)
+        err, share = held(RK, "select_multi", f"ring_select_multi {label}",
+                          lambda: RK.ring_select_multi(ring, ros_, **kw), plain,
+                          RK.ring_select_multi_tolerance(ring, ros_, **kw))
+        errs.append(err)
+        print(f"K3 ring_select_multi {label} nb={nb} K={kw['K']}: max|diff| {err:.3e} "
+              f"({share:.3f} of its tolerance), one launch, two runs bit-equal {tag}")
+    tk = timed(f"K3 ring_select_multi nb={nb}", lambda: RK.ring_select_multi(ring, gros[0], **kw3))
+    tc = timed(f"K3 ring_select_multi nb={nb}, cold", KB.cycling(
+        [(g,) for g in gros], lambda ros_: RK.ring_select_multi(ring, ros_, **kw3)))
+    pms = time_ms(lambda: RK.ring_select_multi_plain(ring, gros[0], **kw3))
+    bms, by = bound(KB.read_bytes(gros[0], n), 21 * VOICES * 2 * n * nb)
+    print(f"K3 ring_select_multi nb={nb} V={VOICES}: {times_str(tk)}, cold {times_str(tc)} vs "
+          f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}) {tag}")
+    rec3 = record("oddio_tpu/ops/pallas_ring.py:843", "oddio_tpu_torch/csrc/ring_kernels.cu",
+                  max(errs), tk, pms, bms, by)
+    rec3["cold"] = tc
+    return rec2, rec3, captured
+
+
+def read_kernel_counts(rb, captured, tag):
+    """Phase 4's profile, run at the end (a profiled session slows every
+    later host call): device kernels per block of the main path's
+    buffered renderer, and the device kernels of one pool read alone and
+    of the reads of a delta block and of an idle fused group (``render``
+    less ``_advance_block`` on the same captured state), each exactly
+    one."""
+    from oddio_tpu_torch.ops import ring_kernels as RK
+    from oddio_tpu_torch.utils import kernel_bench as KB
+
+    pool, delta, singles, groups = captured
+    nblk = 8
+    per_block = KB.device_profile(lambda: rb.render_frames_device(BLOCK * nblk, sync=False),
+                                  reps=1)[1] / nblk
+    print(f"phase 4 profile: {per_block:.1f} device kernels per buffered block ({nblk} blocks, "
+          f"render_frames_device) {tag}")
+    S, ros = KB.block_reads(pool, *singles[0])
+    R, K = pool._read_cfg
+    kw = dict(n=BLOCK, K=K, R=R, **read_geometry(pool))
+    counts = {"one pool read alone": KB.device_profile(
+        lambda: RK.ring_select_ears(S["ring"], ros[0], **kw), reps=1)[1]}
+    for label, state, whole in (("a delta block's read", delta, pool.render),
+                                ("an idle block's read", singles[1], pool.render),
+                                ("an idle group's read", groups[1], pool.render_multi)):
+        counts[label] = (KB.device_profile(lambda: whole(*state), reps=1)[1]
+                         - KB.device_profile(lambda: KB.block_reads(pool, *state), reps=1)[1])
+    print(f"phase 4 profile: device kernels {counts} {tag}")
+    if any(v != 1 for v in counts.values()):
+        raise AssertionError(f"a pool read is not one device kernel: {counts}")
 
 
 def place_timed(label, warm, cold_sets, call, lib_call):
@@ -885,9 +989,11 @@ def flat_kernels(dev, kern, tag):
 
 def scene_axis_kernels(dev, tag):
     """Phase 16: K1 and K2 with a ScenePack's scene axis, S = 16 scenes of
-    V = 256 voices, against their plain versions (K1 exact, K2 within
-    ``mix_tolerance`` per scene), one launch per call."""
+    V = 256 voices, against their plain versions (K1 exact, K2 reading a
+    4096-row ring within ``mix_tolerance`` per scene), one launch per
+    call."""
     from oddio_tpu_torch.ops import ring_kernels as RK
+    from oddio_tpu_torch.utils import kernel_bench as KB
 
     rng = np.random.default_rng(16)
     S, Vs, n, K = 16, 256, BLOCK, 32
@@ -925,23 +1031,21 @@ def scene_axis_kernels(dev, tag):
           f"{times_str(ctk)} {tag}")
     del ring, slab
 
-    wide, rowshift, scal01, g01, e01, frz01 = select_operands(rng, dev, V, n, K, 2048, 1, 8)
-    rs = rowshift[:, 0].contiguous()
-    kw = dict(n=n, K=K, emax2=127 + 33, hmax=8, frz01=frz01, scenes=S)
-    plain = RK.window_select_ears_plain(wide, rs, scal01, g01, e01, **kw)
+    ring = KB.read_ring(dev, V, seed=16)
+    ro = KB.read_operands(dev, rng, V, K, n)
+    kw = dict(n=n, K=K, R=n, DMAX=KB.READ_DMAX, FP=KB.READ_FP, cap=KB.READ_CAP, scenes=S)
+    plain = RK.ring_select_ears_plain(ring, ro, **kw)
     before = RK.LAUNCHES["select_ears"]
-    got = RK.window_select_ears(wide, rs, scal01, g01, e01, **kw)
+    got = RK.ring_select_ears(ring, ro, **kw)
     torch.cuda.synchronize()
     if got.shape != (S, 2, n) or RK.LAUNCHES["select_ears"] != before + 1:
-        raise AssertionError(f"window_select_ears with {S} scenes: shape {tuple(got.shape)}, "
+        raise AssertionError(f"ring_select_ears with {S} scenes: shape {tuple(got.shape)}, "
                              f"{RK.LAUNCHES['select_ears'] - before} launches")
-    samps = [RK.ear_samples(wide, 0, rs, 8, scal01[e], e01[e], frz01[e], n, K) for e in range(2)]
-    err, share = within(got, plain, RK.mix_tolerance(samps, g01, n, scenes=S),
-                        f"window_select_ears S={S}")
-    tk = timed(f"K2 window_select_ears S={S}",
-               lambda: RK.window_select_ears(wide, rs, scal01, g01, e01, **kw))
-    pms = time_ms(lambda: RK.window_select_ears_plain(wide, rs, scal01, g01, e01, **kw))
-    print(f"K2 window_select_ears S={S} x V={Vs}: max|diff| {err:.3e} ({share:.3f} of its "
+    err, share = within(got, plain, RK.ring_select_ears_tolerance(ring, ro, **kw),
+                        f"ring_select_ears S={S}")
+    tk = timed(f"K2 ring_select_ears S={S}", lambda: RK.ring_select_ears(ring, ro, **kw))
+    pms = time_ms(lambda: RK.ring_select_ears_plain(ring, ro, **kw))
+    print(f"K2 ring_select_ears S={S} x V={Vs}: max|diff| {err:.3e} ({share:.3f} of its "
           f"per-scene tolerance), one launch; {times_str(tk)} vs plain {pms:.4f} ms {tag}")
 
 
@@ -1134,64 +1238,11 @@ def main():
     print(f"build: {len(built)} libraries in {wall:.2f} s wall (parallel) {tag}")
 
     # -- 3. kernels vs plain at main-path shapes -------------------------------------
-    rng = np.random.default_rng(0)
-    V, n, K = VOICES, BLOCK, 32
     kern = {}
 
     kern["rows_append"] = rows_append_check(dev, tag)
 
-    S2 = 2048
-    wide, rowshift, scal01, g01, e01, frz01 = select_operands(rng, dev, V, n, K, S2, 1, 8)
-    emax2 = 127 + 33
-    errs = []
-    for frz in (None, frz01):
-        kw = dict(n=n, K=K, emax2=emax2, hmax=8, frz01=frz)
-        args = (wide, rowshift[:, 0].contiguous(), scal01, g01, e01)
-        plain = RK.window_select_ears_plain(*args, **kw)
-        got = RK.window_select_ears(*args, **kw)
-        torch.cuda.synchronize()
-        samps = [RK.ear_samples(wide, 0, args[1], 8, scal01[e], e01[e],
-                                None if frz is None else frz[e], n, K) for e in range(2)]
-        e_, b_ = check_select(RK, got, plain, samps, g01, n, "window_select_ears")
-        errs.append(e_)
-        tk = timed(f"K2 window_select_ears frz={frz is not None}",
-                   lambda: RK.window_select_ears(*args, **kw))
-        pms = time_ms(lambda: RK.window_select_ears_plain(*args, **kw))
-        print(f"K2 window_select_ears frz={frz is not None}: max|diff| {e_:.3e} "
-              f"({b_:.3f} of its tolerance); {times_str(tk)} vs plain {pms:.4f} ms {tag}")
-    bms, by = bound(select_bytes(RK, wide, [0], args[1][:, None], [8], scal01, e01, n, K, 1),
-                    21 * V * 2 * n)
-    kern["window_select_ears"] = record("oddio_tpu/ops/pallas_ring.py:724",
-                                        "oddio_tpu_torch/csrc/ring_kernels.cu", max(errs), tk, pms,
-                                        bms, by)
-
-    nb = 4
-    row0s = [max(0, int(np.floor(b * (n - K) / 128))) for b in range(nb)]
-    hs = [int(1023 + b * (n + K)) // 128 - row0s[b] + 1 for b in range(nb)]
-    wide, rowshift, scal01, g01, e01, frz01 = select_operands(rng, dev, V, n, K, 4096, nb, min(hs))
-    kw = dict(n=n, K=K, emax2=emax2, nb=nb, row0s=row0s, hs=hs)
-    args = (wide, rowshift, scal01, g01, e01, frz01)
-    plain = RK.window_select_multi_plain(*args, **kw)
-    got = RK.window_select_multi(*args, **kw)
-    torch.cuda.synchronize()
-    err, bnd = 0.0, 0.0
-    for b in range(nb):
-        sl = slice(b * n, (b + 1) * n)
-        samps = [RK.ear_samples(wide, 128 * row0s[b], rowshift[:, b], hs[b],
-                                scal01[e][:, 4 * b:4 * b + 4], e01[e][:, b:b + 1],
-                                frz01[e][:, b:b + 1], n, K) for e in range(2)]
-        e_, b_ = check_select(RK, got[:, sl], plain[:, sl], samps,
-                              [g[:, 2 * b:2 * b + 2] for g in g01], n, "window_select_multi")
-        err, bnd = max(err, e_), max(bnd, b_)
-    tk = timed("K3 window_select_multi", lambda: RK.window_select_multi(*args, **kw))
-    pms = time_ms(lambda: RK.window_select_multi_plain(*args, **kw))
-    bms, by = bound(select_bytes(RK, wide, [128 * r for r in row0s], rowshift, hs, scal01, e01, n, K, nb),
-                    21 * V * 2 * n * nb)
-    kern["window_select_multi"] = record("oddio_tpu/ops/pallas_ring.py:843",
-                                         "oddio_tpu_torch/csrc/ring_kernels.cu", err, tk, pms, bms, by)
-    print(f"K3 window_select_multi nb=4: max|diff| {err:.3e} ({bnd:.3f} of its tolerance); "
-          f"{times_str(tk)} vs plain {pms:.4f} ms {tag}")
-    del wide, plain, got
+    kern["window_select_ears"], kern["window_select_multi"], captured = ring_read_checks(dev, tag)
 
     # -- 4. the main path at 4096 voices ---------------------------------------------
     t0 = time.perf_counter()
@@ -1264,6 +1315,7 @@ def main():
     pack_reference(pt, dev, tag)
     pack_xrt(packs, dev, tag)
 
+    read_kernel_counts(rb, captured, tag)
     profile_device(tag)
     print(json.dumps({"kernels": [kernel_line(name, k) for name, k in kern.items()]}))
     print(json.dumps({"ok": True, "device": {

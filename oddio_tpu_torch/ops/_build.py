@@ -34,7 +34,6 @@ NVCC_FLAGS = (
 )
 
 _vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_iarr = ctypes.POINTER(ctypes.c_int)
 
 #: C entry points of each library: name -> (argtypes, restype); every entry
 #: point returns its launches' cudaError_t as an int
@@ -47,13 +46,13 @@ _SIGNATURES = {
         # ring, slab, slab_stride, start, FP, cap, M, V, RPV, nr, vps, stream
         "rows_append_cursor": [_vp, _vp, _i64, _vp, _i32, _i32, _i32, _i32, _i32,
                                _i32, _i32, _vp],
-        "window_select": [
-            _vp, _i64, _i32, _vp,          # wide, stride, S2, rowshift
-            _vp, _vp, _vp, _vp,            # scal0, scal1, g0, g1
-            _vp, _vp, _vp, _vp,            # e0, e1, f0, f1
-            _vp, _vp,                      # part, out
-            _i32, _i32, _i32, _i32, _i32,  # V, vps, n, K, nb
-            _iarr, _iarr,                  # col0s, hcaps (host arrays)
+        "ring_select": [
+            _vp, _i64, _i32,               # ring, rowlen, rows
+            _vp, _vp,                      # ptrs, geo (host arrays)
+            _vp, _vp,                      # sub_idx, sub_on (or null)
+            _vp, _vp, _vp,                 # part, ticket (or null), out
+            _i32, _i32, _i32, _i32, _i32,  # V, vps, n, R, K
+            _i32, _i32, _i32, _i32, _i32,  # DMAX, FP, cap, wrap, nb
             _vp,                           # stream
         ],
         "window_select_flat": [

@@ -7,10 +7,10 @@ append and a probe).
   both ears' fractional reads from ONE flat window per voice, ``a_j =
   windows[v, extra_e + j + kk_j]`` and the next sample, lerped by
   ``fr_j`` (the exact split-ds positions of K2), the ramp ``g0 + j·dg``
-  with the mask folded in, summed over voices into (2, n).  It is K2 with
-  no realign (``rowshift`` 0, the window at column 0) and no frozen
-  flags, and its CUDA kernel is K2's body with its own entry,
-  ``window_select_flat`` in ``csrc/ring_kernels.cu``.
+  with the mask folded in, summed over voices into (2, n).  It is K2's
+  wide-window form with no realign (``rowshift`` 0, the window at column
+  0) and no frozen flags; its CUDA kernel is the port's first K2 body,
+  kept for K8 alone (``window_select_flat`` in ``csrc/ring_kernels.cu``).
 * ``flat_append_aligned`` (K9): the (V, W) slab, W a multiple of
   ``APPEND_PW`` = 512, copied into every row of a flat ring (V, rowlen) at
   page ``pcol`` and again at page ``pmir``, in place

@@ -12,12 +12,19 @@ in ``csrc/ring_kernels.cu`` (the device-resident pool) and K5 in
   ``rows_append_cursor`` derives both rows inside the kernel from the
   pool's write cursor, as the buffered pool calls it.  Its CUDA kernel is
   the slab append of ``csrc/append.cuh``, shared with K9.
-* ``window_select_ears`` (K2, for ``window_select_tiles_ears``): per voice
-  and ear, fractional reads ``a + fr*(b - a)`` at positions rebuilt from 4
-  scalars with the exact split-ds math, gain-ramped and summed over voices
-  into ``(2, n)``.
-* ``window_select_multi`` (K3, for ``window_select_tiles_multi``): K2 for
-  ``nb`` consecutive blocks read from one superwindow per voice.
+* ``ring_select_ears`` (K2, for ``window_select_tiles_ears`` and the read
+  preparation of oddio_tpu/spatial.py ``_windows_read``): the pool's
+  two-ear read straight from its ring.  From each block's read operands
+  as ``_BufferedPoolDR._advance_block`` leaves them (per-ear cursor,
+  split step, gains, frozen flag, the mask) it rebuilds the shared-ear
+  window start and staggers, reads ``a + fr*(b - a)`` at positions from
+  the exact split-ds math, ramps the gains and sums over voices into
+  ``(2, n)``; the family sub-pass reads the voices its list names.  One
+  launch per read, read chunks included.
+* ``ring_select_multi`` (K3, for ``window_select_tiles_multi`` and
+  ``render_multi``'s superwindow): K2 for ``nb`` fused blocks, each read
+  wrapped modulo the ring as the granule-wise superwindow gather wrapped
+  it, with the coarse-shift clamp kept.
 * ``strip_select`` (K5, for ``strip_select``): the host buffered pool's
   read, each voice's ring ``(V, L)`` addressed directly at ``128*rrow +
   extra_e`` onward (mod L), with the TPU kernel's per-sub-block walk
@@ -30,30 +37,30 @@ in ``csrc/ring_kernels.cu`` (the device-resident pool) and K5 in
 K1 and K2 also take a ScenePack's scene axis: the V rows are S scenes of
 V/S voices each, K1 writes each scene at its own row pair and K2 mixes
 each scene apart into (S, 2, n); one launch per call whatever S is.  K8
-(``window_select``, ``ops/flat_kernels.py``) shares K2's CUDA body.
+(``window_select``, ``ops/flat_kernels.py``) keeps the port's first K2
+body in ``csrc/ring_kernels.cu``.
 
 A wrapper runs the plain version for tensors on the CPU and launches the
 kernel for tensors on a CUDA device; it never falls back from one to the
 other.  Each launch adds one to ``LAUNCHES[name]``.
 
-The TPU kernels' layout helpers (voice padding to 8 rows, the log-step
-row realign, the 128-lane table gathers, the MXU matvec) have no
-counterpart: on the GPU the realign is an index offset,
-``idx = 128*rowshift + extra_e + j + kk_j``.  The realign's clamp of
-``rowshift`` into ``[0, H)`` is kept, so out-of-contract shifts read what
-the TPU kernel reads.
+The wide-window functions (``ear_samples``, ``window_select_ears_plain``,
+``window_select_multi_plain``) keep the JAX kernels' interface: a window
+per voice gathered beforehand, indexed at ``128*rowshift + extra_e + j +
+kk_j`` with the realign's clamp of ``rowshift`` into ``[0, H)``.  They are
+the reference the tests hold the ring-direct plain versions to.  The TPU
+kernels' layout helpers (voice padding to 8 rows, the log-step row
+realign, the 128-lane table gathers, the MXU matvec) have no counterpart.
 
-Voice sums: the plain version mixes in the JAX reference's matvec form,
+Voice sums: the plain versions mix in the JAX reference's matvec form,
 ``(g0·S)_j + j·(dg·S)_j``.  The K2/K3 CUDA kernel computes the same two
-sums per 16-voice chunk, then adds the chunks in a fixed order
-(deterministic, no atomics); K5 adds 32-voice chunks within a thread
-block cluster, then the clusters, each in a fixed order.  Kernel and
-plain version differ only by the order of the voice sum; the tolerances
-``mix_tolerance`` and ``strip_tolerance`` state for that are sized to how
-rounding errors of a float32 sum really grow, so that they fail a kernel
-that drops a voice or keeps its partial sums in bf16.
+sums per ear, adding 32-voice blocks within a thread block cluster, then
+the clusters, each in a fixed order; K5 sums its ramped summands the same
+way.  Kernel and plain version differ only by the order of the voice sum;
+the tolerances ``mix_tolerance`` and ``strip_tolerance`` state for that
+are sized to how rounding errors of a float32 sum really grow, so that
+they fail a kernel that drops a voice or keeps its partial sums in bf16.
 """
-
 from __future__ import annotations
 
 import ctypes
@@ -62,6 +69,7 @@ import numpy as np
 import torch
 
 from ._build import lib
+from ._dev import device_advance
 
 __all__ = [
     "PAGE",
@@ -69,18 +77,23 @@ __all__ = [
     "LAUNCHES",
     "select_tables",
     "select_window",
-    "pack_select_scalars",
     "rows_append",
     "rows_append_plain",
     "rows_append_cursor",
     "rows_append_cursor_plain",
     "cursor_rows",
-    "window_select_ears",
     "window_select_ears_plain",
-    "window_select_multi",
     "window_select_multi_plain",
     "ear_samples",
     "mix_tolerance",
+    "ear_starts",
+    "ring_select_ears",
+    "ring_select_ears_plain",
+    "ring_select_ears_tolerance",
+    "ring_select_multi",
+    "ring_select_multi_plain",
+    "ring_select_multi_tolerance",
+    "multi_rows",
     "SELECT_R",
     "strip_positions",
     "strip_samples",
@@ -98,16 +111,25 @@ __all__ = [
 
 PAGE = 1024  # ring page size (samples)
 SELECT_SB = 128  # frames per sub-block in the read kernels
-#: voices summed per CUDA block before the fixed-order chunk reduction
-#: (must match VC in csrc/ring_kernels.cu)
+#: K8's voices per CUDA block before its fixed-order chunk reduction (VC
+#: in csrc/ring_kernels.cu)
 VOICE_CHUNK = 16
-#: K5's voices per CUDA block (VC in csrc/select_kernel.cu)
+#: K2/K3's and K5's voices per CUDA block (RS_VC in csrc/ring_kernels.cu,
+#: VC in csrc/select_kernel.cu)
 SELECT_CHUNK = 32
-#: most blocks one multi-block select may fuse (MAX_NB in the .cu)
+#: most blocks one K3 read may fuse (MAX_NB in csrc/ring_kernels.cu)
 MAX_NB = 8
 #: multiples of the rounding-walk scale |kernel - plain| may reach
 #: (``mix_tolerance``)
 MIX_TOL_SIGMAS = 8.0
+
+#: CUDA blocks per thread block cluster along the voice axis of K2/K3 and
+#: K5 (RS_CL in csrc/ring_kernels.cu, CL_MAX in csrc/select_kernel.cu)
+CLUSTER_MAX = 8
+#: per device: the cluster-partial scratch and zeroed tickets that K2/K3
+#: and K5 share (their launches are ordered on the stream, and the last
+#: cluster of each sum leaves its ticket zeroed)
+_CLUSTER_SCRATCH = {}
 
 #: K5's residual doppler-walk clamp per sub-block (``SELECT_R``,
 #: pallas_ring.py:258): a read lands at most SELECT_R - 1 past the
@@ -128,6 +150,26 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
+def _cluster_scratch(dev, vps, slots, words):
+    """(part, ticket) for a launch whose voice sum runs over thread block
+    clusters of ``SELECT_CHUNK``-voice blocks (K2/K3, K5): ``slots``
+    (scene, sub-block) sums of ``words`` floats per cluster and a zeroed
+    ticket each; None, None when one cluster holds each scene's ``vps``
+    voices (the kernel then writes its output directly)."""
+    blocks = -(-vps // SELECT_CHUNK)
+    cl = min(CLUSTER_MAX, 1 << (blocks - 1).bit_length())
+    clusters = -(-blocks // cl)
+    if clusters == 1:
+        return None, None
+    part, ticket = _CLUSTER_SCRATCH.get(dev, (None, None))
+    if part is None or part.numel() < slots * clusters * words:
+        part = torch.empty(slots * clusters * words, dtype=_F32, device=dev)
+    if ticket is None or ticket.numel() < slots:  # grows (a fill launch) past 4096
+        ticket = torch.zeros(max(slots, 4096), dtype=_I32, device=dev)
+    _CLUSTER_SCRATCH[dev] = (part, ticket)
+    return part, ticket
+
+
 def select_tables(emax2, K=64, SB=SELECT_SB):
     """Lookup-table width (a multiple of 128) one sub-block's reads span:
     extra (< emax2) + lane (< SB) + doppler walk (<= 2K) + 1 (lerp)."""
@@ -138,14 +180,6 @@ def select_window(n, emax2, K=64, SB=SELECT_SB):
     """Total per-voice window width for an n-frame block."""
     nsb = -(-n // SB)
     return (nsb - 1) * SB + select_tables(emax2, K, SB)
-
-
-def pack_select_scalars(offset_frac, ds_int, f_hi, f_lo):
-    """Pack per-(voice, ear) cursor scalars [frac, f_hi, f_lo, ds_int]
-    (ds_int rides as f32, exact below 2^23)."""
-    return torch.stack(
-        [offset_frac, f_hi, f_lo, ds_int.to(torch.float32)], dim=-1
-    )
 
 
 # --- checks -------------------------------------------------------------------
@@ -364,7 +398,7 @@ def rows_append_cursor(ring3, slab, start, FP, cap, M):
     return ring3
 
 
-# --- K2/K3: ear selects -----------------------------------------------------------
+# --- the wide-window reads (the JAX kernels' interface; the tests' reference) ----
 
 
 def _positions(scal, n, K):
@@ -508,102 +542,315 @@ def window_select_multi_plain(wide, rowshift, scal01, g01, e01, frz01, *, n,
     return torch.cat(outs, dim=-1)
 
 
-def _select_cuda(name, wide, rowshift, scal01, g01, e01, frz01, n, K, nb,
-                 col0s, hcaps, scenes=1):
-    """Validate the (V, k*nb) operands and launch the select kernel pair
-    (per-chunk partial sums, then the fixed-order chunk reduction).
-    Returns (scenes, 2, nb*n)."""
-    V, S2 = wide.shape
-    dev = wide.device
-    _cuda_device(wide)
-    if nb > MAX_NB:
-        raise ValueError(f"nb={nb} > MAX_NB={MAX_NB}")
-    if n < 1 or V < 1:
-        raise ValueError("empty select")
-    vps = _scene_count(V, scenes)
-    if wide.stride(1) != 1:
-        raise ValueError("wide rows must be unit-stride")
-    _check(wide, "wide", torch.float32, (V, S2), dev)
-    _check(rowshift, "rowshift", torch.int32, (V, nb), dev)
+# --- K2/K3: ring select (the device-resident buffered pool's read) --------------
+
+
+def ear_starts(base_c, cap, DMAX, K, FP):
+    """The shared-ear window start ``rstart`` (a ring column) and the
+    per-ear staggers ``dstart`` (the two ears' starts differ by at most
+    the inter-ear distance ``DMAX``), from the ears' int32 read cursors,
+    as oddio_tpu/spatial.py ``_windows_read`` derives them."""
+    ob0 = torch.remainder(base_c[0], cap)
+    ob1 = torch.remainder(base_c[1], cap)
+    dlr = torch.remainder(ob0 - ob1, cap)
+    l_ahead = dlr <= DMAX
+    cm = torch.where(l_ahead, ob1, ob0)
+    dstart = [
+        torch.where(l_ahead, dlr, 0).clamp(0, DMAX),
+        torch.where(l_ahead, 0, cap - dlr).clamp(0, DMAX),
+    ]
+    return torch.remainder(cm - K, cap) + FP, dstart
+
+
+def _scal(frac, split):
+    """One ear's packed cursor scalars [frac, f_hi, f_lo, ds_int] (V, 4)."""
+    ds, fh, fl = split
+    return torch.stack([frac, fh, fl, ds.to(_F32)], dim=-1)
+
+
+def _ring_samples(flat, q, scal, frz, n, K, wrap=None):
+    """(V, n) reads of one ear from the flat ring: ``a`` at the int64 flat
+    index ``q + kk_j`` ((V, n) ``q``: frame j's index before the walk),
+    ``b`` at the next, ``s = a + fr*(b - a)``; a voice whose frz > 0
+    repeats its j = 0 sample (``ear_samples``' arithmetic).  With ``wrap``
+    = (row offsets (V, 1), FP, cap), ``q + kk_j`` is an offset past column
+    FP of the voice's row, wrapped modulo cap, and so is the next (K3)."""
+    kk, fr = _positions(scal, n, K)
+    q = q + kk.to(torch.int64)
+    if wrap is None:
+        ia, ib = q, q + 1
+    else:
+        rowoff, FP, cap = wrap
+        ia = rowoff + FP + torch.remainder(q, cap)
+        ib = rowoff + FP + torch.remainder(q + 1, cap)
+    a = flat[ia]
+    b = flat[ib]
+    s = a + fr * (b - a)
+    if frz is not None:
+        s = torch.where(frz[:, None] > 0.0, s[:, :1], s)
+    return s
+
+
+def _ears_reads(ring, ro, n, K, R, DMAX, FP, cap, tight, sub_idx, sub_on):
+    """K2's reads chunk by chunk, as the pool made them: per chunk of at
+    most R frames, (the per-ear (Vr, n_c) samples, the per-ear (Vr, 2)
+    mask-folded gains [g0, dg], n_c)."""
+    V = ring.shape[0]
+    flat = ring.reshape(-1)
+    rowlen = flat.numel() // V
+    base_c, frac_c = list(ro["base_c"]), list(ro["frac_c"])
+    split_c, frz_c = ro["split_c"], ro["frz_c"]
+    p_gain_c, d_gain_c, maskf = ro["p_gain_c"], ro["d_gain_c"], ro["maskf"]
+    if sub_idx is None:
+        rows = torch.arange(V, dtype=torch.int64, device=ring.device)
+        if tight is not None:
+            maskf = maskf * tight
+    else:
+        # the sub-pass: the listed voices, read at every frame
+        rows = sub_idx.to(torch.int64)
+        base_c = [b[rows] for b in base_c]
+        frac_c = [f[rows] for f in frac_c]
+        split_c = [tuple(x[rows] for x in s) for s in split_c]
+        p_gain_c = [g[rows] for g in p_gain_c]
+        d_gain_c = [g[rows] for g in d_gain_c]
+        maskf = maskf[rows] * sub_on
+        frz_c = None
+    for j0 in range(0, n, R):
+        n_c = min(R, n - j0)
+        j = torch.arange(n_c, dtype=torch.int64, device=ring.device)
+        rstart, dstart = ear_starts(base_c, cap, DMAX, K, FP)
+        samps, g01 = [], []
+        for e in range(2):
+            samps.append(_ring_samples(
+                flat, (rows * rowlen + rstart + dstart[e])[:, None] + j,
+                _scal(frac_c[e], split_c[e]), None if frz_c is None else frz_c[e], n_c, K,
+            ))
+            g0_e = (p_gain_c[e] + float(j0) * d_gain_c[e]) * maskf
+            g01.append(torch.stack([g0_e, d_gain_c[e] * maskf], dim=-1))
+        yield samps, g01, n_c
+        if j0 + n_c < n:
+            for e in range(2):
+                base_c[e], frac_c[e] = device_advance(base_c[e], frac_c[e], n_c, *split_c[e])
+
+
+def _multi_reads(ring, ros, n, K, DMAX, FP, cap, row0s, hs):
+    """K3's reads block by block, as ``render_multi`` made them: per block,
+    (the per-ear (V, n) samples, the per-ear (V, 2) gains sliced from the
+    group's (V, 2*nb) rows)."""
+    V = ring.shape[0]
+    flat = ring.reshape(-1)
+    rowoff = torch.arange(V, dtype=torch.int64, device=ring.device)[:, None] * (flat.numel() // V)
+    j = torch.arange(n, dtype=torch.int64, device=ring.device)
+    qs, scal, g01 = [], ([], []), ([], [])
+    for b, ro in enumerate(ros):
+        rstart, dstart = ear_starts(ro["base_c"], cap, DMAX, K, FP)
+        if b == 0:
+            rstart0 = rstart
+            base_col = torch.div(rstart0, 1024, rounding_mode="floor") * 1024
+        rel = torch.remainder(rstart - rstart0, cap)
+        rsh = torch.div(rstart0 - base_col + rel, 128, rounding_mode="floor") - row0s[b]
+        sh = rsh.to(torch.int64).clamp(0, hs[b] - 1)
+        q0 = base_col - FP + 128 * (row0s[b] + sh) + torch.remainder(rstart, 128)
+        qs.append([(q0 + dstart[e])[:, None] + j for e in range(2)])
+        for e in range(2):
+            scal[e].append(_scal(ro["frac_c"][e], ro["split_c"][e]))
+            g01[e].append(torch.stack([ro["p_gain_c"][e] * ro["maskf"],
+                                       ro["d_gain_c"][e] * ro["maskf"]], dim=-1))
+    g01 = [torch.cat(g, dim=-1) for g in g01]
+    for b, ro in enumerate(ros):
+        samps = [_ring_samples(flat, qs[b][e], scal[e][b], ro["frz_c"][e], n, K,
+                               wrap=(rowoff, FP, cap)) for e in range(2)]
+        yield samps, [g[:, 2 * b:2 * b + 2] for g in g01]
+
+
+def multi_rows(adv, K, nb):
+    """``render_multi``'s static coarse rows and shift ranges for a fused
+    group of ``nb`` blocks, each advancing ``adv`` frames at walk bound K:
+    block b's window base lies within [b*(adv - K), b*(adv + K)] past
+    block 0's, plus block 0's in-granule remainder (< 1024).  (row0s,
+    hs), as ``ring_select_multi`` takes them."""
+    row0s = [max(0, int(np.floor(b * (adv - K) / 128))) for b in range(nb)]
+    return row0s, [int(1023 + b * (adv + K)) // 128 - row0s[b] + 1 for b in range(nb)]
+
+
+def ring_select_ears_plain(ring, ro, *, n, K, R, DMAX, FP, cap, tight=None,
+                           sub_idx=None, sub_on=None, scenes=None):
+    """Plain version of K2: the reads gathered straight from the ring, the
+    mix in the JAX reference's matvec form, per read chunk.  Equal bit for
+    bit to the parent's window gather fed to ``window_select_ears_plain``.
+    (2, n), or (S, 2, n) with ``scenes``."""
+    parts = [_per_scene(_mix_rows, samps, g01, n_c, scenes)
+             for samps, g01, n_c in _ears_reads(ring, ro, n, K, R, DMAX, FP, cap,
+                                                 tight, sub_idx, sub_on)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
+def ring_select_ears_tolerance(ring, ro, *, n, K, R, DMAX, FP, cap, tight=None,
+                               sub_idx=None, sub_on=None, scenes=None):
+    """Elementwise tolerance on |kernel - plain| for K2's mix:
+    ``mix_tolerance`` on its reads, per chunk (and per scene)."""
+    return torch.cat([_per_scene(_mix_tolerance, samps, g01, n_c, scenes)
+                      for samps, g01, n_c in _ears_reads(ring, ro, n, K, R, DMAX, FP, cap,
+                                                          tight, sub_idx, sub_on)], dim=-1)
+
+
+def ring_select_multi_plain(ring, ros, *, n, K, DMAX, FP, cap, row0s, hs):
+    """Plain version of K3: each block's reads gathered from the ring at
+    ``FP + q mod cap`` (the granule-wise superwindow's wrap), mixed as
+    ``window_select_multi_plain`` mixes them.  (2, nb*n)."""
+    return torch.cat([_mix_rows(samps, g01, n) for samps, g01 in
+                      _multi_reads(ring, ros, n, K, DMAX, FP, cap, row0s, hs)], dim=-1)
+
+
+def ring_select_multi_tolerance(ring, ros, *, n, K, DMAX, FP, cap, row0s, hs):
+    """Elementwise tolerance on |kernel - plain| for K3's (2, nb*n)."""
+    return torch.cat([_mix_tolerance(samps, g01, n) for samps, g01 in
+                      _multi_reads(ring, ros, n, K, DMAX, FP, cap, row0s, hs)], dim=-1)
+
+
+#: K2/K3's coarse geometry (row0 0, shift range 8) and K3's, as the int32
+#: host arrays the entry point takes
+_READ_GEO = {}
+
+
+def _read_geo(row0s, hs):
+    key = (tuple(row0s), tuple(hs))
+    geo = _READ_GEO.get(key)
+    if geo is None:
+        geo = _READ_GEO[key] = np.array(list(row0s) + list(hs), dtype=np.int32)
+    return geo
+
+
+def _block_operands(ro, tight, frozen):
+    """One block's operand tensors in the kernel's order (RS_PTRS): per
+    ear base, frac, ds_int, f_hi, f_lo, gain, d_gain, frozen flag (or
+    None); then the mask and ``tight`` (or None)."""
+    ops = []
     for e in range(2):
-        _check(scal01[e], f"scal01[{e}]", torch.float32, (V, 4 * nb), dev)
-        _check(g01[e], f"g01[{e}]", torch.float32, (V, 2 * nb), dev)
-        _check(e01[e], f"e01[{e}]", torch.int32, (V, nb), dev)
-        for x, nm in ((scal01[e], "scal01"), (g01[e], "g01"), (e01[e], "e01")):
+        ops += [ro["base_c"][e], ro["frac_c"][e], *ro["split_c"][e], ro["p_gain_c"][e],
+                ro["d_gain_c"][e], ro["frz_c"][e] if frozen else None]
+    return ops + [ro["maskf"], tight]
+
+
+#: the kernel's dtype for each of a block's operands, in that order
+_BLOCK_DTYPES = (_I32, _F32, _I32, _F32, _F32, _F32, _F32, _F32) * 2 + (_F32, _F32)
+
+
+def _check_read(ring, ops, V, Vr, n, R, K, DMAX, FP, cap, scenes, sub):
+    """The checks of a K2/K3 call (once per signature): the ring, each
+    block's (V,) operands, the sub-pass list, the geometry."""
+    if not isinstance(ring, torch.Tensor) or ring.dim() != 3 or ring.shape[2] != 128:
+        raise ValueError("ring must be a (V, RPV, 128) tensor")
+    dev = ring.device
+    _check(ring, "ring", _F32, tuple(ring.shape), dev)
+    for k, x in enumerate(ops):
+        if x is not None:
+            nm = f"read operand {k % len(_BLOCK_DTYPES)} of block {k // len(_BLOCK_DTYPES)}"
+            _check(x, nm, _BLOCK_DTYPES[k % len(_BLOCK_DTYPES)], (V,), dev)
             _check_contig(x, nm)
-        if frz01 is not None:
-            _check(frz01[e], f"frz01[{e}]", torch.float32, (V, nb), dev)
-            _check_contig(frz01[e], "frz01")
-    _check_contig(rowshift, "rowshift")
-    nchunks = scenes * -(-vps // VOICE_CHUNK)
-    part = torch.empty(nb * nchunks * 4 * n, dtype=torch.float32, device=dev)
-    out = torch.empty((scenes, 2, nb * n), dtype=torch.float32, device=dev)
-    c0 = (ctypes.c_int * MAX_NB)(*col0s)
-    hc = (ctypes.c_int * MAX_NB)(*hcaps)
-    f0, f1 = (None, None) if frz01 is None else frz01
-    L = lib("ring_kernels")
-    rc = L.window_select(
-        _ptr(wide), wide.stride(0), S2, _ptr(rowshift),
-        _ptr(scal01[0]), _ptr(scal01[1]), _ptr(g01[0]), _ptr(g01[1]),
-        _ptr(e01[0]), _ptr(e01[1]), _ptr(f0), _ptr(f1),
-        _ptr(part), _ptr(out), V, vps, n, K, nb, c0, hc, _stream_ptr(dev),
+    if sub is not None:
+        _check(sub[0], "sub_idx", _I32, (Vr,), dev)
+        _check(sub[1], "sub_on", _F32, (Vr,), dev)
+        _check_contig(sub[0], "sub_idx")
+        _check_contig(sub[1], "sub_on")
+        if scenes is not None:
+            raise ValueError("a sub-pass reads one scene")
+    _scene_count(Vr, 1 if scenes is None else scenes)
+    rowlen = ring.shape[1] * 128
+    if not 1 <= n or R < SELECT_SB or R % SELECT_SB or R > 4096:
+        raise ValueError(f"n={n}, R={R}: R must be a multiple of {SELECT_SB} up to 4096")
+    if FP < 0 or cap < 1 or DMAX < 0 or K < 0 or FP + cap > rowlen:
+        raise ValueError(f"ring geometry FP={FP} cap={cap} outside a row of {rowlen}")
+    if dev.type != "cpu":
+        _cuda_device(ring)
+        _check_contig(ring, "ring")
+
+
+def _read_launch(name, ring, ops, geo, sub, Vr, scenes, n, R, K, DMAX, FP, cap, wrap, nb):
+    """Launch the K2/K3 kernel: (S, 2, nb*n)."""
+    dev = ring.device
+    S = 1 if scenes is None else scenes
+    part, ticket = _cluster_scratch(dev, Vr // S, S * nb * -(-n // SELECT_SB), 4 * SELECT_SB)
+    out = torch.empty((S, 2, nb * n), dtype=_F32, device=dev)
+    ptrs = np.array([0 if x is None else x.data_ptr() for x in ops], dtype=np.uint64)
+    sub_idx, sub_on = (None, None) if sub is None else sub
+    rc = lib("ring_kernels").ring_select(
+        ring.data_ptr(), ring.shape[1] * 128, ring.shape[0], ptrs.ctypes.data, geo.ctypes.data,
+        _ptr(sub_idx), _ptr(sub_on), _ptr(part), _ptr(ticket), out.data_ptr(),
+        Vr, Vr // S, n, R, K, DMAX, FP, cap, wrap, nb, _stream_ptr(dev),
     )
     LAUNCHES[name] += 1
     _raise_rc(rc, name)
     return out
 
 
-def window_select_ears(wide, rowshift, scal01, g01, e01, *, n, K, emax2,
-                       hmax=None, frz01=None, scenes=None):
-    """K2 (oddio_tpu/ops/pallas_ring.py ``window_select_tiles_ears``).
+def _read_signature(ring, ops, sub):
+    return tuple(None if x is None else (x.shape, x.stride(), x.dtype, x.device)
+                 for x in (ring, *ops, *(sub or ())))
 
-    wide (V, S2): each voice's read window embedded at column
-    128*rowshift (rowshift (V,) int32, clamped into [0, H)); scal01: two
-    (V, 4) packed cursor rows; g01: two (V, 2) [gain0, d_gain] rows with
-    the voice mask folded in; e01: two (V, 1) int32 per-ear staggers;
-    frz01: optional two (V, 1) f32 frozen flags.  Returns (2, n).
 
-    Scene axis (ScenePack): with ``scenes`` = S, the V rows are S scenes of
-    V/S voices each, in order, and each scene's voices are summed apart,
-    as a vmapped ``pallas_call`` sums them: returns (S, 2, n), in one
-    launch whatever S is."""
-    V, S2 = wide.shape
-    WIN, H = _geometry(S2, n, K, emax2, hmax)
-    if wide.device.type == "cpu":
-        return window_select_ears_plain(
-            wide, rowshift, scal01, g01, e01, n=n, K=K, emax2=emax2,
-            hmax=hmax, frz01=frz01, scenes=scenes,
-        )
-    pad = [0] * (MAX_NB - 1)
-    out = _select_cuda(
-        "select_ears", wide, rowshift.reshape(V, 1), scal01, g01, e01,
-        frz01, n, K, 1, [0] + pad, [H] + pad, 1 if scenes is None else scenes,
-    )
+def ring_select_ears(ring, ro, *, n, K, R, DMAX, FP, cap, tight=None, sub_idx=None,
+                     sub_on=None, scenes=None):
+    """K2 (oddio_tpu/ops/pallas_ring.py ``window_select_tiles_ears`` with
+    the read preparation of oddio_tpu/spatial.py ``_windows_read``): the
+    device-resident buffered pool's two-ear read, straight from its ring.
+
+    ring (V, RPV, 128) f32: each voice's row, front pad ``FP``, ring
+    modulus ``cap``, then the mirror; ``ro``: one block's read operands
+    as ``_BufferedPoolDR._advance_block`` leaves them (``base_c``,
+    ``frac_c``, ``split_c``, ``p_gain_c``, ``d_gain_c``, ``frz_c``,
+    ``maskf``; (V,) tensors); K the walk bound, R the read chunk (a
+    multiple of 128; each chunk reads at the cursor advanced to it), DMAX
+    the inter-ear stagger bound.  The main pass multiplies the mask by
+    ``tight`` (V,) where given and honours the frozen flags; the family
+    sub-pass (``sub_idx`` (Vs,) int32 pool voices, ``sub_on`` (Vs,) 0/1)
+    reads the listed voices at every frame.  Returns (2, n), or with
+    ``scenes`` = S the V rows' S scenes mixed apart, (S, 2, n); one launch
+    whatever n, R and S are.  The read must stay inside each row: the
+    pool's tiers keep ``select_window(R, 127 + DMAX, K) <= M``."""
+    sub = None if sub_idx is None else (sub_idx, sub_on)
+    ops = _block_operands(ro, tight, sub is None)
+    V = ring.shape[0]
+    Vr = V if sub is None else sub_idx.shape[0]
+    key = ("ears", _read_signature(ring, ops, sub), n, K, R, DMAX, FP, cap, scenes)
+    if key not in _VALIDATED:
+        _check_read(ring, ops, V, Vr, n, R, K, DMAX, FP, cap, scenes, sub)
+        if FP + cap + select_window(min(R, n), 127 + DMAX, K) > ring.shape[1] * 128:
+            raise ValueError("the read leaves the ring's row past its mirror")
+        _VALIDATED.add(key)
+    kw = dict(n=n, K=K, R=R, DMAX=DMAX, FP=FP, cap=cap)
+    if ring.device.type == "cpu":
+        return ring_select_ears_plain(ring, ro, tight=tight, sub_idx=sub_idx, sub_on=sub_on,
+                                      scenes=scenes, **kw)
+    out = _read_launch("select_ears", ring, ops, _read_geo((0,), (8,)), sub, Vr, scenes,
+                       n, R, K, DMAX, FP, cap, 0, 1)
     return out[0] if scenes is None else out
 
 
-def window_select_multi(wide, rowshift, scal01, g01, e01, frz01, *, n, K,
-                        emax2, nb, row0s, hs):
-    """K3 (oddio_tpu/ops/pallas_ring.py ``window_select_tiles_multi``).
-
-    wide (V, S2s) superwindow; rowshift (V, nb) int32 per-block coarse
-    shifts relative to the static ``row0s[b]`` (clamped into [0, hs[b]));
-    scal01/g01/e01/frz01: per-ear (V, nb*4) / (V, nb*2) / (V, nb) int32 /
-    (V, nb) f32 per-block operand rows.  Returns (2, nb*n)."""
-    WIN = select_window(n, emax2, K)
-    for b in range(nb):
-        if 128 * row0s[b] + WIN + 128 * (hs[b] - 1) > wide.shape[1]:
-            raise ValueError(f"block {b} window leaves the superwindow")
-    if wide.device.type == "cpu":
-        return window_select_multi_plain(
-            wide, rowshift, scal01, g01, e01, frz01, n=n, K=K, emax2=emax2,
-            nb=nb, row0s=row0s, hs=hs,
-        )
-    pad = [0] * (MAX_NB - nb)
-    return _select_cuda(
-        "select_multi", wide, rowshift, scal01, g01, e01, frz01, n, K, nb,
-        [128 * r for r in row0s] + pad, list(hs) + pad,
-    )[0]
+def ring_select_multi(ring, ros, *, n, K, DMAX, FP, cap, row0s, hs):
+    """K3 (oddio_tpu/ops/pallas_ring.py ``window_select_tiles_multi`` with
+    oddio_tpu/spatial.py ``render_multi``'s superwindow): ``nb =
+    len(ros)`` fused blocks of n frames, block b read from the ring at its
+    own operands (``ros[b]``, as ``ring_select_ears`` takes them), its
+    coarse shift relative to block 0's granule minus the static
+    ``row0s[b]``, clamped into ``[0, hs[b])``, every read wrapped modulo
+    ``cap``.  Returns (2, nb*n), in one launch."""
+    nb = len(ros)
+    if not 1 <= nb <= MAX_NB or len(row0s) != nb or len(hs) != nb:
+        raise ValueError(f"nb={nb} blocks (at most {MAX_NB}), {len(row0s)} row0s, {len(hs)} hs")
+    ops = [x for ro in ros for x in _block_operands(ro, None, True)]
+    V = ring.shape[0]
+    R = -(-n // SELECT_SB) * SELECT_SB
+    key = ("multi", _read_signature(ring, ops, None), n, K, DMAX, FP, cap, tuple(row0s),
+           tuple(hs))
+    if key not in _VALIDATED:
+        _check_read(ring, ops, V, V, n, R, K, DMAX, FP, cap, None, None)
+        _VALIDATED.add(key)
+    if ring.device.type == "cpu":
+        return ring_select_multi_plain(ring, ros, n=n, K=K, DMAX=DMAX, FP=FP, cap=cap,
+                                       row0s=row0s, hs=hs)
+    return _read_launch("select_multi", ring, ops, _read_geo(row0s, hs), None, V, None,
+                        n, R, K, DMAX, FP, cap, 1, nb)[0]
 
 
 # --- K5: strip select (the host buffered pool's read) ---------------------------
@@ -739,13 +986,6 @@ def strip_select_record_plain(ring, rec, *, n, K):
 
 # --- K5 launch -------------------------------------------------------------------
 
-#: CUDA blocks per thread block cluster along K5's voice axis (CL_MAX in
-#: csrc/select_kernel.cu)
-CLUSTER_MAX = 8
-#: K5's sub-blocks per call at most (n <= 4096)
-_MAX_SB = 4096 // SELECT_SB
-#: per device: K5's cluster-partial scratch and its zeroed tickets
-_SELECT_SCRATCH = {}
 #: signatures (shapes, strides, dtypes, devices, n, K) the K5 and K4
 #: wrappers have validated: a call with one of them skips the field-by-
 #: field checks, any other is checked in full
@@ -761,25 +1001,6 @@ def _signature(*xs):
         raise TypeError("kernel operands must be tensors") from None
 
 
-def _select_scratch(dev, V, n):
-    """(part, ticket) for a K5 launch over V voices and n frames: None,
-    None when one cluster holds every voice (the kernel then writes its
-    output directly)."""
-    chunks = -(-V // SELECT_CHUNK)
-    cl = min(CLUSTER_MAX, 1 << (chunks - 1).bit_length())
-    clusters = -(-chunks // cl)
-    if clusters == 1:
-        return None, None
-    need = -(-n // SELECT_SB) * clusters * 2 * SELECT_SB
-    part, ticket = _SELECT_SCRATCH.get(dev, (None, None))
-    if part is None or part.numel() < need:
-        part = torch.empty(need, dtype=_F32, device=dev)
-        if ticket is None:
-            ticket = torch.zeros(_MAX_SB, dtype=_I32, device=dev)
-        _SELECT_SCRATCH[dev] = (part, ticket)
-    return part, ticket
-
-
 def _strip_launch(ring, fields, n, K):
     """Launch K5 on ``ring`` with its operand fields as (pointer, voice
     stride in words) pairs: rrow, extra, scal, (gain0, d_gain) sharing
@@ -787,7 +1008,7 @@ def _strip_launch(ring, fields, n, K):
     V, L = ring.shape
     dev = ring.device
     (rr, s_rr), (ex, s_ex), (sc, s_sc), (g0, dg, s_g), (mk, s_mk) = fields
-    part, ticket = _select_scratch(dev, V, n)
+    part, ticket = _cluster_scratch(dev, V, -(-n // SELECT_SB), 2 * SELECT_SB)
     out = torch.empty((2, n), dtype=_F32, device=dev)
     can_stage = int(ring.data_ptr() % 16 == 0 and L % 4 == 0)
     rc = lib("select_kernel").strip_select(

@@ -45,7 +45,6 @@ from .core.hostmath import (
 )
 from .core.signal import Engine, default_device
 from .ops._dev import (
-    device_advance,
     device_split_ds,
     exact_positions,
     masked_voice_sum,
@@ -68,12 +67,13 @@ from .ops.geometry import (  # noqa: F401  (re-exported API surface)
 )
 from .ops.ring_kernels import (
     PAGE,
+    multi_rows,
+    ring_select_ears,
+    ring_select_multi,
     rows_append_cursor,
     select_window,
     strip_select_record,
     voice_record,
-    window_select_ears,
-    window_select_multi,
 )
 from .ops.stream_kernels import ring_place_record
 from .parallel.context import current_scenes, localize_index
@@ -105,10 +105,6 @@ def _emax(rate):
     row granularity + the inter-ear distance in samples (|d_L - d_R| <=
     0.215 m, spatial.rs:571-598) + slack."""
     return RING_ROW + int(np.ceil(0.215 / float(SPEED_OF_SOUND) * rate)) + 2
-
-
-def _fdiv(a, b):
-    return torch.div(a, b, rounding_mode="floor")
 
 
 def voice_read_cursors(vcur, vbase, max_delay, adv, offsets, rate, cap):
@@ -1090,9 +1086,9 @@ class _BufferedPoolDR(_DRPoolBase):
     JAX package's layout, so state carries across leaf by leaf.  The pool
     shares one write cursor, so the per-block append is one slab write
     (``rows_append_cursor``, K1) into every voice, primary and mirror
-    legs, in place.  Reads gather tile-granule windows and run the per-ear select
-    kernel (``window_select_ears``, K2; ``window_select_multi``, K3, for
-    fused idle groups).
+    legs, in place.  Each read is one kernel launch straight from the ring
+    (``ring_select_ears``, K2; ``ring_select_multi``, K3, for fused idle
+    groups), on the operands ``_advance_block`` leaves on the device.
     """
 
     ROW_KEYS = _DRPoolBase.GEOM_KEYS + ("max_delay", "phase", "tight", "vcur", "vbase")
@@ -1861,28 +1857,22 @@ class _BufferedPoolDR(_DRPoolBase):
         S, ro = self._advance_block(dstate, ddata, params, n)
         V = S["mask"].shape[0]
         dev = self.device
-        cap = self.cap_pool
-        maskf = ro["maskf"]
-        p_gain_c = ro["p_gain_c"]
-        d_gain_c = ro["d_gain_c"]
-        base_c = ro["base_c"]
-        frac_c = ro["frac_c"]
-        split_c = ro["split_c"]
         ring = S["ring"]
-        FP = self.W_CHUNK
         if self._read_cfg is None:
             # exotic rate ratio: exact elementwise read of the flat ring
             # (any-ratio correct, frames.rs-style lerp)
-            p_gain = torch.stack(p_gain_c, dim=-1)
-            d_gain = torch.stack(d_gain_c, dim=-1)
-            frac = torch.stack(frac_c, dim=-1)
-            base = torch.stack(base_c, dim=-1)
+            cap = self.cap_pool
+            split_c = ro["split_c"]
+            p_gain = torch.stack(ro["p_gain_c"], dim=-1)
+            d_gain = torch.stack(ro["d_gain_c"], dim=-1)
+            frac = torch.stack(ro["frac_c"], dim=-1)
+            base = torch.stack(ro["base_c"], dim=-1)
             ds_int = torch.stack([s[0] for s in split_c], dim=-1)
             f_hi = torch.stack([s[1] for s in split_c], dim=-1)
             f_lo = torch.stack([s[2] for s in split_c], dim=-1)
             jn = torch.arange(n, dtype=_F32, device=dev)
             gains = p_gain[:, :, None] + jn * d_gain[:, :, None]
-            flat = ring.view(V, self.rowlen)[:, FP:]
+            flat = ring.view(V, self.rowlen)[:, self.W_CHUNK:]
             whole, fr = exact_positions(frac, ds_int, f_hi, f_lo, n)
             x = torch.remainder(base[:, :, None] + whole, cap)
 
@@ -1896,9 +1886,6 @@ class _BufferedPoolDR(_DRPoolBase):
             s = a + fr * (b - a)
             contrib = torch.where(ro["mask"][:, None, None], s * gains, 0.0)
             return S, scene_sum(contrib, current_scenes())
-        RPV = self.rowlen // 128
-        rows8 = ring.view(V * (RPV // 8), 8, 128)
-        vb8 = torch.arange(V, dtype=_I32, device=dev) * (RPV // 8)
         sub_cfg = self._sub_cfg
         if sub_cfg is not None and current_scenes() is not None:
             # a pack-wide floor clears every list on a delta block first
@@ -1914,28 +1901,15 @@ class _BufferedPoolDR(_DRPoolBase):
                 == torch.arange(V, dtype=_I32, device=dev)[None, :]
             ) & (S["sub_on"][:, None] > 0.0)
             S["tight"] = 1.0 - hit.any(dim=0).to(_F32)
-        maskf_main = maskf * S["tight"] if sub_cfg is not None else maskf
-        out = self._windows_read(
-            rows8, vb8, base_c, frac_c, split_c, p_gain_c, d_gain_c,
-            maskf_main, self._read_cfg, n, cap, FP,
-            frz_c=[f[:, None] for f in ro["frz_c"]],
+        out = self._ring_read(
+            ring, ro, self._read_cfg, n,
+            tight=S["tight"] if sub_cfg is not None else None, scenes=current_scenes(),
         )
         if sub_cfg is not None:
             # family sub-pass: the host-listed wide-walk voices render at a
-            # wide tier over their gathered rows, while the pool above kept
-            # its tight tier
-            si = S["sub_idx"].to(torch.int64)
-            out = out + self._windows_read(
-                rows8,
-                S["sub_idx"] * (RPV // 8),
-                [b[si] for b in base_c],
-                [f[si] for f in frac_c],
-                [tuple(x[si] for x in s) for s in split_c],
-                [g[si] for g in p_gain_c],
-                [g[si] for g in d_gain_c],
-                maskf[si] * S["sub_on"],
-                sub_cfg, n, cap, FP,
-            )
+            # wide tier, while the pool above kept its tight tier
+            out = out + self._ring_read(ring, ro, sub_cfg, n, sub_idx=S["sub_idx"],
+                                        sub_on=S["sub_on"])
         return S, out
 
     def host_multiblock(self, interval, n):
@@ -1969,152 +1943,37 @@ class _BufferedPoolDR(_DRPoolBase):
         return {"vcur": p - lap0,
                 "vbase": torch.remainder(lap0.to(_I32), self.cap_pool)}
 
-    @staticmethod
-    def _ear_starts(base_c, cap, DMAX, K, FP):
-        """Shared-ear window start and per-ear staggers (the two ears'
-        starts differ by at most the inter-ear distance)."""
-        ob0 = torch.remainder(base_c[0], cap)
-        ob1 = torch.remainder(base_c[1], cap)
-        dlr = torch.remainder(ob0 - ob1, cap)
-        l_ahead = dlr <= DMAX
-        cm = torch.where(l_ahead, ob1, ob0)
-        dstart = [
-            torch.where(l_ahead, dlr, 0).clamp(0, DMAX),
-            torch.where(l_ahead, 0, cap - dlr).clamp(0, DMAX),
-        ]
-        rstart = torch.remainder(cm - K, cap) + FP
-        return rstart, dstart
-
     def render_multi(self, dstate, ddata, params, n, nb):
         """``nb`` idle blocks in one group: per-block control walk, append
-        and cursor math identical to ``render``, but all reads share ONE
-        superwindow gather and ONE select kernel call (K3).  Appends all
-        land before the gather; host_multiblock's slack gate keeps later
-        appends from overwriting samples earlier blocks still read.
-        Returns (S, (2, nb*n))."""
+        and cursor math identical to ``render``, but all reads are ONE
+        kernel launch (K3), each block's read wrapped modulo the ring as the
+        JAX package's superwindow gather wraps it.  Appends all land before
+        the read; host_multiblock's slack gate keeps later appends from
+        overwriting samples earlier blocks still read.  Returns (S, (2,
+        nb*n))."""
         S = dstate
         ros = []
         for _ in range(nb):
             S, ro = self._advance_block(S, ddata, params, n)
             ros.append(ro)
-        V = S["mask"].shape[0]
-        dev = self.device
-        cap = self.cap_pool
-        PW, GW = 128, 1024
-        FP = self.W_CHUNK
-        FPG = FP // GW
-        capg = cap // GW
-        RPV = self.rowlen // PW
-        rows8 = S["ring"].view(V * (RPV // 8), 8, PW)
-        vb8 = torch.arange(V, dtype=_I32, device=dev) * (RPV // 8)
         _, K = self._read_cfg
-        DMAX = self.emax2
-        emax2r = PW - 1 + self.emax2
-        WIN = select_window(n, emax2r, K)
-        advf = self._prep_inv[2]
-        # static per-block slice bases / realign ranges
-        row0s = [max(0, int(np.floor(b * (advf - K) / PW))) for b in range(nb)]
-        hs = [
-            int(GW - 1 + b * (advf + K)) // PW - row0s[b] + 1
-            for b in range(nb)
-        ]
-        rsh, scal01, g01, e01, f01 = [], ([], []), ([], []), ([], []), ([], [])
-        for b, ro in enumerate(ros):
-            base_c, frac_c = ro["base_c"], ro["frac_c"]
-            rstart, dstart = self._ear_starts(base_c, cap, DMAX, K, FP)
-            if b == 0:
-                rstart0 = rstart
-                r0g = _fdiv(rstart0, GW)
-                base_col = r0g * GW
-            rel = torch.remainder(rstart - rstart0, cap)
-            rsh.append(_fdiv(rstart0 - base_col + rel, PW) - row0s[b])
-            exr = torch.remainder(rstart, PW)
-            for e in range(2):
-                ds_e, fh_e, fl_e = ro["split_c"][e]
-                scal01[e].append(torch.stack(
-                    [frac_c[e], fh_e, fl_e, ds_e.to(_F32)], dim=-1
-                ))
-                g01[e].append(torch.stack(
-                    [ro["p_gain_c"][e] * ro["maskf"],
-                     ro["d_gain_c"][e] * ro["maskf"]],
-                    dim=-1,
-                ))
-                e01[e].append((exr + dstart[e]).to(_I32))
-                f01[e].append(ro["frz_c"][e])
-        # ONE superwindow per voice: whole 1024-column granules, wrapped
-        # granule-wise (mod capg) so the span may exceed the mirror width
-        ngr_s = -(-int(GW - 1 + (nb - 1) * (advf + K) + WIN) // GW)
-        kg = FPG + torch.remainder(
-            r0g[:, None] - FPG
-            + torch.arange(ngr_s, dtype=_I32, device=dev)[None, :],
-            capg,
-        )
-        ridx = (vb8[:, None] + kg).reshape(-1).to(torch.int64)
-        wide = rows8.index_select(0, ridx).reshape(V, ngr_s * GW)
-        out = window_select_multi(
-            wide,
-            torch.stack(rsh, dim=-1),
-            tuple(torch.cat(scal01[e], dim=-1) for e in range(2)),
-            tuple(torch.cat(g01[e], dim=-1) for e in range(2)),
-            tuple(torch.stack(e01[e], dim=-1) for e in range(2)),
-            tuple(torch.stack(f01[e], dim=-1) for e in range(2)),
-            n=n, K=K, emax2=emax2r, nb=nb, row0s=row0s, hs=hs,
+        # static per-block coarse rows and shift ranges (the tier contract
+        # |ds-1|*n <= K per block bounds each block's walk)
+        row0s, hs = multi_rows(self._prep_inv[2], K, nb)
+        out = ring_select_multi(
+            S["ring"], ros, n=n, K=K, DMAX=self.emax2, FP=self.W_CHUNK, cap=self.cap_pool,
+            row0s=row0s, hs=hs,
         )
         return S, out
 
-    def _windows_read(self, rows8, vbase, base_c, frac_c, split_c,
-                      p_gain_c, d_gain_c, maskf, cfg, n, cap, FP,
-                      frz_c=None):
-        """Tile-granule window gather + per-ear select (K2) over one voice
-        set (the main pool or the family sub-pass list), mixed to (2, n),
-        or in a ScenePack to (S, 2, n), each scene's voices apart.
-        ``rows8`` is the (8, 128)-tile view of the ring; ``vbase`` maps each
-        rendered row to its voice's first granule.  Windows come off whole
-        1024-column granules; the granule remainder becomes the kernel's
-        coarse shift (``rowshift``, multiples of 128) plus the per-ear
-        stagger."""
+    def _ring_read(self, ring, ro, cfg, n, **kw):
+        """One read (K2) of block operands ``ro`` at read tier ``cfg`` =
+        (R_CHUNK, K): the main pool (``tight``, ``scenes``) or the family
+        sub-pass list (``sub_idx``, ``sub_on``), mixed to (2, n), or in a
+        ScenePack to (S, 2, n), each scene's voices apart."""
         R_CHUNK, K = cfg
-        DMAX = self.emax2
-        PW = 128
-        GW = 8 * PW
-        emax2r = PW - 1 + self.emax2
-        base_c, frac_c = list(base_c), list(frac_c)
-        Vr = base_c[0].shape[0]
-        parts = []
-        for j0 in range(0, n, R_CHUNK):
-            n_c = min(R_CHUNK, n - j0)
-            rstart, dstart = self._ear_starts(base_c, cap, DMAX, K, FP)
-            SREAD = select_window(n_c, emax2r, K)
-            ngr = -(-(GW - 1 + SREAD) // GW)
-            r0 = _fdiv(rstart, GW)
-            ridx = (
-                vbase[:, None] + r0[:, None]
-                + torch.arange(ngr, dtype=_I32, device=rows8.device)[None, :]
-            ).reshape(-1).to(torch.int64)
-            wide = rows8.index_select(0, ridx).reshape(Vr, ngr * GW)
-            rowshift = _fdiv(rstart - r0 * GW, PW)
-            exr = torch.remainder(rstart, PW)
-            # gains ship with the voice mask folded in (exact for 0/1 masks)
-            scal01, g01, e01 = [], [], []
-            for e in range(2):
-                ds_e, fh_e, fl_e = split_c[e]
-                scal01.append(torch.stack(
-                    [frac_c[e], fh_e, fl_e, ds_e.to(_F32)], dim=-1
-                ))
-                g0_e = (p_gain_c[e] + float(j0) * d_gain_c[e]) * maskf
-                g01.append(torch.stack([g0_e, d_gain_c[e] * maskf], dim=-1))
-                e01.append((exr + dstart[e]).to(_I32)[:, None])
-            parts.append(window_select_ears(
-                wide, rowshift, scal01, g01, e01, n=n_c, K=K, emax2=emax2r,
-                hmax=GW // PW, frz01=frz_c, scenes=current_scenes(),
-            ))
-            if j0 + n_c < n:
-                for e in range(2):
-                    ds_e, fh_e, fl_e = split_c[e]
-                    base_c[e], frac_c[e] = device_advance(
-                        base_c[e], frac_c[e], n_c, ds_e, fh_e, fl_e
-                    )
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+        return ring_select_ears(ring, ro, n=n, K=K, R=R_CHUNK, DMAX=self.emax2,
+                                FP=self.W_CHUNK, cap=self.cap_pool, **kw)
 
 
 def _next_pow2(x):

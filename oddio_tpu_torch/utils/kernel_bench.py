@@ -1,7 +1,9 @@
 """Kernels timed alone on the card, with their operands warm in the L2
 cache and cold: K1 (``rows_append``) and K9 (``flat_append_aligned``),
 the appends; K4 (``ring_place``) and K5 (``strip_select``), the host
-buffered pool's ring write and two-ear read.
+buffered pool's ring write and two-ear read; and the device-resident
+buffered pool's whole read (K2, K3 and whatever the pool launches around
+them), through pool methods every tree of the port has.
 
 Fifty back-to-back calls on the same operands find what they read in the
 card's 50 MB L2, so they can run under the HBM byte bound; on a path, a
@@ -13,7 +15,23 @@ cycles each call over operand sets whose bytes together pass the L2:
   (each call reads about 9.5 MB at other places of every voice's ring);
 * K4 at the mixer's shape: ``PLACE_RINGS`` rings of 5.8 MB; at the host
   pool's, ``SETS`` chunks of 8.4 MB written at other cursors of one
-  268 MB ring.
+  268 MB ring;
+* the pool's read (``read``): the states of ``SETS`` consecutive blocks
+  (or fused groups) of one 4096-voice scene, each reading ~10 MB (~40 MB
+  a group) at other places of its 318 MB ring.
+
+``read`` builds ``scene_profile.build_spatial(True, 4096)`` (the buffered
+scene: K2 on single blocks, K3 on fused idle groups of 4), renders it
+through a ``Renderer`` while it captures the arguments of the pool's
+``render`` and ``render_multi``, and replays them: ``render`` (a block's
+control walk, append, read operands and read), ``render_multi`` (four
+blocks' and one fused read) and ``_advance_block`` alone (all but the
+read).  The read's own numbers are the differences, ``read K2`` and
+``read K3`` (device kernels included), beside its byte bound; its host
+time also as ``paired_host_ms``, the median over ``PAIRS`` alternated
+calls of render's host time less advance's (a replay takes ~6 ms of
+host time, whose drift between two separate 50-call clocks is larger
+than the read's share).
 
 Each case prints ``ms`` (CUDA events around 50 calls, host issue
 included), ``host_ms`` (their wall clock, no synchronise) and
@@ -24,8 +42,8 @@ one.  K4 and K5 are timed through their tensor forms and their record
 forms; the same file times another tree's kernels from that tree's
 root::
 
-    python3 -m oddio_tpu_torch.utils.kernel_bench [append] [place] [select]
-    cd OTHER_TREE && PYTHONPATH=. python3 PATH/TO/kernel_bench.py place select
+    python3 -m oddio_tpu_torch.utils.kernel_bench [append] [place] [select] [read]
+    cd OTHER_TREE && PYTHONPATH=. python3 PATH/TO/kernel_bench.py place select read
 
 ``chip_smoke.py`` builds its cold operands and K5's cases here.
 """
@@ -54,6 +72,8 @@ SETS = 8
 #: K4's mixer-shape rings a cold run cycles over: 10 x 5.8 MB
 PLACE_RINGS = 10
 REPS = 50
+#: alternated (render, advance) calls of ``paired_host``
+PAIRS = 100
 HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
 F32_OPS = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 
@@ -218,9 +238,10 @@ def clocks(fn, reps=REPS):
     return ms, host
 
 
-def device_split(fn, reps=REPS):
-    """{kernel name: ms per call} of the device work ``reps`` calls launch
-    (``torch.profiler``); empty where it saw none."""
+def device_profile(fn, reps=REPS):
+    """({kernel name: ms per call}, device kernels per call) of the device
+    work ``reps`` calls launch (``torch.profiler``; copies and memsets
+    count in the split, not as kernels); empty where it saw none."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -228,10 +249,18 @@ def device_split(fn, reps=REPS):
             fn()
         torch.cuda.synchronize()
     split = collections.Counter()
+    kernels = 0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             split[ev.name] += ev.time_range.elapsed_us() / 1e3 / reps
-    return dict(split)
+            kernels += not ev.name.startswith(("Memcpy", "Memset"))
+    return dict(split), kernels / reps
+
+
+def device_split(fn, reps=REPS):
+    """{kernel name: ms per call} of the device work ``reps`` calls launch
+    (``torch.profiler``); empty where it saw none."""
+    return device_profile(fn, reps)[0]
 
 
 def device_ms(fn, reps=REPS):
@@ -337,7 +366,174 @@ def place_cases(dev):
     return out
 
 
-MODES = {"append": append_cases, "place": place_cases, "select": select_cases}
+#: the device-resident buffered pool's row at 48 kHz: front pad, the
+#: ring modulus, the mirror and the dump slack (spatial.py W_CHUNK,
+#: cap_pool, M_PAD); its inter-ear stagger bound (emax2)
+READ_FP, READ_CAP, READ_M, READ_DMAX = 1024, 16384, 1024, 33
+
+
+def read_ring(dev, Vs, cap=READ_CAP, seed=0):
+    """A (Vs, RPV, 128) ring of N(0, 1) samples in the pool's row layout,
+    made on ``dev`` from ``seed``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((Vs, (READ_FP + cap + READ_M + 1024) // 128, 128), device=dev,
+                       generator=g)
+
+
+def read_operands(dev, rng, Vs, K, R, base0=None, frozen=0.2, cap=READ_CAP):
+    """One block's read operands in ``_advance_block``'s layout, for
+    ``ring_kernels.ring_select_ears``: ear 0's int32 cursor ``base0``
+    (default: anywhere, also outside [0, cap)), ear 1's within a few
+    DMAX of it, steps with |ds - 1|*R <= K, fractions, gains at frame 0
+    in [0, 0.5) and steps in +-1e-3 (so the chunk gain fold matters),
+    frozen flags on a share ``frozen`` of the ears, a 0/1 mask (voice 0
+    on)."""
+    from oddio_tpu_torch.ops._dev import device_split_ds
+
+    if base0 is None:
+        base0 = rng.integers(-cap, 2 * cap, Vs)
+    base1 = base0 + rng.integers(-READ_DMAX - 8, READ_DMAX + 8, Vs)
+    ds = 1.0 + rng.uniform(-1.0, 1.0, (2, Vs)) * K / R
+    return {"base_c": [_t(base0, dev, np.int32), _t(base1, dev, np.int32)],
+            "frac_c": [_t(rng.uniform(0, 1, Vs), dev) for _ in range(2)],
+            "split_c": [device_split_ds(_t(ds[e], dev)) for e in range(2)],
+            "p_gain_c": [_t(rng.uniform(0, 0.5, Vs), dev) for _ in range(2)],
+            "d_gain_c": [_t(rng.uniform(-1e-3, 1e-3, Vs), dev) for _ in range(2)],
+            "frz_c": [_t(rng.uniform(0, 1, Vs) < frozen, dev) for _ in range(2)],
+            "maskf": _t((rng.uniform(0, 1, Vs) > 0.2) | (np.arange(Vs) == 0), dev)}
+
+
+def group_operands(dev, rng, Vs, K, n, base0, nb=4, walk=0.9, cap=READ_CAP):
+    """``nb`` consecutive blocks' read operands for
+    ``ring_kernels.ring_select_multi``, block b's cursors ``b*n`` past
+    block 0's, give or take ``walk*b*K`` (past 1: out of the tier's
+    contract), and ``render_multi``'s static row0s and shift ranges at a
+    block advance of n frames.  Returns (ros, row0s, hs)."""
+    from oddio_tpu_torch.ops.ring_kernels import multi_rows
+
+    ros = [read_operands(dev, rng, Vs, K, n, base0 + b * n + np.round(
+        rng.uniform(-walk, walk, Vs) * b * K).astype(np.int64), cap=cap) for b in range(nb)]
+    return (ros,) + multi_rows(n, K, nb)
+
+
+def capture_states(scene, sets=SETS):
+    """Render the buffered ``scene`` (one device-resident pool) through a
+    ``Renderer`` and capture its pool's ``render`` and ``render_multi``
+    arguments: the first, delta block's, ``sets`` idle single blocks' and
+    the last ``sets`` fused groups'.  Returns (pool, delta, singles,
+    groups); each state replays with ``pool.render(*state)`` or
+    ``pool.render_multi(*group)``."""
+    import oddio_tpu_torch as pt
+
+    pool = next(iter(scene._buffered_pools.values()))
+    caps = {"render": [], "render_multi": []}
+    for kind in caps:
+        def spy(*a, _inner=getattr(pool, kind), _kind=kind):
+            caps[_kind].append(a)
+            return _inner(*a)
+        setattr(pool, kind, spy)
+    r = pt.Renderer(scene, 48000)
+    try:
+        for _ in range(sets + 1):  # a delta block, then idle single blocks
+            r.render_block(W)
+        r.render_frames(W * 4 * (sets + 2))  # fused idle groups of 4
+    finally:
+        for kind in caps:
+            delattr(pool, kind)
+    delta, singles, groups = caps["render"][0], caps["render"][1:], caps["render_multi"][-sets:]
+    if len(singles) < sets or len(groups) < sets:
+        raise RuntimeError(f"captured {len(singles)} single blocks and {len(groups)} groups")
+    return pool, delta, singles, groups
+
+
+def block_reads(pool, dstate, ddata, params, n, nb=1):
+    """The read operands ``_advance_block`` leaves for a captured state's
+    ``nb`` blocks (their appends land in the ring, as in the render):
+    (the last block's state, [ro per block])."""
+    ros = []
+    for _ in range(nb):
+        dstate, ro = pool._advance_block(dstate, ddata, params, n)
+        ros.append(ro)
+    return dstate, ros
+
+
+def read_bytes(ros, n):
+    """Bytes the pool's read must move for blocks ``ros`` (``_advance_block``'s
+    read operands): per voice and block the span of both ears' positions
+    ``base + frac + j*ds`` over the n frames plus the lerp's next sample,
+    17 words of operands, the (2, n) output."""
+    total = 0
+    for ro in ros:
+        lo = hi = None
+        for e in range(2):
+            ds, fh, fl = (x.double() for x in ro["split_c"][e])
+            p0 = ro["base_c"][e].double() + ro["frac_c"][e].double()
+            p1 = p0 + (n - 1) * (ds + fh + fl)
+            a, b = torch.minimum(p0, p1), torch.maximum(p0, p1)
+            lo = a if lo is None else torch.minimum(lo, a)
+            hi = b if hi is None else torch.maximum(hi, b)
+        total += 4 * int((hi.floor() - lo.floor() + 2).sum()) + 68 * lo.shape[0] + 8 * n
+    return total
+
+
+def read_cases(dev):
+    """{name: (call, bound ms)} of the buffered pool's read at 4096 voices:
+    ``render``, ``render_multi`` and their ``_advance_block`` chains
+    replayed on captured states, warm (one state) and cold (``SETS``
+    states), and the first, delta block's ``render`` (plays and motion
+    shipped) warm."""
+    from oddio_tpu_torch.utils.scene_profile import build_spatial
+
+    pool, delta, singles, groups = capture_states(build_spatial(True, V, dev)[1])
+
+    def advance(*state):
+        return block_reads(pool, *state)
+
+    out = {}
+    bd = bound(read_bytes(advance(*delta)[1], W))[0]
+    out["read K2 delta block, warm: render"] = (lambda: pool.render(*delta), bd)
+    out["read K2 delta block, warm: advance"] = (lambda: advance(*delta), bd)
+    b2 = bound(read_bytes(advance(*singles[0])[1], W))[0]
+    b3 = bound(read_bytes(advance(*groups[0])[1], W))[0]
+    for heat, k in (("warm", 1), ("cold", SETS)):
+        out[f"read K2 idle block, {heat}: render"] = (cycling(singles[:k], pool.render), b2)
+        out[f"read K2 idle block, {heat}: advance"] = (cycling(singles[:k], advance), b2)
+        out[f"read K3 group nb=4, {heat}: render"] = (cycling(groups[:k], pool.render_multi), b3)
+        out[f"read K3 group nb=4, {heat}: advance"] = (cycling(groups[:k], advance), b3)
+    return out
+
+
+def paired_host(fa, fb, pairs=PAIRS):
+    """Median over ``pairs`` alternated calls of fa's host time (wall clock,
+    no synchronise) less fb's, in ms; the device work queues behind."""
+    d = []
+    for _ in range(pairs):
+        t0 = time.perf_counter()
+        fa()
+        t1 = time.perf_counter()
+        fb()
+        d.append((t1 - t0) - (time.perf_counter() - t1))
+    torch.cuda.synchronize()
+    return 1e3 * float(np.median(d))
+
+
+def read_differences(res):
+    """The read's own numbers: each ``...: render`` entry less its
+    ``...: advance`` entry (ms, host_ms, device_ms, device kernels)."""
+    out = {}
+    for name, r in res.items():
+        if not name.endswith(": render"):
+            continue
+        a = res[name[:-len("render")] + "advance"]
+        d = {k: (None if r[k] is None or a[k] is None else r[k] - a[k])
+             for k in ("ms", "host_ms", "device_ms", "kernels")}
+        out[name[:-len(": render")]] = dict(d, bound_ms=r["bound_ms"],
+                                            paired_host_ms=r.get("paired_host_ms"))
+    return out
+
+
+MODES = {"append": append_cases, "place": place_cases, "select": select_cases,
+         "read": read_cases}
 
 
 def main(argv=None):
@@ -356,18 +552,30 @@ def main(argv=None):
         fns = MODES[m](dev)
         res.update({name: dict(zip(("ms", "host_ms"), clocks(fn)), bound_ms=b)
                     for name, (fn, b) in fns.items()})
+        for name, (fn, _) in fns.items():  # the read's host time, paired
+            if name.endswith(": render"):
+                other = fns[name[:-len("render")] + "advance"][0]
+                res[name]["paired_host_ms"] = paired_host(fn, other)
         for name, (fn, _) in fns.items():  # the profiler last: it slows later host calls
-            split = device_split(fn)
+            split, kernels = device_profile(fn)
             res[name]["device_ms"] = sum(split.values()) if split else None
             res[name]["device_split"] = split
+            res[name]["kernels"] = kernels
         del fns
         torch.cuda.empty_cache()
     for name, r in res.items():
         dev_ms = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f}"
-        split = ", ".join(f"{k[:40]} {v:.4f}" for k, v in r["device_split"].items())
-        print(f"{name}: ms {r['ms']:.4f}, device_ms {dev_ms} ({split}), host_ms "
-              f"{r['host_ms']:.4f} (bound {r['bound_ms']:.4f}) [{card}]")
-    print(json.dumps({"card": card, "kernels": res}))
+        split = sorted(r["device_split"].items(), key=lambda kv: -kv[1])
+        split = ", ".join(f"{k[:40]} {v:.4f}" for k, v in split[:8])
+        print(f"{name}: ms {r['ms']:.4f}, device_ms {dev_ms} ({r['kernels']:.1f} kernels: "
+              f"{split}), host_ms {r['host_ms']:.4f} (bound {r['bound_ms']:.4f}) [{card}]")
+    reads = read_differences(res)
+    for name, d in reads.items():
+        fmt = {k: "not measured" if v is None else f"{v:.4f}" for k, v in d.items()}
+        print(f"{name} (render less advance): ms {fmt['ms']}, device_ms {fmt['device_ms']}, "
+              f"host_ms {fmt['host_ms']}, paired host_ms {fmt['paired_host_ms']}, device "
+              f"kernels {fmt['kernels']} (bound {fmt['bound_ms']}) [{card}]")
+    print(json.dumps({"card": card, "kernels": res, "reads": reads}))
 
 
 if __name__ == "__main__":

@@ -103,8 +103,8 @@ def main():
                     print(f"{name}: build failed\n{r.stderr[-1500:]}")
                     continue
                 _build._libs["select_kernel"] = load(so)
-                RK.SELECT_CHUNK, RK.CLUSTER_MAX = vc, cl  # K5's scratch sized to match
-                RK._SELECT_SCRATCH.clear()
+                RK.SELECT_CHUNK, RK.CLUSTER_MAX = vc, cl  # the scratch sized to match
+                RK._CLUSTER_SCRATCH.clear()
                 got = RK.strip_select_record(*recs[0], **kw)
                 ok = bool(((got - plain).abs().double() <= tol).all())
                 warm = KB.device_ms(lambda: RK.strip_select_record(*recs[0], **kw))
@@ -114,7 +114,7 @@ def main():
                       f"{ok}; {regs} [{card}]", flush=True)
         finally:
             RK.SELECT_CHUNK, RK.CLUSTER_MAX = chunk, cl_max
-            RK._SELECT_SCRATCH.clear()
+            RK._CLUSTER_SCRATCH.clear()
             if lib is None:
                 _build._libs.pop("select_kernel", None)
             else:

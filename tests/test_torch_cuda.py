@@ -5,11 +5,12 @@ runs on a machine with the card:
     python -m pytest tests/test_torch_cuda.py -q
 
 Every test skips without a CUDA card.  Bounds: K1 exact (a copy, in its
-row and cursor forms, aligned and unaligned slabs); K2/K3
-within ``ring_kernels.mix_tolerance`` elementwise (the kernel sums the same
-products in another, fixed order; the tolerance follows how float32
-rounding errors of such a sum grow, and fails a dropped voice or bf16
-partial sums); K4 exact (a copy); K6 exact (the same f32 operations, each
+row and cursor forms, aligned and unaligned slabs); K2/K3, read straight
+from the ring, within ``ring_kernels.ring_select_ears_tolerance`` /
+``ring_select_multi_tolerance`` elementwise (``mix_tolerance`` on their
+reads: the kernel sums the same products in another, fixed order; the
+tolerance follows how float32 rounding errors of such a sum grow, and
+fails a dropped voice or bf16 partial sums), two runs bit-equal; K4 exact (a copy); K6 exact (the same f32 operations, each
 rounded once); K7 within ``agc.agc_tolerance`` elementwise (another order
 of the prefix sum); K5 within ``ring_kernels.strip_tolerance``
 elementwise (its voice sum in another, fixed order); K8 within
@@ -33,13 +34,11 @@ from oddio_tpu_torch.ops import flat_kernels as FK
 from oddio_tpu_torch.ops import ring_kernels as RK
 from oddio_tpu_torch.ops import stream_kernels as SK
 from oddio_tpu_torch.ops._dev import device_split_ds
+from oddio_tpu_torch.utils import kernel_bench as KB
 from oddio_tpu_torch.utils.scene_profile import (build_config5_pack, build_host_pools,
                                                  build_mixer_agc, build_spatial_pack, feed)
 
 torch.set_num_threads(1)
-
-EMAX2 = 127 + 33  # 48 kHz ear stagger + the 128-lane granule remainder
-GW = 1024
 
 
 @pytest.fixture
@@ -47,35 +46,6 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: runs the CUDA kernels")
     return torch.device("cuda")
-
-
-def _select_inputs(rng, dev, V, n, K, S2, nb=1, hcap=8):
-    def t(x):
-        return torch.tensor(x, device=dev)
-
-    ds = t(rng.uniform(1 - K / n, 1 + K / n, (V, 2 * nb)).astype(np.float32))
-    di, fh, fl = device_split_ds(ds)
-    ofrac = t(rng.uniform(0, 1, (V, 2 * nb)).astype(np.float32))
-    scal = RK.pack_select_scalars(ofrac, di, fh, fl)  # (V, 2nb, 4)
-    scal01 = [scal[:, e::2].reshape(V, 4 * nb).contiguous() for e in range(2)]
-    gain = rng.uniform(0, 1, (V, 2 * nb, 2)).astype(np.float32)
-    gain[..., 1] = rng.uniform(-1e-3, 1e-3, (V, 2 * nb))
-    gain = t(gain * rng.integers(0, 2, (V, 1, 1)).astype(np.float32))
-    g01 = [gain[:, e::2].reshape(V, 2 * nb).contiguous() for e in range(2)]
-    e01 = [t(rng.integers(0, EMAX2, (V, nb)).astype(np.int32)) for _ in range(2)]
-    frz01 = [t((rng.uniform(0, 1, (V, nb)) > 0.7).astype(np.float32)) for _ in range(2)]
-    wide = t(rng.standard_normal((V, S2)).astype(np.float32))
-    rowshift = t(rng.integers(0, hcap, (V, nb)).astype(np.int32))
-    return wide, rowshift, scal01, g01, e01, frz01
-
-
-def _tolerance(wide, col0, rowshift, H, scal01, g01, e01, frz01, n, K):
-    samps = [
-        RK.ear_samples(wide, col0, rowshift, H, scal01[e], e01[e],
-                       None if frz01 is None else frz01[e], n, K)
-        for e in range(2)
-    ]
-    return RK.mix_tolerance(samps, g01, n)
 
 
 def test_rows_append_exact(cuda):
@@ -156,49 +126,75 @@ print("no assert")
     assert "assert" in r.stderr.lower(), r.stderr[-2000:]
 
 
-@pytest.mark.parametrize("V", [1, 3, 16, 1000])
-@pytest.mark.parametrize("frz", [False, True])
-@pytest.mark.parametrize("n,K", [(128, 32), (512, 64)])
-def test_window_select_ears(cuda, V, frz, n, K):
-    rng = np.random.default_rng(20 + V + n)
-    WIN = RK.select_window(n, EMAX2, K)
-    S2 = -(-(GW - 1 + WIN) // GW) * GW
-    wide, rowshift, scal01, g01, e01, frz01 = _select_inputs(rng, cuda, V, n, K, S2)
-    rs = rowshift[:, 0].contiguous()
-    f = frz01 if frz else None
-    kw = dict(n=n, K=K, emax2=EMAX2, hmax=8, frz01=f)
-    plain = RK.window_select_ears_plain(wide, rs, scal01, g01, e01, **kw)
-    before = RK.LAUNCHES["select_ears"]
-    got = RK.window_select_ears(wide, rs, scal01, g01, e01, **kw)
+#: the pool's ring geometry at 48 kHz, as the K2/K3 wrappers take it
+READ_GEOM = dict(DMAX=KB.READ_DMAX, FP=KB.READ_FP, cap=KB.READ_CAP)
+
+
+def _held(key, call, tol, plain):
+    """Two calls: one launch each, bit-equal, within ``tol`` of ``plain``."""
+    before = RK.LAUNCHES[key]
+    got = call()
+    again = call()
     torch.cuda.synchronize()
-    assert RK.LAUNCHES["select_ears"] == before + 1
-    tol = _tolerance(wide, 0, rs, 8, scal01, g01, e01, f, n, K)
+    assert RK.LAUNCHES[key] == before + 2
+    assert torch.equal(got, again)
+    assert got.shape == plain.shape and float(plain.abs().max()) > 1e-3
     assert bool(((got - plain).abs().double() <= tol).all())
 
 
-def test_window_select_multi(cuda):
-    rng = np.random.default_rng(30)
-    V, n, nb, K = 1000, 512, 4, 32
-    row0s = [max(0, int(np.floor(b * (n - K) / 128))) for b in range(nb)]
-    hs = [int(GW - 1 + b * (n + K)) // 128 - row0s[b] + 1 for b in range(nb)]
-    WIN = RK.select_window(n, EMAX2, K)
-    S2 = -(-int(GW - 1 + (nb - 1) * (n + K) + WIN) // GW) * GW
-    args = _select_inputs(rng, cuda, V, n, K, S2, nb=nb, hcap=min(hs))
-    kw = dict(n=n, K=K, emax2=EMAX2, nb=nb, row0s=row0s, hs=hs)
-    plain = RK.window_select_multi_plain(*args, **kw)
-    got = RK.window_select_multi(*args, **kw)
-    torch.cuda.synchronize()
-    wide, rowshift, scal01, g01, e01, frz01 = args
-    for b in range(nb):
-        tol = _tolerance(
-            wide, 128 * row0s[b], rowshift[:, b], hs[b],
-            [s[:, 4 * b : 4 * b + 4] for s in scal01],
-            [g[:, 2 * b : 2 * b + 2] for g in g01],
-            [e[:, b : b + 1] for e in e01],
-            [x[:, b : b + 1] for x in frz01], n, K,
-        )
-        d = (got - plain)[:, b * n : (b + 1) * n].abs().double()
-        assert bool((d <= tol).all())
+@pytest.mark.parametrize("S", [1, 16])
+@pytest.mark.parametrize("K", [32, 64, 256])
+@pytest.mark.parametrize("V", [1, 17, 1000, 4096])
+def test_ring_select_ears(cuda, V, K, S):
+    """K2 on S scenes of V voices (K = 256 at its 256-frame read chunk,
+    two chunks per 512-frame read), a fifth of the ears frozen and cursors
+    anywhere, some windows ending in the mirror; the main pass with
+    ``tight`` for one scene."""
+    rng = np.random.default_rng(V + K + S)
+    R = 256 if K == 256 else 512
+    ring = KB.read_ring(cuda, S * V, seed=V + K)
+    ro = KB.read_operands(cuda, rng, S * V, K, R)
+    ro["base_c"][0][::3] = KB.READ_CAP + K - 5  # windows into the mirror
+    kw = dict(n=512, K=K, R=R, scenes=None if S == 1 else S, **READ_GEOM)
+    if S == 1:
+        kw["tight"] = torch.tensor((rng.uniform(0, 1, V) > 0.2) | (np.arange(V) == 0),
+                                   device=cuda).float()
+    _held("select_ears", lambda: RK.ring_select_ears(ring, ro, **kw),
+          RK.ring_select_ears_tolerance(ring, ro, **kw), RK.ring_select_ears_plain(ring, ro, **kw))
+
+
+@pytest.mark.parametrize("R,K", [(256, 256), (128, 192)])
+def test_ring_select_ears_sub_pass(cuda, R, K):
+    """K2's family sub-pass: a 256-entry list naming 200 voices of a
+    4096-voice pool (the rest off, naming voice 0), read in 512 / R
+    chunks at every frame (frozen flags do not apply)."""
+    rng = np.random.default_rng(R)
+    V = 4096
+    ring = KB.read_ring(cuda, V, seed=R)
+    ro = KB.read_operands(cuda, rng, V, K, R, frozen=0.5)
+    idx = np.zeros(256, np.int32)
+    idx[:200] = rng.choice(V, 200, replace=False)
+    kw = dict(n=512, K=K, R=R, sub_idx=torch.tensor(idx, device=cuda),
+              sub_on=torch.tensor((np.arange(256) < 200).astype(np.float32), device=cuda),
+              **READ_GEOM)
+    _held("select_ears", lambda: RK.ring_select_ears(ring, ro, **kw),
+          RK.ring_select_ears_tolerance(ring, ro, **kw), RK.ring_select_ears_plain(ring, ro, **kw))
+
+
+@pytest.mark.parametrize("wrap", [False, True])
+@pytest.mark.parametrize("V", [17, 1000, 4096])
+def test_ring_select_multi(cuda, V, wrap):
+    """K3 on a fused group of 4 blocks at K = 64, inside the ring or
+    starting near its end so that every voice's later blocks wrap the
+    modulus."""
+    rng = np.random.default_rng(V + wrap)
+    n, K, cap = 512, 64, KB.READ_CAP
+    base0 = cap - rng.integers(200, 900, V) if wrap else rng.integers(0, cap // 2, V)
+    ros, row0s, hs = KB.group_operands(cuda, rng, V, K, n, base0)
+    ring = KB.read_ring(cuda, V, seed=V)
+    kw = dict(n=n, K=K, row0s=row0s, hs=hs, **READ_GEOM)
+    _held("select_multi", lambda: RK.ring_select_multi(ring, ros, **kw),
+          RK.ring_select_multi_tolerance(ring, ros, **kw), RK.ring_select_multi_plain(ring, ros, **kw))
 
 
 def _entry_scene(device, n_buffered=64, n_seek=32):
@@ -592,27 +588,6 @@ def test_rows_append_scene_axis_exact(cuda):
     torch.cuda.synchronize()
     assert RK.LAUNCHES["append"] == before + 1
     assert torch.equal(got, plain)
-
-
-@pytest.mark.parametrize("S,V", [(16, 256), (3, 17)])
-def test_window_select_ears_scene_axis(cuda, S, V):
-    """K2 with the scene axis: (S, 2, n) in one launch, each scene within
-    its own mix tolerance."""
-    rng = np.random.default_rng(120 + S)
-    n, K = 512, 32
-    WIN = RK.select_window(n, EMAX2, K)
-    S2 = -(-(GW - 1 + WIN) // GW) * GW
-    wide, rowshift, scal01, g01, e01, frz01 = _select_inputs(rng, cuda, S * V, n, K, S2)
-    rs = rowshift[:, 0].contiguous()
-    kw = dict(n=n, K=K, emax2=EMAX2, hmax=8, frz01=frz01, scenes=S)
-    plain = RK.window_select_ears_plain(wide, rs, scal01, g01, e01, **kw)
-    before = RK.LAUNCHES["select_ears"]
-    got = RK.window_select_ears(wide, rs, scal01, g01, e01, **kw)
-    torch.cuda.synchronize()
-    assert RK.LAUNCHES["select_ears"] == before + 1 and got.shape == (S, 2, n)
-    samps = [RK.ear_samples(wide, 0, rs, 8, scal01[e], e01[e], frz01[e], n, K) for e in range(2)]
-    tol = RK.mix_tolerance(samps, g01, n, scenes=S)
-    assert bool(((got - plain).abs().double() <= tol).all())
 
 
 def _pack_run(pack, ctls, pcm, nb0=4, nb1=8):

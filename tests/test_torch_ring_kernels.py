@@ -3,13 +3,19 @@ JAX package's Pallas kernels, run in interpret mode as its own tests run
 them.
 
 * K1 ``rows_append`` vs ``rows_append_dma``: exact (a copy).
-* K2 ``window_select_ears`` vs ``window_select_tiles_ears``, with and
-  without frozen flags, with ``hmax``: <= 1e-6 abs.  The plain version mixes
-  voices in the reference's matvec form; the remaining gap is the order of
-  that voice sum (XLA's dot vs torch's) and XLA:CPU's fused multiply-adds in
-  the interpreted position math.
-* K3 ``window_select_multi``: equal to four K2 calls on the same blocks
-  (bit for bit, same arithmetic), and <= 1e-6 abs of the Pallas kernel.
+* K2's wide-window form ``window_select_ears_plain`` vs
+  ``window_select_tiles_ears``, with and without frozen flags, with
+  ``hmax``: <= 1e-6 abs.  The plain version mixes voices in the
+  reference's matvec form; the remaining gap is the order of that voice
+  sum (XLA's dot vs torch's) and XLA:CPU's fused multiply-adds in the
+  interpreted position math.  The ring-direct form the pool calls
+  (``ring_select_ears``) is held to it, and to the JAX package's whole
+  read, in test_torch_ring_select.py.
+* K3's wide-window form ``window_select_multi_plain``: equal to four K2
+  calls on the same blocks (bit for bit, same arithmetic), and <= 1e-6
+  abs of the Pallas kernel.
+* ``mix_tolerance`` passes the CUDA K2/K3 kernel's voice-sum order and
+  fails a dropped voice or bf16 partial sums.
 * K5 ``strip_select`` (reading the ring directly), and its record form,
   vs ``strip_select`` on the row strips gathered from the same ring at the
   same ``rrow``: <= 1e-6 abs (the voice-sum order and XLA's fused
@@ -97,7 +103,7 @@ def test_window_select_ears_matches_pallas(V, n, K):
             interpret=True, hmax=8,
             frz01=None if frz is None else [jnp.asarray(f) for f in frz],
         ))
-        got = RK.window_select_ears(
+        got = RK.window_select_ears_plain(
             _t(wide), _t(rowshift[:, 0]), _t(scal01), _t(g01), _t(e01),
             n=n, K=K, emax2=EMAX2, hmax=8,
             frz01=None if frz is None else _t(frz),
@@ -124,13 +130,13 @@ def test_window_select_multi_matches_blocks_and_pallas(K):
         rng, V, n, K, S2, nb=nb, hcap=min(hs)
     )
     kw = dict(n=n, K=K, emax2=EMAX2, nb=nb, row0s=row0s, hs=hs)
-    got = RK.window_select_multi(
+    got = RK.window_select_multi_plain(
         _t(wide), _t(rowshift), _t(scal01), _t(g01), _t(e01), _t(frz01), **kw
     ).numpy()
     assert got.shape == (2, nb * n)
     # four K2 calls on each block's slice of the superwindow
     for b in range(nb):
-        blk = RK.window_select_ears(
+        blk = RK.window_select_ears_plain(
             _t(wide[:, 128 * row0s[b]:].copy()), _t(rowshift[:, b].copy()),
             [_t(s[:, 4 * b : 4 * b + 4].copy()) for s in scal01],
             [_t(g[:, 2 * b : 2 * b + 2].copy()) for g in g01],
@@ -149,11 +155,15 @@ def test_window_select_multi_matches_blocks_and_pallas(K):
 
 
 def _chunk_order_mix(samps, gs, n, drop=None, partial_dtype=torch.float32):
-    """The CUDA select kernel's voice sum, in torch: float32 products added
-    voice by voice within 16-voice chunks, each chunk's partial sum stored
-    as ``partial_dtype``, the chunks added in order.  ``drop`` zeroes one
-    voice, as a kernel that skips it would."""
+    """The CUDA K2/K3 kernel's voice sum, in torch: float32 products added
+    voice by voice within 32-voice blocks, each block's partial sum stored
+    as ``partial_dtype``, the blocks of a cluster (up to ``CLUSTER_MAX``)
+    added in rank order, then the clusters in order; per ear the g0 and dg
+    sums apart, combined last as ``m0 + j*m1``.  ``drop`` zeroes one voice,
+    as a kernel that skips it would."""
     jn = torch.arange(n, dtype=torch.float32)
+    blocks = samps[0].shape[0] // RK.SELECT_CHUNK
+    cl = min(RK.CLUSTER_MAX, 1 << (blocks - 1).bit_length())
     rows = []
     for samp, g in zip(samps, gs):
         m = []
@@ -161,14 +171,17 @@ def _chunk_order_mix(samps, gs, n, drop=None, partial_dtype=torch.float32):
             x = g[:, col : col + 1] * samp
             if drop is not None:
                 x[drop] = 0.0
-            xc = x.reshape(-1, RK.VOICE_CHUNK, n)
-            part = torch.zeros_like(xc[:, 0])
-            for i in range(RK.VOICE_CHUNK):
-                part = part + xc[:, i]
+            xc = x.reshape(-1, cl, RK.SELECT_CHUNK, n)
+            part = torch.zeros_like(xc[:, :, 0])
+            for i in range(RK.SELECT_CHUNK):
+                part = part + xc[:, :, i]
             part = part.to(partial_dtype).to(torch.float32)
+            cluster = torch.zeros_like(part[:, 0])
+            for r in range(cl):
+                cluster = cluster + part[:, r]
             acc = torch.zeros(n)
-            for c in range(part.shape[0]):
-                acc = acc + part[c]
+            for c in range(cluster.shape[0]):
+                acc = acc + cluster[c]
             m.append(acc)
         rows.append(m[0] + jn * m[1])
     return torch.stack(rows)
@@ -203,7 +216,7 @@ def test_wrappers_reject_bad_operands():
     with pytest.raises(TypeError):
         RK.rows_append(x.double(), torch.zeros((4, 128), dtype=torch.float64), 0, 1)
     with pytest.raises(ValueError):
-        RK.window_select_ears(
+        RK.window_select_ears_plain(
             torch.zeros((2, 64)), torch.zeros(2, dtype=torch.int32),
             [torch.zeros((2, 4))] * 2, [torch.zeros((2, 2))] * 2,
             [torch.zeros((2, 1), dtype=torch.int32)] * 2, n=128, K=32,
@@ -586,11 +599,11 @@ def test_window_select_ears_scene_axis_equals_single_scene_calls(frz):
     wide, rowshift, scal01, g01, e01, frz01 = (_t(x) if not isinstance(x, list) else _t(x)
                                                 for x in args)
     kw = dict(n=n, K=K, emax2=EMAX2, hmax=8, frz01=frz01 if frz else None)
-    got = RK.window_select_ears(wide, rowshift[:, 0], scal01, g01, e01, scenes=S, **kw)
+    got = RK.window_select_ears_plain(wide, rowshift[:, 0], scal01, g01, e01, scenes=S, **kw)
     assert got.shape == (S, 2, n)
     for s in range(S):
         r = slice(s * V, (s + 1) * V)
-        one = RK.window_select_ears(
+        one = RK.window_select_ears_plain(
             wide[r], rowshift[r, 0], [x[r] for x in scal01], [x[r] for x in g01],
             [x[r] for x in e01], n=n, K=K, emax2=EMAX2, hmax=8,
             frz01=[x[r] for x in frz01] if frz else None,

@@ -59,14 +59,14 @@ def _record_reads(monkeypatch, scene, pool, nblocks):
         offs.append([x.clone() for x in o])
         return o, g
 
-    windows_read = pool._windows_read
+    ring_read = pool._ring_read
 
-    def spy_read(rows8, vb8, base_c, frac_c, *a, **kw):
-        reads.append(([b.clone() for b in base_c], [f.clone() for f in frac_c]))
-        return windows_read(rows8, vb8, base_c, frac_c, *a, **kw)
+    def spy_read(ring, ro, *a, **kw):
+        reads.append(([b.clone() for b in ro["base_c"]], [f.clone() for f in ro["frac_c"]]))
+        return ring_read(ring, ro, *a, **kw)
 
     monkeypatch.setattr(SP, "ear_states_c", spy_ears)
-    monkeypatch.setattr(pool, "_windows_read", spy_read)
+    monkeypatch.setattr(pool, "_ring_read", spy_read)
     r = pt.Renderer(scene, RATE)
     out = np.concatenate([r.render_block(BLOCK) for _ in range(nblocks)])
     assert len(offs) == 2 * nblocks  # the previous and next positions
