@@ -24,10 +24,15 @@ Phases (each prints one or more lines; any failure exits non-zero):
  6. real-time factors of both 4096-voice scenes;
  7. K4 against its plain version at the mixer path's shapes (and
     through its channel map) and at the host pool's (through its record
-    form), K6/K7 at the mixer path's;
+    form); K6 exactly in its DR form (the whole Stream step: read and
+    cursor release) and its ds form at V = 512, 4096 and 1, ds = 1/6, 1
+    and 4; K7 (the whole Adapt step) within ``agc.agc_tolerance`` at V =
+    512, 3584, 4096 and 1, n = 512, 513, 128 and 100, one and two
+    channels, a host and a per-voice interval, counts below n, tau 0.1 s
+    and near the gate; both timed warm and cold;
  8. the 4096-voice config-5 mixer (512 Adapt(Stream), 3584 Adapt(Sine))
     through render_frames and render_frames_device with new stream PCM
-    between them, counting kernel launches on that run;
+    between them, counting kernel launches on that run (per block too);
  9. the 256-voice config-5 mixer on the card against the CPU render;
 10. the real-time factor of the 4096-voice mixer;
 11. K5 against its plain version at the host pool's shapes (4096 voices,
@@ -38,7 +43,8 @@ Phases (each prints one or more lines; any failure exits non-zero):
     buffered pool, 512 Adapt(Stream) in the device-resident one, a
     256-voice config-5 submix) through render_frames and
     render_frames_device with new stream PCM and set_speed changes
-    between them, counting kernel launches on that run;
+    between them, counting kernel launches on that run (its three
+    513-frame Adapt pools: K7 three times a block);
 13. the same scene at 256 / 32 / 64 voices on the card against the CPU;
 14. the real-time factor of the 4096-voice host-pool scene;
 15. K8, K9 (three page forms, W = 512 and 1024) and K10 against their
@@ -51,6 +57,10 @@ Phases (each prints one or more lines; any failure exits non-zero):
     render_block and render_frames_device with new stream PCM between,
     counting K4/K6/K7 launches per block (equal at both sizes), and the
     16-scene spatial pack counting K1/K2;
+    at the end of the run, phases 8, 12 and 17's profiles: device
+    kernels per block of each path, and for each Adapt pool of the
+    paths the device kernels of its step (its whole render less its
+    inner's) and of its Stream step, each exactly one;
 18. a 4 x 64-voice config-5 pack and a 4-scene spatial pack on the card
     against the same packs on the CPU and per-scene Renderers on the card;
 19. real-time factors per scene of the config-5 pack at 16, 64 and 256
@@ -105,6 +115,55 @@ FLAT_KERNELS = {"window_select": "window_select", "flat_append": "flat_append_al
                 "dma_window_select": "dma_window_select"}
 #: K8-K10's launches summed over the path runs (they belong to no path)
 FLAT_PATH_LAUNCHES = dict.fromkeys(FLAT_KERNELS, 0)
+
+
+#: (phase, label, proto, args) of captured Adapt-pool steps and (phase,
+#: label, render, blocks) of path renders, profiled at the end of the run
+#: (``step_kernel_counts``)
+STEPS, BLOCK_PROFILES = [], []
+
+
+def capture_path_steps(phase, engine, render):
+    """Render through ``render()`` with every device-resident pool of
+    ``engine`` spied on, and keep each Adapt pool's last step for
+    ``step_kernel_counts``."""
+    from oddio_tpu_torch.utils import kernel_bench as KB
+
+    caps = KB.capture_steps(KB.dr_pools(engine), render)
+    for p, calls in caps.items():
+        if calls and type(p.proto).__name__ == "Adapt":
+            STEPS.append((phase, f"{type(p.proto.inner).__name__} V={p.capacity} "
+                                 f"n={calls[-1][3]}", p.proto, calls[-1]))
+
+
+def step_kernel_counts(tag):
+    """Phases 8, 12 and 17's profiles, run at the end (a profiled session
+    slows every later host call): device kernels per block of each path,
+    and of each captured Adapt pool's step (its whole render less its
+    inner's): exactly one where the step routes to K7, and of its Stream
+    step exactly one where the read routes to K6."""
+    from oddio_tpu_torch.ops import agc as A
+    from oddio_tpu_torch.utils import kernel_bench as KB
+
+    for phase, label, render, nblk in BLOCK_PROFILES:
+        per_block = KB.device_profile(render, reps=1)[1] / nblk
+        print(f"phase {phase} profile: {per_block:.1f} device kernels per block of {label} "
+              f"({nblk} blocks) {tag}")
+    bad = []
+    for phase, label, proto, args in STEPS:
+        k_adapt, k_stream = KB.step_kernels(proto, args)
+        samples_n = args[3]
+        k7 = bool(getattr(proto, "_pool_ema_fast", False)) and samples_n <= A.AGC_NMAX
+        k6 = k_stream is not None and proto.inner._kernel_ok(samples_n)
+        print(f"phase {phase} profile: Adapt({label}) pool: Adapt step {k_adapt:g} device "
+              f"kernels (K7 route: {k7})" + ("" if k_stream is None else
+                                             f", Stream step {k_stream:g} (K6 route: {k6})")
+              + f" {tag}")
+        if (k7 and k_adapt != 1) or (k6 and k_stream != 1) or not k7:
+            bad.append((phase, label, k_adapt, k_stream, k7, k6))
+    if bad:
+        raise AssertionError(f"a device-resident step is not one device kernel (or an Adapt "
+                             f"pool of a path left K7): {bad}")
 
 
 def reset_launches():
@@ -539,90 +598,141 @@ def ring_place_checks(dev, tag):
 
 def stream_agc_kernels(dev, kern, tag):
     """Phase 7: K4, K6 and K7 against their plain versions at the shapes the
-    config-5 mixer gives them (ring 2816 floats per stream, 2401-wide
-    ingest chunks, n = 512)."""
+    pools give them: K4 as ``ring_place_checks``; K6 exactly, in its DR
+    form (read and release) and its ds form, at V in {512, 4096, 1} (the
+    config-5 stream pool, the host pool, one voice) and ds in {1/6, 1, 4},
+    ring 2816 floats per stream, n = 512; K7 within ``agc.agc_tolerance``
+    at V in {512, 3584, 4096, 1} (the mixer's pools, one voice), n in
+    {512, 513, 128, 100}, one and two channels, a host and a per-voice
+    interval, counts below n on half the voices, tau 0.1 s and one within
+    1% of the closed form's gate at that n.  Each call one launch; each
+    kernel timed warm and cold at its main shape."""
     from oddio_tpu_torch.ops import agc as A
     from oddio_tpu_torch.ops import stream_kernels as SK
-    from oddio_tpu_torch.ops._dev import device_split_ds
+    from oddio_tpu_torch.utils import kernel_bench as KB
 
     rng = np.random.default_rng(7)
     SIZE, n = 2816, BLOCK
+    iv = float(np.float32(1.0 / RATE))
 
     def t(x, dtype=np.float32):
         return torch.tensor(np.asarray(x, dtype), device=dev)
+
+    def launched(mod, key, before, k, label):
+        if mod.LAUNCHES[key] != before + k:
+            raise AssertionError(f"{label}: {mod.LAUNCHES[key] - before} launches for {k} calls")
 
     # K4: a 2401-wide prefill chunk and a 128-wide steady one, half wrapping
     # (the mixer's shape), then the host pool's through the record form
     kern["ring_place"] = ring_place_checks(dev, tag)
 
-    # K6: V = 512 (the stream pool) and 4096, ds in {1/6, 1, 4}
+    # K6: the DR form (read and release) and the ds form, exact
+    def k6_operands(V, ds, ring):
+        rate = t(np.float32(ds * RATE) * rng.uniform(0.9, 1.0, V))
+        cnt = t(rng.integers(n - 1, n + 1, V), np.int32)
+        # read offsets in [-0.99, 1): the truncate-toward-zero branch runs
+        return (ring, t(rng.uniform(-0.99, 1.0, V)), rate, iv, cnt,
+                t(rng.integers(0, SIZE, V), np.int32),
+                t(rng.integers(0, int(n * ds) + 3, V), np.int32), n)
+
     worst = 0.0
-    for V in (512, 4096):
+    for V in (512, 4096, 1):
         ring = torch.randn((V, SIZE), device=dev)
         for ds in (8000.0 / 48000.0, 1.0, 4.0):
-            dsv = t(np.full(V, np.float32(ds)))
-            di, fh, fl = device_split_ds(dsv)
-            args = (ring, t(rng.uniform(0, 1, V)), di, fh, fl,
-                    t(rng.integers(0, SIZE, V), np.int32),
-                    t(rng.integers(0, int(n * ds) + 3, V), np.int32), n)
-            plain = SK.ring_resample_plain(*args)
-            got = SK.ring_resample(*args)
+            ops = k6_operands(V, ds, ring)
+            dsv = ops[2] * iv
+            before = SK.LAUNCHES["ring_resample"]
+            got = SK.stream_step(*ops)
+            plain = SK.stream_step_plain(*ops)
+            got_ds = SK.ring_resample(ring, ops[1], dsv, ops[5], ops[6], n)
+            plain_ds = SK.ring_resample_plain(ring, ops[1], dsv, ops[5], ops[6], n)
             torch.cuda.synchronize()
-            err = float((got - plain).abs().max())
-            if err != 0.0:
-                raise AssertionError(f"ring_resample V={V} ds={ds} differs from its plain version by {err}")
-            worst = max(worst, err)
-            tk = timed(f"K6 ring_resample V={V} ds={ds:.4f}", lambda: SK.ring_resample(*args))
-            pms = time_ms(lambda: SK.ring_resample_plain(*args))
-            print(f"K6 ring_resample V={V} ds={ds:.4f}: max|diff| {err} (tolerance 0, exact); "
-                  f"{times_str(tk)} vs plain {pms:.4f} ms {tag}")
+            launched(SK, "ring_resample", before, 2, f"ring_resample V={V} ds={ds:.4f}")
+            for label, g, w in zip(("samples", "t'", "len'", "start'", "ds-form samples"),
+                                   got + (got_ds,), plain + (plain_ds,)):
+                if g.dtype != w.dtype or not torch.equal(g, w):
+                    err = float((g.double() - w.double()).abs().max())
+                    raise AssertionError(f"ring_resample V={V} ds={ds:.4f}: {label} differ "
+                                         f"from the plain version's by {err}")
+            print(f"K6 ring_resample V={V} ds={ds:.4f}: DR form (read and release) and ds form "
+                  f"equal to their plain versions (tolerance 0, exact), one launch each {tag}")
             if V == 512 and ds < 1.0:
-                _, pos, _ = SK._positions(args[1], di, fh, fl, n)
-                bms, by = bound(span_bytes(pos) + V * n * 4 + 7 * 4 * V, 16 * V * n)
-                kern["ring_resample"] = record("oddio_tpu/ops/pallas_ring.py:1203",
-                                               "oddio_tpu_torch/csrc/stream_kernels.cu",
-                                               worst, tk, pms, bms, by)
-    kern["ring_resample"]["err"] = worst
+                main = ops
+        if V == 512:
+            cold_sets = [main] + [k6_operands(512, 8000.0 / 48000.0, torch.randn((512, SIZE),
+                                                                               device=dev))
+                                  for _ in range(KB.PLACE_RINGS - 1)]
+    tk = timed("K6 ring_resample DR form V=512 ds=1/6", lambda: SK.stream_step(*main))
+    tc = timed("K6 ring_resample DR form V=512 ds=1/6, cold",
+               KB.cycling(cold_sets, SK.stream_step))
+    pms = time_ms(lambda: SK.stream_step_plain(*main))
+    bms, by = bound(KB.resample_bytes(SK, {"t": main[1], "rate": main[2]}, n), 30 * 512 * n)
+    print(f"K6 ring_resample DR form V=512 ds=1/6 (the config-5 stream pool): "
+          f"{times_str(tk)}, cold {times_str(tc)} vs plain {pms:.4f} ms, bound {bms:.4f} ms "
+          f"({by}) {tag}")
+    kern["ring_resample"] = record("oddio_tpu/ops/pallas_ring.py:1203",
+                                   "oddio_tpu_torch/csrc/stream_kernels.cu", worst, tk, pms,
+                                   bms, by)
+    kern["ring_resample"]["cold"] = tc
+    del cold_sets
 
-    # K7: V = 4096, n = 512, the scene's tau and one near the closed form's gate
-    V = 4096
-    iv = np.float32(1.0 / RATE)
-    worst = 0.0
-    for tau in (0.1, 3.34e-4):
-        alpha = np.float32(1.0) - np.exp(-iv / np.float32(tau), dtype=np.float32)
-        s_ = torch.randn((V, n), device=dev) * 0.3
-        count = t(np.where(np.arange(V) < V // 2, n, rng.integers(0, n + 1, V)), np.int32)
-        scal = A.pack_agc_scalars(
-            t(rng.uniform(1e-3, 0.3, V)), t(np.full(V, alpha)), count,
-            t(np.full(V, 0.1 / np.sqrt(2))), t(np.full(V, 0.5 / np.sqrt(2))),
-            t(np.full(V, 4.0)),
-        )
-        gp, cp = A.agc_gains_plain(s_, scal, n)
-        g, c = A.agc_gains(s_, scal, n)
-        torch.cuda.synchronize()
-        tol_g, tol_c = A.agc_tolerance(s_, scal, n)
-        dg = (g - gp).abs().double()
-        dc = (c - cp).abs().double()
-        ratio = max(float((dg / tol_g.clamp_min(1e-300)).max()),
-                    float((dc / tol_c.clamp_min(1e-300)).max()))
-        err = max(float(dg.max()), float(dc.max()))
-        if not ratio <= 1.0:
-            raise AssertionError(
-                f"agc_gains tau={tau}: kernel disagrees with its plain version: "
-                f"max|diff| {err:.3e}, {ratio:.1f}x its tolerance")
-        worst = max(worst, err)
-        tk = timed(f"K7 agc_gains tau={tau}", lambda: A.agc_gains(s_, scal, n))
-        pms = time_ms(lambda: A.agc_gains_plain(s_, scal, n))
-        print(f"K7 agc_gains V={V} tau={tau}: max|diff| {err:.3e} ({ratio:.3f} of its "
-              f"tolerance, largest tolerance {float(tol_g.max()):.3e}); "
-              f"{times_str(tk)} vs plain {pms:.4f} ms {tag}")
-        if tau == 0.1:
-            # s read, gains written, 8 scalars in, the carry out; ~20 f32
-            # operations per frame (square, prefix sum, exp, sqrt, clamps)
-            bms, by = bound(8 * V * n + 36 * V, 20 * V * n)
-            kern["agc_gains"] = record("oddio_tpu/ops/pallas_agc.py:155",
-                                       "oddio_tpu_torch/csrc/agc_kernel.cu", 0.0, tk, pms, bms, by)
-    kern["agc_gains"]["err"] = worst
+    # K7: the whole Adapt step
+    def k7_operands(V, n_, C, per_voice, tau):
+        shape = (V, n_) if C == 1 else (V, C, n_)
+        amp = rng.choice([0.01, 0.1, 0.5, 1.0], (V,) + (1,) * (len(shape) - 1))
+        cnt = np.where(np.arange(V) < V // 2, n_, rng.integers(0, n_ + 1, V))
+        ivv = t(rng.uniform(0.8, 1.25, V) * iv) if per_voice else iv
+        return (t(rng.standard_normal(shape) * amp), t(rng.uniform(1e-3, 0.3, V)),
+                t(np.full(V, np.float32(tau))), ivv, t(cnt, np.int32),
+                t(np.full(V, 0.1 / np.sqrt(2))), t(np.full(V, 0.5 / np.sqrt(2))),
+                t(np.full(V, 4.0)), n_)
+
+    worst, share = 0.0, 0.0
+    for iV, V in enumerate((512, 3584, 4096, 1)):
+        for i_n, n_ in enumerate((512, 513, 128, 100)):
+            C = 1 + (iV + i_n) % 2
+            per_voice = (iV // 2 + i_n) % 2 == 1
+            # tau 0.1 s and one within 1% of the gate at this n (per-voice
+            # intervals reach 1.25x the scalar one)
+            for tau in (0.1, n_ * iv * (1.25 if per_voice else 1.0) / (0.99 * A.EMA_GATE)):
+                ops = k7_operands(V, n_, C, per_voice, tau)
+                before = A.LAUNCHES["agc_gains"]
+                out, carry = A.agc_step(*ops)
+                pout, pcarry = A.agc_step_plain(*ops)
+                torch.cuda.synchronize()
+                launched(A, "agc_gains", before, 1, f"agc_step V={V} n={n_}")
+                tol_x, tol_c = A.agc_tolerance(*ops)
+                dx = (out - pout).abs().double()
+                dc = (carry - pcarry).abs().double()
+                ratio = max(float((dx / tol_x.clamp_min(1e-300)).max()),
+                            float((dc / tol_c.clamp_min(1e-300)).max()))
+                err = max(float(dx.max()), float(dc.max()))
+                if not ratio <= 1.0 or not bool(torch.isfinite(out).all()):
+                    raise AssertionError(
+                        f"agc_step V={V} n={n_} C={C} per_voice={per_voice} tau={tau:.3g}: "
+                        f"kernel disagrees with its plain version: max|diff| {err:.3e}, "
+                        f"{ratio:.1f}x its tolerance")
+                worst, share = max(worst, err), max(share, ratio)
+            print(f"K7 agc_step V={V} n={n_} C={C} interval {'per voice' if per_voice else 'host'}"
+                  f", tau 0.1 s and near the gate: within tolerance {tag}")
+    ops = k7_operands(4096, n, 1, False, 0.1)
+    cold_sets = [ops[:-1]] + [k7_operands(4096, n, 1, False, 0.1)[:-1]
+                              for _ in range(KB.SETS - 1)]
+    tk = timed("K7 agc_step V=4096 n=512", lambda: A.agc_step(*ops))
+    tc = timed("K7 agc_step V=4096 n=512, cold",
+               KB.cycling(cold_sets, lambda *o: A.agc_step(*o, n)))
+    ops513 = k7_operands(512, 513, 1, False, 0.1)
+    t513 = timed("K7 agc_step V=512 n=513", lambda: A.agc_step(*ops513))
+    pms = time_ms(lambda: A.agc_step_plain(*ops))
+    # samples in, output out, 24 bytes of columns in and the carry out;
+    # ~20 f32 operations per frame (square, prefix sum, exp, sqrt, clamps)
+    bms, by = bound(8 * 4096 * n + 28 * 4096, 20 * 4096 * n)
+    print(f"K7 agc_step V=4096 n={n}: max|diff| {worst:.3e} over every case ({share:.3f} of its "
+          f"tolerance); {times_str(tk)}, cold {times_str(tc)}; V=512 n=513 {times_str(t513)}; "
+          f"vs plain {pms:.4f} ms, bound {bms:.4f} ms ({by}) {tag}")
+    kern["agc_gains"] = record("oddio_tpu/ops/pallas_agc.py:155",
+                               "oddio_tpu_torch/csrc/agc_kernel.cu", worst, tk, pms, bms, by)
+    kern["agc_gains"]["cold"] = tc
 
 
 def mixer_path(pt, dev, kern, tag):
@@ -658,7 +768,11 @@ def mixer_path(pt, dev, kern, tag):
     for name in launches:
         kern[name]["launches"] = launches[name]
     print(f"mixer path: 1 s + {BLOCK * 94 / RATE:.3f} s, peak |out| {np.abs(a).max():.4f}/"
-          f"{np.abs(b).max():.4f}; launches {launches} {tag}")
+          f"{np.abs(b).max():.4f}; launches {launches}, per block "
+          f"{ {k: v / (-(-RATE // BLOCK) + 94) for k, v in launches.items()} } {tag}")
+    capture_path_steps(8, mixer, lambda: r.render_frames(BLOCK * 2))
+    BLOCK_PROFILES.append((8, f"the {VOICES}-voice config-5 mixer",
+                           lambda: r.render_frames_device(BLOCK * 8, sync=False), 8))
 
     # -- 9. 256 voices on the card vs the CPU ----------------------------------
     outs = []
@@ -792,15 +906,24 @@ def host_pool_path(pt, dev, kern, tag):
         if not np.isfinite(x).all() or np.abs(x).max() <= 1e-3:
             raise AssertionError(f"{name}: non-finite or silent output")
     # the kernels of this path; K3 needs an all-device-resident scene (the
-    # JAX package's gate) and K7 a block of a multiple of 128 frames (a
-    # buffered pool renders 513), so they launch on their own paths
-    path = ("append", "select_ears", "strip_select", "ring_place", "ring_resample")
+    # JAX package's gate), so it launches on its own path.  K7 runs the
+    # three Adapt pools' 513-frame steps (the DR Adapt(Stream) pool, the
+    # submix's two pools)
+    path = ("append", "select_ears", "strip_select", "ring_place", "ring_resample", "agc_gains")
     if min(launches[k] for k in path) < 1:
         raise AssertionError(f"a kernel of the host-pool path never launched: {launches}")
     kern["strip_select"]["launches"] = launches["strip_select"]
     kern["ring_place"]["host_pool"]["launches"] = launches["ring_place"]
+    nblk = -(-RATE // BLOCK) + 94
+    if launches["agc_gains"] != 3 * nblk:
+        raise AssertionError(f"the host-pool path's three 513-frame Adapt pools launched K7 "
+                             f"{launches['agc_gains']} times in {nblk} blocks")
     print(f"host-pool path: 1 s + {BLOCK * 94 / RATE:.3f} s, peak |out| {np.abs(a).max():.4f}/"
-          f"{np.abs(b).max():.4f}; launches {launches} {tag}")
+          f"{np.abs(b).max():.4f}; launches {launches}, per block "
+          f"{ {k: v / nblk for k, v in launches.items()} } {tag}")
+    capture_path_steps(12, scene, lambda: r.render_frames(BLOCK * 2))
+    BLOCK_PROFILES.append((12, f"the {VOICES}-voice host-pool scene",
+                           lambda: r.render_frames_device(BLOCK * 8, sync=False), 8))
 
     # -- 13. 256 voices on the card vs the CPU -------------------------------------
     outs = []
@@ -1100,6 +1223,10 @@ def pack_path(pt, dev, tag):
             raise AssertionError(f"a kernel of the pack path never launched: {launches}")
         per_block[S] = {k: v / (nb0 + nb1) for k, v in launches.items()}
         packs[S] = (pack, ctls, rng)
+        if S == 16:
+            capture_path_steps(17, pack.scenes[0], lambda: pack.render_block(BLOCK))
+            BLOCK_PROFILES.append((17, "the 16-scene config-5 pack",
+                                   lambda: pack.render_frames_device(BLOCK * 8), 8))
         print(f"config-5 pack S={S} x 256 voices (built in {built:.2f} s): {nb0} blocks "
               f"render_block + {nb1} render_frames_device, a 1024-sample write between; peak "
               f"|out| {np.abs(out).max():.4f}; launches {launches}, per block "
@@ -1316,6 +1443,7 @@ def main():
     pack_xrt(packs, dev, tag)
 
     read_kernel_counts(rb, captured, tag)
+    step_kernel_counts(tag)
     profile_device(tag)
     print(json.dumps({"kernels": [kernel_line(name, k) for name, k in kern.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,10 @@ scatter drop the padding lanes (``mode="drop"``).  Torch's index_put
 rejects out-of-range rows, so the host, which knows which lanes are
 padding (index == capacity), filters them before the upload: the device
 sees only real lanes.  Fades (Fader) are not in this package yet
-(ROADMAP P4), so the fade-lane machinery has no counterpart here; nor
-do the samplers' step-bound and the AGC gate stamps (``_ds_small``,
-``_ds_tier``, ``_ema_fast``), which come with their readers (P3, P4).
+(ROADMAP P4), so the fade-lane machinery has no counterpart here.  The
+pools stamp their read-path flags on the proto chain (``_ds_small``,
+``_ds_tier``, ``_ema_fast``); the AGC gate is computed at the block length
+the pool renders, so 513-frame buffered renders take K7 too.
 
 The handle-state readback packs the ``mask`` and ``stopped`` columns into
 one uint8 bit array on the device (shifts and a sum; torch has no
@@ -270,11 +271,15 @@ class DRCtrlMixin:
         self._slot_specs[int(slot)] = spec
         self._ds_dirty = True
 
-    def _ds_bound_small(self, interval):
+    def _ds_bound_small(self, interval, n):
         """True when every live voice's per-frame source step fits the
-        stream resample kernel; also sets ``_ema_fast`` and ``_ds_tier``.
-        Recomputed only after plays or step-class control writes."""
-        if self._ds_dirty or getattr(self, "_ds_interval", None) != interval:
+        stream resample kernel; also sets ``_ema_fast`` (every live Adapt
+        tau admits the closed-form AGC kernel at the pool's block length
+        ``n``, or at ``EMA_NMAX`` frames where that is longer) and
+        ``_ds_tier``.  Recomputed only after plays, step-class
+        control writes or a change of interval or block length."""
+        if (self._ds_dirty or getattr(self, "_ds_interval", None) != interval
+                or getattr(self, "_ds_n", None) != n):
             from ..ops import agc, stream_kernels
 
             b = 0.0
@@ -284,19 +289,20 @@ class DRCtrlMixin:
                     b = max(b, spec.host_ds_bound(interval))
                     be = max(be, spec.host_ema_bound(interval))
             self._ds_small = bool(b <= stream_kernels.RESAMPLE_DSMAX)
-            # every live Adapt tau admits the closed-form AGC kernel
-            self._ema_fast = bool(agc.EMA_NMAX * be <= agc.EMA_GATE)
+            self._ema_fast = bool(max(agc.EMA_NMAX, n) * be <= agc.EMA_GATE)
             # window tier of the step bound; 1e-5 absorbs the one-ulp f32
             # wobble of rate-matched ratios
             self._ds_tier = 1 if b <= 1.0 + 1e-5 else 2 if b <= 2.0 else 4
             self._ds_dirty = False
             self._ds_interval = interval
+            self._ds_n = n
         return self._ds_small
 
-    def _ds_flag_sync(self, interval):
-        """Resolve the pool's read-path flags and stamp them onto every node
-        of the proto chain (part of the pool archetype)."""
-        small = self._ds_bound_small(float(interval))
+    def _ds_flag_sync(self, interval, n):
+        """Resolve the pool's read-path flags for blocks of ``n`` frames
+        and stamp them onto every node of the proto chain (part of the
+        pool archetype)."""
+        small = self._ds_bound_small(float(interval), n)
         self._stamp_flags(small, self._ds_tier, self._ema_fast)
         return small
 

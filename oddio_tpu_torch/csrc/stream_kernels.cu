@@ -109,76 +109,126 @@ extern "C" int ring_place(float* ring, const float* chunk,
 //
 // Replaces oddio_tpu/ops/pallas_ring.py::strip_resample (_resample_kernel)
 // as the stream read uses it (oddio_tpu/ops/stream.py::render_batched: row
-// strip gather, kernel, then the underrun mask), fused into one pass:
+// strip gather, kernel, then the underrun mask) together with the torch
+// ops around it in a device-resident pool's Stream step (the step split
+// and the cursor release): one launch per stream pool per block.  Per
+// row r (one mono stream voice), from its operands as the pool keeps them:
+//   ds    = rate*iv (the DR step: rate (V,), iv the host interval) or ds
+//           (V,) as a host pool ships it
+//   split as ops/_dev.py device_split_ds: d = floor(ds), f = ds - d,
+//           f_hi = floor(f*4096) * 2^-12, f_lo = f - f_hi
 //   H = j*f_hi, u = (H - floor H) + (t + j*f_lo), fr = u - floor u
-//   wr = j*ds_int + floor H + floor u        (whole position, unadjusted)
+//   wr = j*d + floor H + floor u             (whole position, unadjusted)
 //   wr < 0 && fr > 0: wr += 1, fr -= 1       (truncate toward zero)
 //   a = ring[(start + wr) mod size_pad], b = the next sample
 //   out[r, j] = wr_unadjusted < len ? a + fr*(b - a) : 0
+// and in the DR form the release of stream.rs:63-69, to new (V,) tensors:
+//   tc = min(t + (count*iv)*rate, len),  rel = trunc(tc)
+//   t' = tc - rel,  len' = len - rel,  start' = (start + rel) mod size_pad
+// written by the row's first thread after its reads of the old values
+// (the old cursors are never overwritten).
 //
-// The position sites use the round-to-nearest intrinsics: the split-ds
-// products are exact in f32 (12-bit f_hi, j < 4096), and a contracted
-// a*b + c would move a floor() boundary and with it the sample read.
+// Every site uses the round-to-nearest intrinsics: the split-ds products
+// are exact in f32 (12-bit f_hi, j < 4096), and a contracted a*b + c
+// would move a floor() boundary and with it the sample read; the release
+// is term for term the host mirror Stream._tick_math.
 //
 // Bound on the H100: latency of two dependent loads per output sample; the
-// bytes are small (each voice reads about n*ds + 2 floats of its ring, which
-// sits in L2 after the ingest).  Design: grid (frame tiles, rows), one
-// thread per output frame, so a warp's loads of one ring row are
-// near-contiguous for ds <= 4 and its stores are coalesced.  The TPU
-// kernel's sub-block realign and 128-lane gathers (and the clamp to its
-// 768-wide window, which never binds where the stream routes here) become
-// the index modulo size_pad.
+// bytes are small (each voice reads about n*ds + 2 floats of its ring,
+// which sits in L2 after the ingest, plus ~40 bytes of cursors).  Design:
+// grid (frame tiles, rows), one thread per output frame, so a warp's loads
+// of one ring row are near-contiguous for ds <= 4 and its stores are
+// coalesced; every thread splits its row's step itself (a few dependent
+// ops, no operand tensors).  The TPU kernel's sub-block realign and
+// 128-lane gathers (and the clamp to its 768-wide window, which never
+// binds where the stream routes here) become the index modulo size_pad.
 // ---------------------------------------------------------------------------
 
 #define RESAMPLE_THREADS 128
 
-__global__ void ring_resample_kernel(const float* __restrict__ ring,
-                                     const float* __restrict__ t0,
-                                     const int* __restrict__ ds_int,
-                                     const float* __restrict__ f_hi,
-                                     const float* __restrict__ f_lo,
-                                     const int* __restrict__ start,
-                                     const int* __restrict__ len,
-                                     float* __restrict__ out, int size_pad,
-                                     int n) {
+struct ResampleArgs {
+  const float* ring;  // (rows, size_pad)
+  const float* t;     // (rows,) read offset in (-1, 1)
+  const float* step;  // (rows,) rate (DR form) or ds
+  float iv;           // DR form: the interval; ds form: unused
+  const int* start;   // (rows,)
+  const int* len;     // (rows,)
+  const int* count;   // DR form: count[r * s_count]; ds form: null
+  int s_count;
+  float* out;         // (rows, n)
+  float* t_out;       // DR form: (rows,) each
+  int* len_out;
+  int* start_out;
+  int rows, size_pad, n;
+};
+
+__global__ void __launch_bounds__(RESAMPLE_THREADS)
+    ring_resample_kernel(const ResampleArgs A) {
   const int r = blockIdx.y;
   const int j = blockIdx.x * RESAMPLE_THREADS + threadIdx.x;
-  if (j >= n) return;
-  const float t = (float)j;
-  const float H = __fmul_rn(t, f_hi[r]);
+  const bool dr = A.count != nullptr;
+  const float t0 = A.t[r];
+  const int st = A.start[r];
+  const int ln = A.len[r];
+  const float rate = A.step[r];
+  const float ds = dr ? __fmul_rn(rate, A.iv) : rate;
+  if (dr && j == 0) {
+    const float cf = (float)A.count[(long long)r * A.s_count];
+    const float nxt = __fadd_rn(t0, __fmul_rn(__fmul_rn(cf, A.iv), rate));
+    const float lf = (float)ln;
+    const float tc = (nxt < lf || nxt != nxt) ? nxt : lf;  // torch.minimum
+    const int rel = (int)tc;  // trunc
+    A.t_out[r] = __fsub_rn(tc, (float)rel);
+    A.len_out[r] = ln - rel;
+    int s2 = (st + rel) % A.size_pad;
+    if (s2 < 0) s2 += A.size_pad;
+    A.start_out[r] = s2;
+  }
+  if (j >= A.n) return;
+  const float d = floorf(ds);
+  const float f = __fsub_rn(ds, d);
+  const float f_hi = __fmul_rn(floorf(__fmul_rn(f, 4096.0f)), 1.0f / 4096.0f);
+  const float f_lo = __fsub_rn(f, f_hi);
+  const float tj = (float)j;
+  const float H = __fmul_rn(tj, f_hi);
   const float Hf = floorf(H);
   const float u =
-      __fadd_rn(__fsub_rn(H, Hf), __fadd_rn(t0[r], __fmul_rn(t, f_lo[r])));
+      __fadd_rn(__fsub_rn(H, Hf), __fadd_rn(t0, __fmul_rn(tj, f_lo)));
   const float fl_u = floorf(u);
   float fr = __fsub_rn(u, fl_u);
-  float wr = __fadd_rn(__fadd_rn(__fmul_rn(t, (float)ds_int[r]), Hf), fl_u);
+  float wr = __fadd_rn(__fadd_rn(__fmul_rn(tj, d), Hf), fl_u);
   const int whole = (int)wr;
   if (wr < 0.0f && fr > 0.0f) {
     wr = __fadd_rn(wr, 1.0f);
     fr = __fsub_rn(fr, 1.0f);
   }
   float s = 0.0f;
-  if (whole < len[r]) {
-    const float* row = ring + (long long)r * size_pad;
-    int p = (start[r] + (int)wr) % size_pad;
-    if (p < 0) p += size_pad;
-    const int q = (p + 1 == size_pad) ? 0 : p + 1;
+  if (whole < ln) {
+    const float* row = A.ring + (long long)r * A.size_pad;
+    int p = (st + (int)wr) % A.size_pad;
+    if (p < 0) p += A.size_pad;
+    const int q = (p + 1 == A.size_pad) ? 0 : p + 1;
     const float a = row[p];
     const float b = row[q];
     s = __fadd_rn(a, __fmul_rn(fr, __fsub_rn(b, a)));
   }
-  out[(long long)r * n + j] = s;
+  A.out[(long long)r * A.n + j] = s;
 }
 
 extern "C" int ring_resample(const float* ring, const float* t,
-                             const int* ds_int, const float* f_hi,
-                             const float* f_lo, const int* start,
-                             const int* len, float* out, int rows,
-                             int size_pad, int n, cudaStream_t stream) {
-  if (rows < 1 || n < 1 || size_pad < 1 || rows > 65535)
+                             const float* step, float iv, const int* start,
+                             const int* len, const int* count, int s_count,
+                             float* out, float* t_out, int* len_out,
+                             int* start_out, int rows, int size_pad, int n,
+                             cudaStream_t stream) {
+  if (rows < 1 || n < 1 || n > 4096 || size_pad < 1 || rows > 65535 ||
+      (count != nullptr && (t_out == nullptr || len_out == nullptr ||
+                            start_out == nullptr)))
     return (int)cudaErrorInvalidValue;
+  const ResampleArgs A{ring,   t,     step,    iv,        start, len,
+                       count,  s_count, out,   t_out,     len_out,
+                       start_out, rows, size_pad, n};
   dim3 grid((n + RESAMPLE_THREADS - 1) / RESAMPLE_THREADS, rows);
-  ring_resample_kernel<<<grid, RESAMPLE_THREADS, 0, stream>>>(
-      ring, t, ds_int, f_hi, f_lo, start, len, out, size_pad, n);
+  ring_resample_kernel<<<grid, RESAMPLE_THREADS, 0, stream>>>(A);
   return (int)cudaGetLastError();
 }

@@ -287,13 +287,15 @@ class PoolDR(DRCtrlMixin):
     def sync_prefetch(self):
         self._sync_start()
 
-    def _idle_gate(self, iv):
-        """True when this block needs no params, cannot change the
-        archetype, and every per-block side effect is deferrable."""
+    def _idle_gate(self, iv, n):
+        """True when this block of ``n`` frames needs no params, cannot
+        change the archetype, and every per-block side effect is deferrable
+        (the flags were computed for this interval and block length)."""
         return (not self.force_deltas and not self.pending_plays
                 and not self.pending_stops and self._fade_quiet
                 and not self._ds_dirty
                 and getattr(self, "_ds_interval", None) == iv
+                and getattr(self, "_ds_n", None) == n
                 and not self._ctrl_pending_any()
                 and not any(l._dirty for l in self._ingest_leaves))
 
@@ -321,7 +323,7 @@ class PoolDR(DRCtrlMixin):
         self._count = int(n if count is None else count)
         self._prep_count = getattr(self, "_prep_count", 0) + 1
         params = {}
-        if not force and self._idle_gate(self._interval):
+        if not force and self._idle_gate(self._interval, n):
             # idle: no control traffic, clean flags, no queued stream
             # writes; params are {} and the stream-cursor mirror tick is
             # deferred by the leaves
@@ -359,7 +361,7 @@ class PoolDR(DRCtrlMixin):
             stop_idx = np.full(Ks, self.capacity, np.int32)
             stop_idx[: len(items)] = items
             params["stop_idx"] = stop_idx
-        self._ds_small = self._ds_flag_sync(self._interval)
+        self._ds_small = self._ds_flag_sync(self._interval, n)
         # stream ingest and the cursor-mirror shadow (in render order:
         # ingest grows len, then the advance releases consumed samples)
         if self.proto.batch:
@@ -524,18 +526,18 @@ class Mixer(Engine):
             if p.is_dr
         )
 
-    def host_idle_bulk_ok(self, interval):
+    def host_idle_bulk_ok(self, interval, n):
         """True when ``host_prepare`` would take the idle path for every
         pool (host pools never do).  The host is single-threaded, so no
         control traffic arrives inside one render call: a True gate holds
         for the rest of it."""
         iv = float(np.float32(interval))
-        return all(p.is_dr and p._idle_gate(iv) for p in self._pools.values())
+        return all(p.is_dr and p._idle_gate(iv, n) for p in self._pools.values())
 
     def host_idle_bulk(self, interval, n, times, count=None):
         """Advance ``times`` idle blocks at O(1) host cost; returns False
         (nothing touched) unless every pool passes the idle gate."""
-        if not self.host_idle_bulk_ok(interval):
+        if not self.host_idle_bulk_ok(interval, n):
             return False
         for p in self._pools.values():
             p._idle_bulk_apply(interval, n, times, count)

@@ -33,7 +33,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_vp, _i32, _i64, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 #: C entry points of each library: name -> (argtypes, restype); every entry
 #: point returns its launches' cudaError_t as an int
@@ -83,14 +83,23 @@ _SIGNATURES = {
         # wcount, s_count, rows, size_pad, mw, C, G, stream
         "ring_place": [_vp, _vp, _i64, _vp, _vp, _i32, _i32, _vp, _i32, _i32,
                        _i32, _i32, _i32, _i32, _vp],
-        # ring, t, ds_int, f_hi, f_lo, start, len, out, rows, size_pad, n,
-        # stream
-        "ring_resample": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                          _i32, _i32, _i32, _vp],
+        "ring_resample": [
+            _vp, _vp, _vp, _f32,           # ring, t, rate or ds, interval
+            _vp, _vp, _vp, _i32,           # start, len, count (or null), its stride
+            _vp, _vp, _vp, _vp,            # out, t', len', start' (or null)
+            _i32, _i32, _i32,              # rows, size_pad, n
+            _vp,                           # stream
+        ],
     },
     "agc_kernel": {
-        # s, scal, gains, carry, V, n, stream
-        "agc_gains": [_vp, _vp, _vp, _vp, _i32, _i32, _vp],
+        "agc_step": [
+            _vp, _vp, _vp, _vp,            # samples, out, avg0, tau
+            _vp, _f32, _i32,               # interval column (or null), interval, stride
+            _vp, _i32,                     # count, its stride
+            _vp, _vp, _vp, _vp,            # low, high, max_gain, carry
+            _i32, _i32, _i32,              # V, C, n
+            _vp,                           # stream
+        ],
     },
     "select_kernel": {
         "strip_select": [

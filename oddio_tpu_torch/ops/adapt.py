@@ -11,11 +11,15 @@ scan of the maps ``(m, b) = (1-a_i, a_i*s_i^2)`` composed as
 tensor ops, where the JAX package uses ``lax.associative_scan``.  Frames at
 ``i >= count`` compose as the identity, freezing the carry.
 
-In device-resident pools whose every tau passes the closed-form gate
-(``_pool_ema_fast``, stamped by the pool) and whose block is a multiple of
-128 frames up to ``EMA_NMAX``, the gains come from K7 (``ops/agc.py``);
-otherwise from the scan, which is plain torch on any device, as it is
-plain XLA in the JAX package.
+In device-resident pools whose every tau passes the closed-form gate at
+the block length the pool renders (``_pool_ema_fast``, stamped by the
+pool, core/drctrl.py), each Adapt step is one K7 launch (``ops/agc.py``
+``agc_step``: alpha, the channel sum, the closed form and the gain
+multiply) for any block the kernel takes, up to ``AGC_NMAX`` frames: the
+buffered pools' 513-frame renders included, where the JAX package takes
+its scan (its kernel needs a multiple of 128 frames).  Other taus, and
+``render_host``, take the scan, which is plain torch on any device, as
+it is plain XLA in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 from ..core.drctrl import _upload
 from ..core.hostmath import f32, full
 from ..core.signal import Signal
-from .agc import EMA_NMAX, _gain, agc_gains, pack_agc_scalars
+from .agc import _alpha, _apply, _gain, _level, agc_fits, agc_step
 
 __all__ = ["Adapt", "AdaptOptions"]
 
@@ -69,14 +73,12 @@ def _ema_gain(avg0, s, alpha, count, low, high, max_gain, n):
     return gain, carry
 
 
-def _alpha(interval, tau):
-    """adapt.rs:70: 1 - exp(-interval/tau), with one f32 division (a Python
-    scalar over a tensor would take a reciprocal and a product) and no
-    host-to-device copy (the numerator is filled on the device).  Under
-    Speed ``interval`` is a per-voice tensor."""
-    if isinstance(interval, torch.Tensor):
-        return 1.0 - torch.exp(-interval / tau)
-    return 1.0 - torch.exp(torch.full_like(tau, -float(np.float32(interval))) / tau)
+def _scan_step(samples, avg0, tau, interval, count, low, high, max_gain, n):
+    """The Adapt step through the scan: (samples * gain, carry (V,))."""
+    cnt = count.to(torch.int32).expand(avg0.shape)
+    gain, avg = _ema_gain(avg0, _level(samples), _alpha(interval, tau), cnt,
+                          low, high, max_gain, n)
+    return _apply(samples, gain), avg
 
 
 class AdaptOptions:
@@ -143,7 +145,7 @@ class Adapt(Signal):
 
     def host_ema_bound(self, interval):
         """Max interval/tau in this chain (DR pools gate K7 on
-        EMA_NMAX * bound <= EMA_GATE)."""
+        max(n, EMA_NMAX) * bound <= EMA_GATE at their block length n)."""
         tau = float(np.min(self.tau)) if getattr(self.tau, "ndim", 0) else float(self.tau)
         own = float(np.float32(interval)) / max(tau, 1e-30)
         return max(own, self.inner.host_ema_bound(interval))
@@ -196,30 +198,17 @@ class Adapt(Signal):
         d2, samples = self.inner.dr_render(
             state["inner"], ddata.get("inner", {}), interval, n, count
         )
-        alpha = _alpha(interval, state["tau"])
-        cnt = count.to(torch.int32).expand(state["avg"].shape)
         # the level is the summed-channel frame (adapt.rs:73); one gain per
         # frame scales every channel (adapt.rs:84-86)
-        s = samples if samples.dim() == 2 else samples.sum(dim=1)
-        if (
-            getattr(self, "_pool_ema_fast", False)
-            and n % 128 == 0
-            and n <= EMA_NMAX
-        ):
-            scal = pack_agc_scalars(
-                state["avg"], alpha, cnt, state["low"], state["high"],
-                state["max_gain"],
-            )
-            gain, avg = agc_gains(s.contiguous(), scal, n)
+        args = (samples, state["avg"], state["tau"], interval, count,
+                state["low"], state["high"], state["max_gain"], n)
+        if getattr(self, "_pool_ema_fast", False) and agc_fits(samples, n):
+            out, avg = agc_step(*args)
         else:
-            gain, avg = _ema_gain(
-                state["avg"], s, alpha, cnt,
-                state["low"], state["high"], state["max_gain"], n,
-            )
+            out, avg = _scan_step(*args)
         st = dict(state)
         st["avg"], st["inner"] = avg, d2
-        g = gain if samples.dim() == 2 else gain[:, None, :]
-        return st, samples * g
+        return st, out
 
     def dr_is_finished(self, state):
         return self.inner.dr_is_finished(state["inner"])

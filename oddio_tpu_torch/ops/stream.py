@@ -19,15 +19,17 @@ queued frames.
 The ring state keeps the JAX package's rows-native shape ``(V, C*R, 128)``
 (``R = size_pad / 128``), so state carries across unchanged; the kernels
 see it as ``(V*C, size_pad)`` rows.  Every chunk is placed through K4.
-The pool-level read (``render_batched``: device-resident pools, and host
-pools whose chain is a bare Stream) goes through K6 (``ring_resample``)
-for mono streams whose step fits the kernel's window, and through the
-plain per-voice read otherwise (stereo streams, steps past
-``RESAMPLE_DSMAX``); a stream under a wrapper in a host pool reads through
-the plain per-voice read (``render_host``, the JAX package's vmapped
-``Stream.render``).  The two reads round their positions differently
-(split-ds exact positions against ``t + ds*j``), so this is semantic
-routing, kept as the JAX package has it.
+The pool-level read goes through K6 for mono streams whose step fits the
+kernel's window, and through the plain per-voice read otherwise (stereo
+streams, steps past ``RESAMPLE_DSMAX``): in a device-resident pool the
+whole Stream step (the step ``rate*interval``, its split, the read and the
+cursor release) is one K6 launch (``stream_step``); a host pool whose
+chain is a bare Stream ships its step and reads through K6's ds form
+(``ring_resample``, ``render_batched``); a stream under a wrapper in a
+host pool reads through the plain per-voice read (``render_host``, the
+JAX package's vmapped ``Stream.render``).  The two reads round their
+positions differently (split-ds exact positions against ``t + ds*j``), so
+this is semantic routing, kept as the JAX package has it.
 """
 
 from __future__ import annotations
@@ -38,13 +40,14 @@ import torch
 from ..core.drctrl import _upload
 from ..core.hostmath import f32, full
 from ..core.signal import ControlBlock, Signal
-from ._dev import device_split_ds
 from .stream_kernels import (
     RESAMPLE_DSMAX,
     RESAMPLE_NMAX,
     RESAMPLE_W,
+    release_plain,
     ring_place,
     ring_resample,
+    stream_step,
 )
 
 __all__ = ["Stream", "StreamControl"]
@@ -303,14 +306,9 @@ class Stream(Signal):
         out = self._read_plain(ring, p["t"], p["ds"], p["len"], p["start"], n)
         return {"ring": ring}, out
 
-    def render_batched(self, dstate, ddata, params, n):
-        """Pool-level render of every voice's ring (``t``, ``ds``, ``len``,
-        ``start`` of shape (V,), tensors or a host pool's numpy params,
-        whose chunk is placed first).  Mono streams whose step and block
-        fit the kernel's window read through K6; the rest take the plain
-        per-voice read.  Returns ``({"ring"}, (V, C, n))``."""
-        ring = dstate["ring"]
-        params = self._placed(ring, params)
+    def _kernel_ok(self, n):
+        """True when this block's read goes through K6: a mono stream whose
+        step and block fit the kernel's window."""
         # window sized for the tightest step bound available: the spec's own
         # tier (standalone prepare) or the pool-stamped one (DR pools)
         tiers = [
@@ -323,18 +321,26 @@ class Stream(Signal):
             ((256 + max(n - 128, 0) * DS) // 128) * 128 + RESAMPLE_W,
             256 + n * DS + 3,
         )
-        kernel_ok = (
+        return (
             self.channels == 1
             and n <= RESAMPLE_NMAX
             and S_req <= self.size_pad
             and bool(getattr(self, "_ds_small", True))
             and bool(getattr(self, "_pool_ds_small", True))
         )
+
+    def render_batched(self, dstate, ddata, params, n):
+        """Pool-level render of every voice's ring (``t``, ``ds``, ``len``,
+        ``start`` of shape (V,), tensors or a host pool's numpy params,
+        whose chunk is placed first).  Mono streams whose step and block
+        fit the kernel's window read through K6; the rest take the plain
+        per-voice read.  Returns ``({"ring"}, (V, C, n))``."""
+        ring = dstate["ring"]
+        params = self._placed(ring, params)
         t, ds, len_, start = params["t"], params["ds"], params["len"], params["start"]
-        if not kernel_ok:
+        if not self._kernel_ok(n):
             return {"ring": ring}, self._read_plain(ring, t, ds, len_, start, n)
-        ds_int, f_hi, f_lo = device_split_ds(ds)
-        samp = ring_resample(self._flat(ring), t, ds_int, f_hi, f_lo, start, len_, n)
+        samp = ring_resample(self._flat(ring), t, ds, start, len_, n)
         return {"ring": ring}, samp[:, None, :]
 
     # -- device-resident mode --------------------------------------------------
@@ -465,28 +471,19 @@ class Stream(Signal):
         return out
 
     def dr_render(self, state, ddata, interval, n, count):
-        iv = float(np.float32(interval))
-        params = {
-            "t": state["t"],
-            "ds": state["rate"] * iv,
-            "len": state["len"],
-            "start": state["start"],
-        }
-        d2, samp = self.render_batched({"ring": state["ring"]}, ddata, params, n)
+        """The read and the release of consumed whole samples
+        (stream.rs:63-69, mirrored by dr_host_tick on the host): one K6
+        launch where the read routes to the kernel."""
         out = dict(state)
-        out["ring"] = d2["ring"]
-        # release consumed whole samples (stream.rs:63-69), mirrored by
-        # dr_host_tick on the host
-        cf = count.to(torch.float32)
-        nxt = state["t"] + (cf * iv) * state["rate"]
-        tc = torch.minimum(nxt, state["len"].to(torch.float32))
-        released = torch.trunc(tc).to(torch.int32)
-        out["t"] = tc - released.to(torch.float32)
-        out["len"] = state["len"] - released
-        out["start"] = torch.remainder(state["start"] + released, self.size_pad)
-        if self.channels == 1:
-            samp = samp[:, 0, :]
-        return out, samp
+        ring, t, rate, len_, start = (state[k] for k in ("ring", "t", "rate", "len", "start"))
+        if self._kernel_ok(n):
+            samp, out["t"], out["len"], out["start"] = stream_step(
+                self._flat(ring), t, rate, interval, count, start, len_, n)
+            return out, samp
+        samp = self._read_plain(ring, t, rate * float(np.float32(interval)), len_, start, n)
+        out["t"], out["len"], out["start"] = release_plain(
+            t, rate, interval, count, start, len_, self.size_pad)
+        return out, samp[:, 0, :] if self.channels == 1 else samp
 
     def dr_is_finished(self, state):
         """stream.rs:88-91: closed && drained."""

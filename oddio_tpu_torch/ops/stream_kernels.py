@@ -16,27 +16,36 @@ modulo ``size_pad``.
   (oddio_tpu/spatial.py:526): the cursor ``128*wrow + extra_w`` and the
   count ``n_write`` read inside the kernel from the pool's operand record
   (``ring_kernels.voice_record``).
-* ``ring_resample`` (K6, for ``strip_resample`` on the stream read,
-  ``render_batched``): per row, the strided fractional read
-  ``lerp(ring[(start + p_j) mod size_pad], ring[(start + p_j + 1) mod
-  size_pad], fr_j)`` with ``p_j``/``fr_j`` from the exact split-ds f32
-  position math of ``_resample_kernel`` (truncate-toward-zero adjustment
-  for a negative offset), zeroed where the unadjusted whole position is
-  past ``len`` (the underrun padding of stream.rs:41-49).
+* K6, for ``strip_resample`` on the stream read, with the torch ops
+  around it: per row, the step split of ``ops._dev.device_split_ds``
+  (``ds_int``, ``f_hi``, ``f_lo``) computed in the kernel from the step,
+  then the strided fractional read ``lerp(ring[(start + p_j) mod
+  size_pad], ring[(start + p_j + 1) mod size_pad], fr_j)`` with
+  ``p_j``/``fr_j`` from the exact split-ds f32 position math of
+  ``_resample_kernel`` (truncate-toward-zero adjustment for a negative
+  offset), zeroed where the unadjusted whole position is past ``len``
+  (the underrun padding of stream.rs:41-49).  Two forms: ``stream_step``,
+  a device-resident pool's whole Stream step, takes the pool's (V,)
+  ``t``, ``rate``, ``start``, ``len`` and ``count`` and the host interval
+  (``ds = rate*interval``) and also writes the cursor release of
+  stream.rs:63-69 to new (V,) tensors; ``ring_resample`` takes the (V,)
+  ``ds`` a host pool ships.
 
 A wrapper runs the plain PyTorch version for tensors on the CPU and
 launches the CUDA kernel of ``csrc/stream_kernels.cu`` for tensors on a
 CUDA device; it never falls back from one to the other.  Each launch adds
 one to ``LAUNCHES[name]``.  Cursors stay device tensors: no host reads.
-K4's wrappers check their operands in full once per signature (shapes,
+The wrappers check their operands in full once per signature (shapes,
 strides, dtypes, devices) and by that signature after.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ._build import lib
+from ._dev import device_split_ds
 from .ring_kernels import (
     REC_FIELDS, REC_WORDS, _VALIDATED, _check, _check_contig, _cuda_device, _ptr,
     _raise_rc, _signature, _stream_ptr, record_fields,
@@ -55,6 +64,9 @@ __all__ = [
     "record_cursor",
     "ring_resample",
     "ring_resample_plain",
+    "release_plain",
+    "stream_step",
+    "stream_step_plain",
 ]
 
 #: read window of the TPU kernel's sub-block gather; it sizes the routing
@@ -207,7 +219,7 @@ def ring_place_record(ring, chunk, rec):
                          (b + 4 * F["n_write"], REC_WORDS), 1)
 
 
-# --- K6: ring resample ------------------------------------------------------
+# --- K6: ring resample and the Stream step ---------------------------------
 
 
 def _positions(t, ds_int, f_hi, f_lo, n):
@@ -227,10 +239,11 @@ def _positions(t, ds_int, f_hi, f_lo, n):
     return wr.to(torch.int32), p, fr
 
 
-def ring_resample_plain(ring, t, ds_int, f_hi, f_lo, start, len_, n):
-    """Plain version of K6: (R, n) samples."""
+def ring_resample_plain(ring, t, ds, start, len_, n):
+    """Plain version of K6's read: the step split (``device_split_ds``),
+    then the strided lerp with the underrun mask: (R, n) samples."""
     size = ring.shape[1]
-    whole, p, fr = _positions(t, ds_int, f_hi, f_lo, n)
+    whole, p, fr = _positions(t, *device_split_ds(ds), n)
     idx = torch.remainder(start.to(torch.int64)[:, None] + p, size)
     a = torch.gather(ring, 1, idx)
     b = torch.gather(ring, 1, torch.remainder(idx + 1, size))
@@ -238,36 +251,108 @@ def ring_resample_plain(ring, t, ds_int, f_hi, f_lo, start, len_, n):
     return torch.where(whole < len_[:, None], s, 0.0)
 
 
-def ring_resample(ring, t, ds_int, f_hi, f_lo, start, len_, n):
-    """K6 (oddio_tpu/ops/pallas_ring.py ``strip_resample``, with the stream
-    read's underrun mask fused): ring (R, size_pad) f32; t (read offset in
-    (-1, 1)), f_hi, f_lo (R,) f32 and ds_int (R,) int32 (the split step,
-    ``ops._dev.device_split_ds``); start, len (R,) int32.  Returns (R, n):
-    the lerp at ``start + trunc(t + j*ds)``, 0 where the whole position is
-    at or past ``len``."""
+def release_plain(t, rate, interval, count, start, len_, size_pad):
+    """The Stream step's cursor release (stream.rs:63-69) in torch, the
+    device twin of the host mirror ``Stream._tick_math``: ``count`` frames
+    at ``rate*interval`` release the whole samples consumed.  Returns new
+    (t', len', start')."""
+    iv = float(np.float32(interval))
+    cf = count.to(torch.float32)
+    nxt = t + (cf * iv) * rate
+    tc = torch.minimum(nxt, len_.to(torch.float32))
+    released = torch.trunc(tc).to(torch.int32)
+    return (tc - released.to(torch.float32), len_ - released,
+            torch.remainder(start + released, size_pad))
+
+
+def stream_step_plain(ring, t, rate, interval, count, start, len_, n):
+    """Plain version of K6's DR form: the read at ``ds = rate*interval``
+    and the release.  Returns (samples (R, n), t', len', start')."""
+    iv = float(np.float32(interval))
+    samp = ring_resample_plain(ring, t, rate * iv, start, len_, n)
+    return (samp,) + release_plain(t, rate, interval, count, start, len_, ring.shape[1])
+
+
+def _check_resample(ring, cols, ints, count, n):
     if not isinstance(ring, torch.Tensor) or ring.dim() != 2:
         raise ValueError("ring must be an (R, size_pad) tensor")
     R, size = ring.shape
     dev = ring.device
     _check(ring, "ring", torch.float32, (R, size), dev)
-    for x, nm in ((t, "t"), (f_hi, "f_hi"), (f_lo, "f_lo")):
+    for x, nm in cols:
         _check(x, nm, torch.float32, (R,), dev)
         _check_contig(x, nm)
-    for x, nm in ((ds_int, "ds_int"), (start, "start"), (len_, "len")):
+    for x, nm in ints:
         _rows_i32(x, R, nm, dev)
-    if n < 1 or n > 4096:
+    if count is not None:
+        if not isinstance(count, torch.Tensor) or count.dtype != torch.int32:
+            raise TypeError("count must be an int32 tensor")
+        if count.device != dev or tuple(count.shape) not in ((), (1,), (R,)):
+            raise ValueError(f"count must be a 0-d, (1,) or ({R},) tensor on {dev}")
+        _check_contig(count, "count")
+    if not 1 <= n <= 4096:
         raise ValueError(f"n={n} outside [1, 4096] (exact split products)")
-    if dev.type == "cpu":
-        return ring_resample_plain(ring, t, ds_int, f_hi, f_lo, start, len_, n)
-    _cuda_device(ring)
-    _check_contig(ring, "ring")
+    if dev.type != "cpu":
+        _cuda_device(ring)
+        _check_contig(ring, "ring")
+        if R > 65535:
+            raise ValueError(f"{R} rows: the kernel's grid takes at most 65535")
+
+
+def _resample_launch(ring, t, step, iv, start, len_, count, n):
+    """Launch K6: the ds form (``count`` None) or the DR form.  Returns
+    (out,) or (out, t', len', start')."""
+    R, size = ring.shape
+    dev = ring.device
     out = torch.empty((R, n), dtype=torch.float32, device=dev)
+    cur = () if count is None else (torch.empty_like(t), torch.empty_like(len_),
+                                     torch.empty_like(start))
     if R == 0:
-        return out
+        return (out,) + cur
+    ptrs = [None] * 3 if count is None else [x.data_ptr() for x in cur]
     rc = lib("stream_kernels").ring_resample(
-        _ptr(ring), _ptr(t), _ptr(ds_int), _ptr(f_hi), _ptr(f_lo),
-        _ptr(start), _ptr(len_), _ptr(out), R, size, n, _stream_ptr(dev),
+        ring.data_ptr(), t.data_ptr(), step.data_ptr(), iv, start.data_ptr(),
+        len_.data_ptr(), _ptr(count), 0 if count is None or count.numel() == 1 else 1,
+        out.data_ptr(), *ptrs, R, size, n, _stream_ptr(dev),
     )
     LAUNCHES["ring_resample"] += 1
     _raise_rc(rc, "ring_resample")
-    return out
+    return (out,) + cur
+
+
+def ring_resample(ring, t, ds, start, len_, n):
+    """K6 (oddio_tpu/ops/pallas_ring.py ``strip_resample``, with the step
+    split and the stream read's underrun mask fused), as a host pool's
+    stream read ships its step: ring (R, size_pad) f32; t (read offset in
+    (-1, 1)) and ds (R,) f32; start, len (R,) int32.  Returns (R, n): the
+    lerp at ``start + trunc(t + j*ds)`` (the split-ds exact positions),
+    0 where the whole position is at or past ``len``.  Checks run once
+    per (shapes, strides, dtypes, devices)."""
+    key = ("resample", n, _signature(ring, t, ds, start, len_))
+    if key not in _VALIDATED:
+        _check_resample(ring, ((t, "t"), (ds, "ds")), ((start, "start"), (len_, "len")),
+                        None, n)
+        _VALIDATED.add(key)
+    if ring.device.type == "cpu":
+        return ring_resample_plain(ring, t, ds, start, len_, n)
+    return _resample_launch(ring, t, ds, 0.0, start, len_, None, n)[0]
+
+
+def stream_step(ring, t, rate, interval, count, start, len_, n):
+    """K6's DR form: one device-resident Stream step (oddio_tpu/ops/
+    stream.py ``dr_render``: the read at ``ds = rate*interval`` and the
+    release of stream.rs:63-69) in one launch.  ring (R, size_pad) f32;
+    t, rate (R,) f32; interval a host number; count int32 0-d, (1,) or
+    (R,), the frames consumed; start, len (R,) int32.  Returns (samples
+    (R, n), t', len', start'), the cursors new tensors, term for term
+    the host mirror ``Stream._tick_math``."""
+    key = ("step", n, _signature(ring, t, rate, start, len_, count))
+    if key not in _VALIDATED:
+        _check_resample(ring, ((t, "t"), (rate, "rate")),
+                        ((start, "start"), (len_, "len")), count, n)
+        if not isinstance(interval, (float, int, np.floating)):
+            raise TypeError("interval must be a host number")
+        _VALIDATED.add(key)
+    if ring.device.type == "cpu":
+        return stream_step_plain(ring, t, rate, interval, count, start, len_, n)
+    return _resample_launch(ring, t, rate, float(np.float32(interval)), start, len_, count, n)

@@ -265,7 +265,7 @@ class ScenePack:
             blocks.append(self._render(params, block_size))
             remaining = nblocks - bi - 1
             if remaining and not tree_leaves(params) and all(
-                getattr(s, "host_idle_bulk_ok", lambda iv: False)(self.interval)
+                getattr(s, "host_idle_bulk_ok", lambda iv, n: False)(self.interval, block_size)
                 for s in self.scenes
             ):
                 for s in self.scenes:

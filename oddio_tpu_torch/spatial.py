@@ -1040,7 +1040,7 @@ class _SeekPoolDR(_DRPoolBase):
         self._elapsed = float(np.float32(f32(interval) * np.float32(n)))
         # warp steps are the scene interval times the doppler factor; 1.25
         # covers the clamped |v|/c range (K_DOPPLER) with margin
-        self._ds_small = self._ds_flag_sync(float(f32(interval)) * 1.25)
+        self._ds_small = self._ds_flag_sync(float(f32(interval)) * 1.25, n)
         params = self._delta_params({}, force)
         self._g_smdt = (self._g_smdt + np.float32(self._elapsed)).astype(np.float32)
         return params
@@ -1537,7 +1537,7 @@ class _BufferedPoolDR(_DRPoolBase):
         params = self._delta_params(params, force)
         # the chain's read-path flags (stream step bound, AGC gate) at the
         # inner timebase, after this block's plays and control writes
-        self._ds_small = self._ds_flag_sync(self.interval_inner)
+        self._ds_small = self._ds_flag_sync(self.interval_inner, self._n_inner)
         # read-path tier from the rate ratio and the scene's actual motion
         if prev_rot is rot:
             rot_sin_half = 0.0

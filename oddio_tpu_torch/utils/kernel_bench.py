@@ -33,6 +33,18 @@ calls of render's host time less advance's (a replay takes ~6 ms of
 host time, whose drift between two separate 50-call clocks is larger
 than the read's share).
 
+``agc`` and ``resample`` time a device-resident pool's whole Adapt step
+(K7 and whatever the step launches around it) and whole Stream step (K6
+and the same) on captured states (``step_states``): the 4096-voice
+config-5 mixer's two Adapt pools at n = 512, and a host-pool scene's
+device-resident Adapt(Stream) pool (512 voices) at n = 513.  ``agc``'s
+``...: render`` is the Adapt pool's ``dr_render`` and ``...: advance``
+its inner's alone, so the differences are the Adapt step; ``resample``'s
+``...: render`` is the Stream's ``dr_render`` and its advance does
+nothing.  Warm: one block's state, 50 calls; cold: ``SETS`` consecutive
+blocks' states in turn.  Both run on any tree of the port (pool methods
+only), so two trees of the port are timed in turns.
+
 Each case prints ``ms`` (CUDA events around 50 calls, host issue
 included), ``host_ms`` (their wall clock, no synchronise) and
 ``device_ms`` (the device work they launched, from ``torch.profiler``,
@@ -42,8 +54,8 @@ one.  K4 and K5 are timed through their tensor forms and their record
 forms; the same file times another tree's kernels from that tree's
 root::
 
-    python3 -m oddio_tpu_torch.utils.kernel_bench [append] [place] [select] [read]
-    cd OTHER_TREE && PYTHONPATH=. python3 PATH/TO/kernel_bench.py place select read
+    python3 -m oddio_tpu_torch.utils.kernel_bench [append] [place] [select] [read] [agc] [resample]
+    cd OTHER_TREE && PYTHONPATH=. python3 PATH/TO/kernel_bench.py place select read agc resample
 
 ``chip_smoke.py`` builds its cold operands and K5's cases here.
 """
@@ -524,7 +536,9 @@ def read_differences(res):
     for name, r in res.items():
         if not name.endswith(": render"):
             continue
-        a = res[name[:-len("render")] + "advance"]
+        a = dict(res[name[:-len("render")] + "advance"])
+        if a["kernels"] == 0 and a["device_ms"] is None:
+            a["device_ms"] = 0.0  # a call that launches nothing
         d = {k: (None if r[k] is None or a[k] is None else r[k] - a[k])
              for k in ("ms", "host_ms", "device_ms", "kernels")}
         out[name[:-len(": render")]] = dict(d, bound_ms=r["bound_ms"],
@@ -532,8 +546,162 @@ def read_differences(res):
     return out
 
 
+# --- the device-resident Adapt and Stream steps (K7, K6) ------------------------
+
+
+def dr_pools(engine):
+    """Every device-resident voice pool of a Mixer or SpatialScene
+    ``engine``, its submixes' (singleton pools' engines) included."""
+    out = []
+    pools = list(getattr(engine, "_pools", {}).values())
+    pools += list(getattr(engine, "_buffered_pools", {}).values())
+    for p in pools:
+        if p.is_dr:
+            out.append(p)
+        sub = getattr(p, "sig", None)
+        if sub is not None and (hasattr(sub, "_pools") or hasattr(sub, "_buffered_pools")):
+            out.extend(dr_pools(sub))
+    return out
+
+
+def capture_steps(pools, render):
+    """Run ``render()`` with every pool's ``proto.dr_render`` spied on:
+    {pool: [the (state, ddata, interval, n, count) of each call]}.  Each
+    replays with ``pool.proto.dr_render(*args)``."""
+    caps = {p: [] for p in pools}
+    for p in pools:
+        def spy(*a, _inner=p.proto.dr_render, _caps=caps[p]):
+            _caps.append(a)
+            return _inner(*a)
+        p.proto.dr_render = spy
+    try:
+        render()
+    finally:
+        for p in pools:
+            del p.proto.dr_render
+    return caps
+
+
+def adapt_step(proto, args):
+    """(the whole Adapt(inner) render, the inner's render alone) as
+    no-argument calls on captured ``args``: their difference is the Adapt
+    step."""
+    state, ddata, rest = args[0], args[1], args[2:]
+    return (lambda: proto.dr_render(*args),
+            lambda: proto.inner.dr_render(state["inner"], ddata.get("inner", {}), *rest))
+
+
+def step_kernels(proto, args):
+    """Device kernels of one Adapt step (the whole render less the
+    inner's) and of one Stream step on captured ``args`` of an Adapt pool
+    (the Stream's None where the inner is no Stream)."""
+    whole, inner = adapt_step(proto, args)
+    k_inner = device_profile(inner, reps=1)[1]
+    k_adapt = device_profile(whole, reps=1)[1] - k_inner
+    is_stream = type(proto.inner).__name__ == "Stream"
+    return k_adapt, (k_inner if is_stream else None)
+
+
+#: blocks captured for the step modes: one warm state, SETS cold ones
+STEP_BLOCKS = SETS + 2
+_STEP_STATES = {}
+
+
+def step_states(dev):
+    """Captured Adapt-pool states: the 4096-voice config-5 mixer's two
+    pools (512 Adapt(Stream), 3584 Adapt(Sine); n = 512, a write before
+    the capture so one block ingests) and a host-pool scene's
+    device-resident Adapt(Stream) pool (512 voices at n = 513).  Returns
+    [(label, proto, [args per block])], built once per device."""
+    if dev in _STEP_STATES:
+        return _STEP_STATES[dev]
+    import oddio_tpu_torch as pt
+    from oddio_tpu_torch.utils.scene_profile import build_host_pools, build_mixer_agc, feed
+
+    out = []
+    _, mixer, ctls, rng = build_mixer_agc(V, dev)
+    r = pt.Renderer(mixer, 48000)
+    r.render_frames(W * 4)
+    feed(ctls, rng, 1024)
+    pools = dr_pools(mixer)
+    caps = capture_steps(pools, lambda: [r.render_block(W) for _ in range(STEP_BLOCKS)])
+    for p in pools:
+        out.append((f"{type(p.proto.inner).__name__} V={p.capacity} n={W}", p.proto,
+                    caps[p][-STEP_BLOCKS:]))
+    _, scene, ctls, _, rng = build_host_pools(64, dev, dr_voices=512, submix_voices=64)
+    r = pt.Renderer(scene, 48000)
+    r.render_frames(W * 4)
+    feed(ctls, rng, 1024)
+    pools = [p for p in scene._buffered_pools.values() if p.is_dr]
+    caps = capture_steps(pools, lambda: [r.render_block(W) for _ in range(STEP_BLOCKS)])
+    for p in pools:
+        args = caps[p][-STEP_BLOCKS:]
+        out.append((f"{type(p.proto.inner).__name__} V={p.capacity} n={args[0][3]} "
+                    "(host-pool scene)", p.proto, args))
+    _STEP_STATES[dev] = out
+    return out
+
+
+def agc_bytes(args):
+    """Bytes the Adapt step must move: the inner's samples in, the output
+    out, 24 bytes of per-voice columns in (avg, tau, count, low, high,
+    max_gain) and the carry out."""
+    state, n = args[0], args[3]
+    Vs = state["avg"].shape[0]
+    return 8 * Vs * n + 28 * Vs
+
+
+def agc_cases(dev):
+    """{name: (call, bound ms)} of the whole Adapt step on captured pool
+    states (``step_states``), warm (one block's state) and cold (``SETS``
+    blocks' states in turn): ``...: render`` the Adapt pool's
+    ``dr_render``, ``...: advance`` its inner's alone."""
+    out = {}
+    for label, proto, states in step_states(dev):
+        bms = bound(agc_bytes(states[0]), 20 * states[0][0]["avg"].shape[0] * states[0][3])[0]
+        for heat, ss in (("warm", states[:1]), ("cold", states[1:1 + SETS])):
+            out[f"agc step {label}, {heat}: render"] = (
+                cycling([adapt_step(proto, a) for a in ss], lambda w, i: w()), bms)
+            out[f"agc step {label}, {heat}: advance"] = (
+                cycling([adapt_step(proto, a) for a in ss], lambda w, i: i()), bms)
+    return out
+
+
+def resample_bytes(SK, state, n):
+    """Bytes the Stream step must move: each voice's read span, the (V, n)
+    output, 40 bytes of cursors (t, rate, start, len, count in; t', len',
+    start' out)."""
+    from oddio_tpu_torch.ops._dev import device_split_ds
+
+    t, rate = state["t"], state["rate"]
+    ds = rate * float(np.float32(1.0 / 48000.0))
+    _, pos, _ = SK._positions(t, *device_split_ds(ds), n)
+    Vs = t.shape[0]
+    return span_bytes(pos) + 4 * Vs * n + 40 * Vs
+
+
+def resample_cases(dev):
+    """{name: (call, bound ms)} of the whole Stream step (``Stream.dr_render``
+    of the Adapt(Stream) pools' captured inner states), warm and cold;
+    ``...: advance`` does nothing, so the differences are the step."""
+    from oddio_tpu_torch.ops import stream_kernels as SK
+
+    out = {}
+    for label, proto, states in step_states(dev):
+        if type(proto.inner).__name__ != "Stream":
+            continue
+        inner = [adapt_step(proto, a)[1] for a in states]
+        n = states[0][3]
+        bms = bound(resample_bytes(SK, states[0][0]["inner"], n))[0]
+        for heat, fs in (("warm", inner[:1]), ("cold", inner[1:1 + SETS])):
+            out[f"stream step {label}, {heat}: render"] = (cycling([(f,) for f in fs],
+                                                                   lambda f: f()), bms)
+            out[f"stream step {label}, {heat}: advance"] = (lambda: None, bms)
+    return out
+
+
 MODES = {"append": append_cases, "place": place_cases, "select": select_cases,
-         "read": read_cases}
+         "read": read_cases, "agc": agc_cases, "resample": resample_cases}
 
 
 def main(argv=None):

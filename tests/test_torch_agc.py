@@ -1,22 +1,24 @@
-"""The port's AGC gains (oddio_tpu_torch/ops/agc.py K7 and the Adapt scan
-``_ema_gain``) against the JAX package and a float64 sequential oracle.
+"""The port's AGC (oddio_tpu_torch/ops/agc.py K7 ``agc_step`` and the Adapt
+scan ``_ema_gain``) against the JAX package and a float64 sequential
+oracle.
 
-* ``agc_gains`` plain vs JAX ``ema_gain_closed`` and ``agc_gains`` (Pallas,
-  interpret mode), with rows whose ``count`` < n: within
-  ``agc.agc_tolerance`` elementwise (the bound the CUDA kernel is held to
-  on the card; the measured gap is about a quarter of it, <= 1.8e-7 on
-  gains of 0.1 to 8).
+* ``agc_step`` plain vs JAX ``ema_gain_closed`` and ``agc_gains`` (Pallas,
+  interpret mode), fed the same alpha, with rows whose ``count`` < n:
+  output samples and carries within ``agc.agc_tolerance`` elementwise
+  (the bound the CUDA kernel is held to on the card), gains within 5e-7.
 * ``_ema_gain`` (Hillis-Steele scan) vs JAX's ``associative_scan``: the
   same maps composed in another order; gains within 5e-7, carries within
   1e-6 relative (measured 1.8e-7 and 1.1e-7).
-* Near the closed form's gate (EMA_NMAX * interval/tau close to EMA_GATE,
+* Near the closed form's gate (n * interval/tau close to EMA_GATE,
   tau = 0.334 ms at 48 kHz), judged against the float64 sequential
   recurrence of adapt.rs:69-88, not against the JAX package (ROADMAP R2):
   gains within 2e-6, output samples within the 1e-5 contract (measured
   6e-7 and 2.7e-7).
 * The tolerance fails planted faults, in a float32 emulation of the CUDA
-  kernel's arithmetic order: an inclusive prefix where the exclusive one
-  belongs, and a dropped ``count`` freeze.
+  kernel's arithmetic order (lane-serial sums over F frames, a shuffle
+  scan of the lane totals): an inclusive prefix where the exclusive one
+  belongs, a dropped ``count`` freeze, channel 1 left out of the level,
+  and the tail frame of n = 513 left out of the frame mask.
 """
 
 import numpy as np
@@ -36,6 +38,9 @@ from oddio_tpu_torch.ops.adapt import _ema_gain  # noqa: E402
 torch.set_num_threads(1)
 
 
+IV = np.float32(1.0 / 48000.0)
+
+
 def _inputs(V, n, seed, alpha=None):
     rng = np.random.default_rng(seed)
     s = (rng.standard_normal((V, n)) * 0.4).astype(np.float32)
@@ -51,6 +56,19 @@ def _inputs(V, n, seed, alpha=None):
     return avg0, s, alpha, count, low, high, mg
 
 
+def _step_args(args):
+    """``_inputs`` as ``agc_step``'s operands at a 48 kHz interval: the tau
+    of each alpha, and the alpha the step derives from it (which the JAX
+    functions are fed)."""
+    avg0, s, alpha, count, low, high, mg = args
+    tau = (-np.float64(IV) / np.log1p(-alpha.astype(np.float64))).astype(np.float32)
+    T = [torch.tensor(x) for x in (s, avg0, tau)]
+    step = (T[0], T[1], T[2], float(IV), torch.tensor(count), torch.tensor(low),
+            torch.tensor(high), torch.tensor(mg))
+    a = A._alpha(float(IV), T[2]).numpy()
+    return step, (avg0, s, a, count, low, high, mg)
+
+
 def _within(got, ref, tol):
     return bool((np.abs(np.asarray(got, np.float64) - np.asarray(ref, np.float64))
                  <= tol.numpy()).all())
@@ -58,21 +76,21 @@ def _within(got, ref, tol):
 
 @pytest.mark.parametrize("V,n", [(8, 128), (20, 512)])
 def test_agc_plain_matches_jax_closed_form_and_kernel(V, n):
-    args = _inputs(V, n, V * 1000 + n)
+    step, args = _step_args(_inputs(V, n, V * 1000 + n))
     J = [jnp.asarray(x) for x in args]
-    T = [torch.tensor(x) for x in args]
     gj, cj = jax_closed(*J, n)
     gk, ck = jax_agc_gains(J[1], jax_pack(J[0], J[2], J[3], J[4], J[5], J[6]),
                            n=n, interpret=True)
-    scal = A.pack_agc_scalars(T[0], T[2], T[3], T[4], T[5], T[6])
     before = A.LAUNCHES["agc_gains"]
-    g, c = A.agc_gains(T[1], scal, n)
+    out, c = A.agc_step(*step, n)
     assert A.LAUNCHES["agc_gains"] == before  # the plain version launches nothing
-    tol_g, tol_c = A.agc_tolerance(T[1], scal, n)
+    tol_x, tol_c = A.agc_tolerance(*step, n)
+    s = args[1]
     for gr, cr in ((gj, cj), (gk, ck)):
-        assert _within(g, gr, tol_g)
+        assert _within(out, s * np.asarray(gr), tol_x)
         assert _within(c, cr, tol_c)
-        assert np.abs(g.numpy() - np.asarray(gr)).max() <= 5e-7
+        g = out.numpy() / np.where(s == 0, 1, s)
+        assert np.abs(np.where(s == 0, 0, g - np.asarray(gr))).max() <= 5e-7
 
 
 @pytest.mark.parametrize("V,n", [(8, 128), (20, 512), (5, 384)])
@@ -114,57 +132,67 @@ def _sequential_f64(avg0, s, alpha, count, low, high, mg):
 
 def test_closed_form_near_gate_matches_sequential_oracle():
     n = A.EMA_NMAX
-    iv = np.float32(1.0 / 48000.0)
     tau = np.float32(3.34e-4)
-    assert 31.0 < n * float(iv) / float(tau) <= A.EMA_GATE
-    alpha = np.float32(1.0) - np.exp(-iv / tau, dtype=np.float32)
-    args = _inputs(16, n, 5, alpha=alpha)
-    T = [torch.tensor(x) for x in args]
-    scal = A.pack_agc_scalars(T[0], T[2], T[3], T[4], T[5], T[6])
-    g, c = A.agc_gains(T[1], scal, n)
+    assert 31.0 < n * float(IV) / float(tau) <= A.EMA_GATE
+    alpha = np.float32(1.0) - np.exp(-IV / tau, dtype=np.float32)
+    step, args = _step_args(_inputs(16, n, 5, alpha=alpha))
+    out, c = A.agc_step(*step, n)
     go, co = _sequential_f64(*args)
-    assert np.abs(g.numpy() - go).max() <= 2e-6
-    assert np.abs((g.numpy() - go) * args[1]).max() <= 1e-5
+    s = args[1]
+    g = out.numpy() / np.where(s == 0, 1, s)
+    assert np.abs(np.where(s == 0, 0, g - go)).max() <= 2e-6
+    assert np.abs(out.numpy() - go * s).max() <= 1e-5
     assert (np.abs(c.numpy() - co) <= 2e-6 * co).all()
 
 
 # --- planted faults ------------------------------------------------------------
 
 
-def _kernel_order(s, scal, n, fault=None):
-    """float32 emulation of csrc/agc_kernel.cu: the same ops, and the
-    prefix sum in its order (5-step warp shuffle scan, then the scanned
-    warp totals added back).  ``fault``: "inclusive" uses csum where the
-    exclusive prefix belongs; "count" drops the count freeze."""
-    V = s.shape[0]
-    avg0, a, lg, lim, low, high, mg = (scal[:, k : k + 1] for k in range(7))
+def _kernel_order(x, cols, n, fault=None):
+    """float32 emulation of csrc/agc_kernel.cu on a (V, C, n) block: the
+    same ops, the channel sum in order, and the prefix sum in its order
+    (each lane's F frames summed serially, a 5-step shuffle scan of the
+    lane totals, the lane's exclusive offset carried serially through its
+    frames).  ``fault``: "inclusive" uses the inclusive prefix where the
+    exclusive one belongs; "count" drops the count freeze; "channel"
+    leaves channel 1 out of the level; "tail" leaves the frames past the
+    last multiple of 32 out of the frame mask (they keep the input, the
+    carry is never written).  Returns (output (V, C, n), carry)."""
+    V = x.shape[0]
+    F = next(f for f in (1, 3, 5, 9, 17) if 32 * f >= n)
+    avg0, a, lg, lim, low, high, mg = cols
     if fault == "count":
         lim = torch.full_like(lim, float(n))
+    s = x[:, 0] if fault == "channel" else x.sum(dim=1)
     i_f = torch.arange(n, dtype=torch.float32)
     s2 = s * s
     M = torch.exp(torch.minimum(i_f + 1.0, lim) * lg)
     term = torch.where(i_f < lim, (a * s2) / M, 0.0)
-
-    def warp_scan(x):
-        for d in (1, 2, 4, 8, 16):
-            x = torch.cat([x[..., :d], x[..., d:] + x[..., :-d]], dim=-1)
-        return x
-
-    x = warp_scan(term.view(V, n // 32, 32))
-    tot = torch.zeros((V, 32))
-    tot[:, : n // 32] = x[..., 31]
-    w = warp_scan(tot)[:, : n // 32]
-    csum = x.clone()
-    csum[:, 1:] = x[:, 1:] + w[:, :-1, None]
-    csum = csum.reshape(V, n)
-    excl = csum if fault == "inclusive" else csum - term
+    tp = torch.zeros((V, 32 * F))
+    tp[:, :n] = term
+    tp = tp.view(V, 32, F)
+    run = torch.zeros((V, 32))
+    for k in range(F):
+        run = run + tp[..., k]
+    incl = run
+    for d in (1, 2, 4, 8, 16):
+        incl = torch.cat([incl[:, :d], incl[:, d:] + incl[:, :-d]], dim=1)
+    cur = torch.cat([torch.zeros((V, 1)), incl[:, :-1]], dim=1)
+    excl = torch.zeros((V, 32, F))
+    for k in range(F):
+        excl[..., k] = cur
+        cur = cur + tp[..., k]
+    excl = excl.reshape(V, 32 * F)[:, :n]
+    if fault == "inclusive":
+        excl = excl + term
     prev = torch.exp(torch.minimum(i_f, lim) * lg) * (avg0 + excl)
     avg2 = s2 * a + prev * (1.0 - a)
     gain = A._gain(avg2, low, high, mg)
-    carry = torch.exp(torch.minimum(torch.tensor(float(n)), lim) * lg)[:, 0] * (
-        avg0[:, 0] + csum[:, -1]
-    )
-    return gain, carry
+    carry = M[:, -1] * (avg0[:, 0] + (excl[:, -1] + term[:, -1]))
+    if fault == "tail":
+        gain[:, n & ~31:] = 1.0
+        carry = torch.zeros_like(carry)
+    return x * gain[:, None, :], carry
 
 
 def _worst(got, ref, tol):
@@ -172,20 +200,24 @@ def _worst(got, ref, tol):
     return float((d / tol.clamp_min(1e-300)).max())
 
 
-def test_agc_tolerance_fails_planted_faults():
+@pytest.mark.parametrize("n,C", [(512, 1), (513, 2)])
+def test_agc_tolerance_fails_planted_faults(n, C):
     """The kernel's own summation order sits inside the tolerance; each
     planted fault lands far outside it (at the smoke's tau = 0.1 s)."""
-    V, n = 256, 512
-    iv = np.float32(1.0 / 48000.0)
-    alpha = np.float32(1.0) - np.exp(-iv / np.float32(0.1), dtype=np.float32)
-    args = _inputs(V, n, 11, alpha=alpha)
-    T = [torch.tensor(x) for x in args]
-    scal = A.pack_agc_scalars(T[0], T[2], T[3], T[4], T[5], T[6])
-    g, c = A.agc_gains_plain(T[1], scal, n)
-    tol_g, tol_c = A.agc_tolerance(T[1], scal, n)
-    ge, ce = _kernel_order(T[1], scal, n)
-    assert _worst(ge, g, tol_g) <= 1.0 and _worst(ce, c, tol_c) <= 1.0
-    gi, _ = _kernel_order(T[1], scal, n, fault="inclusive")
-    assert _worst(gi, g, tol_g) > 10.0
-    gc, cc = _kernel_order(T[1], scal, n, fault="count")
-    assert max(_worst(gc, g, tol_g), _worst(cc, c, tol_c)) > 10.0
+    V = 256
+    alpha = np.float32(1.0) - np.exp(-IV / np.float32(0.1), dtype=np.float32)
+    step, args = _step_args(_inputs(V, n, 11, alpha=alpha))
+    rng = np.random.default_rng(12)
+    x = torch.tensor((rng.standard_normal((V, C, n)) * 0.4).astype(np.float32))
+    step = (x if C > 1 else x[:, 0],) + step[1:]
+    out, c = A.agc_step_plain(*step, n)
+    tol_x, tol_c = A.agc_tolerance(*step, n)
+    if C == 1:
+        out, tol_x = out[:, None], tol_x[:, None]
+    cols = A._columns(*step[1:8])
+    ge, ce = _kernel_order(x, cols, n)
+    assert _worst(ge, out, tol_x) <= 1.0 and _worst(ce, c, tol_c) <= 1.0
+    faults = ["inclusive", "count"] + (["channel", "tail"] if C > 1 else [])
+    for fault in faults:
+        gf, cf = _kernel_order(x, cols, n, fault=fault)
+        assert max(_worst(gf, out, tol_x), _worst(cf, c, tol_c)) > 10.0, fault

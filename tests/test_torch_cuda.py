@@ -11,8 +11,9 @@ from the ring, within ``ring_kernels.ring_select_ears_tolerance`` /
 reads: the kernel sums the same products in another, fixed order; the
 tolerance follows how float32 rounding errors of such a sum grow, and
 fails a dropped voice or bf16 partial sums), two runs bit-equal; K4 exact (a copy); K6 exact (the same f32 operations, each
-rounded once); K7 within ``agc.agc_tolerance`` elementwise (another order
-of the prefix sum); K5 within ``ring_kernels.strip_tolerance``
+rounded once), in its DR form (read and cursor release) and its ds form;
+K7, the whole Adapt step, within ``agc.agc_tolerance`` elementwise
+(another order of the prefix sum) at every block length up to 1024; K5 within ``ring_kernels.strip_tolerance``
 elementwise (its voice sum in another, fixed order); K8 within
 ``flat_kernels.window_select_tolerance`` (K2's), K9 exact (a copy), K10
 within ``flat_kernels.dma_tolerance`` (as K5's); K1/K2 with a ScenePack's
@@ -291,50 +292,78 @@ def test_ring_place_exact(cuda, mw):
 
 
 @pytest.mark.parametrize("ds", [1.0 / 6.0, 1.0, 4.0])
-def test_ring_resample_exact(cuda, ds):
+@pytest.mark.parametrize("V", [1, 512, 4096])
+def test_ring_resample_exact(cuda, ds, V):
+    """K6 in its DR form (the read at ``rate*interval`` and the cursor
+    release) and its ds form, equal to the plain versions, at read offsets
+    in [-0.99, 1) (the truncate-toward-zero branch included)."""
     rng = np.random.default_rng(50)
-    V, n = 4096, 512
-    ring = torch.tensor(rng.standard_normal((V, SIZE_PAD)).astype(np.float32), device=cuda)
-    dsv = torch.tensor(rng.uniform(ds * 0.9, ds, V).astype(np.float32), device=cuda)
-    di, fh, fl = device_split_ds(dsv)
-    t = torch.tensor(rng.uniform(-0.99, 1.0, V).astype(np.float32), device=cuda)
-    start = torch.tensor(rng.integers(0, SIZE_PAD, V).astype(np.int32), device=cuda)
-    len_ = torch.tensor(rng.integers(0, int(n * ds) + 3, V).astype(np.int32), device=cuda)
-    args = (ring, t, di, fh, fl, start, len_, n)
-    plain = SK.ring_resample_plain(*args)
+    n, iv = 512, float(np.float32(1.0 / 48000.0))
+
+    def t(x, dtype=np.float32):
+        return torch.tensor(np.asarray(x, dtype), device=cuda)
+
+    ring = t(rng.standard_normal((V, SIZE_PAD)))
+    rate = t(np.float32(ds * 48000.0) * rng.uniform(0.9, 1.0, V))
+    ops = (ring, t(rng.uniform(-0.99, 1.0, V)), rate, iv, t(rng.integers(n - 1, n + 1, V), np.int32),
+           t(rng.integers(0, SIZE_PAD, V), np.int32),
+           t(rng.integers(0, int(n * ds) + 3, V), np.int32), n)
     before = SK.LAUNCHES["ring_resample"]
-    got = SK.ring_resample(*args)
+    got = SK.stream_step(*ops) + (SK.ring_resample(ring, ops[1], rate * iv, ops[5], ops[6], n),)
     torch.cuda.synchronize()
-    assert SK.LAUNCHES["ring_resample"] == before + 1
-    assert torch.equal(got, plain)
+    assert SK.LAUNCHES["ring_resample"] == before + 2
+    plain = SK.stream_step_plain(*ops) + (
+        SK.ring_resample_plain(ring, ops[1], rate * iv, ops[5], ops[6], n),)
+    for g, w in zip(got, plain):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def _agc_operands(cuda, rng, V, n, C, per_voice, tau):
+    def t(x, dtype=np.float32):
+        return torch.tensor(np.asarray(x, dtype), device=cuda)
+
+    iv = np.float32(1.0 / 48000.0)
+    shape = (V, n) if C == 1 else (V, C, n)
+    amp = rng.choice([0.01, 0.1, 0.5, 1.0], (V,) + (1,) * (len(shape) - 1))
+    count = np.where(np.arange(V) < V // 2, n, rng.integers(0, n + 1, V))
+    return (t(rng.standard_normal(shape) * amp), t(rng.uniform(1e-3, 0.3, V)),
+            t(np.full(V, np.float32(tau))),
+            t(rng.uniform(0.8, 1.25, V) * iv) if per_voice else float(iv),
+            t(count, np.int32), t(np.full(V, 0.1 / np.sqrt(2))),
+            t(np.full(V, 0.5 / np.sqrt(2))), t(np.full(V, 4.0)), n)
+
+
+def _agc_within(ops):
+    out, carry = A.agc_step(*ops)
+    torch.cuda.synchronize()
+    pout, pcarry = A.agc_step_plain(*ops)
+    tol_x, tol_c = A.agc_tolerance(*ops)
+    assert bool(torch.isfinite(out).all())
+    assert bool(((out - pout).abs().double() <= tol_x).all())
+    assert bool(((carry - pcarry).abs().double() <= tol_c).all())
 
 
 @pytest.mark.parametrize("tau", [0.1, 3.34e-4])
 def test_agc_gains_within_tolerance(cuda, tau):
-    rng = np.random.default_rng(60)
-    V, n = 4096, 512
-    iv = np.float32(1.0 / 48000.0)
-    alpha = np.float32(1.0) - np.exp(-iv / np.float32(tau), dtype=np.float32)
-
-    def t(x):
-        return torch.tensor(np.asarray(x, np.float32), device=cuda)
-
-    s = t(rng.standard_normal((V, n)) * 0.3)
-    count = torch.tensor(rng.integers(0, n + 1, V).astype(np.int32), device=cuda)
-    count[: V // 2] = n
-    scal = A.pack_agc_scalars(
-        t(rng.uniform(1e-3, 0.3, V)), t(np.full(V, alpha)), count,
-        t(np.full(V, 0.1 / np.sqrt(2))), t(np.full(V, 0.5 / np.sqrt(2))),
-        t(np.full(V, 4.0)),
-    )
-    gp, cp = A.agc_gains_plain(s, scal, n)
+    """K7 (the whole Adapt step) at the mixer's shape: 4096 mono voices,
+    n = 512, a host interval, counts below n on half the voices."""
+    ops = _agc_operands(cuda, np.random.default_rng(60), 4096, 512, 1, False, tau)
     before = A.LAUNCHES["agc_gains"]
-    g, c = A.agc_gains(s, scal, n)
-    torch.cuda.synchronize()
+    _agc_within(ops)
     assert A.LAUNCHES["agc_gains"] == before + 1
-    tol_g, tol_c = A.agc_tolerance(s, scal, n)
-    assert bool(((g - gp).abs().double() <= tol_g).all())
-    assert bool(((c - cp).abs().double() <= tol_c).all())
+
+
+@pytest.mark.parametrize("V", [1, 512, 3584])
+@pytest.mark.parametrize("n", [100, 128, 513, 544])
+@pytest.mark.parametrize("C,per_voice", [(1, True), (2, False), (2, True)])
+def test_agc_step_any_block_within_tolerance(cuda, V, n, C, per_voice):
+    """K7 at every block length the pools render (not only multiples of
+    128), one and two channels, host and per-voice intervals, tau 0.1 s
+    and one within 1% of the gate at that n."""
+    rng = np.random.default_rng(V + n + C)
+    iv_max = np.float32(1.0 / 48000.0) * (1.25 if per_voice else 1.0)
+    for tau in (0.1, n * iv_max / (0.99 * A.EMA_GATE)):
+        _agc_within(_agc_operands(cuda, rng, V, n, C, per_voice, tau))
 
 
 def test_mixer_agc_scene_on_card_matches_cpu(cuda):

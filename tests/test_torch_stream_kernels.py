@@ -7,8 +7,9 @@ tests run them.
   row scatter): exact (a copy), wrapping and non-wrapping writes, counts 0
   to the chunk width, one and two channels (the kernel's channel map);
   its record form vs the JAX host buffered pool's strip write, exact.
-* K6 ``ring_resample`` vs ``Stream.render_batched``'s kernel read (row
-  strip gather, strip_resample, the underrun mask): within 2 ulp of the
+* K6 ``ring_resample`` (the step split inside) vs ``Stream.render_batched``'s
+  kernel read (row strip gather, strip_resample, the underrun mask):
+  within 2 ulp of the
   lerp's larger operand, over ds tiers 1/2/4, negative read offsets, ring
   wraps and ``len`` cuts mid-block.  Both evaluate the same f32 position
   math op for op, so they read the same samples at the same fractions: the
@@ -19,6 +20,11 @@ tests run them.
   steps; that is the whole difference: at most ulp(max(|a|, |b|)) for a
   read offset in [0, 1), twice that for the extrapolating negative ones
   (|fr*(b - a)| up to 2 max(|a|, |b|)).
+* K6's DR form ``stream_step`` (read and cursor release in one launch):
+  its plain version bit for bit against the unfused chain (``rate*iv``,
+  ``device_split_ds``, the split-operand read, the torch release), the
+  release against the host mirror ``Stream._tick_math`` in numpy, and the
+  wrappers' refusals.
 
 The CUDA kernels are held to these plain versions in test_torch_cuda.py.
 """
@@ -31,6 +37,7 @@ import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 import oddio_tpu as ot  # noqa: E402
+import oddio_tpu_torch as pt  # noqa: E402
 from oddio_tpu_torch.ops import stream_kernels as SK  # noqa: E402
 from oddio_tpu_torch.ops._dev import device_split_ds  # noqa: E402
 
@@ -168,7 +175,7 @@ def test_ring_resample_matches_strip_resample(tier, ds_range, t_lo):
     ref = np.asarray(ref)[:, 0]
     di, fh, fl = device_split_ds(torch.tensor(ds))
     got = SK.ring_resample(
-        torch.tensor(ring).view(V, -1), torch.tensor(t), di, fh, fl,
+        torch.tensor(ring).view(V, -1), torch.tensor(t), torch.tensor(ds),
         torch.tensor(start), torch.tensor(len_), n,
     ).numpy()
     assert np.abs(ref).max() > 0.1
@@ -197,7 +204,7 @@ def test_wrappers_reject_bad_operands():
         SK.ring_place(ring, torch.zeros((4, 16)), i4.long(), i4)
     f4 = torch.zeros(4)
     with pytest.raises(ValueError):
-        SK.ring_resample(ring, f4, i4, f4, f4, i4, i4, 5000)
+        SK.ring_resample(ring, f4, f4, i4, i4, 5000)
 
 
 def test_build_covers_and_hashes_every_source(tmp_path, monkeypatch):
@@ -214,3 +221,97 @@ def test_build_covers_and_hashes_every_source(tmp_path, monkeypatch):
     tag = _build._tag()
     (tmp_path / f"{names[0]}.cu").write_text("// changed")
     assert _build._tag() != tag
+
+
+# --- K6's DR form: the Stream step ------------------------------------------------
+
+
+def _unfused_read(ring, t, ds_int, f_hi, f_lo, start, len_, n):
+    """The read with the step split passed as separate operands."""
+    size = ring.shape[1]
+    whole, p, fr = SK._positions(t, ds_int, f_hi, f_lo, n)
+    idx = torch.remainder(start.to(torch.int64)[:, None] + p, size)
+    a = torch.gather(ring, 1, idx)
+    b = torch.gather(ring, 1, torch.remainder(idx + 1, size))
+    return torch.where(whole < len_[:, None], a + fr * (b - a), 0.0)
+
+
+def _unfused_step(ring, state, interval, n, count, size_pad):
+    """``Stream.dr_render``'s unfused chain on the kernel route: the step
+    ``rate*iv`` split on the device, the read, then the release."""
+    iv = float(np.float32(interval))
+    ds_int, f_hi, f_lo = device_split_ds(state["rate"] * iv)
+    samp = _unfused_read(ring, state["t"], ds_int, f_hi, f_lo, state["start"],
+                        state["len"], n)
+    cf = count.to(torch.float32)
+    nxt = state["t"] + (cf * iv) * state["rate"]
+    tc = torch.minimum(nxt, state["len"].to(torch.float32))
+    released = torch.trunc(tc).to(torch.int32)
+    return (samp, tc - released.to(torch.float32), state["len"] - released,
+            torch.remainder(state["start"] + released, size_pad))
+
+
+def _step_state(rng, size_pad, n, rates, interval):
+    t = rng.uniform(-0.5, 1.0, V).astype(np.float32)
+    t[:6] = 0.0  # row 5 (len 0) reads no frame
+    ds = (rates * np.float32(interval)).astype(np.float32)
+    start = rng.integers(0, size_pad, V).astype(np.int32)
+    start[:2] = size_pad - rng.integers(1, 64, 2)
+    need = np.ceil(n * ds).astype(np.int32) + 2
+    len_ = need.copy()
+    len_[2:5] = (need[2:5] * rng.uniform(0.2, 0.9, 3)).astype(np.int32)
+    len_[5] = 0
+    return {"t": torch.tensor(t), "rate": torch.tensor(rates), "start": torch.tensor(start),
+            "len": torch.tensor(len_)}
+
+
+@pytest.mark.parametrize("rate_hz", [8000.0, 48000.0, 192000.0])
+@pytest.mark.parametrize("count_form", ["voice", "scalar"])
+def test_stream_step_plain_equals_unfused_chain_and_host_mirror(rate_hz, count_form):
+    rng = np.random.default_rng(int(rate_hz) + len(count_form))
+    n, size_pad, interval = 513, 2816, np.float32(1.0 / 48000.0)
+    rates = (rate_hz * rng.uniform(0.95, 1.0, V)).astype(np.float32)
+    rates[0] = np.float32(rate_hz)
+    st = _step_state(rng, size_pad, n, rates, interval)
+    ring = torch.tensor(rng.standard_normal((V, size_pad)).astype(np.float32))
+    if count_form == "voice":
+        count = torch.tensor(rng.integers(n - 1, n + 1, V).astype(np.int32))
+    else:
+        count = torch.tensor(n, dtype=torch.int32)
+    before = SK.LAUNCHES["ring_resample"]
+    got = SK.stream_step(ring, st["t"], st["rate"], float(interval), count, st["start"],
+                         st["len"], n)
+    assert SK.LAUNCHES["ring_resample"] == before  # the plain version launches nothing
+    want = _unfused_step(ring, st, interval, n, count, size_pad)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert np.abs(got[0].numpy()).max() > 0.1 and (got[0][5] == 0).all()
+    # the release against the host mirror's numpy arithmetic
+    host_m = pt.Stream(8000, 2528)  # only its cursor mirror is used
+    host_m._alloc_host((V,))
+    host_m.size_pad = size_pad
+    host_m.rate = rates.astype(np.float64)
+    host_m.t = st["t"].numpy().copy()
+    host_m.buflen = st["len"].numpy().copy()
+    host_m.start = st["start"].numpy().copy()
+    host_m._tick_math(interval, np.broadcast_to(count.numpy(), (V,)).astype(np.int32))
+    np.testing.assert_array_equal(got[1].numpy(), host_m.t)
+    np.testing.assert_array_equal(got[2].numpy(), host_m.buflen)
+    np.testing.assert_array_equal(got[3].numpy(), host_m.start)
+
+
+def test_stream_step_rejects_bad_operands():
+    ring = torch.zeros((4, 512))
+    f4, i4 = torch.zeros(4), torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(TypeError):  # int64 count
+        SK.stream_step(ring, f4, f4, 0.1, i4.long(), i4, i4, 128)
+    with pytest.raises(ValueError):  # count of another length
+        SK.stream_step(ring, f4, f4, 0.1, torch.zeros(3, dtype=torch.int32), i4, i4, 128)
+    with pytest.raises(TypeError):  # f64 rate
+        SK.stream_step(ring, f4, f4.double(), 0.1, i4, i4, i4, 128)
+    with pytest.raises(ValueError):  # n past the exact split products
+        SK.stream_step(ring, f4, f4, 0.1, i4, i4, i4, 4097)
+    with pytest.raises(TypeError):  # a tensor interval
+        SK.stream_step(ring, f4, f4, f4, i4, i4, i4, 64)
+    with pytest.raises(ValueError):  # a (3,) ds
+        SK.ring_resample(ring, f4, torch.zeros(3), i4, i4, 128)
