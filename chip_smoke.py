@@ -1,7 +1,8 @@
 """Smoke run of oddio_tpu_torch on one CUDA card: builds every kernel,
 checks each against its plain PyTorch version at its path's shapes, drives
 the SpatialScene render path, the AGC mixer path (BASELINE config 5's
-scene) and the host-pool path at 4096 voices, and times them.
+scene) and the host-pool path at 4096 voices, the dense mix (config 4),
+the sampler (config 2) and the wavetable at 1024, and times them.
 
     python3 chip_smoke.py
 
@@ -64,7 +65,33 @@ Phases (each prints one or more lines; any failure exits non-zero):
 18. a 4 x 64-voice config-5 pack and a 4-scene spatial pack on the card
     against the same packs on the CPU and per-scene Renderers on the card;
 19. real-time factors per scene of the config-5 pack at 16, 64 and 256
-    scenes and of the 16-scene spatial pack.
+    scenes and of the 16-scene spatial pack;
+20. (run right after the build, so that a fault in it shows within
+    seconds) K6's arena form, the sampler reads of FramesSignal, Cycle
+    and the seek pool, exactly against its plain version at 1024, 4096, 1
+    and 17 rows, n = 512, 513, 128 and 100, steps in the tiers 1/2/4 and
+    at 44.1 -> 48 kHz x 1.2, mono, stereo and looped regions, cursors
+    before, past and far outside a sound; two runs bit-equal; exactly
+    again on every operand set at the sampler's, wavetable's and seek
+    pool's shapes, and timed there warm and cold on the paths' own
+    operands;
+21. BASELINE config 4's dense mix (1024 Gain(Sine) voices under
+    Tanh(Reinhard(mixer))) through render_frames and render_frames_device
+    with set_gain on 64 voices between, no K6 launch; its xRT;
+22. config 2 at a sampler's width (1024 Fader(Speed(FramesSignal)) voices
+    over 8 stereo 10 s sounds at 44.1 kHz, speed writes on 64 voices and
+    fades on 64 others every 8 blocks): at least two K6 arena launches a
+    block (both fader banks), fades released on the device (its bank bits
+    equal the host mirrors and have flipped); its xRT;
+23. bench.py's wavetable (1024 Speed(Cycle) voices): at least one K6
+    arena launch a block; its xRT;
+24. the three scenes at 64-256 voices on the card against the CPU;
+    at the end of the run, phases 21-23's profiles (device kernels per
+    block).
+The profiles run at the end in this order: the one-kernel checks
+(phase 4's reads, the Adapt and Stream steps of 8, 12 and 17) before
+any path's block profile (4, 8, 12, 17, 21-23), the heavy sessions
+after which the tracer has come back empty.
 Each kernel's bound is the larger of the bytes it must move over the
 card's 3.35 TB/s and its float32 operations over 67 TFLOP/s (the
 published H100 SXM peaks), from the timed case's own inputs.  Each
@@ -117,9 +144,9 @@ FLAT_KERNELS = {"window_select": "window_select", "flat_append": "flat_append_al
 FLAT_PATH_LAUNCHES = dict.fromkeys(FLAT_KERNELS, 0)
 
 
-#: (phase, label, proto, args) of captured Adapt-pool steps and (phase,
-#: label, render, blocks) of path renders, profiled at the end of the run
-#: (``step_kernel_counts``)
+#: (phase, label, proto, args) of captured Adapt-pool steps
+#: (``step_kernel_counts``) and (phase, label, render, blocks) of path
+#: renders (``block_profiles``), profiled at the end of the run
 STEPS, BLOCK_PROFILES = [], []
 
 
@@ -136,19 +163,27 @@ def capture_path_steps(phase, engine, render):
                                  f"n={calls[-1][3]}", p.proto, calls[-1]))
 
 
-def step_kernel_counts(tag):
-    """Phases 8, 12 and 17's profiles, run at the end (a profiled session
-    slows every later host call): device kernels per block of each path,
-    and of each captured Adapt pool's step (its whole render less its
-    inner's): exactly one where the step routes to K7, and of its Stream
-    step exactly one where the read routes to K6."""
-    from oddio_tpu_torch.ops import agc as A
+def block_profiles(tag):
+    """Phases 4, 8, 12, 17 and 21-23's path profiles, run after every
+    one-kernel check (these sessions are the heavy ones): device kernels
+    per block of each path."""
     from oddio_tpu_torch.utils import kernel_bench as KB
 
     for phase, label, render, nblk in BLOCK_PROFILES:
         per_block = KB.device_profile(render, reps=1)[1] / nblk
         print(f"phase {phase} profile: {per_block:.1f} device kernels per block of {label} "
               f"({nblk} blocks) {tag}")
+
+
+def step_kernel_counts(tag):
+    """Phases 8, 12 and 17's step profiles, run at the end (a profiled
+    session slows every later host call) and before the path profiles:
+    device kernels of each captured Adapt pool's step (its whole render
+    less its inner's): exactly one where the step routes to K7, and of its
+    Stream step exactly one where the read routes to K6."""
+    from oddio_tpu_torch.ops import agc as A
+    from oddio_tpu_torch.utils import kernel_bench as KB
+
     bad = []
     for phase, label, proto, args in STEPS:
         k_adapt, k_stream = KB.step_kernels(proto, args)
@@ -184,6 +219,15 @@ def read_flat_launches(label):
         FLAT_PATH_LAUNCHES[k] += v
     if any(FK.LAUNCHES.values()):
         raise AssertionError(f"{label} launched K8-K10: {FK.LAUNCHES}")
+
+
+def stream_launches(SK, label):
+    """K4's and K6's stream-ring launches on a path run just made, which
+    holds no sampler voice: K6's arena form must not have launched."""
+    if SK.LAUNCHES["arena_resample"]:
+        raise AssertionError(f"{label} launched K6's arena form "
+                             f"{SK.LAUNCHES['arena_resample']} times")
+    return {k: v for k, v in SK.LAUNCHES.items() if k != "arena_resample"}
 
 
 def time_ms(fn, reps=50):
@@ -275,7 +319,8 @@ def kernel_line(name, k):
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": lib.get("ms"), "library_device_ms": lib.get("device_ms"),
             "library_host_ms": lib.get("host_ms")}
-    return {**line, **{key: k[key] for key in ("other_form", "cold", "library_cold", "host_pool")
+    return {**line, **{key: k[key] for key in ("other_form", "cold", "library_cold", "host_pool",
+                                               "shapes")
                      if key in k}}
 
 
@@ -468,22 +513,16 @@ def ring_read_checks(dev, tag):
     return rec2, rec3, captured
 
 
-def read_kernel_counts(rb, captured, tag):
-    """Phase 4's profile, run at the end (a profiled session slows every
-    later host call): device kernels per block of the main path's
-    buffered renderer, and the device kernels of one pool read alone and
-    of the reads of a delta block and of an idle fused group (``render``
-    less ``_advance_block`` on the same captured state), each exactly
-    one."""
+def read_kernel_counts(captured, tag):
+    """Phase 4's read profile, the run's first profiled sessions (a
+    profiled session slows every later host call): the device kernels of
+    one pool read alone and of the reads of a delta block and of an idle
+    fused group (``render`` less ``_advance_block`` on the same captured
+    state), each exactly one."""
     from oddio_tpu_torch.ops import ring_kernels as RK
     from oddio_tpu_torch.utils import kernel_bench as KB
 
     pool, delta, singles, groups = captured
-    nblk = 8
-    per_block = KB.device_profile(lambda: rb.render_frames_device(BLOCK * nblk, sync=False),
-                                  reps=1)[1] / nblk
-    print(f"phase 4 profile: {per_block:.1f} device kernels per buffered block ({nblk} blocks, "
-          f"render_frames_device) {tag}")
     S, ros = KB.block_reads(pool, *singles[0])
     R, K = pool._read_cfg
     kw = dict(n=BLOCK, K=K, R=R, **read_geometry(pool))
@@ -753,7 +792,7 @@ def mixer_path(pt, dev, kern, tag):
     feed(ctls, rng, 1024)
     dev_out = r.render_frames_device(BLOCK * 94)
     torch.cuda.synchronize()
-    launches = {**SK.LAUNCHES, **A.LAUNCHES}
+    launches = {**stream_launches(SK, "the mixer path"), **A.LAUNCHES}
     ring_launches = dict(RK.LAUNCHES)
     read_flat_launches("the mixer path")
     mixer.sync()
@@ -898,7 +937,7 @@ def host_pool_path(pt, dev, kern, tag):
         sc.set_speed(float(rng.uniform(0.8, 1.25)))
     dev_out = r.render_frames_device(BLOCK * 94)
     torch.cuda.synchronize()
-    launches = {**RK.LAUNCHES, **SK.LAUNCHES, **A.LAUNCHES}
+    launches = {**RK.LAUNCHES, **stream_launches(SK, "the host-pool path"), **A.LAUNCHES}
     read_flat_launches("the host-pool path")
     scene.sync()
     b = torch.cat([o.permute(0, 2, 1).reshape(-1, 2) for o in dev_out]).cpu().numpy()
@@ -1211,7 +1250,7 @@ def pack_path(pt, dev, tag):
         reset_launches()
         out = config5_pack_run(pack, ctls, pcm, nb0, nb1)
         torch.cuda.synchronize()
-        launches = {**SK.LAUNCHES, **A.LAUNCHES}
+        launches = {**stream_launches(SK, f"the config-5 pack path (S={S})"), **A.LAUNCHES}
         read_flat_launches(f"the config-5 pack path (S={S})")
         if any(RK.LAUNCHES.values()):
             raise AssertionError(f"the config-5 pack launched ring kernels: {RK.LAUNCHES}")
@@ -1336,6 +1375,251 @@ def pack_xrt(packs, dev, tag):
               f"{1e3 * wall / nblk:.3f} ms per block) {tag}")
 
 
+def arena_kernel(dev, kern, tag):
+    """Phase 20: K6's arena form (``stream_kernels.arena_resample``, the
+    FramesSignal, Cycle and seek-pool sampler reads) against its plain
+    version, exactly (the same f32 operations, each rounded once), at 1024,
+    4096, 1 and 17 rows, n = 512, 513, 128 and 100, steps in the tiers
+    (0.2, 1), (1, 2) and (2, 4) and 44.1/48 kHz at speed 1.2, over mono
+    guarded regions (cursors before, past and far outside a sound, where
+    the clamp binds; negative fractions), stereo ones (channel-row pairs)
+    and a looped table; the seek form's two ear rows per voice are two
+    mono rows.  Each call one launch; two runs bit-equal.  At the three
+    paths' shapes (``kernel_bench.ARENA_SHAPES``: the sampler's fader bank
+    of 2048 rows, the wavetable's 1024, the seek pool's 2048) exact again
+    on every operand set, the paths' own (no edge cases) and one with the
+    edge cases, then timed warm and cold on the paths' own."""
+    from oddio_tpu_torch.ops import stream_kernels as SK
+    from oddio_tpu_torch.utils import kernel_bench as KB
+
+    host, regions = KB.arena_setup()
+    garena = torch.tensor(host, device=dev)
+    rng = np.random.default_rng(20)
+    ds12 = float(np.float32(44100.0) / np.float32(48000.0) * np.float32(1.2))
+    cases = 0
+    for rows in (1024, 4096, 1, 17):
+        for n in (512, 513, 128, 100):
+            for dsr in ((0.2, 1.0), (1.0, 2.0), (2.0, 4.0), (ds12, ds12)):
+                for kind in ("mono", "stereo", "looped"):
+                    ops = KB.arena_operands(dev, rng, regions, rows, kind, dsr)
+                    before = SK.LAUNCHES["arena_resample"]
+                    got = SK.arena_resample(garena, *ops, n)
+                    again = SK.arena_resample(garena, *ops, n)
+                    plain = SK.arena_resample_plain(garena, *ops, n)
+                    torch.cuda.synchronize()
+                    if SK.LAUNCHES["arena_resample"] != before + 2:
+                        k = SK.LAUNCHES["arena_resample"] - before
+                        raise AssertionError(f"arena_resample: {k} launches for 2 calls")
+                    if not (torch.equal(got, plain) and torch.equal(got, again)):
+                        err = float((got.double() - plain.double()).abs().max())
+                        raise AssertionError(
+                            f"arena_resample rows={rows} n={n} ds {dsr} {kind}: kernel differs "
+                            f"from its plain version by {err} (or from its own second run)")
+                    cases += 1
+    print(f"K6 arena_resample: {cases} cases (rows 1024/4096/1/17, n 512/513/128/100, ds tiers "
+          f"1/2/4 and 44.1->48 kHz x1.2, mono/stereo/looped regions, edges and the clamp) equal "
+          f"to the plain version (tolerance 0, exact), two runs bit-equal, one launch each {tag}")
+    entry = None
+    for label, rows, kind, dsr in KB.ARENA_SHAPES:
+        sets = [KB.arena_operands(dev, rng, regions, rows, kind, dsr, edges=False)
+                for _ in range(KB.ARENA_SETS)]
+        edged = KB.arena_operands(dev, rng, regions, rows, kind, dsr)
+        for i, ops in enumerate(sets + [edged]):
+            got = SK.arena_resample(garena, *ops, KB.ARENA_N)
+            plain = SK.arena_resample_plain(garena, *ops, KB.ARENA_N)
+            if not torch.equal(got, plain):
+                err = float((got.double() - plain.double()).abs().max())
+                raise AssertionError(f"arena_resample {label} shape ({rows} rows, {kind}), "
+                                     f"operand set {i}: kernel differs from its plain version "
+                                     f"by {err}")
+        ops0 = sets[0]
+        tk = timed(f"K6 arena_resample {label} {rows} rows n=512",
+                   lambda: SK.arena_resample(garena, *ops0, KB.ARENA_N))
+        tc = timed(f"K6 arena_resample {label} {rows} rows n=512, cold",
+                   KB.cycling(sets, lambda *o: SK.arena_resample(garena, *o, KB.ARENA_N)))
+        pms = time_ms(lambda: SK.arena_resample_plain(garena, *ops0, KB.ARENA_N))
+        bms, by = bound(KB.arena_bytes(SK, ops0, KB.ARENA_N), 14 * rows * KB.ARENA_N)
+        print(f"K6 arena_resample {label} shape ({rows} rows, {kind}, n=512): equal to the plain "
+              f"version on {len(sets) + 1} operand sets (tolerance 0); {times_str(tk)}, cold "
+              f"{times_str(tc)} vs plain {pms:.4f} ms, bound {bms:.4f} ms ({by}) {tag}")
+        if entry is None:  # the sampler's fader bank: the main shape
+            entry = record("oddio_tpu/ops/pallas_ring.py:1203",
+                           "oddio_tpu_torch/csrc/stream_kernels.cu", 0.0, tk, pms, bms, by)
+            entry["cold"] = tc
+        else:
+            entry.setdefault("shapes", {})[label] = {"rows": rows, "times": tk, "cold": tc,
+                                                     "plain_ms": pms, "bound_ms": bms}
+    kern["arena_resample"] = entry
+
+
+def _sampler_launches(SK, label, nblk, need):
+    """K6 arena-form launches of a sampler path run just made: at least
+    ``need`` per block."""
+    k = SK.LAUNCHES["arena_resample"]
+    if k < need * nblk:
+        raise AssertionError(f"{label}: K6's arena form launched {k} times in {nblk} blocks "
+                             f"(at least {need} per block expected)")
+    return k
+
+
+def sampler_paths(pt, dev, kern, tag):
+    """Phases 21-24: BASELINE config 4's dense mix (1024 Gain(Sine) voices
+    under Tanh(Reinhard(mixer)), set_gain on 64 voices between its runs),
+    config 2 at a sampler's width (1024 Fader(Speed(FramesSignal)) voices
+    over 8 stereo 10 s sounds at 44.1 kHz, a speed write on 64 voices and a
+    fade on 64 others every 8 blocks) and the wavetable line (1024
+    Speed(Cycle) voices), each through render_frames and
+    render_frames_device with launches counted (no K6 on the dense mix; at
+    least two arena reads a block on the sampler, one for each fader bank;
+    one on the wavetable; fades released on the device: the device's bank
+    bits follow the host mirrors and have flipped), their real-time
+    factors; then each scene at 64-256 voices on the card against the CPU
+    render."""
+    from oddio_tpu_torch.core.drctrl import _state_at
+    from oddio_tpu_torch.ops import agc as A
+    from oddio_tpu_torch.ops import ring_kernels as RK
+    from oddio_tpu_torch.ops import stream_kernels as SK
+    from oddio_tpu_torch.utils.scene_profile import (build_densemix, build_sampler,
+                                                     build_wavetable)
+
+    nb1 = 94
+    nblk = -(-RATE // BLOCK) + nb1
+    sampler_total = 0
+
+    def check(name, x, C):
+        if not np.isfinite(x).all() or np.abs(x).max() <= 1e-3 or x.shape[1] != C:
+            raise AssertionError(f"{name}: non-finite, silent or misshapen output {x.shape}")
+
+    def flat(outs, C):
+        return torch.cat([o.permute(0, 2, 1).reshape(-1, C) for o in outs]).cpu().numpy()
+
+    def xrt(label, render):
+        render(32)
+        torch.cuda.synchronize()
+        n = 188
+        t0 = time.perf_counter()
+        render(n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"xRT {label}: {(n * BLOCK / RATE) / wall:.2f}x ({n} blocks in {wall:.3f} s, "
+              f"{1e3 * wall / n:.3f} ms per block) {tag}")
+
+    def other_kernels(label):
+        if any(RK.LAUNCHES.values()) or any(A.LAUNCHES.values()):
+            raise AssertionError(f"{label} launched ring or AGC kernels: {RK.LAUNCHES} "
+                                 f"{A.LAUNCHES}")
+        read_flat_launches(label)
+
+    # -- 21. config 4: the dense mix ---------------------------------------------
+    t0 = time.perf_counter()
+    chain, mixer, gcs, rng = build_densemix(1024, dev)
+    r = pt.Renderer(chain, RATE)
+    print(f"dense mix: 1024 Gain(Sine) voices under Tanh(Reinhard(mixer)) built in "
+          f"{time.perf_counter() - t0:.2f} s {tag}")
+    reset_launches()
+    a = r.render_frames(RATE)
+    for gc in gcs[:64]:
+        gc.set_gain(float(rng.uniform(-20, 0)))
+    b = flat(r.render_frames_device(BLOCK * nb1), 1)
+    torch.cuda.synchronize()
+    other_kernels("the dense-mix path")
+    if any(SK.LAUNCHES.values()):
+        raise AssertionError(f"the dense-mix path launched stream kernels: {SK.LAUNCHES}")
+    check("dense mix render_frames", a, 1)
+    check("dense mix render_frames_device", b, 1)
+    if np.abs(b).max() > np.tanh(1.0) + 1e-6:
+        raise AssertionError("dense mix: the limiters let a sample past tanh(1)")
+    print(f"dense-mix path: 1 s + {BLOCK * nb1 / RATE:.3f} s, set_gain on 64 voices between; "
+          f"peak |out| {np.abs(a).max():.4f}/{np.abs(b).max():.4f}; no kernel of this slice "
+          f"(K6 arena 0 launches) {tag}")
+    xrt("dense mix 1024 voices", lambda k: r.render_frames_device(BLOCK * k, sync=False))
+    BLOCK_PROFILES.append((21, "the 1024-voice dense mix",
+                           lambda r=r: r.render_frames_device(BLOCK * 8, sync=False), 8))
+
+    # -- 22. config 2: the sampler --------------------------------------------
+    t0 = time.perf_counter()
+    drv = build_sampler(1024, dev)
+    r = pt.Renderer(drv.mixer, RATE)
+    mb = sum(f.data.nbytes for f in drv.frames) / 1e6
+    print(f"sampler: 1024 Fader(Speed(FramesSignal)) voices over 8 stereo 10 s sounds at "
+          f"44.1 kHz ({mb:.1f} MB of samples, twice that in the two arenas) built in "
+          f"{time.perf_counter() - t0:.2f} s {tag}")
+    reset_launches()
+    a = np.concatenate(drv.render(r, -(-RATE // BLOCK), device_out=False))
+    b = flat(drv.render(r, nb1), 2)
+    torch.cuda.synchronize()
+    other_kernels("the sampler path")
+    k = _sampler_launches(SK, "the sampler path", nblk, 2)
+    sampler_total += k
+    check("sampler render_frames", a, 2)
+    check("sampler render_frames_device", b, 2)
+    pool = next(iter(drv.mixer._pools.values()))
+    path = pool.fade_paths[0]
+    dev_state = _state_at(pool.state["inner"], path)
+    flips = dev_state["flip"].cpu().numpy()
+    if not pool.is_dr or not np.array_equal(flips, pool._fade_flip[path]) or flips.sum() == 0:
+        raise AssertionError(f"sampler: fades not released on the device (flips {flips.sum()}, "
+                             f"mirrors {pool._fade_flip[path].sum()})")
+    print(f"sampler path: 1 s + {BLOCK * nb1 / RATE:.3f} s, {drv.fades} fades queued, "
+          f"{int(flips.sum())} voices on their other bank (device bits = host mirrors); peak "
+          f"|out| {np.abs(a).max():.4f}/{np.abs(b).max():.4f}; K6 arena launches {k} "
+          f"({k / nblk:.2f} per block) {tag}")
+    xrt("sampler 1024 voices", lambda k: drv.render(r, k))
+    BLOCK_PROFILES.append((22, "the 1024-voice sampler (its control script every 8 blocks)",
+                           lambda r=r, drv=drv: drv.render(r, 8), 8))
+    del a, b
+
+    # -- 23. the wavetable ---------------------------------------------------------
+    mixer, scs, rng = build_wavetable(1024, dev)
+    r = pt.Renderer(mixer, RATE)
+    reset_launches()
+    a = r.render_frames(RATE)
+    for sc in scs[:64]:
+        sc.set_speed(float(rng.uniform(0.8, 1.25)))
+    b = flat(r.render_frames_device(BLOCK * nb1), 1)
+    torch.cuda.synchronize()
+    other_kernels("the wavetable path")
+    k = _sampler_launches(SK, "the wavetable path", nblk, 1)
+    sampler_total += k
+    check("wavetable render_frames", a, 1)
+    check("wavetable render_frames_device", b, 1)
+    print(f"wavetable path: 1024 Speed(Cycle) voices, 1 s + {BLOCK * nb1 / RATE:.3f} s, "
+          f"set_speed on 64 between; peak |out| {np.abs(a).max():.4f}/{np.abs(b).max():.4f}; "
+          f"K6 arena launches {k} ({k / nblk:.2f} per block) {tag}")
+    xrt("wavetable 1024 voices", lambda k: r.render_frames_device(BLOCK * k, sync=False))
+    BLOCK_PROFILES.append((23, "the 1024-voice wavetable",
+                           lambda r=r: r.render_frames_device(BLOCK * 8, sync=False), 8))
+    kern["arena_resample"]["launches"] = sampler_total
+
+    # -- 24. card vs CPU ------------------------------------------------------------
+    for label, V in (("dense mix", 256), ("sampler", 128), ("wavetable", 256)):
+        outs = []
+        for device in (dev, "cpu"):
+            if label == "dense mix":
+                chain, _, gcs, rng = build_densemix(V, device)
+                r = pt.Renderer(chain, RATE)
+                x = r.render_frames(BLOCK * 12)
+                for gc in gcs[:16]:
+                    gc.set_gain(-30.0)
+                outs.append(np.concatenate([x, r.render_frames(BLOCK * 12)]))
+            elif label == "sampler":
+                drv = build_sampler(V, device, sounds=2, seconds=2.0)
+                r = pt.Renderer(drv.mixer, RATE)
+                outs.append(np.concatenate(drv.render(r, 24, device_out=False)))
+            else:
+                mixer, scs, rng = build_wavetable(V, device)
+                r = pt.Renderer(mixer, RATE)
+                x = r.render_frames(BLOCK * 12)
+                for sc in scs[:16]:
+                    sc.set_speed(1.2)
+                outs.append(np.concatenate([x, r.render_frames(BLOCK * 12)]))
+        err = float(np.abs(outs[0] - outs[1]).max())
+        if not err <= TOL or np.abs(outs[1]).max() <= 1e-2:
+            raise AssertionError(f"{V}-voice {label}: card render differs from the CPU by {err}")
+        print(f"reference: {label} {V} voices, card vs CPU plain, 24 blocks with control "
+              f"writes, max|diff| {err:.3e} (<= {TOL}) {tag}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card",
@@ -1344,6 +1628,7 @@ def main():
     import oddio_tpu_torch as pt
     from oddio_tpu_torch.ops import _build
     from oddio_tpu_torch.ops import ring_kernels as RK
+    from oddio_tpu_torch.utils import kernel_bench as KB
     from oddio_tpu_torch.utils.scene_profile import build_spatial, card_line
 
     card = card_line()
@@ -1366,6 +1651,8 @@ def main():
 
     # -- 3. kernels vs plain at main-path shapes -------------------------------------
     kern = {}
+    # phase 20, K6's arena form, runs first: a fault in it shows in seconds
+    arena_kernel(dev, kern, tag)
 
     kern["rows_append"] = rows_append_check(dev, tag)
 
@@ -1421,6 +1708,8 @@ def main():
         xrt = (nblk * BLOCK / RATE) / wall
         print(f"xRT {label} {VOICES} voices: {xrt:.2f}x ({nblk} blocks in {wall:.3f} s) {tag}")
 
+    BLOCK_PROFILES.append((4, "the main path's buffered renderer (render_frames_device)",
+                           lambda: rb.render_frames_device(BLOCK * 8, sync=False), 8))
     for name, key in zip(("rows_append", "window_select_ears", "window_select_multi"),
                          ("append", "select_ears", "select_multi")):
         kern[name]["launches"] = launches[key]
@@ -1441,9 +1730,17 @@ def main():
         kern[name]["launches"] = FLAT_PATH_LAUNCHES[key]
     pack_reference(pt, dev, tag)
     pack_xrt(packs, dev, tag)
+    del packs
 
-    read_kernel_counts(rb, captured, tag)
+    # -- 21-24. configs 4 and 2, the wavetable -------------------------------------------
+    sampler_paths(pt, dev, kern, tag)
+
+    # the one-kernel checks first, then the heavy path profiles
+    read_kernel_counts(captured, tag)
     step_kernel_counts(tag)
+    print(f"profiler: {KB.PROFILE_RETAKES['sessions']} empty one-kernel sessions retaken "
+          f"{tag}")
+    block_profiles(tag)
     profile_device(tag)
     print(json.dumps({"kernels": [kernel_line(name, k) for name, k in kern.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -29,11 +29,19 @@ Imports torch and numpy only — never jax or oddio_tpu.
 """
 
 from .core.signal import Signal, ControlBlock
+from .core.frames import Frames, FramesSignal, FramesSignalControl
+from .core.smooth import Smoothed, interpolate
 from .core.run import Renderer, run
+from .ops.constant import Constant
 from .ops.sine import Sine
+from .ops.cycle import Cycle
+from .ops.gain import FixedGain, Gain, GainControl
+from .ops.channels import MonoToStereo, Downmix
+from .ops.limit import Reinhard, Tanh
 from .ops.stream import Stream, StreamControl
 from .ops.adapt import Adapt, AdaptOptions
 from .ops.speed import Speed, SpeedControl
+from .ops.fader import Fader, FaderControl
 from .mixer import Mixer, MixerControl, Mixed
 from .spatial import (
     SpatialScene,
@@ -47,15 +55,31 @@ from .spatial import (
 __all__ = [
     "Signal",
     "ControlBlock",
+    "Frames",
+    "FramesSignal",
+    "FramesSignalControl",
+    "Smoothed",
+    "interpolate",
     "Renderer",
     "run",
+    "Constant",
     "Sine",
+    "Cycle",
+    "FixedGain",
+    "Gain",
+    "GainControl",
+    "MonoToStereo",
+    "Downmix",
+    "Reinhard",
+    "Tanh",
     "Stream",
     "StreamControl",
     "Adapt",
     "AdaptOptions",
     "Speed",
     "SpeedControl",
+    "Fader",
+    "FaderControl",
     "Mixer",
     "MixerControl",
     "Mixed",

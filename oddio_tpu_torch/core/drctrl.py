@@ -9,10 +9,14 @@ The JAX package pads every delta array to a fixed lane count and lets the
 scatter drop the padding lanes (``mode="drop"``).  Torch's index_put
 rejects out-of-range rows, so the host, which knows which lanes are
 padding (index == capacity), filters them before the upload: the device
-sees only real lanes.  Fades (Fader) are not in this package yet
-(ROADMAP P4), so the fade-lane machinery has no counterpart here.  The
-pools stamp their read-path flags on the proto chain (``_ds_small``,
-``_ds_tier``, ``_ema_fast``); the AGC gate is computed at the block length
+sees only real lanes.  Fades ride their own lanes (``k_fade`` per fader
+path and block): ``fade_to`` on a device-resident voice queues the target
+(``push_fade``), the host releases it into a lane once the voice's fade
+mirrors say it is idle (``_fade_tick``, which mirrors the device's
+progress exactly, so the device is never read for it), and the device
+writes the target's row into the fader's inactive bank (``_fade_apply``,
+a bank mask on ``rows_scatter``).  The pools stamp their read-path flags
+on the proto chain (``_ds_small``, ``_ds_tier``, ``_ema_fast``); the AGC gate is computed at the block length
 the pool renders, so 513-frame buffered renders take K7 too.
 
 The handle-state readback packs the ``mask`` and ``stopped`` columns into
@@ -25,8 +29,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["DRCtrlMixin", "PinnedUpload", "walk_ctrl_keys", "rows_scatter", "host_lanes",
-           "read_handle_state"]
+from ..utils.tree import tree_map, tree_stack
+
+__all__ = ["DRCtrlMixin", "PinnedUpload", "walk_ctrl_keys", "walk_fade_paths", "rows_scatter",
+           "host_lanes", "read_handle_state"]
+
+
+def _dr_children(node):
+    """Children as addressed in the DR state tree (a fader exposes both
+    banks, though its spec carries one)."""
+    f = getattr(node, "dr_ctrl_children", None)
+    return f() if f is not None else node.children()
 
 
 def walk_ctrl_keys(proto):
@@ -37,17 +50,56 @@ def walk_ctrl_keys(proto):
     def walk(node, path):
         for f in getattr(node, "_dr_ctrl_fields", ()):
             keys.append((path, f))
-        for k, c in node.children().items():
+        for k, c in _dr_children(node).items():
             walk(c, path + (k,))
 
     walk(proto, ())
     return keys
 
 
+def walk_fade_paths(proto):
+    """Paths of fade-capable (Fader) nodes in the chain, outermost first."""
+    out = []
+
+    def walk(node, path):
+        if getattr(node, "dr_fade_capable", lambda: False)():
+            out.append(path)
+        for k, c in _dr_children(node).items():
+            walk(c, path + (k,))
+
+    walk(proto, ())
+    return out
+
+
 def _at_path(node, path):
+    """Walk a spec chain by DR-state path (a fader's banks both map to
+    its ``a``)."""
     for k in path:
-        node = node.children()[k]
+        node = _dr_children(node)[k]
     return node
+
+
+def _set_path(tree, path, value):
+    """``tree`` with the subtree at ``path`` replaced (new dicts along the
+    path, the tensors shared)."""
+    if not path:
+        return value
+    t = dict(tree)
+    t[path[0]] = _set_path(t[path[0]], path[1:], value)
+    return t
+
+
+def _state_at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _rows_like(state, rows):
+    """The leaves of ``state`` that a row tree (a subtree of it) writes."""
+    if isinstance(rows, dict):
+        return {k: _rows_like(state[k], v) for k, v in rows.items()}
+    return state
 
 
 def host_lanes(idx, V):
@@ -60,8 +112,12 @@ def host_lanes(idx, V):
 
 def _upload(x, device, dtype=None):
     """Copy a numpy value into a fresh tensor on ``device`` (never aliasing
-    the host array: state tensors are updated in place)."""
-    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+    the host array: state tensors are updated in place).  To a card the
+    copy is asynchronous: from pageable memory the driver stages the bytes
+    before the call returns, and the stream orders the copy before the
+    kernels that read it, so the host does not wait for the device."""
+    t = torch.tensor(np.asarray(x), dtype=dtype)
+    return t.to(device, non_blocking=True) if torch.device(device).type == "cuda" else t
 
 
 class PinnedUpload:
@@ -100,16 +156,22 @@ class PinnedUpload:
         return dev
 
 
-def rows_scatter(state, rows, idx):
-    """Scatter play rows into a state tree, in place.  ``rows`` (numpy, one
-    row per real lane) may be a strict SUBTREE of ``state``; ``idx`` is a
-    filtered int64 index tensor."""
+def rows_scatter(state, rows, idx, wrote=None):
+    """Scatter play or fade rows into a state tree, in place.  ``rows``
+    (numpy, or tensors of the state's dtypes, one row per real lane) may be
+    a strict SUBTREE of ``state``;
+    ``idx`` is a filtered int64 index tensor.  ``wrote``, a (V,) bool
+    tensor, masks the write per target row (the fade's bank)."""
     if isinstance(rows, dict):
         out = dict(state)
         for k, rv in rows.items():
-            out[k] = rows_scatter(state[k], rv, idx)
+            out[k] = rows_scatter(state[k], rv, idx, wrote)
         return out
-    state[idx] = _upload(rows, state.device, state.dtype)
+    vals = rows if isinstance(rows, torch.Tensor) else _upload(rows, state.device, state.dtype)
+    if wrote is not None:
+        m = wrote[idx].reshape((-1,) + (1,) * (state.dim() - 1))
+        vals = torch.where(m, vals, state[idx])
+    state[idx] = vals
     return state
 
 
@@ -139,6 +201,8 @@ class DRCtrlMixin:
 
     #: per-block delta-channel capacity per controllable field
     k_ctrl = 64
+    #: per-block fade-start lanes per fader path
+    k_fade = 8
 
     #: set by a ScenePack holding this pool's state: called before any
     #: change of ``state`` outside the pack's render (growth, eager plays),
@@ -232,10 +296,32 @@ class DRCtrlMixin:
     def _init_ctrl(self, proto):
         self.ctrl_keys = walk_ctrl_keys(proto)
         self.pending_ctrl = {k: {} for k in self.ctrl_keys}
+        self.fade_paths = walk_fade_paths(proto)
+        #: path -> slot -> (spec, duration, gen); last-wins per slot while
+        #: a fade is in flight (fader.rs:38-47's waiting command)
+        self.pending_fades = {p: {} for p in self.fade_paths}
+        V = self.capacity
+        #: host mirrors of each fader's device state: progress advances by
+        #: exactly count*inc per block, so the host decides when a waiting
+        #: fade may start without reading the device
+        self._fade_prog = {p: np.ones(V, np.float32) for p in self.fade_paths}
+        self._fade_inc = {p: np.zeros(V, np.float32) for p in self.fade_paths}
+        self._fade_fading = {p: np.zeros(V, bool) for p in self.fade_paths}
+        self._fade_flip = {p: np.zeros(V, bool) for p in self.fade_paths}
+        #: durations of mid-fade plays whose inc resolves at the first tick
+        #: (the pool interval may be unknown at play time); -1 = none
+        self._fade_dur = {p: np.full(V, -1.0, np.float32) for p in self.fade_paths}
         #: live slots' spec chains (their control mirrors stay current:
         #: ControlBlock.set always writes the spec's own field); they feed
         #: host_ds_bound / host_ema_bound
         self._slot_specs = {}
+        self._extra_specs = {}  # (slot, fade path, bank) -> fade target spec
+        self._extra_by_slot = {}  # slot -> {(fade path, bank): fade target spec}
+        #: each slot's step and AGC bounds over its specs, refreshed only for
+        #: the slots a play, a step-class write or a fade touched
+        self._ds_slot = np.zeros(V)
+        self._ema_slot = np.zeros(V)
+        self._ds_stale = set()
         self._ds_fields = {
             k for k in self.ctrl_keys
             if k[1] in getattr(_at_path(proto, k[0]), "_dr_ds_fields", ())
@@ -243,9 +329,22 @@ class DRCtrlMixin:
         self._ds_dirty = True
         self._ds_small = True
         self._ema_fast = False
-        #: no fader in the pool has pending or in-flight fades (always true
-        #: until fades are ported, ROADMAP P4)
+        #: no fader in the pool has pending, in-flight or unresolved fades:
+        #: ``_fade_tick`` is then an exact no-op and the idle path may skip
+        #: it (cleared by push_fade and by a mid-fade play)
         self._fade_quiet = True
+
+    def _ctrl_grow(self, old, new):
+        """Extend the fade mirrors to a grown capacity."""
+        ext = new - old
+        for p in self.fade_paths:
+            for mirror, fill in ((self._fade_prog, 1.0), (self._fade_inc, 0.0),
+                                 (self._fade_dur, -1.0)):
+                mirror[p] = np.concatenate([mirror[p], np.full(ext, fill, np.float32)])
+            for mirror in (self._fade_fading, self._fade_flip):
+                mirror[p] = np.concatenate([mirror[p], np.zeros(ext, bool)])
+        self._ds_slot = np.concatenate([self._ds_slot, np.zeros(ext)])
+        self._ema_slot = np.concatenate([self._ema_slot, np.zeros(ext)])
 
     def _rebind_ctrl(self, spec, slot, gen, prefix=()):
         """Point every control handle in ``spec``'s chain at this pool."""
@@ -262,13 +361,187 @@ class DRCtrlMixin:
     def push_ctrl(self, path, field, slot, value):
         self.pending_ctrl[(path, field)][slot] = np.float32(value)
         if (path, field) in self._ds_fields:
+            self._ds_stale.add(int(slot))
             self._ds_dirty = True
+
+    def _set_extra(self, slot, path, bank, spec):
+        """Keep a released fade target for the bound queries, keyed per
+        bank: the bank it replaces drops out, the other bank (the fade's
+        outgoing signal, audible through the crossfade) stays."""
+        slot = int(slot)
+        self._extra_specs[(slot, path, bank)] = spec
+        self._extra_by_slot.setdefault(slot, {})[(path, bank)] = spec
+        self._ds_stale.add(slot)
+        self._ds_dirty = True
+
+    # -- fade lanes ------------------------------------------------------------
+
+    def push_fade(self, path, slot, gen, spec, duration):
+        """fade_to on a DR voice (fader.rs:86-93): queued per (fader,
+        slot), last-wins while a fade is in flight."""
+        if self.slot_gen[slot] != gen:
+            return
+        if spec.archetype() != _at_path(self.proto, path).a.archetype():
+            raise ValueError("pooled fade targets must share the inner archetype")
+        stack = [spec]
+        while stack:  # Rust move semantics, recursively
+            s = stack.pop()
+            if s._moved:
+                raise RuntimeError(
+                    "fade target was already played (moved); construct a new one"
+                )
+            s._moved = True
+            stack.extend(s.children().values())
+        self.pending_fades[path][int(slot)] = (spec, float(duration), gen)
+        self._fade_quiet = False
+
+    def _fade_claim_reset(self, slot):
+        """A reclaimed slot's queued fades and fade targets must not leak
+        onto the next tenant."""
+        for p in self.fade_paths:
+            self.pending_fades[p].pop(int(slot), None)
+            for bank in ("a", "b"):
+                self._extra_specs.pop((int(slot), p, bank), None)
+        self._extra_by_slot.pop(int(slot), None)
+        self._ds_stale.add(int(slot))
+
+    def _fade_mirror_on_play(self, slot, spec):
+        """Seed the fade mirrors from the played spec's host state."""
+        for p in self.fade_paths:
+            node, ok = spec, True
+            for k in p:
+                kids = node.children()
+                if k not in kids:
+                    ok = False
+                    break
+                node = kids[k]
+            if ok and node.b is not None:
+                self._fade_prog[p][slot] = np.float32(node.progress[()])
+                self._fade_fading[p][slot] = True
+                self._fade_dur[p][slot] = np.float32(node.duration[()])
+                self._fade_quiet = False
+            else:
+                self._fade_prog[p][slot] = np.float32(1.0)
+                self._fade_fading[p][slot] = False
+                self._fade_dur[p][slot] = -1.0
+            self._fade_inc[p][slot] = np.float32(0.0)
+            self._fade_flip[p][slot] = False
+
+    def _fade_pending_any(self):
+        return any(self.pending_fades.values())
+
+    def _fade_tick(self, params, interval, count):
+        """Per-block fader bookkeeping, mirroring the device exactly:
+        release waiting fades on idle voices into padded lanes (when
+        ``params`` is not None), emulate the start-of-block completion
+        flips, and advance the progress mirrors by ``count`` frames."""
+        if not self.fade_paths:
+            return
+        iv = np.float32(interval)
+        cf = np.float32(count)
+        for j, path in enumerate(self.fade_paths):
+            prog = self._fade_prog[path]
+            inc = self._fade_inc[path]
+            fading = self._fade_fading[path]
+            flip = self._fade_flip[path]
+            # resolve mid-fade plays' inc now that the interval is known
+            dur = self._fade_dur[path]
+            pend_dur = dur >= 0.0
+            if pend_dur.any():
+                inc[pend_dur] = iv / np.maximum(dur[pend_dur], iv)
+                dur[pend_dur] = -1.0
+            if params is not None:
+                idx = np.full(self.k_fade, self.capacity, np.int32)
+                incv = np.zeros(self.k_fade, np.float32)
+                rows = []
+                pend = self.pending_fades[path]
+                t = 0
+                for slot in sorted(pend):
+                    if t >= self.k_fade:
+                        break
+                    if pend[slot][2] != self.slot_gen[slot]:
+                        del pend[slot]  # the voice died; the command drops
+                        continue
+                    if fading[slot] and prog[slot] < 1.0:
+                        continue  # waits until idle (fader.rs:38-47)
+                    spec, dur_s, _ = pend.pop(slot)
+                    # the device's targeted-slot resolution of a completed
+                    # but unflipped fade (_fade_apply)
+                    if fading[slot]:
+                        flip[slot] = ~flip[slot]
+                        fading[slot] = False
+                    inc_s = np.float32(iv / max(np.float32(dur_s), iv))
+                    # the target lands in the INACTIVE bank and its handles
+                    # bind there for good: completion only flips the bit
+                    bank = "a" if flip[slot] else "b"
+                    self._rebind_ctrl(spec, slot, int(self.slot_gen[slot]), path + (bank,))
+                    idx[t] = slot
+                    incv[t] = inc_s
+                    rows.append(spec.dr_slot_row(interval))
+                    self._set_extra(slot, path, bank, spec)
+                    prog[slot] = 0.0
+                    inc[slot] = inc_s
+                    fading[slot] = True
+                    t += 1
+                default = _at_path(self.proto, path).a.dr_default_row(interval)
+                rows = rows + [default] * (self.k_fade - len(rows))
+                params[f"fade_idx{j}"] = idx
+                params[f"fade_inc{j}"] = incv
+                params[f"fade_row{j}"] = tree_stack(rows)
+            # start-of-block completion flips for untargeted slots, then the
+            # end-of-block progress advance (as Fader.dr_render)
+            done = fading & (prog >= 1.0)
+            np.logical_xor(flip, done, out=flip)
+            fading &= ~done
+            np.minimum(prog + cf * inc, np.float32(1.0), out=prog)
+        self._fade_quiet = not any(
+            self.pending_fades[p] or self._fade_fading[p].any()
+            or (self._fade_dur[p] >= 0.0).any()
+            for p in self.fade_paths
+        )
+
+    def _fade_apply(self, inner_state, params):
+        """Write released fade starts into the fader nodes' state subtrees
+        (after plays and control deltas); a targeted slot's completed fade
+        resolves first, so a new fade never lands on an unflipped one."""
+        if not self.fade_paths or "fade_idx0" not in params:
+            return inner_state
+        from ..parallel.context import localize_index
+
+        for j, path in enumerate(self.fade_paths):
+            sub = dict(_state_at(inner_state, path))
+            V = sub["prog"].shape[0]
+            keep, rows_i = host_lanes(localize_index(params[f"fade_idx{j}"], V), V)
+            if not rows_i.size:
+                continue
+            dev = sub["prog"].device
+            it = _upload(rows_i, dev)
+            tgt = torch.zeros(V, dtype=torch.bool, device=dev)
+            tgt[it] = True
+            res = tgt & sub["fading"] & (sub["prog"] >= 1.0)
+            flip = torch.logical_xor(sub["flip"], res)
+            # one upload of the rows for both banks
+            rows = tree_map(lambda x, s_: _upload(x[keep], dev, s_.dtype),
+                            params[f"fade_row{j}"], _rows_like(sub["a"], params[f"fade_row{j}"]))
+            sub["a"] = rows_scatter(sub["a"], rows, it, tgt & flip)
+            sub["b"] = rows_scatter(sub["b"], rows, it, tgt & ~flip)
+            sub["flip"] = flip
+            prog = sub["prog"].clone()
+            prog[it] = 0.0
+            inc = sub["inc"].clone()
+            inc[it] = _upload(params[f"fade_inc{j}"][keep], dev, inc.dtype)
+            fading = sub["fading"] & ~res
+            fading[it] = True
+            sub["prog"], sub["inc"], sub["fading"] = prog, inc, fading
+            inner_state = _set_path(inner_state, path, sub)
+        return inner_state
 
     # -- read-path flags (step bound, AGC gate) ------------------------------
 
     def _track_spec(self, slot, spec):
         """Keep a played spec for the bound queries."""
         self._slot_specs[int(slot)] = spec
+        self._ds_stale.add(int(slot))
         self._ds_dirty = True
 
     def _ds_bound_small(self, interval, n):
@@ -282,12 +555,21 @@ class DRCtrlMixin:
                 or getattr(self, "_ds_n", None) != n):
             from ..ops import agc, stream_kernels
 
-            b = 0.0
-            be = 0.0
-            for slot, spec in self._slot_specs.items():
-                if self.mask_host[slot]:
-                    b = max(b, spec.host_ds_bound(interval))
-                    be = max(be, spec.host_ema_bound(interval))
+            if getattr(self, "_ds_interval", None) != interval:
+                self._ds_stale.update(self._slot_specs)  # every bound moves
+                self._ds_stale.update(self._extra_by_slot)
+            for slot in self._ds_stale:
+                specs = list(self._extra_by_slot.get(slot, {}).values())
+                if slot in self._slot_specs:
+                    specs.append(self._slot_specs[slot])
+                self._ds_slot[slot] = max((sp.host_ds_bound(interval) for sp in specs),
+                                          default=0.0)
+                self._ema_slot[slot] = max((sp.host_ema_bound(interval) for sp in specs),
+                                           default=0.0)
+            self._ds_stale = set()
+            live = self.mask_host
+            b = float(np.max(self._ds_slot[live], initial=0.0))
+            be = float(np.max(self._ema_slot[live], initial=0.0))
             self._ds_small = bool(b <= stream_kernels.RESAMPLE_DSMAX)
             self._ema_fast = bool(max(agc.EMA_NMAX, n) * be <= agc.EMA_GATE)
             # window tier of the step bound; 1e-5 absorbs the one-ulp f32
@@ -320,10 +602,10 @@ class DRCtrlMixin:
                 node._pool_ds_small = small
                 node._pool_ds_tier = tier
                 node._pool_ema_fast = fast
-                stack.extend(node.children().values())
+                stack.extend(_dr_children(node).values())
 
     def _ctrl_pending_any(self):
-        return any(self.pending_ctrl.values())
+        return any(self.pending_ctrl.values()) or self._fade_pending_any()
 
     def _ctrl_delta_params(self, params):
         """Pack one (idx, val) pair per controllable field (padded; overflow

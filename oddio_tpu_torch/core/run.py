@@ -31,6 +31,19 @@ __all__ = ["Renderer", "run"]
 MULTI_MIN_BLOCKS = 16
 
 
+def _engine_device(signal):
+    """The device of the first engine (Mixer, SpatialScene) inside a chain
+    of wrappers, or None: ``Tanh(Reinhard(scene))`` renders where the
+    scene lives."""
+    stack = [signal]
+    while stack:
+        node = stack.pop()
+        if node.device is not None:
+            return node.device
+        stack.extend(node.children().values())
+    return None
+
+
 class Renderer:
     def __init__(self, signal, rate, sync_every=16, scan_unroll=1,
                  scan_buckets=None, device=None):
@@ -38,10 +51,16 @@ class Renderer:
             raise RuntimeError("signal was moved into an engine; render the engine")
         own = signal.device
         if own is None:
+            own = _engine_device(signal)
+        if own is None:
             # a standalone signal renders on the Renderer's device
             signal._set_device(default_device(device))
-        elif device is not None and not same_device(device, own):
-            raise ValueError(f"the signal renders on {own}, not on {device}")
+        else:
+            if device is not None and not same_device(device, own):
+                raise ValueError(f"the signal renders on {own}, not on {device}")
+            if signal.device is None:
+                # a wrapper chain around an engine renders on the engine's
+                signal._set_device(own)
         self.signal = signal
         self.rate = int(rate)
         # lib.rs:91: interval = 1.0 / sample_rate as f32

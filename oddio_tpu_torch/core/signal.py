@@ -20,8 +20,9 @@ hold a *batched* template (``clone_batched``): plays copy a spec's host
 state into its slot (``write_slot``, ``device_reset_slot``) and a block
 renders every slot at once (``render_host``, the counterpart of the JAX
 package's ``jax.vmap(sig.render)``).  A standalone signal's ``render`` is
-the one-voice case of the same code.  Fades are not in this package yet
-(ROADMAP P4).
+the one-voice case of the same code.  Faders take a pooled two-bank form
+in host pools and a bank-bit form with the pools' fade lanes in
+device-resident ones (ops/fader.py, core/drctrl.py).
 
 Tensors live on the node's ``device``: a pool stamps its own on the batched
 template, a ``Renderer`` the one it drives a standalone signal on.  With no

@@ -232,3 +232,101 @@ extern "C" int ring_resample(const float* ring, const float* t,
   ring_resample_kernel<<<grid, RESAMPLE_THREADS, 0, stream>>>(A);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// K6, arena form: arena_resample
+//
+// Replaces oddio_tpu/ops/pallas_ring.py::strip_resample (_resample_kernel)
+// as the sampler reads use it (oddio_tpu/core/frames.py::_dr_resample: a
+// row window of the guarded or looped sample arena gathered around each
+// row's cursor, then the kernel), for FramesSignal, Cycle and the spatial
+// seek pool's warped reads.  Per row r, from its (rows,) operands:
+//   xc = clamp(xg - 1, lo, hi)           (the cursor kept in its region)
+//   H = j*f_hi, u = (H - floor H) + (o0 + j*f_lo), fr = u - floor u
+//   wr = j*ds_int + floor H + floor u
+//   wr < 0 && fr > 0: wr += 1, fr -= 1   (truncate toward zero: o0 is a
+//                                          trunc-form fraction in (-1, 1))
+//   a = arena[xc + 1 + wr], b = arena[xc + 2 + wr]
+//   out[r, j] = a + fr*(b - a)
+// The window of the TPU form started one sample before xc, at xc + 1 -
+// extra + row start, so its index extra + wr is the flat arena position
+// xc + 1 + wr here: the arena is read in place, with no window gather.
+// The TPU kernel's clamps (to its realigned 768-wide window and to the
+// fetched rows) never bind where the pool routes here (ds <= 4, windows
+// sized for the pool's step tier), and the regions' zero guards and loop
+// copies keep every read inside the region, so none is kept.  They are
+// sized for n <= ARENA_NMAX at ds <= 4, so the entry refuses a longer n,
+// and a read past the arena's ends (only a larger ds can ask for one)
+// takes the nearest end, as the plain version's does.
+//
+// Every site uses the round-to-nearest intrinsics, as ring_resample.
+//
+// Bound on the H100: bytes.  Each output sample costs two loads of the
+// arena span a row walks (about n*ds + 2 floats) and one store; the
+// operands are 28 bytes a row.  Design: grid (rows, frame tiles), one
+// thread per output frame, so a warp's loads of one row are
+// near-contiguous for ds <= 4 and its stores coalesced; rows on the grid's
+// x axis, so the row count is not limited to 65535.
+// ---------------------------------------------------------------------------
+
+#define ARENA_NMAX 640  // RESAMPLE_NMAX: the read span the arena's guards cover
+
+struct ArenaArgs {
+  const float* arena;  // flat guarded/looped arena
+  long long arena_len;
+  const int* xg;       // (rows,) region cursor (trunc-form integer part)
+  const int* lo;       // (rows,) clamp bounds of xg - 1
+  const int* hi;
+  const float* o0;     // (rows,) trunc-form fraction
+  const int* ds_int;   // (rows,) exact step split
+  const float* f_hi;
+  const float* f_lo;
+  float* out;          // (rows, n)
+  int rows, n;
+};
+
+__global__ void __launch_bounds__(RESAMPLE_THREADS)
+    arena_resample_kernel(const ArenaArgs A) {
+  const int r = blockIdx.x;
+  const int j = blockIdx.y * RESAMPLE_THREADS + threadIdx.x;
+  if (j >= A.n) return;
+  int xc = A.xg[r] - 1;
+  xc = max(xc, A.lo[r]);
+  xc = min(xc, A.hi[r]);
+  const float o0 = A.o0[r];
+  const float d = (float)A.ds_int[r];
+  const float f_hi = A.f_hi[r];
+  const float f_lo = A.f_lo[r];
+  const float tj = (float)j;
+  const float H = __fmul_rn(tj, f_hi);
+  const float Hf = floorf(H);
+  const float u =
+      __fadd_rn(__fsub_rn(H, Hf), __fadd_rn(o0, __fmul_rn(tj, f_lo)));
+  const float fl_u = floorf(u);
+  float fr = __fsub_rn(u, fl_u);
+  float wr = __fadd_rn(__fadd_rn(__fmul_rn(tj, d), Hf), fl_u);
+  if (wr < 0.0f && fr > 0.0f) {
+    wr = __fadd_rn(wr, 1.0f);
+    fr = __fsub_rn(fr, 1.0f);
+  }
+  long long p = (long long)xc + 1 + (long long)wr;
+  p = min(max(p, 0LL), A.arena_len - 2);
+  const float a = A.arena[p];
+  const float b = A.arena[p + 1];
+  A.out[(long long)r * A.n + j] = __fadd_rn(a, __fmul_rn(fr, __fsub_rn(b, a)));
+}
+
+extern "C" int arena_resample(const float* arena, long long arena_len,
+                              const int* xg, const int* lo, const int* hi,
+                              const float* o0, const int* ds_int,
+                              const float* f_hi, const float* f_lo,
+                              float* out, int rows, int n,
+                              cudaStream_t stream) {
+  if (rows < 1 || n < 1 || n > ARENA_NMAX || arena_len < 2)
+    return (int)cudaErrorInvalidValue;
+  const ArenaArgs A{arena, arena_len, xg, lo, hi, o0, ds_int, f_hi, f_lo,
+                    out, rows, n};
+  dim3 grid(rows, (n + RESAMPLE_THREADS - 1) / RESAMPLE_THREADS);
+  arena_resample_kernel<<<grid, RESAMPLE_THREADS, 0, stream>>>(A);
+  return (int)cudaGetLastError();
+}

@@ -171,6 +171,8 @@ class PoolDR(DRCtrlMixin):
         self.proto = (
             spec.clone_batched(capacity) if spec.dr_needs_ingest() else spec
         )
+        # the chain's read-only device data (sample arenas) on this device
+        self.proto._set_device(self.device)
         self.capacity = capacity
         self.k_play = k_play
         self.k_stop = k_stop
@@ -209,6 +211,7 @@ class PoolDR(DRCtrlMixin):
         self._pull_pack()
         old = self.capacity
         new = old * 2
+        self._ctrl_grow(old, new)
         self.dr_state()
         fresh = self._fresh_state(old)
         self.state = tree_map(lambda a, b: torch.cat([a, b]), self.state, fresh)
@@ -235,6 +238,8 @@ class PoolDR(DRCtrlMixin):
             s._moved = True
             stack.extend(s.children().values())
         self._rebind_ctrl(spec, i, gen)
+        self._fade_claim_reset(i)
+        self._fade_mirror_on_play(i, spec)
         self._track_spec(i, spec)
         if self.proto.batch:
             self.proto.dr_bind_slot(i, spec, self, gen)
@@ -361,6 +366,11 @@ class PoolDR(DRCtrlMixin):
             stop_idx = np.full(Ks, self.capacity, np.int32)
             stop_idx[: len(items)] = items
             params["stop_idx"] = stop_idx
+        # fader bookkeeping: release waiting fades into lanes (on control-
+        # event blocks) and advance the progress mirrors every block by the
+        # frames the voices consume (count, as Fader.dr_render); before the
+        # flag sync, since a released target renders this block
+        self._fade_tick(params if has else None, self._interval, self._count)
         self._ds_small = self._ds_flag_sync(self._interval, n)
         # stream ingest and the cursor-mirror shadow (in render order:
         # ingest grows len, then the advance releases consumed samples)
@@ -393,8 +403,10 @@ class PoolDR(DRCtrlMixin):
             if idx.size:
                 rows = tree_map(lambda x: x[keep], params["play"])
                 self._scatter_rows(S, idx, rows)
-        # 1b. control-field deltas (stream close)
+        # 1b. control-field deltas (set_gain, set_speed, stream close)
         S["inner"] = self._ctrl_apply(S["inner"], params)
+        # 1c. fade starts (fader.rs:86-93 swap-channel delivery)
+        S["inner"] = self._fade_apply(S["inner"], params)
         # 1d. stream PCM ingest at the device write cursors
         if "ing" in params:
             S["inner"] = self.proto.dr_ingest(S["inner"], params["ing"])

@@ -90,6 +90,13 @@ _SIGNATURES = {
             _i32, _i32, _i32,              # rows, size_pad, n
             _vp,                           # stream
         ],
+        "arena_resample": [
+            _vp, _i64,                     # arena, its length
+            _vp, _vp, _vp,                 # xg, lo, hi
+            _vp, _vp, _vp, _vp,            # o0, ds_int, f_hi, f_lo
+            _vp, _i32, _i32,               # out, rows, n
+            _vp,                           # stream
+        ],
     },
     "agc_kernel": {
         "agc_step": [

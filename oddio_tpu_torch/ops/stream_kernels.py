@@ -30,6 +30,12 @@ modulo ``size_pad``.
   (``ds = rate*interval``) and also writes the cursor release of
   stream.rs:63-69 to new (V,) tensors; ``ring_resample`` takes the (V,)
   ``ds`` a host pool ships.
+* K6's arena form, ``arena_resample``, the sampler reads of FramesSignal,
+  Cycle and the spatial seek pool (oddio_tpu/core/frames.py
+  ``_dr_resample``): the same position math from the row's cursor
+  ``(xg, o0)`` and exact step split, read in place from the flat guarded
+  or looped sample arena at ``clamp(xg - 1, lo, hi) + 1 + p_j`` and the
+  next sample, with no row-window gather.
 
 A wrapper runs the plain PyTorch version for tensors on the CPU and
 launches the CUDA kernel of ``csrc/stream_kernels.cu`` for tensors on a
@@ -67,6 +73,8 @@ __all__ = [
     "release_plain",
     "stream_step",
     "stream_step_plain",
+    "arena_resample",
+    "arena_resample_plain",
 ]
 
 #: read window of the TPU kernel's sub-block gather; it sizes the routing
@@ -82,7 +90,7 @@ RESAMPLE_NMAX = 640
 PLACE_THREADS = 256
 
 #: launches per kernel since the last reset (CUDA launches only)
-LAUNCHES = {"ring_place": 0, "ring_resample": 0}
+LAUNCHES = {"ring_place": 0, "ring_resample": 0, "arena_resample": 0}
 
 
 def reset_launches():
@@ -356,3 +364,76 @@ def stream_step(ring, t, rate, interval, count, start, len_, n):
     if ring.device.type == "cpu":
         return stream_step_plain(ring, t, rate, interval, count, start, len_, n)
     return _resample_launch(ring, t, rate, float(np.float32(interval)), start, len_, count, n)
+
+
+# --- K6's arena form: the sampler reads ----------------------------------------
+
+
+def arena_resample_plain(garena, xg, lo, hi, o0, ds_int, f_hi, f_lo, n):
+    """Plain version of K6's arena form: (R, n) lerps of the flat arena at
+    ``clamp(xg - 1, lo, hi) + 1 + p_j`` and the next sample, ``p_j`` and
+    the fractions from ``_positions`` (trunc form for a negative ``o0``);
+    a read that would leave the arena takes its nearest end, as the
+    kernel's does."""
+    flat = garena.reshape(-1)
+    xc = torch.clamp(xg - 1, lo, hi).to(torch.int64)
+    _, p, fr = _positions(o0, ds_int, f_hi, f_lo, n)
+    idx = torch.clamp(xc[:, None] + 1 + p, 0, flat.numel() - 2)
+    a = flat[idx]
+    b = flat[idx + 1]
+    return a + fr * (b - a)
+
+
+def arena_resample(garena, xg, lo, hi, o0, ds_int, f_hi, f_lo, n):
+    """K6's arena form (oddio_tpu/ops/pallas_ring.py ``strip_resample`` as
+    oddio_tpu/core/frames.py ``_dr_resample`` calls it, without its window
+    gather): garena the guarded/looped sample arena, f32, contiguous, any
+    shape (read flat); xg, lo, hi, ds_int (R,) int32; o0, f_hi, f_lo (R,)
+    f32.  Returns (R, n): row r's lerp at ``clamp(xg - 1, lo, hi) + 1 +
+    trunc(o0 + j*ds)`` (the split-ds exact positions) and the next
+    sample; n <= RESAMPLE_NMAX.  The regions' guards and loop copies keep
+    every read inside its region for ds <= RESAMPLE_DSMAX; past that, a
+    read that would leave the arena takes its nearest end.  Checks run
+    once per (shapes, strides, dtypes, devices)."""
+    key = ("arena", n, _signature(garena, xg, lo, hi, o0, ds_int, f_hi, f_lo))
+    if key not in _VALIDATED:
+        _check_arena(garena, (xg, lo, hi, ds_int), (o0, f_hi, f_lo), n)
+        _VALIDATED.add(key)
+    if garena.device.type == "cpu":
+        return arena_resample_plain(garena, xg, lo, hi, o0, ds_int, f_hi, f_lo, n)
+    R = xg.shape[0]
+    out = torch.empty((R, n), dtype=torch.float32, device=garena.device)
+    if R == 0:
+        return out
+    rc = lib("stream_kernels").arena_resample(
+        garena.data_ptr(), garena.numel(), xg.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        o0.data_ptr(), ds_int.data_ptr(), f_hi.data_ptr(), f_lo.data_ptr(),
+        out.data_ptr(), R, n, _stream_ptr(garena.device),
+    )
+    LAUNCHES["arena_resample"] += 1
+    _raise_rc(rc, "arena_resample")
+    return out
+
+
+def _check_arena(garena, ints, floats, n):
+    if not isinstance(garena, torch.Tensor):
+        raise TypeError("garena must be a tensor")
+    dev = garena.device
+    if garena.dtype != torch.float32:
+        raise TypeError(f"garena must be torch.float32, got {garena.dtype}")
+    _check_contig(garena, "garena")
+    if garena.numel() < 2:
+        raise ValueError("garena holds no region")
+    R = ints[0].shape[0] if isinstance(ints[0], torch.Tensor) and ints[0].dim() == 1 else -1
+    if R < 0:
+        raise ValueError("xg must be an (R,) int32 tensor")
+    for x, nm in zip(ints, ("xg", "lo", "hi", "ds_int")):
+        _rows_i32(x, R, nm, dev)
+    for x, nm in zip(floats, ("o0", "f_hi", "f_lo")):
+        _check(x, nm, torch.float32, (R,), dev)
+        _check_contig(x, nm)
+    if not 1 <= n <= RESAMPLE_NMAX:
+        raise ValueError(f"n={n} outside [1, {RESAMPLE_NMAX}] (the span the arena's guards "
+                         f"cover)")
+    if dev.type != "cpu":
+        _cuda_device(garena)

@@ -110,6 +110,13 @@ class ScenePack:
                         "device-resident pools only (host and singleton pools in packs: "
                         "ROADMAP PK1)"
                     )
+                if p.fade_paths:
+                    # a pack maps the slot lanes of plays, stops and controls
+                    # onto its stacked rows, not yet those of fades
+                    raise NotImplementedError(
+                        f"{type(p).__name__} {p.name} holds Fader voices: fades in packs "
+                        "are ROADMAP PK3"
+                    )
         self._unpack()
         for s in self.scenes:
             for p in s._all_pools():

@@ -685,6 +685,8 @@ class _DRPoolBase(DRCtrlMixin):
             spec.clone_batched(capacity) if spec.dr_needs_ingest() else spec
         )
         self.device = torch.device(device)
+        # the chain's read-only device data (sample arenas) on this device
+        self.proto._set_device(self.device)
         self.capacity = capacity
         self.k_motion = k_motion
         self.k_play = k_play
@@ -748,6 +750,7 @@ class _DRPoolBase(DRCtrlMixin):
         self._pull_pack()
         old = self.capacity
         new = old * 2
+        self._ctrl_grow(old, new)
         self.dr_state()
         fresh = self._fresh_state(old)
         self.state = self._concat_state(self.state, fresh)
@@ -781,6 +784,8 @@ class _DRPoolBase(DRCtrlMixin):
             s._moved = True
             stack.extend(s.children().values())
         self._rebind_ctrl(spec, i, gen)
+        self._fade_claim_reset(i)
+        self._fade_mirror_on_play(i, spec)
         self._track_spec(i, spec)
         if self.proto.batch:
             self.proto.dr_bind_slot(i, spec, self, gen)
@@ -952,6 +957,8 @@ class _DRPoolBase(DRCtrlMixin):
 
         # 1b. control-field deltas (set_gain/set_speed/..., gain.rs:103-108)
         S["inner"] = self._ctrl_apply(S["inner"], params)
+        # 1c. fade starts (fader.rs:86-93 swap-channel delivery)
+        S["inner"] = self._fade_apply(S["inner"], params)
 
         # 2. motion refresh (swap-channel drain + smoothing, spatial.rs:216-227);
         # a block whose lanes are all padding leaves every column as it was
@@ -1535,6 +1542,10 @@ class _BufferedPoolDR(_DRPoolBase):
         # deltas ship (and mirror-update) BEFORE the tier choice: shipped
         # motion applies on this block
         params = self._delta_params(params, force)
+        # fader bookkeeping rides the inner timebase (faders advance by the
+        # ring-write frame count, like every inner node), before the flag
+        # sync: a released fade's target renders this block
+        self._fade_tick(params if self._has_play else None, self.interval_inner, n_write)
         # the chain's read-path flags (stream step bound, AGC gate) at the
         # inner timebase, after this block's plays and control writes
         self._ds_small = self._ds_flag_sync(self.interval_inner, self._n_inner)

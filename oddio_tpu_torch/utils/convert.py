@@ -12,12 +12,21 @@ convert through ``numpy.asarray``.
 The host buffered pool's ring is ``(V*L/128, 128)`` in the JAX package
 and ``(V, L)`` here: the same bytes in the same order, carried by a
 reshape.
+
+Sampler voices (FramesSignal, Cycle) index a process-wide sample arena,
+which the two packages fill in their own orders: their ``off``, ``goff``
+and ``loff`` leaves are remapped by ``Frames``, through the voices both
+control scripts played (the same slot, the same chain).  A port
+FramesSignal also keeps the reference's f64 time cursor ``t``, which the
+carry derives from the JAX package's (base, frac) cursor.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..core.drctrl import _dr_children
 
 __all__ = ["state_from_numpy", "state_to_numpy", "carry_mixer", "carry_scene", "carry_pack"]
 
@@ -51,10 +60,70 @@ def _chain(sig):
     return out
 
 
+_SAMPLERS = ("FramesSignal", "Cycle")
+_ARENA_FIELDS = ("off", "goff", "loff")
+
+
+def _pair_offsets(pairs, a, b):
+    """Record, for the sampler nodes of spec chains ``a`` (JAX) and ``b``
+    (port) built alike, which port arena offset each JAX offset stands
+    for, keyed by (channel count, field)."""
+    for na, nb in zip(_chain(a), _chain(b)):
+        if type(na).__name__ != type(nb).__name__:
+            raise ValueError(f"chains differ: {type(na).__name__} vs {type(nb).__name__}")
+        if type(na).__name__ in _SAMPLERS:
+            for f in _ARENA_FIELDS:
+                if f in na._host_fields:
+                    table = pairs.setdefault((na.channels, f), {})
+                    table[int(getattr(na, f))] = int(getattr(nb, f))
+
+
+def _slot_pairs(a, b):
+    """The offset pairs of the voices both pools played in the same slot."""
+    pairs = {}
+    for slot, spec in a._slot_specs.items():
+        if slot in b._slot_specs:
+            _pair_offsets(pairs, spec, b._slot_specs[slot])
+    return pairs
+
+
+def _remap(values, table, live, default, what):
+    """A JAX (V,) offset column in port offsets; a live voice's offset must
+    be known, a free slot's (or an unused fader bank's default) stays as
+    it was."""
+    out = np.array(values, copy=True)
+    for i, v in enumerate(np.asarray(values).tolist()):
+        if v in table:
+            out[i] = table[v]
+        elif live[i] and v != default:
+            raise ValueError(f"{what}: arena offset {v} of a live voice belongs to a "
+                             f"Frames the port's control script did not play")
+    return out
+
+
+def _remap_dr_samplers(state, proto, pairs, live, path=()):
+    """Remap the sampler subtrees of a device-resident pool's inner state
+    (numpy tree, in place) and give each port FramesSignal its time
+    cursor ``t``."""
+    name = type(proto).__name__
+    if name in _SAMPLERS:
+        defaults = proto.dr_state_init(1)
+        for f in _ARENA_FIELDS:
+            if f in state:
+                state[f] = _remap(state[f], pairs.get((proto.channels, f), {}), live,
+                                  int(defaults[f][0]), f"{'/'.join(path)}/{f}")
+        if name == "FramesSignal":
+            s = state["base"].astype(np.float64) + state["frac"].astype(np.float64)
+            state["t"] = s / state["rate"].astype(np.float64)
+    for k, c in _dr_children(proto).items():
+        _remap_dr_samplers(state[k], c, pairs, live, path + (k,))
+
+
 def _carry_host_fields(a, b):
     """Copy the host state of chain ``a`` (JAX) onto chain ``b`` (port):
     every node's host columns and a stream's producer queues (refilled in
-    place, since its handles alias the lists) and dirty set."""
+    place, since its handles alias the lists) and dirty set.  A sampler's
+    arena offsets stay the port's own (its slots were played alike)."""
     for na, nb in zip(_chain(a), _chain(b)):
         if type(na).__name__ != type(nb).__name__:
             raise ValueError(f"chains differ: {type(na).__name__} vs {type(nb).__name__}")
@@ -62,7 +131,11 @@ def _carry_host_fields(a, b):
             flush = getattr(x, "_flush_tick_debt", None)
             if flush is not None:
                 flush()
+        if getattr(na, "_pending_fades", None):
+            raise ValueError("a host-pool fader has fades queued: render once first")
         for f in na._host_fields:
+            if type(na).__name__ in _SAMPLERS and f in _ARENA_FIELDS:
+                continue
             setattr(nb, f, np.array(getattr(na, f), copy=True))
         if hasattr(na, "_pending"):
             for q_dst, q_src in zip(nb._pending.flat, na._pending.flat):
@@ -126,13 +199,17 @@ def carry_mixer(src, dst):
         if not a.is_dr:
             _carry_host_pool(a, b, ("mask", "stop", "slot_gen"))
             continue
-        if a.pending_plays:
-            raise ValueError(f"pool {a.name} has plays pending: render it once first")
+        if a.pending_plays or any(a.pending_fades.values()):
+            raise ValueError(f"pool {a.name} has plays or fades pending: render it once first")
         while b.capacity < a.capacity:
             b.grow()
         if b.capacity != a.capacity:
             raise ValueError(f"pool {a.name}: capacity {b.capacity} > {a.capacity}")
-        b.state = state_from_numpy(_numpy_tree(a.state), b.device)
+        pairs = _slot_pairs(a, b)
+        _carry_fades(a, b, pairs)
+        state = _numpy_tree(a.state)
+        _remap_dr_samplers(state["inner"], b.proto, pairs, a.mask_host)
+        b.state = state_from_numpy(state, b.device)
         b.slot_gen = a.slot_gen.copy()
         b._free = list(a._free)
         b.mask_host = a.mask_host.copy()
@@ -151,6 +228,28 @@ def carry_mixer(src, dst):
             for q_dst, q_src in zip(lb._pending, la._pending):
                 q_dst[:] = [np.array(c, copy=True) for c in q_src]
             lb._dirty = set(la._dirty)
+
+
+def _carry_fades(a, b, pairs):
+    """A device-resident pool's fade mirrors, and its released fade
+    targets: ``b``'s script issued the same ``fade_to`` calls, which wait
+    in its queue; each moves into the bank ``a`` released it into (its
+    handles rebound there) and pairs its sampler offsets."""
+    for name in ("_fade_prog", "_fade_inc", "_fade_fading", "_fade_flip", "_fade_dur"):
+        setattr(b, name, {p: v.copy() for p, v in getattr(a, name).items()})
+    b._extra_specs, b._extra_by_slot = {}, {}
+    for (slot, path, bank), spec_a in a._extra_specs.items():
+        queued = b.pending_fades[path].pop(slot, None)
+        if queued is None:
+            raise ValueError(f"slot {slot}: the port's script did not issue the fade "
+                             f"the JAX pool released")
+        spec_b = queued[0]
+        _pair_offsets(pairs, spec_a, spec_b)
+        b._set_extra(slot, path, bank, spec_b)
+        b._rebind_ctrl(spec_b, slot, int(a.slot_gen[slot]), path + (bank,))
+    b.pending_fades = {p: {} for p in b.fade_paths}
+    b._fade_quiet = a._fade_quiet
+    b._ds_dirty = True
 
 
 def carry_scene(src, dst):
@@ -172,7 +271,11 @@ def carry_scene(src, dst):
     dst._rot_dev = state_from_numpy(tree["_rot"], dst.device)
     for a, b in zip(sp, dp):
         if getattr(a, "is_dr", False):
-            b.state = state_from_numpy(tree[a.name], b.device)
+            pairs = _slot_pairs(a, b)
+            _carry_fades(a, b, pairs)
+            state = tree[a.name]
+            _remap_dr_samplers(state["inner"], b.proto, pairs, a.mask_host)
+            b.state = state_from_numpy(state, b.device)
         else:
             _carry_host_pool(a, b, a._COL_NAMES)
 

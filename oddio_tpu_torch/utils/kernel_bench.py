@@ -54,10 +54,16 @@ one.  K4 and K5 are timed through their tensor forms and their record
 forms; the same file times another tree's kernels from that tree's
 root::
 
-    python3 -m oddio_tpu_torch.utils.kernel_bench [append] [place] [select] [read] [agc] [resample]
+    python3 -m oddio_tpu_torch.utils.kernel_bench [append] [place] [select] [read] [agc] [resample] [arena]
     cd OTHER_TREE && PYTHONPATH=. python3 PATH/TO/kernel_bench.py place select read agc resample
 
-``chip_smoke.py`` builds its cold operands and K5's cases here.
+``arena`` times K6's arena form (the FramesSignal, Cycle and seek-pool
+sampler reads) alone at the three paths' shapes (``ARENA_SHAPES``), warm
+and cold over ``ARENA_SETS`` operand sets in a ~43 MB guarded arena, and
+its plain version, beside the byte bound of each shape.
+
+``chip_smoke.py`` builds its cold operands and K5's and K6's arena-form
+cases here.
 """
 
 from __future__ import annotations
@@ -115,6 +121,21 @@ def span_bytes(idx):
     sample."""
     flat = idx.reshape(idx.shape[0], -1)
     return 4 * int((flat.max(dim=1).values - flat.min(dim=1).values + 2).sum())
+
+
+def union_bytes(idx):
+    """Bytes a gather whose rows may share samples must read: the union,
+    over the rows of the (R, ...) int index tensor, of each row's span from
+    its smallest index to its largest plus the lerp's next sample (rows that
+    read the same samples fetch them once)."""
+    flat = idx.reshape(idx.shape[0], -1)
+    lo = flat.min(dim=1).values.cpu().numpy()
+    hi = flat.max(dim=1).values.cpu().numpy() + 2
+    order = np.argsort(lo, kind="stable")
+    lo, hi = lo[order], hi[order]
+    # spans sorted by start: each adds what lies past every earlier end
+    reach = np.concatenate(([lo[0]], np.maximum.accumulate(hi)[:-1]))
+    return 4 * int(np.maximum(hi - np.maximum(lo, reach), 0).sum())
 
 
 def _t(x, dev, dtype=np.float32):
@@ -250,22 +271,38 @@ def clocks(fn, reps=REPS):
     return ms, host
 
 
+#: profiled sessions of a call before ``device_profile`` reports that the
+#: profiler saw no device work at all
+PROFILE_TRIES = 3
+#: sessions ``device_profile`` has taken again since the process started
+PROFILE_RETAKES = {"sessions": 0}
+
+
 def device_profile(fn, reps=REPS):
     """({kernel name: ms per call}, device kernels per call) of the device
     work ``reps`` calls launch (``torch.profiler``; copies and memsets
-    count in the split, not as kernels); empty where it saw none."""
+    count in the split, not as kernels); empty where it saw none.  A
+    session that records no device activity at all is taken again, up to
+    ``PROFILE_TRIES`` sessions, and counted in ``PROFILE_RETAKES``: right
+    after a heavy profiled session (a path's 8-block render) the tracer on
+    the card has come back empty for a call that launched (the kernels'
+    launch counters said so).  Three empty sessions still read 0."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
+    for attempt in range(PROFILE_TRIES):
+        PROFILE_RETAKES["sessions"] += attempt > 0
         torch.cuda.synchronize()
-    split = collections.Counter()
-    kernels = 0
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            split[ev.name] += ev.time_range.elapsed_us() / 1e3 / reps
-            kernels += not ev.name.startswith(("Memcpy", "Memset"))
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        split = collections.Counter()
+        kernels = 0
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                split[ev.name] += ev.time_range.elapsed_us() / 1e3 / reps
+                kernels += not ev.name.startswith(("Memcpy", "Memset"))
+        if split:
+            break
     return dict(split), kernels / reps
 
 
@@ -700,8 +737,130 @@ def resample_cases(dev):
     return out
 
 
+# --- K6's arena form: the sampler reads ----------------------------------------
+
+#: operand sets of a "cold" arena case: a sampler or seek set reads ~3.6 MB
+#: (the union of its rows' spans) at other places of a ~43 MB arena; the
+#: arena fits the 50 MB L2, so no set's reads are cold-cache reads (the
+#: wavetable's sets all read one 10 KB table, as its path does)
+ARENA_SETS = 16
+#: the arena form's shapes on the three paths, one launch each: (label,
+#: rows, region kind, per-frame step range).  The sampler's rows are one
+#: fader bank of 1024 stereo voices (44.1 kHz sounds at 48 kHz, speeds
+#: 0.8-1.25); the wavetable's 1024 Speed(Cycle) voices at ratio 1; the
+#: seek pool's 1024 voices x 2 ears at doppler-warped ratio ~1
+ARENA_SHAPES = (("sampler", 2048, "stereo", (0.735, 1.149)),
+                ("wavetable", 1024, "looped", (1.0, 1.0)),
+                ("seek", 2048, "mono", (0.98, 1.02)))
+ARENA_N = 512
+
+
+def arena_setup(seed=0, sounds=8, seconds=10.0, table=2048):
+    """A guarded arena laid out as core/frames.py lays it, in a private
+    ``_Arena``: ``sounds`` stereo sounds of ``seconds`` at 44.1 kHz (one
+    guarded region per channel), as many mono ones, and one looped
+    ``table``-sample region.  Returns (host garena (rows, 256), regions
+    {kind: [(offset, length, channel stride)]})."""
+    from oddio_tpu_torch.core import frames as FR
+
+    rng = np.random.default_rng(seed)
+    A = FR._Arena(1)
+    n = int(seconds * 44100)
+    reg = {"mono": [], "stereo": [], "looped": []}
+    for _ in range(sounds):
+        st = (rng.standard_normal((n, 2)) * 0.3).astype(np.float32)
+        g = [A.add_guarded(np.ascontiguousarray(st[:, c])) for c in range(2)]
+        reg["stereo"].append((g[0], n, g[1] - g[0]))
+        reg["mono"].append((A.add_guarded((rng.standard_normal(n) * 0.3).astype(np.float32)),
+                            n, 0))
+    loff, _ = A.add_looped(np.sin(np.linspace(0, 2 * np.pi, table, endpoint=False))
+                           .astype(np.float32))
+    reg["looped"].append((loff, table, 0))
+    return np.concatenate(A._gchunks).reshape(-1, FR.ARENA_ROW), reg
+
+
+def arena_operands(dev, rng, regions, rows, kind, ds_range, edges=True):
+    """K6 arena-form operands ``(xg, lo, hi, o0, ds_int, f_hi, f_lo)`` for
+    ``rows`` rows reading ``kind`` regions as the paths build them: a
+    guarded region's rows clamp to [goff - ARENA_GUARD, goff + len] (a
+    stereo sound's two channel rows adjacent, at ``goff + c*stride``), a
+    looped one's to [loff - 1, loff + len - 1]; cursors anywhere in a
+    region, some (with ``edges``) before it, past it and far outside
+    (the clamp); trunc-form fractions in (-1, 1); steps uniform in
+    ``ds_range``, split on the host."""
+    from oddio_tpu_torch.core.frames import ARENA_GUARD
+    from oddio_tpu_torch.ops._dev import split_ds
+
+    regs = regions[kind]
+    pick = rng.integers(len(regs), size=rows)
+    off = np.array([regs[i][0] for i in pick], np.int64)
+    length = np.array([regs[i][1] for i in pick], np.int64)
+    # stereo rows in channel pairs (0, 1), (2, 3), ...: one voice's sound
+    # and cursor, channel 1 a stride past channel 0 (an odd last row is a
+    # channel 0 alone)
+    pairs = slice(0, 2 * (rows // 2), 2)
+    if kind == "stereo":
+        first = pick[pairs]
+        off[1::2] = off[pairs] + np.array([regs[i][2] for i in first], np.int64)
+        length[1::2] = length[pairs]
+    if kind == "looped":
+        base = rng.integers(0, length)
+        lo, hi = off - 1, off + length - 1
+    else:
+        base = rng.integers(-600, length + 200)
+        if edges:
+            base[::7] = -rng.integers(1, 40, base[::7].shape)  # just before the sound
+            base[3::11] = length[3::11] - rng.integers(0, 40, base[3::11].shape)  # its end
+            base[5::13] = rng.choice([-10**6, 10**7], base[5::13].shape)  # the clamp
+        lo, hi = off - ARENA_GUARD, off + length
+    if kind == "stereo":
+        base[1::2] = base[pairs]
+    o0 = rng.uniform(-0.99 if kind != "looped" else 0.0, 0.999, rows).astype(np.float32)
+    ds = rng.uniform(*ds_range, rows).astype(np.float32)
+    di, fh, fl = split_ds(ds)
+    xg = off + base
+    return tuple(torch.tensor(np.asarray(x, dt), device=dev) for x, dt in (
+        (xg, np.int32), (lo, np.int32), (hi, np.int32), (o0, np.float32), (di, np.int32),
+        (fh, np.float32), (fl, np.float32)))
+
+
+def arena_bytes(SK, ops, n):
+    """Bytes K6's arena form must move: the union of the rows' read spans
+    (rows reading one sound, or the one table, share their samples), the
+    (R, n) output and 28 bytes of operands a row."""
+    xg, lo, hi, o0, di, fh, fl = ops
+    _, p, _ = SK._positions(o0, di, fh, fl, n)
+    idx = torch.clamp(xg - 1, lo, hi).to(torch.int64)[:, None] + 1 + p
+    R = xg.shape[0]
+    return union_bytes(idx) + 4 * R * n + 28 * R
+
+
+def arena_cases(dev):
+    """{name: (call, bound ms)} of K6's arena form at the three paths'
+    shapes (``ARENA_SHAPES``, n = 512) on the paths' own operands (no edge
+    cases), warm (one operand set) and cold (``ARENA_SETS`` sets in turn),
+    and its plain version warm."""
+    from oddio_tpu_torch.ops import stream_kernels as SK
+
+    host, regions = arena_setup()
+    garena = torch.tensor(host, device=dev)
+    rng = np.random.default_rng(6)
+    out = {}
+    for label, rows, kind, dsr in ARENA_SHAPES:
+        sets = [arena_operands(dev, rng, regions, rows, kind, dsr, edges=False)
+                for _ in range(ARENA_SETS)]
+        bms = bound(arena_bytes(SK, sets[0], ARENA_N))[0]
+        for heat, ss in (("warm", sets[:1]), ("cold", sets)):
+            out[f"arena {label} {rows} rows, {heat}"] = (
+                cycling(ss, lambda *o: SK.arena_resample(garena, *o, ARENA_N)), bms)
+        out[f"arena {label} {rows} rows, plain"] = (
+            lambda o=sets[0]: SK.arena_resample_plain(garena, *o, ARENA_N), bms)
+    return out
+
+
 MODES = {"append": append_cases, "place": place_cases, "select": select_cases,
-         "read": read_cases, "agc": agc_cases, "resample": resample_cases}
+         "read": read_cases, "agc": agc_cases, "resample": resample_cases,
+         "arena": arena_cases}
 
 
 def main(argv=None):

@@ -1,7 +1,7 @@
 """Where a block's time goes on a CUDA card: the bench scenes at 4096 voices
 through ``Renderer.render_frames_device``, timed and traced.
 
-    python -m oddio_tpu_torch.utils.scene_profile [buffered|seek|mixer|hostpools|pack|pack256|spatialpack ...]
+    python -m oddio_tpu_torch.utils.scene_profile [buffered|seek|mixer|hostpools|pack|pack256|spatialpack|densemix|sampler|wavetable ...]
 
 For the buffered and the seek scene (``bench.py``'s ``build_spatial``,
 4096 voices), the AGC mixer scene (``build_mixer_agc``, BASELINE config
@@ -11,7 +11,10 @@ the device-resident one and a 256-voice config-5 submix), and the
 ScenePacks (``build_config5_pack``: BASELINE config 5's 256 x 256 pack at
 16 scenes, bench.py's ``scenepack_xrt`` line, as ``pack``, and at its
 stated 256 scenes as ``pack256``; ``build_spatial_pack``: 16 scenes of 64
-buffered + 192 seek Sine voices, as ``spatialpack``) it
+buffered + 192 seek Sine voices, as ``spatialpack``), and the 1024-voice
+scenes of BASELINE configs 4 and 2 and the wavetable line
+(``build_densemix``, ``build_sampler`` with its control script of speed
+writes and fades every 8 blocks, ``build_wavetable``) it
 prints, for each of three timed 188-block
 runs, the wall time per 512-frame block, the host time per block spent in
 the engine's ``host_prepare`` and the real-time factor (xRT, after
@@ -38,7 +41,8 @@ import torch
 import oddio_tpu_torch as pt
 
 __all__ = ["build_spatial", "build_mixer_agc", "build_host_pools", "build_config5_pack",
-           "build_pack_scene", "build_spatial_pack", "feed", "card_line", "main"]
+           "build_pack_scene", "build_spatial_pack", "build_densemix", "build_wavetable",
+           "build_sampler", "SamplerDriver", "feed", "card_line", "main"]
 
 RATE = 48000
 BLOCK = 512
@@ -198,6 +202,126 @@ def build_spatial_pack(scenes, device, n_buffered=64, n_seek=192, seed=0):
     return ScenePack(out, RATE, make_mesh(1, 1))
 
 
+def build_densemix(voices, device, seed=0):
+    """BASELINE config 4, ``bench.py:434``'s densemix scene: ``voices``
+    ``Gain(Sine)`` voices (phases uniform in [0, 6), frequencies in [50,
+    4000) Hz, gains in [-20, 0] dB) in a mono Mixer under
+    ``Tanh(Reinhard(mixer))``, drawn from ``seed``.  Returns ``(chain,
+    mixer, gain_controls, rng)``; ``rng`` continues the draws."""
+    rng = np.random.default_rng(seed)
+    control, mixer = pt.Mixer.new(channels=1, device=device)
+    gcs = []
+    for _ in range(voices):
+        gc, g = pt.Gain.new(pt.Sine(rng.uniform(0, 6), rng.uniform(50, 4000)))
+        gc.set_gain(rng.uniform(-20, 0))
+        gcs.append(gc)
+        control.play(g)
+    return pt.Tanh(pt.Reinhard(mixer)), mixer, gcs, rng
+
+
+def build_wavetable(voices, device, seed=0):
+    """``bench.py:470``'s wavetable scene: ``voices`` ``Speed(Cycle)``
+    voices over one 2048-sample sine table at 48 kHz, each seeked uniform
+    in [0, 0.04) s, in a mono Mixer, drawn from ``seed``.  Returns
+    ``(mixer, speed_controls, rng)``."""
+    rng = np.random.default_rng(seed)
+    table = np.sin(np.linspace(0, 2 * np.pi, 2048, endpoint=False)).astype(np.float32)
+    frames = pt.Frames.from_slice(RATE, table)
+    control, mixer = pt.Mixer.new(channels=1, device=device)
+    scs = []
+    for _ in range(voices):
+        c = pt.Cycle(frames)
+        c.seek(float(rng.uniform(0, 0.04)))
+        sc, sp = pt.Speed.new(c)
+        scs.append(sc)
+        control.play(sp)
+    return mixer, scs, rng
+
+
+#: config 2's sounds: stereo, 44.1 kHz
+SAMPLER_RATE = 44100
+
+
+def build_sampler(voices, device, seed=0, sounds=8, seconds=10.0):
+    """BASELINE config 2 at a sampler's width: ``sounds`` stereo ``Frames``
+    of ``seconds`` at 44.1 kHz made from ``seed`` (a few partials and
+    noise per channel), and ``voices`` ``Fader(Speed(FramesSignal))``
+    voices in a stereo Mixer rendering at 48 kHz, each on a sound drawn
+    uniformly, starting uniform in [0, seconds/2) s, at a speed uniform in
+    [0.8, 1.25].  Returns a ``SamplerDriver``."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * SAMPLER_RATE)
+    t = np.arange(n, dtype=np.float64) / SAMPLER_RATE
+    frames = []
+    for _ in range(sounds):
+        data = np.empty((n, 2), np.float32)
+        for c in range(2):
+            f = rng.uniform(80, 2000, 3)
+            x = sum(np.sin(2 * np.pi * fk * t + rng.uniform(0, 6)) for fk in f) / 3
+            data[:, c] = 0.4 * x + 0.05 * rng.standard_normal(n)
+        frames.append(pt.Frames.from_slice(SAMPLER_RATE, data))
+    control, mixer = pt.Mixer.new(channels=2, device=device)
+    drv = SamplerDriver(mixer, frames, rng, seconds)
+    for _ in range(voices):
+        sc, sp = drv.voice()
+        fc, f = pt.Fader.new(sp)
+        drv.speeds.append(sc)
+        drv.faders.append(fc)
+        control.play(f)
+    return drv
+
+
+class SamplerDriver:
+    """The config-2 scene and its control script: every ``period`` blocks,
+    ``set_speed`` (uniform in [0.8, 1.25]) on the next ``k`` voices, and
+    ``fade_to`` a fresh ``Speed(FramesSignal)`` of the same archetype on
+    the ``k`` after them, over ``fade`` seconds; voices taken in turn."""
+
+    def __init__(self, mixer, frames, rng, seconds, k=64, period=8, fade=0.05):
+        self.mixer, self.frames, self.rng, self.seconds = mixer, frames, rng, seconds
+        self.k, self.period, self.fade = k, period, fade
+        self.speeds, self.faders = [], []
+        self._next = 0
+        self.fades = 0
+
+    def voice(self):
+        fr = self.frames[int(self.rng.integers(len(self.frames)))]
+        sc, sp = pt.Speed.new(pt.FramesSignal(fr, float(self.rng.uniform(0, self.seconds / 2))))
+        sc.set_speed(float(self.rng.uniform(0.8, 1.25)))
+        return sc, sp
+
+    def _take(self):
+        V = len(self.faders)
+        idx = [(self._next + j) % V for j in range(min(self.k, V))]
+        self._next = (self._next + len(idx)) % V
+        return idx
+
+    def control(self):
+        """One period's control: the speed writes, then the fades (the
+        faded-in voice's Speed handle replaces the voice's)."""
+        for i in self._take():
+            self.speeds[i].set_speed(float(self.rng.uniform(0.8, 1.25)))
+        for i in self._take():
+            sc, sp = self.voice()
+            self.faders[i].fade_to(sp, self.fade)
+            self.speeds[i] = sc
+            self.fades += 1
+
+    def render(self, renderer, nblocks, device_out=True):
+        """Render ``nblocks`` blocks of 512 frames, the control script
+        applied before each period; returns what the renderer returns per
+        period (device tensors, or numpy with ``device_out`` False)."""
+        out = []
+        for b0 in range(0, nblocks, self.period):
+            self.control()
+            nb = min(self.period, nblocks - b0)
+            if device_out:
+                out.extend(renderer.render_frames_device(BLOCK * nb, sync=False))
+            else:
+                out.append(renderer.render_frames(BLOCK * nb))
+        return out
+
+
 def feed(ctls, rng, k):
     """Write ``k`` more N(0, 0.1²) samples to every stream (as many as each
     has room for); returns the samples each took."""
@@ -232,11 +356,22 @@ def _timed_prepare(scenes):
     return spent
 
 
+class _Driven:
+    """A Renderer whose ``render_frames_device`` runs a driver's control
+    script (``SamplerDriver.render``)."""
+
+    def __init__(self, renderer, driver):
+        self.renderer, self.driver = renderer, driver
+
+    def render_frames_device(self, total, sync=False):
+        return self.driver.render(self.renderer, total // BLOCK)
+
+
 def _run(renderer, nblocks):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     # a Renderer skips its handle readback; a ScenePack starts none
-    kw = {"sync": False} if isinstance(renderer, pt.Renderer) else {}
+    kw = {"sync": False} if isinstance(renderer, (pt.Renderer, _Driven)) else {}
     renderer.render_frames_device(BLOCK * nblocks, **kw)
     torch.cuda.synchronize()
     return time.perf_counter() - t0
@@ -262,6 +397,13 @@ def profile_scene(label):
 
         def before():
             feed(ctls, rng, 1024)
+    elif label == "densemix":
+        scene, _, _, _ = build_densemix(1024, "cuda")
+    elif label == "wavetable":
+        scene, _, _ = build_wavetable(1024, "cuda")
+    elif label == "sampler":
+        drv = build_sampler(1024, "cuda")
+        scene = drv.mixer
     else:
         _, scene = build_spatial(label == "buffered", VOICES, "cuda")
     if label in ("pack", "pack256", "spatialpack"):
@@ -269,6 +411,9 @@ def profile_scene(label):
     else:
         spent = _timed_prepare([scene])
         r = pt.Renderer(scene, RATE)
+    if label == "sampler":
+        # the control script runs inside the timed window (every 8 blocks)
+        r = _Driven(r, drv)
     _run(r, nblocks // 2)  # warm-up
     for _ in range(RUNS):
         spent[0] = 0.0
@@ -306,7 +451,8 @@ def profile_scene(label):
               f"x{e.count / ntr:5.1f}  {e.key}")
 
 
-SCENES = ("buffered", "seek", "mixer", "hostpools", "pack", "pack256", "spatialpack")
+SCENES = ("buffered", "seek", "mixer", "hostpools", "pack", "pack256", "spatialpack",
+          "densemix", "sampler", "wavetable")
 
 
 def main(argv=None):

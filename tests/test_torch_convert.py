@@ -227,3 +227,59 @@ def test_port_pack_continues_from_jax_pack():
     assert np.abs(a).max() > 0.05
     assert np.abs(a - b).max() <= TOL, np.abs(a - b).max()
     assert [c.free() for c in cj] == [c.free() for c in cp]
+
+
+def _config2_mixer(m, frames_data, rng):
+    """Config 2 at a small width: Fader(Speed(FramesSignal)) voices over two
+    stereo sounds at 44.1 kHz in a stereo mixer at 48 kHz."""
+    kw = {"device": "cpu"} if m is pt else {}
+    frames = [m.Frames.from_slice(44100, d) for d in frames_data]
+    control, mixer = m.Mixer.new(channels=2, **kw)
+    speeds, faders = [], []
+    for i in range(8):
+        sc, sp = m.Speed.new(m.FramesSignal(frames[i % 2], float(rng.uniform(0, 0.2))))
+        sc.set_speed(float(rng.uniform(0.8, 1.25)))
+        fc, f = m.Fader.new(sp)
+        control.play(f)
+        speeds.append(sc)
+        faders.append(fc)
+    return mixer, frames, speeds, faders
+
+
+def test_port_continues_a_jax_sampler_mixer():
+    """A JAX config-2 mixer (sampler voices mid-fade, a fade completed)
+    carried across with ``carry_mixer``: the two arenas were filled in
+    different orders, so the voices' arena offsets differ and are remapped
+    by Frames; both render the same blocks after, with a set_speed."""
+    from oddio_tpu_torch.utils.convert import carry_mixer
+
+    data = [(np.sin(np.arange(30000)[:, None] * [0.01, 0.013] + k) * 0.5).astype(np.float32)
+            for k in range(2)]
+    ot.Frames.from_slice(8000, np.zeros((777, 2), np.float32)).guard_off()  # shifts JAX's arena
+    mixers, specs = [], []
+    for m in (ot, pt):
+        rng = np.random.default_rng(3)
+        mixer, frames, speeds, faders = _config2_mixer(m, data, rng)
+        mixers.append((mixer, frames, speeds, faders))
+    mj, fj, sj, faj = mixers[0]
+    mp, fp, sp_, fap = mixers[1]
+    assert fj[0].guard_off() != fp[0].guard_off()
+    rj = ot.Renderer(mj, RATE)
+    rj.render_block(BLOCK)
+    for m, fa, fr in ((ot, faj, fj), (pt, fap, fp)):
+        fa[1].fade_to(m.Speed(m.FramesSignal(fr[1], 0.05)), 0.01)  # completes
+        fa[2].fade_to(m.Speed(m.FramesSignal(fr[0], 0.1)), 0.1)  # mid-fade at the carry
+    for _ in range(3):
+        rj.render_block(BLOCK)
+    carry_mixer(mj, mp)
+    rp = pt.Renderer(mp, RATE)
+    a, b = [], []
+    for i in range(6):
+        if i == 2:
+            for s in (sj[3], sp_[3]):
+                s.set_speed(0.9)
+        a.append(rj.render_block(BLOCK))
+        b.append(rp.render_block(BLOCK))
+    a, b = np.concatenate(a), np.concatenate(b)
+    assert np.abs(a).max() > 0.1
+    assert np.abs(a - b).max() <= TOL, np.abs(a - b).max()

@@ -12,6 +12,8 @@ reads: the kernel sums the same products in another, fixed order; the
 tolerance follows how float32 rounding errors of such a sum grow, and
 fails a dropped voice or bf16 partial sums), two runs bit-equal; K4 exact (a copy); K6 exact (the same f32 operations, each
 rounded once), in its DR form (read and cursor release) and its ds form;
+K6's arena form exact (the sampler reads) and the dense-mix, sampler
+and wavetable scenes within 1e-5 of the CPU;
 K7, the whole Adapt step, within ``agc.agc_tolerance`` elementwise
 (another order of the prefix sum) at every block length up to 1024; K5 within ``ring_kernels.strip_tolerance``
 elementwise (its voice sum in another, fixed order); K8 within
@@ -34,12 +36,16 @@ from oddio_tpu_torch.ops import agc as A
 from oddio_tpu_torch.ops import flat_kernels as FK
 from oddio_tpu_torch.ops import ring_kernels as RK
 from oddio_tpu_torch.ops import stream_kernels as SK
-from oddio_tpu_torch.ops._dev import device_split_ds
+from oddio_tpu_torch.ops._dev import device_split_ds, split_ds
 from oddio_tpu_torch.utils import kernel_bench as KB
 from oddio_tpu_torch.utils.scene_profile import (build_config5_pack, build_host_pools,
                                                  build_mixer_agc, build_spatial_pack, feed)
 
 torch.set_num_threads(1)
+
+
+#: K4's and K6's stream-ring forms (K6's arena form reads sampler arenas)
+STREAM_RING = ("ring_place", "ring_resample")
 
 
 @pytest.fixture
@@ -378,7 +384,8 @@ def test_mixer_agc_scene_on_card_matches_cpu(cuda):
         a = r.render_frames(512 * 24)
         feed(ctls, rng, 1024)
         outs.append(np.concatenate([a, r.render_frames(512 * 24)]))
-    assert min(SK.LAUNCHES.values()) > 0 and A.LAUNCHES["agc_gains"] > 0
+    assert min(SK.LAUNCHES[k] for k in STREAM_RING) > 0 and A.LAUNCHES["agc_gains"] > 0
+    assert SK.LAUNCHES["arena_resample"] == 0
     assert np.abs(outs[0]).max() > 0.1
     assert np.abs(outs[0] - outs[1]).max() <= 1e-5
 
@@ -530,7 +537,7 @@ def test_host_pool_scene_on_card_matches_cpu(cuda):
             sc.set_speed(1.1)
         outs.append(np.concatenate([a, r.render_frames(512 * 24)]))
     assert RK.LAUNCHES["strip_select"] > 0 and RK.LAUNCHES["append"] > 0
-    assert min(SK.LAUNCHES.values()) > 0
+    assert min(SK.LAUNCHES[k] for k in STREAM_RING) > 0 and SK.LAUNCHES["arena_resample"] == 0
     assert np.abs(outs[0]).max() > 1e-2
     assert np.abs(outs[0] - outs[1]).max() <= 1e-5
 
@@ -639,7 +646,8 @@ def test_pack_on_card_matches_cpu(cuda):
         if pcm is None:
             pcm = (rng.standard_normal((len(ctls), 1024)) * 0.1).astype(np.float32)
         outs.append(_pack_run(pack, ctls, pcm))
-    assert min(SK.LAUNCHES.values()) > 0 and A.LAUNCHES["agc_gains"] > 0
+    assert min(SK.LAUNCHES[k] for k in STREAM_RING) > 0 and A.LAUNCHES["agc_gains"] > 0
+    assert SK.LAUNCHES["arena_resample"] == 0
     assert np.abs(outs[0]).max() > 0.1
     assert np.abs(outs[0] - outs[1]).max() <= 1e-5
     outs = []
@@ -662,5 +670,85 @@ def test_pack_launches_per_block_do_not_grow_with_scenes(cuda):
         A.reset_launches()
         _pack_run(pack, ctls, pcm)
         torch.cuda.synchronize()
-        counts.append({**SK.LAUNCHES, **A.LAUNCHES})
+        counts.append({**{k: SK.LAUNCHES[k] for k in STREAM_RING}, **A.LAUNCHES})
     assert counts[0] == counts[1] and min(counts[0].values()) > 0, counts
+
+
+# --- K6's arena form and the sampler scenes --------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["mono", "stereo", "looped"])
+@pytest.mark.parametrize("rows,n", [(1024, 512), (4096, 513), (1, 128), (17, 100)])
+def test_arena_resample_exact(cuda, kind, rows, n):
+    """K6's arena form against its plain version, exactly (the same f32
+    operations, each rounded once), over the smoke's shapes: every step
+    tier and 44.1 -> 48 kHz at speed 1.2, cursors before, past and far
+    outside a sound, negative fractions, stereo channel rows, a looped
+    table; one launch per call, two runs bit-equal."""
+    host, regions = KB.arena_setup(sounds=2, seconds=2.0)
+    garena = torch.tensor(host, device=cuda)
+    rng = np.random.default_rng(rows + n)
+    ds12 = float(np.float32(44100.0) / np.float32(48000.0) * np.float32(1.2))
+    for dsr in ((0.2, 1.0), (1.0, 2.0), (2.0, 4.0), (ds12, ds12)):
+        ops = KB.arena_operands(cuda, rng, regions, rows, kind, dsr)
+        before = SK.LAUNCHES["arena_resample"]
+        got = SK.arena_resample(garena, *ops, n)
+        again = SK.arena_resample(garena, *ops, n)
+        torch.cuda.synchronize()
+        assert SK.LAUNCHES["arena_resample"] == before + 2
+        assert torch.equal(got, SK.arena_resample_plain(garena, *ops, n))
+        assert torch.equal(got, again)
+
+
+def test_arena_resample_at_the_arena_ends(cuda):
+    """Reads that would leave the arena (a step past RESAMPLE_DSMAX on its
+    last region, a clamp bound before its start) take its nearest end,
+    exactly as the plain version's; a longer n than RESAMPLE_NMAX is
+    refused."""
+    host, regions = KB.arena_setup(sounds=1, seconds=0.5)
+    garena = torch.tensor(host, device=cuda)
+    loff, length, _ = regions["looped"][0]
+    i32 = np.int32
+    ops = [torch.tensor(x, device=cuda) for x in (
+        np.array([loff + length - 2, -40, loff], i32), np.array([loff - 1, -50, loff - 1], i32),
+        np.array([loff + length - 1, 10, loff + length - 1], i32), np.zeros(3, np.float32))]
+    ops += [torch.tensor(x, device=cuda)
+            for x in split_ds(np.array([64.0, 1.0, 33.3], np.float32))]
+    got = SK.arena_resample(garena, *ops, SK.RESAMPLE_NMAX)
+    assert torch.equal(got, SK.arena_resample_plain(garena, *ops, SK.RESAMPLE_NMAX))
+    with pytest.raises(ValueError):
+        SK.arena_resample(garena, *ops, SK.RESAMPLE_NMAX + 1)
+
+
+def test_arena_resample_refuses_cpu_operands_with_a_card_arena(cuda):
+    g = torch.zeros((4, 256), device=cuda)
+    i4 = torch.zeros(4, dtype=torch.int32)
+    f4 = torch.zeros(4)
+    with pytest.raises(ValueError):
+        SK.arena_resample(g, i4, i4, i4, f4, i4, f4, f4, 8)
+
+
+def test_sampler_scenes_on_card_match_cpu(cuda):
+    """The dense mix (no K6), the config-2 sampler (K6's arena form, both
+    fader banks, fades) and the wavetable (K6) at small widths on the card
+    against the CPU render, within 1e-5."""
+    from oddio_tpu_torch.utils.scene_profile import (build_densemix, build_sampler,
+                                                     build_wavetable)
+
+    for label, build in (("dense", lambda d: build_densemix(64, d)[0]),
+                         ("sampler", lambda d: build_sampler(64, d, sounds=2, seconds=1.0)),
+                         ("wavetable", lambda d: build_wavetable(64, d)[0])):
+        outs = []
+        for device in ("cpu", cuda):
+            SK.reset_launches()
+            sig = build(device)
+            if label == "sampler":
+                r = pt.Renderer(sig.mixer, 48000)
+                outs.append(np.concatenate(sig.render(r, 16, device_out=False)))
+            else:
+                outs.append(pt.Renderer(sig, 48000).render_frames(512 * 16))
+        torch.cuda.synchronize()
+        arena = SK.LAUNCHES["arena_resample"]
+        assert (arena == 0) if label == "dense" else (arena >= 16), (label, arena)
+        assert np.abs(outs[0]).max() > 1e-2
+        assert np.abs(outs[0] - outs[1]).max() <= 1e-5, label

@@ -3,9 +3,9 @@ the JAX package, the reference's inline vectors and the numpy oracle.
 
 Ports of the JAX package's mixer, stream and AGC tests
 (tests/test_ops.py:246-378, tests/test_stream_adapt_fader.py, and
-tests/test_agc_kernel.py:71/:106) run against the port.  The port has no
-Constant, FixedGain or FramesSignal yet (ROADMAP P1, P4): where a JAX test
-used one, a Stream fed the same samples takes its place (an integer step
+tests/test_agc_kernel.py:71/:106) run against the port.  These tests were
+written before the port had Constant, FixedGain or FramesSignal: where a
+JAX test used one, a Stream fed the same samples takes its place (an integer step
 reads the written values exactly), and where a JAX test compared the
 device-resident pool with the host pool, the port's device-resident pool
 is compared with the JAX package's host pool.
