@@ -2,7 +2,8 @@
 checks each against its plain PyTorch version at its path's shapes, drives
 the SpatialScene render path, the AGC mixer path (BASELINE config 5's
 scene) and the host-pool path at 4096 voices, the dense mix (config 4),
-the sampler (config 2) and the wavetable at 1024, and times them.
+the sampler (config 2), the wavetable and a seek sampler at 1024, and
+times them.
 
     python3 chip_smoke.py
 
@@ -80,18 +81,37 @@ Phases (each prints one or more lines; any failure exits non-zero):
     with set_gain on 64 voices between, no K6 launch; its xRT;
 22. config 2 at a sampler's width (1024 Fader(Speed(FramesSignal)) voices
     over 8 stereo 10 s sounds at 44.1 kHz, speed writes on 64 voices and
-    fades on 64 others every 8 blocks): at least two K6 arena launches a
-    block (both fader banks), fades released on the device (its bank bits
-    equal the host mirrors and have flipped); its xRT;
-23. bench.py's wavetable (1024 Speed(Cycle) voices): at least one K6
-    arena launch a block; its xRT;
-24. the three scenes at 64-256 voices on the card against the CPU;
-    at the end of the run, phases 21-23's profiles (device kernels per
-    block).
+    fades on 64 others every 8 blocks): one K6 ``arena_step`` launch a
+    block (both fader banks and the crossfade), no ``arena_resample``,
+    fades released on the device (its bank bits equal the host mirrors
+    and have flipped); its xRT;
+23. bench.py's wavetable (1024 Speed(Cycle) voices): one ``arena_step``
+    launch a block; its xRT;
+24. the four sampler-path scenes (21-23, 26) at 64-256 voices on the card
+    against the CPU; at the end of the run, phases 21-23 and 26's
+    profiles (device kernels per block);
+25. (run right after phase 20) K6's arena form as whole steps
+    (``arena_step``: a FramesSignal or Cycle step, a seek pool's warped
+    read, a whole Fader) exactly against their plain versions (the torch
+    chains they replace; the Fader's output but for the sign of an exact
+    zero): mono and stereo FramesSignal, Cycle, seek E = 2, the Fader with
+    fading, done, flipped and idle voices; n = 512, 513, 128 and 100; a
+    static interval and speeds in the tiers 1/2/4; edges, count < n and
+    0; and at the paths' shapes; two runs bit-equal, one launch each;
+26. a seek sampler (1024 mono FramesSignal voices in a SpatialScene's seek
+    pool, set_motion on 64 between runs): one ``arena_step`` launch a
+    block (both ears); its xRT;
+27. (before 21) the whole steps on the three paths' captured states
+    (``kernel_bench.arena_states``), exact on every captured block, timed
+    warm and cold beside the plain version and the byte bound; at the end
+    of the run, one device kernel per step (the profiler's count).
 The profiles run at the end in this order: the one-kernel checks
-(phase 4's reads, the Adapt and Stream steps of 8, 12 and 17) before
-any path's block profile (4, 8, 12, 17, 21-23), the heavy sessions
-after which the tracer has come back empty.
+(phase 4's reads, the Adapt and Stream steps of 8, 12 and 17, phase 27's
+arena steps) before any path's block profile (4, 8, 12, 17, 21-23, 26),
+the heavy sessions after which the tracer has come back empty.  The
+tracer also loses single records now and then, so each one-kernel count
+is one that two consecutive profiled sessions agree on
+(``kernel_bench.device_profile(..., exact=True)``).
 Each kernel's bound is the larger of the bytes it must move over the
 card's 3.35 TB/s and its float32 operations over 67 TFLOP/s (the
 published H100 SXM peaks), from the timed case's own inputs.  Each
@@ -164,7 +184,7 @@ def capture_path_steps(phase, engine, render):
 
 
 def block_profiles(tag):
-    """Phases 4, 8, 12, 17 and 21-23's path profiles, run after every
+    """Phases 4, 8, 12, 17, 21-23 and 26's path profiles, run after every
     one-kernel check (these sessions are the heavy ones): device kernels
     per block of each path."""
     from oddio_tpu_torch.utils import kernel_bench as KB
@@ -221,13 +241,18 @@ def read_flat_launches(label):
         raise AssertionError(f"{label} launched K8-K10: {FK.LAUNCHES}")
 
 
+#: K6's arena-form launch counters: the read-only entry, which no path
+#: calls, and the whole steps of the sampler paths
+ARENA_KEYS = ("arena_resample", "arena_step")
+
+
 def stream_launches(SK, label):
     """K4's and K6's stream-ring launches on a path run just made, which
     holds no sampler voice: K6's arena form must not have launched."""
-    if SK.LAUNCHES["arena_resample"]:
-        raise AssertionError(f"{label} launched K6's arena form "
-                             f"{SK.LAUNCHES['arena_resample']} times")
-    return {k: v for k, v in SK.LAUNCHES.items() if k != "arena_resample"}
+    if any(SK.LAUNCHES[k] for k in ARENA_KEYS):
+        raise AssertionError(f"{label} launched K6's arena form: "
+                             f"{[SK.LAUNCHES[k] for k in ARENA_KEYS]}")
+    return {k: v for k, v in SK.LAUNCHES.items() if k not in ARENA_KEYS}
 
 
 def time_ms(fn, reps=50):
@@ -527,12 +552,13 @@ def read_kernel_counts(captured, tag):
     R, K = pool._read_cfg
     kw = dict(n=BLOCK, K=K, R=R, **read_geometry(pool))
     counts = {"one pool read alone": KB.device_profile(
-        lambda: RK.ring_select_ears(S["ring"], ros[0], **kw), reps=1)[1]}
+        lambda: RK.ring_select_ears(S["ring"], ros[0], **kw), reps=1, exact=True)[1]}
     for label, state, whole in (("a delta block's read", delta, pool.render),
                                 ("an idle block's read", singles[1], pool.render),
                                 ("an idle group's read", groups[1], pool.render_multi)):
-        counts[label] = (KB.device_profile(lambda: whole(*state), reps=1)[1]
-                         - KB.device_profile(lambda: KB.block_reads(pool, *state), reps=1)[1])
+        counts[label] = (KB.device_profile(lambda: whole(*state), reps=1, exact=True)[1]
+                         - KB.device_profile(lambda: KB.block_reads(pool, *state), reps=1,
+                                             exact=True)[1])
     print(f"phase 4 profile: device kernels {counts} {tag}")
     if any(v != 1 for v in counts.values()):
         raise AssertionError(f"a pool read is not one device kernel: {counts}")
@@ -1376,8 +1402,8 @@ def pack_xrt(packs, dev, tag):
 
 
 def arena_kernel(dev, kern, tag):
-    """Phase 20: K6's arena form (``stream_kernels.arena_resample``, the
-    FramesSignal, Cycle and seek-pool sampler reads) against its plain
+    """Phase 20: K6's arena form's read (``stream_kernels.arena_resample``,
+    which the whole steps of phase 25 compose; no path launches it) against its plain
     version, exactly (the same f32 operations, each rounded once), at 1024,
     4096, 1 and 17 rows, n = 512, 513, 128 and 100, steps in the tiers
     (0.2, 1), (1, 2) and (2, 4) and 44.1/48 kHz at speed 1.2, over mono
@@ -1452,33 +1478,200 @@ def arena_kernel(dev, kern, tag):
     kern["arena_resample"] = entry
 
 
-def _sampler_launches(SK, label, nblk, need):
-    """K6 arena-form launches of a sampler path run just made: at least
-    ``need`` per block."""
-    k = SK.LAUNCHES["arena_resample"]
-    if k < need * nblk:
-        raise AssertionError(f"{label}: K6's arena form launched {k} times in {nblk} blocks "
-                             f"(at least {need} per block expected)")
+def _bits(x):
+    """Bit patterns with -0.0 read as +0.0."""
+    return torch.where(x == 0, torch.zeros_like(x), x).view(torch.int32)
+
+
+def _same(got, want, signed_zero=True):
+    """Two step results (tensors, or dicts and tuples of them) equal: bit
+    for bit, or with ``signed_zero`` False equal values whose bits differ
+    at most in the sign of an exact zero."""
+    if isinstance(got, dict):
+        return got.keys() == want.keys() and all(_same(got[k], want[k]) for k in got)
+    if isinstance(got, tuple):
+        return all(_same(g, w, signed_zero) for g, w in zip(got, want))
+    if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+        return False
+    if got.dtype != torch.float32:
+        return True
+    if signed_zero:
+        return torch.equal(got.view(torch.int32), want.view(torch.int32))
+    return torch.equal(_bits(got), _bits(want))
+
+
+def step_kernel(dev, tag):
+    """Phase 25: K6's arena form as whole steps (``stream_kernels.arena_step``,
+    ``arena_warp``, ``fader_step``) against their plain versions (the torch
+    chains of the FramesSignal, Cycle, Speed and Fader renders and the seek
+    reads): mono and stereo FramesSignal, Cycle, the seek read with E = 2
+    and the Fader with fading, done, flipped and idle voices mixed; n = 512,
+    513, 128 and 100; a static interval and per-voice Speed factors in the
+    step tiers 1, 2 and 4; negative fractions, cursors before, past and
+    far outside a sound, count < n and count = 0; then at the paths'
+    shapes (1024 stereo Fader voices, 2 x 2048 rows; 1024 Cycle voices;
+    2048 seek rows).  Exact (the Fader's output but for the sign of an
+    exact zero), two runs bit-equal, one launch a call."""
+    from oddio_tpu_torch.ops import stream_kernels as SK
+    from oddio_tpu_torch.utils import kernel_bench as KB
+
+    host, regions = KB.arena_setup()
+    garena = torch.tensor(host, device=dev)
+    rng = np.random.default_rng(25)
+    iv2 = (KB.STEP_IV, KB.STEP_IV)
+
+    def held(label, call, plain, signed_zero=True):
+        before = SK.LAUNCHES["arena_step"]
+        got, again = call(), call()
+        want = plain()
+        torch.cuda.synchronize()
+        if SK.LAUNCHES["arena_step"] != before + 2:
+            raise AssertionError(f"arena_step {label}: "
+                                 f"{SK.LAUNCHES['arena_step'] - before} launches for 2 calls")
+        if not (_same(got, want, signed_zero) and _same(got, again)):
+            raise AssertionError(f"arena_step {label}: differs from its plain version or from "
+                                 f"its own second run")
+
+    cases = 0
+    V = 300
+    for n in (512, 513, 128, 100):
+        for mode in ("static", 1, 2, 4):
+            for kind, C in (("frames", 1), ("frames", 2), ("cycle", 1)):
+                st = KB.step_leaf(dev, rng, regions, V, kind, C)
+                st_b = KB.step_leaf(dev, rng, regions, V, kind, C)
+                sp = None if mode == "static" else KB.step_speeds(dev, rng, V, mode)
+                sp2 = (sp, None if sp is None else KB.step_speeds(dev, rng, V, mode))
+                cnt = KB.step_count(dev, rng, V, n)
+                fs = KB.fade_columns(dev, rng, V)
+                held(f"{kind} C={C} n={n} {mode}",
+                     lambda: SK.arena_step(garena, kind, st, KB.STEP_IV, n, cnt, C, sp),
+                     lambda: SK.arena_step_plain(garena, kind, st, KB.STEP_IV, n, cnt, C, sp))
+                held(f"Fader over {kind} C={C} n={n} {mode}",
+                     lambda: SK.fader_step(garena, kind, fs, (st, st_b), iv2, n, cnt, C, sp2),
+                     lambda: SK.fader_step_plain(garena, kind, fs, (st, st_b), iv2, n, cnt, C,
+                                                 sp2), signed_zero=False)
+                cases += 2
+        for kind in ("frames", "cycle"):
+            st = KB.step_leaf(dev, rng, regions, V, kind)
+            t0, dt = KB.seek_offsets(dev, rng, V)
+            held(f"seek {kind} n={n}", lambda: SK.arena_warp(garena, kind, st, t0, dt, n),
+                 lambda: SK.arena_warp_plain(garena, kind, st, t0, dt, n))
+            cases += 1
+    # the paths' shapes: the sampler's 1024 stereo Fader voices (speeds
+    # 0.8-1.25, a few voices fading), the wavetable's 1024 Cycle voices, the
+    # seek pool's 1024 voices x 2 ears
+    V = 1024
+    st = KB.step_leaf(dev, rng, regions, V, "frames", 2)
+    st_b = KB.step_leaf(dev, rng, regions, V, "frames", 2)
+    sp2 = tuple(torch.tensor(rng.uniform(0.8, 1.25, V).astype(np.float32), device=dev)
+                for _ in range(2))
+    fs = KB.fade_columns(dev, rng, V, frac_fading=0.06)
+    cnt = KB.step_count(dev, rng, V, BLOCK, full=True)
+    held("sampler shape", lambda: SK.fader_step(garena, "frames", fs, (st, st_b), iv2, BLOCK,
+                                                cnt, 2, sp2),
+         lambda: SK.fader_step_plain(garena, "frames", fs, (st, st_b), iv2, BLOCK, cnt, 2, sp2),
+         signed_zero=False)
+    st = KB.step_leaf(dev, rng, regions, V, "cycle")
+    sp = torch.tensor(rng.uniform(0.8, 1.25, V).astype(np.float32), device=dev)
+    held("wavetable shape", lambda: SK.arena_step(garena, "cycle", st, KB.STEP_IV, BLOCK, cnt,
+                                                  1, sp),
+         lambda: SK.arena_step_plain(garena, "cycle", st, KB.STEP_IV, BLOCK, cnt, 1, sp))
+    st = KB.step_leaf(dev, rng, regions, V, "frames", edges=False)
+    t0, dt = KB.seek_offsets(dev, rng, V)
+    held("seek shape", lambda: SK.arena_warp(garena, "frames", st, t0, dt, BLOCK),
+         lambda: SK.arena_warp_plain(garena, "frames", st, t0, dt, BLOCK))
+    print(f"K6 arena_step: {cases} cases (FramesSignal mono/stereo, Cycle, the Fader over "
+          f"each, seek reads E=2; n 512/513/128/100; a static interval and speeds in the tiers "
+          f"1/2/4; edges, count < n and 0) and the three paths' shapes (1024 stereo Fader "
+          f"voices, 1024 Cycle, 2048 seek rows) equal to the plain versions (tolerance 0; the "
+          f"Fader's output but for the sign of an exact zero), two runs bit-equal, one launch "
+          f"each {tag}")
+
+
+def step_paths(dev, kern, tag):
+    """Phase 27: the whole steps on the three paths' captured states
+    (``kernel_bench.arena_states``: the 1024-voice sampler's Fader pool, the
+    wavetable's Speed(Cycle) pool, the seek sampler's seek pool; 10 blocks
+    each): exact against their plain versions on every block, then timed
+    warm and cold beside the plain version and the byte bound.  The
+    sampler's fused Fader step is the kernels line's main entry."""
+    from oddio_tpu_torch.utils import kernel_bench as KB
+
+    entry = None
+    for label, proto, method, kind, C, calls in KB.arena_states(dev):
+        for i, args in enumerate(calls):
+            got = KB.step_call(proto, method, kind, C, args)()
+            want = KB.step_call(proto, method, kind, C, args, plain=True)()
+            if not _same(got, want, signed_zero=method != "dr_render" or "prog" not in args[0]):
+                raise AssertionError(f"arena_step on {label}, block {i}: differs from its "
+                                     f"plain version")
+        warm = KB.step_call(proto, method, kind, C, calls[0])
+        STEP_ONE.append((label, warm))
+        tk = timed(f"K6 arena_step {label}, warm", warm)
+        tc = timed(f"K6 arena_step {label}, cold",
+                   KB.cycling([(KB.step_call(proto, method, kind, C, a),) for a in calls[1:]],
+                              lambda f: f()))
+        pms = time_ms(KB.step_call(proto, method, kind, C, calls[0], plain=True))
+        bms, by = bound(KB.step_bytes(method, kind, C, calls[0]), 0)
+        print(f"K6 arena_step {label}: equal to the plain version on {len(calls)} captured "
+              f"blocks; {times_str(tk)}, cold {times_str(tc)} vs plain {pms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}) {tag}")
+        if entry is None:  # the sampler's fused Fader step: the main shape
+            entry = record("oddio_tpu/ops/pallas_ring.py:1203",
+                           "oddio_tpu_torch/csrc/stream_kernels.cu", 0.0, tk, pms, bms, by)
+            entry["cold"] = tc
+        else:
+            entry.setdefault("shapes", {})[label] = {"times": tk, "cold": tc, "plain_ms": pms,
+                                                     "bound_ms": bms}
+    kern["arena_step"] = entry
+
+
+#: (label, call) of one captured whole step per path, each one device
+#: kernel (``step_one_kernel``)
+STEP_ONE = []
+
+
+def step_one_kernel(tag):
+    """One device kernel for each path's whole arena step on its captured
+    state (the profiler's count, beside the launch counts)."""
+    from oddio_tpu_torch.utils import kernel_bench as KB
+
+    counts = {label: KB.device_profile(fn, reps=1, exact=True)[1] for label, fn in STEP_ONE}
+    print(f"phase 27 profile: device kernels per arena step {counts} {tag}")
+    if any(k != 1 for k in counts.values()):
+        raise AssertionError(f"an arena step is not one device kernel: {counts}")
+
+
+def _sampler_launches(SK, label, nblk):
+    """K6 arena-form launches of a sampler path run just made: one whole
+    step a block (a Fader's both banks in it), and no read-only
+    ``arena_resample`` launch."""
+    k = SK.LAUNCHES["arena_step"]
+    if k != nblk or SK.LAUNCHES["arena_resample"]:
+        raise AssertionError(f"{label}: {k} arena_step launches in {nblk} blocks (one a block "
+                             f"expected), {SK.LAUNCHES['arena_resample']} arena_resample")
     return k
 
 
 def sampler_paths(pt, dev, kern, tag):
-    """Phases 21-24: BASELINE config 4's dense mix (1024 Gain(Sine) voices
-    under Tanh(Reinhard(mixer)), set_gain on 64 voices between its runs),
-    config 2 at a sampler's width (1024 Fader(Speed(FramesSignal)) voices
-    over 8 stereo 10 s sounds at 44.1 kHz, a speed write on 64 voices and a
-    fade on 64 others every 8 blocks) and the wavetable line (1024
-    Speed(Cycle) voices), each through render_frames and
-    render_frames_device with launches counted (no K6 on the dense mix; at
-    least two arena reads a block on the sampler, one for each fader bank;
-    one on the wavetable; fades released on the device: the device's bank
-    bits follow the host mirrors and have flipped), their real-time
-    factors; then each scene at 64-256 voices on the card against the CPU
-    render."""
+    """Phases 21-24 and 26: BASELINE config 4's dense mix (1024 Gain(Sine)
+    voices under Tanh(Reinhard(mixer)), set_gain on 64 voices between its
+    runs), config 2 at a sampler's width (1024 Fader(Speed(FramesSignal))
+    voices over 8 stereo 10 s sounds at 44.1 kHz, a speed write on 64
+    voices and a fade on 64 others every 8 blocks), the wavetable line
+    (1024 Speed(Cycle) voices) and a seek sampler (1024 FramesSignal
+    voices in a seek pool), each through render_frames and
+    render_frames_device with launches counted (no K6 on the dense mix;
+    one whole ``arena_step`` a block on the others, the sampler's both
+    fader banks in it, and no ``arena_resample``; fades released on the
+    device: the device's bank bits follow the host mirrors and have
+    flipped), their real-time factors; then each scene at 64-256 voices
+    on the card against the CPU render."""
     from oddio_tpu_torch.core.drctrl import _state_at
     from oddio_tpu_torch.ops import agc as A
     from oddio_tpu_torch.ops import ring_kernels as RK
     from oddio_tpu_torch.ops import stream_kernels as SK
+    from oddio_tpu_torch.utils import kernel_bench as KB
     from oddio_tpu_torch.utils.scene_profile import (build_densemix, build_sampler,
                                                      build_wavetable)
 
@@ -1549,7 +1742,7 @@ def sampler_paths(pt, dev, kern, tag):
     b = flat(drv.render(r, nb1), 2)
     torch.cuda.synchronize()
     other_kernels("the sampler path")
-    k = _sampler_launches(SK, "the sampler path", nblk, 2)
+    k = _sampler_launches(SK, "the sampler path", nblk)
     sampler_total += k
     check("sampler render_frames", a, 2)
     check("sampler render_frames_device", b, 2)
@@ -1562,8 +1755,8 @@ def sampler_paths(pt, dev, kern, tag):
                              f"mirrors {pool._fade_flip[path].sum()})")
     print(f"sampler path: 1 s + {BLOCK * nb1 / RATE:.3f} s, {drv.fades} fades queued, "
           f"{int(flips.sum())} voices on their other bank (device bits = host mirrors); peak "
-          f"|out| {np.abs(a).max():.4f}/{np.abs(b).max():.4f}; K6 arena launches {k} "
-          f"({k / nblk:.2f} per block) {tag}")
+          f"|out| {np.abs(a).max():.4f}/{np.abs(b).max():.4f}; K6 arena_step launches {k} "
+          f"({k / nblk:.2f} per block: both fader banks in one), arena_resample 0 {tag}")
     xrt("sampler 1024 voices", lambda k: drv.render(r, k))
     BLOCK_PROFILES.append((22, "the 1024-voice sampler (its control script every 8 blocks)",
                            lambda r=r, drv=drv: drv.render(r, 8), 8))
@@ -1579,20 +1772,46 @@ def sampler_paths(pt, dev, kern, tag):
     b = flat(r.render_frames_device(BLOCK * nb1), 1)
     torch.cuda.synchronize()
     other_kernels("the wavetable path")
-    k = _sampler_launches(SK, "the wavetable path", nblk, 1)
+    k = _sampler_launches(SK, "the wavetable path", nblk)
     sampler_total += k
     check("wavetable render_frames", a, 1)
     check("wavetable render_frames_device", b, 1)
     print(f"wavetable path: 1024 Speed(Cycle) voices, 1 s + {BLOCK * nb1 / RATE:.3f} s, "
           f"set_speed on 64 between; peak |out| {np.abs(a).max():.4f}/{np.abs(b).max():.4f}; "
-          f"K6 arena launches {k} ({k / nblk:.2f} per block) {tag}")
+          f"K6 arena_step launches {k} ({k / nblk:.2f} per block), arena_resample 0 {tag}")
     xrt("wavetable 1024 voices", lambda k: r.render_frames_device(BLOCK * k, sync=False))
     BLOCK_PROFILES.append((23, "the 1024-voice wavetable",
                            lambda r=r: r.render_frames_device(BLOCK * 8, sync=False), 8))
-    kern["arena_resample"]["launches"] = sampler_total
+
+    # -- 26. the seek sampler ------------------------------------------------------
+    t0 = time.perf_counter()
+    _, scene, hs, rng = KB.build_seek_sampler(1024, dev)
+    r = pt.Renderer(scene, RATE)
+    print(f"seek sampler: 1024 mono FramesSignal voices over 8 10 s sounds in a SpatialScene's "
+          f"seek pool built in {time.perf_counter() - t0:.2f} s {tag}")
+    reset_launches()
+    a = r.render_frames(RATE)
+    for h in hs[:64]:
+        h.set_motion(rng.uniform(-15, 15, 3), rng.uniform(-5, 5, 3), False)
+    b = flat(r.render_frames_device(BLOCK * nb1), 2)
+    torch.cuda.synchronize()
+    other_kernels("the seek-sampler path")
+    k = _sampler_launches(SK, "the seek-sampler path", nblk)
+    sampler_total += k
+    check("seek sampler render_frames", a, 2)
+    check("seek sampler render_frames_device", b, 2)
+    print(f"seek-sampler path: 1 s + {BLOCK * nb1 / RATE:.3f} s, set_motion on 64 between; "
+          f"peak |out| {np.abs(a).max():.4f}/{np.abs(b).max():.4f}; K6 arena_step launches {k} "
+          f"({k / nblk:.2f} per block: both ears in one), arena_resample 0 {tag}")
+    xrt("seek sampler 1024 voices", lambda k: r.render_frames_device(BLOCK * k, sync=False))
+    BLOCK_PROFILES.append((26, "the 1024-voice seek sampler",
+                           lambda r=r: r.render_frames_device(BLOCK * 8, sync=False), 8))
+    kern["arena_step"]["launches"] = sampler_total
+    kern["arena_resample"]["launches"] = 0  # no path reads through it now
 
     # -- 24. card vs CPU ------------------------------------------------------------
-    for label, V in (("dense mix", 256), ("sampler", 128), ("wavetable", 256)):
+    for label, V in (("dense mix", 256), ("sampler", 128), ("wavetable", 256),
+                     ("seek sampler", 128)):
         outs = []
         for device in (dev, "cpu"):
             if label == "dense mix":
@@ -1606,6 +1825,13 @@ def sampler_paths(pt, dev, kern, tag):
                 drv = build_sampler(V, device, sounds=2, seconds=2.0)
                 r = pt.Renderer(drv.mixer, RATE)
                 outs.append(np.concatenate(drv.render(r, 24, device_out=False)))
+            elif label == "seek sampler":
+                _, scene, hs, rng = KB.build_seek_sampler(V, device, sounds=2, seconds=2.0)
+                r = pt.Renderer(scene, RATE)
+                x = r.render_frames(BLOCK * 12)
+                for h in hs[:16]:
+                    h.set_motion(rng.uniform(-15, 15, 3), rng.uniform(-5, 5, 3), False)
+                outs.append(np.concatenate([x, r.render_frames(BLOCK * 12)]))
             else:
                 mixer, scs, rng = build_wavetable(V, device)
                 r = pt.Renderer(mixer, RATE)
@@ -1651,8 +1877,10 @@ def main():
 
     # -- 3. kernels vs plain at main-path shapes -------------------------------------
     kern = {}
-    # phase 20, K6's arena form, runs first: a fault in it shows in seconds
+    # phases 20 and 25, K6's arena form and its whole steps, run first: a
+    # fault in them shows in seconds
     arena_kernel(dev, kern, tag)
+    step_kernel(dev, tag)
 
     kern["rows_append"] = rows_append_check(dev, tag)
 
@@ -1732,13 +1960,15 @@ def main():
     pack_xrt(packs, dev, tag)
     del packs
 
-    # -- 21-24. configs 4 and 2, the wavetable -------------------------------------------
+    # -- 21-24, 26. configs 4 and 2, the wavetable, the seek sampler; 27. their steps --
+    step_paths(dev, kern, tag)
     sampler_paths(pt, dev, kern, tag)
 
     # the one-kernel checks first, then the heavy path profiles
     read_kernel_counts(captured, tag)
     step_kernel_counts(tag)
-    print(f"profiler: {KB.PROFILE_RETAKES['sessions']} empty one-kernel sessions retaken "
+    step_one_kernel(tag)
+    print(f"profiler: {KB.PROFILE_RETAKES['sessions']} one-kernel check sessions retaken "
           f"{tag}")
     block_profiles(tag)
     profile_device(tag)

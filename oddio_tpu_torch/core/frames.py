@@ -28,11 +28,12 @@ advanced as the reference advances it (``t += f64(interval) * count``,
 frames.rs:198) and split into the trunc-form (base, frac) each block
 reads from; the JAX package advances its f32-split cursor by ``count *
 ds`` instead, which drifts from the reference by the f32 rounding of the
-step (ROADMAP Q3.5).  The reads go through K6's arena form
-(``stream_kernels.arena_resample``), one launch per <= 512-frame chunk;
-where a pool's step bound passes ``RESAMPLE_DSMAX`` (``_pool_ds_small``
-false, stamped by core/drctrl.py) it reads with the exact whole-arena
-gather instead, as the JAX package does.
+step (ROADMAP Q3.5).  A step is one launch of K6's arena form
+(``stream_kernels.arena_step``: the step split, the rows, the read in
+<= 512-frame chunks and the cursor release), a seek pool's warped read one
+``arena_warp``; where a pool's step bound passes ``RESAMPLE_DSMAX``
+(``_pool_ds_small`` false, stamped by core/drctrl.py) it reads with the
+exact whole-arena gather instead, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -41,14 +42,7 @@ import numpy as np
 import torch
 
 from ..ops import stream_kernels as SK
-from ..ops._dev import (
-    chunked_frames,
-    device_advance,
-    device_split_ds,
-    exact_positions,
-    split_ds,
-    top12,
-)
+from ..ops._dev import device_split_ds, exact_positions, split_ds, top12
 from .drctrl import _upload
 from .hostmath import EPS32, f32, f64, full
 from .signal import ControlBlock, Signal
@@ -56,12 +50,9 @@ from .signal import ControlBlock, Signal
 __all__ = ["Frames", "FramesSignal", "FramesSignalControl"]
 
 
-#: row granularity of the guarded arena
-ARENA_ROW = 256
-#: zero-guard length around each guarded region: covers a whole block's
-#: read span (RESAMPLE_NMAX * RESAMPLE_DSMAX) plus cursor slack, so reads
-#: outside a sound hit literal zeros (frames.rs:105-123) with no masking
-ARENA_GUARD = 3072
+#: row granularity of the guarded arena, and the zero-guard length around
+#: each guarded region (ops/stream_kernels.py, whose step kernel reads them)
+ARENA_ROW, ARENA_GUARD = SK.ARENA_ROW, SK.ARENA_GUARD
 #: maximum read span a looped region must cover past its cursor
 _LOOP_SPAN = ARENA_GUARD
 
@@ -254,31 +245,13 @@ def _pool_ds_small(node):
     return getattr(node, "_pool_ds_small", True)
 
 
-def _split_t(t, rate):
-    """The reference's per-block split of the f64 time cursor
-    (frames.rs:177-189): ``s0 = t*rate``, ``base = trunc(s0)`` (clipped to
-    +-2^30), ``frac = f32(s0 - trunc(s0))``, the trunc-form pair."""
-    s0 = t * rate.to(torch.float64)
-    b = torch.trunc(s0)
-    return torch.clamp(b, -(2**30), 2**30).to(torch.int32), (s0 - b).to(torch.float32)
-
-
-def _floor_advance(cur, n_c, ds_int, f_hi, f_lo):
-    """Advance a trunc-form (base, o) chunk cursor by ``n_c`` frames: to
-    floor form, then ``device_advance`` (whose floor-form result is a
-    valid trunc-form cursor)."""
-    b, o = cur
-    neg = o < 0
-    return device_advance(
-        b - neg.to(torch.int32), torch.where(neg, o + 1.0, o), n_c, ds_int, f_hi, f_lo,
-    )
-
-
 class FramesSignal(Signal):
     """An audio signal backed by static samples (frames.rs:141-214)."""
 
     seekable = True
     _host_fields = ("t", "off", "length", "rate", "goff")
+    #: its device-resident step is ``stream_kernels.arena_step``'s "frames"
+    arena_kind = "frames"
 
     def __init__(self, frames, start_seconds=0.0):
         super().__init__()
@@ -423,80 +396,30 @@ class FramesSignal(Signal):
             "f_lo": np.float32(f_lo),
         }
 
-    def _dr_step(self, state, interval):
-        """The step split: the slot row's exact host split for the pool's
-        static interval, or re-derived on the device from a per-voice
-        interval (Speed chains, speed.rs:32-36) with the reference's
-        unit-step snap (frames.rs:180-187)."""
-        if not isinstance(interval, torch.Tensor):
-            return state["ds_int"], state["f_hi"], state["f_lo"]
-        ds = state["rate"] * interval
-        ds = torch.where(torch.abs(ds - 1.0) <= float(EPS32), 1.0, ds)
-        return device_split_ds(ds)
-
     def dr_render(self, state, ddata, interval, n, count):
-        ds_int, f_hi, f_lo = self._dr_step(state, interval)
-        C = self.channels
         if _pool_ds_small(self):
-            # the guarded regions' zero pads carry frames.rs:105-123's edge
-            # semantics; a C-channel sound stacks its channels on the row
-            # axis (channel c's region at goff + c*guard_stride(len)), in
-            # <= 512-frame chunks (any n, signal.rs:19)
-            if C == 1:
-                goff, length = state["goff"], state["length"]
-
-                def rep(x):
-                    return x
-            else:
-                stride = (2 * ARENA_GUARD + state["length"]
-                          + torch.remainder(-state["length"], ARENA_ROW))
-                goff = (state["goff"][:, None]
-                        + torch.arange(C, dtype=torch.int32, device=stride.device)
-                        * stride[:, None]).reshape(-1)
-
-                def rep(x):
-                    return x.repeat_interleave(C)
-
-                length = rep(state["length"])
-            lo = goff - ARENA_GUARD
-            hi = goff + length
-            dsf = (rep(ds_int), rep(f_hi), rep(f_lo))
-
-            def ev(cur, n_c):
-                b, o = cur
-                out = SK.arena_resample(ddata["garena"], goff + rep(b), lo, hi, rep(o), *dsf, n_c)
-                return out if C == 1 else out.reshape(-1, C, n_c)
-
-            def adv(cur, n_c):
-                return _floor_advance(cur, n_c, ds_int, f_hi, f_lo)
-
-            samples = chunked_frames(ev, adv, (state["base"], state["frac"]), n)
+            # the whole step in one launch: the step split, the guarded
+            # rows (their zero pads carry frames.rs:105-123's edge
+            # semantics; channel c's region at goff + c*guard_stride(len)),
+            # the read in <= 512-frame chunks (any n, signal.rs:19) and the
+            # f64 cursor's release
+            return SK.arena_step(ddata["garena"], "frames", state, interval, n, count,
+                                 channels=self.channels)
+        # heavy downsampling: the exact whole-arena gather
+        # (frames.rs:176-201 resamples at any ratio)
+        ds_int, f_hi, f_lo = SK.step_split("frames", state, interval)
+        tr, fr = exact_positions(state["frac"], ds_int, f_hi, f_lo, n, signed=True)
+        s = state["base"][:, None] + tr
+        arena = ddata["arena"]
+        off, length = state["off"][:, None], state["length"][:, None]
+        a = _arena_get(arena, off, length, s)
+        b = _arena_get(arena, off, length, s + 1)
+        if arena.dim() > 1:
+            samples = _lerp(a, b, fr[..., None]).permute(0, 2, 1)  # (V, C, n)
         else:
-            # heavy downsampling: the exact whole-arena gather
-            # (frames.rs:176-201 resamples at any ratio)
-            tr, fr = exact_positions(state["frac"], ds_int, f_hi, f_lo, n, signed=True)
-            s = state["base"][:, None] + tr
-            arena = ddata["arena"]
-            off, length = state["off"][:, None], state["length"][:, None]
-            a = _arena_get(arena, off, length, s)
-            b = _arena_get(arena, off, length, s + 1)
-            if arena.dim() > 1:
-                samples = _lerp(a, b, fr[..., None]).permute(0, 2, 1)  # (V, C, n)
-            else:
-                samples = _lerp(a, b, fr)
+            samples = _lerp(a, b, fr)
         # frames.rs:198: t += f64::from(interval) * out.len()
-        if isinstance(interval, torch.Tensor):
-            iv = interval.to(torch.float64)
-        else:
-            iv = float(np.float32(interval))
-        return self._at_t(state, state["t"] + iv * count.to(torch.float64)), samples
-
-    @staticmethod
-    def _at_t(state, t):
-        out = dict(state)
-        out["t"] = t
-        out["base"], out["frac"] = _split_t(t, state["rate"])
-        return out
+        return SK.frames_release(state, interval, count), samples
 
     def dr_is_finished(self, state):
         """frames.rs:204-206: s >= len - 1 (s = base + frac, frac in (-1,1))."""
@@ -516,38 +439,23 @@ class FramesSignal(Signal):
         )
 
     def dr_warp_render(self, state, ddata, t0, dt, n):
-        V, E = t0.shape
-        base2, o0 = _split_t(state["t"][:, None] + t0.to(torch.float64), state["rate"][:, None])
-        ds = dt * state["rate"][:, None]
-        ds = torch.where(torch.abs(ds - 1.0) <= float(EPS32), 1.0, ds)
-        ds_int, f_hi, f_lo = device_split_ds(ds)
-        if not _pool_ds_small(self):
-            # heavy downsampling: exact whole-arena gather
-            tr, fr = exact_positions(o0, ds_int, f_hi, f_lo, n, signed=True)
-            s = base2[:, :, None] + tr
-            arena = ddata["arena"]
-            off = state["off"][:, None, None]
-            length = state["length"][:, None, None]
-            return _lerp(_arena_get(arena, off, length, s),
-                         _arena_get(arena, off, length, s + 1), fr)
-        dsf = (ds_int.reshape(-1), f_hi.reshape(-1), f_lo.reshape(-1))
-        goff = state["goff"].repeat_interleave(E)
-        lo = goff - ARENA_GUARD
-        hi = goff + state["length"].repeat_interleave(E)
-
-        def ev(cur, n_c):
-            b, o = cur
-            return SK.arena_resample(ddata["garena"], goff + b, lo, hi, o, *dsf, n_c)
-
-        def adv(cur, n_c):
-            return _floor_advance(cur, n_c, *dsf)
-
-        samples = chunked_frames(ev, adv, (base2.reshape(-1), o0.reshape(-1)), n)
-        return samples.reshape(V, E, n)
+        if _pool_ds_small(self):
+            return SK.arena_warp(ddata["garena"], "frames", state, t0, dt, n)
+        # heavy downsampling: exact whole-arena gather
+        base2, o0 = SK.split_t(state["t"][:, None] + t0.to(torch.float64),
+                               state["rate"][:, None])
+        ds_int, f_hi, f_lo = device_split_ds(SK.snap_unit(dt * state["rate"][:, None]))
+        tr, fr = exact_positions(o0, ds_int, f_hi, f_lo, n, signed=True)
+        s = base2[:, :, None] + tr
+        arena = ddata["arena"]
+        off = state["off"][:, None, None]
+        length = state["length"][:, None, None]
+        return _lerp(_arena_get(arena, off, length, s),
+                     _arena_get(arena, off, length, s + 1), fr)
 
     def dr_advance(self, state, seconds):
         """The end-of-block seek (spatial.rs:468, frames.rs:209-214)."""
-        return self._at_t(state, state["t"] + float(np.float32(seconds)))
+        return SK.at_t(state, state["t"] + float(np.float32(seconds)))
 
 
 class FramesSignalControl:

@@ -330,3 +330,412 @@ extern "C" int arena_resample(const float* arena, long long arena_len,
   arena_resample_kernel<<<grid, RESAMPLE_THREADS, 0, stream>>>(A);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// K6, arena form, whole steps: arena_step
+//
+// Replaces the same TPU kernel (oddio_tpu/ops/pallas_ring.py::strip_resample
+// as oddio_tpu/core/frames.py::_dr_resample calls it) together with the
+// torch chains around each sampler read, one launch per step:
+//   form 0, a device-resident FramesSignal or Cycle step (FramesSignal
+//           dr_render, Cycle dr_render, and a Speed chain over either):
+//           the step split, the rows, the chunked read and the cursor
+//           release;
+//   form 1, a seek pool's warped read (dr_warp_render): (V, E) t0 and dt,
+//           E rows per voice, no release;
+//   form 2, a whole device-resident Fader over such a chain: both banks'
+//           rows and the crossfade of oddio_tpu/ops/fader.py (fader.rs:38-70),
+//           both banks released.
+// Per voice v, everything the torch chains computed, in their order:
+//   the step: the slot row's host split (a static interval), or
+//     ds = rate*w with w the (V,) interval column or the host interval,
+//     times the innermost Speed's factor where given (speed.rs:32-36);
+//     FramesSignal (and its seek form) snaps |ds - 1| <= eps32 to 1
+//     (frames.rs:180-187), Cycle does not; then device_split_ds's exact
+//     split (ops/_dev.py);
+//   the rows: FramesSignal channel c reads its guarded region at
+//     goff + c*(2*guard + len + (-len mod row)), clamped to
+//     [region - guard, region + len]; Cycle its looped region at loff,
+//     clamped to [loff - 1, loff + len - 1];
+//   the read: arena_resample's, at clamp(xg - 1, lo, hi) + 1 + p_j and the
+//     next sample, in WARP_CHUNK-frame chunks; between chunks the cursor
+//     moves as FramesSignal's _floor_advance (to floor form, then
+//     device_advance) or as Cycle's device_advance then remainder(., len);
+//   the release, to new tensors: FramesSignal t' = t + f64(w)*f64(count),
+//     then the reference's split (trunc of t'*f64(rate), clipped to
+//     +-2^30, the f32 fraction); Cycle the position at max(count - 1, 0)
+//     reduced mod len plus one step, kept where count <= 0;
+//   the seek cursor: FramesSignal trunc-splits t + f64(t0); Cycle shifts by
+//     warp_shift's split product (r_hi = top12(rate)) and wraps rem_euclid;
+//   the Fader: done = fading & prog >= 1, flip ^= done, fading &= ~done;
+//     p_j = min(prog + j*inc, 1); old*sqrt(1 - p) + new*sqrt(p) on fading
+//     voices, old elsewhere; prog' = min(prog + count*inc, 1).
+// A voice that is not fading after the completion check needs only its
+// active bank: its other bank's weight is 0 all block, so that bank is not
+// read (its cursor is released all the same).  The torch chain adds
+// new*0 = +-0 to old there, so the output equals it (torch.equal) but
+// for the sign of an exact zero.
+//
+// Every site uses the round-to-nearest intrinsics (f32 and f64) and
+// sqrt is the IEEE __fsqrt_rn: the chains round every op once, and a
+// contracted product would move a floor() boundary, a read, or the f64
+// cursor by an ulp that grows over a long render.
+//
+// Bound on the H100: bytes, the union of the rows' read spans (for
+// ds <= 4 about n*ds + 2 floats a row, shared by rows on one sound), the
+// output and the per-voice state in and out (about 60 bytes a bank).
+// arena_resample ran one thread per output frame over (rows, frame
+// tiles): every thread reloaded seven row operands and then waited on its
+// two dependent loads with nothing else in flight, four waves of such
+// threads latency-bound at about 1.4 TB/s.  Here STEP_TPR threads take a
+// whole output row: its state, step split and cursor are computed once a
+// thread (redundantly, from broadcast loads, no shuffles or barriers),
+// then each thread walks every STEP_TPR-th frame, so a warp's two loads
+// per frame are near-contiguous for ds <= 4 and its stores coalesced, and
+// the unrolled frame loop keeps its few frames' load pairs in flight
+// together.  Neither the reads nor the stores bound it at the paths'
+// sizes (utils/step_ablate.py: without either the time barely moves, and
+// the grid's launch alone takes ~2 us): the instructions do, each
+// thread's row setup and each frame's floors and conversions (the slow
+// conversion pipe), so the frame loops count in floats, the read
+// position converts in 32 bits and the grid's y axis is the channel (no
+// divisions).  A warp per row (the first form) left three quarters of
+// the card's thread slots empty at 2048 rows and walked 16 frames a lane;
+// 64 threads a row, two rows a CUDA block, was the fastest layout on the
+// sampler's and the seek pool's 2048 rows (PERF.md).
+// ---------------------------------------------------------------------------
+
+#define STEP_TPR 64    // threads per output row
+#define STEP_ROWS 2    // output rows per CUDA block
+#define STEP_CHUNK 512                     // ops/_dev.py WARP_CHUNK
+#define STEP_EPS32 1.1920928955078125e-07f  // float32 machine epsilon
+#define STEP_CLIP 1073741824.0             // 2^30, the base clip of the split
+
+struct LeafOps {        // one bank's leaf state, (V,) columns
+  const double* t;      // FramesSignal's f64 time cursor
+  const int* base;      // trunc-form cursor
+  const float* frac;
+  const int* roff;      // goff (FramesSignal) or loff (Cycle)
+  const int* len;
+  const float* rate;
+  const float* r_hi;    // Cycle's seek: top12(rate)
+  const int* ds_int;    // the slot row's split, read for a static interval
+  const float* f_hi;
+  const float* f_lo;
+  const float* ivc;     // (V,) interval column, or null: the host interval
+  const float* speed;   // (V,) factor of the innermost Speed, or null
+  double* t_out;        // the released cursor (forms 0 and 2)
+  int* base_out;
+  float* frac_out;
+};
+#define LEAF_PTRS 15
+
+struct StepArgs {
+  const float* arena;
+  long long arena_len;
+  LeafOps bank[2];
+  const int* count;     // count[v * s_count]
+  const float* t0;      // form 1: (V, E)
+  const float* dt;
+  const float* prog;    // form 2: the Fader's (V,) state
+  const float* inc;
+  const unsigned char* fading;
+  const unsigned char* flip;
+  float* prog_out;
+  unsigned char* fading_out;
+  unsigned char* flip_out;
+  float* out;           // (V, C, n) forms 0 and 2, (V, E, n) form 1
+  float iv;             // the host interval, f32
+  int s_count, V, C, E, n, guard, row;
+};
+#define STEP_PTRS (12 + 2 * LEAF_PTRS)
+
+struct Split {  // ds = d + fh + fl exactly (ops/_dev.py split_ds)
+  float d, fh, fl;
+  int di;
+};
+
+__device__ __forceinline__ Split split_of(float ds) {  // device_split_ds
+  Split s;
+  s.d = floorf(ds);
+  s.di = (int)s.d;
+  const float f = __fsub_rn(ds, s.d);
+  s.fh = __fmul_rn(floorf(__fmul_rn(f, 4096.0f)), 1.0f / 4096.0f);
+  s.fl = __fsub_rn(f, s.fh);
+  return s;
+}
+
+__device__ __forceinline__ int mod_floor(int a, int m) {  // torch.remainder, m > 0
+  const int r = a % m;
+  return r < 0 ? r + m : r;
+}
+
+// ops/_dev.py device_advance: the cursor moved by cnt steps, floor form
+__device__ __forceinline__ void advance(int& b, float& o, int cnt, const Split& s) {
+  const float cf = (float)cnt;
+  const float H = __fmul_rn(cf, s.fh);
+  const float Hfl = floorf(H);
+  const float u = __fadd_rn(__fsub_rn(H, Hfl), __fadd_rn(o, __fmul_rn(cf, s.fl)));
+  const float fl = floorf(u);
+  b = b + cnt * s.di + (int)Hfl + (int)fl;
+  o = __fsub_rn(u, fl);
+}
+
+// frames.rs:177-189 as split_t: s0 = t*rate, the trunc-form (base, frac)
+__device__ __forceinline__ void split_t(double t, float rate, int& b, float& o) {
+  const double s0 = __dmul_rn(t, (double)rate);
+  const double bt = trunc(s0);
+  b = (int)fmin(fmax(bt, -STEP_CLIP), STEP_CLIP);
+  o = __double2float_rn(__dsub_rn(s0, bt));
+}
+
+// arena_resample's read of frame tj (its index in the chunk, a float: the
+// loops count in floats, exact below 2^24, so no frame pays an int-to-float
+// conversion) of a chunk whose cursor is (xc, o)
+__device__ __forceinline__ float arena_lerp(const float* __restrict__ arena,
+                                            long long alen, int xc, float o,
+                                            const Split& s, float tj) {
+  const float H = __fmul_rn(tj, s.fh);
+  const float Hf = floorf(H);
+  const float u = __fadd_rn(__fsub_rn(H, Hf), __fadd_rn(o, __fmul_rn(tj, s.fl)));
+  const float fl_u = floorf(u);
+  float fr = __fsub_rn(u, fl_u);
+  float wr = __fadd_rn(__fadd_rn(__fmul_rn(tj, s.d), Hf), fl_u);
+  if (wr < 0.0f && fr > 0.0f) {
+    wr = __fadd_rn(wr, 1.0f);
+    fr = __fsub_rn(fr, 1.0f);
+  }
+  // wr is a whole number: a 32-bit conversion (saturating past 2^31, where
+  // the clamp to the arena gives the int64 read's own end) is exact
+  long long p = (long long)xc + 1 + __float2int_rn(wr);
+  p = min(max(p, 0LL), alen - 2);
+  const float a = __ldg(arena + p);
+  const float b = __ldg(arena + p + 1);
+  return __fadd_rn(a, __fmul_rn(fr, __fsub_rn(b, a)));
+}
+
+template <bool CYC, int FORM>
+__global__ void __launch_bounds__(STEP_TPR * STEP_ROWS) arena_step_kernel(const StepArgs A) {
+  constexpr int NB = FORM == 2 ? 2 : 1;
+  const int lane = threadIdx.x % STEP_TPR;
+  // grid (voices, channels or ears): row r = v*per + blockIdx.y
+  const int v = blockIdx.x * STEP_ROWS + threadIdx.x / STEP_TPR;
+  if (v >= A.V) return;
+  const int r = v * (FORM == 1 ? A.E : A.C) + blockIdx.y;
+  const int c = FORM == 1 ? 0 : blockIdx.y;  // the channel
+  int b[NB], lo[NB], hi[NB], roff[NB], len[NB];
+  float o[NB];
+  Split s[NB];
+  float w[NB];
+  bool dyn[NB];
+#pragma unroll
+  for (int k = 0; k < NB; ++k) {
+    const LeafOps& L = A.bank[k];
+    len[k] = L.len[v];
+    const float rate = L.rate[v];
+    if (FORM == 1) {
+      const float t0 = A.t0[r];
+      float ds = __fmul_rn(A.dt[r], rate);
+      if (CYC) {  // ops/_dev.py warp_shift, then the rem_euclid wrap
+        const float rh = L.r_hi[v];
+        const float rl = __fsub_rn(rate, rh);
+        const float ti = __int_as_float(__float_as_int(t0) & ~0xFFF);
+        const float tl = __fsub_rn(t0, ti);
+        const float Aa = __fmul_rn(ti, rh);
+        const float rest = __fadd_rn(__fmul_rn(ti, rl), __fmul_rn(tl, rate));
+        const float Af = floorf(Aa);
+        const float u = __fadd_rn(__fsub_rn(Aa, Af), rest);
+        const float uf = floorf(u);
+        const int si = (int)__fadd_rn(Af, uf);
+        const float u2 = __fadd_rn(L.frac[v], __fsub_rn(u, uf));
+        const float uf2 = floorf(u2);
+        b[k] = mod_floor(L.base[v] + si + (int)uf2, len[k]);
+        o[k] = __fsub_rn(u2, uf2);
+      } else {
+        split_t(__dadd_rn(L.t[v], (double)t0), rate, b[k], o[k]);
+        if (fabsf(__fsub_rn(ds, 1.0f)) <= STEP_EPS32) ds = 1.0f;
+      }
+      s[k] = split_of(ds);
+      dyn[k] = true;
+      w[k] = 0.0f;
+    } else {
+      b[k] = L.base[v];
+      o[k] = L.frac[v];
+      dyn[k] = L.ivc != nullptr || L.speed != nullptr;
+      w[k] = L.ivc != nullptr ? L.ivc[v] : A.iv;
+      if (L.speed != nullptr) w[k] = __fmul_rn(w[k], L.speed[v]);
+      if (dyn[k]) {
+        float ds = __fmul_rn(rate, w[k]);
+        if (!CYC && fabsf(__fsub_rn(ds, 1.0f)) <= STEP_EPS32) ds = 1.0f;
+        s[k] = split_of(ds);
+      } else {
+        s[k].di = L.ds_int[v];
+        s[k].d = (float)s[k].di;
+        s[k].fh = L.f_hi[v];
+        s[k].fl = L.f_lo[v];
+      }
+    }
+    if (CYC) {
+      roff[k] = L.roff[v];
+      lo[k] = roff[k] - 1;
+      hi[k] = roff[k] + len[k] - 1;
+    } else {
+      roff[k] = L.roff[v] + c * (2 * A.guard + len[k] + ((-len[k]) & (A.row - 1)));
+      lo[k] = roff[k] - A.guard;
+      hi[k] = roff[k] + len[k];
+    }
+  }
+
+  // the Fader's completion check (fader.rs:66-70 at block start)
+  bool fad = false, flp = false;
+  float pr = 0.0f, inc = 0.0f;
+  if (FORM == 2) {
+    pr = A.prog[v];
+    inc = A.inc[v];
+    const bool done = A.fading[v] && pr >= 1.0f;
+    fad = A.fading[v] && !done;
+    flp = (A.flip[v] != 0) != done;
+  }
+
+  // the release, by one lane of the voice's first row, from the old state
+  if (FORM != 1 && c == 0 && lane == 0) {
+    const int cnt = A.count[(long long)v * A.s_count];
+#pragma unroll
+    for (int k = 0; k < NB; ++k) {
+      const LeafOps& L = A.bank[k];
+      if (CYC) {  // cycle.rs:40-47: the last position reduced, one step on
+        int b1 = L.base[v];
+        float f1 = L.frac[v];
+        if (cnt > 0) {
+          advance(b1, f1, max(cnt - 1, 0), s[k]);
+          b1 = mod_floor(b1, len[k]);
+          advance(b1, f1, 1, s[k]);
+        }
+        L.base_out[v] = b1;
+        L.frac_out[v] = f1;
+      } else {  // frames.rs:198 on the f64 cursor, then its split
+        const double wd = dyn[k] ? (double)w[k] : (double)A.iv;
+        const double t2 = __dadd_rn(L.t[v], __dmul_rn(wd, (double)cnt));
+        L.t_out[v] = t2;
+        split_t(t2, L.rate[v], L.base_out[v], L.frac_out[v]);
+      }
+    }
+    if (FORM == 2) {
+      const float p2 = __fadd_rn(pr, __fmul_rn((float)cnt, inc));
+      A.prog_out[v] = p2 > 1.0f ? 1.0f : p2;
+      A.fading_out[v] = fad;
+      A.flip_out[v] = flp;
+    }
+  }
+
+  float* __restrict__ orow = A.out + (long long)r * A.n;
+  for (int j0 = 0; j0 < A.n; j0 += STEP_CHUNK) {
+    int xc[NB];
+#pragma unroll
+    for (int k = 0; k < NB; ++k) {
+      if (j0 > 0) {
+        if (CYC) {
+          advance(b[k], o[k], STEP_CHUNK, s[k]);
+          b[k] = mod_floor(b[k], len[k]);
+        } else {  // _floor_advance: to floor form, then device_advance
+          if (o[k] < 0.0f) {
+            b[k] -= 1;
+            o[k] = __fadd_rn(o[k], 1.0f);
+          }
+          advance(b[k], o[k], STEP_CHUNK, s[k]);
+        }
+      }
+      xc[k] = min(max(roff[k] + b[k] - 1, lo[k]), hi[k]);
+    }
+    const int nc = min(STEP_CHUNK, A.n - j0);
+    const float tl = (float)lane, tstep = (float)STEP_TPR;
+    if constexpr (FORM != 2) {
+      float tj = tl;
+#pragma unroll 4
+      for (int jj = lane; jj < nc; jj += STEP_TPR, tj = __fadd_rn(tj, tstep))
+        orow[j0 + jj] = arena_lerp(A.arena, A.arena_len, xc[0], o[0], s[0], tj);
+    } else if (!fad) {  // the active bank alone (selects, not a local-memory index)
+      const int xa = flp ? xc[1] : xc[0];
+      const float oa = flp ? o[1] : o[0];
+      const Split sa = flp ? s[1] : s[0];
+      float tj = tl;
+#pragma unroll 4
+      for (int jj = lane; jj < nc; jj += STEP_TPR, tj = __fadd_rn(tj, tstep))
+        orow[j0 + jj] = arena_lerp(A.arena, A.arena_len, xa, oa, sa, tj);
+    } else {
+      const float fj0 = (float)j0;
+      float tj = tl;
+#pragma unroll 2
+      for (int jj = lane; jj < nc; jj += STEP_TPR, tj = __fadd_rn(tj, tstep)) {
+        const float sa = arena_lerp(A.arena, A.arena_len, xc[0], o[0], s[0], tj);
+        const float sb = arena_lerp(A.arena, A.arena_len, xc[1], o[1], s[1], tj);
+        const float old = flp ? sb : sa;
+        const float nw = flp ? sa : sb;
+        float p = __fadd_rn(pr, __fmul_rn(__fadd_rn(fj0, tj), inc));
+        p = p > 1.0f ? 1.0f : p;
+        orow[j0 + jj] = __fadd_rn(__fmul_rn(old, __fsqrt_rn(__fsub_rn(1.0f, p))),
+                                  __fmul_rn(nw, __fsqrt_rn(p)));
+      }
+    }
+  }
+}
+
+template <bool CYC>
+static void step_launch(const StepArgs& A, int form, dim3 grid, cudaStream_t stream) {
+  const int threads = STEP_TPR * STEP_ROWS;
+  if (form == 0)
+    arena_step_kernel<CYC, 0><<<grid, threads, 0, stream>>>(A);
+  else if (form == 1)
+    arena_step_kernel<CYC, 1><<<grid, threads, 0, stream>>>(A);
+  else
+    arena_step_kernel<CYC, 2><<<grid, threads, 0, stream>>>(A);
+}
+
+// ptrs: arena, count, t0, dt, prog, inc, fading, flip, prog_out, fading_out,
+// flip_out, out, then LEAF_PTRS pointers (LeafOps order) for each of two
+// banks (the second unread outside form 2); a null where a form reads none
+extern "C" int arena_step(const void* const* ptrs, long long arena_len, float iv,
+                          int s_count, int cyc, int form, int V, int C, int E, int n,
+                          int guard, int row, cudaStream_t stream) {
+  const int per = form == 1 ? E : C;
+  if (V < 1 || C < 1 || n < 1 || form < 0 || form > 2 || (form == 1 && (E < 1 || C != 1)) ||
+      (cyc && C != 1) || arena_len < 2 || guard < 0 || row < 1 || (row & (row - 1)) ||
+      per > 65535 || (long long)V * per > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  StepArgs A;
+  A.arena = (const float*)ptrs[0];
+  A.arena_len = arena_len;
+  A.count = (const int*)ptrs[1];
+  A.t0 = (const float*)ptrs[2];
+  A.dt = (const float*)ptrs[3];
+  A.prog = (const float*)ptrs[4];
+  A.inc = (const float*)ptrs[5];
+  A.fading = (const unsigned char*)ptrs[6];
+  A.flip = (const unsigned char*)ptrs[7];
+  A.prog_out = (float*)ptrs[8];
+  A.fading_out = (unsigned char*)ptrs[9];
+  A.flip_out = (unsigned char*)ptrs[10];
+  A.out = (float*)ptrs[11];
+  for (int k = 0; k < 2; ++k) {
+    const void* const* q = ptrs + 12 + k * LEAF_PTRS;
+    A.bank[k] = LeafOps{(const double*)q[0], (const int*)q[1],   (const float*)q[2],
+                        (const int*)q[3],    (const int*)q[4],   (const float*)q[5],
+                        (const float*)q[6],  (const int*)q[7],   (const float*)q[8],
+                        (const float*)q[9],  (const float*)q[10], (const float*)q[11],
+                        (double*)q[12],      (int*)q[13],        (float*)q[14]};
+  }
+  A.iv = iv;
+  A.s_count = s_count;
+  A.V = V;
+  A.C = C;
+  A.E = E;
+  A.n = n;
+  A.guard = guard;
+  A.row = row;
+  const dim3 grid((V + STEP_ROWS - 1) / STEP_ROWS, per);
+  if (cyc)
+    step_launch<true>(A, form, grid, stream);
+  else
+    step_launch<false>(A, form, grid, stream);
+  return (int)cudaGetLastError();
+}

@@ -97,6 +97,13 @@ _SIGNATURES = {
             _vp, _i32, _i32,               # out, rows, n
             _vp,                           # stream
         ],
+        "arena_step": [
+            _vp, _i64, _f32, _i32,         # ptrs (host array), arena length, interval, count stride
+            _i32, _i32,                    # cyc, form
+            _i32, _i32, _i32, _i32,        # V, C, E, n
+            _i32, _i32,                    # guard, row
+            _vp,                           # stream
+        ],
     },
     "agc_kernel": {
         "agc_step": [

@@ -8,9 +8,11 @@ Like FramesSignal, the f64 sample cursor is host state in a host pool; the
 device computes positions ``(base + trunc(offset0 + i*ds)) mod len`` and
 reads the seam pair ``(data[x], data[(x+1) mod len])`` from the arena.  A
 device-resident pool reads the sound's looped region (the data repeated
-past one block's span, core/frames.py) with K6's arena form, in <= 512-frame
-chunks whose cursor re-wraps ``mod len`` between them; past the step bound
-it takes the exact modulo gather of the plain arena, as the JAX package.
+past one block's span, core/frames.py) with K6's arena form, one launch a
+step (``stream_kernels.arena_step``: <= 512-frame chunks whose cursor
+re-wraps ``mod len`` between them, and the cursor's end state) or a seek
+read (``arena_warp``); past the step bound it takes the exact modulo
+gather of the plain arena, as the JAX package.
 """
 
 from __future__ import annotations
@@ -23,9 +25,7 @@ from ..core.frames import _arena, _lerp, _pool_ds_small
 from ..core.hostmath import f32, f64, full, rem_euclid
 from ..core.signal import Signal
 from . import stream_kernels as SK
-from ._dev import (
-    chunked_frames, device_advance, device_split_ds, exact_positions, split_ds, top12, warp_shift,
-)
+from ._dev import device_split_ds, exact_positions, split_ds, top12
 
 __all__ = ["Cycle"]
 
@@ -41,6 +41,8 @@ def _mod_gather(arena, off, length, x):
 class Cycle(Signal):
     seekable = True
     _host_fields = ("cursor", "off", "length", "rate", "loff")
+    #: its device-resident step is ``stream_kernels.arena_step``'s "cycle"
+    arena_kind = "cycle"
 
     def __init__(self, frames):
         super().__init__()
@@ -167,51 +169,21 @@ class Cycle(Signal):
             "f_lo": np.float32(f_lo),
         }
 
-    def _dr_step(self, state, interval):
-        """The slot row's exact host split for the pool's static interval,
-        or re-derived on the device from a per-voice interval (Speed
-        chains, speed.rs:32-36)."""
-        if not isinstance(interval, torch.Tensor):
-            return state["ds_int"], state["f_hi"], state["f_lo"]
-        return device_split_ds(state["rate"] * interval)
-
     def dr_render(self, state, ddata, interval, n, count):
-        ds_int, f_hi, f_lo = self._dr_step(state, interval)
         if _pool_ds_small(self):
-            # looped region: data repeated past the seam, so no <= 512-frame
-            # chunk's walk (nor its seam pair, cycle.rs:34-47) wraps; the
-            # cursor re-wraps mod len between chunks
-            lo = state["loff"] - 1
-            hi = state["loff"] + state["length"] - 1
-
-            def ev(cur, n_c):
-                b, o = cur
-                return SK.arena_resample(ddata["garena"], state["loff"] + b, lo, hi, o,
-                                         ds_int, f_hi, f_lo, n_c)
-
-            def adv(cur, n_c):
-                b, o = cur
-                b2, o2 = device_advance(b, o, n_c, ds_int, f_hi, f_lo)
-                return torch.remainder(b2, state["length"]), o2
-
-            samples = chunked_frames(ev, adv, (state["base"], state["frac"]), n)
-        else:
-            tr, fr = exact_positions(state["frac"], ds_int, f_hi, f_lo, n)
-            length = state["length"][:, None]
-            x = torch.remainder(state["base"][:, None] + tr, length)
-            a, b = _mod_gather(ddata["arena"], state["off"][:, None], length, x)
-            samples = _lerp(a, b, fr)
+            # the whole step in one launch: the looped region (data repeated
+            # past the seam, so no <= 512-frame chunk's walk nor its seam
+            # pair, cycle.rs:34-47, wraps; the cursor re-wraps mod len
+            # between chunks) and the cursor's end state
+            return SK.arena_step(ddata["garena"], "cycle", state, interval, n, count)
+        split = SK.step_split("cycle", state, interval)
+        tr, fr = exact_positions(state["frac"], *split, n)
+        length = state["length"][:, None]
+        x = torch.remainder(state["base"][:, None] + tr, length)
+        a, b = _mod_gather(ddata["arena"], state["off"][:, None], length, x)
         # the cursor's end state as the host path's: the position of the
         # last frame reduced mod len, plus one step (cycle.rs:40-47)
-        cm1 = torch.clamp_min(count - 1, 0)
-        b1, f1 = device_advance(state["base"], state["frac"], cm1, ds_int, f_hi, f_lo)
-        b1 = torch.remainder(b1, state["length"])
-        b2, f2 = device_advance(b1, f1, torch.ones_like(count), ds_int, f_hi, f_lo)
-        keep = count <= 0
-        out = dict(state)
-        out["base"] = torch.where(keep, state["base"], b2)
-        out["frac"] = torch.where(keep, state["frac"], f2)
-        return out, samples
+        return SK.cycle_release(state, split, count), _lerp(a, b, fr)
 
     def dr_is_finished(self, state):
         b = state["base"]
@@ -221,20 +193,10 @@ class Cycle(Signal):
     # Cursor shifts wrap rem_euclid; positions ride the looped region so the
     # warped in-block walk never wraps.
 
-    def _dr_warp_cursor(self, state, t0):
-        """Cursors (base2, o0) shifted by (V, E) second-offsets, wrapped
-        rem_euclid (cycle.rs:56-60); the sample shift t0*rate is the split
-        product of ops/_dev.py ``warp_shift``, as in the JAX package."""
-        si, sf = warp_shift(state["rate"], state["r_hi"], t0)
-        u = state["frac"][:, None] + sf
-        uf = torch.floor(u)
-        base2 = state["base"][:, None] + si + uf.to(torch.int32)
-        return torch.remainder(base2, state["length"][:, None]), u - uf
-
     def dr_advance(self, state, seconds):
         t = torch.full(state["base"].shape + (1,), float(np.float32(seconds)),
                        dtype=torch.float32, device=state["base"].device)
-        base2, o0 = self._dr_warp_cursor(state, t)
+        base2, o0 = SK.cycle_warp_cursor(state, t)
         out = dict(state)
         out["base"], out["frac"] = base2[:, 0], o0[:, 0]
         return out
@@ -246,30 +208,13 @@ class Cycle(Signal):
         )
 
     def dr_warp_render(self, state, ddata, t0, dt, n):
-        V, E = t0.shape
-        base2, o0 = self._dr_warp_cursor(state, t0)
+        if _pool_ds_small(self):
+            return SK.arena_warp(ddata["garena"], "cycle", state, t0, dt, n)
+        # heavy downsampling: exact mod-length arena gather
+        base2, o0 = SK.cycle_warp_cursor(state, t0)
         ds_int, f_hi, f_lo = device_split_ds(dt * state["rate"][:, None])
-        if not _pool_ds_small(self):
-            # heavy downsampling: exact mod-length arena gather
-            tr, fr = exact_positions(o0, ds_int, f_hi, f_lo, n)
-            length = state["length"][:, None, None]
-            x = torch.remainder(base2[:, :, None] + tr, length)
-            a, b = _mod_gather(ddata["arena"], state["off"][:, None, None], length, x)
-            return _lerp(a, b, fr)
-        dsf = (ds_int.reshape(-1), f_hi.reshape(-1), f_lo.reshape(-1))
-        loff = state["loff"].repeat_interleave(E)
-        length = state["length"].repeat_interleave(E)
-        lo = loff - 1
-        hi = loff + length - 1
-
-        def ev(cur, n_c):
-            b, o = cur
-            return SK.arena_resample(ddata["garena"], loff + b, lo, hi, o, *dsf, n_c)
-
-        def adv(cur, n_c):
-            b, o = cur
-            b2, o2 = device_advance(b, o, n_c, *dsf)
-            return torch.remainder(b2, length), o2
-
-        samples = chunked_frames(ev, adv, (base2.reshape(-1), o0.reshape(-1)), n)
-        return samples.reshape(V, E, n)
+        tr, fr = exact_positions(o0, ds_int, f_hi, f_lo, n)
+        length = state["length"][:, None, None]
+        x = torch.remainder(base2[:, :, None] + tr, length)
+        a, b = _mod_gather(ddata["arena"], state["off"][:, None, None], length, x)
+        return _lerp(a, b, fr)

@@ -35,6 +35,9 @@ from ..core.drctrl import _upload
 from ..core.hostmath import f32, full
 from ..core.signal import ControlBlock, Signal
 from ..utils.tree import tree_map
+from . import stream_kernels as SK
+from .speed import arena_chain, chain_operands, chain_state
+from .stream_kernels import _voice_mask, fade_ramp
 
 __all__ = ["Fader", "FaderControl"]
 
@@ -46,17 +49,6 @@ def _host_defaults_into(node, i, fresh):
         getattr(node, f)[i] = getattr(fresh, f)[0]
     for c, fc in zip(node.children().values(), fresh.children().values()):
         _host_defaults_into(c, i, fc)
-
-
-def _ramp(progress0, inc, n):
-    """fader.rs:57-63: the progress ramp (V, n), clamped at 1."""
-    j = torch.arange(n, dtype=torch.float32, device=progress0.device)
-    return torch.clamp_max(progress0[:, None] + j * inc[:, None], 1.0)
-
-
-def _voice_mask(m, like):
-    """A per-voice (V,) mask shaped to broadcast against ``like``."""
-    return m.reshape(m.shape + (1,) * (like.dim() - 1))
 
 
 class Fader(Signal):
@@ -286,8 +278,8 @@ class Fader(Signal):
         d2b, new = self.b.render_host(dstate.get("b", {}), ddata.get("b", {}), params["b"], n)
         out["b"] = d2b
         dev = old.device
-        p = _ramp(_upload(params["progress0"], dev, torch.float32),
-                  _upload(params["inc"], dev, torch.float32), n)[:, None, :]
+        p = fade_ramp(_upload(params["progress0"], dev, torch.float32),
+                      _upload(params["inc"], dev, torch.float32), n)[:, None, :]
         return out, old * torch.sqrt(1.0 - p) + new * torch.sqrt(p)
 
     def _render_pooled(self, dstate, ddata, params, n):
@@ -306,8 +298,8 @@ class Fader(Signal):
         d2a, old = self.a.render_host(da, dda, params["a"], n)
         d2b, new = self.b.render_host(db, dda, params["b"], n)
         fading = _upload(params["fading"], dev, torch.bool)[:, None]
-        p = _ramp(_upload(params["progress0"], dev, torch.float32),
-                  _upload(params["inc"], dev, torch.float32), n)
+        p = fade_ramp(_upload(params["progress0"], dev, torch.float32),
+                      _upload(params["inc"], dev, torch.float32), n)
         wa = torch.where(fading, torch.sqrt(1.0 - p), 1.0)
         wb = torch.where(fading, torch.sqrt(p), 0.0)
         out = dict(dstate)
@@ -368,29 +360,26 @@ class Fader(Signal):
         }
 
     def dr_render(self, state, ddata, interval, n, count):
-        # the completion check first (fader.rs:66-70 at block start, as the
-        # host form): the bit flips, nothing moves
-        done = state["fading"] & (state["prog"] >= 1.0)
-        flip = torch.logical_xor(state["flip"], done)
-        fading = state["fading"] & ~done
         dda = ddata.get("a", {})
+        chain = arena_chain(self.a)
+        if chain is not None:
+            # Speeds over a FramesSignal or a Cycle on the arena route: both
+            # banks (each with its own speeds) and the crossfade in one launch
+            k, leaf = chain
+            la, ld, iva, spa = chain_operands(k, state["a"], dda, interval)
+            lb, _, ivb, spb = chain_operands(k, state["b"], dda, interval)
+            core, a2, b2, samples = SK.fader_step(
+                ld["garena"], leaf.arena_kind, state, (la, lb), (iva, ivb), n, count,
+                channels=leaf.channels, speeds=(spa, spb))
+            return dict(core, a=chain_state(k, state["a"], a2),
+                        b=chain_state(k, state["b"], b2)), samples
+        # any other inner: both banks render, then the crossfade (the
+        # completion check at block start, fader.rs:66-70, flips the bit;
+        # nothing moves)
         a2, sa = self.a.dr_render(state["a"], dda, interval, n, count)
         b2, sb = self.a.dr_render(state["b"], dda, interval, n, count)
-        fl = _voice_mask(flip, sa)
-        old = torch.where(fl, sb, sa)
-        new = torch.where(fl, sa, sb)
-        p = _ramp(state["prog"], state["inc"], n)
-        if sa.dim() == 3:
-            p = p[:, None, :]
-        f2 = _voice_mask(fading, sa)
-        wa = torch.where(f2, torch.sqrt(1.0 - p), 1.0)
-        wb = torch.where(f2, torch.sqrt(p), 0.0)
-        prog2 = torch.clamp_max(state["prog"] + count.to(torch.float32) * state["inc"], 1.0)
-        out_state = {
-            "prog": prog2, "inc": state["inc"], "fading": fading,
-            "flip": flip, "a": a2, "b": b2,
-        }
-        return out_state, old * wa + new * wb
+        core, samples = SK.fade_mix_plain(state, sa, sb, n, count)
+        return dict(core, a=a2, b=b2), samples
 
     def dr_is_finished(self, state):
         # a fader never finishes on its own (fader.rs:74-77)

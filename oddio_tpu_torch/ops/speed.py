@@ -6,7 +6,9 @@ un-smoothed.  On the host the interval is a per-voice array, so this is a
 transform of the parameter flow; in a device-resident pool the factor is a
 state column (``set_speed`` ships as a sparse delta) and the inner chain
 re-derives its per-frame step from the per-voice warped interval each
-block.  A Speed over a Stream is not device-resident capable (it warps the
+block.  Over a FramesSignal or a Cycle on the arena route (``arena_chain``)
+the innermost factor goes into the leaf's one-launch step
+(``stream_kernels.arena_step``) instead of a torch product.  A Speed over a Stream is not device-resident capable (it warps the
 timebase the stream's ingest mirrors follow, ``dr_ingest_ok``): it plays in
 the host pools.
 """
@@ -16,10 +18,44 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.frames import _pool_ds_small
 from ..core.hostmath import f32, full
 from ..core.signal import ControlBlock, Signal
+from . import stream_kernels as SK
 
-__all__ = ["Speed", "SpeedControl"]
+__all__ = ["Speed", "SpeedControl", "arena_chain", "chain_operands", "chain_state"]
+
+
+def arena_chain(sig):
+    """``(k, leaf)`` where ``sig`` is a chain of k >= 0 Speeds over a
+    FramesSignal or a Cycle whose pool reads K6's arena form (the pool's
+    archetype and step route, stamped by core/drctrl.py), so that one
+    ``stream_kernels.arena_step`` launch is its whole step; else None."""
+    k = 0
+    while isinstance(sig, Speed):
+        sig, k = sig.inner, k + 1
+    if getattr(sig, "arena_kind", None) is None or not _pool_ds_small(sig):
+        return None
+    return k, sig
+
+
+def chain_operands(k, state, ddata, interval):
+    """A k-Speed chain's leaf state and data, and the interval and factor
+    the kernel multiplies (speed.rs:32-36): the outer k - 1 factors applied
+    here as the chain of ``Speed.dr_render``s applies them, the innermost
+    handed to the kernel."""
+    speed = None
+    for _ in range(k):
+        interval = SK.warped_interval(interval, speed)
+        speed, state, ddata = state["speed"], state["inner"], ddata.get("inner", {})
+    return state, ddata, interval, speed
+
+
+def chain_state(k, state, leaf):
+    """The chain's state with its leaf's replaced by ``leaf``."""
+    if k == 0:
+        return leaf
+    return {"speed": state["speed"], "inner": chain_state(k - 1, state["inner"], leaf)}
 
 
 class Speed(Signal):
@@ -100,6 +136,13 @@ class Speed(Signal):
         }
 
     def dr_render(self, state, ddata, interval, n, count):
+        chain = arena_chain(self)
+        if chain is not None:  # the whole chain's step is one launch
+            k, leaf = chain
+            ls, ld, iv, sp = chain_operands(k, state, ddata, interval)
+            ls2, samples = SK.arena_step(ld["garena"], leaf.arena_kind, ls, iv, n, count,
+                                         channels=leaf.channels, speed=sp)
+            return chain_state(k, state, ls2), samples
         if isinstance(interval, torch.Tensor):
             warped = interval * state["speed"]
         else:

@@ -12,8 +12,11 @@ reads: the kernel sums the same products in another, fixed order; the
 tolerance follows how float32 rounding errors of such a sum grow, and
 fails a dropped voice or bf16 partial sums), two runs bit-equal; K4 exact (a copy); K6 exact (the same f32 operations, each
 rounded once), in its DR form (read and cursor release) and its ds form;
-K6's arena form exact (the sampler reads) and the dense-mix, sampler
-and wavetable scenes within 1e-5 of the CPU;
+K6's arena form exact (the sampler reads), and as whole steps
+(``arena_step``, ``arena_warp``, ``fader_step``) exact against their
+plain versions (the Fader's but for the sign of an exact zero), and the
+dense-mix, sampler, wavetable and seek-sampler scenes and a 2 s sampler
+render within 1e-5 of the CPU;
 K7, the whole Adapt step, within ``agc.agc_tolerance`` elementwise
 (another order of the prefix sum) at every block length up to 1024; K5 within ``ring_kernels.strip_tolerance``
 elementwise (its voice sum in another, fixed order); K8 within
@@ -748,7 +751,116 @@ def test_sampler_scenes_on_card_match_cpu(cuda):
             else:
                 outs.append(pt.Renderer(sig, 48000).render_frames(512 * 16))
         torch.cuda.synchronize()
-        arena = SK.LAUNCHES["arena_resample"]
-        assert (arena == 0) if label == "dense" else (arena >= 16), (label, arena)
+        step = SK.LAUNCHES["arena_step"]
+        assert SK.LAUNCHES["arena_resample"] == 0, label
+        assert (step == 0) if label == "dense" else (step >= 16), (label, step)
         assert np.abs(outs[0]).max() > 1e-2
         assert np.abs(outs[0] - outs[1]).max() <= 1e-5, label
+
+
+# --- K6's arena form as whole steps -------------------------------------------------
+
+
+def _bits(x):
+    """Bit patterns with -0.0 read as +0.0."""
+    return torch.where(x == 0, torch.zeros_like(x), x).view(torch.int32)
+
+
+def _trees_equal(a, b):
+    return a.keys() == b.keys() and all(
+        _trees_equal(a[k], b[k]) if isinstance(a[k], dict) else torch.equal(a[k], b[k])
+        for k in a)
+
+
+@pytest.mark.parametrize("mode", ["static", 1, 2, 4])
+@pytest.mark.parametrize("V,n", [(1024, 512), (17, 513), (1, 128), (300, 100)])
+@pytest.mark.parametrize("kind,C", [("frames", 1), ("frames", 2), ("cycle", 1)])
+def test_arena_step_exact(cuda, kind, C, V, n, mode):
+    """A FramesSignal or Cycle leaf's whole step (read and release) against
+    its plain version, exactly; with a Speed factor in the step's tiers;
+    one launch, two runs bit-equal."""
+    host, regions = KB.arena_setup(sounds=2, seconds=2.0)
+    garena = torch.tensor(host, device=cuda)
+    rng = np.random.default_rng(V + n + 10 * C)
+    st = KB.step_leaf(cuda, rng, regions, V, kind, C)
+    sp = None if mode == "static" else KB.step_speeds(cuda, rng, V, mode)
+    count = KB.step_count(cuda, rng, V, n)
+    before = SK.LAUNCHES["arena_step"]
+    st1, got = SK.arena_step(garena, kind, st, KB.STEP_IV, n, count, channels=C, speed=sp)
+    st2, again = SK.arena_step(garena, kind, st, KB.STEP_IV, n, count, channels=C, speed=sp)
+    plain_st, plain = SK.arena_step_plain(garena, kind, st, KB.STEP_IV, n, count, C, sp)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES["arena_step"] == before + 2
+    assert torch.equal(got, plain) and torch.equal(got, again)
+    assert _trees_equal(st1, plain_st) and _trees_equal(st1, st2)
+
+
+@pytest.mark.parametrize("V,n", [(1024, 512), (17, 513), (1, 128), (300, 100)])
+@pytest.mark.parametrize("kind", ["frames", "cycle"])
+def test_arena_warp_exact(cuda, kind, V, n):
+    host, regions = KB.arena_setup(sounds=2, seconds=2.0)
+    garena = torch.tensor(host, device=cuda)
+    rng = np.random.default_rng(V + n)
+    st = KB.step_leaf(cuda, rng, regions, V, kind)
+    t0, dt = KB.seek_offsets(cuda, rng, V)
+    got = SK.arena_warp(garena, kind, st, t0, dt, n)
+    assert torch.equal(got, SK.arena_warp_plain(garena, kind, st, t0, dt, n))
+    assert torch.equal(got, SK.arena_warp(garena, kind, st, t0, dt, n))
+
+
+@pytest.mark.parametrize("mode", ["static", 1, 2, 4])
+@pytest.mark.parametrize("V,n", [(1024, 512), (17, 513), (1, 128), (300, 100)])
+@pytest.mark.parametrize("kind,C", [("frames", 1), ("frames", 2), ("cycle", 1)])
+def test_fader_step_exact(cuda, kind, C, V, n, mode):
+    """A whole Fader step (both banks, the crossfade) against its plain
+    version: equal values, bit-equal but for the sign of an exact zero (an
+    idle voice's other bank is not read); its columns and both banks'
+    cursors exactly."""
+    host, regions = KB.arena_setup(sounds=2, seconds=2.0)
+    garena = torch.tensor(host, device=cuda)
+    rng = np.random.default_rng(3 * V + n + C)
+    banks = (KB.step_leaf(cuda, rng, regions, V, kind, C),
+             KB.step_leaf(cuda, rng, regions, V, kind, C))
+    fs = KB.fade_columns(cuda, rng, V)
+    sp = ((None, None) if mode == "static"
+          else (KB.step_speeds(cuda, rng, V, mode), KB.step_speeds(cuda, rng, V, mode)))
+    count = KB.step_count(cuda, rng, V, n)
+    ivs = (KB.STEP_IV, KB.STEP_IV)
+    core, a2, b2, got = SK.fader_step(garena, kind, fs, banks, ivs, n, count, C, sp)
+    again = SK.fader_step(garena, kind, fs, banks, ivs, n, count, C, sp)[3]
+    pc, pa, pb, plain = SK.fader_step_plain(garena, kind, fs, banks, ivs, n, count, C, sp)
+    assert torch.equal(got, plain) and torch.equal(_bits(got), _bits(plain))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert _trees_equal(core, pc) and _trees_equal(a2, pa) and _trees_equal(b2, pb)
+
+
+def test_sampler_chain_two_seconds_card_vs_cpu(cuda):
+    """188 blocks of the config-2 sampler (fades, speed writes) on the card
+    against the CPU: the f64 cursors released in the step keep the two
+    within 1e-5 to the end."""
+    from oddio_tpu_torch.utils.scene_profile import build_sampler
+
+    outs = []
+    for device in ("cpu", cuda):
+        drv = build_sampler(32, device, sounds=2, seconds=4.0)
+        outs.append(np.concatenate(drv.render(pt.Renderer(drv.mixer, 48000), 188,
+                                              device_out=False)))
+    err = np.abs(outs[0] - outs[1])
+    assert np.abs(outs[0]).max() > 1e-2
+    assert err.max() <= 1e-5 and err[-512:].max() <= 1e-5
+
+
+def test_seek_sampler_scene_on_card_matches_cpu(cuda):
+    outs = []
+    for device in ("cpu", cuda):
+        SK.reset_launches()
+        _, scene, hs, rng = KB.build_seek_sampler(64, device, sounds=2, seconds=2.0)
+        r = pt.Renderer(scene, 48000)
+        a = r.render_frames(512 * 8)
+        for h in hs[::4]:
+            h.set_motion(rng.uniform(-15, 15, 3), rng.uniform(-5, 5, 3), False)
+        outs.append(np.concatenate([a, r.render_frames(512 * 8)]))
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES["arena_step"] == 16 and SK.LAUNCHES["arena_resample"] == 0
+    assert np.abs(outs[0]).max() > 1e-2
+    assert np.abs(outs[0] - outs[1]).max() <= 1e-5
