@@ -104,7 +104,31 @@ Phases (each prints one or more lines; any failure exits non-zero):
 27. (before 21) the whole steps on the three paths' captured states
     (``kernel_bench.arena_states``), exact on every captured block, timed
     warm and cold beside the plain version and the byte bound; at the end
-    of the run, one device kernel per step (the profiler's count).
+    of the run, one device kernel per step (the profiler's count);
+28. (after 19) K5's scene form (``strip_select_record(..., scenes=S)``)
+    against its plain version at the host-pool pack's 16 scenes x 256,
+    at one scene of 4096 and at 3 scenes of 17 (a scene boundary inside
+    a block of 32 voices), with steps up to the strip gate, windows across
+    the ring's end and frozen voices; one launch a call, two runs
+    bit-equal, one scene equal to the (2, n) form; timed warm and cold
+    beside the (2, n) form on the same rows;
+29. (after 26) config 2 per session: the sampler pack
+    (``build_sampler_pack``) at 4 and 16 scenes of 64
+    Fader(Speed(FramesSignal)) voices, each scene on its own script,
+    through render_block and render_frames_device: one ``arena_step``
+    launch a block at both sizes, fades released on the device in every
+    scene; xRT per scene;
+30. (after 28) every buffered pool kind per session: the host-pool pack
+    (``build_host_pools_pack``) at 4 and 16 scenes of 256 Speed(Stream)
+    host voices, 32 Adapt(Stream) device-resident ones and a 64-voice
+    config-5 submix, with stream writes and set_speed between runs: K5's
+    scene form twice a block, every kernel's launches per block equal at
+    both sizes; xRT per scene;
+31. the host-pool pack (4 x 32), the sampler pack (4 x 64) and a pack of
+    Mixers with host-pool voices and a Mixer-in-Mixer submix on the card
+    against the CPU and against per-scene Renderers on the card.
+Phases 28-31 count launches with the wrappers' counters, never a tracer
+session; the packs' block profiles (phases 29 and 30) only print.
 The profiles run at the end in this order: the one-kernel checks
 (phase 4's reads, the Adapt and Stream steps of 8, 12 and 17, phase 27's
 arena steps) before any path's block profile (4, 8, 12, 17, 21-23, 26),
@@ -345,6 +369,7 @@ def kernel_line(name, k):
             "library_ms": lib.get("ms"), "library_device_ms": lib.get("device_ms"),
             "library_host_ms": lib.get("host_ms")}
     return {**line, **{key: k[key] for key in ("other_form", "cold", "library_cold", "host_pool",
+                                               "pack_launches",
                                                "shapes")
                      if key in k}}
 
@@ -1846,6 +1871,300 @@ def sampler_paths(pt, dev, kern, tag):
               f"writes, max|diff| {err:.3e} (<= {TOL}) {tag}")
 
 
+def strip_select_scene_kernel(dev, kern, tag):
+    """Phase 28: K5's scene form against its plain version
+    (``strip_select_record(..., scenes=S)``, each scene's rows mixed
+    apart) at the host-pool pack's 16 scenes x 256 voices, at one scene of
+    4096 and at 3 scenes of 17 (a scene boundary inside a block of 32
+    voices): steps up to the strip gate (the SELECT_R clamp binds), read
+    windows across the ring's end, frozen voices; each scene elementwise
+    within ``ring_kernels.strip_record_tolerance``; one launch a call, two
+    runs bit-equal, one scene equal to the (2, n) form.  Timed warm and,
+    at the pack's shape, cold, beside the (2, n) form on the same rows."""
+    from oddio_tpu_torch.ops import ring_kernels as RK
+    from oddio_tpu_torch.utils import kernel_bench as KB
+
+    rng = np.random.default_rng(28)
+    n, K = KB.SELECT_N, KB.SELECT_K
+    kw = dict(n=n, K=K)
+    for label, S, vps, L in KB.SELECT_SCENES:
+        V = S * vps
+        ops = KB.select_scene_operands(dev, rng, V, L)
+        rec = RK.voice_record(*ops[1:])
+        plain = RK.strip_select_record_plain(ops[0], rec, scenes=S, **kw)
+        tol = RK.strip_record_tolerance(ops[0], rec, scenes=S, **kw).clamp_min(1e-300)
+        before = RK.LAUNCHES["strip_select_scenes"]
+        got = RK.strip_select_record(ops[0], rec, scenes=S, **kw)
+        again = RK.strip_select_record(ops[0], rec, scenes=S, **kw)
+        torch.cuda.synchronize()
+        if RK.LAUNCHES["strip_select_scenes"] != before + 2:
+            raise AssertionError(f"K5 scene form ({label}): "
+                                 f"{RK.LAUNCHES['strip_select_scenes'] - before} launches for 2")
+        if got.shape != (S, 2, n) or not torch.equal(got, again):
+            raise AssertionError(f"K5 scene form ({label}): shape {tuple(got.shape)} or two "
+                                 f"runs differ")
+        diff = (got - plain).abs().double()
+        err, share = float(diff.max()), float((diff / tol).max())
+        if not share <= 1.0:
+            raise AssertionError(f"K5 scene form ({label}): kernel disagrees with its plain "
+                                 f"version: max|diff| {err:.3e}, {share:.1f}x its tolerance")
+        if S == 1 and not torch.equal(got[0], RK.strip_select_record(ops[0], rec, **kw)):
+            raise AssertionError("K5 scene form with one scene differs from the (2, n) form")
+        ts = timed(f"K5 scene form {label}", lambda: RK.strip_select_record(
+            ops[0], rec, scenes=S, **kw))
+        t1 = timed(f"K5 (2, n) form on the {label} rows",
+                   lambda: RK.strip_select_record(ops[0], rec, **kw))
+        pms = time_ms(lambda: RK.strip_select_record_plain(ops[0], rec, scenes=S, **kw))
+        cold = ""
+        if label == "pack":
+            sets = [(ops[0], rec)] + [
+                (ops[0], RK.voice_record(*KB.select_scene_operands(dev, rng, V, L, ops[0])[1:]))
+                for _ in range(KB.SETS - 1)]
+            tc = timed("K5 scene form pack, cold", KB.cycling(
+                sets, lambda r, rc, S=S: RK.strip_select_record(r, rc, scenes=S, **kw)))
+            tc1 = timed("K5 (2, n) form on the pack rows, cold", KB.cycling(
+                sets, lambda r, rc: RK.strip_select_record(r, rc, **kw)))
+            cold = f", cold {times_str(tc)} ((2, n) form cold {times_str(tc1)})"
+            bms, by = bound(KB.select_bytes(RK, ops, scenes=S), 22 * V * 2 * n)
+            kern["strip_select_scenes"] = record(
+                "oddio_tpu/ops/pallas_ring.py:392", "oddio_tpu_torch/csrc/select_kernel.cu",
+                err, ts, pms, bms, by)
+            kern["strip_select_scenes"].update(cold=tc, other_form=t1, shapes=f"{S} x {vps}")
+        kern["strip_select_scenes"]["err"] = max(kern["strip_select_scenes"]["err"], err)
+        print(f"K5 scene form {label} S={S} x {vps} L={L}: max|diff| {err:.3e} ({share:.3f} of "
+              f"its tolerance; one launch a call, two runs bit-equal); scene form "
+              f"{times_str(ts)}, (2, n) form on the same rows {times_str(t1)}{cold} vs plain "
+              f"{pms:.4f} ms {tag}")
+
+
+def _pack_fade_bits(pack):
+    """(scenes whose device bank bits equal their host fade mirrors,
+    scenes with a flipped voice) of a sampler pack, after ``sync``."""
+    from oddio_tpu_torch.core.drctrl import _state_at
+
+    pack.sync()
+    same = flipped = 0
+    for scene in pack.scenes:
+        pool = next(iter(scene._pools.values()))
+        path = pool.fade_paths[0]
+        bits = _state_at(pool.state["inner"], path)["flip"].cpu().numpy()
+        same += int(np.array_equal(bits, pool._fade_flip[path]))
+        flipped += int(bits.any())
+    return same, flipped
+
+
+def sampler_pack_path(pt, dev, kern, tag):
+    """Phase 29: BASELINE config 2 per session, ``build_sampler_pack(S,
+    64)`` at S = 4 and 16 (1024 Fader(Speed(FramesSignal)) rows at 16),
+    each scene on its own script (speed writes on 8 voices and 0.05 s
+    fades on 8 others every 8 blocks), through render_block and
+    render_frames_device: one ``arena_step`` launch a block for the whole
+    pack at both S (launch counters), fades released on the device (each
+    scene's bank bits equal its host mirrors and have flipped); xRT per
+    scene at 16."""
+    from oddio_tpu_torch.ops import agc as A
+    from oddio_tpu_torch.ops import ring_kernels as RK
+    from oddio_tpu_torch.ops import stream_kernels as SK
+    from oddio_tpu_torch.utils.scene_profile import build_sampler_pack
+
+    # 6 periods of 8 blocks: each scene's script takes 16 of its 64 voices a
+    # period, so a voice faded in periods 0-1 is faded again in 4-5 (back
+    # to its first bank) and one faded in periods 2-3 stays flipped
+    nb0, nb1 = 8, 40
+    per_block = {}
+    for S in (4, 16):
+        t0 = time.perf_counter()
+        drv = build_sampler_pack(S, 64, dev)
+        built = time.perf_counter() - t0
+        reset_launches()
+        a = np.concatenate(drv.render(nb0, device_out=False), axis=1)
+        b = drain(drv.render(nb1))
+        torch.cuda.synchronize()
+        if any(RK.LAUNCHES.values()) or any(A.LAUNCHES.values()):
+            raise AssertionError(f"the sampler pack launched ring or AGC kernels: {RK.LAUNCHES} "
+                                 f"{A.LAUNCHES}")
+        read_flat_launches("the sampler pack path")
+        k = _sampler_launches(SK, f"the sampler pack (S={S})", nb0 + nb1)
+        per_block[S] = k / (nb0 + nb1)
+        for name, x in (("render_block", a), ("render_frames_device", b)):
+            if (x.shape[0], x.shape[2]) != (S, 2) or not np.isfinite(x).all() \
+                    or np.abs(x).max(axis=(1, 2)).min() <= 1e-3:
+                raise AssertionError(f"sampler pack S={S} {name}: non-finite, silent or "
+                                     f"misshapen output {x.shape}")
+        same, flipped = _pack_fade_bits(drv.pack)
+        if same != S or flipped != S:
+            raise AssertionError(f"sampler pack S={S}: fades not released on the device (bank "
+                                 f"bits = host mirrors in {same} scenes, flipped in {flipped})")
+        print(f"sampler pack S={S} x 64 voices (built in {built:.2f} s): {nb0} blocks "
+              f"render_block + {nb1} render_frames_device, {sum(d.fades for d in drv.drivers)} "
+              f"fades queued; bank bits = host mirrors and flipped in all {S} scenes; K6 "
+              f"arena_step launches {k} ({per_block[S]:.2f} per block), arena_resample 0 {tag}")
+        if S == 16:
+            kern["arena_step"]["pack_launches"] = k
+            drv.render(16)
+            torch.cuda.synchronize()
+            nblk = 96
+            t0 = time.perf_counter()
+            drv.render(nblk)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            print(f"xRT per scene sampler pack S=16 x 64: {(nblk * BLOCK / RATE) / wall:.2f}x "
+                  f"({nblk} blocks in {wall:.3f} s, {1e3 * wall / nblk:.3f} ms per block) {tag}")
+            BLOCK_PROFILES.append((29, "the 16 x 64 sampler pack (its scripts every 8 blocks)",
+                                   lambda drv=drv: drv.render(8), 8))
+    if not per_block[4] == per_block[16] == 1.0:
+        raise AssertionError(f"sampler pack: arena_step per block {per_block}")
+
+
+def host_pools_pack_path(pt, dev, kern, tag):
+    """Phase 30: every buffered pool kind per session,
+    ``build_host_pools_pack(S, 256)`` at S = 4 and 16 (at 16: 4096
+    Speed(Stream) host rows, 512 Adapt(Stream) device-resident rows, 16
+    config-5 submixes of 64 voices), through render_block and
+    render_frames_device with new stream PCM and set_speed on 64 voices
+    between them: K5's scene form twice a block (the host pool's rows and
+    the submixes' singleton rows), and every kernel's launches per block
+    equal at both S (launch counters); xRT per scene at 16."""
+    from oddio_tpu_torch.ops import agc as A
+    from oddio_tpu_torch.ops import ring_kernels as RK
+    from oddio_tpu_torch.ops import stream_kernels as SK
+    from oddio_tpu_torch.utils.scene_profile import build_host_pools_pack, feed
+
+    nb0, nb1 = 8, 24
+    nblk = nb0 + nb1
+    per_block = {}
+    for S in (4, 16):
+        t0 = time.perf_counter()
+        pack, ctls, speeds, rng = build_host_pools_pack(S, 256, dev)
+        built = time.perf_counter() - t0
+        reset_launches()
+        a = np.concatenate([pack.render_block(BLOCK) for _ in range(nb0)], axis=1)
+        feed(ctls, rng, 1024)
+        for sc in speeds[:64]:
+            sc.set_speed(float(rng.uniform(0.8, 1.25)))
+        b = drain(pack.render_frames_device(BLOCK * nb1))
+        torch.cuda.synchronize()
+        launches = {**RK.LAUNCHES, **stream_launches(SK, f"the host-pool pack (S={S})"),
+                    **A.LAUNCHES}
+        read_flat_launches(f"the host-pool pack (S={S})")
+        for name, x in (("render_block", a), ("render_frames_device", b)):
+            if (x.shape[0], x.shape[2]) != (S, 2) or not np.isfinite(x).all() \
+                    or np.abs(x).max(axis=(1, 2)).min() <= 1e-3:
+                raise AssertionError(f"host-pool pack S={S} {name}: non-finite, silent or "
+                                     f"misshapen output {x.shape}")
+        path = ("append", "select_ears", "strip_select", "strip_select_scenes", "ring_place",
+                "ring_resample", "agc_gains")
+        if min(launches[k] for k in path) < 1:
+            raise AssertionError(f"a kernel of the host-pool pack path never launched: {launches}")
+        if not launches["strip_select"] == launches["strip_select_scenes"] == 2 * nblk:
+            raise AssertionError(f"host-pool pack S={S}: K5 launched {launches['strip_select']} "
+                                 f"times ({launches['strip_select_scenes']} scene form) in "
+                                 f"{nblk} blocks, 2 a block expected")
+        per_block[S] = {k: v / nblk for k, v in launches.items()}
+        kinds = [f"{type(p).__name__}({p.capacity})" for p in pack.scenes[0]._all_pools()]
+        print(f"host-pool pack S={S} x (256 Speed(Stream) + 32 Adapt(Stream) + a 64-voice "
+              f"submix), pools {kinds} per scene (built in {built:.2f} s): {nb0} blocks "
+              f"render_block + {nb1} render_frames_device, a write and 64 set_speed between; "
+              f"launches per block {per_block[S]} {tag}")
+        if S == 16:
+            kern["strip_select_scenes"]["launches"] = launches["strip_select_scenes"]
+            for key, name in (("ring_place", "ring_place"), ("agc_gains", "agc_gains"),
+                              ("ring_resample", "ring_resample"),
+                              ("append", "rows_append"),
+                              ("select_ears", "window_select_ears")):
+                if name in kern:
+                    kern[name]["pack_launches"] = launches[key]
+            pack.render_frames_device(BLOCK * 8)
+            feed(ctls, rng, 1024)
+            torch.cuda.synchronize()
+            n_x = 96
+            t0 = time.perf_counter()
+            pack.render_frames_device(BLOCK * n_x)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            print(f"xRT per scene host-pool pack S=16 x 256: {(n_x * BLOCK / RATE) / wall:.2f}x "
+                  f"({n_x} blocks in {wall:.3f} s, {1e3 * wall / n_x:.3f} ms per block) {tag}")
+            BLOCK_PROFILES.append((30, "the 16 x 256 host-pool pack",
+                                   lambda pack=pack: pack.render_frames_device(BLOCK * 8), 8))
+        del pack
+    if per_block[4] != per_block[16]:
+        raise AssertionError(f"host-pool pack: launches per block differ: S=4 {per_block[4]}, "
+                             f"S=16 {per_block[16]}")
+
+
+def _mixer_host_scene(pt, device, seed):
+    """A Mixer of 8 Speed(Stream) host-pool voices, a Sine and a submix
+    Mixer (a Speed(Stream) and a Sine) at 48 kHz, its streams prefilled
+    from ``seed``; returns (mixer, stream controls)."""
+    rng = np.random.default_rng(seed)
+    control, mixer = pt.Mixer.new(channels=1, device=device)
+    ctls = []
+    for _ in range(8):
+        st = pt.Stream(8000, 4096)
+        sc, sp = pt.Speed.new(st)
+        sc.set_speed(float(rng.uniform(0.7, 1.3)))
+        control.play(sp)
+        ctls.append(st.control)
+    control.play(pt.Sine(0.2, 330.0 + 20 * seed))
+    ic, inner = pt.Mixer.new(channels=1, device=device)
+    st = pt.Stream(8000, 4096)
+    ic.play(pt.Speed(st))
+    ic.play(pt.Sine(0.0, 520.0))
+    ctls.append(st.control)
+    control.play(inner)
+    for c in ctls:
+        c.write((np.sin(np.arange(3000) * rng.uniform(0.01, 0.1)) * 0.5).astype(np.float32))
+    return mixer
+
+
+def new_pack_reference(pt, dev, tag):
+    """Phase 31: the host-pool pack (4 x 32 voices), the sampler pack (4 x
+    64) and a pack of 4 Mixers with host-pool voices and a Mixer-in-Mixer
+    submix, on the card against the same packs on the CPU and against
+    per-scene Renderers on the card, each within TOL."""
+    from oddio_tpu_torch.parallel.mesh import make_mesh
+    from oddio_tpu_torch.parallel.sharded import ScenePack
+    from oddio_tpu_torch.utils.scene_profile import build_host_pools_pack, build_sampler_pack
+
+    S, nblk = 4, 16
+
+    def host_pack(device):
+        return build_host_pools_pack(S, 32, device)[0]
+
+    def mixer_pack(device):
+        return ScenePack([_mixer_host_scene(pt, device, s) for s in range(S)], RATE,
+                         make_mesh(1, 1))
+
+    def blocks(pack):
+        return np.concatenate([pack.render_block(BLOCK) for _ in range(nblk)], axis=1)
+
+    def singles(pack):
+        rs = [pt.Renderer(s, RATE) for s in pack.scenes]
+        return np.concatenate([np.stack([r.render_block(BLOCK) for r in rs])
+                               for _ in range(nblk)], axis=1)
+
+    def sampler(device, per_scene):
+        drv = build_sampler_pack(S, 64, device, sounds=2, seconds=2.0)
+        if not per_scene:
+            return np.concatenate(drv.render(nblk, device_out=False), axis=1)
+        return np.stack([np.concatenate(d.render(pt.Renderer(d.mixer, RATE), nblk,
+                                                 device_out=False)) for d in drv.drivers])
+
+    cases = (("host-pool pack 4 x 32", lambda d: blocks(host_pack(d)),
+              lambda: singles(host_pack(dev))),
+             ("sampler pack 4 x 64", lambda d: sampler(d, False), lambda: sampler(dev, True)),
+             ("Mixer pack of host-pool voices and a submix", lambda d: blocks(mixer_pack(d)),
+              lambda: singles(mixer_pack(dev))))
+    for label, run, per_scene in cases:
+        card, cpu, own = run(dev), run("cpu"), per_scene()
+        errs = (float(np.abs(card - cpu).max()), float(np.abs(card - own).max()))
+        if not max(errs) <= TOL or np.abs(cpu).max() <= 1e-2:
+            raise AssertionError(f"{label}: card vs CPU {errs[0]}, vs per-scene Renderers "
+                                 f"{errs[1]}")
+        print(f"reference: {label}, {nblk} blocks: card vs CPU plain max|diff| {errs[0]:.3e}, "
+              f"vs per-scene Renderers on the card {errs[1]:.3e} (<= {TOL}) {tag}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card",
@@ -1960,9 +2279,15 @@ def main():
     pack_xrt(packs, dev, tag)
     del packs
 
+    # -- 28-31. K5's scene form, the sampler and host-pool packs -----------------------
+    strip_select_scene_kernel(dev, kern, tag)
+    host_pools_pack_path(pt, dev, kern, tag)
+    new_pack_reference(pt, dev, tag)
+
     # -- 21-24, 26. configs 4 and 2, the wavetable, the seek sampler; 27. their steps --
     step_paths(dev, kern, tag)
     sampler_paths(pt, dev, kern, tag)
+    sampler_pack_path(pt, dev, kern, tag)
 
     # the one-kernel checks first, then the heavy path profiles
     read_kernel_counts(captured, tag)

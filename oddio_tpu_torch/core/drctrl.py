@@ -15,7 +15,9 @@ path and block): ``fade_to`` on a device-resident voice queues the target
 mirrors say it is idle (``_fade_tick``, which mirrors the device's
 progress exactly, so the device is never read for it), and the device
 writes the target's row into the fader's inactive bank (``_fade_apply``,
-a bank mask on ``rows_scatter``).  The pools stamp their read-path flags
+a bank mask on ``rows_scatter``); a block's released lanes, every fader
+path's indices, increments and rows, ship as one byte record with one
+copy (``PinnedUpload``).  The pools stamp their read-path flags
 on the proto chain (``_ds_small``, ``_ds_tier``, ``_ema_fast``); the AGC gate is computed at the block length
 the pool renders, so 513-frame buffered renders take K7 too.
 
@@ -29,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.tree import tree_map, tree_stack
+from ..utils.tree import tree_leaves, tree_stack
 
 __all__ = ["DRCtrlMixin", "PinnedUpload", "walk_ctrl_keys", "walk_fade_paths", "rows_scatter",
            "host_lanes", "read_handle_state"]
@@ -95,6 +97,14 @@ def _state_at(tree, path):
     return tree
 
 
+def _unflatten(like, leaves):
+    """A tree shaped like ``like`` whose leaves are taken in order from the
+    iterator ``leaves`` (``tree_leaves``'s order)."""
+    if isinstance(like, dict):
+        return {k: _unflatten(v, leaves) for k, v in like.items()}
+    return next(leaves)
+
+
 def _rows_like(state, rows):
     """The leaves of ``state`` that a row tree (a subtree of it) writes."""
     if isinstance(rows, dict):
@@ -154,6 +164,34 @@ class PinnedUpload:
         dev.copy_(host, non_blocking=True)
         done.record()
         return dev
+
+
+def _np_dtype(dtype):
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def pack_record(arrays):
+    """Numpy arrays as one uint8 byte record, each at an 8-byte aligned
+    offset (so that every dtype views in place); returns (record, layout
+    [(offset, dtype, shape)])."""
+    layout, off = [], 0
+    for a in arrays:
+        layout.append((off, a.dtype, a.shape))
+        off += -(-a.nbytes // 8) * 8
+    rec = np.zeros(off, np.uint8)
+    for a, (o, _, _) in zip(arrays, layout):
+        rec[o:o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    return rec, layout
+
+
+def unpack_record(rec, layout):
+    """Views of an uploaded byte record (``pack_record``'s layout)."""
+    out = []
+    for o, dt, shape in layout:
+        t = torch.from_numpy(np.empty(0, dt)).dtype
+        nb = int(np.prod(shape, dtype=np.int64)) * np.dtype(dt).itemsize
+        out.append(rec[o:o + nb].view(t).reshape(shape))
+    return out
 
 
 def rows_scatter(state, rows, idx, wrote=None):
@@ -219,7 +257,9 @@ class DRCtrlMixin:
 
     def params_index_keys(self):
         """Every per-block param key that holds slot indices."""
-        return self.INDEX_PARAMS + tuple(f"ctrl_idx{j}" for j in range(len(self.ctrl_keys)))
+        return (self.INDEX_PARAMS
+                + tuple(f"ctrl_idx{j}" for j in range(len(self.ctrl_keys)))
+                + tuple(f"fade_idx{j}" for j in range(len(self.fade_paths))))
 
     def cursor_params(self):
         """This block's scene-level cursor params, shipped or not (a
@@ -329,6 +369,8 @@ class DRCtrlMixin:
         self._ds_dirty = True
         self._ds_small = True
         self._ema_fast = False
+        #: the released fade lanes' byte record, one copy a block
+        self._fade_records = PinnedUpload(self.device)
         #: no fader in the pool has pending, in-flight or unresolved fades:
         #: ``_fade_tick`` is then an exact no-op and the idle path may skip
         #: it (cleared by push_fade and by a mid-fade play)
@@ -503,36 +545,58 @@ class DRCtrlMixin:
     def _fade_apply(self, inner_state, params):
         """Write released fade starts into the fader nodes' state subtrees
         (after plays and control deltas); a targeted slot's completed fade
-        resolves first, so a new fade never lands on an unflipped one."""
+        resolves first, so a new fade never lands on an unflipped one.
+        Every path's real lanes (indices, increments, rows; the first of
+        each path's lanes, the rest zero, so the record keeps one size)
+        ship as one byte record with one copy."""
         if not self.fade_paths or "fade_idx0" not in params:
             return inner_state
         from ..parallel.context import localize_index
 
+        subs, counts, arrays, likes = [], [], [], []
         for j, path in enumerate(self.fade_paths):
             sub = dict(_state_at(inner_state, path))
             V = sub["prog"].shape[0]
-            keep, rows_i = host_lanes(localize_index(params[f"fade_idx{j}"], V), V)
-            if not rows_i.size:
+            idx = np.asarray(localize_index(params[f"fade_idx{j}"], V))
+            keep, rows_i = host_lanes(idx, V)
+            m = rows_i.size
+
+            def lanes(x, dtype):
+                out = np.zeros((idx.shape[0],) + x.shape[1:], dtype)
+                out[:m] = x[keep]
+                return out
+
+            like = _rows_like(sub["a"], params[f"fade_row{j}"])
+            leaves = tree_leaves(params[f"fade_row{j}"])
+            arrays += [lanes(idx, np.int64),
+                       lanes(params[f"fade_inc{j}"], _np_dtype(sub["inc"].dtype))]
+            arrays += [lanes(np.asarray(x), _np_dtype(t.dtype))
+                       for x, t in zip(leaves, tree_leaves(like))]
+            subs.append(sub)
+            counts.append(m)
+            likes.append(like)
+        if not any(counts):
+            return inner_state
+        rec, layout = pack_record(arrays)
+        views = iter(unpack_record(self._fade_records(rec), layout))
+        for path, sub, m, like in zip(self.fade_paths, subs, counts, likes):
+            it, inc_v = next(views)[:m], next(views)[:m]
+            flat = [next(views)[:m] for _ in tree_leaves(like)]
+            if not m:
                 continue
-            dev = sub["prog"].device
-            it = _upload(rows_i, dev)
-            tgt = torch.zeros(V, dtype=torch.bool, device=dev)
+            rows = _unflatten(like, iter(flat))
+            tgt = torch.zeros_like(sub["fading"])
             tgt[it] = True
             res = tgt & sub["fading"] & (sub["prog"] >= 1.0)
             flip = torch.logical_xor(sub["flip"], res)
-            # one upload of the rows for both banks
-            rows = tree_map(lambda x, s_: _upload(x[keep], dev, s_.dtype),
-                            params[f"fade_row{j}"], _rows_like(sub["a"], params[f"fade_row{j}"]))
             sub["a"] = rows_scatter(sub["a"], rows, it, tgt & flip)
             sub["b"] = rows_scatter(sub["b"], rows, it, tgt & ~flip)
             sub["flip"] = flip
-            prog = sub["prog"].clone()
-            prog[it] = 0.0
-            inc = sub["inc"].clone()
-            inc[it] = _upload(params[f"fade_inc{j}"][keep], dev, inc.dtype)
+            sub["prog"][it] = 0.0  # in place, as the control deltas
+            sub["inc"][it] = inc_v
             fading = sub["fading"] & ~res
             fading[it] = True
-            sub["prog"], sub["inc"], sub["fading"] = prog, inc, fading
+            sub["fading"] = fading
             inner_state = _set_path(inner_state, path, sub)
         return inner_state
 

@@ -465,6 +465,11 @@ class Engine(Signal):
     under a wrapper (an Adapt over a Mixer) it renders as the one voice of
     the wrapper's standalone path."""
 
+    #: set by a ScenePack on a submix's engine whose sibling scenes' engines
+    #: ship control deltas this block (the scenes themselves take
+    #: ``host_prepare``'s ``force``), so that every scene ships them
+    _pack_force = False
+
     def host_batchable(self):
         return False
 
@@ -475,7 +480,14 @@ class Engine(Signal):
 
     def render_host(self, dstate, ddata, params, n):
         """The one-voice case a wrapper's standalone render hands down:
-        drop the voice axis the wrapper added, render, put it back."""
+        drop the voice axis the wrapper added, render, put it back.  In a
+        ScenePack the wrapper's S rows are the S scenes this engine renders
+        stacked (``parallel.sharded``), so the state and params pass as
+        they are."""
+        from ..parallel.context import current_scenes
+
+        if current_scenes() is not None:
+            return self.render(dstate, ddata, params, n)
         d2, block = self.render(
             tree_map(lambda x: x[0], dstate), ddata,
             tree_map(lambda x: x[0], params), n,

@@ -15,6 +15,9 @@
 //   a_j   = ring[v, (128*rrow + extra_e + j + kmin + min(kk_j - kmin, R-1)) mod L]
 //   b_j   = the next sample (mod L);  s = a + fr*(b - a)
 //   out[e, j] = sum_v (s * (g0_e + j*dg_e)) * mask_v
+// Scene axis (ScenePack): the V rows are S scenes of vps voices each, and
+// each scene's voices are summed apart into out (S, 2, n).  One scene is
+// S = 1, vps = V.
 // The min(., R-1) clamp (SELECT_R = 16) is part of what the TPU kernel
 // computes (its realign reaches kmin + 15 at most); it binds for voices
 // whose |ds - 1|*127 exceeds 15, and is reproduced here and in the plain
@@ -57,8 +60,12 @@
 //   in rank order; where the grid holds several clusters, each writes its
 //   partial to scratch and the last cluster to finish a sub-block (a
 //   device ticket, __threadfence) adds them in cluster order and resets the
-//   ticket.  One cluster (V <= 256) writes the output directly: no scratch,
-//   no ticket.
+//   ticket.  One cluster (vps <= 256) writes the output directly: no
+//   scratch, no ticket.
+// * Scenes: each scene owns its own blocks and clusters (cps clusters of
+//   cl blocks), so no block or cluster straddles two scenes: a scene whose
+//   vps is not a multiple of VC ends in a short block, and the partials
+//   and tickets are kept per (scene, sub-block).  One launch for all S.
 // --fmad=false and the _rn intrinsics keep the position math, the lerp and
 // the gain ramp rounded op by op, as the plain version is.
 
@@ -116,7 +123,7 @@ __global__ void __launch_bounds__(SB) strip_select_kernel(
     const float* __restrict__ g0, const float* __restrict__ dg, int st_g,
     const float* __restrict__ maskf, int st_mask,
     float* __restrict__ part, unsigned* __restrict__ ticket,
-    float* __restrict__ out, int V, int n, int K, int nclusters) {
+    float* __restrict__ out, int vps, int n, int K, int cps) {
   __shared__ __align__(16) float s_win[2][VH][STAGE];
   __shared__ float4 s_pos[VC][2];  // [frac, f_hi, f_lo, ds_int - 1] per ear
   __shared__ float4 s_rd[VC][2];   // [g0, dg, kmin, start in the stage]
@@ -130,10 +137,14 @@ __global__ void __launch_bounds__(SB) strip_select_kernel(
   __shared__ int s_last;
 
   cg::cluster_group cluster = cg::this_cluster();
+  const unsigned csize = cluster.num_blocks();
+  const int per_scene = cps * (int)csize;  // CUDA blocks per scene
+  const int sc = blockIdx.x / per_scene;
+  const int lb = blockIdx.x % per_scene;   // the block within its scene
   const int sb = blockIdx.y;
   const int j0 = sb * SB;
-  const int v0 = blockIdx.x * VC;
-  const int nv = max(0, min(VC, V - v0));
+  const int v0 = sc * vps + lb * VC;
+  const int nv = max(0, min(VC, vps - lb * VC));
   const int t = threadIdx.x;
   const int j = j0 + t;
   const float tf = (float)j;
@@ -294,7 +305,6 @@ __global__ void __launch_bounds__(SB) strip_select_kernel(
   s_acc[1][t] = acc[1];
   cluster.sync();
   const unsigned rank = cluster.block_rank();
-  const unsigned csize = cluster.num_blocks();
   float sum[2] = {0.0f, 0.0f};
   if (rank == 0) {
     for (unsigned q = 0; q < csize; ++q) {
@@ -305,59 +315,62 @@ __global__ void __launch_bounds__(SB) strip_select_kernel(
   }
   cluster.sync();  // the peers' shared memory outlives rank 0's reads
   if (rank != 0) return;
-  if (nclusters == 1) {
+  float* o = out + (long long)sc * 2 * n;
+  if (cps == 1) {
     if (j < n) {
-      out[j] = sum[0];
-      out[n + j] = sum[1];
+      o[j] = sum[0];
+      o[n + j] = sum[1];
     }
     return;
   }
 
-  // 7. several clusters: the last to finish this sub-block adds their
-  // partials in cluster order
-  const int c = blockIdx.x / csize;
-  float* p = part + ((long long)sb * nclusters + c) * 2 * SB;
+  // 7. several clusters in the scene: the last to finish this sub-block
+  // adds their partials in cluster order
+  const long long slot = (long long)sc * gridDim.y + sb;
+  float* p = part + (slot * cps + lb / (int)csize) * 2 * SB;
   p[t] = sum[0];
   p[SB + t] = sum[1];
   __threadfence();
   __syncthreads();
-  if (t == 0) s_last = atomicAdd(&ticket[sb], 1u) == (unsigned)nclusters - 1;
+  if (t == 0) s_last = atomicAdd(&ticket[slot], 1u) == (unsigned)cps - 1;
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  float o[2] = {0.0f, 0.0f};
-  const float* pq = part + (long long)sb * nclusters * 2 * SB;
+  float tot[2] = {0.0f, 0.0f};
+  const float* pq = part + slot * cps * 2 * SB;
 #pragma unroll 8
-  for (int q = 0; q < nclusters; ++q) {
-    o[0] = __fadd_rn(o[0], __ldcg(pq + q * 2 * SB + t));
-    o[1] = __fadd_rn(o[1], __ldcg(pq + q * 2 * SB + SB + t));
+  for (int q = 0; q < cps; ++q) {
+    tot[0] = __fadd_rn(tot[0], __ldcg(pq + q * 2 * SB + t));
+    tot[1] = __fadd_rn(tot[1], __ldcg(pq + q * 2 * SB + SB + t));
   }
   if (j < n) {
-    out[j] = o[0];
-    out[n + j] = o[1];
+    o[j] = tot[0];
+    o[n + j] = tot[1];
   }
-  if (t == 0) ticket[sb] = 0;
+  if (t == 0) ticket[slot] = 0;
 }
 
-// part: (n/128 rounded up) x clusters x 2 x 128 floats; ticket: one zeroed
-// uint per sub-block, left zeroed (both unused, and may be null, when one
-// cluster holds every voice).
+// V rows of S = V / vps scenes.  part: S x (n/128 rounded up) x clusters
+// per scene x 2 x 128 floats; ticket: one zeroed uint per (scene,
+// sub-block), left zeroed (both unused, and may be null, when one cluster
+// holds a scene).  out: (S, 2, n).
 extern "C" int strip_select(const float* ring, int L, int can_stage,
                             const int* rrow, int st_rrow, const int* extra,
                             int st_extra, const float* scal, int st_scal,
                             const float* g0, const float* dg, int st_g,
                             const float* maskf, int st_mask, float* part,
-                            unsigned* ticket, float* out, int V, int n, int K,
-                            cudaStream_t stream) {
-  if (V < 1 || n < 1 || L < 2) return (int)cudaErrorInvalidValue;
-  const int nchunks = (V + VC - 1) / VC;
+                            unsigned* ticket, float* out, int V, int vps, int n,
+                            int K, cudaStream_t stream) {
+  if (V < 1 || vps < 1 || V % vps || n < 1 || L < 2) return (int)cudaErrorInvalidValue;
+  const int S = V / vps;
+  const int bps = (vps + VC - 1) / VC;  // CUDA blocks of each scene's voices
   int cl = 1;
-  while (cl < nchunks && cl < CL_MAX) cl <<= 1;
-  const int nclusters = (nchunks + cl - 1) / cl;
-  if (nclusters > 1 && (part == nullptr || ticket == nullptr))
+  while (cl < bps && cl < CL_MAX) cl <<= 1;
+  const int cps = (bps + cl - 1) / cl;
+  if (cps > 1 && (part == nullptr || ticket == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(nclusters * cl, (n + SB - 1) / SB, 1);
+  cfg.gridDim = dim3(S * cps * cl, (n + SB - 1) / SB, 1);
   cfg.blockDim = dim3(SB, 1, 1);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
@@ -370,8 +383,8 @@ extern "C" int strip_select(const float* ring, int L, int can_stage,
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, strip_select_kernel, ring, L, can_stage, rrow, st_rrow, extra,
-      st_extra, scal, st_scal, g0, dg, st_g, maskf, st_mask, part, ticket, out, V,
-      n, K, nclusters);
+      st_extra, scal, st_scal, g0, dg, st_g, maskf, st_mask, part, ticket, out, vps,
+      n, K, cps);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

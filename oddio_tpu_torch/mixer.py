@@ -34,7 +34,7 @@ from .parallel.context import current_scenes, localize_index
 from .utils.tree import tree_map, tree_stack
 
 __all__ = ["Mixer", "MixerControl", "Mixed", "Pool", "PoolSingleton", "PoolDR",
-           "DEFAULT_CAPACITY"]
+           "DEFAULT_CAPACITY", "render_submix"]
 
 DEFAULT_CAPACITY = 16
 
@@ -59,6 +59,12 @@ class Pool:
 
     is_dr = False
 
+    #: set by a ScenePack holding this pool's device state: called with
+    #: ``drop`` True before growth (the pack's stack goes back into the
+    #: scenes), False before a play's in-place slot reset (the scenes take
+    #: views of the stack)
+    _unpack_hook = None
+
     def __init__(self, name, spec, capacity, device):
         self.name = name
         self.proto = spec  # structure donor for clone/grow
@@ -71,7 +77,12 @@ class Pool:
         self.slot_gen = np.zeros(capacity, dtype=np.int64)
         self._free = list(range(capacity - 1, -1, -1))
 
+    def _pull_pack(self, drop=True):
+        if self._unpack_hook is not None:
+            self._unpack_hook(drop)
+
     def grow(self):
+        self._pull_pack()
         old = self.capacity
         new = old * 2
         self.sig.grow_batched(new)
@@ -88,6 +99,7 @@ class Pool:
         gen = int(self.slot_gen[i])
         self.sig.write_slot(i, spec, self, gen)
         spec._moved = True
+        self._pull_pack(drop=False)
         self.sig.device_reset_slot(i)
         self.mask[i] = True
         self.stop[i] = False
@@ -122,6 +134,9 @@ class PoolSingleton(Pool):
     mixer's)."""
 
     is_singleton = True
+    #: where a ScenePack finds the submix engine's params (None: its state
+    #: is the whole subtree)
+    INNER_PARAMS, INNER_STATE = "p", None
 
     def __init__(self, name, spec):
         self.name = name
@@ -151,9 +166,22 @@ class PoolSingleton(Pool):
         """Reuse this freed one-voice pool for a fresh same-archetype
         signal: the subtree swaps wholesale (fresh host and device state),
         the singleton's counterpart of a batched pool's slot reuse."""
+        self._pull_pack()
         self.proto = self.sig = spec
         self._arch0 = spec.archetype()
         return self.play(spec)
+
+
+def render_submix(sig, dstate, ddata, params, n):
+    """A singleton pool's voice ``sig`` as rows: (1, C, n), or in a
+    ScenePack its S scenes' (S, C, n), the engine's stacked render or a
+    wrapper chain's batched one over S rows."""
+    if current_scenes() is None:
+        d2, block = sig.render(dstate, ddata, params, n)
+        return d2, block[None]
+    if isinstance(sig, Engine):
+        return sig.render(dstate, ddata, params, n)
+    return sig.render_host(dstate, ddata, params, n)
 
 
 class PoolDR(DRCtrlMixin):
@@ -386,7 +414,16 @@ class PoolDR(DRCtrlMixin):
             self.proto.dr_host_tick(self._interval, self._counts_memo[1])
         return params
 
+    #: set by a ScenePack whose scenes' pools advance different frame
+    #: counts this block (submixes at their rings' write counts): one per
+    #: scene, else None
+    _pack_counts = None
+
     def _count_tensor(self, V):
+        pc = self._pack_counts
+        if pc is not None and current_scenes() == len(pc):
+            counts = np.repeat(np.asarray(pc, np.int32), V // len(pc))
+            return _upload(counts, self.device, torch.int32)
         key = (V, self._count, self.device)
         if self._count_t[0] != key:
             self._count_t = (
@@ -557,6 +594,8 @@ class Mixer(Engine):
 
     def host_prepare(self, interval, n, count=None, force=False):
         # scene-global control-event flag: every pool ships deltas together
+        # (a pack forces a submix's engine through ``_pack_force``)
+        force, self._pack_force = force or self._pack_force, False
         force = force or any(
             bool(p.pending_plays) or bool(p.pending_stops)
             or p._ctrl_pending_any()
@@ -650,8 +689,7 @@ class Mixer(Engine):
                 out = out + block
                 continue
             if getattr(pool, "is_singleton", False):
-                dsub, block1 = pool.sig.render(dstate[pool.name], dd, ps["p"], n)
-                blocks = block1[None]
+                dsub, blocks = render_submix(pool.sig, dstate[pool.name], dd, ps["p"], n)
             elif (rb := getattr(pool.sig, "render_batched", None)) is not None:
                 # pool-level render of a bare Stream chain (K4/K6)
                 dsub, blocks = rb(dstate[pool.name], dd, ps["p"], n)
@@ -659,7 +697,7 @@ class Mixer(Engine):
                 dsub, blocks = pool.sig.render_host(dstate[pool.name], dd, ps["p"], n)
             d2[pool.name] = dsub
             mask = _upload(ps["mask"], self.device)
-            out = out + masked_voice_sum(mask, blocks)
+            out = out + masked_voice_sum(mask, blocks, S)
         return d2, out
 
     def host_snapshot(self):

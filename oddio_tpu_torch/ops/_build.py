@@ -123,7 +123,7 @@ _SIGNATURES = {
             _vp, _vp, _i32,                # gain0, d_gain, their stride
             _vp, _i32,                     # maskf, its stride
             _vp, _vp, _vp,                 # part, ticket (or null), out
-            _i32, _i32, _i32,              # V, n, K
+            _i32, _i32, _i32, _i32,        # V, voices per scene, n, K
             _vp,                           # stream
         ],
     },

@@ -34,9 +34,10 @@ in ``csrc/ring_kernels.cu`` (the device-resident pool) and K5 in
   (``voice_record``: one (V, 20)-word row per voice, shipped with one
   copy per block, which K4's record form reads too).
 
-K1 and K2 also take a ScenePack's scene axis: the V rows are S scenes of
-V/S voices each, K1 writes each scene at its own row pair and K2 mixes
-each scene apart into (S, 2, n); one launch per call whatever S is.  K8
+K1, K2 and K5's record form also take a ScenePack's scene axis: the V rows
+are S scenes of V/S voices each, K1 writes each scene at its own row pair
+and K2 and K5 mix each scene apart into (S, 2, n); one launch per call
+whatever S is.  K8
 (``window_select``, ``ops/flat_kernels.py``) keeps the port's first K2
 body in ``csrc/ring_kernels.cu``.
 
@@ -102,6 +103,7 @@ __all__ = [
     "strip_select_record",
     "strip_select_record_plain",
     "strip_tolerance",
+    "strip_record_tolerance",
     "REC_WORDS",
     "REC_FIELDS",
     "voice_record",
@@ -140,9 +142,10 @@ _F32, _I32 = torch.float32, torch.int32
 
 #: launches per kernel since the last reset (CUDA launches only)
 #: ("append" counts every K1 launch, "append_cursor" those of them through
-#: the cursor form)
+#: the cursor form; "strip_select" every K5 launch, "strip_select_scenes"
+#: those of them through the scene form)
 LAUNCHES = {"append": 0, "append_cursor": 0, "select_ears": 0, "select_multi": 0,
-            "strip_select": 0}
+            "strip_select": 0, "strip_select_scenes": 0}
 
 
 def reset_launches():
@@ -978,10 +981,26 @@ def record_operands(rec):
     return tuple(f[k] for k in ("rrow", "extra_r", "scal", "gain0", "d_gain", "mask"))
 
 
-def strip_select_record_plain(ring, rec, *, n, K):
+def _per_scene_rows(fn, ring, rec, n, scenes):
+    """``fn(ring, rec, n)`` over each scene's rows of a record call: (S,
+    2, n), or fn's own (2, n) when ``scenes`` is None."""
+    return _per_scene(lambda r, q, n_: fn(r[0], q[0], n_), [ring], [rec], n, scenes)
+
+
+def strip_select_record_plain(ring, rec, *, n, K, scenes=None):
     """Plain version of K5's record form: ``strip_select_plain`` on the
-    record's fields."""
-    return strip_select_plain(ring, *record_operands(rec), n=n, K=K)
+    record's fields, each scene's rows apart with ``scenes``."""
+    return _per_scene_rows(
+        lambda r, q, n_: strip_select_plain(r, *record_operands(q), n=n_, K=K),
+        ring, rec, n, scenes)
+
+
+def strip_record_tolerance(ring, rec, *, n, K, scenes=None):
+    """``strip_tolerance`` for K5's record form, per scene with
+    ``scenes``."""
+    return _per_scene_rows(
+        lambda r, q, n_: strip_tolerance(r, *record_operands(q), n=n_, K=K),
+        ring, rec, n, scenes)
 
 
 # --- K5 launch -------------------------------------------------------------------
@@ -1001,19 +1020,19 @@ def _signature(*xs):
         raise TypeError("kernel operands must be tensors") from None
 
 
-def _strip_launch(ring, fields, n, K):
+def _strip_launch(ring, fields, n, K, S=1):
     """Launch K5 on ``ring`` with its operand fields as (pointer, voice
     stride in words) pairs: rrow, extra, scal, (gain0, d_gain) sharing
-    one stride, mask."""
+    one stride, mask; the V rows are ``S`` scenes.  (S, 2, n)."""
     V, L = ring.shape
     dev = ring.device
     (rr, s_rr), (ex, s_ex), (sc, s_sc), (g0, dg, s_g), (mk, s_mk) = fields
-    part, ticket = _cluster_scratch(dev, V, -(-n // SELECT_SB), 2 * SELECT_SB)
-    out = torch.empty((2, n), dtype=_F32, device=dev)
+    part, ticket = _cluster_scratch(dev, V // S, S * -(-n // SELECT_SB), 2 * SELECT_SB)
+    out = torch.empty((S, 2, n), dtype=_F32, device=dev)
     can_stage = int(ring.data_ptr() % 16 == 0 and L % 4 == 0)
     rc = lib("select_kernel").strip_select(
         ring.data_ptr(), L, can_stage, rr, s_rr, ex, s_ex, sc, s_sc, g0, dg, s_g,
-        mk, s_mk, _ptr(part), _ptr(ticket), out.data_ptr(), V, n, K,
+        mk, s_mk, _ptr(part), _ptr(ticket), out.data_ptr(), V, V // S, n, K,
         _stream_ptr(dev),
     )
     LAUNCHES["strip_select"] += 1
@@ -1064,16 +1083,18 @@ def strip_select(ring, rrow, extra, scal, gain0, d_gain, maskf, *, n, K):
         return strip_select_plain(ring, rrow, extra, scal, gain0, d_gain, maskf, n=n, K=K)
     return _strip_launch(ring, ((rrow.data_ptr(), 1), (extra.data_ptr(), 2),
                                 (scal.data_ptr(), 8), (gain0.data_ptr(), d_gain.data_ptr(), 2),
-                                (maskf.data_ptr(), 1)), n, K)
+                                (maskf.data_ptr(), 1)), n, K)[0]
 
 
-def strip_select_record(ring, rec, *, n, K):
+def strip_select_record(ring, rec, *, n, K, scenes=None):
     """K5 on the host pool's operand record: ``strip_select`` with its
     operands read from ``rec`` (V, REC_WORDS) f32 (``voice_record``'s
-    layout), one pointer per field at the record's row stride.  The
-    operands' checks run once per (shapes, strides, dtypes, devices, n,
-    K)."""
-    key = (_signature(ring, rec), n, K)
+    layout), one pointer per field at the record's row stride.  Returns
+    (2, n), or with ``scenes`` = S the V rows' S scenes (V/S voices each,
+    any count) mixed apart, (S, 2, n); one launch whatever S is.  The
+    operands' checks run once per (shapes, strides, dtypes, devices, n, K,
+    scenes)."""
+    key = (_signature(ring, rec), n, K, scenes)
     if key not in _VALIDATED:
         if ring.dim() != 2:
             raise ValueError("ring must be a (V, L) tensor")
@@ -1082,16 +1103,22 @@ def strip_select_record(ring, rec, *, n, K):
         _check(ring, "ring", _F32, (V, L), dev)
         _check(rec, "rec", _F32, (V, REC_WORDS), dev)
         _check_select_n(n, V, L)
+        _scene_count(V, 1 if scenes is None else scenes)
         if dev.type != "cpu":
             _cuda_device(ring)
             _check_contig(ring, "ring")
             _check_contig(rec, "rec")
         _VALIDATED.add(key)
     if ring.device.type == "cpu":
-        return strip_select_record_plain(ring, rec, n=n, K=K)
+        return strip_select_record_plain(ring, rec, n=n, K=K, scenes=scenes)
     b, F = rec.data_ptr(), REC_FIELDS
-    return _strip_launch(ring, ((b + 4 * F["rrow"], REC_WORDS),
-                                (b + 4 * F["extra_r"], REC_WORDS),
-                                (b + 4 * F["scal"], REC_WORDS),
-                                (b + 4 * F["gain0"], b + 4 * F["d_gain"], REC_WORDS),
-                                (b + 4 * F["mask"], REC_WORDS)), n, K)
+    out = _strip_launch(ring, ((b + 4 * F["rrow"], REC_WORDS),
+                               (b + 4 * F["extra_r"], REC_WORDS),
+                               (b + 4 * F["scal"], REC_WORDS),
+                               (b + 4 * F["gain0"], b + 4 * F["d_gain"], REC_WORDS),
+                               (b + 4 * F["mask"], REC_WORDS)), n, K,
+                        1 if scenes is None else scenes)
+    if scenes is None:
+        return out[0]
+    LAUNCHES["strip_select_scenes"] += 1
+    return out

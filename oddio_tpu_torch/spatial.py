@@ -44,6 +44,7 @@ from .core.hostmath import (
     v3_norm,
 )
 from .core.signal import Engine, default_device
+from .mixer import render_submix
 from .ops._dev import (
     device_split_ds,
     exact_positions,
@@ -190,6 +191,12 @@ class _VoicePool:
 
     is_dr = False
 
+    #: set by a ScenePack holding this pool's device state: called with
+    #: ``drop`` True before growth (the pack's stack goes back into the
+    #: scenes), False before a play's in-place slot reset (the scenes take
+    #: views of the stack)
+    _unpack_hook = None
+
     def __init__(self, name, spec, capacity, device):
         self.name = name
         self.proto = spec
@@ -220,7 +227,12 @@ class _VoicePool:
         "pend_vel pend_disc prev_position dt finished_for"
     ).split()
 
+    def _pull_pack(self, drop=True):
+        if self._unpack_hook is not None:
+            self._unpack_hook(drop)
+
     def grow(self):
+        self._pull_pack()
         old = self.capacity
         new = old * 2
         self.sig.grow_batched(new)
@@ -238,6 +250,7 @@ class _VoicePool:
         gen = int(self.slot_gen[i])
         self.sig.write_slot(i, spec, self, gen)
         spec._moved = True
+        self._pull_pack(drop=False)
         self.sig.device_reset_slot(i)
         self.mask[i] = True
         self.stopped[i] = False
@@ -452,6 +465,14 @@ class _BufferedPool(_VoicePool):
         )
         start_i = start_idx.astype(np.int32)
         ob = obase.astype(np.int32)
+        # the exact route's operands; a ScenePack whose other scenes leave
+        # the strip gate this block ships them instead (``exact_params``)
+        self._exact = {
+            "mask": self.mask.copy(), "n_write": n_write, "gain0": prev_gain,
+            "d_gain": d_gain, "start": start_i, "obase": ob,
+            "ofrac": (offset0 - obase).astype(np.float32), "ds_int": ds_int,
+            "f_hi": f_hi, "f_lo": f_lo,
+        }
         if self._use_strips:
             # one write cursor per voice, ONE shared read window for both
             # ears; every operand of K4 and K5 in one record per voice
@@ -480,17 +501,15 @@ class _BufferedPool(_VoicePool):
                 d_gain, self.mask, wrow, start_i - wrow * RING_ROW, n_write,
             )
         else:
-            params["mask"] = self.mask.copy()
-            params["n_write"] = n_write
-            params["gain0"] = prev_gain
-            params["d_gain"] = d_gain
-            params["start"] = start_i
-            params["obase"] = ob
-            params["ofrac"] = (offset0 - obase).astype(np.float32)
-            params["ds_int"] = ds_int
-            params["f_hi"] = f_hi
-            params["f_lo"] = f_lo
+            params.update(self._exact)
         return params
+
+    def exact_params(self, params):
+        """This block's params (as ``host_prepare`` returned them) on the
+        exact elementwise route."""
+        out = {k: v for k, v in params.items() if k != "rec"}
+        out.update(self._exact)
+        return out
 
     def _inner_prepare(self, inner_interval, n_inner, n_write):
         return self.sig.host_prepare(inner_interval, n_inner, count=n_write)
@@ -510,6 +529,7 @@ class _BufferedPool(_VoicePool):
         samples = blocks[:, 0, :].contiguous()  # (V, n_inner) mono
         ring = dstate["ring"]  # (V, L), updated in place
         V, L = ring.shape
+        S = current_scenes()  # a pack's rows: S scenes, mixed apart
 
         if not self._use_strips:
             # exact elementwise write and read (any ratio, any walk)
@@ -533,7 +553,7 @@ class _BufferedPool(_VoicePool):
             s = a + fr * (b - a)
             jn = torch.arange(n, dtype=_F32, device=self.device)
             gains = up(params["gain0"])[:, :, None] + jn * up(params["d_gain"])[:, :, None]
-            out = masked_voice_sum(up(params["mask"]), s * gains)
+            out = masked_voice_sum(up(params["mask"]), s * gains, S)
             return {"ring": ring, "inner": dsub}, out
 
         # ring write (ring.rs:18-41) through K4 at start mod L, then the
@@ -541,7 +561,7 @@ class _BufferedPool(_VoicePool):
         # on the block's operand record, shipped with one copy
         rec = self._records(params["rec"])
         ring_place_record(ring, samples, rec)
-        out = strip_select_record(ring, rec, n=n, K=K_DOPPLER)
+        out = strip_select_record(ring, rec, n=n, K=K_DOPPLER, scenes=S)
         return {"ring": ring, "inner": dsub}, out
 
 
@@ -554,6 +574,8 @@ class _BufferedPoolSingleton(_BufferedPool):
     pool's."""
 
     is_singleton = True
+    #: where a ScenePack finds the submix engine's params and state
+    INNER_PARAMS = INNER_STATE = "inner"
 
     def __init__(self, name, spec, rate, ring_len, device):
         self.name = name
@@ -579,6 +601,7 @@ class _BufferedPoolSingleton(_BufferedPool):
         i = 0
         gen = int(self.slot_gen[i])
         spec._moved = True
+        self._pull_pack(drop=False)  # the ring's row resets in place
         self.mask[i] = True
         self.stopped[i] = False
         self.radius[i] = options.radius
@@ -597,10 +620,9 @@ class _BufferedPoolSingleton(_BufferedPool):
         )
 
     def _inner_render(self, dstate, ddata, params, n_inner):
-        dsub, block = self.sig.render(
-            dstate["inner"], ddata.get("inner", {}), params["inner"], n_inner
-        )
-        return dsub, block[None]  # (1, C, n_inner)
+        # (1, C, n_inner); in a pack the submix renders its S scenes, S rows
+        return render_submix(self.sig, dstate["inner"], ddata.get("inner", {}),
+                             params["inner"], n_inner)
 
     def sync(self):
         """A submix engine's own handle state (its device-resident pools)."""
@@ -651,7 +673,8 @@ class _SeekPool(_VoicePool):
         s = torch.stack([bL[:, 0, :], bR[:, 0, :]], dim=1)  # (V, 2, n)
         jn = torch.arange(n, dtype=_F32, device=self.device)
         gains = up(params["gain0"])[:, :, None] + jn * up(params["d_gain"])[:, :, None]
-        return {"inner": d3}, masked_voice_sum(up(params["mask"]), s * gains)
+        return {"inner": d3}, masked_voice_sum(up(params["mask"]), s * gains,
+                                               current_scenes())
 
 
 class _DRPoolBase(DRCtrlMixin):
@@ -2150,6 +2173,8 @@ class SpatialScene(Engine):
         # the authoritative mirror; the pools read the device copy ("_rot")
         prev_rot = self._rot
         rot_event = self._rot_pending is not None
+        # a pack forces a submix's engine through ``_pack_force``
+        force, self._pack_force = force or self._pack_force, False
         if rot_event:
             if self._rot_dev is None:
                 self._rot_dev = _upload(self._rot, self.device)

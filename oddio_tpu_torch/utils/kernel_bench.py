@@ -13,6 +13,8 @@ cycles each call over operand sets whose bytes together pass the L2:
 * K1/K9: ``SETS`` rings and slabs, 25.2 MB each;
 * K5 at 4096 voices: ``SETS`` sets of read rows over one 268 MB ring
   (each call reads about 9.5 MB at other places of every voice's ring);
+  its scene form the same at the host-pool pack's 16 scenes x 256, beside
+  the (2, n) form on the same rows;
 * K4 at the mixer's shape: ``PLACE_RINGS`` rings of 5.8 MB; at the host
   pool's, ``SETS`` chunks of 8.4 MB written at other cursors of one
   268 MB ring;
@@ -102,6 +104,11 @@ SELECT_CASES = (("main", 4096, 16384, 0.0, 0.09),
                 ("singleton", 1, 2048, 0.0, 0.09),
                 ("near-gate", 1024, 16384, 0.119, 0.125))
 SELECT_N, SELECT_K = 512, 64
+#: K5's scene-form cases (label, scenes, voices per scene, ring length):
+#: the host-pool pack's 16 x 256 host rows, one scene of 4096, and 3
+#: scenes of 17 (a scene boundary inside a block of 32 voices)
+SELECT_SCENES = (("pack", 16, 256, 16384), ("one", 1, 4096, 16384),
+                 ("boundary", 3, 17, 2048))
 #: K4 at the config-5 mixer (V rows of size_pad 2816, a 2401-wide prefill
 #: chunk and a 128-wide steady one) and at the host pool (4096 rings of
 #: 16384, n_inner = 513 frames, n_write 512 or 513)
@@ -186,16 +193,27 @@ def select_operands(dev, rng, Vs, L, lo, hi, ring=None):
             _t(rng.uniform(0, 1, Vs) > 0.2, dev))
 
 
-def select_bytes(RK, ops, n=SELECT_N, K=SELECT_K):
+def select_scene_operands(dev, rng, V, L, ring=None):
+    """K5's operands for a scene-form case: ``select_operands`` with steps
+    up to the strip gate (|ds - 1| <= 0.125, where the SELECT_R clamp
+    binds), every other voice's read windows across the ring's end, and
+    every seventh voice frozen (ds = 0, a fully clamped offset)."""
+    ops = list(select_operands(dev, rng, V, L, 0.0, 0.125, ring))
+    ops[1][::2] = L // 128 - 1
+    ops[3][::7, :, 1:] = 0.0
+    return ops
+
+
+def select_bytes(RK, ops, n=SELECT_N, K=SELECT_K, scenes=1):
     """Bytes K5 must move: each voice's read span over both ears, its
-    operands (44 bytes), the (2, n) output."""
+    operands (44 bytes), the (2, n) output (one per scene)."""
     ring, rrow, extra, scal = ops[:4]
     idx = []
     for e in range(2):
         off, _ = RK.strip_positions(scal[:, e], n, K)
         idx.append(128 * rrow.long()[:, None] + extra[:, e:e + 1].long()
                    + torch.arange(n, device=ring.device) + off)
-    return span_bytes(torch.stack(idx, 1)) + 44 * ring.shape[0] + 8 * n
+    return span_bytes(torch.stack(idx, 1)) + 44 * ring.shape[0] + 8 * n * scenes
 
 
 def place_operands(dev, rng, rows, size, mw, host_pool):
@@ -395,7 +413,9 @@ def append_cases(dev):
 def select_cases(dev):
     """{name: (call, bound ms)} of K5 at its three shapes, warm, and at
     4096 voices cold (``SETS`` read-row sets); through ``strip_select``
-    and ``strip_select_record``."""
+    and ``strip_select_record``; and its scene form at ``SELECT_SCENES``,
+    beside the (2, n) form on the same rows, warm and (the pack's 16 x
+    256) cold."""
     from oddio_tpu_torch.ops import ring_kernels as RK
 
     rng = np.random.default_rng(11)
@@ -414,6 +434,23 @@ def select_cases(dev):
             out[f"K5 strip_select {label} V={Vs}, {heat}"] = (cycling(
                 sets[:n_sets], lambda *ops: RK.strip_select(*ops, **kw)), bms)
             out[f"K5 strip_select_record {label} V={Vs}, {heat}"] = (cycling(
+                recs[:n_sets], lambda ring, rec: RK.strip_select_record(ring, rec, **kw)), bms)
+    # the scene form at the host-pool pack's shapes, beside the (2, n) form
+    # on the same rows
+    for label, S, vps, L in SELECT_SCENES:
+        sets = [select_scene_operands(dev, rng, S * vps, L)]
+        if label == "pack":
+            sets += [select_scene_operands(dev, rng, S * vps, L, ring=sets[0][0])
+                     for _ in range(SETS - 1)]
+        bms = bound(select_bytes(RK, sets[0], scenes=S), 22 * S * vps * 2 * SELECT_N)[0]
+        recs = [(s[0], RK.voice_record(*s[1:])) for s in sets]
+        for heat, n_sets in (("warm", 1), ("cold", len(sets))):
+            if heat == "cold" and n_sets == 1:
+                continue
+            out[f"K5 scene form {label} S={S} x {vps}, {heat}"] = (cycling(
+                recs[:n_sets], lambda ring, rec, S=S: RK.strip_select_record(
+                    ring, rec, scenes=S, **kw)), bms)
+            out[f"K5 (2, n) form {label} {S * vps} rows, {heat}"] = (cycling(
                 recs[:n_sets], lambda ring, rec: RK.strip_select_record(ring, rec, **kw)), bms)
     return out
 

@@ -1,7 +1,7 @@
 """Where a block's time goes on a CUDA card: the bench scenes at 4096 voices
 through ``Renderer.render_frames_device``, timed and traced.
 
-    python -m oddio_tpu_torch.utils.scene_profile [buffered|seek|mixer|hostpools|pack|pack256|spatialpack|densemix|sampler|wavetable ...]
+    python -m oddio_tpu_torch.utils.scene_profile [buffered|seek|mixer|hostpools|pack|pack256|spatialpack|densemix|sampler|wavetable|sampler_pack|hostpack ...]
 
 For the buffered and the seek scene (``bench.py``'s ``build_spatial``,
 4096 voices), the AGC mixer scene (``build_mixer_agc``, BASELINE config
@@ -14,16 +14,20 @@ stated 256 scenes as ``pack256``; ``build_spatial_pack``: 16 scenes of 64
 buffered + 192 seek Sine voices, as ``spatialpack``), and the 1024-voice
 scenes of BASELINE configs 4 and 2 and the wavetable line
 (``build_densemix``, ``build_sampler`` with its control script of speed
-writes and fades every 8 blocks, ``build_wavetable``) it
-prints, for each of three timed 188-block
+writes and fades every 8 blocks, ``build_wavetable``), and the two packs
+of one session each (``build_sampler_pack``: 16 sampler scenes of 64
+voices, each on its own script, as ``sampler_pack``;
+``build_host_pools_pack``: 16 host-pool scenes of 256 voices, as
+``hostpack``) it prints, for each of three timed 188-block
 runs, the wall time per 512-frame block, the host time per block spent in
 the engine's ``host_prepare`` and the real-time factor (xRT, after
 ``torch.cuda.synchronize()``; for a pack, per scene: one scene's audio
 seconds per wall second, as bench.py counts it); then, for one 47-block run under
 ``torch.profiler``, the device kernel time per block, the device's busy
 share of the wall time (kernel time / wall time), the device kernels per
-block, the kernels with the most device time and the host-side torch ops
-with the most self time.  The mixer and host-pool scenes' streams get 1024
+block, the host-to-device copies from pageable memory per block, the
+kernels with the most device time and the host-side torch ops with the
+most self time.  The mixer and host-pool scenes' streams get 1024
 new samples before each run, so the traced run includes an ingest block.
 The card's name and power limit head the output.  With no arguments every
 scene runs.
@@ -42,7 +46,8 @@ import oddio_tpu_torch as pt
 
 __all__ = ["build_spatial", "build_mixer_agc", "build_host_pools", "build_config5_pack",
            "build_pack_scene", "build_spatial_pack", "build_densemix", "build_wavetable",
-           "build_sampler", "SamplerDriver", "feed", "card_line", "main"]
+           "build_sampler", "SamplerDriver", "build_sampler_pack", "build_host_pools_pack",
+           "PackDriver", "feed", "card_line", "main"]
 
 RATE = 48000
 BLOCK = 512
@@ -171,6 +176,25 @@ def build_config5_pack(scenes, device, voices=256, seed=0):
     return ScenePack(mixers, RATE, make_mesh(1, 1), scan_unroll=8), ctls, rng
 
 
+def build_host_pools_pack(scenes, voices, device, seed=0):
+    """Every buffered pool kind per session: a ScenePack of ``scenes``
+    ``build_host_pools(voices, dr_voices=voices // 8, submix_voices=64)``
+    scenes, scene s drawn from ``seed + s``, on a 1 x 1 mesh at 48 kHz.
+    Returns ``(pack, stream_controls, speed_controls, rng)`` (the last
+    scene's ``rng``, which continues its draws, for ``feed``)."""
+    from ..parallel.mesh import make_mesh
+    from ..parallel.sharded import ScenePack
+
+    out, ctls, speeds = [], [], []
+    for s in range(scenes):
+        _, scene, c, sp, rng = build_host_pools(voices, device, seed + s,
+                                                dr_voices=voices // 8, submix_voices=64)
+        out.append(scene)
+        ctls.extend(c)
+        speeds.extend(sp)
+    return ScenePack(out, RATE, make_mesh(1, 1)), ctls, speeds, rng
+
+
 def build_pack_scene(device, seed, n_buffered=64, n_seek=192):
     """One spatial scene of ``__graft_entry__._build_scene``'s make-up:
     ``n_buffered`` buffered (delay-ring) Sine voices within 30 m moving at
@@ -250,6 +274,13 @@ def build_sampler(voices, device, seed=0, sounds=8, seconds=10.0):
     uniformly, starting uniform in [0, seconds/2) s, at a speed uniform in
     [0.8, 1.25].  Returns a ``SamplerDriver``."""
     rng = np.random.default_rng(seed)
+    return _sampler_scene(_sampler_sounds(rng, sounds, seconds), rng, voices, device,
+                          seconds)
+
+
+def _sampler_sounds(rng, sounds, seconds):
+    """``sounds`` stereo ``Frames`` of ``seconds`` at 44.1 kHz drawn from
+    ``rng``: a few partials and noise per channel."""
     n = int(seconds * SAMPLER_RATE)
     t = np.arange(n, dtype=np.float64) / SAMPLER_RATE
     frames = []
@@ -260,8 +291,14 @@ def build_sampler(voices, device, seed=0, sounds=8, seconds=10.0):
             x = sum(np.sin(2 * np.pi * fk * t + rng.uniform(0, 6)) for fk in f) / 3
             data[:, c] = 0.4 * x + 0.05 * rng.standard_normal(n)
         frames.append(pt.Frames.from_slice(SAMPLER_RATE, data))
+    return frames
+
+
+def _sampler_scene(frames, rng, voices, device, seconds, **script):
+    """The config-2 Mixer over ``frames``, its voices drawn from ``rng``
+    (``build_sampler``), with its ``SamplerDriver``."""
     control, mixer = pt.Mixer.new(channels=2, device=device)
-    drv = SamplerDriver(mixer, frames, rng, seconds)
+    drv = SamplerDriver(mixer, frames, rng, seconds, **script)
     for _ in range(voices):
         sc, sp = drv.voice()
         fc, f = pt.Fader.new(sp)
@@ -269,6 +306,52 @@ def build_sampler(voices, device, seed=0, sounds=8, seconds=10.0):
         drv.faders.append(fc)
         control.play(f)
     return drv
+
+
+def build_sampler_pack(scenes, voices, device, seed=0, sounds=8, seconds=10.0):
+    """BASELINE config 2 per session: a ScenePack of ``scenes`` sampler
+    Mixers (``build_sampler``) of ``voices`` voices each, sharing one set of
+    ``sounds`` stereo sounds drawn from ``seed``; scene s's voices and its
+    own ``SamplerDriver`` script (every 8 blocks, ``voices // 8`` speed
+    writes and as many 0.05 s fades) are drawn from ``seed + s``.  Returns
+    a ``PackDriver``."""
+    from ..parallel.mesh import make_mesh
+    from ..parallel.sharded import ScenePack
+
+    frames = _sampler_sounds(np.random.default_rng(seed), sounds, seconds)
+    drivers = [_sampler_scene(frames, np.random.default_rng(seed + s), voices, device,
+                              seconds, k=max(voices // 8, 1))
+               for s in range(scenes)]
+    pack = ScenePack([d.mixer for d in drivers], RATE, make_mesh(1, 1))
+    return PackDriver(pack, drivers)
+
+
+class PackDriver:
+    """A ScenePack whose scenes each run their own control script (a
+    ``SamplerDriver`` per scene), applied before every period of blocks."""
+
+    def __init__(self, pack, drivers):
+        self.pack, self.drivers = pack, drivers
+        self.period = drivers[0].period
+
+    def render(self, nblocks, device_out=True):
+        """Render ``nblocks`` blocks of 512 frames; returns per period the
+        pack's (1, B, S, C, n) device tensors, or numpy (S, B*n, C) with
+        ``device_out`` False."""
+        out = []
+        for b0 in range(0, nblocks, self.period):
+            for d in self.drivers:
+                d.control()
+            nb = min(self.period, nblocks - b0)
+            if device_out:
+                out.extend(self.pack.render_frames_device(BLOCK * nb))
+            else:
+                out.append(np.concatenate(
+                    [self.pack.render_block(BLOCK) for _ in range(nb)], axis=1))
+        return out
+
+    def render_frames_device(self, total):
+        return self.render(total // BLOCK)
 
 
 class SamplerDriver:
@@ -387,6 +470,14 @@ def profile_scene(label):
             feed(ctls, rng, 1024)
     elif label == "spatialpack":
         r = build_spatial_pack(16, "cuda")
+    elif label == "sampler_pack":
+        r = build_sampler_pack(16, 64, "cuda")
+        scene = None
+    elif label == "hostpack":
+        r, ctls, _, rng = build_host_pools_pack(16, 256, "cuda")
+
+        def before():
+            feed(ctls, rng, 1024)
     elif label == "mixer":
         _, scene, ctls, rng = build_mixer_agc(VOICES, "cuda")
 
@@ -406,7 +497,10 @@ def profile_scene(label):
         scene = drv.mixer
     else:
         _, scene = build_spatial(label == "buffered", VOICES, "cuda")
-    if label in ("pack", "pack256", "spatialpack"):
+    if label == "sampler_pack":
+        # the scenes' control scripts run inside the timed window
+        spent = _timed_prepare(r.pack.scenes)
+    elif label in ("pack", "pack256", "spatialpack", "hostpack"):
         spent = _timed_prepare(r.scenes)
     else:
         spent = _timed_prepare([scene])
@@ -436,10 +530,11 @@ def profile_scene(label):
             kern_us[ev.name] += ev.time_range.elapsed_us()
             kern_n[ev.name] += 1
     dev_ms = sum(kern_us.values()) / 1e3
+    pageable = sum(v for k, v in kern_n.items() if "Pageable" in k)
     print(f"{label} traced: wall {1e3 * wall:.1f} ms for {ntr} blocks; device kernel "
           f"time {dev_ms:.3f} ms ({dev_ms / ntr:.4f} ms/block), busy share "
           f"{dev_ms / (1e3 * wall):.3f}, device kernels/block "
-          f"{sum(kern_n.values()) / ntr:.1f}")
+          f"{sum(kern_n.values()) / ntr:.1f}, pageable uploads/block {pageable / ntr:.1f}")
     if not kern_n:
         print(f"{label} traced: the profiler saw no device kernels")
     for name, us in kern_us.most_common(TOP):
@@ -452,7 +547,7 @@ def profile_scene(label):
 
 
 SCENES = ("buffered", "seek", "mixer", "hostpools", "pack", "pack256", "spatialpack",
-          "densemix", "sampler", "wavetable")
+          "densemix", "sampler", "wavetable", "sampler_pack", "hostpack")
 
 
 def main(argv=None):

@@ -46,7 +46,7 @@ VARIANTS = {
     "no_reads": ([(_LERP, "          a = 0.0f * fr; b = 1.0f;\n" + _LERP),
                   (_STAGE, "        if (false) {")], 32, 8),
     "no_position": ([(None, "  *fr = __fmul_rn(0.5f, o0); *kk = K;\n}")], 32, 8),
-    "no_tail": ([("  if (nclusters == 1) {", "  if (true) {")], 32, 8),
+    "no_tail": ([("  if (cps == 1) {", "  if (true) {")], 32, 8),
     "vc16": ([("#define VC 32 ", "#define VC 16 ")], 16, 8),
     "vc64": ([("#define VC 32 ", "#define VC 64 ")], 64, 8),
     "vh4": ([("#define VH 8 ", "#define VH 4 ")], 32, 8),

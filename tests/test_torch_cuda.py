@@ -677,6 +677,92 @@ def test_pack_launches_per_block_do_not_grow_with_scenes(cuda):
     assert counts[0] == counts[1] and min(counts[0].values()) > 0, counts
 
 
+@pytest.mark.parametrize("S,vps,L", [(16, 256, 16384), (1, 4096, 16384), (3, 17, 2048)])
+def test_strip_select_scene_form_within_tolerance(cuda, S, vps, L):
+    """K5's scene form (the host-pool pack's read): S scenes of vps voices
+    (17 puts a scene boundary inside a block of 32 voices) mixed apart in
+    one launch, each scene within ``strip_record_tolerance`` of the plain
+    version, two runs bit-equal; at S = 1 equal to the (2, n) form."""
+    ops = _wrapping_strip_operands(np.random.default_rng(90 + S), cuda, S * vps, 512, L,
+                                   0.0, 0.125)
+    ops[6][::9] = 0.0  # masked voices
+    rec = RK.voice_record(*ops[1:])
+    before = RK.LAUNCHES["strip_select"]
+    got = RK.strip_select_record(ops[0], rec, n=512, K=64, scenes=S)
+    again = RK.strip_select_record(ops[0], rec, n=512, K=64, scenes=S)
+    torch.cuda.synchronize()
+    assert RK.LAUNCHES["strip_select"] == before + 2
+    assert got.shape == (S, 2, 512) and torch.equal(got, again)
+    plain = RK.strip_select_record_plain(ops[0], rec, n=512, K=64, scenes=S)
+    tol = RK.strip_record_tolerance(ops[0], rec, n=512, K=64, scenes=S)
+    assert bool(((got - plain).abs().double() <= tol).all())
+    if S == 1:
+        assert torch.equal(got[0], RK.strip_select_record(ops[0], rec, n=512, K=64))
+
+
+def test_host_and_sampler_packs_on_card_match_cpu_and_renderers(cuda):
+    """The host-pool pack (host buffered Speed(Stream) voices through K4
+    and K5's scene form, Adapt(Stream) voices, config-5 submixes) and the
+    config-2 sampler pack at 4 scenes, on the card against the same packs
+    on the CPU and against per-scene Renderers on the card, <= 1e-5."""
+    from oddio_tpu_torch.utils.scene_profile import (RATE, build_host_pools_pack,
+                                                     build_sampler_pack)
+
+    outs = []
+    for device in ("cpu", cuda, "single"):
+        dev = cuda if device == "single" else device
+        pack, ctls, _, _ = build_host_pools_pack(4, 32, dev)
+        if device == "single":
+            rs = [pt.Renderer(s, RATE) for s in pack.scenes]
+            outs.append(np.concatenate(
+                [np.stack([r.render_block(512) for r in rs]) for _ in range(6)], axis=1))
+        else:
+            outs.append(np.concatenate([pack.render_block(512) for _ in range(6)], axis=1))
+    assert np.abs(outs[0]).max() > 0.01
+    assert max(np.abs(outs[0] - o).max() for o in outs[1:]) <= 1e-5
+    outs = []
+    for device in ("cpu", cuda):
+        drv = build_sampler_pack(4, 64, device, sounds=2, seconds=1.0)
+        outs.append(np.concatenate(drv.render(16, device_out=False), axis=1))
+    assert np.abs(outs[0]).max() > 0.1
+    assert np.abs(outs[0] - outs[1]).max() <= 1e-5
+
+
+def test_pack_host_stream_tiers_on_card(cuda):
+    """Host-pool Streams stepping under 1 sample a frame in one scene and
+    up to 3.5 in another: the pack reads both through K6's ds form
+    (``ring_resample``) with the widest tier's window, equal to per-scene
+    Renderers on the card and to the pack on the CPU."""
+    from oddio_tpu_torch.parallel.mesh import make_mesh
+    from oddio_tpu_torch.parallel.sharded import ScenePack
+
+    class HostStream(pt.Stream):
+        def dr_supported(self):
+            return False
+
+    def mixer(rates, device):
+        control, m = pt.Mixer.new(channels=1, device=device)
+        for k, rate in enumerate(rates):
+            ctl, st = HostStream.new(rate, 8192)
+            control.play(st)
+            ctl.write((np.sin(np.arange(8000) * (0.02 + 0.01 * k)) * 0.5).astype(np.float32))
+        return m
+
+    def build(device):
+        return [mixer([6400, 7200], device), mixer([12000, 28000], device)]
+
+    outs = []
+    for device in ("cpu", cuda):
+        p = ScenePack(build(device), 8000, make_mesh(1, 1))
+        SK.reset_launches()
+        outs.append(np.concatenate([p.render_block(512) for _ in range(3)], axis=1))
+    assert SK.LAUNCHES["ring_resample"] == 3
+    rs = [pt.Renderer(m, 8000) for m in build(cuda)]
+    own = np.concatenate([np.stack([r.render_block(512) for r in rs]) for _ in range(3)], axis=1)
+    assert np.abs(outs[0]).max() > 0.1
+    assert np.abs(outs[1] - outs[0]).max() <= 1e-5 and np.abs(outs[1] - own).max() <= 1e-5
+
+
 # --- K6's arena form and the sampler scenes --------------------------------------
 
 

@@ -275,19 +275,3 @@ def test_fade_target_must_share_the_archetype():
         fc.fade_to(pt.Constant(1.0), 0.1)
     with pytest.raises(ValueError):
         fc.fade_to(pt.Constant([1.0, 1.0]), 0.1)  # channel count
-
-
-def test_pack_refuses_fader_pools():
-    """A ScenePack maps the lanes of plays, stops and controls onto its
-    stacked rows, not those of fades: it refuses Fader pools (ROADMAP
-    PK3) rather than scatter a fade into another scene's voice."""
-    from oddio_tpu_torch.parallel.mesh import make_mesh
-    from oddio_tpu_torch.parallel.sharded import ScenePack
-
-    mixers = []
-    for _ in range(2):
-        mc, mixer = pt.Mixer.new(channels=1, device="cpu")
-        mc.play(pt.Fader.new(pt.Sine(0.0, 300.0))[1])
-        mixers.append(mixer)
-    with pytest.raises(NotImplementedError, match="PK3"):
-        ScenePack(mixers, 8000, make_mesh(1, 1)).render_block(256)

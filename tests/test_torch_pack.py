@@ -472,43 +472,12 @@ def test_pack_idle_runs_skip_prepare():
 
 
 def test_pack_refusals():
-    """What a one-card pack leaves out raises, and nothing falls back."""
+    """What a one-card pack leaves out raises, and nothing falls back: a
+    mesh beyond 1 x 1 (ROADMAP PK2) and scenes of different archetypes."""
     with pytest.raises(ValueError, match="PK2"):
         make_mesh(2, 4)
-
-    def host_scene():
-        control, scene = pt.SpatialScene.new(device="cpu")
-        st = pt.Stream(8000, 2048)
-        control.play_buffered(pt.Speed(st), pt.SpatialOptions(position=[1.0, 0.0, 0.0]),
-                              max_distance=20.0, rate=8000)
-        return scene
-
-    with pytest.raises(NotImplementedError, match="PK1"):
-        ScenePack([host_scene(), host_scene()], 8000, make_mesh(1, 1))
-
-    def submix_scene():
-        control, mixer = pt.Mixer.new(channels=1, device="cpu")
-        ic, inner = pt.Mixer.new(channels=1, device="cpu")
-        ic.play(pt.Sine(0.0, 440.0))
-        control.play(inner)
-        return mixer
-
-    with pytest.raises(NotImplementedError, match="singleton"):
-        ScenePack([submix_scene(), submix_scene()], 8000, make_mesh(1, 1))
 
     a = build_spatial_scene(pt, 0)[1]
     b = pt.SpatialScene.new(device="cpu")[1]
     with pytest.raises(ValueError, match="archetype"):
         ScenePack([a, b], 8000, make_mesh(1, 1))
-
-    # a host pool opened after the pack was built refuses at the next block
-    c, s = pt.SpatialScene.new(device="cpu")
-    c.play(pt.Sine(0.0, 300.0))
-    c2, s2 = pt.SpatialScene.new(device="cpu")
-    c2.play(pt.Sine(0.0, 300.0))
-    pack = ScenePack([s, s2], 8000, make_mesh(1, 1))
-    pack.render_block(512)
-    for ctl in (c, c2):
-        ctl.play_buffered(pt.Speed(pt.Stream(8000, 2048)), max_distance=20.0, rate=8000)
-    with pytest.raises(NotImplementedError, match="PK1"):
-        pack.render_block(512)
