@@ -16,7 +16,12 @@ reference), slice by slice, main path first.  It renders:
   with its own finish rule) and for submixes (a ``Mixer`` played as one
   voice): the host buffered pool writes its rings through ``ring_place``
   and reads them through ``strip_select`` (``ops/ring_kernels.py``);
-* streams in the scene's device-resident buffered pool, and ``Speed``.
+* streams in the scene's device-resident buffered pool, and ``Speed``;
+* around the engines, on the host: checkpoints of every engine
+  (``utils/checkpoint.py``), the native wait-free control plane and the
+  ``RealtimeDriver`` (``control/``), WAV I/O and the xRT meter
+  (``utils/wav.py``, ``utils/profiler.py``), and twins of the repo's
+  examples (``oddio_tpu_torch.examples``).
 
 Every kernel runs its plain PyTorch version on the CPU and its CUDA kernel
 on a GPU.  Engines run on the CUDA card unless the caller passes another
@@ -51,6 +56,27 @@ from .spatial import (
     SPEED_OF_SOUND,
     HEAD_RADIUS,
 )
+from .control.realtime import RealtimeDriver
+from .utils.wav import read_wav, write_wav
+from .utils.profiler import XrtMeter
+
+#: Unitless instantaneous sound wave amplitude measurement (lib.rs:85)
+Sample = float
+
+
+def frame_stereo(xs):
+    """View interleaved stereo data as (n, 2) frames (lib.rs:98-104)."""
+    import numpy as _np
+
+    return _np.asarray(xs).reshape(-1, 2)
+
+
+def flatten_stereo(xs):
+    """View (n, 2) stereo frames as interleaved samples (lib.rs:103-104)."""
+    import numpy as _np
+
+    return _np.asarray(xs).reshape(-1)
+
 
 __all__ = [
     "Signal",
@@ -89,4 +115,11 @@ __all__ = [
     "SpatialOptions",
     "SPEED_OF_SOUND",
     "HEAD_RADIUS",
+    "RealtimeDriver",
+    "read_wav",
+    "write_wav",
+    "XrtMeter",
+    "Sample",
+    "frame_stereo",
+    "flatten_stereo",
 ]

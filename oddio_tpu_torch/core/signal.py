@@ -68,10 +68,18 @@ class ControlBlock:
 
     def __init__(self, sig):
         self.sig = sig
+        self._own = sig  # the signal whose handle this is
         self.idx = ()  # () indexes the 0-d arrays of a standalone signal
         self.pool = None
         self.gen = 0
         self._dr = None  # (pool, slot, gen, path) when in a DR pool
+
+    def __getstate__(self):
+        """A copy (pickled in a checkpoint) is detached: it routes to its
+        own signal's fields, never into an engine's pools."""
+        state = dict(self.__dict__)
+        state.update(sig=self._own, idx=(), pool=None, gen=0, _dr=None)
+        return state
 
     def rebind(self, sig, idx, pool, gen):
         """Point the handle's host fields at column ``idx`` of a batched

@@ -550,12 +550,12 @@ class Mixer(Engine):
                 getattr(p, "_ds_small", True),
                 getattr(p, "_ds_tier", 4),
             )
-            for p in self._pools.values()
+            for p in self._all_pools()
         )
         return ("Mixer", self.channels, pools)
 
     def host_structure_event(self):
-        for p in self._pools.values():
+        for p in self._all_pools():
             if p.is_dr:
                 # bulk plays apply eagerly outside the per-block step
                 if len(p.pending_plays) > p.k_play:
@@ -571,7 +571,7 @@ class Mixer(Engine):
         return any(
             bool(p.pending_plays) or bool(p.pending_stops)
             or p._ctrl_pending_any() or p.force_deltas
-            for p in self._pools.values()
+            for p in self._all_pools()
             if p.is_dr
         )
 
@@ -581,14 +581,14 @@ class Mixer(Engine):
         control traffic arrives inside one render call: a True gate holds
         for the rest of it."""
         iv = float(np.float32(interval))
-        return all(p.is_dr and p._idle_gate(iv, n) for p in self._pools.values())
+        return all(p.is_dr and p._idle_gate(iv, n) for p in self._all_pools())
 
     def host_idle_bulk(self, interval, n, times, count=None):
         """Advance ``times`` idle blocks at O(1) host cost; returns False
         (nothing touched) unless every pool passes the idle gate."""
         if not self.host_idle_bulk_ok(interval, n):
             return False
-        for p in self._pools.values():
+        for p in self._all_pools():
             p._idle_bulk_apply(interval, n, times, count)
         return True
 
@@ -599,11 +599,11 @@ class Mixer(Engine):
         force = force or any(
             bool(p.pending_plays) or bool(p.pending_stops)
             or p._ctrl_pending_any()
-            for p in self._pools.values()
+            for p in self._all_pools()
             if p.is_dr
         )
         out = {}
-        for pool in self._pools.values():
+        for pool in self._all_pools():
             if pool.is_dr:
                 out[pool.name] = pool.host_prepare(interval, n, force, count=count)
                 continue
@@ -628,11 +628,11 @@ class Mixer(Engine):
     def device_collect(self):
         return {
             p.name: (p.dr_state() if p.is_dr else p.sig.device_collect())
-            for p in self._pools.values()
+            for p in self._all_pools()
         }
 
     def device_store(self, d):
-        for p in self._pools.values():
+        for p in self._all_pools():
             if p.name not in d:  # opened after ``d`` was collected
                 continue
             if p.is_dr:
@@ -652,26 +652,28 @@ class Mixer(Engine):
     def device_data(self):
         return {
             p.name: (p.proto if p.is_dr else p.sig).device_data()
-            for p in self._pools.values()
+            for p in self._all_pools()
         }
 
     def sync(self):
         """Pull device-resident handle state back (is_stopped, reclamation);
         a submix syncs its own pools."""
-        for p in self._pools.values():
+        for p in self._all_pools():
             if p.is_dr:
                 p.sync()
             elif isinstance(p.sig, Engine):
                 p.sig.sync()
 
     def sync_prefetch(self):
-        for p in self._pools.values():
+        for p in self._all_pools():
             if p.is_dr:
                 p.sync_prefetch()
             elif isinstance(p.sig, Engine):
                 p.sig.sync_prefetch()
 
     def _all_pools(self):
+        """The pools as a list: a play from the control thread may open a
+        pool while the render thread walks them (``RealtimeDriver``)."""
         return list(self._pools.values())
 
     def render(self, dstate, ddata, params, n):
@@ -680,7 +682,9 @@ class Mixer(Engine):
         shape = (self.channels, n) if S is None else (S, self.channels, n)
         out = torch.zeros(shape, dtype=torch.float32, device=self.device)
         d2 = {}
-        for pool in self._pools.values():
+        for pool in self._all_pools():
+            if pool.name not in params:
+                continue  # opened after this block's host_prepare: plays next block
             ps = params[pool.name]
             dd = ddata.get(pool.name, {})
             if pool.is_dr:
@@ -700,11 +704,27 @@ class Mixer(Engine):
             out = out + masked_voice_sum(mask, blocks, S)
         return d2, out
 
+    # -- checkpoint/resume ----------------------------------------------------
+
     def host_snapshot(self):
-        raise NotImplementedError("checkpoints come with ROADMAP P5")
+        """Every pool's host bookkeeping (``utils.checkpoint.pool_state``:
+        slot columns and free list, queued plays, stops, control writes and
+        fades, the fade mirrors, the interval, the step bounds and read
+        flags) and its template's host state."""
+        from .utils.checkpoint import pools_snapshot
+
+        return pools_snapshot(self._all_pools())
 
     def host_restore(self, snap):
-        raise NotImplementedError("checkpoints come with ROADMAP P5")
+        from .utils.checkpoint import pools_restore
+
+        pools_restore(self._all_pools(), snap)
+
+    # submixes (a Mixer played as a voice in another engine) checkpoint
+    # through the generic host-state walk's aux hook
+    # (utils/checkpoint._host_state)
+    host_aux_snapshot = host_snapshot
+    host_aux_restore = host_restore
 
 
 class MixerControl:

@@ -149,6 +149,35 @@ class Fader(Signal):
         else:
             self._pending = (signal, float(duration))
 
+    def host_aux_snapshot(self):
+        """Queued control events are engine state: a snapshot taken between
+        fade_to() and the next block must not lose the fade (the checkpoint
+        analogue of the DR pools' pending plays).  The slots' play
+        generations go with them (a released fade binds its target's
+        handles at the generation its voice was played with)."""
+        if not self._pool_mode:
+            return None
+        return {
+            "pending_fades": dict(self._pending_fades),
+            "pending_breset": set(self._pending_breset),
+            "slot_gen": self._slot_gen.copy(),
+        }
+
+    def host_aux_restore(self, aux):
+        if not self._pool_mode or aux is None:
+            return
+        self._pending_fades = dict(aux["pending_fades"])
+        self._pending_breset = set(aux["pending_breset"])
+        self._slot_gen = aux["slot_gen"].copy()
+        # a restored command has not been carried out: its target is not
+        # moved into the pool yet (a release after the snapshot moved it)
+        for spec, _ in self._pending_fades.values():
+            stack = [spec]
+            while stack:
+                node = stack.pop()
+                node._moved = False
+                stack.extend(node.children().values())
+
     def _b_defaults(self):
         """Default per-slot device rows of the b bank (tensor tree)."""
         if self._b_dev_default is None:

@@ -142,6 +142,24 @@ class Stream(Signal):
             for _ in range(times):
                 self._tick_math(iv, counts)
 
+    def host_aux_snapshot(self):
+        """The producer queues (PCM written but not yet shipped), the dirty
+        set and the write flag of the last block: a snapshot between a
+        write and the next block keeps the write.  (The tick debt is
+        flushed into the mirrors first, utils/checkpoint._host_state.)"""
+        return {
+            "pending": [[np.copy(c) for c in q] for q in self._pending.flat],
+            "dirty": set(self._dirty),
+            "has_write": getattr(self, "_has_write", False),
+        }
+
+    def host_aux_restore(self, aux):
+        # refilled in place: the producers' handles alias these lists
+        for q, saved in zip(self._pending.flat, aux["pending"]):
+            q[:] = [np.copy(c) for c in saved]
+        self._dirty = set(aux["dirty"])
+        self._has_write = aux["has_write"]
+
     def _cb_pending(self, idx):
         if self.batch == ():
             return self._pending.flat[0]

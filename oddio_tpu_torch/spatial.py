@@ -2111,6 +2111,34 @@ class SpatialScene(Engine):
         for p in self._all_pools():
             p.sync_prefetch()
 
+    # -- checkpoint/resume -----------------------------------------------------
+
+    def host_snapshot(self):
+        """The listener rotation and every pool's host bookkeeping
+        (``utils.checkpoint.pool_state``: slot columns, queued plays,
+        motion, control writes and fades, the fade and geometry mirrors,
+        the write cursor and its last scalars, the walk-bound cache and
+        scene clock, the read tiers and sub-pass list, a host pool's
+        voice columns, write cursors and exact-route operands) and its
+        template's host state."""
+        from .utils.checkpoint import pools_snapshot
+
+        return {"rot": self._rot.copy(), "rot_pending": self._rot_pending,
+                "has_rot": self._has_rot, "pools": pools_snapshot(self._all_pools())}
+
+    def host_restore(self, snap):
+        from .utils.checkpoint import pools_restore
+
+        self._rot = snap["rot"].copy()
+        self._rot_pending = snap["rot_pending"]
+        self._has_rot = snap["has_rot"]
+        self._rot_dev = None  # the device copy comes with the device state
+        pools_restore(self._all_pools(), snap["pools"])
+
+    # scene-in-scene submixes checkpoint through the aux hook like mixers
+    host_aux_snapshot = host_snapshot
+    host_aux_restore = host_restore
+
     def _set_listener_rotation(self, rotation):
         """spatial.rs:345-349 — stores the inverse quaternion."""
         self._rot_pending = quat_invert(f32(rotation))
@@ -2284,6 +2312,8 @@ class SpatialScene(Engine):
         out = torch.zeros(shape, dtype=_F32, device=self.device)
         d2 = {"_rot": rot_cur.reshape(dstate["_rot"].shape)}
         for p in self._all_pools():
+            if p.name not in params:
+                continue  # opened after this block's host_prepare: plays next block
             pp = params[p.name]
             if p.is_dr:
                 pp = dict(pp)

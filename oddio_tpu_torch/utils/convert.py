@@ -43,7 +43,7 @@ def state_to_numpy(tree):
     """Tensor tree -> numpy tree (copies on the host)."""
     if isinstance(tree, dict):
         return {k: state_to_numpy(v) for k, v in tree.items()}
-    return np.array(tree.detach().cpu(), copy=True)
+    return tree.detach().cpu().numpy().copy()
 
 
 def _numpy_tree(tree):
@@ -131,16 +131,30 @@ def _carry_host_fields(a, b):
             flush = getattr(x, "_flush_tick_debt", None)
             if flush is not None:
                 flush()
-        if getattr(na, "_pending_fades", None):
-            raise ValueError("a host-pool fader has fades queued: render once first")
+        if getattr(na, "_pool_mode", False):
+            _carry_queued_fades(na, nb)
         for f in na._host_fields:
             if type(na).__name__ in _SAMPLERS and f in _ARENA_FIELDS:
                 continue
             setattr(nb, f, np.array(getattr(na, f), copy=True))
-        if hasattr(na, "_pending"):
+        if isinstance(getattr(na, "_pending", None), np.ndarray):  # a stream's queues
             for q_dst, q_src in zip(nb._pending.flat, na._pending.flat):
                 q_dst[:] = [np.array(c, copy=True) for c in q_src]
             nb._dirty = set(na._dirty)
+
+
+def _carry_queued_fades(a, b):
+    """A host-pool Fader's waiting fades: ``b``'s script issued the same
+    ``fade_to`` calls, so its queue holds a port target (last-wins per
+    slot) for every slot ``a``'s holds; the slots ``a`` released since
+    drop out (their fades live in the carried b bank and progress)."""
+    qa, qb = a._pending_fades, b._pending_fades
+    for slot, (_, dur) in qa.items():
+        if slot not in qb or qb[slot][1] != dur:
+            raise ValueError(f"slot {slot}: the port's script did not queue the fade "
+                             f"the JAX fader holds")
+    b._pending_fades = {slot: qb[slot] for slot in qa}
+    b._pending_breset = set(a._pending_breset)
 
 
 def _carry_batched(a, b):

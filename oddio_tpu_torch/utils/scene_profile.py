@@ -47,7 +47,7 @@ import oddio_tpu_torch as pt
 __all__ = ["build_spatial", "build_mixer_agc", "build_host_pools", "build_config5_pack",
            "build_pack_scene", "build_spatial_pack", "build_densemix", "build_wavetable",
            "build_sampler", "SamplerDriver", "build_sampler_pack", "build_host_pools_pack",
-           "PackDriver", "feed", "card_line", "main"]
+           "PackDriver", "build_checkpoint_scene", "feed", "card_line", "main"]
 
 RATE = 48000
 BLOCK = 512
@@ -403,6 +403,54 @@ class SamplerDriver:
             else:
                 out.append(renderer.render_frames(BLOCK * nb))
         return out
+
+
+def build_checkpoint_scene(kind, voices, device, **sampler_kw):
+    """A scene of ``chip_smoke.py``'s phase 32 with control events queued
+    for a snapshot: ``kind`` is "buffered" (``build_spatial``; a
+    ``play_buffered`` and a ``set_motion`` queued), "mixer"
+    (``build_mixer_agc``; stream PCM written, not ingested), "hostpools"
+    (``build_host_pools``; a ``set_speed`` and PCM queued) or "sampler"
+    (``build_sampler`` with ``sampler_kw``; fades in flight and fades
+    queued behind them).  Renders 2 blocks, issues the first controls,
+    renders 1 block, queues the rest; returns ``(engine, renderer)``."""
+    if kind == "buffered":
+        control, eng = build_spatial(True, voices, device)
+        kw = dict(max_distance=50.0, rate=RATE, buffer_duration=0.1)
+        first = lambda: control.play_buffered(  # noqa: E731
+            pt.Sine(0.1, 300.0), pt.SpatialOptions(position=[2.0, 0.0, 0.0]), **kw)
+
+        def rest(h):
+            control.play_buffered(pt.Sine(0.3, 700.0),
+                                  pt.SpatialOptions(position=[4.0, 1.0, 0.0]), **kw)
+            h.set_motion([1.0, 2.0, -3.0], [0.5, 0.0, 0.0], False)
+    elif kind == "mixer":
+        _, eng, ctls, rng = build_mixer_agc(voices, device)
+        first = lambda: None  # noqa: E731
+        rest = lambda _: feed(ctls, rng, 700)  # noqa: E731
+    elif kind == "hostpools":
+        _, eng, ctls, speeds, rng = build_host_pools(voices, device)
+        first = lambda: feed(ctls, rng, 300)  # noqa: E731
+
+        def rest(_):
+            speeds[1].set_speed(1.15)
+            feed(ctls, rng, 500)
+    elif kind == "sampler":
+        drv = build_sampler(voices, device, **sampler_kw)
+        eng = drv.mixer
+        first = drv.control  # speed writes, and fades in flight after a block
+
+        def rest(_):
+            for i in drv._take():  # a fade queued behind each one in flight
+                drv.faders[(i - drv.k) % len(drv.faders)].fade_to(drv.voice()[1], 0.05)
+    else:
+        raise ValueError(f"no checkpoint scene {kind!r}")
+    r = pt.Renderer(eng, RATE)
+    r.render_frames(2 * BLOCK)
+    h = first()
+    r.render_frames(BLOCK)
+    rest(h)
+    return eng, r
 
 
 def feed(ctls, rng, k):

@@ -950,3 +950,68 @@ def test_seek_sampler_scene_on_card_matches_cpu(cuda):
     assert SK.LAUNCHES["arena_step"] == 16 and SK.LAUNCHES["arena_resample"] == 0
     assert np.abs(outs[0]).max() > 1e-2
     assert np.abs(outs[0] - outs[1]).max() <= 1e-5
+
+
+# --- checkpoints and the realtime driver on the card (chip_smoke.py 32-33) ---------------
+
+
+@pytest.mark.parametrize("kind", ["buffered", "mixer", "hostpools", "sampler"])
+def test_checkpoint_round_trip_on_card(cuda, kind):
+    """Phase 32's scenes at 256 voices, their events queued at the
+    snapshot: after a restore, and after a second one, the same blocks bit
+    for bit (an exact zero's sign aside)."""
+    from oddio_tpu_torch.utils import checkpoint as CK
+    from oddio_tpu_torch.utils.scene_profile import BLOCK, build_checkpoint_scene
+
+    eng, r = build_checkpoint_scene(kind, 256, "cuda")
+    snap = CK.snapshot(eng)
+    nblk = 64 if kind == "buffered" else 16
+    a = r.render_frames(BLOCK * nblk)
+    assert np.isfinite(a).all() and np.abs(a).max() > 1e-3
+    for _ in range(2):
+        CK.restore(eng, snap)
+        b = r.render_frames(BLOCK * nblk)
+        np.testing.assert_array_equal(np.where(a == 0, 0.0, a), np.where(b == 0, 0.0, b))
+
+
+@pytest.mark.parametrize("kind", ["buffered", "mixer", "hostpools", "sampler"])
+def test_checkpoint_card_to_cpu(cuda, kind, tmp_path):
+    """A snapshot saved on the card loads into the same scene built on the
+    CPU: 8 blocks within the PARITY.md 1e-5."""
+    from oddio_tpu_torch.utils import checkpoint as CK
+    from oddio_tpu_torch.utils.scene_profile import BLOCK, build_checkpoint_scene
+
+    path = tmp_path / "snap.pkl"
+    got = []
+    for device in ("cuda", "cpu"):
+        eng, r = build_checkpoint_scene(kind, 256, device)
+        (CK.save if device == "cuda" else CK.load)(eng, path)
+        got.append(r.render_frames(BLOCK * 8))
+    assert np.abs(got[0] - got[1]).max() <= 1e-5
+
+
+def test_realtime_driver_exact_on_card(cuda):
+    """Phase 33(a) at 256 voices: 32 blocks through the driver equal a
+    second mixer's render_block loop bit for bit; the thread lives."""
+    import time
+
+    from oddio_tpu_torch.control.realtime import RealtimeDriver
+    from oddio_tpu_torch.utils.scene_profile import build_mixer_agc
+
+    _, mixer, _, _ = build_mixer_agc(256, "cuda")
+    _, twin, _, _ = build_mixer_agc(256, "cuda")
+    drv = RealtimeDriver(mixer, 48000, block_size=512, lead_blocks=4).start()
+    got = []
+    try:
+        deadline = time.time() + 120
+        while len(got) < 32 and time.time() < deadline and drv.alive():
+            if drv._ring.readable() >= 512:
+                got.append(drv.read(512))
+            else:
+                time.sleep(0.0002)
+        assert drv.alive() and drv.error is None and drv.blocks >= 32
+    finally:
+        drv.stop()
+    r = pt.Renderer(twin, 48000)
+    want = np.concatenate([r.render_block(512) for _ in range(32)])
+    np.testing.assert_array_equal(np.concatenate(got), want)
