@@ -4,7 +4,8 @@ version at its path's shapes, drives the SpatialScene render path, the
 AGC mixer path (BASELINE config 5's scene) and the host-pool path at 4096
 voices, the dense mix (config 4), the sampler (config 2), the wavetable
 and a seek sampler at 1024, checkpoints and resumes four of them, drives
-the RealtimeDriver and the example twins, and times them.
+the RealtimeDriver and the example twins, renders ScenePacks on (scene,
+voice) meshes against their 1 x 1 packs, and times them.
 
     python3 chip_smoke.py
 
@@ -154,8 +155,18 @@ Phases (each prints one or more lines; any failure exits non-zero):
 34. the seven example twins (``oddio_tpu_torch.examples``) on the card,
     each in a temporary directory at its own constants: wall time, peak
     and, for the real-time ones, underruns; a non-finite or silent output
-    fails.
-Phases 28-34 count launches with the wrappers' counters, never a tracer
+    fails;
+35. (after 34) ScenePacks on (scene, voice) meshes, each against its 1 x 1
+    pack with launches per block and xRT per scene: (a) the dry-run twin
+    (``parallel/dryrun.py``) on 8 logical devices of the card, 2 x 4,
+    within its TOL of per-scene Renderers; (b) BASELINE config 5 at 256 x
+    256 on a logical 2 x 2 mesh within 2e-6 and every kernel's launches
+    4x; (c) the host-pool pack 16 x 256 (K5's scene form once per cell,
+    the submix once per scene group) and the sampler pack 16 x 64 (fade
+    bits gathered from the shards) on 2 x 2, within 2e-6; (d) the spatial
+    and config-5 packs on a 1 x 2 mesh over [card, CPU] within 2e-6, and
+    (a) and (b) over distinct cards where the machine has them.
+Phases 28-35 count launches with the wrappers' counters, never a tracer
 session; the packs' block profiles (phases 29 and 30) only print.
 The profiles run at the end in this order: the one-kernel checks
 (phase 4's reads, the Adapt and Stream steps of 8, 12 and 17, phase 27's
@@ -432,7 +443,7 @@ def kernel_line(name, k):
             "library_ms": lib.get("ms"), "library_device_ms": lib.get("device_ms"),
             "library_host_ms": lib.get("host_ms")}
     return {**line, **{key: k[key] for key in ("other_form", "cold", "library_cold", "host_pool",
-                                               "pack_launches",
+                                               "pack_launches", "mesh_launches",
                                                "resume_launches", "realtime_launches",
                                                "shapes")
                      if key in k}}
@@ -2197,7 +2208,7 @@ def new_pack_reference(pt, dev, tag):
 
     def mixer_pack(device):
         return ScenePack([_mixer_host_scene(pt, device, s) for s in range(S)], RATE,
-                         make_mesh(1, 1))
+                         make_mesh(1, 1, [device]))
 
     def blocks(pack):
         return np.concatenate([pack.render_block(BLOCK) for _ in range(nblk)], axis=1)
@@ -2464,6 +2475,239 @@ EXAMPLE_WAVS = {"offline": "offline.wav", "wav_playback": "wav_playback.wav",
                 "adapt_agc": "adapt.wav", "crossfade_beds": "crossfade_beds.wav"}
 
 
+#: max |mesh pack - 1 x 1 pack| (phase 35): the float32 roundings of the
+#: voice shards' partial mixes
+MESH_TOL = 2e-6
+#: the wrappers' counter keys a mesh phase reads, and their kernels-line names
+MESH_KERNELS = {"append": "rows_append", "select_ears": "window_select_ears",
+                "strip_select_scenes": "strip_select_scenes", "ring_place": "ring_place",
+                "ring_resample": "ring_resample", "arena_step": "arena_step",
+                "agc_gains": "agc_gains"}
+
+
+def _mesh_launches(label, nblk):
+    """The launches per block of the run just made, by counter key, for
+    ``label`` (K8-K10 and K6's read-only arena form must not launch)."""
+    from oddio_tpu_torch.ops import agc as A
+    from oddio_tpu_torch.ops import ring_kernels as RK
+    from oddio_tpu_torch.ops import stream_kernels as SK
+
+    read_flat_launches(label)
+    if SK.LAUNCHES["arena_resample"]:
+        raise AssertionError(f"{label} launched arena_resample")
+    every = {**RK.LAUNCHES, **SK.LAUNCHES, **A.LAUNCHES}
+    return {k: every[k] / nblk for k in MESH_KERNELS if every[k]}
+
+
+def _mesh_xrt(render, nblk=96):
+    """Per-scene xRT of ``nblk`` blocks through ``render(n)`` after a warm-up."""
+    render(8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render(nblk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (nblk * BLOCK / RATE) / wall, 1e3 * wall / nblk
+
+
+def _mesh_compare(label, one, mesh, tag, factor=None):
+    """(out, launches per block, xRT, ms per block) of the 1 x 1 and the
+    mesh run of ``label``: outputs within MESH_TOL, and with ``factor``
+    every kernel's launches on the mesh that many times the 1 x 1's."""
+    err = float(np.abs(one[0] - mesh[0]).max())
+    bit = "bit-equal" if err == 0.0 else f"max|diff| {err:.3e}"
+    print(f"phase 35 {label}: mesh vs 1 x 1 {bit} (<= {MESH_TOL}); launches per block "
+          f"1 x 1 {one[1]}, mesh {mesh[1]}; xRT per scene 1 x 1 {one[2]:.2f}x "
+          f"({one[3]:.3f} ms a block), mesh {mesh[2]:.2f}x ({mesh[3]:.3f} ms a block) {tag}")
+    if not err <= MESH_TOL or np.abs(one[0]).max() <= 1e-3 or not np.isfinite(mesh[0]).all():
+        raise AssertionError(f"{label}: mesh vs 1 x 1 max|diff| {err} (or silent/non-finite)")
+    if factor is not None and mesh[1] != {k: factor * v for k, v in one[1].items()}:
+        raise AssertionError(f"{label}: launches per block {mesh[1]}, {factor}x {one[1]} expected")
+    return err
+
+
+def _mesh_dryrun(devices, label, tag):
+    """Phase 35(a): the dry-run twin (``parallel/dryrun.py``) over
+    ``devices``; returns the pack's launches per block."""
+    from oddio_tpu_torch.parallel.dryrun import TOL as DRY_TOL
+    from oddio_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    reset_launches()
+    d = dryrun_multichip(len(devices), devices)
+    read_flat_launches("the dry run")
+    per = {k: v / 3 for k, v in d["pack_launches"].items()}
+    print(f"phase 35(a) dry run {label}: mesh {d['mesh']}, {d['scenes']} scenes x "
+          f"{d['voices_per_scene']} voices ({d['voices_per_shard']} a shard), 3 blocks of 256 "
+          f"with 16 + 1 plays a scene and motion mid-run: max|diff| vs per-scene Renderers "
+          f"{d['max_abs_diff']:.3e} (<= {DRY_TOL}), checksum {d['checksum']:.6f}, pack "
+          f"launches per block {per} ({time.perf_counter() - t0:.2f} s) {tag}")
+    if min(per.get("append", 0), per.get("select_ears", 0)) <= 0:
+        raise AssertionError(f"the dry run's pack launched no K1 or K2: {per}")
+    return per
+
+
+def _mesh_config5(dev, mesh, nb0=4, nb1=28):
+    """Phase 35(b)'s run: BASELINE config 5 at full width (256 scenes x 256
+    voices) on ``mesh`` (None: 1 x 1), 1024 new samples per stream before
+    the run and another 1024 after ``nb0`` blocks; returns (out, launches
+    per block, xRT per scene, ms a block, build seconds)."""
+    from oddio_tpu_torch.utils.scene_profile import build_config5_pack, feed
+
+    t0 = time.perf_counter()
+    pack, ctls, _ = build_config5_pack(256, dev, mesh=mesh)
+    built = time.perf_counter() - t0
+    rng = np.random.default_rng(35)
+    feed(ctls, rng, 1024)
+    pcm = (rng.standard_normal((len(ctls), 1024)) * 0.1).astype(np.float32)
+    reset_launches()
+    out = config5_pack_run(pack, ctls, pcm, nb0, nb1)
+    torch.cuda.synchronize()
+    per = _mesh_launches("the config-5 pack", nb0 + nb1)
+    feed(ctls, rng, 1024)
+    xrt = _mesh_xrt(lambda k: pack.render_frames_device(BLOCK * k))
+    del pack
+    torch.cuda.empty_cache()
+    return (out, per, *xrt, built)
+
+
+def _mesh_host(dev, mesh, nb=4):
+    """Phase 35(c)'s host-pool run: ``build_host_pools_pack(16, 256)`` on
+    ``mesh``, twice 1024 new samples per stream and 16 set_speed, then
+    ``nb`` blocks through render_block and ``nb`` through
+    render_frames_device; returns (out, launches per block, xRT per scene,
+    ms a block, (host buffered pools, submix pools) per scene)."""
+    from oddio_tpu_torch.utils.scene_profile import build_host_pools_pack, feed
+
+    pack, ctls, speeds, rng = build_host_pools_pack(16, 256, dev, mesh=mesh)
+    reset_launches()
+    outs = []
+    for k in range(2):
+        feed(ctls, rng, 1024)
+        for sc in speeds[64 * k:64 * k + 64:4]:
+            sc.set_speed(float(rng.uniform(0.8, 1.25)))
+        outs.append(np.concatenate([pack.render_block(BLOCK) for _ in range(nb)]
+                                   + [drain(pack.render_frames_device(BLOCK * nb))], axis=1))
+    torch.cuda.synchronize()
+    per = _mesh_launches("the host-pool pack", 4 * nb)
+    kinds = [type(p).__name__ for p in pack.scenes[0]._all_pools()]
+    feed(ctls, rng, 1024)
+    xrt = _mesh_xrt(lambda k: pack.render_frames_device(BLOCK * k), 48)
+    return (np.concatenate(outs, axis=1), per, *xrt,
+            (kinds.count("_BufferedPool"), kinds.count("_BufferedPoolSingleton")))
+
+
+def _mesh_sampler(dev, mesh, nblk=32):
+    """Phase 35(c)'s sampler run: ``build_sampler_pack(16, 64)`` on
+    ``mesh``, each scene on its script of speed writes and fades; after
+    ``sync`` every scene's bank bits (gathered from its shards) must equal
+    its host mirrors and have flipped.  Returns (out, launches per block,
+    xRT per scene, ms a block, fades queued)."""
+    from oddio_tpu_torch.utils.scene_profile import build_sampler_pack
+
+    drv = build_sampler_pack(16, 64, dev, mesh=mesh)
+    reset_launches()
+    out = np.concatenate(drv.render(nblk, device_out=False), axis=1)
+    torch.cuda.synchronize()
+    per = _mesh_launches("the sampler pack", nblk)
+    same, flipped = _pack_fade_bits(drv.pack)
+    if same != 16 or flipped != 16:
+        raise AssertionError(f"sampler pack on {mesh}: bank bits = host mirrors in {same} "
+                             f"scenes, flipped in {flipped}")
+    xrt = _mesh_xrt(lambda k: drv.render(k), 48)
+    return (out, per, *xrt, sum(d.fades for d in drv.drivers))
+
+
+def _mesh_card_cpu(dev, tag):
+    """Phase 35(d): the spatial pack (4 scenes of 64 buffered and 192 seek
+    voices) and the config-5 pack (4 scenes of 64 voices) on a 1 x 2 mesh over [card, CPU] against the 1 x 1 card pack: the CPU
+    shard runs the plain versions, so a cell that read its scenes' device
+    would fail; the card shard launches as the 1 x 1 pack does."""
+    from oddio_tpu_torch.parallel.mesh import make_mesh
+    from oddio_tpu_torch.utils.scene_profile import build_config5_pack, build_spatial_pack
+
+    cpu_mesh = make_mesh(1, 2, [dev, "cpu"])
+    for label, build in (
+            ("spatial pack 4 x (64 buffered + 192 seek)",
+             lambda m: (build_spatial_pack(4, dev, mesh=m), [], None)),
+            ("config-5 pack 4 x 64", lambda m: build_config5_pack(4, dev, voices=64, mesh=m))):
+        runs = []
+        for m in (None, cpu_mesh):
+            pack, ctls, _ = build(m)
+            pcm = np.full((len(ctls), 1024), 0.05, np.float32)
+            reset_launches()
+            out = config5_pack_run(pack, ctls, pcm, 6, 10)
+            torch.cuda.synchronize()
+            runs.append((out, _mesh_launches(f"the {label}", 16)))
+        err = float(np.abs(runs[0][0] - runs[1][0]).max())
+        print(f"phase 35(d) {label} on a 1 x 2 mesh over [cuda:0, cpu]: vs the 1 x 1 card pack "
+              f"max|diff| {err:.3e} (<= {MESH_TOL}); launches per block 1 x 1 {runs[0][1]}, "
+              f"[card, CPU] {runs[1][1]} (the CPU shard runs the plain versions) {tag}")
+        if not err <= MESH_TOL or np.abs(runs[0][0]).max() <= 1e-3 or runs[1][1] != runs[0][1]:
+            raise AssertionError(f"{label} on [card, CPU]: max|diff| {err}, launches "
+                                 f"{runs[1][1]} vs {runs[0][1]}")
+
+
+def mesh_paths(pt, dev, kern, tag):
+    """Phase 35: ScenePacks on (scene, voice) meshes larger than 1 x 1, each
+    against the 1 x 1 pack of the same scripts (launches per block from the
+    wrappers' counters; xRT per scene beside the 1 x 1 pack's).  (a) the
+    dry-run twin on 8 logical devices of the card, 2 x 4, against
+    per-scene Renderers; (b) BASELINE config 5 at full width, 256 scenes x
+    256 voices, on a 2 x 2 logical mesh: every kernel 4x; (c) the host-pool
+    pack 16 x 256 and the sampler pack 16 x 64 on 2 x 2 logical meshes: the
+    submix singletons on voice shard 0 only, K5's scene form once per
+    cell, fades and speed writes in the shards that hold their slots; (d)
+    1 x 2 meshes over [card, CPU], and (a) and (b) over distinct cards
+    where the machine has them."""
+    from oddio_tpu_torch.parallel.mesh import make_mesh
+
+    def logical(a, b):
+        return make_mesh(a, b, [dev] * (a * b))
+
+    runs = {"dryrun 2x4": _mesh_dryrun([dev] * 8, "over [cuda:0] * 8", tag)}
+
+    one, mesh = _mesh_config5(dev, None), _mesh_config5(dev, logical(2, 2))
+    print(f"phase 35(b) config 5: 256 scenes x 256 voices (65,536), 48 kHz, 512-frame blocks; "
+          f"built 1 x 1 in {one[4]:.2f} s, 2 x 2 over [cuda:0] * 4 in {mesh[4]:.2f} s {tag}")
+    _mesh_compare("(b) config 5 256 x 256, 2 x 2", one, mesh, tag, factor=4)
+    runs["config5 256x256 2x2"] = mesh[1]
+
+    one, mesh = _mesh_host(dev, None), _mesh_host(dev, logical(2, 2))
+    _mesh_compare("(c) host-pool pack 16 x 256, 2 x 2", one, mesh, tag)
+    h, u = one[4]
+    k5 = (one[1].get("strip_select_scenes", 0), mesh[1].get("strip_select_scenes", 0))
+    if k5 != (h + u, 4 * h + 2 * u):
+        raise AssertionError(f"host-pool pack: K5's scene form {k5} a block, "
+                             f"{(h + u, 4 * h + 2 * u)} expected ({h} host pools once per cell, "
+                             f"{u} submix pools once per scene group)")
+    print(f"phase 35(c) host-pool pack: K5's scene form {k5[1]:g} a block on 2 x 2 = {h} host "
+          f"pool x 4 cells + {u} submix pool x 2 scene groups (voice shard 0 only) {tag}")
+    runs["hostpack 16x256 2x2"] = mesh[1]
+
+    one, mesh = _mesh_sampler(dev, None), _mesh_sampler(dev, logical(2, 2))
+    _mesh_compare("(c) sampler pack 16 x 64, 2 x 2", one, mesh, tag, factor=4)
+    print(f"phase 35(c) sampler pack: {mesh[4]} fades and the speed writes of 16 scripts; each "
+          f"scene's bank bits, gathered from its shards, equal its host mirrors and flipped {tag}")
+    runs["sampler 16x64 2x2"] = mesh[1]
+
+    _mesh_card_cpu(dev, tag)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        cards = [torch.device("cuda", i) for i in range(n_cards)]
+        _mesh_dryrun(cards[:min(8, 2 * (n_cards // 2))], f"over {n_cards} cards", tag)
+        a = 2 if n_cards >= 4 else 1
+        one, mesh = _mesh_config5(dev, None), _mesh_config5(dev, make_mesh(a, 2, cards[:2 * a]))
+        _mesh_compare(f"(d) config 5 256 x 256, {a} x 2 over distinct cards", one, mesh, tag,
+                      factor=2 * a)
+    else:
+        print(f"phase 35(d) distinct cards: not run (torch.cuda.device_count() = {n_cards}: the "
+              f"meshes above repeat one card) {tag}")
+    for key, name in MESH_KERNELS.items():
+        if name in kern:
+            kern[name]["mesh_launches"] = {run: per[key] for run, per in runs.items()
+                                           if key in per}
+
 def example_twins(tag):
     """Phase 34: the seven example twins on the card, each in its own
     temporary directory at its own constants: wall time, output peak and,
@@ -2652,6 +2896,9 @@ def main():
     checkpoint_paths(pt, dev, kern, tag)
     realtime_paths(pt, dev, kern, tag)
     example_twins(tag)
+
+    # -- 35. ScenePacks on (scene, voice) meshes -----------------------------------------
+    mesh_paths(pt, dev, kern, tag)
 
     # the one-kernel checks first, then the heavy path profiles
     read_kernel_counts(captured, tag)

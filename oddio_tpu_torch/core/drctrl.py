@@ -31,7 +31,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.tree import tree_leaves, tree_stack
+from ..parallel.context import RenderDevice, current_cell
+from ..utils.tree import tree_fill, tree_leaves, tree_stack
 
 __all__ = ["DRCtrlMixin", "PinnedUpload", "walk_ctrl_keys", "walk_fade_paths", "rows_scatter",
            "host_lanes", "read_handle_state"]
@@ -136,34 +137,40 @@ class PinnedUpload:
     buffered pool's per-block operand record).  A pinned buffer is
     rewritten only once the copy that last read it has finished (its
     event); each slot reuses its device tensor too, which the stream
-    orders after the kernels that read it last.  Off CUDA it is a plain
-    copy (a fresh tensor, never aliasing the array)."""
+    orders after the kernels that read it last.  Each cell of a pack's
+    mesh has a ring of its own (``parallel.context.mesh_cell``), on the
+    cell's device.  Off CUDA it is a plain copy (a fresh tensor, never
+    aliasing the array)."""
 
     DEPTH = 4
+    device = RenderDevice()
 
     def __init__(self, device):
         self.device = torch.device(device)
-        self._slots = []
-        self._next = 0
+        self._rings = {}  # mesh cell key (None outside a pack's mesh) -> [slots, next]
 
     def __call__(self, arr):
-        if self.device.type != "cuda":
-            return torch.tensor(arr, device=self.device)
-        if not self._slots or self._slots[0][1].shape != arr.shape:
+        dev = self.device
+        if dev.type != "cuda":
+            return torch.tensor(arr, device=dev)
+        cell = current_cell()
+        key = None if cell is None else cell[0]
+        ring = self._rings.get(key)
+        if ring is None or ring[0][0][1].shape != arr.shape or ring[0][0][1].device != dev:
             dtype = torch.from_numpy(arr[:0]).dtype
-            self._slots = [
+            ring = self._rings[key] = [[
                 (torch.empty(arr.shape, dtype=dtype, pin_memory=True),
-                 torch.empty(arr.shape, dtype=dtype, device=self.device),
+                 torch.empty(arr.shape, dtype=dtype, device=dev),
                  torch.cuda.Event())
-                for _ in range(self.DEPTH)
-            ]
-        host, dev, done = self._slots[self._next]
-        self._next = (self._next + 1) % self.DEPTH
+                for _ in range(self.DEPTH)], 0]
+        slots, i = ring
+        host, out, done = slots[i]
+        ring[1] = (i + 1) % self.DEPTH
         done.synchronize()
         host.numpy()[...] = arr
-        dev.copy_(host, non_blocking=True)
+        out.copy_(host, non_blocking=True)
         done.record()
-        return dev
+        return out
 
 
 def _np_dtype(dtype):
@@ -237,6 +244,9 @@ def read_handle_state(mask, stopped):
 class DRCtrlMixin:
     """Shared by device-resident voice pools."""
 
+    #: the pool's device; inside a pack's mesh cell, the cell's
+    device = RenderDevice()
+
     #: per-block delta-channel capacity per controllable field
     k_ctrl = 64
     #: per-block fade-start lanes per fader path
@@ -254,6 +264,24 @@ class DRCtrlMixin:
     #: per-block params holding one value per scene: a ScenePack stacks
     #: them (every other param is per lane, and concatenated)
     SCENE_PARAMS = ()
+
+    #: per-block params whose leaves carry a leading voice axis (dense
+    #: per-voice payloads: a stream's ingest chunk); every other param is
+    #: per lane or per scene
+    VOICE_PARAMS = ("ing",)
+    #: state leaves that hold one value per scene, not per voice: a
+    #: ScenePack gives each voice shard of a scene group the group's whole
+    SCENE_STATE = ()
+
+    def params_voice_axes(self, params):
+        """Which of this block's param leaves carry a leading voice axis
+        (the JAX package's ``params_voice_axes`` for one pool)."""
+        return {k: tree_fill(v, k in self.VOICE_PARAMS) for k, v in params.items()}
+
+    def state_voice_axes(self, state):
+        """Which state leaves carry a leading voice axis (the JAX
+        package's ``device_state_voice_axes`` for one pool)."""
+        return {k: tree_fill(v, k not in self.SCENE_STATE) for k, v in state.items()}
 
     def params_index_keys(self):
         """Every per-block param key that holds slot indices."""

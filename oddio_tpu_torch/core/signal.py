@@ -34,7 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.tree import tree_map
+from ..parallel.context import RenderDevice
+from ..utils.tree import tree_fill, tree_map
 
 __all__ = ["Signal", "Engine", "ControlBlock", "default_device", "same_device"]
 
@@ -135,8 +136,9 @@ class Signal:
     #: (oddio's ``Seek``, signal.rs:48-58)
     seekable = False
     #: device of this node's tensors (set on the whole chain by
-    #: ``_set_device``: the pool's device, or the driving Renderer's)
-    device = None
+    #: ``_set_device``: the pool's device, or the driving Renderer's; inside
+    #: a pack's mesh cell, the cell's)
+    device = RenderDevice()
 
     def __init__(self):
         self.batch = ()
@@ -485,6 +487,20 @@ class Engine(Signal):
         """An engine keeps the device it was built on."""
         if not same_device(device, self.device):
             raise ValueError(f"the engine renders on {self.device}, not on {device}")
+
+    def device_state_voice_axes(self, tree=None):
+        """Which leaves of the device state ``tree`` (default: this
+        engine's) carry a leading voice axis, pool by pool (each pool's
+        ``state_voice_axes``); scene-level leaves (the listener rotation,
+        a pool's write cursor, a submix's whole subtree) do not.  A
+        ScenePack splits the voice-axis leaves over the voice shards of
+        its mesh (the JAX package's ``device_state_voice_axes``; its
+        ``params_voice_axes`` is each pool's here, which the pack merges
+        pool by pool)."""
+        tree = self.device_collect() if tree is None else tree
+        pools = {p.name: p for p in self._all_pools()}
+        return {k: pools[k].state_voice_axes(v) if k in pools else tree_fill(v, False)
+                for k, v in tree.items()}
 
     def render_host(self, dstate, ddata, params, n):
         """The one-voice case a wrapper's standalone render hands down:

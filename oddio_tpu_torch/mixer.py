@@ -30,8 +30,9 @@ from .core.drctrl import DRCtrlMixin, _upload, host_lanes, rows_scatter
 from .core.hostmath import f32
 from .core.signal import Engine, default_device
 from .ops._dev import masked_voice_sum
-from .parallel.context import current_scenes, localize_index
-from .utils.tree import tree_map, tree_stack
+from .parallel.context import (RenderDevice, add_block, current_scenes, localize_index,
+                               scene_offset, voice_partials)
+from .utils.tree import tree_fill, tree_map, tree_stack
 
 __all__ = ["Mixer", "MixerControl", "Mixed", "Pool", "PoolSingleton", "PoolDR",
            "DEFAULT_CAPACITY", "render_submix"]
@@ -58,6 +59,8 @@ class Pool:
     mixer's device."""
 
     is_dr = False
+    #: the pool's device; inside a pack's mesh cell, the cell's
+    device = RenderDevice()
 
     #: set by a ScenePack holding this pool's device state: called with
     #: ``drop`` True before growth (the pack's stack goes back into the
@@ -126,6 +129,15 @@ class Pool:
             return True
         return bool(self.stop[slot])
 
+    def params_voice_axes(self, params):
+        """Which param leaves carry a leading voice axis: every one of a
+        host pool (per-voice columns), none of a singleton's (its one
+        voice is a whole submix, which a ScenePack keeps on one voice
+        shard)."""
+        return tree_fill(params, not getattr(self, "is_singleton", False))
+
+    state_voice_axes = params_voice_axes
+
 
 class PoolSingleton(Pool):
     """A one-voice pool for a non-batchable signal: a submix (an engine
@@ -176,12 +188,13 @@ def render_submix(sig, dstate, ddata, params, n):
     """A singleton pool's voice ``sig`` as rows: (1, C, n), or in a
     ScenePack its S scenes' (S, C, n), the engine's stacked render or a
     wrapper chain's batched one over S rows."""
-    if current_scenes() is None:
-        d2, block = sig.render(dstate, ddata, params, n)
-        return d2, block[None]
-    if isinstance(sig, Engine):
-        return sig.render(dstate, ddata, params, n)
-    return sig.render_host(dstate, ddata, params, n)
+    with voice_partials(None):  # a submix lives whole on one voice shard
+        if current_scenes() is None:
+            d2, block = sig.render(dstate, ddata, params, n)
+            return d2, block[None]
+        if isinstance(sig, Engine):
+            return sig.render(dstate, ddata, params, n)
+        return sig.render_host(dstate, ddata, params, n)
 
 
 class PoolDR(DRCtrlMixin):
@@ -416,12 +429,15 @@ class PoolDR(DRCtrlMixin):
 
     #: set by a ScenePack whose scenes' pools advance different frame
     #: counts this block (submixes at their rings' write counts): one per
-    #: scene, else None
+    #: scene of the pack, else None
     _pack_counts = None
 
     def _count_tensor(self, V):
-        pc = self._pack_counts
-        if pc is not None and current_scenes() == len(pc):
+        pc, S = self._pack_counts, current_scenes()
+        if pc is not None and S is not None:
+            # the pack's scenes this render holds (a mesh's scene group)
+            pc = pc[scene_offset():scene_offset() + S]
+        if pc is not None and S == len(pc):
             counts = np.repeat(np.asarray(pc, np.int32), V // len(pc))
             return _upload(counts, self.device, torch.int32)
         key = (V, self._count, self.device)
@@ -690,7 +706,7 @@ class Mixer(Engine):
             if pool.is_dr:
                 dsub, block = pool.render(dstate[pool.name], {"inner": dd}, ps, n)
                 d2[pool.name] = dsub
-                out = out + block
+                out = add_block(out, block, pool.name)
                 continue
             if getattr(pool, "is_singleton", False):
                 dsub, blocks = render_submix(pool.sig, dstate[pool.name], dd, ps["p"], n)
@@ -701,7 +717,7 @@ class Mixer(Engine):
                 dsub, blocks = pool.sig.render_host(dstate[pool.name], dd, ps["p"], n)
             d2[pool.name] = dsub
             mask = _upload(ps["mask"], self.device)
-            out = out + masked_voice_sum(mask, blocks, S)
+            out = add_block(out, masked_voice_sum(mask, blocks, S), pool.name)
         return d2, out
 
     # -- checkpoint/resume ----------------------------------------------------

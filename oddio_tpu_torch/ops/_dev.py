@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.context import partial_sums
+
 
 def split_ds(ds):
     """Host-side exact decomposition of a step ``ds`` into
@@ -68,13 +70,16 @@ def masked_voice_sum(mask, x, scenes=None):
     device's reduction order (CPU and CUDA add in different orders, which
     moves a float32 sum of a few hundred voices by up to ~1e-5).  With
     ``scenes`` = S the V rows are S scenes of V/S voices, summed apart
-    into (S, ...)."""
+    into (S, ...).  A voice shard's partial sum (``parallel.context.
+    partial_sums``) stays in float64 until the pack has added the
+    shards."""
     m = mask.reshape(mask.shape + (1,) * (x.dim() - 1))
     x = torch.where(m, x, 0.0)
     if scenes is None:
-        return x.sum(dim=0, dtype=torch.float64).to(torch.float32)
-    x = x.reshape((scenes, -1) + x.shape[1:])
-    return x.sum(dim=1, dtype=torch.float64).to(torch.float32)
+        s = x.sum(dim=0, dtype=torch.float64)
+    else:
+        s = x.reshape((scenes, -1) + x.shape[1:]).sum(dim=1, dtype=torch.float64)
+    return s if partial_sums() else s.to(torch.float32)
 
 
 def scene_sum(x, scenes=None):

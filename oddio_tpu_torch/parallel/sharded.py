@@ -1,5 +1,5 @@
-"""ScenePack: S scenes of one archetype rendered as one, on one card
-(counterpart of oddio_tpu/parallel/sharded.py).
+"""ScenePack: S scenes of one archetype rendered as one, over a (scene,
+voice) mesh of devices (counterpart of oddio_tpu/parallel/sharded.py).
 
 The JAX package ``vmap``s a scene's render over a leading scene axis and
 runs it under ``shard_map`` on a (scene, voice) mesh.  Here there is no
@@ -15,32 +15,51 @@ scene_stack``): the masked voice sums per scene, K1 writing each scene at
 its own row pair, K2 and K5 summing each scene apart, all with one launch
 per pool per block whatever S is.
 
+On an a x b mesh the stack is split into cells.  The scene axis splits
+the scenes into a groups of S/a; the voice axis splits each pool's slots
+into b shards of V/b.  Cell (g, k) holds, on device ``mesh.devices[g][k]``,
+the rows of slots ``k*V/b .. (k+1)*V/b - 1`` of group g's scenes, stacked
+as above, and each scene-level leaf of those scenes whole (the pools
+declare which leaves are per voice: ``params_voice_axes``,
+``state_voice_axes``).  A submix (singleton) pool lives whole on voice
+shard 0 of its group; the other shards neither hold nor render it, so it
+counts once.  Per block the pack renders every cell in turn with scene
+0's pools, under ``scene_stack(S/a)`` and ``mesh_cell`` (every pool's and
+signal's ``device`` reads the cell's), and sums each group's shards'
+(S/a, C, n) partial mixes on the group's first device in shard order: the
+JAX package's voice-axis ``psum``, here plain torch.  A 1 x 1 mesh is one
+cell holding the whole stack.  One process drives every device, as the
+JAX package's one controller does.
+
 Every pool kind packs.  Device-resident pools ship deltas whose slot
-indices (plays, stops, controls, fade lanes) map to stacked rows.  Host
-pools (the buffered pool's K4/K5 pair, the seek pool, the Mixer's host
-pool) ship per-voice params, concatenated; a Stream's write chunk that
-some scenes lack ships as zero rows.  A singleton (submix) pool is S rows,
-one voice per scene: its engine's state is the S inner engines' trees
-stacked as the scenes' are, its params the inner engines' params merged
-by the same rules, recursively, and the inner engine renders them under
-the same ``scene_stack(S)`` to (S, C, n).
+indices (plays, stops, controls, fade lanes) map to the cell's stacked
+rows (``stack_index``; a lane whose slot another shard holds becomes
+padding there).  Host pools (the buffered pool's K4/K5 pair, the seek
+pool, the Mixer's host pool) ship per-voice params, sliced to the shard
+and concatenated; a Stream's write chunk that some scenes lack ships as
+zero rows.  A singleton (submix) pool is S/a rows, one voice per scene:
+its engine's state is the inner engines' trees stacked as the scenes' are,
+its params the inner engines' params merged by the same rules,
+recursively, and the inner engine renders them under the same
+``scene_stack`` to (S/a, C, n).
 
 The host control plane stays per scene: each scene keeps its handles and
 numpy state and prepares its own parameters; per block the pack merges
-them and renders the stack once, with scene 0's pools and archetype.
-Where the scenes' per-block choices differ, the pack takes one for the
-whole stack: the widest read tier and step flags, and the host buffered
-pool's exact elementwise read when any scene leaves its strip gate.  The
-stacked state is built once and carried; pool growth and eager plays pull
-it back into the scenes first (the pools' ``_unpack_hook``) and the next
-block restacks; a host pool's play writes its slot through views of the
-stack.
+them per cell.  Where the scenes' per-block choices differ, the pack takes
+one for the whole pack, so that every cell takes the route a 1 x 1 pack
+takes: the widest read tier and step flags, and the host buffered pool's
+exact elementwise read when any scene leaves its strip gate.  The stacked
+state is built once and carried; pool growth and eager plays pull it back
+into the scenes first (the pools' ``_unpack_hook``) and the next block
+restacks.  A host pool's play resets its slot in place: where every
+scene's rows lie in one cell on the scenes' own device (a mesh of one
+voice shard) it writes through views of the stack; on a voice-sharded
+mesh, or one whose cells render elsewhere, the pack writes its state back,
+drops it and restacks at the next block.
 
 A submix under wrappers (an Adapt over a Mixer) stacks its wrappers'
-one-voice state along a new scene axis: the wrappers render their S rows
-batched, and the engine under them its scenes stacked.  A pack renders
-on one card (``make_mesh(1, 1)``); larger meshes are the multi-card form
-(ROADMAP PK2).
+one-voice state along a new scene axis: the wrappers render their S/a rows
+batched, and the engine under them its scenes stacked.
 """
 
 from __future__ import annotations
@@ -52,7 +71,7 @@ from ..core.drctrl import read_handle_state
 from ..core.signal import Engine, same_device
 from ..ops.geometry import HEAD_RADIUS, SPEED_OF_SOUND
 from ..utils.tree import tree_leaves, tree_map
-from .context import scene_stack, stack_index
+from .context import mesh_cell, scene_stack, stack_index, voice_partials
 from .mesh import SCENE_AXIS, VOICE_AXIS
 
 __all__ = ["ScenePack"]
@@ -65,6 +84,24 @@ def _unstack(tree, S, axis=False):
         parts = {k: _unstack(v, S, axis) for k, v in tree.items()}
         return [{k: parts[k][s] for k in tree} for s in range(S)]
     return list(tree.unbind(0) if axis else tree.split(tree.shape[0] // S))
+
+
+def _shard_rows(tree, axes, V, shard, shards):
+    """Voice shard ``shard`` of ``shards`` of one scene's pool tree (numpy
+    params or state tensors): the leaves ``axes`` marks per voice keep rows
+    ``shard*V/shards ..`` of their ``V``, the others stay whole."""
+    if shards == 1:
+        return tree
+    Vb = V // shards
+
+    def take(x, per_voice):
+        if not per_voice:
+            return x
+        if x.shape[0] != V:
+            raise RuntimeError(f"a per-voice leaf of {x.shape[0]} rows in a pool of {V} slots")
+        return x[shard * Vb:(shard + 1) * Vb]
+
+    return tree_map(take, tree, axes)
 
 
 def _is_submix(pool):
@@ -116,12 +153,14 @@ def _stamp_host_flags(sigs):
 
 class ScenePack:
     """Renders S structurally identical scenes (Mixers, or SpatialScenes)
-    as one stacked render on one card.
+    as one stacked render over a (scene, voice) mesh.
 
-    ``scenes``: engines of equal archetype, built on one device (each
-    engine's own; the CUDA card unless built with ``device=``); ``mesh``:
-    ``make_mesh(1, 1)``.  ``scan_unroll`` is accepted and ignored, as
-    ``Renderer`` ignores it (it shapes the JAX package's compiled scan)."""
+    ``scenes``: engines of equal archetype, all built on one device, where
+    their host mirrors and handle state live; ``mesh``: a
+    ``make_mesh(a, b, devices)``, whose cells render (S must divide by a,
+    every pool's capacity but a submix's by b, else ``ValueError``).
+    ``scan_unroll`` is accepted and ignored, as ``Renderer`` ignores it (it
+    shapes the JAX package's compiled scan)."""
 
     def __init__(self, scenes, rate, mesh, scan_unroll=1):
         scenes = list(scenes)
@@ -129,25 +168,42 @@ class ScenePack:
             raise ValueError("a pack needs at least one scene")
         if len({s.archetype() for s in scenes}) != 1:
             raise ValueError("all scenes in a pack must share an archetype")
-        if (mesh.shape[SCENE_AXIS], mesh.shape[VOICE_AXIS]) != (1, 1):
-            raise ValueError(f"{mesh}: packs render on one card (make_mesh(1, 1)); ROADMAP PK2")
         self.device = scenes[0].device
         for s in scenes:
             if not same_device(s.device, self.device):
-                raise ValueError(f"a pack's scenes render on one device: {s.device} vs {self.device}")
-        if mesh.devices is not None and not same_device(mesh.devices[0], self.device):
-            raise ValueError(f"the scenes render on {self.device}, the mesh is {mesh.devices[0]}")
+                raise ValueError(f"a pack's scenes live on one device: {s.device} vs {self.device}")
+        self.A, self.B = mesh.shape[SCENE_AXIS], mesh.shape[VOICE_AXIS]
+        if len(scenes) % self.A:
+            raise ValueError(f"{len(scenes)} scenes do not split into {self.A} scene groups")
         self.scenes = scenes
         self.S = len(scenes)
+        #: scenes per scene group
+        self.Sa = self.S // self.A
         self.mesh = mesh
+        #: (scene group, voice shard) -> the device its cell renders on
+        self._cells = {(g, k): mesh.devices[g][k] for g in range(self.A) for k in range(self.B)}
         self.scan_unroll = int(scan_unroll)
         self.rate = int(rate)
         self.interval = np.float32(1.0) / np.float32(self.rate)
-        self._dstate = None  # the stacked state, scene 0's tree layout
+        self._dstate = None  # (group, shard) -> the cell's stacked state, scene 0's layout
         self._names = None
         self._check_structure()
+        self._check_split()
 
     # -- structure ---------------------------------------------------------------
+
+    def _group(self, g):
+        """The scenes of scene group ``g``."""
+        return self.scenes[g * self.Sa:(g + 1) * self.Sa]
+
+    def _check_split(self):
+        """Every pool's capacity but a submix's must split over the voice
+        shards."""
+        for group in self._groups():
+            for p in group:
+                if not _is_submix(p) and p.capacity % self.B:
+                    raise ValueError(f"pool {p.name}: capacity {p.capacity} does not split "
+                                     f"into {self.B} voice shards")
 
     def _groups(self, engines=None):
         """Pool i of every engine (the scenes by default), for each pool
@@ -204,11 +260,39 @@ class ScenePack:
                     p.grow()
 
     def _ensure_state(self):
-        """Stack the scenes' device state, unless the carried stack is
-        current (it is dropped by growth and eager plays)."""
+        """Stack the scenes' device state cell by cell, unless the carried
+        stack is current (it is dropped by growth and eager plays)."""
         if self._dstate is not None:
             return
-        self._dstate = self._stack(self.scenes, [s.device_collect() for s in self.scenes])
+        self._check_split()
+        trees = [s.device_collect() for s in self.scenes]
+        self._dstate = {}
+        for (g, k), dev in self._cells.items():
+            eng = self._group(g)
+            parts = [self._shard(e, t, k) for e, t in zip(eng, trees[g * self.Sa:])]
+            st = self._stack(eng, parts)
+            if not same_device(dev, self.device):
+                st = tree_map(lambda x, dev=dev: x.to(dev), st)
+            self._dstate[g, k] = st
+
+    def _shard(self, engine, tree, k):
+        """Voice shard ``k`` of one scene's device tree: each pool's
+        per-voice leaves cut to the shard's slots, scene-level leaves
+        whole, a submix's subtree on shard 0 only."""
+        if self.B == 1:
+            return tree
+        axes = engine.device_state_voice_axes(tree)
+        pools = {p.name: p for p in engine._all_pools()}
+        out = {}
+        for key, sub in tree.items():
+            pool = pools.get(key)
+            if pool is None:
+                out[key] = sub
+            elif not _is_submix(pool):
+                out[key] = _shard_rows(sub, axes[key], pool.capacity, k, self.B)
+            elif k == 0:
+                out[key] = sub
+        return out
 
     def _stack(self, engines, trees):
         """The engines' device trees as one: pool rows end to end (a
@@ -306,12 +390,14 @@ class ScenePack:
         return tree_map(lambda *xs: np.concatenate(xs),
                         *[zero if v is None else v for v in vals])
 
-    def _merge_pool(self, group, ps):
-        """One pool's params over the pack, by the layout the pool declares:
-        scene-level params stacked, slot indices mapped to stacked rows,
-        per-lane and per-voice params concatenated, a submix's engine
-        params merged as a scene's."""
+    def _merge_pool(self, group, ps, shard):
+        """One pool's params over a cell's scenes, by the layout the pool
+        declares: scene-level params stacked, slot indices mapped to the
+        cell's stacked rows, per-voice params cut to the cell's voice shard
+        ``shard`` = (k, b) and concatenated, per-lane params concatenated,
+        a submix's engine params merged as a scene's."""
         pool = group[0]
+        V, (k, b) = pool.capacity, shard
         if not pool.is_dr:
             if len({getattr(p, "_use_strips", True) for p in group}) > 1:
                 # one read for the stack: the exact route, if any scene's
@@ -319,35 +405,39 @@ class ScenePack:
                 ps = [p.exact_params(q) for p, q in zip(group, ps)]
                 pool._use_strips = False
             if not _is_submix(pool):
+                if b > 1:
+                    ps = [_shard_rows(q, pool.params_voice_axes(q), V, k, b) for q in ps]
                 return _concat(ps)
             key = pool.INNER_PARAMS
-            out = _concat([{k: v for k, v in q.items() if k != key} for q in ps])
+            out = _concat([{j: v for j, v in q.items() if j != key} for q in ps])
             out[key] = self._merge_chain([p.sig for p in group], [q[key] for q in ps])
             return out
-        V, S = pool.capacity, self.S
+        S = len(group)
+        if b > 1:
+            ps = [_shard_rows(q, pool.params_voice_axes(q), V, k, b) for q in ps]
         index_keys = pool.params_index_keys()
         # a scene on the param-free cursor path did not ship its own
         cursors = [p.cursor_params() for p in group]
         keys = []
         for p in ps:
-            keys.extend(k for k in p if k not in keys)
+            keys.extend(j for j in p if j not in keys)
         out = {}
-        for k in keys:
-            vals = [p.get(k) for p in ps]
-            if k in cursors[0]:
-                out[k] = np.stack([c[k] for c in cursors])
-            elif k == "ing":
-                out[k] = self._merge_ingest(vals)
+        for key in keys:
+            vals = [p.get(key) for p in ps]
+            if key in cursors[0]:
+                out[key] = np.stack([c[key] for c in cursors])
+            elif key == "ing":
+                out[key] = self._merge_ingest(vals)
             elif any(v is None for v in vals):
                 raise RuntimeError(
-                    f"pool {pool.name}: {k!r} shipped by some scenes of the pack only")
-            elif k in pool.SCENE_PARAMS:
-                out[k] = np.stack(vals)
-            elif k in index_keys:
-                out[k] = np.concatenate(
-                    [stack_index(v, s, V, S) for s, v in enumerate(vals)])
+                    f"pool {pool.name}: {key!r} shipped by some scenes of the pack only")
+            elif key in pool.SCENE_PARAMS:
+                out[key] = np.stack(vals)
+            elif key in index_keys:
+                out[key] = np.concatenate(
+                    [stack_index(v, s, V, S, k, b) for s, v in enumerate(vals)])
             else:
-                out[k] = tree_map(lambda *xs: np.concatenate(xs), *vals)
+                out[key] = tree_map(lambda *xs: np.concatenate(xs), *vals)
         return out
 
     def _merge_chain(self, sigs, ps):
@@ -360,9 +450,10 @@ class ScenePack:
                 if k in kids[0] else tree_map(lambda *xs: np.stack(xs), *[p[k] for p in ps])
                 for k in ps[0]}
 
-    def _merge(self, engines, per_scene):
-        """The engines' per-block params as one tree for the stacked
-        render."""
+    def _merge(self, engines, per_scene, shard=(0, 1)):
+        """The engines' per-block params as one tree for a stacked render:
+        of voice shard ``shard`` = (k, b) (a submix's engines are never
+        split), whose cell holds a submix only where k is 0."""
         out = {}
         rots = [p.get("_rot_new") for p in per_scene]
         if any(r is not None for r in rots):
@@ -370,12 +461,15 @@ class ScenePack:
                 raise RuntimeError("a listener rotation shipped by some scenes of the pack only")
             out["_rot_new"] = np.stack(rots)
         for group in self._groups(engines):
+            if shard[0] and _is_submix(group[0]):
+                continue
             name = group[0].name
-            out[name] = self._merge_pool(group, [p[name] for p in per_scene])
+            out[name] = self._merge_pool(group, [p[name] for p in per_scene], shard)
         return out
 
     def _block_params(self, n):
-        """Prepare every scene for one block; returns the merged params."""
+        """Prepare every scene for one block; returns the merged params of
+        each cell, keyed (scene group, voice shard)."""
         self._check_structure()
         self._tier_floors(n)
         self._equalize()
@@ -383,14 +477,41 @@ class ScenePack:
         per_scene = [s.host_prepare(self.interval, n, force=force) for s in self.scenes]
         self._pack_flags()
         self._ensure_state()
-        return self._merge(self.scenes, per_scene)
+        return {(g, k): self._merge(self._group(g), per_scene[g * self.Sa:(g + 1) * self.Sa],
+                                    (k, self.B))
+                for g, k in self._cells}
 
     def _render(self, params, n):
-        """One stacked block: (S, C, n) on the device."""
-        with scene_stack(self.S):
-            self._dstate, block = self.scenes[0].render(
-                self._dstate, self.scenes[0].device_data(), params, n)
-        return block
+        """One block of every cell; returns (S, C, n) on the mesh's first
+        device.  Where a scene group has several voice shards, each cell
+        keeps its pools' partial mixes apart (``voice_partials``; float64
+        where the pool sums in float64), the pack sums each pool's shards
+        on the group's first device in shard order (the JAX package's
+        voice-axis ``psum``), rounds it and adds the pools in their render
+        order, as one cell holding all the rows would."""
+        scene0 = self.scenes[0]
+        blocks = []
+        for g in range(self.A):
+            parts = []
+            for k in range(self.B):
+                part = {} if self.B > 1 else None
+                with scene_stack(self.Sa, g * self.Sa), mesh_cell((g, k), self._cells[g, k]), \
+                        voice_partials(part):
+                    self._dstate[g, k], block = scene0.render(
+                        self._dstate[g, k], scene0.device_data(), params[g, k], n)
+                if k == 0:
+                    out = block  # the whole mix, or where the shards' partials add up
+                parts.append(part)
+            if self.B > 1:
+                for name, x in parts[0].items():  # shard 0 holds every pool
+                    for part in parts[1:]:
+                        if name in part:
+                            x = x + part[name].to(x.device)
+                    out = out + x.to(torch.float32)
+            blocks.append(out)
+        if len(blocks) == 1:
+            return blocks[0]
+        return torch.cat([b.to(self.mesh.first) for b in blocks])
 
     def render_block(self, n):
         """Render one block for every scene; returns float32 numpy (S, n, C)."""
@@ -399,9 +520,9 @@ class ScenePack:
 
     def render_frames_device(self, total, block_size=512):
         """Offline pack render that keeps the audio on the device: returns a
-        list of (B, S, C, n) tensors (here one), without any host transfer
-        or wait.  The run-length idle path of ``Renderer``: a block whose
-        merged params are empty, on scenes whose pools all pass the idle
+        list of (B, S, C, n) tensors (here one) on the mesh's first
+        device, without any host transfer or wait.  The run-length idle
+        path of ``Renderer``: a block whose merged params are empty, on scenes whose pools all pass the idle
         gate (device-resident pools only), proves the remaining blocks the
         same, so the scenes advance them in O(1) (``host_idle_bulk``) and
         they render without preparing."""
@@ -476,29 +597,64 @@ class ScenePack:
                  else _unstack(v, len(sigs), axis=True) for k, v in tree.items()}
         return [{k: parts[k][s] for k in tree} for s in range(len(sigs))]
 
-    def _store_views(self):
+    def _views_ok(self):
+        """Whether each scene's rows lie in one cell on the scenes' own
+        device, so that the scenes can hold views of the stack."""
+        return self.B == 1 and all(same_device(d, self.device) for d in self._cells.values())
+
+    def _store(self):
         """Point each scene's device state (its submixes' included) at its
-        rows of the carried stack, so that writes in place land there."""
-        for scene, tree in zip(self.scenes, self._unstack_engines(self.scenes, self._dstate)):
-            scene.device_store(tree)
+        rows of the carried stack, so that writes in place land there;
+        where a scene's rows lie in several cells or on another device,
+        store a gathered copy instead (``_gather``)."""
+        views = self._views_ok()
+        for g in range(self.A):
+            eng = self._group(g)
+            parts = [self._unstack_engines(eng, self._dstate[g, k]) for k in range(self.B)]
+            for s, scene in enumerate(eng):
+                scene.device_store(parts[0][s] if views
+                                   else self._gather(scene, [p[s] for p in parts]))
+
+    def _gather(self, scene, parts):
+        """One scene's device tree from its voice shards' trees, on the
+        scenes' device: per-voice leaves end to end in shard order,
+        scene-level leaves and a submix's subtree from shard 0."""
+        home = self.device
+        axes = scene.device_state_voice_axes(parts[0])
+
+        def join(per_voice, *xs):
+            xs = [x.to(home) for x in xs]
+            return torch.cat(xs) if per_voice else xs[0]
+
+        return {key: tree_map(join, axes[key], *[p[key] for p in parts if key in p])
+                for key in parts[0]}
 
     def sync(self):
-        """Push the carried state back into each scene (views of the stack)
-        and pull handle-visible state to the host: one readback per
-        device-resident pool group, then each scene's slot reclamation."""
+        """Push the carried state back into each scene (``_store``) and
+        pull handle-visible state to the host: one readback per
+        device-resident pool group per cell, each scene's columns
+        reassembled from its shards, then each scene's slot reclamation."""
         if self._dstate is None:
             return
-        self._store_views()
-        for group, st in self._dr_states(self.scenes, self._dstate):
-            mask, stopped = read_handle_state(st["mask"], st["stopped"])
-            V = group[0].capacity
-            for s, p in enumerate(group):
-                p._sync_apply(mask[s * V:(s + 1) * V], stopped[s * V:(s + 1) * V])
+        self._store()
+        cols = {}
+        for (g, k), st in self._dstate.items():
+            for group, pst in self._dr_states(self._group(g), st):
+                mask, stopped = read_handle_state(pst["mask"], pst["stopped"])
+                R = mask.shape[0] // len(group)  # the shard's rows of each scene
+                for s, p in enumerate(group):
+                    c = cols.setdefault(id(p), (p, np.zeros(p.capacity, bool),
+                                                np.zeros(p.capacity, bool)))
+                    c[1][k * R:(k + 1) * R] = mask[s * R:(s + 1) * R]
+                    c[2][k * R:(k + 1) * R] = stopped[s * R:(s + 1) * R]
+        for p, mask, stopped in cols.values():
+            p._sync_apply(mask, stopped)
 
     def drop_stack(self):
         """Forget the carried stack WITHOUT writing it back (the scenes'
-        own state was replaced, e.g. carried in from the JAX package); the
-        next block stacks the scenes anew."""
+        own state was replaced, e.g. carried in from the JAX package or
+        restored from a checkpoint); the next block stacks the scenes
+        anew."""
         self._dstate = None
         for group in self._pool_groups():
             for p in group:
@@ -511,11 +667,12 @@ class ScenePack:
         per-scene pools.  Fired by pool growth and eager plays, so that
         out-of-render changes never act on stale state.  With ``drop``
         False (a host pool's play, which resets its slot in place) the
-        scenes only take views of the stack, which stays."""
+        scenes only take views of the stack, which stays, where views can
+        hold their rows (``_views_ok``); elsewhere the stack drops."""
         if self._dstate is None:
             return
-        if not drop:
-            self._store_views()
+        if not drop and self._views_ok():
+            self._store()
             return
         self.sync()
         self.drop_stack()

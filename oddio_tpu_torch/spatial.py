@@ -77,8 +77,8 @@ from .ops.ring_kernels import (
     voice_record,
 )
 from .ops.stream_kernels import ring_place_record
-from .parallel.context import current_scenes, localize_index
-from .utils.tree import tree_map, tree_stack
+from .parallel.context import RenderDevice, add_block, current_scenes, localize_index
+from .utils.tree import tree_fill, tree_map, tree_stack
 
 __all__ = [
     "SpatialScene",
@@ -190,6 +190,8 @@ class _VoicePool:
     live on the pool's device."""
 
     is_dr = False
+    #: the pool's device; inside a pack's mesh cell, the cell's
+    device = RenderDevice()
 
     #: set by a ScenePack holding this pool's device state: called with
     #: ``drop`` True before growth (the pack's stack goes back into the
@@ -341,6 +343,15 @@ class _VoicePool:
 
     def _upload(self, x, dtype=None):
         return _upload(x, self.device, dtype)
+
+    def params_voice_axes(self, params):
+        """Which param leaves carry a leading voice axis: every one of a
+        host pool (per-voice columns), none of a singleton's (its one
+        voice is a whole submix, which a ScenePack keeps on one voice
+        shard)."""
+        return tree_fill(params, not getattr(self, "is_singleton", False))
+
+    state_voice_axes = params_voice_axes
 
 
 class _BufferedPool(_VoicePool):
@@ -1124,6 +1135,8 @@ class _BufferedPoolDR(_DRPoolBase):
     ROW_KEYS = _DRPoolBase.GEOM_KEYS + ("max_delay", "phase", "tight", "vcur", "vbase")
     #: the family sub-pass list (slot numbers of the scene's own pool)
     SCENE_PARAMS = ("sub_idx", "sub_on")
+    #: the pool write cursor and the fixed-size sub-pass list
+    SCENE_STATE = ("wcur", "sub_idx", "sub_on")
 
     #: ratio-1 flagship read tier's walk bound (see the JAX package)
     K_DOPPLER = 64
@@ -1206,7 +1219,7 @@ class _BufferedPoolDR(_DRPoolBase):
         the pool cursor carry over unchanged."""
         st = dict(st)
         fresh = dict(fresh)
-        keep = {k: st.pop(k) for k in ("sub_idx", "sub_on", "wcur")}
+        keep = {k: st.pop(k) for k in self.SCENE_STATE}
         for k in keep:
             fresh.pop(k)
         out = tree_map(lambda a, b: torch.cat([a, b]), st, fresh)
@@ -2321,7 +2334,7 @@ class SpatialScene(Engine):
                 pp["rot"] = rot_cur
             dsub, block = p.render(dstate[p.name], ddata[p.name], pp, n)
             d2[p.name] = dsub
-            out = out + block
+            out = add_block(out, block, p.name)
         return d2, out
 
 

@@ -296,13 +296,15 @@ def carry_scene(src, dst):
 
 def carry_pack(src, dst):
     """Carry a JAX package ``ScenePack`` ``src`` into this package's
-    ``ScenePack`` ``dst``, whose scenes the same control scripts built:
-    ``src.sync()`` writes its carried (S, ...) state back into its scenes,
-    each scene carries across (``carry_scene`` or ``carry_mixer``: the
-    device-resident pools with their fade mirrors and released fade
-    targets, the host pools' columns, templates and rings, each submix
-    whole), and ``dst`` drops any stack it held, so that its next block
-    stacks the carried scenes.  The conditions of the per-scene carries
+    ``ScenePack`` ``dst``, whose scenes the same control scripts built, on
+    any meshes of either (a JAX 2 x 4 pack into a port 2 x 4 pack, say):
+    ``src.sync()`` gathers its carried (S, ...) state, sharded or not,
+    back into its scenes, each scene carries across (``carry_scene`` or
+    ``carry_mixer``: the device-resident pools with their fade mirrors
+    and released fade targets, the host pools' columns, templates and
+    rings, each submix whole), and ``dst`` drops any stack it held, so
+    that its next block stacks (and splits over its mesh) the carried
+    scenes.  The conditions of the per-scene carries
     hold (a spatial scene's host mirrors are ``dst``'s own, stepped
     through the same block preparations; ``dst``'s scripts issued the
     fades ``src`` released)."""

@@ -158,33 +158,37 @@ def build_host_pools(voices, device, seed=0, dr_voices=None, submix_voices=None)
     return control, scene, ctls + mctls, speeds, rng
 
 
-def build_config5_pack(scenes, device, voices=256, seed=0):
+def _pack(scenes, device, mesh, **kw):
+    """A ScenePack of ``scenes`` at 48 kHz on ``mesh``, by default 1 x 1 on
+    ``device``."""
+    from ..parallel.mesh import make_mesh
+    from ..parallel.sharded import ScenePack
+
+    return ScenePack(scenes, RATE, make_mesh(1, 1, [device]) if mesh is None else mesh, **kw)
+
+
+def build_config5_pack(scenes, device, voices=256, seed=0, mesh=None):
     """BASELINE config 5 as a ScenePack (``bench.py:324-356``
     ``_build_pack``): ``scenes`` config-5 mixers of ``voices`` voices each
     (``build_mixer_agc``, scene s drawn from ``seed + s``: 1/8 Adapt(Stream)
     prefilled with FILL samples, the rest Adapt(Sine) at 50-2000 Hz, tau
-    0.1 s, max_gain 4), on a 1 x 1 mesh at 48 kHz.  Returns ``(pack,
-    stream_controls, rng)``."""
-    from ..parallel.mesh import make_mesh
-    from ..parallel.sharded import ScenePack
-
+    0.1 s, max_gain 4), built on ``device``, on ``mesh`` (default 1 x 1 on
+    ``device``) at 48 kHz.  Returns ``(pack, stream_controls, rng)``."""
     mixers, ctls = [], []
     for s in range(scenes):
         _, mixer, c, rng = build_mixer_agc(voices, device, seed + s)
         mixers.append(mixer)
         ctls.extend(c)
-    return ScenePack(mixers, RATE, make_mesh(1, 1), scan_unroll=8), ctls, rng
+    return _pack(mixers, device, mesh, scan_unroll=8), ctls, rng
 
 
-def build_host_pools_pack(scenes, voices, device, seed=0):
+def build_host_pools_pack(scenes, voices, device, seed=0, mesh=None):
     """Every buffered pool kind per session: a ScenePack of ``scenes``
     ``build_host_pools(voices, dr_voices=voices // 8, submix_voices=64)``
-    scenes, scene s drawn from ``seed + s``, on a 1 x 1 mesh at 48 kHz.
-    Returns ``(pack, stream_controls, speed_controls, rng)`` (the last
-    scene's ``rng``, which continues its draws, for ``feed``)."""
-    from ..parallel.mesh import make_mesh
-    from ..parallel.sharded import ScenePack
-
+    scenes, scene s drawn from ``seed + s``, on ``mesh`` (default 1 x 1 on
+    ``device``) at 48 kHz.  Returns ``(pack, stream_controls,
+    speed_controls, rng)`` (the last scene's ``rng``, which continues its
+    draws, for ``feed``)."""
     out, ctls, speeds = [], [], []
     for s in range(scenes):
         _, scene, c, sp, rng = build_host_pools(voices, device, seed + s,
@@ -192,7 +196,7 @@ def build_host_pools_pack(scenes, voices, device, seed=0):
         out.append(scene)
         ctls.extend(c)
         speeds.extend(sp)
-    return ScenePack(out, RATE, make_mesh(1, 1)), ctls, speeds, rng
+    return _pack(out, device, mesh), ctls, speeds, rng
 
 
 def build_pack_scene(device, seed, n_buffered=64, n_seek=192):
@@ -216,14 +220,12 @@ def build_pack_scene(device, seed, n_buffered=64, n_seek=192):
     return scene
 
 
-def build_spatial_pack(scenes, device, n_buffered=64, n_seek=192, seed=0):
+def build_spatial_pack(scenes, device, n_buffered=64, n_seek=192, seed=0, mesh=None):
     """A ScenePack of ``scenes`` ``build_pack_scene`` scenes, scene s drawn
-    from ``seed + s``, on a 1 x 1 mesh at 48 kHz."""
-    from ..parallel.mesh import make_mesh
-    from ..parallel.sharded import ScenePack
-
+    from ``seed + s``, on ``mesh`` (default 1 x 1 on ``device``) at 48
+    kHz."""
     out = [build_pack_scene(device, seed + s, n_buffered, n_seek) for s in range(scenes)]
-    return ScenePack(out, RATE, make_mesh(1, 1))
+    return _pack(out, device, mesh)
 
 
 def build_densemix(voices, device, seed=0):
@@ -308,22 +310,18 @@ def _sampler_scene(frames, rng, voices, device, seconds, **script):
     return drv
 
 
-def build_sampler_pack(scenes, voices, device, seed=0, sounds=8, seconds=10.0):
+def build_sampler_pack(scenes, voices, device, seed=0, sounds=8, seconds=10.0, mesh=None):
     """BASELINE config 2 per session: a ScenePack of ``scenes`` sampler
     Mixers (``build_sampler``) of ``voices`` voices each, sharing one set of
     ``sounds`` stereo sounds drawn from ``seed``; scene s's voices and its
     own ``SamplerDriver`` script (every 8 blocks, ``voices // 8`` speed
-    writes and as many 0.05 s fades) are drawn from ``seed + s``.  Returns
-    a ``PackDriver``."""
-    from ..parallel.mesh import make_mesh
-    from ..parallel.sharded import ScenePack
-
+    writes and as many 0.05 s fades) are drawn from ``seed + s``; on
+    ``mesh`` (default 1 x 1 on ``device``).  Returns a ``PackDriver``."""
     frames = _sampler_sounds(np.random.default_rng(seed), sounds, seconds)
     drivers = [_sampler_scene(frames, np.random.default_rng(seed + s), voices, device,
                               seconds, k=max(voices // 8, 1))
                for s in range(scenes)]
-    pack = ScenePack([d.mixer for d in drivers], RATE, make_mesh(1, 1))
-    return PackDriver(pack, drivers)
+    return PackDriver(_pack([d.mixer for d in drivers], device, mesh), drivers)
 
 
 class PackDriver:

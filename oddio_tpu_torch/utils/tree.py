@@ -3,7 +3,7 @@ parameter trees (plain dicts whose leaves are numpy arrays or tensors)."""
 
 from __future__ import annotations
 
-__all__ = ["tree_map", "tree_leaves", "tree_stack"]
+__all__ = ["tree_map", "tree_leaves", "tree_stack", "tree_fill"]
 
 
 def tree_map(fn, *trees):
@@ -12,6 +12,13 @@ def tree_map(fn, *trees):
     if isinstance(t0, dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
     return fn(*trees)
+
+
+def tree_fill(tree, value):
+    """A tree shaped like ``tree`` holding ``value`` at every leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_fill(v, value) for k, v in tree.items()}
+    return value
 
 
 def tree_leaves(tree):

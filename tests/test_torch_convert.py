@@ -213,7 +213,7 @@ def test_port_pack_continues_from_jax_pack():
     for c, x in zip(cj, PCM):
         c.write(x[:300])  # still queued at the hand-over
     sp, cp = build(pt)
-    pp = ScenePack(sp, 8000, make_mesh(1, 1))
+    pp = ScenePack(sp, 8000, make_mesh(1, 1, ["cpu"]))
     carry_pack(jp, pp)
     a, b = [], []
     for i in range(5):

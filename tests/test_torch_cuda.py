@@ -753,7 +753,7 @@ def test_pack_host_stream_tiers_on_card(cuda):
 
     outs = []
     for device in ("cpu", cuda):
-        p = ScenePack(build(device), 8000, make_mesh(1, 1))
+        p = ScenePack(build(device), 8000, make_mesh(1, 1, [device]))
         SK.reset_launches()
         outs.append(np.concatenate([p.render_block(512) for _ in range(3)], axis=1))
     assert SK.LAUNCHES["ring_resample"] == 3
@@ -1015,3 +1015,115 @@ def test_realtime_driver_exact_on_card(cuda):
     r = pt.Renderer(twin, 48000)
     want = np.concatenate([r.render_block(512) for _ in range(32)])
     np.testing.assert_array_equal(np.concatenate(got), want)
+
+
+# --- ScenePacks on (scene, voice) meshes ---------------------------------------------
+
+
+def _launch_counts():
+    return {"append": RK.LAUNCHES["append"], "select_ears": RK.LAUNCHES["select_ears"],
+            "strip_select": RK.LAUNCHES["strip_select"],
+            **{k: SK.LAUNCHES[k] for k in STREAM_RING}, **A.LAUNCHES}
+
+
+def _reset_all():
+    for m in (RK, SK, A):
+        m.reset_launches()
+
+
+def test_mesh_packs_on_card_match_one_card_pack(cuda):
+    """A 4 x 64-voice config-5 pack (K4, K6, K7) and a 4-scene spatial pack
+    (K1, K2) on a 2 x 2 logical mesh of the card (``[cuda] * 4``) against
+    the 1 x 1 pack of the same scripts within 2e-6, with every kernel's
+    launches exactly 4x (one per cell)."""
+    from oddio_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(2, 2, [cuda] * 4)
+    outs, counts, pcm = [], [], None
+    for m in (None, mesh):
+        pack, ctls, rng = build_config5_pack(4, cuda, voices=64, mesh=m)
+        if pcm is None:
+            pcm = (rng.standard_normal((len(ctls), 1024)) * 0.1).astype(np.float32)
+        _reset_all()
+        outs.append(_pack_run(pack, ctls, pcm))
+        torch.cuda.synchronize()
+        counts.append(_launch_counts())
+    assert np.abs(outs[0]).max() > 0.1
+    assert np.abs(outs[0] - outs[1]).max() <= 2e-6
+    assert min(counts[0][k] for k in (*STREAM_RING, "agc_gains")) > 0
+    assert counts[1] == {k: 4 * v for k, v in counts[0].items()}, counts
+    outs, counts = [], []
+    for m in (None, mesh):
+        pack = build_spatial_pack(4, cuda, 16, 48, mesh=m)
+        _reset_all()
+        outs.append(_pack_run(pack, [], []))
+        torch.cuda.synchronize()
+        counts.append(_launch_counts())
+    assert np.abs(outs[0]).max() > 1e-2
+    assert np.abs(outs[0] - outs[1]).max() <= 2e-6
+    assert counts[0]["append"] > 0 and counts[0]["select_ears"] > 0
+    assert counts[1] == {k: 4 * v for k, v in counts[0].items()}, counts
+
+
+def test_mesh_card_and_cpu_cells_match_the_card_pack(cuda):
+    """A 1 x 2 mesh over ``[cuda, "cpu"]``: voice shard 1 renders on the
+    CPU (the plain versions), so no cell may read its scenes' device; the
+    spatial and config-5 packs match the 1 x 1 card pack within 2e-6."""
+    from oddio_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, 2, [cuda, "cpu"])
+    outs = [_pack_run(build_spatial_pack(2, cuda, 16, 48, mesh=m), [], [])
+            for m in (None, mesh)]
+    assert np.abs(outs[0]).max() > 1e-2
+    assert np.abs(outs[0] - outs[1]).max() <= 2e-6
+    outs, pcm = [], None
+    for m in (None, mesh):
+        pack, ctls, rng = build_config5_pack(2, cuda, voices=64, mesh=m)
+        if pcm is None:
+            pcm = (rng.standard_normal((len(ctls), 1024)) * 0.1).astype(np.float32)
+        outs.append(_pack_run(pack, ctls, pcm))
+    assert np.abs(outs[0]).max() > 0.1
+    assert np.abs(outs[0] - outs[1]).max() <= 2e-6
+
+
+def test_mesh_dryrun_on_card(cuda):
+    """``dryrun_multichip`` on 8 logical devices of the card (2 x 4, 512
+    voices a shard) against per-scene Renderers within its TOL."""
+    from oddio_tpu_torch.parallel.dryrun import TOL, dryrun_multichip
+
+    out = dryrun_multichip(8, [cuda] * 8)
+    assert out["mesh"] == "2x4" and out["max_abs_diff"] <= TOL
+    assert out["pack_launches"]["append"] > 0 and out["pack_launches"]["select_ears"] > 0
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2)])
+def test_mesh_pack_checkpoint_resumes_bit_equal_on_card(cuda, shape):
+    """``pack.sync()``, a snapshot of every scene, 4 more blocks, a restore
+    of every scene and ``pack.drop_stack()``: the same 4 blocks again, bit
+    for bit, on the card."""
+    from oddio_tpu_torch.parallel.mesh import make_mesh
+    from oddio_tpu_torch.utils import checkpoint as CK
+    from oddio_tpu_torch.utils.scene_profile import build_host_pools_pack
+
+    pack, ctls, speeds, rng = build_host_pools_pack(
+        2, 32, cuda, mesh=make_mesh(*shape, [cuda] * (shape[0] * shape[1])))
+    for _ in range(2):
+        pack.render_block(512)
+    pack.sync()
+    snaps = [CK.snapshot(s) for s in pack.scenes]
+
+    def blocks():
+        out = []
+        for k in range(4):
+            if k == 1:
+                speeds[0].set_speed(1.2)
+            out.append(pack.render_block(512))
+        return np.concatenate(out, axis=1)
+
+    a = blocks()
+    for s, snap in zip(pack.scenes, snaps):
+        CK.restore(s, snap)
+    pack.drop_stack()
+    b = blocks()
+    assert np.abs(a).max() > 0.01
+    np.testing.assert_array_equal(a, b)

@@ -49,7 +49,7 @@ def renderers(m, scenes, rate, nblocks, before):
 
 def pack(m, scenes, rate, nblocks, before):
     """The same through package ``m``'s ScenePack on a 1 x 1 mesh."""
-    p = (ScenePack(scenes, rate, make_mesh(1, 1)) if m is pt
+    p = (ScenePack(scenes, rate, make_mesh(1, 1, ["cpu"])) if m is pt
          else JaxPack(scenes, rate, jax_mesh(1, 1)))
     out = []
     for b in range(nblocks):
@@ -345,7 +345,7 @@ def test_pack_stream_writes_in_some_scenes_only():
     built = stream_mixers(pt, S=3, voices=2)
     singles = stream_mixers(pt, S=3, voices=2)
     rs = [pt.Renderer(mx, 8000) for mx, _ in singles]
-    pack = ScenePack([mx for mx, _ in built], 8000, make_mesh(1, 1))
+    pack = ScenePack([mx for mx, _ in built], 8000, make_mesh(1, 1, ["cpu"]))
     rng = np.random.default_rng(3)
     a, b = [], []
     for blk in range(4):
@@ -370,8 +370,8 @@ def test_pack_params_follow_the_pools_declared_layouts():
     mixers = stream_mixers(pt, S=3)
     mixers[1][1][2].close()
     for scenes in ([b[1] for b in built], [m for m, _ in mixers]):
-        p = ScenePack(scenes, 8000, make_mesh(1, 1))
-        merged = p._block_params(512)
+        p = ScenePack(scenes, 8000, make_mesh(1, 1, ["cpu"]))
+        merged = p._block_params(512)[0, 0]  # the one cell of a 1 x 1 mesh
         S, real = p.S, False
         for group in p._groups():
             pool = group[0]
@@ -407,7 +407,7 @@ def test_pack_frames_device_matches_render_block(unroll):
     want, _ = case_config5_mini(pt, pack)
     scenes, ctls = zip(*[config5_mini(pt, s) for s in range(2)])
     flat = [c for group in ctls for c in group]
-    p = ScenePack(list(scenes), 8000, make_mesh(1, 1), scan_unroll=unroll)
+    p = ScenePack(list(scenes), 8000, make_mesh(1, 1, ["cpu"]), scan_unroll=unroll)
     for j, ctl in enumerate(flat):
         ctl.write(PCM[j])
     parts = p.render_frames_device(512 * 5)
@@ -436,7 +436,7 @@ def test_pack_sync_reclaims_finished_voices():
         return mixer, handles
 
     built = [build() for _ in range(2)]
-    p = ScenePack([b[0] for b in built], 8000, make_mesh(1, 1))
+    p = ScenePack([b[0] for b in built], 8000, make_mesh(1, 1, ["cpu"]))
     for _ in range(3):
         p.render_block(512)
     p.sync()
@@ -455,7 +455,7 @@ def test_pack_sync_reclaims_finished_voices():
 def test_pack_idle_runs_skip_prepare():
     """An idle pack run prepares once and advances the rest in O(1)."""
     scenes, _ = zip(*[config5_mini(pt, s) for s in range(2)])
-    pack = ScenePack(list(scenes), 8000, make_mesh(1, 1))
+    pack = ScenePack(list(scenes), 8000, make_mesh(1, 1, ["cpu"]))
     pack.render_frames_device(512 * 2)
     calls = []
     for s in scenes:
@@ -472,12 +472,12 @@ def test_pack_idle_runs_skip_prepare():
 
 
 def test_pack_refusals():
-    """What a one-card pack leaves out raises, and nothing falls back: a
-    mesh beyond 1 x 1 (ROADMAP PK2) and scenes of different archetypes."""
-    with pytest.raises(ValueError, match="PK2"):
-        make_mesh(2, 4)
+    """What a pack cannot take raises, and nothing falls back: a mesh of
+    more devices than it is given, and scenes of different archetypes."""
+    with pytest.raises(ValueError, match="mesh 2x4 needs 8 devices, have 3"):
+        make_mesh(2, 4, ["cpu"] * 3)
 
     a = build_spatial_scene(pt, 0)[1]
     b = pt.SpatialScene.new(device="cpu")[1]
     with pytest.raises(ValueError, match="archetype"):
-        ScenePack([a, b], 8000, make_mesh(1, 1))
+        ScenePack([a, b], 8000, make_mesh(1, 1, ["cpu"]))

@@ -50,7 +50,7 @@ def renderers(m, scenes, rate, nblocks, before, n=512):
 
 def pack(m, scenes, rate, nblocks, before, n=512):
     """The same through package ``m``'s ScenePack on a 1 x 1 mesh."""
-    p = (ScenePack(scenes, rate, make_mesh(1, 1)) if m is pt
+    p = (ScenePack(scenes, rate, make_mesh(1, 1, ["cpu"])) if m is pt
          else JaxPack(scenes, rate, jax_mesh(1, 1)))
     out = []
     for b in range(nblocks):
@@ -107,16 +107,16 @@ def test_pack_fade_on_one_slot_number_lands_in_each_scenes_row():
     ctl = fader_sines.controls
     pool = next(iter(scenes[0]._pools.values()))
     name, V = pool.name, pool.capacity
-    p = ScenePack(scenes, 8000, make_mesh(1, 1))
+    p = ScenePack(scenes, 8000, make_mesh(1, 1, ["cpu"]))
     p.render_block(512)
     ctl[0][3].fade_to(pt.Sine(0.0, 700.0), 0.02)
     ctl[1][3].fade_to(pt.Sine(0.0, 250.0), 0.02)
-    merged = p._block_params(512)
+    merged = p._block_params(512)[0, 0]  # the one cell of a 1 x 1 mesh
     lanes = merged[name]["fade_idx0"]
     assert sorted(int(x) for x in lanes if x < 3 * V) == [3, V + 3]
-    before = {k: v.clone() for k, v in p._dstate[name]["inner"]["b"].items()}
-    p._render(merged, 512)
-    st = p._dstate[name]["inner"]
+    before = {k: v.clone() for k, v in p._dstate[0, 0][name]["inner"]["b"].items()}
+    p._render({(0, 0): merged}, 512)
+    st = p._dstate[0, 0][name]["inner"]
     assert [bool(st["fading"][r]) for r in (3, V + 3, 2 * V + 3)] == [True, True, False]
     for k, v in st["b"].items():  # both targets written, each in its row
         if torch.is_floating_point(v):
@@ -136,7 +136,7 @@ def test_pack_fade_lanes_ship_as_one_record_per_block(monkeypatch):
 
     monkeypatch.setattr(drctrl.PinnedUpload, "__call__", counted)
     scenes, before = fader_sines(pt, 3, (0, 1, 2))
-    p = ScenePack(scenes, 8000, make_mesh(1, 1))
+    p = ScenePack(scenes, 8000, make_mesh(1, 1, ["cpu"]))
     p.render_block(512)
     assert calls == []
     before(1)
@@ -304,7 +304,7 @@ def test_pack_sampler_frames_device_releases_fades_on_the_device():
     for s, scene in enumerate(p.scenes):
         pool = next(iter(scene._pools.values()))
         V = pool.capacity
-        dev = p._dstate[pool.name]["inner"]["flip"][s * V:(s + 1) * V].numpy()
+        dev = p._dstate[0, 0][pool.name]["inner"]["flip"][s * V:(s + 1) * V].numpy()
         host = pool._fade_flip[()]
         np.testing.assert_array_equal(dev, host)
         flips.append(host.any())

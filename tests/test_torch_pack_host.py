@@ -56,7 +56,7 @@ def renderers(m, scenes, rate, nblocks, before, n=512):
 
 def pack(m, scenes, rate, nblocks, before, n=512):
     """The same through package ``m``'s ScenePack on a 1 x 1 mesh."""
-    p = (ScenePack(scenes, rate, make_mesh(1, 1)) if m is pt
+    p = (ScenePack(scenes, rate, make_mesh(1, 1, ["cpu"])) if m is pt
          else JaxPack(scenes, rate, jax_mesh(1, 1)))
     pack.last = p
     out = []
@@ -139,7 +139,7 @@ def test_pack_submix_counts_differ_per_scene():
         return scene
 
     own = renderers(pt, [build(s) for s in range(3)], 8000, 4, _none)
-    p = ScenePack([build(s) for s in range(3)], 8000, make_mesh(1, 1))
+    p = ScenePack([build(s) for s in range(3)], 8000, make_mesh(1, 1, ["cpu"]))
     pools = [q for q in p.scenes[0]._all_pools()[0].sig._all_pools() if q.is_dr]
     got, differ = [], 0
     for _ in range(4):
@@ -513,7 +513,7 @@ def test_pack_carries_from_the_jax_pack():
     sp, cp, fp = build(pt)
     for k, f in enumerate(fp):
         f.fade_to(pt.Sine(0.0, 700.0 + 30 * k), 0.2)
-    pp = ScenePack(sp, 8000, make_mesh(1, 1))
+    pp = ScenePack(sp, 8000, make_mesh(1, 1, ["cpu"]))
     carry_pack(jp, pp)
     a, b = [], []
     for i in range(3):
