@@ -179,6 +179,20 @@ Phases (each prints one or more lines; any failure exits non-zero):
     ``host_prepare``'s, no wait for the card), host_prepare ms a block and
     xRT; at the end of the run, device kernels per block of each way.
     Phases 4-6 and 33 run graphs too (the Renderer's default on the card).
+37. (after 10) the Renderer's block steps as CUDA graphs on BASELINE
+    config 5's Mixer: the 4096-voice mixer (512 Adapt(Stream), 3584
+    Adapt(Sine)) with bench.py's dispatch buckets, twice from one seed,
+    once under ``core.run.eager()`` and once replaying graphs, through
+    one script (24 blocks; four ticks of 1024 new samples on 64 streams,
+    8 plays, 8 stops and 16 stream closes, each followed by 47 blocks;
+    188 idle blocks): graph vs eager max|diff| (bit-equal), every
+    kernel's launches equal (K4, K6 and K7 launched, no ring kernel), the
+    rings where they were, ``graph_counts`` (replays >= 90% of the calls,
+    no recapture); then 188 idle blocks each way (dispatch host ms a
+    block, host_prepare ms a block, xRT) and 10 ingest blocks (the median
+    dispatch host ms of one); at the end of the run, device kernels per
+    block of each way.  Phases 8-10 and 33's mixers replay graphs too;
+    phase 8's step capture runs under ``eager()``.
 Phases 28-35 count launches with the wrappers' counters, never a tracer
 session; the packs' block profiles (phases 29 and 30) only print.
 The profiles run at the end in this order: the one-kernel checks
@@ -252,12 +266,16 @@ STEPS, BLOCK_PROFILES = [], []
 
 
 def capture_path_steps(phase, engine, render):
-    """Render through ``render()`` with every device-resident pool of
-    ``engine`` spied on, and keep each Adapt pool's last step for
-    ``step_kernel_counts``."""
+    """Render through ``render()`` under ``core.run.eager()`` with every
+    device-resident pool of ``engine`` spied on, and keep each Adapt
+    pool's last step for ``step_kernel_counts`` (op by op: a replayed
+    graph calls no render, and a capture would hand the spy tensors of
+    the graph's pool)."""
+    from oddio_tpu_torch.core.run import eager
     from oddio_tpu_torch.utils import kernel_bench as KB
 
-    caps = KB.capture_steps(KB.dr_pools(engine), render)
+    with eager():
+        caps = KB.capture_steps(KB.dr_pools(engine), render)
     for p, calls in caps.items():
         if calls and type(p.proto).__name__ == "Adapt":
             STEPS.append((phase, f"{type(p.proto.inner).__name__} V={p.capacity} "
@@ -2805,14 +2823,11 @@ def _graph_script(r, control, hs, kind):
     return out
 
 
-def _timed_idle(r, scene, nblk=188):
-    """``nblk`` idle blocks after a warm run of 47: (dispatch host ms a
-    block, host_prepare ms a block, wall s).  The host time is the render
-    call's, ended before any wait for the card, less host_prepare's."""
-    r.render_frames_device(BLOCK * 47, sync=False)
-    torch.cuda.synchronize()
-    spent = [0.0]
-    inner = scene.host_prepare
+@contextlib.contextmanager
+def _prepare_time(engine):
+    """Add the host seconds ``engine.host_prepare`` takes to the yielded
+    one-item list."""
+    spent, inner = [0.0], engine.host_prepare
 
     def host_prepare(*a, **kw):
         t0 = time.perf_counter()
@@ -2821,15 +2836,25 @@ def _timed_idle(r, scene, nblk=188):
         finally:
             spent[0] += time.perf_counter() - t0
 
-    scene.host_prepare = host_prepare
+    engine.host_prepare = host_prepare
     try:
+        yield spent
+    finally:
+        del engine.host_prepare
+
+
+def _timed_idle(r, scene, nblk=188):
+    """``nblk`` idle blocks after a warm run of 47: (dispatch host ms a
+    block, host_prepare ms a block, wall s).  The host time is the render
+    call's, ended before any wait for the card, less host_prepare's."""
+    r.render_frames_device(BLOCK * 47, sync=False)
+    torch.cuda.synchronize()
+    with _prepare_time(scene) as spent:
         t0 = time.perf_counter()
         r.render_frames_device(BLOCK * nblk, sync=False)
         host = time.perf_counter() - t0
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        del scene.host_prepare
     return 1e3 * (host - spent[0]) / nblk, 1e3 * spent[0] / nblk, wall
 
 
@@ -2890,6 +2915,117 @@ def main_path_graphs(pt, dev, tag):
     if share < 0.9 or totals["recaptures"]:
         raise AssertionError(f"phase 36: replays {share:.3f} of the calls, "
                              f"{totals['recaptures']} recaptures")
+
+
+def _mixer_script(r, control, ctls, rng):
+    """Phase 37's control script on the config-5 mixer: 24 blocks, then
+    four ticks of new PCM on 64 streams, 8 Adapt(Sine) plays, 8 stops of
+    earlier plays and 16 stream closes, each followed by 47 blocks.
+    Returns the blocks, (B, C, n) device tensors."""
+    from oddio_tpu_torch.utils.scene_profile import feed
+
+    out = list(r.render_frames_device(BLOCK * 24))
+    hs = []
+    for t in range(4):
+        feed(ctls[64 * t:64 * (t + 1)], rng, 1024)
+        hs += [control.play(_adapt_sine(rng)) for _ in range(8)]
+        for h in hs[8 * t - 8:8 * t] if t else ():
+            h.stop()
+        for c in ctls[256 + 16 * t:256 + 16 * (t + 1)]:
+            c.close()
+        out += r.render_frames_device(BLOCK * 47)
+    return out
+
+
+def _adapt_sine(rng):
+    """A config-5 Adapt(Sine) voice drawn from ``rng``."""
+    import oddio_tpu_torch as pt
+
+    return pt.Adapt(pt.Sine(rng.uniform(0, 6), rng.uniform(50, 2000)), 0.1,
+                    pt.AdaptOptions(tau=0.1, max_gain=4.0))
+
+
+def _timed_ingest(r, mixer, ctls, rng, k=10):
+    """``k`` ingest blocks, each after new PCM on every stream: the median
+    dispatch host ms of one (the render call's host time, ended before
+    any wait for the card, less host_prepare's)."""
+    from oddio_tpu_torch.utils.scene_profile import feed
+
+    ms = []
+    with _prepare_time(mixer) as spent:
+        for _ in range(k):
+            feed(ctls, rng, 256)
+            torch.cuda.synchronize()
+            spent[0] = 0.0
+            t0 = time.perf_counter()
+            r.render_frames_device(BLOCK, sync=False)
+            ms.append(1e3 * (time.perf_counter() - t0 - spent[0]))
+            torch.cuda.synchronize()
+    return float(np.median(ms))
+
+
+def mixer_graphs(pt, dev, tag):
+    """Phase 37: the 4096-voice config-5 mixer, graph replay against eager
+    dispatch through one script (see the module docstring)."""
+    from oddio_tpu_torch.utils.scene_profile import build_mixer_agc
+
+    runs = {}
+    for mode in ("eager", "graph"):
+        control, mixer, ctls, rng = build_mixer_agc(VOICES, dev)
+        r = pt.Renderer(mixer, RATE, scan_buckets=BENCH_BUCKETS)
+        if not mixer.graph_capture:
+            raise AssertionError("phase 37: the config-5 mixer does not declare graph_capture")
+        rings = [p.dr_state()["inner"]["inner"]["ring"] for p in mixer._pools.values()
+                 if "ring" in p.dr_state()["inner"]["inner"]]
+        ptrs = [x.data_ptr() for x in rings]
+        reset_launches()
+        with _mode(mode):
+            out = _mixer_script(r, control, ctls, rng)
+            out += r.render_frames_device(BLOCK * 188)
+        torch.cuda.synchronize()
+        launches = all_launches()
+        x = torch.cat([o.permute(0, 2, 1).reshape(-1, 1) for o in out]).cpu().numpy()
+        if not np.isfinite(x).all() or np.abs(x).max() <= 1e-3:
+            raise AssertionError(f"phase 37 mixer {mode}: non-finite or silent output")
+        if [p.dr_state()["inner"]["inner"]["ring"].data_ptr() for p in mixer._pools.values()
+                if "ring" in p.dr_state()["inner"]["inner"]] != ptrs:
+            raise AssertionError(f"phase 37 mixer {mode}: a ring moved")
+        counts = dict(r.graph_counts)
+        with _mode(mode):
+            host_ms, prep_ms, wall = _timed_idle(r, mixer)
+            ingest_ms = _timed_ingest(r, mixer, ctls, rng)
+        nblk = x.shape[0] // BLOCK
+        runs[mode] = (x, launches, counts, host_ms, prep_ms, wall, ingest_ms, nblk,
+                      dict(r.graph_counts))
+        BLOCK_PROFILES.append((37, f"the {VOICES}-voice config-5 mixer {mode} renderer",
+                               (lambda r=r, m=mode: _render8(r, m)), 8))
+    (xe, le, ce, he, pe, we, ie, nb, _), (xg, lg, cg, hg, pg, wg, ig, _, total) = (
+        runs["eager"], runs["graph"])
+    err = float(np.abs(xg - xe).max())
+    if err != 0.0:
+        raise AssertionError(f"phase 37 mixer: graph replay differs from eager dispatch by {err}")
+    if lg != le:
+        raise AssertionError(f"phase 37 mixer: launches eager {le} graph {lg}")
+    for k in ("stream_kernels.ring_place", "stream_kernels.ring_resample", "agc.agc_gains"):
+        if not lg.get(k):
+            raise AssertionError(f"phase 37 mixer: {k} never launched: {lg}")
+    if any(k.startswith("ring_kernels.") for k in lg):
+        raise AssertionError(f"phase 37 mixer: a ring kernel launched: {lg}")
+    calls = total["replays"] + total["eager"]
+    share = total["replays"] / calls
+    if total["recaptures"] or share < 0.9:
+        raise AssertionError(f"phase 37 mixer: graph_counts {total}, replays {share:.3f} of "
+                             f"the calls")
+    per = {k: round(v / nb, 3) for k, v in lg.items()}
+    xrt = lambda w: 188 * BLOCK / RATE / w  # noqa: E731
+    print(f"phase 37 mixer: {VOICES} voices (512 Adapt(Stream), 3584 Adapt(Sine)), {nb} blocks "
+          f"(feeds, plays, stops, closes, 188 idle), graph vs eager max|diff| {err:.3e} "
+          f"(bit-equal); launches a block {per} (equal); graph_counts over the script {cg}, "
+          f"with the timed runs {total}: replays {share:.3f} of {calls} calls (eager run "
+          f"{ce['eager']} op-by-op calls); dispatch host ms a block, idle: eager {he:.4f} graph "
+          f"{hg:.4f}, ingest: eager {ie:.4f} graph {ig:.4f}; host_prepare ms a block eager "
+          f"{pe:.4f} graph {pg:.4f}; 188 idle blocks xRT eager {xrt(we):.2f}x graph "
+          f"{xrt(wg):.2f}x {tag}")
 
 
 def _mode(mode):
@@ -3015,6 +3151,8 @@ def main():
     # -- 7-10. the config-5 mixer path ----------------------------------------------
     stream_agc_kernels(dev, kern, tag)
     mixer_path(pt, dev, kern, tag)
+    # -- 37. the config-5 mixer's block steps as CUDA graphs against eager ---------------
+    mixer_graphs(pt, dev, tag)
 
     # -- 11-14. the host-pool path ----------------------------------------------------
     strip_select_kernel(dev, kern, tag)

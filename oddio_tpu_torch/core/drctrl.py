@@ -38,7 +38,8 @@ from ..parallel.context import RenderDevice, current_cell
 from ..utils.tree import tree_fill, tree_leaves, tree_stack
 
 __all__ = ["DRCtrlMixin", "PinnedUpload", "walk_ctrl_keys", "walk_fade_paths", "rows_scatter",
-           "host_lanes", "drop_lanes", "scatter_drop_", "device_param", "read_handle_state"]
+           "host_lanes", "drop_lanes", "scatter_drop_", "scatter_rows_drop_", "device_param",
+           "read_handle_state"]
 
 
 def _dr_children(node):
@@ -155,6 +156,18 @@ def scatter_drop_(leaf, lanes, vals):
     v = torch.where(anyv, v, leaf[0])
     leaf.index_put_((rows,), v.expand((rows.shape[0],) + tuple(leaf.shape[1:])))
     return leaf
+
+
+def scatter_rows_drop_(state, rows, lanes):
+    """Write a tree of play rows (numpy, or tensors a block step unpacked
+    from its row; one row per lane, a subtree of ``state``) into
+    ``state``'s leaves in place over the real lanes of a ``drop_lanes``
+    plan ``lanes``.  Returns ``state``."""
+    if isinstance(rows, dict):
+        for k, r in rows.items():
+            scatter_rows_drop_(state[k], r, lanes)
+        return state
+    return scatter_drop_(state, lanes, device_param(rows, state.device, state.dtype))
 
 
 def _upload(x, device, dtype=None):

@@ -10,15 +10,17 @@ passes ``device``).
 The JAX package compiles one donated program per ``(archetype, kind, pack
 spec)``: ``"single"`` (one block), ``"scan"`` (a run of equal-archetype
 blocks) and ``("multi", nb)`` (fused idle groups).  Here a signal that
-declares ``graph_capture`` (the main path's SpatialScene) gets one block
-step per such key, in ``_steps``:
+declares ``graph_capture`` (the main path's SpatialScene, and a Mixer of
+BASELINE config 5's Adapt, Stream and Sine voices) gets one block step
+per such key, in ``_steps``:
 
 * a block's parameters ship as ONE packed float32 row (``_pack_row``, the
   JAX package's row: equal bit for bit for every leaf it packs; the port
-  has no float64 leaf on this path, so the row stays float32 and not a byte
-  row), copied to the device with one non-blocking copy from pinned memory
-  and unpacked inside the step by static slices and ``view(dtype)``
-  bitcasts; a run's rows go up in one copy;
+  has no float64 leaf on these paths, so the row stays float32 and not a
+  byte row; a stream ingest block's PCM rides in it), copied to the
+  device with one non-blocking copy from pinned memory and unpacked
+  inside the step by static slices and ``view(dtype)`` bitcasts; a run's
+  rows go up in one copy;
 * on a CUDA device a key's first dispatch runs the step eagerly (the
   warm-up: it builds the kernels, sizes their scratch, creates state keys,
   and renders its block); the second captures it as one
@@ -29,8 +31,9 @@ step per such key, in ``_steps``:
 * the counterpart of donation: every dispatch leaves each state leaf in
   the tensor ``device_collect`` handed out.  Leaves the step rebuilds are
   copied back inside the step; leaves it writes in place
-  (``GRAPH_INPLACE``, the delay rings) must stay where they are.  Each
-  call's audio is copied out of the step's buffer before the next call.
+  (``GRAPH_INPLACE``: the delay rings, the streams' rings) must stay where
+  they are.  Each call's audio is copied out of the step's buffer before
+  the next call.
   Before a replay the Renderer checks that ``device_collect`` still hands
   out the captured leaves; a leaf replaced outside the step (a bulk play,
   a restore, growth) makes it capture again (``graph_counts
@@ -265,7 +268,7 @@ class _Step:
         self.captures = 0
         self.graph = None
         self.out = None  # the graph's output buffer
-        self.leaves = None  # the state and data tensors it was captured on
+        self.leaves = None  # the state and data tensors of its warm-up or capture
         self.launches = None  # kernel launches per replay, per counter dict
 
 
@@ -431,12 +434,14 @@ class Renderer:
             self.graph_counts["eager"] += 1
             return self._eager_call(step, d0, dd)
         leaves = tree_leaves(d0) + tree_leaves(dd)
-        if step.graph is not None and not (
+        if step.leaves is not None and not (
                 len(leaves) == len(step.leaves)
                 and all(a is b and a.shape == s for a, (b, s) in zip(leaves, step.leaves))):
-            # a leaf was replaced outside the step: the graph reads stale
-            # addresses.  Same shapes: capture again now; else run once op
-            # by op (scratch may have to grow) and capture next time
+            # a leaf was replaced outside the step since its warm-up or
+            # capture (a graph would read stale addresses).  Same shapes:
+            # capture (again) now; else run once op by op (scratch and
+            # count tensors may have to grow: a pool grew between a key's
+            # warm-up and its capture) and capture next time
             same = len(leaves) == len(step.leaves) and all(
                 a.shape == s for a, (_, s) in zip(leaves, step.leaves))
             step.graph = step.out = None
@@ -444,6 +449,7 @@ class Renderer:
                 step.calls = 0
         if step.calls == 0:
             step.calls += 1
+            step.leaves = [(x, x.shape) for x in leaves]
             self.graph_counts["eager"] += 1
             return self._eager_call(step, d0, dd)
         if step.graph is None:

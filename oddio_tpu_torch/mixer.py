@@ -9,9 +9,13 @@ Voices of equal archetype (graph structure) live in one pool, routed as
 the JAX package routes them.  Device-resident capable chains play in a
 ``PoolDR``: mask, stop flags and the inner chains' whole state are tensors
 on the mixer's device; the host ships sparse play, stop and control-field
-deltas (padding lanes filtered on the host) and each stream's queued PCM,
-and observes handle state at sync points with the reference's
-one-scan-late reclamation (mixer.rs:129-147).  Other chains (a Speed over
+deltas (every lane applied on the device, padding lanes dropped:
+``core/drctrl.drop_lanes``) and each stream's queued PCM, and observes
+handle state at sync points with the reference's one-scan-late
+reclamation (mixer.rs:129-147).  A Mixer whose pools are all
+device-resident with Adapt, Stream and Sine chains (BASELINE config 5's
+voices) declares ``graph_capture``: its Renderer replays each block as a
+CUDA graph (``core/run.py``).  Other chains (a Speed over
 a Stream, a user signal) play in a host ``Pool``: a batched template whose
 host columns the host advances and whose device leaves the block renders
 at once (``render_host``).  A non-batchable signal (a submix: an engine
@@ -23,13 +27,19 @@ float64 so that it does not depend on the device's reduction order.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
-from .core.drctrl import DRCtrlMixin, _upload, host_lanes, rows_scatter
+from .core.drctrl import (DRCtrlMixin, _upload, device_param, drop_lanes, scatter_drop_,
+                          scatter_rows_drop_)
 from .core.hostmath import f32
 from .core.signal import Engine, default_device
 from .ops._dev import masked_voice_sum
+from .ops.adapt import Adapt
+from .ops.sine import Sine
+from .ops.stream import Stream
 from .parallel.context import (RenderDevice, add_block, current_scenes, localize_index,
                                scene_offset, voice_partials)
 from .utils.tree import tree_fill, tree_map, tree_stack
@@ -232,7 +242,9 @@ class PoolDR(DRCtrlMixin):
             _ingest_leaves(self.proto) if self.proto.batch else []
         )
         self._counts_memo = (None, None)  # (key, (V,) int32 numpy)
-        self._count_t = (None, None)  # (key, (V,) int32 tensor)
+        #: (V, count, device) -> (V,) int32 tensor, kept for the pool's
+        #: life: a captured block step reads its count tensor by address
+        self._count_t = {}
 
     def _fresh_state(self, V):
         dev = self.device
@@ -312,11 +324,10 @@ class PoolDR(DRCtrlMixin):
         ]
 
     def _scatter_rows(self, S, idx, rows):
-        """Write play rows (numpy, one per real lane) at slots ``idx``."""
-        it = _upload(idx, self.device)
-        for k in ("mask", "stopped"):
-            S[k][it] = _upload(rows[k], self.device, torch.bool)
-        S["inner"] = rows_scatter(S["inner"], rows["inner"], it)
+        """Write play rows (numpy or tensors, one per lane) at slots
+        ``idx``, padding lanes dropped, every leaf in place."""
+        scatter_rows_drop_(S, rows, drop_lanes(device_param(idx, self.device),
+                                               S["mask"].shape[0]))
 
     def _apply_plays_eager(self, interval):
         """Bulk plays: apply all pending plays directly to the device state,
@@ -441,21 +452,18 @@ class PoolDR(DRCtrlMixin):
             counts = np.repeat(np.asarray(pc, np.int32), V // len(pc))
             return _upload(counts, self.device, torch.int32)
         key = (V, self._count, self.device)
-        if self._count_t[0] != key:
-            self._count_t = (
-                key, torch.full((V,), self._count, dtype=torch.int32, device=self.device)
-            )
-        return self._count_t[1]
+        t = self._count_t.get(key)
+        if t is None:
+            t = self._count_t[key] = torch.full((V,), self._count, dtype=torch.int32,
+                                                device=self.device)
+        return t
 
     def render(self, dstate, ddata, params, n):
         S = dict(dstate)
         V = S["mask"].shape[0]
         # 1. plays (set.rs insert semantics: applied before the walk)
         if "play_idx" in params:
-            keep, idx = host_lanes(localize_index(params["play_idx"], V), V)
-            if idx.size:
-                rows = tree_map(lambda x: x[keep], params["play"])
-                self._scatter_rows(S, idx, rows)
+            self._scatter_rows(S, localize_index(params["play_idx"], V), params["play"])
         # 1b. control-field deltas (set_gain, set_speed, stream close)
         S["inner"] = self._ctrl_apply(S["inner"], params)
         # 1c. fade starts (fader.rs:86-93 swap-channel delivery)
@@ -465,9 +473,9 @@ class PoolDR(DRCtrlMixin):
             S["inner"] = self.proto.dr_ingest(S["inner"], params["ing"])
         # 2. stop deltas (Mixed::stop, mixer.rs:33-36)
         if "stop_idx" in params:
-            keep, idx = host_lanes(localize_index(params["stop_idx"], V), V)
-            if idx.size:
-                S["stopped"][_upload(idx, self.device)] = True
+            lanes = drop_lanes(device_param(localize_index(params["stop_idx"], V), self.device), V)
+            scatter_drop_(S["stopped"], lanes, torch.ones((), dtype=torch.bool,
+                                                          device=self.device))
         # 3. reap finished/stopped voices, setting the stop flag so handles
         # observe it (mixer.rs:102-105)
         fin = self.proto.dr_is_finished(S["inner"])
@@ -486,10 +494,32 @@ class PoolDR(DRCtrlMixin):
         return S, masked_voice_sum(S["mask"], samples, current_scenes())
 
 
+def _graph_chain(node):
+    """Whether a pool's proto chain is all Adapt, Stream and Sine nodes,
+    whose device-resident renders read every per-block value from the
+    params, the state or the pool's archetype entry (no fade lanes, no
+    host-filtered record)."""
+    return type(node) in (Adapt, Stream, Sine) and all(
+        _graph_chain(c) for c in node.children().values())
+
+
 class Mixer(Engine):
     """A Signal that mixes a dynamic set of Signals (mixer.rs:60-120), on
     ``device``: the CUDA card unless the caller passes another; without a
     card and without ``device`` it raises."""
+
+    #: state leaves a block step writes in place (K4 writes each stream's
+    #: ring; ``core/run.py``: never copied back, and must not move)
+    GRAPH_INPLACE = ("ring",)
+    #: a pool's entry of ``archetype()`` after its name and its template's
+    #: archetype: these attributes, each with its default.  ``_ema_fast``
+    #: (an Adapt's K7-or-scan route) is in Adapt's ``_arch_extra`` too; it
+    #: stands here as well so that ``render_archetype`` reads it from the
+    #: pool's entry, and adds no key (it is the same for every block of a
+    #: chain without an Adapt)
+    POOL_ARCH = (("_interval", None), ("_count", None), ("_has_play", False),
+                 ("_has_stop", False), ("_ds_small", True), ("_ds_tier", 4),
+                 ("_ema_fast", False))
 
     def __init__(self, channels=1, initial_capacity=DEFAULT_CAPACITY, device=None):
         super().__init__()
@@ -556,19 +586,49 @@ class Mixer(Engine):
         # host pools' batched templates carry per-block flags (a stream's
         # write-free variant) in their archetypes
         pools = tuple(
-            (
-                p.name,
-                p.proto.archetype() if p.is_dr else p.sig.archetype(),
-                getattr(p, "_interval", None),
-                getattr(p, "_count", None),
-                getattr(p, "_has_play", False),
-                getattr(p, "_has_stop", False),
-                getattr(p, "_ds_small", True),
-                getattr(p, "_ds_tier", 4),
-            )
+            (p.name, p.proto.archetype() if p.is_dr else p.sig.archetype())
+            + tuple(getattr(p, a, d) for a, d in self.POOL_ARCH)
             for p in self._all_pools()
         )
         return ("Mixer", self.channels, pools)
+
+    @property
+    def graph_capture(self):
+        """True while every pool is device-resident with a chain of Adapt,
+        Stream and Sine nodes (BASELINE config 5's voices): their renders
+        read every per-block value from the params, the state or the key,
+        so a Renderer captures the block step as a CUDA graph.  A host
+        pool, a submix, or any other node keeps op-by-op dispatch."""
+        return all(p.is_dr and _graph_chain(p.proto) for p in self._all_pools())
+
+    @contextlib.contextmanager
+    def render_archetype(self, arch):
+        """Render as of the blocks that prepared ``arch`` (as
+        ``SpatialScene.render_archetype``): a Renderer dispatches a run
+        only after preparing the next block, whose interval, frame count
+        and route flags the pools then hold.  For the dispatch each pool
+        takes its entry's ``_interval`` and ``_count`` (the host interval
+        K6 and K7 take as an argument, the count tensor) and its route
+        flags are stamped on its proto chain (K6's window tier and gate,
+        K7 or the scan); all are put back after."""
+        field = {a: 2 + i for i, (a, _) in enumerate(self.POOL_ARCH)}
+        default = dict(self.POOL_ARCH)
+        flags = ("_ds_small", "_ds_tier", "_ema_fast")
+        saved = []
+        for p, entry in zip(self._all_pools(), arch[2]):
+            if entry[0] != p.name:
+                raise ValueError(f"archetype entry {entry[0]} for pool {p.name}")
+            # a pool opened after the block's prepare has no flags yet
+            saved.append((p, getattr(p, "_interval", None), getattr(p, "_count", None),
+                          tuple(getattr(p, a, default[a]) for a in flags)))
+            p._interval, p._count = entry[field["_interval"]], entry[field["_count"]]
+            p._stamp_flags(*(entry[field[a]] for a in flags))
+        try:
+            yield
+        finally:
+            for p, interval, count, own in saved:
+                p._interval, p._count = interval, count
+                p._stamp_flags(*own)
 
     def host_structure_event(self):
         for p in self._all_pools():
@@ -653,6 +713,9 @@ class Mixer(Engine):
                 continue
             if p.is_dr:
                 p.state = d[p.name]
+                # a replayed step rewrites the state in place, leaving the
+                # tensors' versions: the handle readback keys on this count
+                p._store_epoch += 1
             else:
                 p.sig.device_store(d[p.name])
 

@@ -37,7 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.drctrl import _upload
+from ..core.drctrl import _upload, device_param
 from ..core.hostmath import f32, full
 from ..core.signal import ControlBlock, Signal
 from .stream_kernels import (
@@ -477,10 +477,11 @@ class Stream(Signal):
 
     def dr_ingest(self, state, ing):
         """Receiver::update on the device: place each voice's shipped chunk
-        at its DEVICE write cursor (start + len) and grow len."""
+        at its DEVICE write cursor (start + len) and grow len.  In a block
+        step the chunk and counts are views of the step's row."""
         dev = state["ring"].device
-        chunk = _upload(ing["chunk"], dev)
-        wcount = _upload(ing["wcount"], dev)
+        chunk = device_param(ing["chunk"], dev)
+        wcount = device_param(ing["wcount"], dev)
         wpos = torch.remainder(state["len"] + state["start"], self.size_pad)
         out = dict(state)
         out["ring"] = self._write(state["ring"], chunk, wpos.to(torch.int32),

@@ -7,11 +7,11 @@ inside the traced step.  This package stacks a pack's scenes along the
 voice axis and renders the stack cell by cell of the (scene, voice) mesh,
 each cell on its own device: the pack maps a scene's slot indices to the
 cell's stacked rows on the host (``stack_index``; an index whose slot
-another voice shard holds becomes a padding lane, which ``host_lanes``
-drops) before the pools see them, so ``localize_index`` is the identity
-here.  ``scene_stack`` tells the pools' renders how many scenes their rows
-hold (and which of the pack's scenes they are), so that they mix each
-scene apart; ``mesh_cell`` names the cell being rendered and its device,
+another voice shard holds becomes a padding lane, which the pools'
+scatters drop) before the pools see them, so ``localize_index`` is the
+identity here.  ``scene_stack`` tells the pools' renders how many scenes
+their rows hold (and which of the pack's scenes they are), so that they
+mix each scene apart; ``mesh_cell`` names the cell being rendered and its device,
 which every pool's and signal's ``device`` (``RenderDevice``) then reads,
 so a cell on another device than its scenes' allocates and uploads there.
 The context is per thread (a realtime driver renders on its own thread).

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from .core.drctrl import (DRCtrlMixin, PinnedUpload, _upload, device_param, drop_lanes,
-                          scatter_drop_)
+                          scatter_drop_, scatter_rows_drop_)
 from .core.hostmath import (
     f32,
     full,
@@ -895,19 +895,9 @@ class _DRPoolBase(DRCtrlMixin):
     def _scatter_rows(self, S, idx, rows):
         """Write play rows (one per lane, numpy or tensors) at slots
         ``idx``, padding lanes dropped, every leaf in place."""
-        dev = self.device
-        lanes = drop_lanes(device_param(idx, dev), S["mask"].shape[0])
-
-        def put(leaf, r):
-            if isinstance(r, dict):
-                for k, sub in r.items():
-                    put(leaf[k], sub)
-            else:
-                scatter_drop_(leaf, lanes, device_param(r, dev, leaf.dtype))
-
-        for k in self.ROW_KEYS:
-            put(S[k], rows[k])
-        put(S["inner"], rows["inner"])
+        lanes = drop_lanes(device_param(idx, self.device), S["mask"].shape[0])
+        for k in self.ROW_KEYS + ("inner",):
+            scatter_rows_drop_(S[k], rows[k], lanes)
         self._clear_rows(S, lanes)
 
     def _apply_plays_eager(self):

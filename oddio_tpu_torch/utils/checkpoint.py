@@ -126,8 +126,7 @@ def _merge_specs(own, saved, same):
 def set_pool_state(pool, st):
     """Restore ``pool_state``: attributes the snapshot lacks (caches made
     after it) are dropped, so the pool recomputes them as it did; the
-    handle-state readback in flight and the count tensor are dropped
-    too."""
+    handle-state readback in flight is dropped too."""
     attrs = st["attrs"]
     for k in list(vars(pool)):
         if k not in _POOL_SKIP and k not in attrs:
@@ -140,8 +139,6 @@ def set_pool_state(pool, st):
             setattr(pool, k, _merge_specs(getattr(pool, k), st["specs"][k], same))
     if hasattr(pool, "_sync_pack"):
         pool._sync_pack = None  # keyed on the replaced mask tensor
-    if hasattr(pool, "_count_t"):
-        pool._count_t = (None, None)
 
 
 def pool_entry(snap, pool):

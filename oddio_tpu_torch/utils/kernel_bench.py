@@ -737,6 +737,7 @@ def step_states(dev):
     if dev in _STEP_STATES:
         return _STEP_STATES[dev]
     import oddio_tpu_torch as pt
+    from oddio_tpu_torch.core.run import eager
     from oddio_tpu_torch.utils.scene_profile import build_host_pools, build_mixer_agc, feed
 
     out = []
@@ -745,7 +746,10 @@ def step_states(dev):
     r.render_frames(W * 4)
     feed(ctls, rng, 1024)
     pools = dr_pools(mixer)
-    caps = capture_steps(pools, lambda: [r.render_block(W) for _ in range(STEP_BLOCKS)])
+    # op by op: a replayed graph calls no render, and a step's state
+    # leaves are rewritten in place by the next block
+    with eager():
+        caps = capture_steps(pools, lambda: [r.render_block(W) for _ in range(STEP_BLOCKS)])
     for p in pools:
         out.append((f"{type(p.proto.inner).__name__} V={p.capacity} n={W}", p.proto,
                     caps[p][-STEP_BLOCKS:]))

@@ -1235,3 +1235,187 @@ def test_graph_unroll_matches_eager(cuda):
     assert lg == le
     assert any(k == 4 for steps in rg._steps.values() for k, _ in steps)
     assert rg.graph_counts["replays"] > 0 and rg.graph_counts["recaptures"] == 0
+
+
+# -- BASELINE config 5's Mixer under CUDA graphs ------------------------------------
+
+
+def _mixer_graph_run(mode, script, voices=256, **kw):
+    """``script(r, control, ctls, rng)`` on the config-5 mixer of
+    ``voices`` voices under ``eager()`` or replaying graphs: (its result,
+    launches, the Renderer, the mixer)."""
+    import contextlib
+
+    from oddio_tpu_torch.core.run import eager
+
+    control, mixer, ctls, rng = build_mixer_agc(voices, "cuda")
+    assert mixer.graph_capture
+    for m in (RK, SK, A, FK):
+        m.reset_launches()
+    r = pt.Renderer(mixer, 48000, **kw)
+    with eager() if mode == "eager" else contextlib.nullcontext():
+        out = script(r, control, ctls, rng)
+    torch.cuda.synchronize()
+    return out, _all_launches(), r, mixer
+
+
+def _stream_rings(mixer):
+    return [p.dr_state()["inner"]["inner"]["ring"] for p in mixer._pools.values()
+            if "ring" in p.dr_state()["inner"]["inner"]]
+
+
+def _mixer_control_script(r, control, ctls, rng):
+    """24 blocks, then three ticks of new PCM on 8 streams, 4 Adapt(Sine)
+    plays, 2 stops and a stream close, each followed by 20 blocks (the
+    256-voice mixer's Sine pool has room: no growth)."""
+    out = [r.render_frames(512 * 24)]
+    hs = []
+    for t in range(3):
+        feed(ctls[8 * t:8 * (t + 1)], rng, 1024)
+        hs += [control.play(pt.Adapt(pt.Sine(rng.uniform(0, 6), rng.uniform(50, 2000)), 0.1,
+                                     pt.AdaptOptions(tau=0.1, max_gain=4.0)))
+               for _ in range(4)]
+        for h in hs[4 * t:4 * t + 2]:
+            h.stop()
+        ctls[24 + t].close()
+        out.append(r.render_frames(512 * 20))
+    return np.concatenate(out)
+
+
+def test_mixer_graph_replay_matches_eager(cuda):
+    """The 256-voice config-5 mixer through feeds, plays, stops and closes:
+    graph replay bit-equal to ``eager()``, every kernel's launches equal
+    (K4, K6 and K7 among them, no ring kernel), the rings where they were,
+    every call after a key's warm-up and capture a replay."""
+    runs = []
+    for mode in ("eager", "graph"):
+        def script(r, control, ctls, rng):
+            rings = [x.data_ptr() for x in _stream_rings(r.signal)]
+            out = _mixer_control_script(r, control, ctls, rng)
+            assert [x.data_ptr() for x in _stream_rings(r.signal)] == rings
+            return out
+
+        runs.append(_mixer_graph_run(mode, script))
+    (xe, le, re, _), (xg, lg, rg, _) = runs
+    assert np.abs(xe).max() > 0.1
+    np.testing.assert_array_equal(xg, xe)
+    assert lg == le
+    assert all(lg.get(k) for k in (f"{SK.__name__}.ring_place", f"{SK.__name__}.ring_resample",
+                                   f"{A.__name__}.agc_gains"))
+    assert not any(k.startswith(RK.__name__) for k in lg)
+    c = rg.graph_counts
+    assert re.graph_counts["replays"] == 0 and c["recaptures"] == 0
+    assert c["replays"] > c["captures"] > 0
+    assert c["eager"] == sum(len(s) for s in rg._steps.values())
+
+
+def test_mixer_graph_tail_block_keeps_count_tensor(cuda):
+    """512-frame blocks replayed, a render_frames with a 100-frame tail
+    (another count tensor), then 512-frame blocks again: a graph reads its
+    count tensor by address, so the tail's must not free the 512-frame
+    one; the audio stays bit-equal to ``eager()``'s."""
+    def script(r, control, ctls, rng):
+        out = [r.render_frames(512 * 8)]
+        feed(ctls, rng, 700)
+        out += [r.render_frames(512 * 8 + 100), r.render_frames(512 * 8)]
+        out += [r.render_block(300), r.render_frames(512 * 8)]
+        return np.concatenate(out)
+
+    (xe, le, _, _), (xg, lg, rg, mixer) = [_mixer_graph_run(mode, script, voices=64)
+                                           for mode in ("eager", "graph")]
+    np.testing.assert_array_equal(xg, xe)
+    assert lg == le
+    assert rg.graph_counts["replays"] > 0 and rg.graph_counts["recaptures"] == 0
+    counts = {k[1] for p in mixer._pools.values() for k in p._count_t}
+    assert counts == {512, 100, 300}
+
+
+def test_mixer_graph_handle_readback_after_replay(cuda):
+    """A closed stream drains on the card; its handle turns stopped one
+    scan late, the same block as under ``eager()``, also when a readback
+    was started one block before the query (a replay leaves the state
+    tensors' versions unchanged: the readback keys on the store count)."""
+    import contextlib
+
+    from oddio_tpu_torch.core.run import eager
+
+    def drain(mode, lead):
+        control, mixer = pt.Mixer.new(channels=1, device=cuda)
+        for f in (220.0, 330.0):
+            control.play(pt.Adapt(pt.Sine(0.5, f), 0.1, pt.AdaptOptions(tau=0.1, max_gain=4.0)))
+        ctl, s = pt.Stream.new(8000, 512)
+        ctl.write(np.full(200, 0.25, np.float32))
+        ctl.close()
+        h = control.play(pt.Adapt(s, 0.1, pt.AdaptOptions(tau=0.1, max_gain=4.0)))
+        r = pt.Renderer(mixer, 48000)
+        seq = []
+        with eager() if mode == "eager" else contextlib.nullcontext():
+            r.render_frames_device(512 * lead)
+            for _ in range(6):
+                r.render_frames_device(512)  # starts the readback
+                r.render_frames_device(512, sync=False)
+                seq.append(h.is_stopped())
+        return seq, r
+
+    for lead in (0, 1):
+        want, _ = drain("eager", lead)
+        got, r = drain("graph", lead)
+        assert got == want and any(want) and not want[0]
+        assert r.graph_counts["replays"] > 0
+
+
+def test_graph_warms_up_again_after_growth(cuda):
+    """A play that grows the buffered pool between a step's warm-up and its
+    first capture: the step runs op by op again at the new shapes (sizing
+    the read kernels' cluster scratch, which a capture must not grow)
+    before it captures; bit-equal to ``eager()``.  The scratch cache starts
+    empty, as in a fresh process."""
+    import contextlib
+
+    from oddio_tpu_torch.core.run import eager
+    from oddio_tpu_torch.utils.scene_profile import BLOCK, build_checkpoint_scene
+
+    outs = []
+    for mode in ("eager", "graph"):
+        RK._CLUSTER_SCRATCH.clear()
+        with eager() if mode == "eager" else contextlib.nullcontext():
+            eng, r = build_checkpoint_scene("buffered", 256, "cuda")
+            outs.append(r.render_frames(BLOCK * 24))
+    np.testing.assert_array_equal(outs[1], outs[0])
+    assert r.graph_counts["replays"] > 0
+
+
+def test_mixer_graph_growth_between_warmup_and_capture(cuda, monkeypatch):
+    """Plays that grow the Adapt(Sine) pool between the play-lane step's
+    warm-up and its capture: the step runs op by op again at the new size,
+    so no count tensor is made inside a capture; bit-equal to
+    ``eager()``."""
+    from oddio_tpu_torch.mixer import PoolDR
+
+    made, count_tensor = [], PoolDR._count_tensor
+
+    def spy(self, V):
+        if (V, self._count, self.device) not in self._count_t:
+            made.append(torch.cuda.is_current_stream_capturing())
+        return count_tensor(self, V)
+
+    monkeypatch.setattr(PoolDR, "_count_tensor", spy)
+
+    def play(control, rng, k):
+        for _ in range(k):
+            control.play(pt.Adapt(pt.Sine(rng.uniform(0, 6), rng.uniform(50, 2000)), 0.1,
+                                  pt.AdaptOptions(tau=0.1, max_gain=4.0)))
+
+    def script(r, control, ctls, rng):
+        out = [r.render_block(512) for _ in range(2)]
+        play(control, rng, 1)  # the play-lane step's warm-up
+        out.append(r.render_block(512))
+        play(control, rng, 12)  # the pool grows: the same step at 128 voices
+        out += [r.render_block(512) for _ in range(4)]
+        return np.concatenate(out + [r.render_frames(512 * 8)])
+
+    (xe, le, _, _), (xg, lg, rg, _) = [_mixer_graph_run(mode, script, voices=64)
+                                       for mode in ("eager", "graph")]
+    np.testing.assert_array_equal(xg, xe)
+    assert lg == le and rg.graph_counts["replays"] > 0
+    assert made and not any(made)
