@@ -69,7 +69,9 @@ Phases (each prints one or more lines; any failure exits non-zero):
 18. a 4 x 64-voice config-5 pack and a 4-scene spatial pack on the card
     against the same packs on the CPU and per-scene Renderers on the card;
 19. real-time factors per scene of the config-5 pack at 16, 64 and 256
-    scenes and of the 16-scene spatial pack;
+    scenes (256: replaying graphs, then under ``core.run.eager()``) and
+    of the 16-scene spatial pack; phases 17-19's packs replay graphs
+    (the 1 x 1 pack's default on the card);
 20. (run right after the build, so that a fault in it shows within
     seconds) K6's arena form, the sampler reads of FramesSignal, Cycle
     and the seek pool, exactly against its plain version at 1024, 4096, 1
@@ -165,7 +167,8 @@ Phases (each prints one or more lines; any failure exits non-zero):
     the submix once per scene group) and the sampler pack 16 x 64 (fade
     bits gathered from the shards) on 2 x 2, within 2e-6; (d) the spatial
     and config-5 packs on a 1 x 2 mesh over [card, CPU] within 2e-6, and
-    (a) and (b) over distinct cards where the machine has them.
+    (a) and (b) over distinct cards where the machine has them; (b)'s
+    1 x 1 pack replays graphs and its 2 x 2 pack runs op by op.
 36. (after 6) the Renderer's block steps as CUDA graphs (``core/run.py``):
     bench.py's four SpatialScenes of 4096 Sine voices (seek, buffered,
     buffered_mixed, subpass) with its dispatch buckets, each twice from
@@ -193,6 +196,19 @@ Phases (each prints one or more lines; any failure exits non-zero):
     dispatch host ms of one); at the end of the run, device kernels per
     block of each way.  Phases 8-10 and 33's mixers replay graphs too;
     phase 8's step capture runs under ``eager()``.
+38. (after 19) the ScenePack's block steps as CUDA graphs: the config-5
+    pack at 16 and 64 scenes of 256 voices and the 16-scene spatial pack,
+    each twice from one seed, once under ``core.run.eager()`` and once
+    replaying graphs, through one script (render_block and
+    render_frames_device; on the config-5 packs a 1024-sample feed to
+    every stream, a play in every scene, then its stop and a stream close
+    in every scene; on the spatial pack a move and a listener rotation in
+    one scene; 188 idle blocks): bit-equal, every kernel's launches equal
+    (K4, K6, K7; or K1, K2, no other ring kernel), the rings where they
+    were, no recapture, replays >= 90% of the phase's calls; then 188
+    idle blocks each way (dispatch host ms a block, host_prepare ms,
+    xRT per scene) and, on the config-5 packs, 10 ingest blocks; at the
+    end of the run, device kernels per block of each way.
 Phases 28-35 count launches with the wrappers' counters, never a tracer
 session; the packs' block profiles (phases 29 and 30) only print.
 The profiles run at the end in this order: the one-kernel checks
@@ -1504,9 +1520,11 @@ def pack_reference(pt, dev, tag):
 def pack_xrt(packs, dev, tag):
     """Phase 19: real-time factor per scene (one scene's audio seconds per
     wall second, as bench.py counts a pack) of the config-5 pack at S = 16,
-    64 and 256 (BASELINE config 5's 256 x 256, built and timed once) and
-    of the 16-scene spatial pack, 188 blocks each after a warm-up; each
-    config-5 run starts with a 1024-sample write to every stream."""
+    64 and 256 (BASELINE config 5's 256 x 256, built once and timed
+    replaying graphs, then under ``eager()``) and of the 16-scene spatial
+    pack, 188 blocks each after a warm-up of 8 blocks and one of the timed
+    run's blocks; each config-5 run starts with a 1024-sample write to
+    every stream."""
     from oddio_tpu_torch.utils.scene_profile import build_config5_pack, feed
 
     nblk = 188
@@ -1517,20 +1535,25 @@ def pack_xrt(packs, dev, tag):
           f"{tag}")
     runs.append(("spatial 16", (packs["spatial"], None, None)))
     for label, (pack, ctls, rng) in runs:
-        pack.render_frames_device(BLOCK * 8)
-        if ctls is not None:
-            feed(ctls, rng, 1024)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = pack.render_frames_device(BLOCK * nblk)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        if not bool(torch.isfinite(out[-1]).all()):
-            raise AssertionError(f"pack {label}: non-finite output")
-        kind = "spatial pack" if ctls is None else "config-5 pack"
-        print(f"xRT per scene {kind} S={label if ctls is not None else 16}: "
-              f"{(nblk * BLOCK / RATE) / wall:.2f}x ({nblk} blocks in {wall:.3f} s, "
-              f"{1e3 * wall / nblk:.3f} ms per block) {tag}")
+        # S = 256 graph vs eager; the others replay graphs (the default)
+        for mode in ("graph", "eager") if label == 256 else ("graph",):
+            with _mode(mode):
+                pack.render_frames_device(BLOCK * 8)
+                for _ in range(2):  # a warm run on the timed run's keys, then the timed run
+                    if ctls is not None:
+                        feed(ctls, rng, 1024)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = pack.render_frames_device(BLOCK * nblk)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            if not bool(torch.isfinite(out[-1]).all()):
+                raise AssertionError(f"pack {label}: non-finite output")
+            kind = "spatial pack" if ctls is None else "config-5 pack"
+            print(f"xRT per scene {kind} S={label if ctls is not None else 16} {mode}: "
+                  f"{(nblk * BLOCK / RATE) / wall:.2f}x ({nblk} blocks in {wall:.3f} s, "
+                  f"{1e3 * wall / nblk:.3f} ms per block; graph_counts {pack.graph_counts}) "
+                  f"{tag}")
 
 
 def arena_kernel(dev, kern, tag):
@@ -2598,9 +2621,10 @@ def _mesh_config5(dev, mesh, nb0=4, nb1=28):
     per = _mesh_launches("the config-5 pack", nb0 + nb1)
     feed(ctls, rng, 1024)
     xrt = _mesh_xrt(lambda k: pack.render_frames_device(BLOCK * k))
+    steps = (pack.graph_capture, len(pack._steps), dict(pack.graph_counts))
     del pack
     torch.cuda.empty_cache()
-    return (out, per, *xrt, built)
+    return (out, per, *xrt, built, steps)
 
 
 def _mesh_host(dev, mesh, nb=4):
@@ -2703,6 +2727,12 @@ def mesh_paths(pt, dev, kern, tag):
     print(f"phase 35(b) config 5: 256 scenes x 256 voices (65,536), 48 kHz, 512-frame blocks; "
           f"built 1 x 1 in {one[4]:.2f} s, 2 x 2 over [cuda:0] * 4 in {mesh[4]:.2f} s {tag}")
     _mesh_compare("(b) config 5 256 x 256, 2 x 2", one, mesh, tag, factor=4)
+    (g1, k1, c1), (g2, k2, c2) = one[5], mesh[5]
+    print(f"phase 35(b) block steps: 1 x 1 graph_capture {g1}, {k1} step keys, graph_counts "
+          f"{c1}; 2 x 2 graph_capture {g2}, {k2} step keys, graph_counts {c2} {tag}")
+    if not g1 or not c1["replays"] or g2 or k2 or c2["captures"] or c2["replays"]:
+        raise AssertionError(f"phase 35(b): the 1 x 1 pack must replay graphs and the 2 x 2 "
+                             f"pack run op by op: {one[5]}, {mesh[5]}")
     runs["config5 256x256 2x2"] = mesh[1]
 
     one, mesh = _mesh_host(dev, None), _mesh_host(dev, logical(2, 2))
@@ -2825,33 +2855,49 @@ def _graph_script(r, control, hs, kind):
 
 @contextlib.contextmanager
 def _prepare_time(engine):
-    """Add the host seconds ``engine.host_prepare`` takes to the yielded
-    one-item list."""
-    spent, inner = [0.0], engine.host_prepare
+    """Add the host seconds ``host_prepare`` takes, of ``engine`` or of
+    every scene of a ScenePack, to the yielded one-item list."""
+    engines = getattr(engine, "scenes", [engine])
+    spent = [0.0]
 
-    def host_prepare(*a, **kw):
-        t0 = time.perf_counter()
-        try:
-            return inner(*a, **kw)
-        finally:
-            spent[0] += time.perf_counter() - t0
+    def timer(inner):
+        def host_prepare(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return inner(*a, **kw)
+            finally:
+                spent[0] += time.perf_counter() - t0
 
-    engine.host_prepare = host_prepare
+        return host_prepare
+
+    for e in engines:
+        e.host_prepare = timer(e.host_prepare)
     try:
         yield spent
     finally:
-        del engine.host_prepare
+        for e in engines:
+            del e.host_prepare
 
 
-def _timed_idle(r, scene, nblk=188):
-    """``nblk`` idle blocks after a warm run of 47: (dispatch host ms a
-    block, host_prepare ms a block, wall s).  The host time is the render
-    call's, ended before any wait for the card, less host_prepare's."""
-    r.render_frames_device(BLOCK * 47, sync=False)
+def _frames(r, total):
+    """``render_frames_device`` of a Renderer (no handle readback) or of a
+    ScenePack (which starts none)."""
+    if hasattr(r, "scenes"):
+        return r.render_frames_device(total)
+    return r.render_frames_device(total, sync=False)
+
+
+def _timed_idle(r, scene, nblk=188, warm=(47,)):
+    """``nblk`` idle blocks after warm runs of ``warm`` blocks: (dispatch
+    host ms a block, host_prepare ms a block, wall s).  The host time is
+    the render call's, ended before any wait for the card, less
+    host_prepare's."""
+    for k in warm:
+        _frames(r, BLOCK * k)
     torch.cuda.synchronize()
     with _prepare_time(scene) as spent:
         t0 = time.perf_counter()
-        r.render_frames_device(BLOCK * nblk, sync=False)
+        _frames(r, BLOCK * nblk)
         host = time.perf_counter() - t0
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -2958,7 +3004,7 @@ def _timed_ingest(r, mixer, ctls, rng, k=10):
             torch.cuda.synchronize()
             spent[0] = 0.0
             t0 = time.perf_counter()
-            r.render_frames_device(BLOCK, sync=False)
+            _frames(r, BLOCK)
             ms.append(1e3 * (time.perf_counter() - t0 - spent[0]))
             torch.cuda.synchronize()
     return float(np.median(ms))
@@ -3028,6 +3074,144 @@ def mixer_graphs(pt, dev, tag):
           f"{xrt(wg):.2f}x {tag}")
 
 
+def _pack_script(pack, ctls, rng):
+    """Phase 38's control script on a pack: 4 blocks through render_block
+    and 24 through render_frames_device; on a config-5 pack then a
+    1024-sample feed to every stream and an Adapt(Sine) play in every
+    scene, 47 blocks, a stop of each play and one stream close in every
+    scene, 47 blocks; on the spatial pack a move near a buffered voice
+    and a listener rotation in scene 0, 47 blocks; then 188 idle blocks.
+    Returns the audio, numpy (S, N, C)."""
+    import oddio_tpu_torch as pt
+    from oddio_tpu_torch.utils.scene_profile import feed
+
+    out = [pack.render_block(BLOCK) for _ in range(4)]
+    out.append(drain(pack.render_frames_device(BLOCK * 24)))
+    if ctls is not None:
+        feed(ctls, rng, 1024)
+        hs = [pt.MixerControl(s).play(_adapt_sine(rng)) for s in pack.scenes]
+        out.append(drain(pack.render_frames_device(BLOCK * 47)))
+        for h in hs:
+            h.stop()
+        per = len(ctls) // pack.S
+        for s in range(pack.S):
+            ctls[per * s + s % per].close()
+    else:
+        scene = pack.scenes[0]
+        pool = next(iter(scene._buffered_pools.values()))
+        pt.Spatial(pool, 3, int(pool.slot_gen[3])).set_motion([6.0, -2.0, 4.0],
+                                                              [1.0, 0.0, -1.0], False)
+        pt.SpatialSceneControl(scene).set_listener_rotation([np.cos(0.2), 0.0, np.sin(0.2), 0.0])
+    out.append(drain(pack.render_frames_device(BLOCK * 47)))
+    out.append(drain(pack.render_frames_device(BLOCK * 188)))
+    return np.concatenate(out, axis=1)
+
+
+def _pack_rings(pack):
+    """Addresses of the stack's rings (the leaves the steps write in place)."""
+    out = []
+
+    def walk(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v)
+            elif k == "ring":
+                out.append(v.data_ptr())
+
+    walk(pack._dstate[0, 0])
+    return out
+
+
+#: phase 38's kernels of each pack kind, by ``all_launches`` key
+PACK_KERNELS = {
+    "config5": ("stream_kernels.ring_place", "stream_kernels.ring_resample", "agc.agc_gains"),
+    "spatial": ("ring_kernels.append", "ring_kernels.select_ears"),
+}
+
+
+def pack_graphs(pt, dev, tag):
+    """Phase 38: the config-5 pack at 16 and 64 scenes of 256 voices and the
+    16-scene spatial pack, each built twice from one seed and run through
+    ``_pack_script``, once under ``eager()`` and once replaying the pack's
+    graphs: bit-equal, every kernel's launches equal (K4/K6/K7, or K1/K2;
+    no other ring kernel), the rings where they were, no recapture and
+    replays >= 90% of the phase's calls; then 188 idle blocks each way
+    (dispatch host ms a block, host_prepare ms a block, xRT per scene) and
+    on the config-5 packs 10 ingest blocks (the median dispatch host ms of
+    one); both ways' block profiles at the end of the run."""
+    from oddio_tpu_torch.utils.scene_profile import build_config5_pack, build_spatial_pack
+
+    totals = {"captures": 0, "recaptures": 0, "replays": 0, "eager": 0}
+    packs = (("config-5 pack S=16", "config5", lambda: build_config5_pack(16, dev)),
+             ("config-5 pack S=64", "config5", lambda: build_config5_pack(64, dev)),
+             ("spatial pack S=16", "spatial", lambda: (build_spatial_pack(16, dev), None, None)))
+    for label, kind, build in packs:
+        runs = {}
+        for mode in ("eager", "graph"):
+            t0 = time.perf_counter()
+            pack, ctls, rng = build()
+            built = time.perf_counter() - t0
+            if not pack.graph_capture:
+                raise AssertionError(f"phase 38 {label}: the pack does not declare graph_capture")
+            reset_launches()
+            with _mode(mode):
+                first = pack.render_block(BLOCK)
+                ptrs = _pack_rings(pack)
+                x = np.concatenate([first, _pack_script(pack, ctls, rng)], axis=1)
+            torch.cuda.synchronize()
+            launches = all_launches()
+            read_flat_launches(f"phase 38 {label} {mode}")
+            if not np.isfinite(x).all() or np.abs(x).max(axis=(1, 2)).min() <= 1e-3:
+                raise AssertionError(f"phase 38 {label} {mode}: non-finite output or a silent "
+                                     f"scene")
+            if _pack_rings(pack) != ptrs:
+                raise AssertionError(f"phase 38 {label} {mode}: a ring moved")
+            counts = dict(pack.graph_counts)
+            with _mode(mode):
+                warm = [k for k in (8, 188 % pack.scan_unroll) if k]
+                idle_ms, prep_ms, wall = _timed_idle(pack, pack, warm=warm)
+                ingest_ms = None if ctls is None else _timed_ingest(pack, pack, ctls, rng)
+            nblk = x.shape[1] // BLOCK
+            runs[mode] = (x, launches, counts, idle_ms, prep_ms, wall, ingest_ms, nblk, built)
+            if mode == "graph":
+                for k, v in pack.graph_counts.items():
+                    totals[k] += v
+            BLOCK_PROFILES.append((38, f"the {label} {mode}",
+                                   (lambda p=pack, m=mode: _render8(p, m)), 8))
+        (xe, le, ce, he, pe, we, ie, nb, be), (xg, lg, cg, hg, pg, wg, ig, _, bg) = (
+            runs["eager"], runs["graph"])
+        err = float(np.abs(xg - xe).max())
+        if err != 0.0:
+            raise AssertionError(f"phase 38 {label}: graph replay differs from eager dispatch "
+                                 f"by {err}")
+        if lg != le:
+            raise AssertionError(f"phase 38 {label}: launches eager {le} graph {lg}")
+        want = PACK_KERNELS[kind]
+        if not all(lg.get(k) for k in want):
+            raise AssertionError(f"phase 38 {label}: a kernel of the path never launched: {lg}")
+        ring = {k for k in lg if k.startswith("ring_kernels.")} - {
+            "ring_kernels.append", "ring_kernels.append_cursor", "ring_kernels.select_ears"}
+        if ring or (kind == "config5" and any(k.startswith("ring_kernels.") for k in lg)):
+            raise AssertionError(f"phase 38 {label}: another ring kernel launched: {lg}")
+        if cg["recaptures"] or cg["replays"] == 0:
+            raise AssertionError(f"phase 38 {label}: graph_counts {cg}")
+        per = {k: round(v / nb, 3) for k, v in lg.items()}
+        xrt = lambda w: 188 * BLOCK / RATE / w  # noqa: E731
+        ingest = "" if ie is None else f", ingest: eager {ie:.4f} graph {ig:.4f}"
+        print(f"phase 38 {label}: built in {be:.2f}/{bg:.2f} s, {nb} blocks, graph vs eager "
+              f"max|diff| {err:.3e} (bit-equal); launches a block {per} (equal); rings "
+              f"unmoved; graph_counts over the script {cg} (eager run {ce['eager']} op-by-op "
+              f"calls); dispatch host ms a block, idle: eager {he:.4f} graph {hg:.4f}{ingest}; "
+              f"host_prepare ms a block eager {pe:.4f} graph {pg:.4f}; 188 idle blocks xRT per "
+              f"scene eager {xrt(we):.2f}x graph {xrt(wg):.2f}x {tag}")
+    calls = totals["replays"] + totals["eager"]
+    share = totals["replays"] / calls
+    print(f"phase 38: graph runs {totals}, replays {share:.3f} of {calls} calls {tag}")
+    if share < 0.9 or totals["recaptures"]:
+        raise AssertionError(f"phase 38: replays {share:.3f} of the calls, "
+                             f"{totals['recaptures']} recaptures")
+
+
 def _mode(mode):
     """``core.run.eager()`` for the op-by-op runs, else nothing."""
     from oddio_tpu_torch.core.run import eager
@@ -3036,9 +3220,10 @@ def _mode(mode):
 
 
 def _render8(r, mode):
-    """A block profile's call: 8 blocks through ``r`` in ``mode``."""
+    """A block profile's call: 8 blocks through ``r`` (a Renderer or a
+    ScenePack) in ``mode``."""
     with _mode(mode):
-        r.render_frames_device(BLOCK * 8, sync=False)
+        _frames(r, BLOCK * 8)
 
 
 def main():
@@ -3167,6 +3352,8 @@ def main():
     pack_reference(pt, dev, tag)
     pack_xrt(packs, dev, tag)
     del packs
+    # -- 38. the packs' block steps as CUDA graphs against eager ----------------------
+    pack_graphs(pt, dev, tag)
 
     # -- 28-31. K5's scene form, the sampler and host-pool packs -----------------------
     strip_select_scene_kernel(dev, kern, tag)

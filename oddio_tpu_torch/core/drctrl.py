@@ -34,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..parallel.context import RenderDevice, current_cell
+from ..parallel.context import RenderDevice, current_cell, in_block_step
 from ..utils.tree import tree_fill, tree_leaves, tree_stack
 
 __all__ = ["DRCtrlMixin", "PinnedUpload", "walk_ctrl_keys", "walk_fade_paths", "rows_scatter",
@@ -184,11 +184,13 @@ def device_param(x, device, dtype=None):
     """A per-block parameter as a tensor on ``device``: a Renderer's block
     step hands the render tensors unpacked from its one row on the device
     (returned as they are, cast where ``dtype`` asks); a numpy value (an
-    engine dispatched op by op, a ScenePack) is uploaded.  Inside a
-    captured step no parameter may come from the host: a numpy value
-    there fails the capture."""
+    engine or pack dispatched op by op) is uploaded.  Inside a block step
+    (``block_step``; a CUDA graph may replay it) no parameter may come
+    from the host: a numpy value there raises."""
     if isinstance(x, torch.Tensor):
         return x if dtype is None or x.dtype == dtype else x.to(dtype)
+    if in_block_step():
+        raise RuntimeError("a block step took a per-block value from the host")
     return _upload(x, device, dtype)
 
 

@@ -12,7 +12,9 @@ spec)``: ``"single"`` (one block), ``"scan"`` (a run of equal-archetype
 blocks) and ``("multi", nb)`` (fused idle groups).  Here a signal that
 declares ``graph_capture`` (the main path's SpatialScene, and a Mixer of
 BASELINE config 5's Adapt, Stream and Sine voices) gets one block step
-per such key, in ``_steps``:
+per such key, in ``_steps``; the protocol (``BlockSteps``) is the
+Renderer's and a 1 x 1 ScenePack's (``parallel/sharded.py``), which
+drives it over its stacked state:
 
 * a block's parameters ship as ONE packed float32 row (``_pack_row``, the
   JAX package's row: equal bit for bit for every leaf it packs; the port
@@ -56,11 +58,12 @@ import threading
 import numpy as np
 import torch
 
+from ..parallel.context import block_step
 from ..utils.tree import tree_flatten, tree_leaves, tree_unflatten
 from .hostmath import f32
 from .signal import default_device, same_device
 
-__all__ = ["Renderer", "run", "eager"]
+__all__ = ["Renderer", "BlockSteps", "run", "eager"]
 
 #: minimum idle-run length before the fused multi-block dispatch engages
 MULTI_MIN_BLOCKS = 16
@@ -79,6 +82,11 @@ def eager():
         yield
     finally:
         _MODE.eager = prev
+
+
+def eager_mode():
+    """Whether this thread dispatches op by op (inside ``eager()``)."""
+    return getattr(_MODE, "eager", False)
 
 
 def _engine_device(signal):
@@ -111,20 +119,27 @@ def _pack_spec(params):
     return treedef, tuple(spec)
 
 
-def _pack_row(params):
-    """One block's params as a single float32 vector: float32 as they are,
-    bools as 0/1, integers as their int32 bit pattern (the JAX package's
-    ``_pack_row``)."""
-    parts = []
+def _pack_into(params, out):
+    """Write one block's params into the float32 vector ``out`` (its
+    length the row's): float32 as they are, bools as 0/1, integers as
+    their int32 bit pattern (the JAX package's ``_pack_row``), each leaf
+    copied once."""
+    off = 0
     for leaf in tree_flatten(params)[0]:
-        a = np.asarray(leaf)
-        if a.dtype == np.float32:
-            parts.append(a.ravel())
-        elif a.dtype == np.bool_:
-            parts.append(a.astype(np.float32).ravel())
+        a = np.asarray(leaf).reshape(-1)
+        dst = out[off:off + a.size]
+        if a.dtype == np.float32 or a.dtype == np.bool_:
+            dst[...] = a
         else:
-            parts.append(np.ascontiguousarray(a.astype(np.int32).ravel()).view(np.float32))
-    return np.concatenate(parts) if parts else np.zeros(0, np.float32)
+            dst.view(np.int32)[...] = a
+        off += a.size
+
+
+def _pack_row(params):
+    """One block's params as a single float32 vector (``_pack_into``)."""
+    out = np.empty(sum(np.size(x) for x in tree_flatten(params)[0]), np.float32)
+    _pack_into(params, out)
+    return out
 
 
 def _row_len(spec):
@@ -152,17 +167,20 @@ def _unpack_row(buf, treedef, spec):
 def step_body(sig, kind, pack, n, k, dstate, ddata, rows):
     """The block step of one key: ``k`` blocks whose packed rows are
     ``rows`` (k, R) (None when the params have no leaf), or with ``kind`` =
-    ("multi", nb) one fused idle group.  Returns (state, (k, C, n)) or
-    (state, (1, C, nb*n))."""
-    if isinstance(kind, tuple):
-        d, block = sig.render_multi(dstate, ddata, n, kind[1])
-        return d, block[None]
-    d, blocks = dstate, []
-    for i in range(k):
-        params = _unpack_row(rows[i] if rows is not None else None, *pack)
-        d, block = sig.render(d, ddata, params, n)
-        blocks.append(block)
-    return d, torch.stack(blocks)
+    ("multi", nb) one fused idle group.  Returns (state, (k, ...)) or
+    (state, (1, ..., nb*n)): a block is (C, n), or a ScenePack's (S, C,
+    n).  Renders under ``block_step()``: no per-block value may come from
+    the host."""
+    with block_step():
+        if isinstance(kind, tuple):
+            d, block = sig.render_multi(dstate, ddata, n, kind[1])
+            return d, block[None]
+        d, blocks = dstate, []
+        for i in range(k):
+            params = _unpack_row(rows[i] if rows is not None else None, *pack)
+            d, block = sig.render(d, ddata, params, n)
+            blocks.append(block)
+        return d, torch.stack(blocks)
 
 
 def _same_storage(a, b):
@@ -230,9 +248,9 @@ def _launch_counters():
 
 
 class _RowUpload:
-    """Copies packed rows to the device with ONE non-blocking copy each,
-    through a ring of ``DEPTH`` reused pinned buffers (a buffer is rewritten
-    once the copy that last read it has finished)."""
+    """Packs rows straight into one of ``DEPTH`` reused pinned buffers and
+    copies them to the device with ONE non-blocking copy (a buffer is
+    rewritten once the copy that last read it has finished)."""
 
     DEPTH = 4
 
@@ -240,10 +258,10 @@ class _RowUpload:
         self._slots = []
         self._next = 0
 
-    def __call__(self, rows, dst):
-        """Copy the float32 array ``rows`` into the device tensor ``dst``
-        (same number of elements)."""
-        size = rows.size
+    def __call__(self, pend, dst):
+        """Pack the params ``pend`` into the rows of the (len(pend), R)
+        device tensor ``dst``."""
+        size = dst.numel()
         if not self._slots or self._slots[0][0].numel() < size:
             cap = max(size, 2 * self._slots[0][0].numel() if self._slots else 0)
             self._slots = [(torch.empty(cap, dtype=torch.float32, pin_memory=True),
@@ -251,7 +269,8 @@ class _RowUpload:
         host, done = self._slots[self._next]
         self._next = (self._next + 1) % self.DEPTH
         done.synchronize()
-        host.numpy()[:size] = rows.reshape(-1)
+        for row, params in zip(host.numpy()[:size].reshape(dst.shape), pend):
+            _pack_into(params, row)
         dst.view(-1).copy_(host[:size], non_blocking=True)
         done.record()
 
@@ -267,12 +286,175 @@ class _Step:
         self.calls = 0
         self.captures = 0
         self.graph = None
+        self.stale = False  # the graph reads leaves the state no longer holds
         self.out = None  # the graph's output buffer
         self.leaves = None  # the state and data tensors of its warm-up or capture
         self.launches = None  # kernel launches per replay, per counter dict
 
 
-class Renderer:
+class BlockSteps:
+    """The block-step protocol, which a Renderer and a ScenePack both
+    drive: one step per ``(archetype, kind, pack spec)`` key, each call's
+    params one packed row, the warm-up, capture and replays of its CUDA
+    graph, the check of the leaves a graph reads before each replay, the
+    copy-back of rebuilt leaves (``GRAPH_INPLACE`` leaves stay), the
+    launch counters and ``graph_counts``.  A driver gives it three things:
+    the state (``_step_get``, and ``_step_set``, which stores a state tree
+    after each dispatch), the read-only data (``_step_data``) and the
+    signal whose ``render``/``render_multi`` a step calls (``_step_sig``,
+    set in its constructor, which calls ``_init_steps``)."""
+
+    def _init_steps(self, scan_unroll):
+        #: blocks one block step renders per call (one graph replay): a
+        #: run of equal-archetype blocks goes as calls of this many
+        self.scan_unroll = max(1, int(scan_unroll))
+        #: block steps: (archetype, kind, pack spec) -> {(k, n): _Step}
+        self._steps = {}
+        #: calls of a block step: captured, captured again after a state
+        #: leaf was replaced, replayed, and run op by op (CPU, warm-ups,
+        #: ``eager()``, signals that are not captured; counted per block
+        #: or fused group)
+        self.graph_counts = {"captures": 0, "recaptures": 0, "replays": 0, "eager": 0}
+        self._graph_pool = None
+        self._uploads = None
+        self._run_rows = None  # device staging for a run's rows
+
+    def _run_key(self, arch, kind, pend, n):
+        """Dispatch the blocks ``pend`` (their params) of one archetype
+        through the block step of key ``(arch, kind, pack)``, or with
+        ``kind`` = ("multi", nb) ``len(pend)`` fused idle groups.  Returns
+        the audio, (B, ...) blocks or groups, a tensor of its own."""
+        dev = self._step_sig.device
+        if isinstance(kind, tuple):
+            pack, k = None, 1
+        else:
+            pack = _pack_spec(pend[0])
+            if pack is None:
+                raise ValueError(f"{type(self._step_sig).__name__} declares graph_capture but "
+                                 "its params do not pack into one float32 row")
+            k = self.scan_unroll if kind == "scan" else 1
+        R = 0 if pack is None else _row_len(pack[1])
+        steps = self._steps.setdefault((arch, kind, pack), {})
+        total = len(pend)
+        staged = None
+        if R and total > k:
+            # a run's rows go up in one copy; each call takes its slice
+            staged = self._stage(pend, R, dev)
+        out = None
+        i = 0
+        while i < total:
+            kc = min(k, total - i)
+            step = steps.get((kc, n))
+            if step is None:
+                step = steps[(kc, n)] = _Step(kind, pack, n, kc, dev)
+            if staged is not None:
+                step.rows.copy_(staged[i:i + kc])
+            elif R:
+                self._rows_to(pend[i:i + kc], step.rows)
+            block = self._call(step)
+            if out is None:
+                out = torch.empty((total,) + tuple(block.shape[1:]), dtype=block.dtype,
+                                  device=block.device)
+            out[i:i + kc].copy_(block)
+            i += kc
+        self._step_set(self._step_get())
+        return out
+
+    def _rows_to(self, pend, dst):
+        """Pack the params ``pend`` into the rows of the device tensor
+        ``dst``: on a card through a pinned buffer and one copy, on the
+        CPU in place."""
+        if dst.device.type != "cuda":
+            for row, params in zip(dst.numpy(), pend):
+                _pack_into(params, row)
+            return
+        if self._uploads is None:
+            self._uploads = _RowUpload()
+        self._uploads(pend, dst)
+
+    def _stage(self, pend, R, dev):
+        """A run's rows on the device, one copy: a view of a staging buffer
+        that grows to the longest run."""
+        need = len(pend) * R
+        if self._run_rows is None or self._run_rows.numel() < need:
+            self._run_rows = torch.empty(max(need, 2 * (0 if self._run_rows is None
+                                                        else self._run_rows.numel())),
+                                         dtype=torch.float32, device=dev)
+        dst = self._run_rows[:need].view(len(pend), R)
+        self._rows_to(pend, dst)
+        return dst
+
+    def _eager_call(self, step, d0, dd):
+        """One call of ``step`` op by op through the static-state protocol."""
+        sig = self._step_sig
+        d2, out = step_body(sig, step.kind, step.pack, step.n, step.k, d0, dd, step.rows)
+        if not _copy_back(d0, d2, getattr(sig, "GRAPH_INPLACE", ()), False):
+            # the state's structure changed (new keys or shapes): it is
+            # stored as returned, and graphs on the old leaves recapture
+            self._step_set(_own_leaves(d0, d2))
+        return out
+
+    def _call(self, step):
+        d0, dd = self._step_get(), self._step_data()
+        if self._step_sig.device.type != "cuda":
+            self.graph_counts["eager"] += 1
+            return self._eager_call(step, d0, dd)
+        leaves = tree_leaves(d0) + tree_leaves(dd)
+        if step.leaves is not None and not (
+                len(leaves) == len(step.leaves)
+                and all(a is b and a.shape == s for a, (b, s) in zip(leaves, step.leaves))):
+            # a leaf was replaced outside the step since its warm-up or
+            # capture (a graph would read stale addresses).  Same shapes:
+            # capture (again) now; else run once op by op (scratch and
+            # count tensors may have to grow: a pool grew between a key's
+            # warm-up and its capture) and capture next time.  The stale
+            # graph is kept until then: were every graph of the shared
+            # memory pool dropped, the pool would be freed, and a capture
+            # could not join it
+            same = len(leaves) == len(step.leaves) and all(
+                a.shape == s for a, (_, s) in zip(leaves, step.leaves))
+            step.stale = True
+            if not same:
+                step.calls = 0
+        if step.calls == 0:
+            step.calls += 1
+            step.leaves = [(x, x.shape) for x in leaves]
+            self.graph_counts["eager"] += 1
+            return self._eager_call(step, d0, dd)
+        if step.graph is None or step.stale:
+            self._capture(step, d0, dd, leaves)
+        step.graph.replay()
+        for counters, delta in zip(_launch_counters(), step.launches):
+            for name, v in delta.items():
+                counters[name] += v
+        step.calls += 1
+        self.graph_counts["replays"] += 1
+        return step.out
+
+    def _capture(self, step, d0, dd, leaves):
+        """Capture ``step`` on the collected state ``d0`` as one CUDA graph
+        (no work runs); its launches per replay are recorded and taken off
+        the counters, which each replay adds them to."""
+        sig = self._step_sig
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        counters = _launch_counters()
+        before = [dict(c) for c in counters]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool, capture_error_mode="thread_local"):
+            d2, out = step_body(sig, step.kind, step.pack, step.n, step.k, d0, dd, step.rows)
+            _copy_back(d0, d2, getattr(sig, "GRAPH_INPLACE", ()), True)
+        step.launches = []
+        for c, b in zip(counters, before):
+            step.launches.append({name: c[name] - b[name] for name in c if c[name] != b[name]})
+            c.update(b)
+        step.graph, step.out, step.stale = graph, out, False
+        step.leaves = [(x, x.shape) for x in leaves]
+        self.graph_counts["recaptures" if step.captures else "captures"] += 1
+        step.captures += 1
+
+
+class Renderer(BlockSteps):
     def __init__(self, signal, rate, sync_every=16, scan_unroll=1,
                  scan_buckets=None, device=None):
         if signal._moved:
@@ -289,13 +471,11 @@ class Renderer:
             if signal.device is None:
                 # a wrapper chain around an engine renders on the engine's
                 signal._set_device(own)
-        self.signal = signal
+        self.signal = self._step_sig = signal
         self.rate = int(rate)
         # lib.rs:91: interval = 1.0 / sample_rate as f32
         self.interval = np.float32(1.0) / np.float32(self.rate)
-        #: blocks one block step renders per call (one graph replay): a
-        #: run of equal-archetype blocks goes as calls of this many
-        self.scan_unroll = max(1, int(scan_unroll))
+        self._init_steps(scan_unroll)
         #: optional dispatch-size quantisation, e.g. (188, 47, 12, 3, 1):
         #: equal-archetype runs split greedily into these lengths, as the
         #: JAX package splits them (None: one dispatch per run)
@@ -310,23 +490,24 @@ class Renderer:
         #: dispatches by kind ("single", "scan", ("multi", nb)) — the
         #: counterpart of the JAX Renderer's compiled-step keys
         self.dispatch_counts = {}
-        #: block steps: (archetype, kind, pack spec) -> {(k, n): _Step}
-        self._steps = {}
-        #: calls of a block step: captured, captured again after a state
-        #: leaf was replaced, replayed, and run op by op (CPU, warm-ups,
-        #: ``eager()``, signals that are not captured; counted per block
-        #: or fused group)
-        self.graph_counts = {"captures": 0, "recaptures": 0, "replays": 0, "eager": 0}
-        self._graph_pool = None
-        self._uploads = None
-        self._run_rows = None  # device staging for a run's rows
+
+    # the block-step protocol's three things: the signal's state, its
+    # data and its render (``_step_sig``)
+    def _step_get(self):
+        return self.signal.device_collect()
+
+    def _step_set(self, d):
+        self.signal.device_store(d)
+
+    def _step_data(self):
+        return self.signal.device_data()
 
     def _count(self, kind, k=1):
         self.dispatch_counts[kind] = self.dispatch_counts.get(kind, 0) + k
 
     def _stepped(self):
         """Whether dispatches go through the block steps."""
-        return getattr(self.signal, "graph_capture", False) and not getattr(_MODE, "eager", False)
+        return getattr(self.signal, "graph_capture", False) and not eager_mode()
 
     def render_block(self, n, interval=None):
         """Render one block of ``n`` frames; returns float32 numpy (n, C)."""
@@ -350,139 +531,6 @@ class Renderer:
                 sync()
                 self._since_sync = 0
         return block.cpu().numpy().T
-
-    # -- block steps ----------------------------------------------------------------
-
-    def _run_key(self, arch, kind, pend, n):
-        """Dispatch the blocks ``pend`` (their params) of one archetype
-        through the block step of key ``(arch, kind, pack)``, or with
-        ``kind`` = ("multi", nb) ``len(pend)`` fused idle groups.  Returns
-        the audio, (B, C, n) or (groups, C, nb*n), a tensor of its own."""
-        sig = self.signal
-        dev = sig.device
-        if isinstance(kind, tuple):
-            pack, rows, k = None, None, 1
-        else:
-            pack = _pack_spec(pend[0])
-            if pack is None:
-                raise ValueError(f"{type(sig).__name__} declares graph_capture but its "
-                                 "params do not pack into one float32 row")
-            rows = np.stack([_pack_row(p) for p in pend]) if pack[1] else None
-            k = self.scan_unroll if kind == "scan" else 1
-        steps = self._steps.setdefault((arch, kind, pack), {})
-        total = len(pend)
-        staged = None
-        if rows is not None and total > k:
-            # a run's rows go up in one copy; each call takes its slice
-            staged = self._stage(rows, dev)
-        out = None
-        i = 0
-        while i < total:
-            kc = min(k, total - i)
-            step = steps.get((kc, n))
-            if step is None:
-                step = steps[(kc, n)] = _Step(kind, pack, n, kc, dev)
-            if rows is not None:
-                if staged is not None:
-                    step.rows.copy_(staged[i:i + kc])
-                elif dev.type == "cuda":
-                    self._upload(rows[i:i + kc], step.rows)
-                else:
-                    step.rows.copy_(torch.from_numpy(rows[i:i + kc]))
-            block = self._call(step)
-            if out is None:
-                out = torch.empty((total,) + tuple(block.shape[1:]), dtype=block.dtype,
-                                  device=block.device)
-            out[i:i + kc].copy_(block)
-            i += kc
-        sig.device_store(sig.device_collect())
-        return out
-
-    def _upload(self, rows, dst):
-        if self._uploads is None:
-            self._uploads = _RowUpload()
-        self._uploads(rows, dst)
-
-    def _stage(self, rows, dev):
-        """A run's rows on the device, one copy: a view of a staging buffer
-        that grows to the longest run."""
-        if dev.type != "cuda":
-            return torch.from_numpy(rows)
-        need = rows.size
-        if self._run_rows is None or self._run_rows.numel() < need:
-            self._run_rows = torch.empty(max(need, 2 * (0 if self._run_rows is None
-                                                        else self._run_rows.numel())),
-                                         dtype=torch.float32, device=dev)
-        dst = self._run_rows[:need].view(rows.shape)
-        self._upload(rows, dst)
-        return dst
-
-    def _eager_call(self, step, d0, dd):
-        """One call of ``step`` op by op through the static-state protocol."""
-        sig = self.signal
-        d2, out = step_body(sig, step.kind, step.pack, step.n, step.k, d0, dd, step.rows)
-        if not _copy_back(d0, d2, getattr(sig, "GRAPH_INPLACE", ()), False):
-            # the state's structure changed (new keys or shapes): it is
-            # stored as returned, and graphs on the old leaves recapture
-            sig.device_store(_own_leaves(d0, d2))
-        return out
-
-    def _call(self, step):
-        sig = self.signal
-        d0, dd = sig.device_collect(), sig.device_data()
-        if sig.device.type != "cuda":
-            self.graph_counts["eager"] += 1
-            return self._eager_call(step, d0, dd)
-        leaves = tree_leaves(d0) + tree_leaves(dd)
-        if step.leaves is not None and not (
-                len(leaves) == len(step.leaves)
-                and all(a is b and a.shape == s for a, (b, s) in zip(leaves, step.leaves))):
-            # a leaf was replaced outside the step since its warm-up or
-            # capture (a graph would read stale addresses).  Same shapes:
-            # capture (again) now; else run once op by op (scratch and
-            # count tensors may have to grow: a pool grew between a key's
-            # warm-up and its capture) and capture next time
-            same = len(leaves) == len(step.leaves) and all(
-                a.shape == s for a, (_, s) in zip(leaves, step.leaves))
-            step.graph = step.out = None
-            if not same:
-                step.calls = 0
-        if step.calls == 0:
-            step.calls += 1
-            step.leaves = [(x, x.shape) for x in leaves]
-            self.graph_counts["eager"] += 1
-            return self._eager_call(step, d0, dd)
-        if step.graph is None:
-            self._capture(step, d0, dd, leaves)
-        step.graph.replay()
-        for counters, delta in zip(_launch_counters(), step.launches):
-            for name, v in delta.items():
-                counters[name] += v
-        step.calls += 1
-        self.graph_counts["replays"] += 1
-        return step.out
-
-    def _capture(self, step, d0, dd, leaves):
-        """Capture ``step`` on the collected state ``d0`` as one CUDA graph
-        (no work runs); its launches per replay are recorded and taken off
-        the counters, which each replay adds them to."""
-        sig = self.signal
-        if self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        counters = _launch_counters()
-        before = [dict(c) for c in counters]
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._graph_pool, capture_error_mode="thread_local"):
-            d2, out = step_body(sig, step.kind, step.pack, step.n, step.k, d0, dd, step.rows)
-            _copy_back(d0, d2, getattr(sig, "GRAPH_INPLACE", ()), True)
-        step.launches = []
-        for c, b in zip(counters, before):
-            step.launches.append({name: c[name] - b[name] for name in c if c[name] != b[name]})
-            c.update(b)
-        step.graph, step.out = graph, out
-        step.leaves = [(x, x.shape) for x in leaves]
-        self.graph_counts["recaptures" if step.captures else "captures"] += 1
-        step.captures += 1
 
     # -- op-by-op dispatch ------------------------------------------------------------
 

@@ -40,8 +40,8 @@ from .ops._dev import masked_voice_sum
 from .ops.adapt import Adapt
 from .ops.sine import Sine
 from .ops.stream import Stream
-from .parallel.context import (RenderDevice, add_block, current_scenes, localize_index,
-                               scene_offset, voice_partials)
+from .parallel.context import (RenderDevice, add_block, current_scenes, in_block_step,
+                               localize_index, scene_offset, voice_partials)
 from .utils.tree import tree_fill, tree_map, tree_stack
 
 __all__ = ["Mixer", "MixerControl", "Mixed", "Pool", "PoolSingleton", "PoolDR",
@@ -444,7 +444,14 @@ class PoolDR(DRCtrlMixin):
     _pack_counts = None
 
     def _count_tensor(self, V):
+        """The (V,) frames each row advances: one tensor per (V, count)
+        for the pool's life (a pack's S·V rows get theirs), or a pack's
+        counts per scene, uploaded; a block step may not upload them
+        (every scene of a stepped pack advances the same count)."""
         pc, S = self._pack_counts, current_scenes()
+        if pc is not None and in_block_step():
+            raise RuntimeError(f"pool {self.name}: a block step read the pack's per-scene "
+                               "counts from the host")
         if pc is not None and S is not None:
             # the pack's scenes this render holds (a mesh's scene group)
             pc = pc[scene_offset():scene_offset() + S]

@@ -14,6 +14,8 @@ their rows hold (and which of the pack's scenes they are), so that they
 mix each scene apart; ``mesh_cell`` names the cell being rendered and its device,
 which every pool's and signal's ``device`` (``RenderDevice``) then reads,
 so a cell on another device than its scenes' allocates and uploads there.
+``block_step`` marks a render inside a block step (``core/run.py``), which
+a CUDA graph may replay: there no per-block value may come from the host.
 The context is per thread (a realtime driver renders on its own thread).
 """
 
@@ -37,6 +39,8 @@ __all__ = [
     "voice_partials",
     "partial_sums",
     "add_block",
+    "block_step",
+    "in_block_step",
 ]
 
 _CTX = threading.local()
@@ -111,6 +115,25 @@ def add_block(out, block, key):
         return out + block
     parts[key] = block
     return out
+
+
+@contextlib.contextmanager
+def block_step():
+    """Render inside a block step: a CUDA graph may capture the render and
+    replay it, so every per-block value must come from the step's params
+    or state; code that would read one from the host raises instead
+    (``in_block_step``)."""
+    prev = getattr(_CTX, "step", False)
+    _CTX.step = True
+    try:
+        yield
+    finally:
+        _CTX.step = prev
+
+
+def in_block_step():
+    """Whether the render in progress is a block step's (``block_step``)."""
+    return getattr(_CTX, "step", False)
 
 
 def current_cell():

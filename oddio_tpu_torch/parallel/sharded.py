@@ -60,6 +60,24 @@ drops it and restacks at the next block.
 A submix under wrappers (an Adapt over a Mixer) stacks its wrappers'
 one-voice state along a new scene axis: the wrappers render their S/a rows
 batched, and the engine under them its scenes stacked.
+
+On a 1 x 1 mesh whose scenes all declare ``graph_capture`` (config-5
+Mixers, main-path SpatialScenes) the pack takes block steps, as the JAX
+pack compiles its programs (``oddio_tpu/parallel/sharded.py``): the
+Renderer's protocol (``core/run.BlockSteps``) over the carried stack, a
+``"single"`` key for ``render_block`` and ``"scan"`` keys of
+``scan_unroll`` blocks a call for the runs of ``render_frames_device``,
+each block's merged params one packed row, and on a card each step one
+CUDA graph, replayed.  The runs are the JAX pack's: blocks of one
+archetype (scene 0's, read after the pack-wide flags are stamped) are
+prepared before any is rendered, a run is flushed before a scene's
+structure event and on an archetype change, and an idle run's remaining
+blocks go as replays of the idle key.  A run renders as of its own
+archetype (``render_archetype``), inside ``scene_stack`` and
+``mesh_cell``.  The stack's leaves stay put (rebuilt leaves are copied
+back, rings written in place); a stack rebuilt by ``_ensure_state``
+(growth, an unpack, a restored state) makes the steps capture again.
+Under ``eager()``, and on every other pack, blocks render op by op.
 """
 
 from __future__ import annotations
@@ -68,6 +86,7 @@ import numpy as np
 import torch
 
 from ..core.drctrl import read_handle_state
+from ..core.run import BlockSteps, eager_mode
 from ..core.signal import Engine, same_device
 from ..ops.geometry import HEAD_RADIUS, SPEED_OF_SOUND
 from ..utils.tree import tree_leaves, tree_map
@@ -151,7 +170,7 @@ def _stamp_host_flags(sigs):
         _stamp_host_flags(list(kids))
 
 
-class ScenePack:
+class ScenePack(BlockSteps):
     """Renders S structurally identical scenes (Mixers, or SpatialScenes)
     as one stacked render over a (scene, voice) mesh.
 
@@ -159,8 +178,8 @@ class ScenePack:
     their host mirrors and handle state live; ``mesh``: a
     ``make_mesh(a, b, devices)``, whose cells render (S must divide by a,
     every pool's capacity but a submix's by b, else ``ValueError``).
-    ``scan_unroll`` is accepted and ignored: a pack dispatches op by op
-    (the Renderer's block steps and graphs do not cover packs yet)."""
+    ``scan_unroll``: blocks a block step renders per call (one graph
+    replay) where the pack takes steps (``graph_capture``)."""
 
     def __init__(self, scenes, rate, mesh, scan_unroll=1):
         scenes = list(scenes)
@@ -176,19 +195,59 @@ class ScenePack:
         if len(scenes) % self.A:
             raise ValueError(f"{len(scenes)} scenes do not split into {self.A} scene groups")
         self.scenes = scenes
+        self._step_sig = scenes[0]  # its pools render the stack
         self.S = len(scenes)
         #: scenes per scene group
         self.Sa = self.S // self.A
         self.mesh = mesh
         #: (scene group, voice shard) -> the device its cell renders on
         self._cells = {(g, k): mesh.devices[g][k] for g in range(self.A) for k in range(self.B)}
-        self.scan_unroll = int(scan_unroll)
+        self._init_steps(scan_unroll)
         self.rate = int(rate)
         self.interval = np.float32(1.0) / np.float32(self.rate)
         self._dstate = None  # (group, shard) -> the cell's stacked state, scene 0's layout
+        self._flush = None  # dispatches the run render_frames_device holds, if any
         self._names = None
         self._check_structure()
         self._check_split()
+
+    # -- block steps --------------------------------------------------------------
+
+    @property
+    def graph_capture(self):
+        """True on a 1 x 1 mesh whose scenes all declare ``graph_capture``:
+        the pack then renders through block steps (CUDA graphs on a
+        card).  Larger meshes, and packs of host pools, submixes or
+        faders, render op by op."""
+        return self.A == self.B == 1 and all(
+            getattr(s, "graph_capture", False) for s in self.scenes)
+
+    def _stepped(self):
+        return self.graph_capture and not eager_mode()
+
+    # the block-step protocol's three things: the carried stack, scene 0's
+    # data and scene 0's render (``_step_sig``)
+    def _step_get(self):
+        return self._dstate[0, 0]
+
+    def _step_set(self, d):
+        """Store the stack after a dispatch (or as a step returned it, where
+        its structure changed); the scenes take views of it, which bumps
+        their store counts (the handle readback's key: a replay leaves the
+        tensors' versions alone)."""
+        self._dstate[0, 0] = d
+        self._store()
+
+    def _step_data(self):
+        return self.scenes[0].device_data()
+
+    def _dispatch_steps(self, arch, kind, pend, n):
+        """A run of merged params ``pend`` through the block steps of key
+        ``(arch, kind)``, rendered as of ``arch`` by scene 0's pools over
+        the stack: (B, S, C, n)."""
+        with self.scenes[0].render_archetype(arch), scene_stack(self.S, 0), \
+                mesh_cell((0, 0), self._cells[0, 0]):
+            return self._run_key(arch, kind, pend, n)
 
     # -- structure ---------------------------------------------------------------
 
@@ -490,6 +549,7 @@ class ScenePack:
         voice-axis ``psum``), rounds it and adds the pools in their render
         order, as one cell holding all the rows would."""
         scene0 = self.scenes[0]
+        self.graph_counts["eager"] += 1
         blocks = []
         for g in range(self.A):
             parts = []
@@ -515,35 +575,88 @@ class ScenePack:
 
     def render_block(self, n):
         """Render one block for every scene; returns float32 numpy (S, n, C)."""
-        block = self._render(self._block_params(n), n)
+        params = self._block_params(n)
+        if self._stepped():
+            block = self._dispatch_steps(self.scenes[0].archetype(), "single",
+                                         [params[0, 0]], n)[0]
+        else:
+            block = self._render(params, n)
         return np.moveaxis(block.cpu().numpy(), 1, 2)
+
+    def _idle_bulk(self, n, remaining):
+        """Advance every scene ``remaining`` idle blocks in O(1) where all
+        pass the idle gate (device-resident pools only); returns whether
+        they did."""
+        if not all(getattr(s, "host_idle_bulk_ok", lambda iv, n: False)(self.interval, n)
+                   for s in self.scenes):
+            return False
+        for s in self.scenes:
+            s.host_idle_bulk(self.interval, n, remaining)
+        return True
 
     def render_frames_device(self, total, block_size=512):
         """Offline pack render that keeps the audio on the device: returns a
-        list of (B, S, C, n) tensors (here one) on the mesh's first
-        device, without any host transfer or wait.  The run-length idle
-        path of ``Renderer``: a block whose merged params are empty, on scenes whose pools all pass the idle
-        gate (device-resident pools only), proves the remaining blocks the
-        same, so the scenes advance them in O(1) (``host_idle_bulk``) and
-        they render without preparing."""
+        list of (B, S, C, n) tensors on the mesh's first device, without
+        any host transfer or wait: one per run where the pack takes block
+        steps (the JAX pack's runs), else one.  The run-length idle path
+        of ``Renderer``: a block whose merged params are empty, on scenes
+        whose pools all pass the idle gate (device-resident pools only),
+        proves the remaining blocks the same, so the scenes advance them
+        in O(1) (``host_idle_bulk``) and they render without preparing."""
         nblocks, rem = divmod(total, block_size)
         if rem:
             raise ValueError("total must be a multiple of block_size")
+        if self._stepped():
+            return self._run_frames(nblocks, block_size)
         blocks = []
         for bi in range(nblocks):
             params = self._block_params(block_size)
             blocks.append(self._render(params, block_size))
             remaining = nblocks - bi - 1
-            if remaining and not tree_leaves(params) and all(
-                getattr(s, "host_idle_bulk_ok", lambda iv, n: False)(self.interval, block_size)
-                for s in self.scenes
-            ):
-                for s in self.scenes:
-                    s.host_idle_bulk(self.interval, block_size, remaining)
+            if remaining and not tree_leaves(params) and self._idle_bulk(block_size, remaining):
                 for _ in range(remaining):
                     blocks.append(self._render(params, block_size))
                 break
         return [torch.stack(blocks)] if blocks else []
+
+    def _run_frames(self, nblocks, n):
+        """``render_frames_device`` through block steps: blocks of one
+        archetype are prepared while it holds, and each run goes through
+        the ``"scan"`` steps, flushed before any scene's structure event
+        (its prepare applies state eagerly) and on an archetype change
+        (after the next block's prepare: the run renders as of its own
+        archetype)."""
+        out, pend, pend_arch = [], [], None
+
+        def flush():
+            nonlocal pend, pend_arch
+            run, arch = pend, pend_arch
+            pend, pend_arch = [], None
+            if run:
+                out.append(self._dispatch_steps(arch, "scan", run, n))
+
+        # a pool that grows (or plays eagerly) between two blocks of the
+        # call pulls the stack back (``_unpack``): the run prepared so far
+        # renders first, on the state it was prepared against
+        self._flush = flush
+        try:
+            for bi in range(nblocks):
+                if pend and any(s.host_structure_event() for s in self.scenes):
+                    flush()
+                params = self._block_params(n)[0, 0]
+                arch = self.scenes[0].archetype()
+                if pend and arch != pend_arch:
+                    flush()
+                pend.append(params)
+                pend_arch = arch
+                remaining = nblocks - bi - 1
+                if remaining and not tree_leaves(params) and self._idle_bulk(n, remaining):
+                    pend.extend([params] * remaining)
+                    break
+            flush()
+        finally:
+            self._flush = None
+        return out
 
     # -- handle state ------------------------------------------------------------
 
@@ -671,6 +784,8 @@ class ScenePack:
         hold their rows (``_views_ok``); elsewhere the stack drops."""
         if self._dstate is None:
             return
+        if self._flush is not None:
+            self._flush()
         if not drop and self._views_ok():
             self._store()
             return

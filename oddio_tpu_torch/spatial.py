@@ -86,7 +86,8 @@ from .ops.ring_kernels import (
 )
 from .ops.sine import Sine
 from .ops.stream_kernels import ring_place_record
-from .parallel.context import RenderDevice, add_block, current_scenes, localize_index
+from .parallel.context import (RenderDevice, add_block, current_scenes, in_block_step,
+                               localize_index)
 from .utils.tree import tree_fill, tree_map, tree_stack
 
 __all__ = [
@@ -2285,6 +2286,8 @@ class SpatialScene(Engine):
 
     def device_collect(self):
         if self._rot_dev is None:
+            if in_block_step():
+                raise RuntimeError("a block step uploaded the listener rotation")
             self._rot_dev = _upload(self._rot, self.device)
         out = {"_rot": self._rot_dev}
         for p in self._all_pools():

@@ -1,13 +1,14 @@
 """Where a block's time goes on a CUDA card: the bench scenes at 4096 voices
 through ``Renderer.render_frames_device``, timed and traced.
 
-    python -m oddio_tpu_torch.utils.scene_profile [buffered|seek|buffered_mixed|subpass|mixer|hostpools|pack|pack256|spatialpack|densemix|sampler|wavetable|sampler_pack|hostpack|seek_eager|buffered_eager|buffered_mixed_eager|subpass_eager|mixer_eager ...]
+    python -m oddio_tpu_torch.utils.scene_profile [buffered|seek|buffered_mixed|subpass|mixer|hostpools|pack|pack256|spatialpack|densemix|sampler|wavetable|sampler_pack|hostpack|seek_eager|buffered_eager|buffered_mixed_eager|subpass_eager|mixer_eager|pack_eager|pack256_eager|spatialpack_eager ...]
 
 For the main path's four scenes (``build_main_path``: bench.py's seek,
 buffered, buffered_mixed and subpass scenes at 4096 voices), the AGC
 mixer scene (``build_mixer_agc``, BASELINE config 5's scene at 4096
-voices; these Renderers replay CUDA graphs, and the ``_eager`` twins run
-under ``core.run.eager()``, op by op) and the host-pool scene (``build_host_pools``:
+voices; these Renderers, and the config-5 and spatial packs below,
+replay CUDA graphs, and the ``_eager`` twins run under
+``core.run.eager()``, op by op) and the host-pool scene (``build_host_pools``:
 4096 Speed(Stream) voices in the host buffered pool, 512 Adapt(Stream) in
 the device-resident one and a 256-voice config-5 submix), and the
 ScenePacks (``build_config5_pack``: BASELINE config 5's 256 x 256 pack at
@@ -538,10 +539,10 @@ def _run(renderer, nblocks):
 
 
 def profile_scene(label):
-    """Profile one scene; a main-path or mixer scene's label with
-    ``_eager`` (``buffered_eager``, ``mixer_eager``) runs it under
+    """Profile one scene; a main-path, mixer or pack label with ``_eager``
+    (``buffered_eager``, ``mixer_eager``, ``pack_eager``) runs it under
     ``core.run.eager()``, op by op, where the plain label replays the
-    Renderer's CUDA graphs."""
+    Renderer's or the pack's CUDA graphs."""
     if label.endswith("_eager"):
         from ..core.run import eager
 
@@ -638,7 +639,8 @@ def _profile_scene(label, shown):
 
 SCENES = ("buffered", "seek", "buffered_mixed", "subpass", "mixer", "hostpools", "pack",
           "pack256", "spatialpack", "densemix", "sampler", "wavetable", "sampler_pack",
-          "hostpack") + tuple(f"{k}_eager" for k in MAIN_PATH + ("mixer",))
+          "hostpack") + tuple(f"{k}_eager" for k in MAIN_PATH + ("mixer", "pack", "pack256",
+                                                                 "spatialpack"))
 
 
 def main(argv=None):

@@ -1419,3 +1419,166 @@ def test_mixer_graph_growth_between_warmup_and_capture(cuda, monkeypatch):
     np.testing.assert_array_equal(xg, xe)
     assert lg == le and rg.graph_counts["replays"] > 0
     assert made and not any(made)
+
+
+# -- ScenePacks under CUDA graphs (a 1 x 1 pack of graph-capturing scenes) -----------
+
+
+def _pack_graph_run(kind, mode, script, S=4):
+    """A config-5 pack (S x 64 voices) or a spatial pack (S scenes of 16
+    buffered + 48 seek voices) on the card, under ``eager()`` or replaying
+    graphs: one render_block (which stacks the scenes), then ``script(pack,
+    ctls, rng)``: (the audio (S, N, C), launches, the pack, the rings'
+    addresses after the first block and at the end)."""
+    import contextlib
+
+    from oddio_tpu_torch.core.run import eager
+
+    with eager() if mode == "eager" else contextlib.nullcontext():
+        if kind == "config5":
+            pack, ctls, rng = build_config5_pack(S, "cuda", voices=64)
+        else:
+            pack, ctls, rng = build_spatial_pack(S, "cuda", 16, 48), [], None
+        assert pack.graph_capture
+        for m in (RK, SK, A, FK):
+            m.reset_launches()
+        out = [pack.render_block(512)]
+        rings = _pack_rings(pack)
+        out.append(script(pack, ctls, rng))
+        torch.cuda.synchronize()
+    return np.concatenate(out, axis=1), _all_launches(), pack, (rings, _pack_rings(pack))
+
+
+def _pack_rings(pack):
+    """Addresses of the stack's in-place leaves (the rings)."""
+    out = []
+
+    def walk(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v)
+            elif k == "ring":
+                out.append(v.data_ptr())
+
+    walk(pack._dstate[0, 0])
+    return out
+
+
+def _pack_frames(pack, nb):
+    b = torch.cat(pack.render_frames_device(512 * nb)).cpu().numpy()  # (B, S, C, n)
+    B, S, C, n = b.shape
+    return b.transpose(1, 0, 3, 2).reshape(S, B * n, C)
+
+
+def _pack_control_script(pack, ctls, rng):
+    """Blocks through render_block and render_frames_device with new PCM,
+    a play and a stop in scene 0 and a stream close (config 5), or a move
+    and a listener rotation (spatial), and idle runs."""
+    out = [pack.render_block(512) for _ in range(3)]
+    out.append(_pack_frames(pack, 20))
+    s0 = pack.scenes[0]
+    if ctls:
+        feed(ctls, rng, 1024)
+        h = pt.MixerControl(s0).play(pt.Adapt(pt.Sine(0.2, 440.0), 0.1,
+                                              pt.AdaptOptions(tau=0.1, max_gain=4.0)))
+        out.append(_pack_frames(pack, 12))
+        h.stop()
+        ctls[3].close()
+    else:
+        pool = next(iter(s0._buffered_pools.values()))
+        pt.Spatial(pool, 1, int(pool.slot_gen[1])).set_motion([3.0, 1.0, -2.0],
+                                                              [0.0, 2.0, 0.0], False)
+        out.append(_pack_frames(pack, 12))
+        pt.SpatialSceneControl(pack.scenes[1]).set_listener_rotation(
+            [np.cos(0.2), 0.0, np.sin(0.2), 0.0])
+    out.append(_pack_frames(pack, 24))
+    out.append(pack.render_block(512))
+    return np.concatenate(out, axis=1)
+
+
+@pytest.mark.parametrize("kind", ["config5", "spatial"])
+def test_pack_graph_replay_matches_eager(cuda, kind):
+    """A 4-scene config-5 pack (K4, K6, K7) and a 4-scene spatial pack (K1,
+    K2) under control traffic: graph replay bit-equal to ``eager()``, every
+    kernel's launches equal, the rings where they were, every call after a
+    key's warm-up and capture a replay."""
+    (xe, le, pe, re), (xg, lg, pg, rg) = [_pack_graph_run(kind, mode, _pack_control_script)
+                                          for mode in ("eager", "graph")]
+    assert np.abs(xe).max() > 1e-2
+    np.testing.assert_array_equal(xg, xe)
+    assert lg == le
+    assert rg[0] == rg[1] and len(rg[0]) >= 1
+    keys = ((f"{SK.__name__}.ring_place", f"{SK.__name__}.ring_resample",
+             f"{A.__name__}.agc_gains") if kind == "config5"
+            else (f"{RK.__name__}.append", f"{RK.__name__}.select_ears"))
+    assert all(lg.get(k) for k in keys)
+    c = pg.graph_counts
+    assert pe.graph_counts["replays"] == 0 and c["recaptures"] == 0
+    assert c["replays"] > c["captures"] > 0
+    assert c["eager"] == sum(len(s) for s in pg._steps.values())
+
+
+def test_pack_graph_recaptures_after_growth_and_drop_stack(cuda):
+    """Plays that grow one scene's pool (every scene grows with it) and a
+    ``sync()`` + ``drop_stack()`` both rebuild the stack: the next call of
+    each step runs op by op or captures again (counted), and the audio
+    stays bit-equal to ``eager()``'s."""
+    def script(pack, ctls, rng):
+        out = [_pack_frames(pack, 12), pack.render_block(512)]
+        control = pt.MixerControl(pack.scenes[1])
+        for _ in range(60):
+            control.play(pt.Adapt(pt.Sine(rng.uniform(0, 6), rng.uniform(50, 2000)), 0.1,
+                                  pt.AdaptOptions(tau=0.1, max_gain=4.0)))
+        out += [_pack_frames(pack, 12), pack.render_block(512), _pack_frames(pack, 12)]
+        pack.sync()
+        pack.drop_stack()
+        out += [_pack_frames(pack, 12), pack.render_block(512)]
+        return np.concatenate(out, axis=1)
+
+    (xe, le, _, _), (xg, lg, pg, _) = [_pack_graph_run("config5", mode, script, S=2)
+                                       for mode in ("eager", "graph")]
+    np.testing.assert_array_equal(xg, xe)
+    assert lg == le
+    assert {p.capacity for s in pg.scenes for p in s._all_pools()} == {8, 128}
+    assert pg.graph_counts["recaptures"] > 0 and pg.graph_counts["replays"] > 0
+
+
+def test_pack_graph_handle_readback_after_replay(cuda):
+    """Closed streams of 1200 and 2000 samples (8 kHz) drain inside replayed
+    graphs of a 2-scene pack: after ``pack.sync()`` the handles turn
+    stopped on the same blocks as under ``eager()``; without a sync they
+    read the stack the replays left (a replay leaves tensor versions alone:
+    the scenes' store counts key the readback)."""
+    import contextlib
+
+    from oddio_tpu_torch.core.run import eager
+    from oddio_tpu_torch.parallel.mesh import make_mesh
+    from oddio_tpu_torch.parallel.sharded import ScenePack
+
+    def drain(mode, synced):
+        hs, mixers = [], []
+        for s in range(2):
+            control, mixer = pt.Mixer.new(channels=1, device=cuda)
+            for f in (220.0, 330.0):
+                control.play(pt.Adapt(pt.Sine(0.5, f + s), 0.1,
+                                      pt.AdaptOptions(tau=0.1, max_gain=4.0)))
+            ctl, st = pt.Stream.new(8000, 2048)
+            ctl.write(np.full(1200 + 800 * s, 0.25, np.float32))
+            ctl.close()
+            hs.append(control.play(pt.Adapt(st, 0.1, pt.AdaptOptions(tau=0.1, max_gain=4.0))))
+            mixers.append(mixer)
+        pack = ScenePack(mixers, 8000, make_mesh(1, 1, [cuda]))
+        seq = []
+        with eager() if mode == "eager" else contextlib.nullcontext():
+            for k in range(8):
+                pack.render_frames_device(512) if k % 2 else pack.render_block(512)
+                if synced:
+                    pack.sync()
+                seq.append([h.is_stopped() for h in hs])
+        return seq, pack
+
+    want, _ = drain("eager", True)
+    got, pack = drain("graph", True)
+    late, _ = drain("graph", False)
+    assert got == want == late and any(want[-1]) and not any(want[0])
+    assert pack.graph_counts["replays"] > 0

@@ -402,8 +402,8 @@ def _drain(batches):
 def test_pack_frames_device_matches_render_block(unroll):
     """test_sharding.py:480: the config-5 mini pack through
     render_frames_device (the idle run-length path) with mid-run ingest,
-    at ``scan_unroll`` 1 and 8 (accepted and ignored), against
-    render_block."""
+    at ``scan_unroll`` 1 and 8 (block steps of 1 and 8 blocks a call),
+    against render_block."""
     want, _ = case_config5_mini(pt, pack)
     scenes, ctls = zip(*[config5_mini(pt, s) for s in range(2)])
     flat = [c for group in ctls for c in group]
