@@ -209,6 +209,23 @@ Phases (each prints one or more lines; any failure exits non-zero):
     idle blocks each way (dispatch host ms a block, host_prepare ms,
     xRT per scene) and, on the config-5 packs, 10 ingest blocks; at the
     end of the run, device kernels per block of each way.
+39. (after 21-24 and 26) the Renderer's block steps as CUDA graphs on BASELINE
+    config 4's dense mix (1024 Gain(Sine) voices under
+    Tanh(Reinhard(mixer)), bench.py's dispatch: ``scan_unroll`` 4 and its
+    buckets) and bench.py's wavetable (1024 Speed(Cycle) voices, its
+    buckets; K6's arena form inside the graphs), each twice from one
+    seed, once under ``core.run.eager()`` and once replaying graphs,
+    through one script (24 blocks; four ticks of set_gain or set_speed on
+    64 voices, one into the step tier 4, and 8 plays, each followed by 47
+    blocks; on the wavetable 8 voices of a new table, which rebuilds the
+    sample arena; 188 blocks; the pools have room: no growth): graph vs
+    eager max|diff| (bit-equal), every kernel's launches equal (one
+    ``arena_step`` a block on the wavetable, no kernel on the dense mix,
+    no ring or AGC kernel), ``graph_counts`` (replays >= 90% of each
+    scene's calls, recaptures only after the new table); then 188 idle
+    blocks each way (dispatch host ms a block, host_prepare ms a block,
+    xRT); at the end of the run, device kernels per block of each way.
+    Phases 21-24's dense mix and wavetable replay graphs too.
 Phases 28-35 count launches with the wrappers' counters, never a tracer
 session; the packs' block profiles (phases 29 and 30) only print.
 The profiles run at the end in this order: the one-kernel checks
@@ -287,11 +304,9 @@ def capture_path_steps(phase, engine, render):
     pool's last step for ``step_kernel_counts`` (op by op: a replayed
     graph calls no render, and a capture would hand the spy tensors of
     the graph's pool)."""
-    from oddio_tpu_torch.core.run import eager
     from oddio_tpu_torch.utils import kernel_bench as KB
 
-    with eager():
-        caps = KB.capture_steps(KB.dr_pools(engine), render)
+    caps = KB.capture_steps(KB.dr_pools(engine), render)
     for p, calls in caps.items():
         if calls and type(p.proto).__name__ == "Adapt":
             STEPS.append((phase, f"{type(p.proto.inner).__name__} V={p.capacity} "
@@ -3212,6 +3227,119 @@ def pack_graphs(pt, dev, tag):
                              f"{totals['recaptures']} recaptures")
 
 
+#: phase 39's scenes open their pools with room for the script's plays,
+#: so that no pool grows (a growth recaptures every step; the card tests
+#: hold that case)
+DENSE_CAPACITY = 2048
+
+
+def _dense_script(r, mixer, ctls, rng, kind, frames):
+    """Phase 39's control script: 24 blocks; four ticks, each of a write
+    on 64 voices (set_gain on the dense mix; set_speed on the wavetable,
+    the third tick's into the step tier 4, past tier 2) and 8 plays, and
+    each followed by 47 blocks; on the wavetable 8 voices of a new
+    2048-sample table (the sample arena is rebuilt); 188 blocks.  Returns
+    (the blocks, (B, C, n) device tensors; the recaptures before the new
+    table)."""
+    from oddio_tpu_torch.utils.scene_profile import (densemix_voice, wavetable_frames,
+                                                     wavetable_voice)
+
+    out = list(_frames(r, BLOCK * 24))
+    for t in range(4):
+        for c in ctls[64 * t:64 * (t + 1)]:
+            if kind == "densemix":
+                c.set_gain(float(rng.uniform(-20, 0)))
+            else:
+                c.set_speed(float(rng.uniform(2.2, 3.8) if t == 2 else rng.uniform(0.8, 1.25)))
+        for _ in range(8):
+            mixer.play((densemix_voice(rng) if kind == "densemix"
+                        else wavetable_voice(frames, rng))[1])
+        out += _frames(r, BLOCK * 47)
+    before = r.graph_counts["recaptures"]
+    if kind == "wavetable":
+        table = wavetable_frames()
+        for _ in range(8):
+            mixer.play(wavetable_voice(table, rng)[1])
+    out += _frames(r, BLOCK * 188)
+    return out, before
+
+
+def dense_graphs(pt, dev, tag):
+    """Phase 39: BASELINE config 4's dense mix and bench.py's wavetable at
+    1024 voices, graph replay against eager dispatch through one script
+    (see the module docstring)."""
+    from oddio_tpu_torch.utils.scene_profile import (build_densemix, build_wavetable,
+                                                     wavetable_frames)
+
+    totals = {"captures": 0, "recaptures": 0, "replays": 0, "eager": 0}
+    for kind in ("densemix", "wavetable"):
+        runs = {}
+        for mode in ("eager", "graph"):
+            frames = None
+            if kind == "densemix":
+                root, mixer, ctls, rng = build_densemix(1024, dev, capacity=DENSE_CAPACITY)
+                r = pt.Renderer(root, RATE, scan_unroll=4, scan_buckets=BENCH_BUCKETS)
+            else:
+                frames = wavetable_frames()
+                mixer, ctls, rng = build_wavetable(1024, dev, capacity=DENSE_CAPACITY,
+                                                   frames=frames)
+                root = mixer
+                r = pt.Renderer(root, RATE, scan_buckets=BENCH_BUCKETS)
+            if not root.graph_capture:
+                raise AssertionError(f"phase 39 {kind}: the root does not declare graph_capture")
+            reset_launches()
+            with _mode(mode):
+                out, before = _dense_script(r, mixer, ctls, rng, kind, frames)
+            torch.cuda.synchronize()
+            launches = all_launches()
+            x = torch.cat([o.permute(0, 2, 1).reshape(-1, 1) for o in out]).cpu().numpy()
+            if not np.isfinite(x).all() or np.abs(x).max() <= 1e-3:
+                raise AssertionError(f"phase 39 {kind} {mode}: non-finite or silent output")
+            counts = dict(r.graph_counts)
+            with _mode(mode):
+                host_ms, prep_ms, wall = _timed_idle(r, root)
+            nblk = x.shape[0] // BLOCK
+            runs[mode] = (x, launches, counts, before, host_ms, prep_ms, wall, nblk,
+                          dict(r.graph_counts))
+            BLOCK_PROFILES.append((39, f"the 1024-voice {kind} {mode} renderer",
+                                   (lambda r=r, m=mode: _render8(r, m)), 8))
+        (xe, le, ce, _, he, pe, we, nb, _), (xg, lg, cg, bg, hg, pg, wg, _, total) = (
+            runs["eager"], runs["graph"])
+        err = float(np.abs(xg - xe).max())
+        if err != 0.0:
+            raise AssertionError(f"phase 39 {kind}: graph replay differs from eager dispatch "
+                                 f"by {err}")
+        if lg != le:
+            raise AssertionError(f"phase 39 {kind}: launches eager {le} graph {lg}")
+        want = {"stream_kernels.arena_step": nb} if kind == "wavetable" else {}
+        if lg != want:
+            raise AssertionError(f"phase 39 {kind}: launches {lg} in {nb} blocks, want {want}")
+        after = cg["recaptures"] - bg
+        if bg or total["recaptures"] != cg["recaptures"] or (kind == "wavetable") != (after > 0):
+            raise AssertionError(f"phase 39 {kind}: {bg} recaptures before the new table, "
+                                 f"{after} after it, {total['recaptures']} with the timed runs")
+        calls = total["replays"] + total["eager"]
+        share = total["replays"] / calls
+        if share < 0.9:
+            raise AssertionError(f"phase 39 {kind}: graph_counts {total}, replays {share:.3f} "
+                                 f"of the calls")
+        for k, v in total.items():
+            totals[k] += v
+        per = {k: round(v / nb, 3) for k, v in lg.items()}
+        xrt = lambda w: 188 * BLOCK / RATE / w  # noqa: E731
+        print(f"phase 39 {kind}: 1024 voices, {nb} blocks (24, four ticks of 64 writes and 8 "
+              f"plays, {'a new table, ' if kind == 'wavetable' else ''}188), graph vs eager "
+              f"max|diff| {err:.3e} (bit-equal); launches a block {per} (equal); graph_counts "
+              f"over the script {cg}, with the timed runs {total}: replays {share:.3f} of "
+              f"{calls} calls, recaptures {after} after the new table (eager run "
+              f"{ce['eager']} op-by-op calls); dispatch host ms a block, idle: eager {he:.4f} "
+              f"graph {hg:.4f}; host_prepare ms a block eager {pe:.4f} graph {pg:.4f}; 188 "
+              f"idle blocks xRT eager {xrt(we):.2f}x graph {xrt(wg):.2f}x {tag}")
+    calls = totals["replays"] + totals["eager"]
+    print(f"phase 39: graph runs {totals}, replays {totals['replays'] / calls:.3f} of {calls} "
+          f"calls {tag}")
+
+
 def _mode(mode):
     """``core.run.eager()`` for the op-by-op runs, else nothing."""
     from oddio_tpu_torch.core.run import eager
@@ -3363,6 +3491,8 @@ def main():
     # -- 21-24, 26. configs 4 and 2, the wavetable, the seek sampler; 27. their steps --
     step_paths(dev, kern, tag)
     sampler_paths(pt, dev, kern, tag)
+    # -- 39. the dense mix's and the wavetable's block steps as CUDA graphs -------------
+    dense_graphs(pt, dev, tag)
     sampler_pack_path(pt, dev, kern, tag)
 
     # -- 32-34. checkpoints, the realtime driver, the example twins --------------------

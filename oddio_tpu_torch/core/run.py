@@ -10,9 +10,11 @@ passes ``device``).
 The JAX package compiles one donated program per ``(archetype, kind, pack
 spec)``: ``"single"`` (one block), ``"scan"`` (a run of equal-archetype
 blocks) and ``("multi", nb)`` (fused idle groups).  Here a signal that
-declares ``graph_capture`` (the main path's SpatialScene, and a Mixer of
-BASELINE config 5's Adapt, Stream and Sine voices) gets one block step
-per such key, in ``_steps``; the protocol (``BlockSteps``) is the
+declares ``graph_capture`` (the main path's SpatialScene; a Mixer of
+BASELINE config 5's, config 4's or the wavetable's voices; a wrapper
+chain of Reinhard, Tanh, MonoToStereo or Downmix around either, which
+forwards it) gets one block step per such key, in ``_steps``; the
+protocol (``BlockSteps``) is the
 Renderer's and a 1 x 1 ScenePack's (``parallel/sharded.py``), which
 drives it over its stacked state:
 

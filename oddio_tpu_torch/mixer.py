@@ -13,8 +13,9 @@ deltas (every lane applied on the device, padding lanes dropped:
 ``core/drctrl.drop_lanes``) and each stream's queued PCM, and observes
 handle state at sync points with the reference's one-scan-late
 reclamation (mixer.rs:129-147).  A Mixer whose pools are all
-device-resident with Adapt, Stream and Sine chains (BASELINE config 5's
-voices) declares ``graph_capture``: its Renderer replays each block as a
+device-resident with chains of BASELINE config 5's, config 4's or the
+wavetable's nodes (``_GRAPH_NODES``) declares ``graph_capture``: its
+Renderer, or one of a wrapper chain around it, replays each block as a
 CUDA graph (``core/run.py``).  Other chains (a Speed over
 a Stream, a user signal) play in a host ``Pool``: a batched template whose
 host columns the host advances and whose device leaves the block renders
@@ -38,7 +39,13 @@ from .core.hostmath import f32
 from .core.signal import Engine, default_device
 from .ops._dev import masked_voice_sum
 from .ops.adapt import Adapt
+from .ops.channels import Downmix, MonoToStereo
+from .ops.constant import Constant
+from .ops.cycle import Cycle
+from .ops.gain import FixedGain, Gain
+from .ops.limit import Reinhard, Tanh
 from .ops.sine import Sine
+from .ops.speed import Speed
 from .ops.stream import Stream
 from .parallel.context import (RenderDevice, add_block, current_scenes, in_block_step,
                                localize_index, scene_offset, voice_partials)
@@ -501,12 +508,19 @@ class PoolDR(DRCtrlMixin):
         return S, masked_voice_sum(S["mask"], samples, current_scenes())
 
 
+#: the nodes of a device-resident chain whose renders read every per-block
+#: value from the params, the state or the pool's archetype entry (no fade
+#: lanes, no host-filtered record): config 5's Adapt, Stream and Sine,
+#: config 4's gains, channel maps and limiters, and the wavetable's Speed
+#: and Cycle (K6's arena form, its interval the key's)
+_GRAPH_NODES = (Adapt, Stream, Sine, Gain, FixedGain, Constant, MonoToStereo, Downmix,
+                Reinhard, Tanh, Speed, Cycle)
+
+
 def _graph_chain(node):
-    """Whether a pool's proto chain is all Adapt, Stream and Sine nodes,
-    whose device-resident renders read every per-block value from the
-    params, the state or the pool's archetype entry (no fade lanes, no
-    host-filtered record)."""
-    return type(node) in (Adapt, Stream, Sine) and all(
+    """Whether a pool's proto chain is all ``_GRAPH_NODES`` (a Speed over a
+    Stream plays in a host pool, ROADMAP D4)."""
+    return type(node) in _GRAPH_NODES and all(
         _graph_chain(c) for c in node.children().values())
 
 
@@ -601,11 +615,14 @@ class Mixer(Engine):
 
     @property
     def graph_capture(self):
-        """True while every pool is device-resident with a chain of Adapt,
-        Stream and Sine nodes (BASELINE config 5's voices): their renders
+        """True while every pool is device-resident with a chain of
+        ``_GRAPH_NODES`` (BASELINE config 5's Adapt, Stream and Sine;
+        config 4's Gain, FixedGain, Constant, MonoToStereo, Downmix,
+        Reinhard and Tanh; the wavetable's Speed and Cycle): their renders
         read every per-block value from the params, the state or the key,
-        so a Renderer captures the block step as a CUDA graph.  A host
-        pool, a submix, or any other node keeps op-by-op dispatch."""
+        so a Renderer captures the block step as a CUDA graph, and so does
+        a wrapper root over this mixer.  A host pool (Speed(Stream)), a
+        submix, a FramesSignal or a Fader keeps op-by-op dispatch."""
         return all(p.is_dr and _graph_chain(p.proto) for p in self._all_pools())
 
     @contextlib.contextmanager

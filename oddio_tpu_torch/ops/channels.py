@@ -11,6 +11,8 @@ agrees whenever ``n`` is a multiple of 256.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ..core.signal import Signal
@@ -20,7 +22,16 @@ __all__ = ["MonoToStereo", "Downmix"]
 
 class _Wrapper(Signal):
     """A one-child wrapper passing the block's interval and count through
-    unchanged (so a pool routes a stream's ingest channel through it)."""
+    unchanged (so a pool routes a stream's ingest channel through it).
+
+    Standalone (a Renderer's root, a submix's voice) it renders its inner
+    signal directly (``render``: the params as they come, tensors or
+    numpy) and maps the ``(C, n)`` block as a batch of one (so the block
+    equals ``render_host``'s, a pack's path); it captures as a CUDA graph
+    when its inner signal does (``graph_capture``, ``GRAPH_INPLACE`` and
+    ``render_archetype`` forwarded, as the JAX Renderer compiles a wrapper
+    chain around an engine).  It forwards no idle-run or sync hook: the
+    JAX Renderer finds none on such a root either."""
 
     _dr_ingest_transparent = True
 
@@ -50,6 +61,35 @@ class _Wrapper(Signal):
 
     def host_is_finished(self):
         return self.inner.host_is_finished()
+
+    # -- standalone render and its block step (core/run.py) -------------------
+
+    @property
+    def graph_capture(self):
+        return getattr(self.inner, "graph_capture", False)
+
+    @property
+    def GRAPH_INPLACE(self):
+        return getattr(self.inner, "GRAPH_INPLACE", ())
+
+    @contextlib.contextmanager
+    def render_archetype(self, arch):
+        """Render as of ``arch``: the inner signal's, as of its entry of
+        the key (``Signal.archetype`` nests it under "inner")."""
+        with self.inner.render_archetype(dict(arch[3])["inner"]):
+            yield
+
+    def _inner_render(self, dstate, ddata, params, n):
+        d2, block = self.inner.render(
+            dstate.get("inner", {}), ddata.get("inner", {}), params["inner"], n
+        )
+        out = dict(dstate)
+        out["inner"] = d2
+        return out, block
+
+    def render(self, dstate, ddata, params, n):
+        d2, block = self._inner_render(dstate, ddata, params, n)
+        return d2, self._map(block[None])[0]
 
     def _map(self, block):
         """The wrapper's transform of a block (V, C, n) or samples (V[, E

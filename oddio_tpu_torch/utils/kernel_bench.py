@@ -686,9 +686,14 @@ def dr_pools(engine):
 
 
 def capture_steps(pools, render, method="dr_render"):
-    """Run ``render()`` with every pool's ``proto.<method>`` spied on:
-    {pool: [the arguments of each call: (state, ddata, interval, n, count)
-    of ``dr_render``]}.  Each replays with ``pool.proto.<method>(*args)``."""
+    """Run ``render()`` under ``core.run.eager()`` with every pool's
+    ``proto.<method>`` spied on: {pool: [the arguments of each call:
+    (state, ddata, interval, n, count) of ``dr_render``]}.  Each replays
+    with ``pool.proto.<method>(*args)``.  Op by op: a replayed graph calls
+    no render, and a step's state leaves are rewritten in place by the
+    next block."""
+    from oddio_tpu_torch.core.run import eager
+
     caps = {p: [] for p in pools}
     for p in pools:
         def spy(*a, _inner=getattr(p.proto, method), _caps=caps[p]):
@@ -696,7 +701,8 @@ def capture_steps(pools, render, method="dr_render"):
             return _inner(*a)
         setattr(p.proto, method, spy)
     try:
-        render()
+        with eager():
+            render()
     finally:
         for p in pools:
             delattr(p.proto, method)
@@ -737,7 +743,6 @@ def step_states(dev):
     if dev in _STEP_STATES:
         return _STEP_STATES[dev]
     import oddio_tpu_torch as pt
-    from oddio_tpu_torch.core.run import eager
     from oddio_tpu_torch.utils.scene_profile import build_host_pools, build_mixer_agc, feed
 
     out = []
@@ -746,10 +751,7 @@ def step_states(dev):
     r.render_frames(W * 4)
     feed(ctls, rng, 1024)
     pools = dr_pools(mixer)
-    # op by op: a replayed graph calls no render, and a step's state
-    # leaves are rewritten in place by the next block
-    with eager():
-        caps = capture_steps(pools, lambda: [r.render_block(W) for _ in range(STEP_BLOCKS)])
+    caps = capture_steps(pools, lambda: [r.render_block(W) for _ in range(STEP_BLOCKS)])
     for p in pools:
         out.append((f"{type(p.proto.inner).__name__} V={p.capacity} n={W}", p.proto,
                     caps[p][-STEP_BLOCKS:]))

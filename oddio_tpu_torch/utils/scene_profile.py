@@ -1,7 +1,7 @@
 """Where a block's time goes on a CUDA card: the bench scenes at 4096 voices
 through ``Renderer.render_frames_device``, timed and traced.
 
-    python -m oddio_tpu_torch.utils.scene_profile [buffered|seek|buffered_mixed|subpass|mixer|hostpools|pack|pack256|spatialpack|densemix|sampler|wavetable|sampler_pack|hostpack|seek_eager|buffered_eager|buffered_mixed_eager|subpass_eager|mixer_eager|pack_eager|pack256_eager|spatialpack_eager ...]
+    python -m oddio_tpu_torch.utils.scene_profile [buffered|seek|buffered_mixed|subpass|mixer|hostpools|pack|pack256|spatialpack|densemix|sampler|wavetable|sampler_pack|hostpack|seek_eager|buffered_eager|buffered_mixed_eager|subpass_eager|mixer_eager|pack_eager|pack256_eager|spatialpack_eager|densemix_eager|wavetable_eager ...]
 
 For the main path's four scenes (``build_main_path``: bench.py's seek,
 buffered, buffered_mixed and subpass scenes at 4096 voices), the AGC
@@ -17,7 +17,10 @@ stated 256 scenes as ``pack256``; ``build_spatial_pack``: 16 scenes of 64
 buffered + 192 seek Sine voices, as ``spatialpack``), and the 1024-voice
 scenes of BASELINE configs 4 and 2 and the wavetable line
 (``build_densemix``, ``build_sampler`` with its control script of speed
-writes and fades every 8 blocks, ``build_wavetable``), and the two packs
+writes and fades every 8 blocks, ``build_wavetable``; the dense mix and
+the wavetable with bench.py's dispatch, ``scan_unroll`` 4 and
+``BUCKETS`` for the dense mix, ``BUCKETS`` for the wavetable, replaying
+CUDA graphs, and their ``_eager`` twins op by op), and the two packs
 of one session each (``build_sampler_pack``: 16 sampler scenes of 64
 voices, each on its own script, as ``sampler_pack``;
 ``build_host_pools_pack``: 16 host-pool scenes of 256 voices, as
@@ -46,9 +49,12 @@ import numpy as np
 import torch
 
 import oddio_tpu_torch as pt
+from oddio_tpu_torch.mixer import DEFAULT_CAPACITY
 
-__all__ = ["build_spatial", "build_main_path", "MAIN_PATH", "build_mixer_agc", "build_host_pools", "build_config5_pack",
-           "build_pack_scene", "build_spatial_pack", "build_densemix", "build_wavetable",
+__all__ = ["build_spatial", "build_main_path", "MAIN_PATH", "BUCKETS", "build_mixer_agc",
+           "build_host_pools", "build_config5_pack",
+           "build_pack_scene", "build_spatial_pack", "build_densemix", "densemix_voice",
+           "build_wavetable", "wavetable_frames", "wavetable_voice",
            "build_sampler", "SamplerDriver", "build_sampler_pack", "build_host_pools_pack",
            "PackDriver", "build_checkpoint_scene", "feed", "card_line", "main"]
 
@@ -58,6 +64,9 @@ VOICES = 4096
 BLOCKS = 188  # 2.005 s of audio per timed run
 RUNS = 3
 TOP = 12  # kernels and host ops listed per scene
+#: bench.py's dispatch-size buckets (``bench.py:75``: 1504, CHUNK = 47, 46,
+#: 12, 3, 1), with which it renders the dense mix and the wavetable
+BUCKETS = (1504, 47, 46, 12, 3, 1)
 
 
 def build_spatial(buffered, voices, device):
@@ -260,39 +269,59 @@ def build_spatial_pack(scenes, device, n_buffered=64, n_seek=192, seed=0, mesh=N
     return _pack(out, device, mesh)
 
 
-def build_densemix(voices, device, seed=0):
+def densemix_voice(rng):
+    """A dense-mix voice: ``Gain(Sine)`` at a phase uniform in [0, 6), a
+    frequency in [50, 4000) Hz and a gain in [-20, 0] dB; returns
+    ``(gain_control, voice)``."""
+    gc, g = pt.Gain.new(pt.Sine(rng.uniform(0, 6), rng.uniform(50, 4000)))
+    gc.set_gain(rng.uniform(-20, 0))
+    return gc, g
+
+
+def build_densemix(voices, device, seed=0, capacity=DEFAULT_CAPACITY):
     """BASELINE config 4, ``bench.py:434``'s densemix scene: ``voices``
-    ``Gain(Sine)`` voices (phases uniform in [0, 6), frequencies in [50,
-    4000) Hz, gains in [-20, 0] dB) in a mono Mixer under
-    ``Tanh(Reinhard(mixer))``, drawn from ``seed``.  Returns ``(chain,
-    mixer, gain_controls, rng)``; ``rng`` continues the draws."""
+    ``densemix_voice``s in a mono Mixer under ``Tanh(Reinhard(mixer))``,
+    drawn from ``seed``; its pools open at ``capacity`` voices.  Returns
+    ``(chain, mixer, gain_controls, rng)``; ``rng`` continues the
+    draws."""
     rng = np.random.default_rng(seed)
-    control, mixer = pt.Mixer.new(channels=1, device=device)
+    mixer = pt.Mixer(1, initial_capacity=capacity, device=device)
     gcs = []
     for _ in range(voices):
-        gc, g = pt.Gain.new(pt.Sine(rng.uniform(0, 6), rng.uniform(50, 4000)))
-        gc.set_gain(rng.uniform(-20, 0))
+        gc, g = densemix_voice(rng)
         gcs.append(gc)
-        control.play(g)
+        mixer.play(g)
     return pt.Tanh(pt.Reinhard(mixer)), mixer, gcs, rng
 
 
-def build_wavetable(voices, device, seed=0):
-    """``bench.py:470``'s wavetable scene: ``voices`` ``Speed(Cycle)``
-    voices over one 2048-sample sine table at 48 kHz, each seeked uniform
-    in [0, 0.04) s, in a mono Mixer, drawn from ``seed``.  Returns
+def wavetable_frames():
+    """``bench.py:470``'s table: one cycle of a sine in 2048 samples, as
+    ``Frames`` at 48 kHz (a new table in the sample arena)."""
+    table = np.sin(np.linspace(0, 2 * np.pi, 2048, endpoint=False)).astype(np.float32)
+    return pt.Frames.from_slice(RATE, table)
+
+
+def wavetable_voice(frames, rng):
+    """A wavetable voice: ``Speed(Cycle(frames))`` seeked uniform in [0,
+    0.04) s; returns ``(speed_control, voice)``."""
+    c = pt.Cycle(frames)
+    c.seek(float(rng.uniform(0, 0.04)))
+    return pt.Speed.new(c)
+
+
+def build_wavetable(voices, device, seed=0, capacity=DEFAULT_CAPACITY, frames=None):
+    """``bench.py:470``'s wavetable scene: ``voices`` ``wavetable_voice``s
+    over ``frames`` (default a new ``wavetable_frames()``) in a mono Mixer
+    whose pools open at ``capacity`` voices, drawn from ``seed``.  Returns
     ``(mixer, speed_controls, rng)``."""
     rng = np.random.default_rng(seed)
-    table = np.sin(np.linspace(0, 2 * np.pi, 2048, endpoint=False)).astype(np.float32)
-    frames = pt.Frames.from_slice(RATE, table)
-    control, mixer = pt.Mixer.new(channels=1, device=device)
+    frames = wavetable_frames() if frames is None else frames
+    mixer = pt.Mixer(1, initial_capacity=capacity, device=device)
     scs = []
     for _ in range(voices):
-        c = pt.Cycle(frames)
-        c.seek(float(rng.uniform(0, 0.04)))
-        sc, sp = pt.Speed.new(c)
+        sc, sp = wavetable_voice(frames, rng)
         scs.append(sc)
-        control.play(sp)
+        mixer.play(sp)
     return mixer, scs, rng
 
 
@@ -539,8 +568,9 @@ def _run(renderer, nblocks):
 
 
 def profile_scene(label):
-    """Profile one scene; a main-path, mixer or pack label with ``_eager``
-    (``buffered_eager``, ``mixer_eager``, ``pack_eager``) runs it under
+    """Profile one scene; a main-path, mixer, pack, dense-mix or wavetable
+    label with ``_eager`` (``buffered_eager``, ``mixer_eager``,
+    ``pack_eager``, ``densemix_eager``, ``wavetable_eager``) runs it under
     ``core.run.eager()``, op by op, where the plain label replays the
     Renderer's or the pack's CUDA graphs."""
     if label.endswith("_eager"):
@@ -554,6 +584,7 @@ def profile_scene(label):
 def _profile_scene(label, shown):
     nblocks = BLOCKS
     before = None
+    kw = {}  # the Renderer's dispatch options
     if label in ("pack", "pack256"):
         r, ctls, rng = build_config5_pack(16 if label == "pack" else 256, "cuda")
 
@@ -581,8 +612,10 @@ def _profile_scene(label, shown):
             feed(ctls, rng, 1024)
     elif label == "densemix":
         scene, _, _, _ = build_densemix(1024, "cuda")
+        kw = {"scan_unroll": 4, "scan_buckets": BUCKETS}
     elif label == "wavetable":
         scene, _, _ = build_wavetable(1024, "cuda")
+        kw = {"scan_buckets": BUCKETS}
     elif label == "sampler":
         drv = build_sampler(1024, "cuda")
         scene = drv.mixer
@@ -595,7 +628,7 @@ def _profile_scene(label, shown):
         spent = _timed_prepare(r.scenes)
     else:
         spent = _timed_prepare([scene])
-        r = pt.Renderer(scene, RATE)
+        r = pt.Renderer(scene, RATE, **kw)
     if label == "sampler":
         # the control script runs inside the timed window (every 8 blocks)
         r = _Driven(r, drv)
@@ -640,7 +673,8 @@ def _profile_scene(label, shown):
 SCENES = ("buffered", "seek", "buffered_mixed", "subpass", "mixer", "hostpools", "pack",
           "pack256", "spatialpack", "densemix", "sampler", "wavetable", "sampler_pack",
           "hostpack") + tuple(f"{k}_eager" for k in MAIN_PATH + ("mixer", "pack", "pack256",
-                                                                 "spatialpack"))
+                                                                 "spatialpack", "densemix",
+                                                                 "wavetable"))
 
 
 def main(argv=None):

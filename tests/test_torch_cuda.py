@@ -1582,3 +1582,144 @@ def test_pack_graph_handle_readback_after_replay(cuda):
     late, _ = drain("graph", False)
     assert got == want == late and any(want[-1]) and not any(want[0])
     assert pack.graph_counts["replays"] > 0
+
+
+# -- BASELINE config 4's dense mix and the wavetable under CUDA graphs --------------------
+
+
+def _dense_graph_run(kind, mode, script, voices=256, capacity=512):
+    """``script(r, mixer, ctls, rng, frames)`` on the dense mix (its
+    ``Tanh(Reinhard(mixer))`` root, scan_unroll 4) or the wavetable of
+    ``voices`` voices with bench.py's buckets, under ``eager()`` or
+    replaying graphs: (its result, launches, the Renderer)."""
+    import contextlib
+
+    from oddio_tpu_torch.core.run import eager
+    from oddio_tpu_torch.utils.scene_profile import (BUCKETS, build_densemix,
+                                                     build_wavetable, wavetable_frames)
+
+    frames = None
+    if kind == "densemix":
+        root, mixer, ctls, rng = build_densemix(voices, "cuda", capacity=capacity)
+        r = pt.Renderer(root, 48000, scan_unroll=4, scan_buckets=BUCKETS)
+    else:
+        frames = wavetable_frames()
+        mixer, ctls, rng = build_wavetable(voices, "cuda", capacity=capacity, frames=frames)
+        root = mixer
+        r = pt.Renderer(root, 48000, scan_buckets=BUCKETS)
+    assert root.graph_capture
+    for m in (RK, SK, A, FK):
+        m.reset_launches()
+    with eager() if mode == "eager" else contextlib.nullcontext():
+        out = script(r, mixer, ctls, rng, frames)
+    torch.cuda.synchronize()
+    return out, _all_launches(), r
+
+
+def _dense_control_script(r, mixer, ctls, rng, frames):
+    """24 blocks, then three ticks of a write on 16 voices (set_gain, or
+    set_speed: into the step tier 4, past the arena step's bound to the
+    exact gather, back) and 4 plays, each followed by 20 blocks (the
+    pools have room: no growth)."""
+    from oddio_tpu_torch.utils.scene_profile import densemix_voice, wavetable_voice
+
+    out = [r.render_frames(512 * 24)]
+    for t in range(3):
+        for c in ctls[16 * t:16 * (t + 1)] if t == 0 or frames is None else ctls[:16]:
+            if frames is None:
+                c.set_gain(float(rng.uniform(-20, 0)))
+            else:
+                c.set_speed({0: 3.0, 1: 5.0, 2: 1.1}[t])
+        for _ in range(4):
+            mixer.play((densemix_voice(rng) if frames is None
+                        else wavetable_voice(frames, rng))[1])
+        out.append(r.render_frames(512 * 20))
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize("kind", ["densemix", "wavetable"])
+def test_dense_graph_replay_matches_eager(cuda, kind):
+    """The 256-voice dense mix and wavetable through writes (the
+    wavetable's across the arena step's bound and back) and plays: graph
+    replay bit-equal to ``eager()``, every kernel's launches equal (the
+    wavetable's ``arena_step`` on its arena blocks, no kernel on the dense
+    mix, no ring or AGC kernel), every call after a key's warm-up and
+    capture a replay, no recapture."""
+    (xe, le, re), (xg, lg, rg) = [_dense_graph_run(kind, mode, _dense_control_script)
+                                  for mode in ("eager", "graph")]
+    assert np.abs(xe).max() > 0.1
+    np.testing.assert_array_equal(xg, xe)
+    assert lg == le
+    if kind == "wavetable":
+        assert set(lg) == {f"{SK.__name__}.arena_step"}
+        assert 0 < lg[f"{SK.__name__}.arena_step"] < xg.shape[0] // 512  # the gather's blocks
+    else:
+        assert lg == {}
+    c = rg.graph_counts
+    assert re.graph_counts["replays"] == 0 and c["recaptures"] == 0
+    assert c["replays"] > c["captures"] > 0
+
+
+def test_wavetable_graph_recaptures_after_a_new_table(cuda):
+    """Voices of a new table played after the wavetable's steps were
+    captured: the sample arena is rebuilt (new tensors), so every step
+    that reads it warms up and captures again before it replays; the
+    audio stays bit-equal to ``eager()``, the old arena is held until
+    then."""
+    from oddio_tpu_torch.utils.scene_profile import wavetable_frames, wavetable_voice
+
+    def script(r, mixer, ctls, rng, frames):
+        out = [r.render_frames(512 * 24)]
+        before = dict(r.graph_counts)
+        table = wavetable_frames()
+        for _ in range(4):
+            mixer.play(wavetable_voice(table, rng)[1])
+        out.append(r.render_frames(512 * 24))
+        return np.concatenate(out), before
+
+    ((xe, _), le, _), ((xg, before), lg, rg) = [
+        _dense_graph_run("wavetable", mode, script) for mode in ("eager", "graph")]
+    np.testing.assert_array_equal(xg, xe)
+    assert lg == le and lg[f"{SK.__name__}.arena_step"] == 48
+    assert before["recaptures"] == 0 and before["replays"] > 0
+    assert rg.graph_counts["recaptures"] > 0
+
+
+@pytest.mark.parametrize("kind", ["densemix", "wavetable"])
+def test_dense_graph_growth_between_warmup_and_capture(cuda, kind, monkeypatch):
+    """Plays that grow the pool between the play-lane step's warm-up and
+    its capture: the step runs op by op again at the new size, so no
+    count tensor is made inside a capture; bit-equal to ``eager()``."""
+    from oddio_tpu_torch.mixer import PoolDR
+    from oddio_tpu_torch.utils.scene_profile import densemix_voice, wavetable_voice
+
+    made, count_tensor = [], PoolDR._count_tensor
+
+    def spy(self, V):
+        if (V, self._count, self.device) not in self._count_t:
+            made.append(torch.cuda.is_current_stream_capturing())
+        return count_tensor(self, V)
+
+    monkeypatch.setattr(PoolDR, "_count_tensor", spy)
+
+    def script(r, mixer, ctls, rng, frames):
+        def play(k):
+            for _ in range(k):
+                mixer.play((densemix_voice(rng) if frames is None
+                            else wavetable_voice(frames, rng))[1])
+
+        # the first block's plays warm up the play-lane step, the second
+        # the idle step
+        out = [r.render_block(512) for _ in range(2)]
+        play(40)  # the pool grows (128 -> 256) before the play-lane step's capture
+        out += [r.render_block(512) for _ in range(2)]
+        play(1)
+        out += [r.render_block(512) for _ in range(4)]
+        return np.concatenate(out + [r.render_frames(512 * 8)])
+
+    (xe, le, _), (xg, lg, rg) = [_dense_graph_run(kind, mode, script, voices=100,
+                                                  capacity=16)
+                                 for mode in ("eager", "graph")]
+    np.testing.assert_array_equal(xg, xe)
+    assert lg == le and rg.graph_counts["replays"] > 0
+    assert not any(made)

@@ -35,7 +35,7 @@ from oddio_tpu.core import run as jrun  # noqa: E402
 from oddio_tpu_torch.core import run as prun  # noqa: E402
 from oddio_tpu_torch.utils.scene_profile import build_mixer_agc, feed  # noqa: E402
 from oddio_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_map  # noqa: E402
-from test_torch_graph_step import _bits, _host, _offsets, _paths  # noqa: E402
+from test_torch_graph_step import _bits, _host, _offsets, _paths, host_read_guard  # noqa: E402
 from test_torch_mixer import _jax_mixer_agc  # noqa: E402
 
 torch.set_num_threads(1)
@@ -228,6 +228,18 @@ def test_mixer_step_matches_eager_bit_for_bit():
             assert r.dispatch_counts == r0.dispatch_counts
 
 
+def test_mixer_steps_read_no_tensor_on_host():
+    """The config-5 mixer's script under ``host_read_guard``: no step reads
+    a tensor on the host (plays, stops, closes, ingest blocks, an idle
+    run), and the audio equals ``eager()``'s."""
+    with host_read_guard() as hits:
+        got, r, _ = script(pt, 4)
+    assert hits == [] and r._steps and r.graph_counts["eager"] > 0
+    with prun.eager():
+        want, _, _ = script(pt, 4)
+    np.testing.assert_array_equal(got, want)
+
+
 def _mixer_host(mixer):
     """A comparable picture of the mixer's and its pools' host state (the
     device state and the count-tensor cache left out)."""
@@ -376,9 +388,11 @@ def test_mixer_is_stopped_one_scan_late_under_steps():
 
 
 def test_mixer_graph_capture_declared():
-    """Config 5's chains, and bare Streams and Sines, declare
-    ``graph_capture``; a host pool, a submix, Speed or Gain keep op-by-op
-    dispatch, as does a wrapper chain around a capturing Mixer."""
+    """Config 5's chains, bare Streams and Sines, Speed(Sine) and
+    Gain(Sine) declare ``graph_capture``, and so does a wrapper chain
+    around a capturing Mixer (it renders the mixer directly); a host pool
+    (Speed(Stream)), a submix, a FramesSignal and a Fader keep op-by-op
+    dispatch."""
     control, mixer = pt.Mixer.new(channels=1, device="cpu")
     assert mixer.graph_capture
     control.play(pt.Sine(0.0, 440.0))
@@ -389,13 +403,18 @@ def test_mixer_graph_capture_declared():
     chain = pt.Tanh(mixer)
     r = pt.Renderer(chain, RATE)
     r.render_frames(BLOCK * 2)
-    assert not chain.graph_capture and r._steps == {} and r.graph_counts["eager"] == 2
-    for spec in (lambda: pt.Speed(pt.Stream(8000, 256)), lambda: pt.Mixer(1, device="cpu"),
-                 lambda: pt.Speed(pt.Sine(0.0, 220.0)),
-                 lambda: pt.Gain(pt.Sine(0.0, 220.0))):
+    assert chain.graph_capture and r._steps and r.graph_counts["eager"] == 2
+    frames = pt.Frames.from_slice(RATE, np.zeros(64, np.float32))
+    for spec, captured in ((lambda: pt.Speed(pt.Stream(8000, 256)), False),
+                           (lambda: pt.Mixer(1, device="cpu"), False),
+                           (lambda: pt.FramesSignal(frames, 0.0), False),
+                           (lambda: pt.Fader(pt.Sine(0.0, 220.0)), False),
+                           (lambda: pt.Speed(pt.Sine(0.0, 220.0)), True),
+                           (lambda: pt.Gain(pt.Sine(0.0, 220.0)), True)):
         control, mixer = pt.Mixer.new(channels=1, device="cpu")
         control.play(_voice(pt))
         control.play(spec())
         r = pt.Renderer(mixer, RATE)
         r.render_frames(BLOCK * 2)
-        assert not mixer.graph_capture and r._steps == {}
+        assert mixer.graph_capture is captured
+        assert bool(r._steps) is captured

@@ -19,6 +19,7 @@ listener rotation.  Test names avoid the JAX tests' (``conftest.py``
 marks tests slow by name).
 """
 
+import contextlib
 import copy
 import functools
 
@@ -35,6 +36,7 @@ import oddio_tpu_torch as pt  # noqa: E402
 from oddio_tpu.core import run as jrun  # noqa: E402
 from oddio_tpu_torch.core import run as prun  # noqa: E402
 from oddio_tpu_torch.core.drctrl import drop_lanes, scatter_drop_  # noqa: E402
+from oddio_tpu_torch.parallel.context import in_block_step  # noqa: E402
 from oddio_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_map  # noqa: E402
 from test_torch_spatial import BLOCK, RATE, TOL, build_entry  # noqa: E402
 
@@ -313,6 +315,61 @@ def _host(obj, depth=0):
     return type(obj).__name__
 
 
+#: the tensor methods that read values on the host
+_HOST_READS = ("__array__", "numpy", "item", "tolist")
+
+
+@contextlib.contextmanager
+def host_read_guard():
+    """Inside ``block_step()`` (a render a CUDA graph may capture), make
+    ``torch.Tensor.__array__``, ``numpy()``, ``item()`` and ``tolist()``
+    raise: on a card such a read fails the capture or bakes one block's
+    value into every replay, and on the CPU it passes silently.  Yields
+    the list of the reads it refused (a caller that swallowed the error
+    still leaves its entry)."""
+    own = {name: torch.Tensor.__dict__.get(name) for name in _HOST_READS}
+    hits = []
+
+    def guard(name, fn):
+        def guarded(self, *a, **kw):
+            if in_block_step():
+                hits.append(name)
+                raise RuntimeError(f"a block step read a tensor on the host (Tensor.{name})")
+            return fn(self, *a, **kw)
+
+        return guarded
+
+    for name in _HOST_READS:
+        setattr(torch.Tensor, name, guard(name, getattr(torch.Tensor, name)))
+    try:
+        yield hits
+    finally:
+        for name, fn in own.items():
+            if fn is None:
+                delattr(torch.Tensor, name)
+            else:
+                setattr(torch.Tensor, name, fn)
+
+
+def test_block_steps_read_no_tensor_on_host():
+    """The main path's scripts (the entry scene's and the sub-pass
+    scene's) under ``host_read_guard``: no step reads a tensor on the
+    host, and the audio equals ``eager()``'s."""
+    with host_read_guard() as hits:
+        got, r, _ = script(pt, 4)
+        sub, rs, _, _ = subpass_script(pt)
+    assert hits == [] and r._steps and rs._steps
+    with prun.eager():
+        want, _, _ = script(pt, 4)
+        want_sub, _, _, _ = subpass_script(pt)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(sub, want_sub)
+    with host_read_guard(), pytest.raises(RuntimeError, match="Tensor.item"):
+        with prun.block_step():
+            torch.ones(1).item()
+    assert torch.ones(1).item() == 1.0
+
+
 def _scene_host(scene):
     return _host({"scene": {k: v for k, v in vars(scene).items() if k not in ("_rot_dev",)},
                   "pools": [{k: v for k, v in vars(p).items() if k != "state"}
@@ -416,14 +473,15 @@ def test_state_leaves_stay_put():
 
 
 def test_other_engines_dispatch_eagerly():
-    """Only the Sine-only SpatialScene declares ``graph_capture``: a Mixer,
-    and a scene with a pool of Speed(Sine) voices, keep op-by-op
-    dispatch."""
+    """A Mixer of MonoToStereo(Sine) voices declares ``graph_capture`` and
+    renders through block steps; a scene with a pool of Speed(Sine) voices
+    keeps op-by-op dispatch (``SpatialScene.graph_capture`` admits Sine
+    voices only)."""
     control, mixer = pt.Mixer.new(channels=2, device="cpu")
     control.play(pt.MonoToStereo(pt.Sine(0.0, 440.0)))
     r = pt.Renderer(mixer, RATE)
     r.render_frames(BLOCK * 3)
-    assert not mixer.graph_capture and r._steps == {} and r.graph_counts["eager"] == 3
+    assert mixer.graph_capture and r._steps and r.graph_counts["eager"] == 3
     control, scene, _ = build_entry(pt, n_buffered=4, n_seek=2)
     assert scene.graph_capture
     control.play_buffered(pt.Speed(pt.Sine(0.0, 220.0)), pt.SpatialOptions(
