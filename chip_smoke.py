@@ -226,6 +226,23 @@ Phases (each prints one or more lines; any failure exits non-zero):
     blocks each way (dispatch host ms a block, host_prepare ms a block,
     xRT); at the end of the run, device kernels per block of each way.
     Phases 21-24's dense mix and wavetable replay graphs too.
+40. (after 26 and 29) the Renderer's and the pack's block steps as CUDA
+    graphs on the samplers: BASELINE config 2's sampler (1024
+    Fader(Speed(FramesSignal)) voices; ``fader_step`` inside the graphs,
+    the fade lanes and the float64 cursors in the packed row), the seek
+    sampler (1024 mono FramesSignal voices in a seek pool; ``arena_warp``)
+    and the sampler pack 16 x 64 (``fader_step`` over the stack), each
+    twice from one seed, once under ``core.run.eager()`` and once
+    replaying graphs, through one script of 12 periods of 8 blocks (each
+    period's control first: the sampler's speed writes on 64 voices and
+    0.05 s fades on 64 others, every pack scene's on 8 and 8, or
+    set_motion on 64 seek voices): bit-equal, every kernel's launches
+    equal (one ``arena_step`` a block, no other kernel), ``graph_counts``
+    (replays >= 90% of each scene's calls, no recapture: no leaf is
+    replaced); then 188 idle blocks and 6 control periods each way
+    (dispatch host ms a block, host_prepare ms a block, the control's ms
+    a period, xRT); at the end of the run, device kernels per block of
+    each way.  Phases 22, 26 and 29's scenes replay graphs too.
 Phases 28-35 count launches with the wrappers' counters, never a tracer
 session; the packs' block profiles (phases 29 and 30) only print.
 The profiles run at the end in this order: the one-kernel checks
@@ -506,7 +523,8 @@ def kernel_line(name, k):
             "library_ms": lib.get("ms"), "library_device_ms": lib.get("device_ms"),
             "library_host_ms": lib.get("host_ms")}
     return {**line, **{key: k[key] for key in ("other_form", "cold", "library_cold", "host_pool",
-                                               "pack_launches", "mesh_launches",
+                                               "pack_launches", "graph_launches",
+                                               "mesh_launches",
                                                "resume_launches", "realtime_launches",
                                                "shapes")
                      if key in k}}
@@ -1843,6 +1861,7 @@ def sampler_paths(pt, dev, kern, tag):
     from oddio_tpu_torch.ops import stream_kernels as SK
     from oddio_tpu_torch.utils import kernel_bench as KB
     from oddio_tpu_torch.utils.scene_profile import (build_densemix, build_sampler,
+                                                     build_seek_sampler,
                                                      build_wavetable)
 
     nb1 = 94
@@ -1955,7 +1974,7 @@ def sampler_paths(pt, dev, kern, tag):
 
     # -- 26. the seek sampler ------------------------------------------------------
     t0 = time.perf_counter()
-    _, scene, hs, rng = KB.build_seek_sampler(1024, dev)
+    _, scene, hs, rng = build_seek_sampler(1024, dev)
     r = pt.Renderer(scene, RATE)
     print(f"seek sampler: 1024 mono FramesSignal voices over 8 10 s sounds in a SpatialScene's "
           f"seek pool built in {time.perf_counter() - t0:.2f} s {tag}")
@@ -1996,7 +2015,7 @@ def sampler_paths(pt, dev, kern, tag):
                 r = pt.Renderer(drv.mixer, RATE)
                 outs.append(np.concatenate(drv.render(r, 24, device_out=False)))
             elif label == "seek sampler":
-                _, scene, hs, rng = KB.build_seek_sampler(V, device, sounds=2, seconds=2.0)
+                _, scene, hs, rng = build_seek_sampler(V, device, sounds=2, seconds=2.0)
                 r = pt.Renderer(scene, RATE)
                 x = r.render_frames(BLOCK * 12)
                 for h in hs[:16]:
@@ -3340,6 +3359,142 @@ def dense_graphs(pt, dev, tag):
           f"calls {tag}")
 
 
+def _sampler_scene(kind, dev):
+    """Phase 40's scene ``kind`` at its full width, from seed 0: (the
+    Renderer or the pack, the engine whose prepare is timed, its control
+    for one period, its renderer of ``nb`` blocks to device tensors)."""
+    import oddio_tpu_torch as pt
+    from oddio_tpu_torch.utils.scene_profile import (build_sampler, build_sampler_pack,
+                                                     build_seek_sampler)
+
+    if kind == "sampler_pack":
+        drv = build_sampler_pack(16, 64, dev)
+        pack = drv.pack
+
+        def control():
+            for d in drv.drivers:
+                d.control()
+
+        return pack, pack, control, lambda nb: pack.render_frames_device(BLOCK * nb)
+    if kind == "sampler":
+        drv = build_sampler(1024, dev)
+        engine, control = drv.mixer, drv.control
+    else:
+        _, engine, hs, rng = build_seek_sampler(1024, dev)
+        turn = [0]
+
+        def control():
+            for h in hs[64 * turn[0]:64 * (turn[0] + 1)]:
+                h.set_motion(rng.uniform(-15, 15, 3), rng.uniform(-5, 5, 3), False)
+            turn[0] = (turn[0] + 1) % 16
+
+    r = pt.Renderer(engine, RATE, scan_buckets=BENCH_BUCKETS)
+    return r, engine, control, lambda nb: r.render_frames_device(BLOCK * nb, sync=False)
+
+
+def _timed_periods(r, engine, control, render, periods=6):
+    """``periods`` control periods of 8 blocks: (dispatch host ms a block,
+    host_prepare ms a block, the control's ms a period, wall s).  The host
+    time is the render calls', ended before any wait for the card, less
+    host_prepare's."""
+    torch.cuda.synchronize()
+    ctl = host = 0.0
+    with _prepare_time(engine) as spent:
+        t0 = time.perf_counter()
+        for _ in range(periods):
+            t1 = time.perf_counter()
+            control()
+            t2 = time.perf_counter()
+            render(8)
+            ctl += t2 - t1
+            host += time.perf_counter() - t2
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    nb = 8 * periods
+    return 1e3 * (host - spent[0]) / nb, 1e3 * spent[0] / nb, 1e3 * ctl / periods, wall
+
+
+def sampler_graphs(pt, dev, kern, tag):
+    """Phase 40: the samplers' block steps as CUDA graphs against eager
+    dispatch (see the module docstring)."""
+    totals = {"captures": 0, "recaptures": 0, "replays": 0, "eager": 0}
+    per_block = {}
+    for kind in ("sampler", "seek_sampler", "sampler_pack"):
+        runs = {}
+        for mode in ("eager", "graph"):
+            t0 = time.perf_counter()
+            r, engine, control, render = _sampler_scene(kind, dev)
+            built = time.perf_counter() - t0
+            if not engine.graph_capture:
+                raise AssertionError(f"phase 40 {kind}: the engine does not declare "
+                                     f"graph_capture")
+            reset_launches()
+            out = []
+            with _mode(mode):
+                for _ in range(12):
+                    control()
+                    out += render(8)
+            torch.cuda.synchronize()
+            launches = all_launches()
+            x = torch.cat([o.reshape(-1) for o in out]).cpu().numpy()
+            if not np.isfinite(x).all() or np.abs(x).max() <= 1e-3:
+                raise AssertionError(f"phase 40 {kind} {mode}: non-finite or silent output")
+            counts = dict(r.graph_counts)
+            with _mode(mode):
+                host_ms, prep_ms, wall = _timed_idle(r, engine)
+                ph, pp, pc, pw = _timed_periods(r, engine, control, render)
+            runs[mode] = (x, launches, counts, host_ms, prep_ms, wall, ph, pp, pc, pw, built,
+                          dict(r.graph_counts))
+            BLOCK_PROFILES.append((40, f"the {kind} {mode} (a control period of 8 blocks)",
+                                   (lambda c=control, rd=render, m=mode:
+                                    _control_period(c, rd, m)), 8))
+        (xe, le, ce, he, pe, we, phe, ppe, pce, pwe, be, _), \
+            (xg, lg, cg, hg, pg, wg, phg, ppg, pcg, pwg, bg, total) = runs["eager"], runs["graph"]
+        nb = 96
+        err = float(np.abs(xg - xe).max())
+        if err != 0.0 or xg.shape != xe.shape:
+            raise AssertionError(f"phase 40 {kind}: graph replay differs from eager dispatch "
+                                 f"by {err}")
+        if lg != le:
+            raise AssertionError(f"phase 40 {kind}: launches eager {le} graph {lg}")
+        want = {"stream_kernels.arena_step": nb}
+        if lg != want:
+            raise AssertionError(f"phase 40 {kind}: launches {lg} in {nb} blocks, want {want}")
+        calls = total["replays"] + total["eager"]
+        share = total["replays"] / calls
+        if total["recaptures"] or share < 0.9:
+            raise AssertionError(f"phase 40 {kind}: graph_counts {total}, replays {share:.3f} "
+                                 f"of the calls")
+        for k, v in total.items():
+            totals[k] += v
+        per_block[kind] = lg["stream_kernels.arena_step"] / nb
+        xrt = lambda n, w: n * BLOCK / RATE / w  # noqa: E731
+        scenes = " per scene" if kind == "sampler_pack" else ""
+        print(f"phase 40 {kind}: built in {be:.2f}/{bg:.2f} s, {nb} blocks (12 control periods "
+              f"of 8), graph vs eager max|diff| {err:.3e} (bit-equal); launches a block "
+              f"{ {k: v / nb for k, v in lg.items()} } (equal); graph_counts over the script "
+              f"{cg}, with the timed runs {total}: replays {share:.3f} of {calls} calls, "
+              f"recaptures 0 (eager run {ce['eager']} op-by-op calls); 188 idle blocks: "
+              f"dispatch host ms a block eager {he:.4f} graph {hg:.4f}, host_prepare ms a "
+              f"block eager {pe:.4f} graph {pg:.4f}, xRT{scenes} eager {xrt(188, we):.2f}x "
+              f"graph {xrt(188, wg):.2f}x; 6 control periods: dispatch host ms a block eager "
+              f"{phe:.4f} graph {phg:.4f}, host_prepare ms a block eager {ppe:.4f} graph "
+              f"{ppg:.4f}, control ms a period eager {pce:.3f} graph {pcg:.3f}, xRT{scenes} "
+              f"eager {xrt(48, pwe):.2f}x graph {xrt(48, pwg):.2f}x {tag}")
+    kern["arena_step"]["graph_launches"] = per_block
+    calls = totals["replays"] + totals["eager"]
+    print(f"phase 40: graph runs {totals}, replays {totals['replays'] / calls:.3f} of {calls} "
+          f"calls; arena_step launches a block under graphs {per_block} {tag}")
+
+
+def _control_period(control, render, mode):
+    """A block profile's call: one control period of 8 blocks in
+    ``mode``."""
+    with _mode(mode):
+        control()
+        render(8)
+
+
 def _mode(mode):
     """``core.run.eager()`` for the op-by-op runs, else nothing."""
     from oddio_tpu_torch.core.run import eager
@@ -3494,6 +3649,8 @@ def main():
     # -- 39. the dense mix's and the wavetable's block steps as CUDA graphs -------------
     dense_graphs(pt, dev, tag)
     sampler_pack_path(pt, dev, kern, tag)
+    # -- 40. the samplers' block steps as CUDA graphs ------------------------------------
+    sampler_graphs(pt, dev, kern, tag)
 
     # -- 32-34. checkpoints, the realtime driver, the example twins --------------------
     checkpoint_paths(pt, dev, kern, tag)

@@ -17,12 +17,12 @@ path and block): ``fade_to`` on a device-resident voice queues the target
 (``push_fade``), the host releases it into a lane once the voice's fade
 mirrors say it is idle (``_fade_tick``, which mirrors the device's
 progress exactly, so the device is never read for it), and the device
-writes the target's row into the fader's inactive bank (``_fade_apply``,
-a bank mask on ``rows_scatter``); a block's released lanes, every fader
-path's indices, increments and rows, filtered on the host, ship as one
-byte record with one copy (``PinnedUpload``).  The pools stamp their read-path flags
-on the proto chain (``_ds_small``, ``_ds_tier``, ``_ema_fast``); the AGC gate is computed at the block length
-the pool renders, so 513-frame buffered renders take K7 too.
+writes the target's row into the fader's inactive bank (``_fade_apply``:
+the same drop lanes, each lane's bank its row's flip bit), as the JAX
+package applies them with ``mode="drop"``.  The pools stamp their
+read-path flags on the proto chain (``_ds_small``, ``_ds_tier``,
+``_ema_fast``); the AGC gate is computed at the block length the pool
+renders, so 513-frame buffered renders take K7 too.
 
 The handle-state readback packs the ``mask`` and ``stopped`` columns into
 one uint8 bit array on the device (shifts and a sum; torch has no
@@ -35,10 +35,10 @@ import numpy as np
 import torch
 
 from ..parallel.context import RenderDevice, current_cell, in_block_step
-from ..utils.tree import tree_fill, tree_leaves, tree_stack
+from ..utils.tree import tree_fill, tree_stack
 
-__all__ = ["DRCtrlMixin", "PinnedUpload", "walk_ctrl_keys", "walk_fade_paths", "rows_scatter",
-           "host_lanes", "drop_lanes", "scatter_drop_", "scatter_rows_drop_", "device_param",
+__all__ = ["DRCtrlMixin", "PinnedUpload", "walk_ctrl_keys", "walk_fade_paths", "host_lanes",
+           "drop_lanes", "scatter_drop_", "scatter_rows_drop_", "device_param",
            "read_handle_state"]
 
 
@@ -102,21 +102,6 @@ def _state_at(tree, path):
     return tree
 
 
-def _unflatten(like, leaves):
-    """A tree shaped like ``like`` whose leaves are taken in order from the
-    iterator ``leaves`` (``tree_leaves``'s order)."""
-    if isinstance(like, dict):
-        return {k: _unflatten(v, leaves) for k, v in like.items()}
-    return next(leaves)
-
-
-def _rows_like(state, rows):
-    """The leaves of ``state`` that a row tree (a subtree of it) writes."""
-    if isinstance(rows, dict):
-        return {k: _rows_like(state[k], v) for k, v in rows.items()}
-    return state
-
-
 def host_lanes(idx, V):
     """Host-side lane filter: (kept positions, their row indices) for a
     padded numpy index array whose padding lanes hold ``V``."""
@@ -144,30 +129,39 @@ def drop_lanes(idx, V):
     return rows, torch.where(valid, lane, first), anyv
 
 
-def scatter_drop_(leaf, lanes, vals):
+def scatter_drop_(leaf, lanes, vals, keep=None):
     """``leaf[idx] = vals`` in place over the real lanes of a ``drop_lanes``
     plan; ``vals`` (lanes, ...) or one row broadcast to every lane.  Every
     write to a row carries the same value, so duplicate rows are
-    deterministic.  Returns ``leaf``."""
+    deterministic.  ``keep``, a (lanes,) bool tensor, writes only where it
+    is True and the row's old value elsewhere (the JAX package's
+    ``where(wrote, upd, state)`` after its drop scatter: a row mask
+    gathered at the lanes' rows, so a padding lane keeps what its real
+    lane keeps, and False on every lane of a plan with no real lane).
+    Returns ``leaf``."""
     rows, src, anyv = lanes
     v = vals.to(leaf.dtype)
     if v.dim() == leaf.dim():
         v = v[src]
-    v = torch.where(anyv, v, leaf[0])
+    if keep is None:
+        v = torch.where(anyv, v, leaf[0])
+    else:
+        v = torch.where(keep.reshape((-1,) + (1,) * (leaf.dim() - 1)), v, leaf[rows])
     leaf.index_put_((rows,), v.expand((rows.shape[0],) + tuple(leaf.shape[1:])))
     return leaf
 
 
-def scatter_rows_drop_(state, rows, lanes):
-    """Write a tree of play rows (numpy, or tensors a block step unpacked
-    from its row; one row per lane, a subtree of ``state``) into
+def scatter_rows_drop_(state, rows, lanes, keep=None):
+    """Write a tree of play or fade rows (numpy, or tensors a block step
+    unpacked from its row; one row per lane, a subtree of ``state``) into
     ``state``'s leaves in place over the real lanes of a ``drop_lanes``
-    plan ``lanes``.  Returns ``state``."""
+    plan ``lanes``, where the (lanes,) ``keep`` allows (``scatter_drop_``).
+    Returns ``state``."""
     if isinstance(rows, dict):
         for k, r in rows.items():
-            scatter_rows_drop_(state[k], r, lanes)
+            scatter_rows_drop_(state[k], r, lanes, keep)
         return state
-    return scatter_drop_(state, lanes, device_param(rows, state.device, state.dtype))
+    return scatter_drop_(state, lanes, device_param(rows, state.device, state.dtype), keep)
 
 
 def _upload(x, device, dtype=None):
@@ -234,53 +228,6 @@ class PinnedUpload:
         out.copy_(host, non_blocking=True)
         done.record()
         return out
-
-
-def _np_dtype(dtype):
-    return torch.empty(0, dtype=dtype).numpy().dtype
-
-
-def pack_record(arrays):
-    """Numpy arrays as one uint8 byte record, each at an 8-byte aligned
-    offset (so that every dtype views in place); returns (record, layout
-    [(offset, dtype, shape)])."""
-    layout, off = [], 0
-    for a in arrays:
-        layout.append((off, a.dtype, a.shape))
-        off += -(-a.nbytes // 8) * 8
-    rec = np.zeros(off, np.uint8)
-    for a, (o, _, _) in zip(arrays, layout):
-        rec[o:o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
-    return rec, layout
-
-
-def unpack_record(rec, layout):
-    """Views of an uploaded byte record (``pack_record``'s layout)."""
-    out = []
-    for o, dt, shape in layout:
-        t = torch.from_numpy(np.empty(0, dt)).dtype
-        nb = int(np.prod(shape, dtype=np.int64)) * np.dtype(dt).itemsize
-        out.append(rec[o:o + nb].view(t).reshape(shape))
-    return out
-
-
-def rows_scatter(state, rows, idx, wrote=None):
-    """Scatter play or fade rows into a state tree, in place.  ``rows``
-    (numpy, or tensors of the state's dtypes, one row per real lane) may be
-    a strict SUBTREE of ``state``;
-    ``idx`` is a filtered int64 index tensor.  ``wrote``, a (V,) bool
-    tensor, masks the write per target row (the fade's bank)."""
-    if isinstance(rows, dict):
-        out = dict(state)
-        for k, rv in rows.items():
-            out[k] = rows_scatter(state[k], rv, idx, wrote)
-        return out
-    vals = rows if isinstance(rows, torch.Tensor) else _upload(rows, state.device, state.dtype)
-    if wrote is not None:
-        m = wrote[idx].reshape((-1,) + (1,) * (state.dim() - 1))
-        vals = torch.where(m, vals, state[idx])
-    state[idx] = vals
-    return state
 
 
 def _sync_digest(mask, stopped):
@@ -464,8 +411,6 @@ class DRCtrlMixin:
         self._ds_dirty = True
         self._ds_small = True
         self._ema_fast = False
-        #: the released fade lanes' byte record, one copy a block
-        self._fade_records = PinnedUpload(self.device)
         #: no fader in the pool has pending, in-flight or unresolved fades:
         #: ``_fade_tick`` is then an exact no-op and the idle path may skip
         #: it (cleared by push_fade and by a mid-fade play)
@@ -639,59 +584,39 @@ class DRCtrlMixin:
 
     def _fade_apply(self, inner_state, params):
         """Write released fade starts into the fader nodes' state subtrees
-        (after plays and control deltas); a targeted slot's completed fade
-        resolves first, so a new fade never lands on an unflipped one.
-        Every path's real lanes (indices, increments, rows; the first of
-        each path's lanes, the rest zero, so the record keeps one size)
-        ship as one byte record with one copy."""
+        (after plays and control deltas) as the JAX package does, with
+        drop lanes: a targeted slot's completed fade resolves first, so a
+        new fade never lands on an unflipped one; the target's row goes
+        into the inactive bank (each lane's bank is its row's flip bit),
+        and the slot's progress restarts.  Every lane applies on the device and nothing
+        is read on the host, so ``eager()`` and a block step run the same
+        ops."""
         if not self.fade_paths or "fade_idx0" not in params:
             return inner_state
         from ..parallel.context import localize_index
 
-        subs, counts, arrays, likes = [], [], [], []
         for j, path in enumerate(self.fade_paths):
             sub = dict(_state_at(inner_state, path))
             V = sub["prog"].shape[0]
-            idx = np.asarray(localize_index(params[f"fade_idx{j}"], V))
-            keep, rows_i = host_lanes(idx, V)
-            m = rows_i.size
-
-            def lanes(x, dtype):
-                out = np.zeros((idx.shape[0],) + x.shape[1:], dtype)
-                out[:m] = x[keep]
-                return out
-
-            like = _rows_like(sub["a"], params[f"fade_row{j}"])
-            leaves = tree_leaves(params[f"fade_row{j}"])
-            arrays += [lanes(idx, np.int64),
-                       lanes(params[f"fade_inc{j}"], _np_dtype(sub["inc"].dtype))]
-            arrays += [lanes(np.asarray(x), _np_dtype(t.dtype))
-                       for x, t in zip(leaves, tree_leaves(like))]
-            subs.append(sub)
-            counts.append(m)
-            likes.append(like)
-        if not any(counts):
-            return inner_state
-        rec, layout = pack_record(arrays)
-        views = iter(unpack_record(self._fade_records(rec), layout))
-        for path, sub, m, like in zip(self.fade_paths, subs, counts, likes):
-            it, inc_v = next(views)[:m], next(views)[:m]
-            flat = [next(views)[:m] for _ in tree_leaves(like)]
-            if not m:
-                continue
-            rows = _unflatten(like, iter(flat))
-            tgt = torch.zeros_like(sub["fading"])
-            tgt[it] = True
+            dev = sub["prog"].device
+            lanes = drop_lanes(device_param(localize_index(params[f"fade_idx{j}"], V), dev), V)
+            true = torch.ones((), dtype=torch.bool, device=dev)
+            tgt = scatter_drop_(torch.zeros_like(sub["fading"]), lanes, true)
             res = tgt & sub["fading"] & (sub["prog"] >= 1.0)
             flip = torch.logical_xor(sub["flip"], res)
-            sub["a"] = rows_scatter(sub["a"], rows, it, tgt & flip)
-            sub["b"] = rows_scatter(sub["b"], rows, it, tgt & ~flip)
+            rows = params[f"fade_row{j}"]
+            # every lane's row is a target (the JAX package's tgt & flip):
+            # the bank a lane writes is its row's flip bit, gathered once
+            into_a = flip[lanes[0]]
+            scatter_rows_drop_(sub["a"], rows, lanes, into_a & lanes[2])
+            scatter_rows_drop_(sub["b"], rows, lanes, ~into_a & lanes[2])
             sub["flip"] = flip
-            sub["prog"][it] = 0.0  # in place, as the control deltas
-            sub["inc"][it] = inc_v
-            fading = sub["fading"] & ~res
-            fading[it] = True
-            sub["fading"] = fading
+            # in place, as the control deltas
+            scatter_drop_(sub["prog"], lanes, torch.zeros((), dtype=sub["prog"].dtype,
+                                                          device=dev))
+            scatter_drop_(sub["inc"], lanes,
+                          device_param(params[f"fade_inc{j}"], dev, sub["inc"].dtype))
+            sub["fading"] = scatter_drop_(sub["fading"] & ~res, lanes, true)
             inner_state = _set_path(inner_state, path, sub)
         return inner_state
 

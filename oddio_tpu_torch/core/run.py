@@ -10,18 +10,20 @@ passes ``device``).
 The JAX package compiles one donated program per ``(archetype, kind, pack
 spec)``: ``"single"`` (one block), ``"scan"`` (a run of equal-archetype
 blocks) and ``("multi", nb)`` (fused idle groups).  Here a signal that
-declares ``graph_capture`` (the main path's SpatialScene; a Mixer of
-BASELINE config 5's, config 4's or the wavetable's voices; a wrapper
-chain of Reinhard, Tanh, MonoToStereo or Downmix around either, which
-forwards it) gets one block step per such key, in ``_steps``; the
+declares ``graph_capture`` (the main path's SpatialScene and the seek
+sampler; a Mixer of BASELINE config 5's, config 4's, config 2's or the
+wavetable's voices; a wrapper chain of Reinhard, Tanh, MonoToStereo or
+Downmix around either, which forwards it) gets one block step per such
+key, in ``_steps``; the
 protocol (``BlockSteps``) is the
 Renderer's and a 1 x 1 ScenePack's (``parallel/sharded.py``), which
 drives it over its stacked state:
 
 * a block's parameters ship as ONE packed float32 row (``_pack_row``, the
-  JAX package's row: equal bit for bit for every leaf it packs; the port
-  has no float64 leaf on these paths, so the row stays float32 and not a
-  byte row; a stream ingest block's PCM rides in it), copied to the
+  JAX package's row: equal bit for bit for every leaf it packs; a
+  FramesSignal's float64 time cursor, a leaf the JAX package does not
+  keep, rides as two float32 words of its bit pattern; a stream ingest
+  block's PCM rides in it), copied to the
   device with one non-blocking copy from pinned memory and unpacked
   inside the step by static slices and ``view(dtype)`` bitcasts; a run's
   rows go up in one copy;
@@ -114,50 +116,75 @@ def _pack_spec(params):
     spec = []
     for leaf in leaves:
         a = np.asarray(leaf)
-        if not (a.dtype == np.float32 or a.dtype == np.bool_
+        if not (a.dtype == np.float32 or a.dtype == np.float64 or a.dtype == np.bool_
                 or (a.dtype.kind in "iu" and a.dtype.itemsize <= 8)):
             return None
         spec.append((a.shape, a.dtype.str))
     return treedef, tuple(spec)
 
 
+def _words(dtype):
+    """float32 words a leaf element of ``dtype`` takes in the row: two for
+    a float64 (its 8 bytes), one for every other dtype."""
+    return 2 if dtype == np.float64 else 1
+
+
 def _pack_into(params, out):
     """Write one block's params into the float32 vector ``out`` (its
     length the row's): float32 as they are, bools as 0/1, integers as
-    their int32 bit pattern (the JAX package's ``_pack_row``), each leaf
-    copied once."""
+    their int32 bit pattern (the JAX package's ``_pack_row``), float64
+    (a FramesSignal's time cursor, which the JAX package does not keep) as
+    its two 32-bit words, low word first; each leaf copied once, right
+    after the one before."""
     off = 0
     for leaf in tree_flatten(params)[0]:
         a = np.asarray(leaf).reshape(-1)
-        dst = out[off:off + a.size]
+        size = a.size * _words(a.dtype)
+        dst = out[off:off + size]
         if a.dtype == np.float32 or a.dtype == np.bool_:
             dst[...] = a
+        elif a.dtype == np.float64:
+            dst.view(np.uint32)[...] = np.ascontiguousarray(a).view(np.uint32)
         else:
             dst.view(np.int32)[...] = a
-        off += a.size
+        off += size
 
 
 def _pack_row(params):
     """One block's params as a single float32 vector (``_pack_into``)."""
-    out = np.empty(sum(np.size(x) for x in tree_flatten(params)[0]), np.float32)
+    leaves = [np.asarray(x) for x in tree_flatten(params)[0]]
+    out = np.empty(sum(a.size * _words(a.dtype) for a in leaves), np.float32)
     _pack_into(params, out)
     return out
 
 
 def _row_len(spec):
-    return sum(int(np.prod(shape, dtype=np.int64)) for shape, _ in spec)
+    return sum(int(np.prod(shape, dtype=np.int64)) * _words(np.dtype(dstr))
+               for shape, dstr in spec)
+
+
+def _join_f64(words):
+    """(2m,) float32 words, low word first, as the m float64 they hold,
+    bit for bit: the words are viewed as int32 and joined in int64 before
+    the bitcast (a float32 slice at an odd offset cannot be viewed as
+    float64)."""
+    w = words.view(torch.int32).reshape(-1, 2).to(torch.int64)
+    return ((w[:, 1] << 32) | (w[:, 0] & 0xFFFFFFFF)).view(torch.float64)
 
 
 def _unpack_row(buf, treedef, spec):
     """The inverse of ``_pack_row`` on a (R,) float32 tensor: static slices
-    and bitcasts (views of ``buf`` but for the bools)."""
+    and bitcasts (views of ``buf`` but for the bools and float64s), on the
+    device, with no host read."""
     out = []
     off = 0
     for shape, dstr in spec:
-        size = int(np.prod(shape, dtype=np.int64))
-        x = buf[off:off + size]
         dt = np.dtype(dstr)
-        if dt.kind in "iu":
+        size = int(np.prod(shape, dtype=np.int64)) * _words(dt)
+        x = buf[off:off + size]
+        if dt == np.float64:
+            x = _join_f64(x)
+        elif dt.kind in "iu":
             x = x.view(torch.int32)
         elif dt == np.bool_:
             x = x > 0.5

@@ -13,10 +13,11 @@ deltas (every lane applied on the device, padding lanes dropped:
 ``core/drctrl.drop_lanes``) and each stream's queued PCM, and observes
 handle state at sync points with the reference's one-scan-late
 reclamation (mixer.rs:129-147).  A Mixer whose pools are all
-device-resident with chains of BASELINE config 5's, config 4's or the
-wavetable's nodes (``_GRAPH_NODES``) declares ``graph_capture``: its
-Renderer, or one of a wrapper chain around it, replays each block as a
-CUDA graph (``core/run.py``).  Other chains (a Speed over
+device-resident with chains of BASELINE config 5's, config 4's, config
+2's or the wavetable's nodes (``_GRAPH_NODES``) declares
+``graph_capture``: its Renderer, or one of a wrapper chain around it,
+replays each block as a CUDA graph (``core/run.py``), the sampler's fade
+lanes and FramesSignal play rows in its packed row.  Other chains (a Speed over
 a Stream, a user signal) play in a host ``Pool``: a batched template whose
 host columns the host advances and whose device leaves the block renders
 at once (``render_host``).  A non-batchable signal (a submix: an engine
@@ -35,6 +36,7 @@ import torch
 
 from .core.drctrl import (DRCtrlMixin, _upload, device_param, drop_lanes, scatter_drop_,
                           scatter_rows_drop_)
+from .core.frames import FramesSignal
 from .core.hostmath import f32
 from .core.signal import Engine, default_device
 from .ops._dev import masked_voice_sum
@@ -42,6 +44,7 @@ from .ops.adapt import Adapt
 from .ops.channels import Downmix, MonoToStereo
 from .ops.constant import Constant
 from .ops.cycle import Cycle
+from .ops.fader import Fader
 from .ops.gain import FixedGain, Gain
 from .ops.limit import Reinhard, Tanh
 from .ops.sine import Sine
@@ -509,12 +512,13 @@ class PoolDR(DRCtrlMixin):
 
 
 #: the nodes of a device-resident chain whose renders read every per-block
-#: value from the params, the state or the pool's archetype entry (no fade
-#: lanes, no host-filtered record): config 5's Adapt, Stream and Sine,
-#: config 4's gains, channel maps and limiters, and the wavetable's Speed
-#: and Cycle (K6's arena form, its interval the key's)
+#: value from the params, the state or the pool's archetype entry: config
+#: 5's Adapt, Stream and Sine, config 4's gains, channel maps and limiters,
+#: the wavetable's Speed and Cycle, and config 2's FramesSignal and Fader
+#: (K6's arena form, its interval the key's; the fade lanes apply on the
+#: device, and a FramesSignal row's float64 cursor rides in the packed row)
 _GRAPH_NODES = (Adapt, Stream, Sine, Gain, FixedGain, Constant, MonoToStereo, Downmix,
-                Reinhard, Tanh, Speed, Cycle)
+                Reinhard, Tanh, Speed, Cycle, FramesSignal, Fader)
 
 
 def _graph_chain(node):
@@ -618,11 +622,12 @@ class Mixer(Engine):
         """True while every pool is device-resident with a chain of
         ``_GRAPH_NODES`` (BASELINE config 5's Adapt, Stream and Sine;
         config 4's Gain, FixedGain, Constant, MonoToStereo, Downmix,
-        Reinhard and Tanh; the wavetable's Speed and Cycle): their renders
-        read every per-block value from the params, the state or the key,
-        so a Renderer captures the block step as a CUDA graph, and so does
-        a wrapper root over this mixer.  A host pool (Speed(Stream)), a
-        submix, a FramesSignal or a Fader keeps op-by-op dispatch."""
+        Reinhard and Tanh; the wavetable's Speed and Cycle; config 2's
+        Fader(Speed(FramesSignal))): their renders read every per-block
+        value from the params, the state or the key, so a Renderer
+        captures the block step as a CUDA graph, and so does a wrapper
+        root over this mixer.  A host pool (Speed(Stream)) or a submix
+        keeps op-by-op dispatch."""
         return all(p.is_dr and _graph_chain(p.proto) for p in self._all_pools())
 
     @contextlib.contextmanager
@@ -633,8 +638,9 @@ class Mixer(Engine):
         and route flags the pools then hold.  For the dispatch each pool
         takes its entry's ``_interval`` and ``_count`` (the host interval
         K6 and K7 take as an argument, the count tensor) and its route
-        flags are stamped on its proto chain (K6's window tier and gate,
-        K7 or the scan); all are put back after."""
+        flags are stamped on its proto chain, a Fader's both banks
+        included (K6's window tier and gate, the arena step or the
+        gather, K7 or the scan); all are put back after."""
         field = {a: 2 + i for i, (a, _) in enumerate(self.POOL_ARCH)}
         default = dict(self.POOL_ARCH)
         flags = ("_ds_small", "_ds_tier", "_ema_fast")

@@ -62,7 +62,8 @@ one-voice state along a new scene axis: the wrappers render their S/a rows
 batched, and the engine under them its scenes stacked.
 
 On a 1 x 1 mesh whose scenes all declare ``graph_capture`` (config-5
-Mixers, main-path SpatialScenes) the pack takes block steps, as the JAX
+Mixers, samplers, main-path and seek-sampler SpatialScenes) the pack
+takes block steps, as the JAX
 pack compiles its programs (``oddio_tpu/parallel/sharded.py``): the
 Renderer's protocol (``core/run.BlockSteps``) over the carried stack, a
 ``"single"`` key for ``render_block`` and ``"scan"`` keys of
@@ -215,10 +216,12 @@ class ScenePack(BlockSteps):
 
     @property
     def graph_capture(self):
-        """True on a 1 x 1 mesh whose scenes all declare ``graph_capture``:
-        the pack then renders through block steps (CUDA graphs on a
-        card).  Larger meshes, and packs of host pools, submixes or
-        faders, render op by op."""
+        """True on a 1 x 1 mesh whose scenes all declare ``graph_capture``
+        (config-5 Mixers, samplers of Fader(Speed(FramesSignal)) voices,
+        main-path and seek-sampler SpatialScenes): the pack then renders
+        through block steps (CUDA graphs on a card), its merged fade lanes
+        and float64 cursors in the packed row.  Larger meshes, and packs
+        of host pools or submixes, render op by op."""
         return self.A == self.B == 1 and all(
             getattr(s, "graph_capture", False) for s in self.scenes)
 

@@ -27,9 +27,10 @@ uploaded where a render uses them (a Renderer's block step hands them over
 as tensors unpacked from one row on the device, ``core/drctrl.
 device_param``); every lane of the delta arrays is applied on the device,
 padding lanes dropped (``core/drctrl.scatter_drop_``).  Rings are updated
-in place.  A scene whose every pool is device-resident with Sine voices
-declares ``graph_capture``: its Renderer then replays each block (or
-idle group) as one CUDA graph.
+in place.  A scene whose every pool is device-resident with Sine voices,
+or a seek pool of mono FramesSignal voices (the seek sampler, K6's
+``arena_warp`` inside), declares ``graph_capture``: its Renderer then
+replays each block (or idle group) as one CUDA graph.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import torch
 
 from .core.drctrl import (DRCtrlMixin, PinnedUpload, _upload, device_param, drop_lanes,
                           scatter_drop_, scatter_rows_drop_)
+from .core.frames import FramesSignal
 from .core.hostmath import (
     f32,
     full,
@@ -2191,31 +2193,45 @@ class SpatialScene(Engine):
         dispatches a run only after preparing the next block, whose plan
         (its read tier, say) the pools now hold, so every attribute a
         render reads is set from the run's own archetype for the dispatch
-        and put back after.  A block step so depends on its key alone."""
+        and put back after; a device-resident pool's route flags (a
+        FramesSignal's arena step or gather) are stamped on its proto
+        chain from the entry too.  A block step so depends on its key
+        alone."""
         field = {a: 2 + i for i, (a, _) in enumerate(self.POOL_ARCH)}
         saved = []
         for p, entry in zip(self._all_pools(), arch[2]):
             if entry[0] != p.name:
                 raise ValueError(f"archetype entry {entry[0]} for pool {p.name}")
             own = vars(p)
-            saved.append((p, {a: own[a] for a in self.RENDER_ATTRS if a in own}))
+            # a pool's tier is set at its first prepare
+            flags = (p._ds_small, getattr(p, "_ds_tier", 4), p._ema_fast) if p.is_dr else None
+            saved.append((p, {a: own[a] for a in self.RENDER_ATTRS if a in own}, flags))
             for a in self.RENDER_ATTRS:
                 if a in own:
                     setattr(p, a, entry[field[a]])
+            if p.is_dr:
+                p._stamp_flags(entry[field["_ds_small"]], entry[field["_ds_tier"]], p._ema_fast)
         try:
             yield
         finally:
-            for p, attrs in saved:
+            for p, attrs, flags in saved:
                 for a, v in attrs.items():
                     setattr(p, a, v)
+                if flags is not None:
+                    p._stamp_flags(*flags)
 
     @property
     def graph_capture(self):
         """True while every pool is a device-resident seek or buffered pool
-        of Sine voices (the main path's scene): their renders read every
-        per-block value from the params or the state, so a Renderer
-        captures the block step as a CUDA graph."""
-        return all(p.is_dr and type(p.proto) is Sine for p in self._all_pools())
+        of Sine voices (the main path's scene) or a device-resident seek
+        pool of mono FramesSignal voices (the seek sampler): their renders
+        read every per-block value from the params, the state or the key,
+        so a Renderer captures the block step as a CUDA graph.  Buffered
+        pools of FramesSignal voices, host pools and submixes keep op-by-op
+        dispatch."""
+        return all(p.is_dr and (type(p.proto) is Sine or (
+            isinstance(p, _SeekPoolDR) and type(p.proto) is FramesSignal
+            and p.proto.dr_seek_supported())) for p in self._all_pools())
 
     def archetype(self):
         """Structural key: equal keys on consecutive blocks let the Renderer

@@ -86,7 +86,7 @@ def copy_host(x):
 #: collected apart), per-block upload rings and device-side caches (rebuilt
 #: on use), and the played specs its step bounds read (``_SPEC_MAPS``)
 _POOL_SKIP = frozenset((
-    "name", "device", "proto", "sig", "state", "ring", "_records", "_fade_records",
+    "name", "device", "proto", "sig", "state", "ring", "_records",
     "_ingest_leaves", "_unpack_hook", "_count_t", "_counts_memo", "_sync_pack",
     "ctrl_keys", "fade_paths", "_ds_fields", "_ckpt_id", "_store_epoch",
     "_slot_specs", "_extra_specs", "_extra_by_slot",

@@ -957,35 +957,6 @@ STEP_IV = float(np.float32(1.0 / 48000.0))
 STEP_TIERS = {1: (0.3, 1.05), 2: (1.1, 2.1), 4: (2.2, 4.3)}
 
 
-def build_seek_sampler(voices, device, seed=0, sounds=8, seconds=10.0):
-    """Sound effects placed in the world: ``voices`` mono ``FramesSignal``
-    voices over ``sounds`` mono sounds of ``seconds`` at 44.1 kHz (a few
-    partials and noise, from ``seed``), each starting uniform in [0,
-    seconds/2) s, played at positions within 15 m and velocities up to
-    5 m/s into a SpatialScene's device-resident seek pool (two ears: its
-    warped read is 2*voices rows).  Returns ``(control, scene, handles,
-    rng)``."""
-    import oddio_tpu_torch as pt
-
-    rng = np.random.default_rng(seed)
-    n = int(seconds * 44100)
-    t = np.arange(n, dtype=np.float64) / 44100
-    frames = []
-    for _ in range(sounds):
-        f = rng.uniform(80, 2000, 3)
-        x = sum(np.sin(2 * np.pi * fk * t + rng.uniform(0, 6)) for fk in f) / 3
-        frames.append(pt.Frames.from_slice(44100, (0.4 * x + 0.05 * rng.standard_normal(n))
-                                           .astype(np.float32)))
-    control, scene = pt.SpatialScene.new(initial_capacity=voices, device=device)
-    hs = []
-    for _ in range(voices):
-        sig = pt.FramesSignal(frames[int(rng.integers(sounds))],
-                              float(rng.uniform(0, seconds / 2)))
-        hs.append(control.play(sig, pt.SpatialOptions(position=rng.uniform(-15, 15, 3),
-                                                      velocity=rng.uniform(-5, 5, 3))))
-    return control, scene, hs, rng
-
-
 def _unwrap(state):
     """A Speed chain's leaf state and its Speed factors, outer first."""
     speeds = []
@@ -1104,7 +1075,8 @@ def arena_states(dev):
     if dev in _ARENA_STATES:
         return _ARENA_STATES[dev]
     import oddio_tpu_torch as pt
-    from oddio_tpu_torch.utils.scene_profile import build_sampler, build_wavetable
+    from oddio_tpu_torch.utils.scene_profile import (build_sampler, build_seek_sampler,
+                                                     build_wavetable)
 
     voices = STEP_VOICES
     out = []

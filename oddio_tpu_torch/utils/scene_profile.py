@@ -1,7 +1,7 @@
 """Where a block's time goes on a CUDA card: the bench scenes at 4096 voices
 through ``Renderer.render_frames_device``, timed and traced.
 
-    python -m oddio_tpu_torch.utils.scene_profile [buffered|seek|buffered_mixed|subpass|mixer|hostpools|pack|pack256|spatialpack|densemix|sampler|wavetable|sampler_pack|hostpack|seek_eager|buffered_eager|buffered_mixed_eager|subpass_eager|mixer_eager|pack_eager|pack256_eager|spatialpack_eager|densemix_eager|wavetable_eager ...]
+    python -m oddio_tpu_torch.utils.scene_profile [buffered|seek|buffered_mixed|subpass|mixer|hostpools|pack|pack256|spatialpack|densemix|sampler|wavetable|seek_sampler|sampler_pack|hostpack|seek_eager|buffered_eager|buffered_mixed_eager|subpass_eager|mixer_eager|pack_eager|pack256_eager|spatialpack_eager|densemix_eager|wavetable_eager|sampler_eager|seek_sampler_eager|sampler_pack_eager ...]
 
 For the main path's four scenes (``build_main_path``: bench.py's seek,
 buffered, buffered_mixed and subpass scenes at 4096 voices), the AGC
@@ -19,10 +19,13 @@ scenes of BASELINE configs 4 and 2 and the wavetable line
 (``build_densemix``, ``build_sampler`` with its control script of speed
 writes and fades every 8 blocks, ``build_wavetable``; the dense mix and
 the wavetable with bench.py's dispatch, ``scan_unroll`` 4 and
-``BUCKETS`` for the dense mix, ``BUCKETS`` for the wavetable, replaying
-CUDA graphs, and their ``_eager`` twins op by op), and the two packs
+``BUCKETS`` for the dense mix, ``BUCKETS`` for the wavetable), the seek
+sampler (``build_seek_sampler``: 1024 mono FramesSignal voices in a
+SpatialScene's seek pool), all replaying CUDA graphs, with their
+``_eager`` twins op by op, and the two packs
 of one session each (``build_sampler_pack``: 16 sampler scenes of 64
-voices, each on its own script, as ``sampler_pack``;
+voices, each on its own script, as ``sampler_pack``, replaying graphs,
+and ``sampler_pack_eager``;
 ``build_host_pools_pack``: 16 host-pool scenes of 256 voices, as
 ``hostpack``) it prints, for each of three timed 188-block
 runs, the wall time per 512-frame block, the host time per block spent in
@@ -55,8 +58,8 @@ __all__ = ["build_spatial", "build_main_path", "MAIN_PATH", "BUCKETS", "build_mi
            "build_host_pools", "build_config5_pack",
            "build_pack_scene", "build_spatial_pack", "build_densemix", "densemix_voice",
            "build_wavetable", "wavetable_frames", "wavetable_voice",
-           "build_sampler", "SamplerDriver", "build_sampler_pack", "build_host_pools_pack",
-           "PackDriver", "build_checkpoint_scene", "feed", "card_line", "main"]
+           "build_sampler", "SamplerDriver", "build_seek_sampler", "build_sampler_pack",
+           "build_host_pools_pack", "PackDriver", "build_checkpoint_scene", "feed", "card_line", "main"]
 
 RATE = 48000
 BLOCK = 512
@@ -371,6 +374,33 @@ def _sampler_scene(frames, rng, voices, device, seconds, **script):
     return drv
 
 
+def build_seek_sampler(voices, device, seed=0, sounds=8, seconds=10.0):
+    """Sound effects placed in the world: ``voices`` mono ``FramesSignal``
+    voices over ``sounds`` mono sounds of ``seconds`` at 44.1 kHz (a few
+    partials and noise, from ``seed``), each starting uniform in [0,
+    seconds/2) s, played at positions within 15 m and velocities up to
+    5 m/s into a SpatialScene's device-resident seek pool (two ears: its
+    warped read is 2*voices rows).  Returns ``(control, scene, handles,
+    rng)``."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * 44100)
+    t = np.arange(n, dtype=np.float64) / 44100
+    frames = []
+    for _ in range(sounds):
+        f = rng.uniform(80, 2000, 3)
+        x = sum(np.sin(2 * np.pi * fk * t + rng.uniform(0, 6)) for fk in f) / 3
+        frames.append(pt.Frames.from_slice(44100, (0.4 * x + 0.05 * rng.standard_normal(n))
+                                           .astype(np.float32)))
+    control, scene = pt.SpatialScene.new(initial_capacity=voices, device=device)
+    hs = []
+    for _ in range(voices):
+        sig = pt.FramesSignal(frames[int(rng.integers(sounds))],
+                              float(rng.uniform(0, seconds / 2)))
+        hs.append(control.play(sig, pt.SpatialOptions(position=rng.uniform(-15, 15, 3),
+                                                      velocity=rng.uniform(-5, 5, 3))))
+    return control, scene, hs, rng
+
+
 def build_sampler_pack(scenes, voices, device, seed=0, sounds=8, seconds=10.0, mesh=None):
     """BASELINE config 2 per session: a ScenePack of ``scenes`` sampler
     Mixers (``build_sampler``) of ``voices`` voices each, sharing one set of
@@ -568,11 +598,12 @@ def _run(renderer, nblocks):
 
 
 def profile_scene(label):
-    """Profile one scene; a main-path, mixer, pack, dense-mix or wavetable
-    label with ``_eager`` (``buffered_eager``, ``mixer_eager``,
-    ``pack_eager``, ``densemix_eager``, ``wavetable_eager``) runs it under
-    ``core.run.eager()``, op by op, where the plain label replays the
-    Renderer's or the pack's CUDA graphs."""
+    """Profile one scene; a main-path, mixer, pack, dense-mix, wavetable or
+    sampler label with ``_eager`` (``buffered_eager``, ``mixer_eager``,
+    ``pack_eager``, ``densemix_eager``, ``wavetable_eager``,
+    ``sampler_eager``, ``seek_sampler_eager``, ``sampler_pack_eager``)
+    runs it under ``core.run.eager()``, op by op, where the plain label
+    replays the Renderer's or the pack's CUDA graphs."""
     if label.endswith("_eager"):
         from ..core.run import eager
 
@@ -619,6 +650,8 @@ def _profile_scene(label, shown):
     elif label == "sampler":
         drv = build_sampler(1024, "cuda")
         scene = drv.mixer
+    elif label == "seek_sampler":
+        _, scene, _, _ = build_seek_sampler(1024, "cuda")
     else:
         _, scene, _ = build_main_path(label, VOICES, "cuda")
     if label == "sampler_pack":
@@ -671,10 +704,11 @@ def _profile_scene(label, shown):
 
 
 SCENES = ("buffered", "seek", "buffered_mixed", "subpass", "mixer", "hostpools", "pack",
-          "pack256", "spatialpack", "densemix", "sampler", "wavetable", "sampler_pack",
-          "hostpack") + tuple(f"{k}_eager" for k in MAIN_PATH + ("mixer", "pack", "pack256",
-                                                                 "spatialpack", "densemix",
-                                                                 "wavetable"))
+          "pack256", "spatialpack", "densemix", "sampler", "wavetable", "seek_sampler",
+          "sampler_pack", "hostpack") + tuple(
+              f"{k}_eager" for k in MAIN_PATH + ("mixer", "pack", "pack256", "spatialpack",
+                                                 "densemix", "wavetable", "sampler",
+                                                 "seek_sampler", "sampler_pack"))
 
 
 def main(argv=None):

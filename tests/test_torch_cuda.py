@@ -42,7 +42,8 @@ from oddio_tpu_torch.ops import stream_kernels as SK
 from oddio_tpu_torch.ops._dev import device_split_ds, split_ds
 from oddio_tpu_torch.utils import kernel_bench as KB
 from oddio_tpu_torch.utils.scene_profile import (build_config5_pack, build_host_pools,
-                                                 build_mixer_agc, build_spatial_pack, feed)
+                                                 build_mixer_agc, build_seek_sampler,
+                                                 build_spatial_pack, feed)
 
 torch.set_num_threads(1)
 
@@ -940,7 +941,7 @@ def test_seek_sampler_scene_on_card_matches_cpu(cuda):
     outs = []
     for device in ("cpu", cuda):
         SK.reset_launches()
-        _, scene, hs, rng = KB.build_seek_sampler(64, device, sounds=2, seconds=2.0)
+        _, scene, hs, rng = build_seek_sampler(64, device, sounds=2, seconds=2.0)
         r = pt.Renderer(scene, 48000)
         a = r.render_frames(512 * 8)
         for h in hs[::4]:
@@ -1723,3 +1724,95 @@ def test_dense_graph_growth_between_warmup_and_capture(cuda, kind, monkeypatch):
     np.testing.assert_array_equal(xg, xe)
     assert lg == le and rg.graph_counts["replays"] > 0
     assert not any(made)
+
+
+# -- the samplers under CUDA graphs -------------------------------------------------------
+
+
+def _sampler_graph_run(kind, mode, script, voices=256):
+    """``script(r, engine, ctl)`` on config 2's sampler (``build_sampler``:
+    Fader(Speed(FramesSignal)) voices, ``ctl`` its ``SamplerDriver``) or
+    the seek sampler (``build_seek_sampler``, ``ctl`` its handles and rng)
+    of ``voices`` voices with bench.py's buckets, under ``eager()`` or
+    replaying graphs: (its result, launches, the Renderer, the engine)."""
+    import contextlib
+
+    from oddio_tpu_torch.core.run import eager
+    from oddio_tpu_torch.utils.scene_profile import BUCKETS, build_sampler
+
+    if kind == "sampler":
+        drv = build_sampler(voices, "cuda", sounds=2, seconds=2.0)
+        engine, ctl = drv.mixer, drv
+    else:
+        _, engine, hs, rng = build_seek_sampler(voices, "cuda", sounds=2, seconds=2.0)
+        ctl = (hs, rng)
+    r = pt.Renderer(engine, 48000, scan_buckets=BUCKETS)
+    assert engine.graph_capture
+    for m in (RK, SK, A, FK):
+        m.reset_launches()
+    with eager() if mode == "eager" else contextlib.nullcontext():
+        out = script(r, engine, ctl)
+    torch.cuda.synchronize()
+    return out, _all_launches(), r, engine
+
+
+def _sampler_script(r, engine, ctl):
+    """The sampler's control script (speed writes on 32 voices and 0.05 s
+    fades on 32 others every 8 blocks) over 48 blocks; the seek sampler's
+    24 blocks, set_motion on 16 voices, 24 blocks, on 16 others, 16
+    blocks."""
+    if isinstance(ctl, tuple):
+        hs, rng = ctl
+        out = [r.render_frames(512 * 24)]
+        for t in range(2):
+            for h in hs[16 * t:16 * (t + 1)]:
+                h.set_motion(rng.uniform(-15, 15, 3), rng.uniform(-5, 5, 3), False)
+            out.append(r.render_frames(512 * (24 - 8 * t)))
+        return np.concatenate(out)
+    ctl.k = 32
+    return np.concatenate(ctl.render(r, 48, device_out=False))
+
+
+@pytest.mark.parametrize("kind", ["sampler", "seek_sampler"])
+def test_sampler_graph_replay_matches_eager(cuda, kind):
+    """The 256-voice sampler and seek sampler through their scripts: graph
+    replay bit-equal to ``eager()``, every kernel's launches equal (one
+    ``arena_step`` launch a block: the Fader's ``fader_step`` or the seek
+    pool's ``arena_warp``; no ring or AGC kernel), every call after a
+    key's warm-up and capture a replay, no recapture."""
+    (xe, le, re, _), (xg, lg, rg, _) = [_sampler_graph_run(kind, mode, _sampler_script)
+                                        for mode in ("eager", "graph")]
+    assert np.abs(xe).max() > 1e-2
+    np.testing.assert_array_equal(xg, xe)
+    assert lg == le == {f"{SK.__name__}.arena_step": xg.shape[0] // 512}
+    c = rg.graph_counts
+    assert re.graph_counts["replays"] == 0 and c["recaptures"] == 0
+    assert c["replays"] > c["captures"] > 0
+
+
+def test_sampler_graph_fade_after_capture_replays(cuda):
+    """Fades released after the fade block's step was captured: the step
+    replays (no recapture), the fade lanes ride in its row, and the
+    device's bank bits equal the host's fade mirrors and eager's."""
+    from oddio_tpu_torch.core.drctrl import _state_at
+
+    def script(r, engine, drv):
+        out = [np.concatenate(drv.render(r, 16, device_out=False))]
+        before = dict(r.graph_counts)
+        out.append(np.concatenate(drv.render(r, 24, device_out=False)))
+        pool = next(iter(engine._pools.values()))
+        path = pool.fade_paths[0]
+        bits = _state_at(pool.state["inner"], path)["flip"].cpu().numpy()
+        return np.concatenate(out), before, bits, pool._fade_flip[path].copy()
+
+    ((xe, _, be, me), le, _, _), ((xg, before, bg, mg), lg, rg, _) = [
+        _sampler_graph_run("sampler", mode, script) for mode in ("eager", "graph")]
+    np.testing.assert_array_equal(xg, xe)
+    assert lg == le
+    assert before["captures"] > 0 and before["recaptures"] == 0
+    c = rg.graph_counts
+    assert c["recaptures"] == 0 and c["replays"] > before["replays"]
+    assert c["captures"] == before["captures"]  # the later fade blocks replayed captured steps
+    np.testing.assert_array_equal(bg, mg)
+    np.testing.assert_array_equal(bg, be)
+    assert bg.any() and np.array_equal(me, mg)

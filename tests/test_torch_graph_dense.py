@@ -326,13 +326,14 @@ def test_dense_block_step_reads_no_host_state(monkeypatch):
     def spy(self, step, d0, dd):
         sig = self.signal
         if id(step) not in frozen:
-            frozen[id(step)] = copy.deepcopy(sig)
+            # the step is held too, so that its id is not reused
+            frozen[id(step)] = (step, copy.deepcopy(sig))
         before = _mixer_host(_mixer_of(sig))
         d_in = tree_map(torch.clone, d0)
         rows = None if step.rows is None else step.rows.clone()
         out = live_call(self, step, d0, dd)
         assert _mixer_host(_mixer_of(sig)) == before, "the block step changed a host attribute"
-        d_f, out_f = prun.step_body(frozen[id(step)], step.kind, step.pack, step.n, step.k,
+        d_f, out_f = prun.step_body(frozen[id(step)][1], step.kind, step.pack, step.n, step.k,
                                     d_in, dd, rows)
         assert torch.equal(_bits(out_f), _bits(out))
         for a, b in zip(tree_leaves(d_f), tree_leaves(sig.device_collect())):

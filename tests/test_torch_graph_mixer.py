@@ -287,13 +287,14 @@ def test_mixer_block_step_reads_no_host_state(monkeypatch):
     def spy(self, step, d0, dd):
         sig = self.signal
         if id(step) not in frozen:
-            frozen[id(step)] = copy.deepcopy(sig)
+            # the step is held too, so that its id is not reused
+            frozen[id(step)] = (step, copy.deepcopy(sig))
         before = _mixer_host(sig)
         d_in = tree_map(torch.clone, d0)
         rows = None if step.rows is None else step.rows.clone()
         out = live_call(self, step, d0, dd)
         assert _mixer_host(sig) == before, "the block step changed a host attribute"
-        d_f, out_f = prun.step_body(frozen[id(step)], step.kind, step.pack, step.n, step.k,
+        d_f, out_f = prun.step_body(frozen[id(step)][1], step.kind, step.pack, step.n, step.k,
                                     d_in, dd, rows)
         assert torch.equal(_bits(out_f), _bits(out))
         for a, b in zip(tree_leaves(d_f), tree_leaves(sig.device_collect())):
@@ -388,10 +389,11 @@ def test_mixer_is_stopped_one_scan_late_under_steps():
 
 
 def test_mixer_graph_capture_declared():
-    """Config 5's chains, bare Streams and Sines, Speed(Sine) and
-    Gain(Sine) declare ``graph_capture``, and so does a wrapper chain
-    around a capturing Mixer (it renders the mixer directly); a host pool
-    (Speed(Stream)), a submix, a FramesSignal and a Fader keep op-by-op
+    """Config 5's chains, bare Streams and Sines, Speed(Sine),
+    Gain(Sine), a FramesSignal, a Fader(Sine) and config 2's
+    Fader(Speed(FramesSignal)) declare ``graph_capture``, and so does a
+    wrapper chain around a capturing Mixer (it renders the mixer
+    directly); a host pool (Speed(Stream)) and a submix keep op-by-op
     dispatch."""
     control, mixer = pt.Mixer.new(channels=1, device="cpu")
     assert mixer.graph_capture
@@ -407,8 +409,9 @@ def test_mixer_graph_capture_declared():
     frames = pt.Frames.from_slice(RATE, np.zeros(64, np.float32))
     for spec, captured in ((lambda: pt.Speed(pt.Stream(8000, 256)), False),
                            (lambda: pt.Mixer(1, device="cpu"), False),
-                           (lambda: pt.FramesSignal(frames, 0.0), False),
-                           (lambda: pt.Fader(pt.Sine(0.0, 220.0)), False),
+                           (lambda: pt.FramesSignal(frames, 0.0), True),
+                           (lambda: pt.Fader(pt.Sine(0.0, 220.0)), True),
+                           (lambda: pt.Fader(pt.Speed(pt.FramesSignal(frames, 0.0))), True),
                            (lambda: pt.Speed(pt.Sine(0.0, 220.0)), True),
                            (lambda: pt.Gain(pt.Sine(0.0, 220.0)), True)):
         control, mixer = pt.Mixer.new(channels=1, device="cpu")

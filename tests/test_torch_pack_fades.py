@@ -126,22 +126,35 @@ def test_pack_fade_on_one_slot_number_lands_in_each_scenes_row():
 
 def test_pack_fade_lanes_ship_as_one_record_per_block(monkeypatch):
     """A block that releases fades in several scenes copies its fade lanes
-    (indices, increments, rows of every scene) to the device once."""
-    calls = []
+    (indices, increments, rows of every scene) to the device once: the
+    pack of Fader voices takes block steps, and the lanes ride in the
+    block's one packed row (``BlockSteps._rows_to``, one copy a call);
+    nothing goes up through another upload (``PinnedUpload``)."""
+    from oddio_tpu_torch.core import run as prun
+
+    calls, rows = [], []
     real = drctrl.PinnedUpload.__call__
+    real_rows = prun.BlockSteps._rows_to
 
     def counted(self, arr):
         calls.append(arr.shape)
         return real(self, arr)
 
+    def rows_to(self, pend, dst):
+        rows.append([sorted(k for pool in params.values() for k in pool if "fade" in k)
+                     for params in pend])
+        return real_rows(self, pend, dst)
+
     monkeypatch.setattr(drctrl.PinnedUpload, "__call__", counted)
+    monkeypatch.setattr(prun.BlockSteps, "_rows_to", rows_to)
     scenes, before = fader_sines(pt, 3, (0, 1, 2))
     p = ScenePack(scenes, 8000, make_mesh(1, 1, ["cpu"]))
+    assert p.graph_capture
     p.render_block(512)
-    assert calls == []
+    assert len(rows) == 1
     before(1)
     p.render_block(512)
-    assert len(calls) == 1 and calls[0][0] > 0
+    assert rows[1] == [["fade_idx0", "fade_inc0", "fade_row0"]] and calls == []
 
 
 def _sampler_scene(m, sounds, seed, voices=4):
