@@ -243,6 +243,29 @@ Phases (each prints one or more lines; any failure exits non-zero):
     (dispatch host ms a block, host_prepare ms a block, the control's ms
     a period, xRT); at the end of the run, device kernels per block of
     each way.  Phases 22, 26 and 29's scenes replay graphs too.
+41. (after 14 and 30) the Renderer's and the pack's block steps as CUDA
+    graphs on the host pools: the 4096-voice host-pool scene (4096
+    Speed(Stream) voices in the host buffered pool: K4/K5's operand
+    record in the packed row; 512 Adapt(Stream) in the device-resident
+    buffered pool: K1, K2, K6, K7; a 256-voice config-5 submix played as
+    a singleton), the host-pool pack 16 x 256 (K5's scene form) and a
+    Mixer of 4096 Speed(Stream) voices in its host ``Pool`` with a
+    256-voice config-5 submix, each twice from one seed, once under
+    ``core.run.eager()`` and once replaying graphs, through one script of
+    6 periods of 16 blocks (before each, ``set_speed`` on 64 voices,
+    discontinuous ``set_motion`` on 64 and 1024 samples of PCM on every
+    stream, so each period opens with an ingest block; one fly-by voice,
+    in scene 0 of the pack, whose pool leaves K5's strip gate, takes it
+    and leaves it again inside single calls, and stops 11 m out after
+    the script): bit-equal, every kernel's
+    launches equal (the kernels line's entries of K1, K2, K4, K5, its
+    scene form, K6 and K7 gain ``graph_launches`` a block),
+    ``graph_counts`` (replays >= 90% of each engine's calls, no
+    recapture: nothing grows); then 188 idle blocks each way (dispatch
+    host ms a block, host_prepare ms a block, xRT, per scene for the
+    pack) and the dispatch host ms of a control block and of an ingest
+    block (median of 10); at the end of the run, device kernels per block
+    of each way.
 Phases 28-35 count launches with the wrappers' counters, never a tracer
 session; the packs' block profiles (phases 29 and 30) only print.
 The profiles run at the end in this order: the one-kernel checks
@@ -3487,6 +3510,155 @@ def sampler_graphs(pt, dev, kern, tag):
           f"calls; arena_step launches a block under graphs {per_block} {tag}")
 
 
+#: phase 41's kernels (K1, K2, K4, K5, K6, K7): kernels-line name ->
+#: ``all_launches`` key
+HOST_GRAPH_KERNELS = {"rows_append": "ring_kernels.append",
+                      "window_select_ears": "ring_kernels.select_ears",
+                      "ring_place": "stream_kernels.ring_place",
+                      "strip_select": "ring_kernels.strip_select",
+                      "ring_resample": "stream_kernels.ring_resample",
+                      "agc_gains": "agc.agc_gains",
+                      "strip_select_scenes": "ring_kernels.strip_select_scenes"}
+#: the ones each of phase 41's engines runs (K5's scene form in the pack;
+#: the Mixer has no delay ring)
+HOST_GRAPH_PATH = {"hostpools": tuple(HOST_GRAPH_KERNELS)[:-1],
+                   "hostpack": tuple(HOST_GRAPH_KERNELS),
+                   "mixerhost": ("ring_place", "ring_resample", "agc_gains")}
+
+
+def _host_graph_scene(pt, kind, dev):
+    """Phase 41's engine ``kind`` at full width, from seed 0: the
+    4096-voice host-pool scene, the host-pool pack 16 x 256 or a Mixer of
+    4096 Speed(Stream) voices (its host ``Pool``) with a 256-voice config-5
+    submix.  Returns (renderer or pack, engine, control, feed, fly-by
+    handles): ``control()`` writes ``set_speed`` on the next 64 Speed
+    voices and moves the next 64 voices (discontinuous jumps within 15 m),
+    ``feed()`` writes 1024 samples of PCM to every stream."""
+    from oddio_tpu_torch.utils.scene_profile import (build_host_pools, build_host_pools_pack,
+                                                     build_mixer_host_pools, feed)
+
+    hs = []
+    if kind == "hostpools":
+        _, engine, ctls, speeds, rng = build_host_pools(VOICES, dev, handles=hs)
+        r = pt.Renderer(engine, RATE, scan_buckets=BENCH_BUCKETS)
+        fly = [hs[0]]
+    elif kind == "hostpack":
+        r, ctls, speeds, rng = build_host_pools_pack(16, 256, dev, handles=hs)
+        engine = r
+        fly = [hs[0]]  # scene 0 alone leaves K5's gate: the pack's exact route
+    else:
+        _, engine, ctls, speeds, rng = build_mixer_host_pools(VOICES, dev)
+        r = pt.Renderer(engine, RATE, scan_buckets=BENCH_BUCKETS)
+        fly = []
+    turn = [0]
+
+    def control():
+        t = turn[0]
+        for j in range(64):
+            speeds[(64 * t + j) % len(speeds)].set_speed(float(rng.uniform(0.8, 1.25)))
+        for j in range(64 if hs else 0):
+            hs[(64 * t + j + 1) % len(hs)].set_motion(rng.uniform(-15, 15, 3),
+                                                      rng.uniform(-0.2, 0.2, 3), True)
+        turn[0] = t + 1
+
+    return r, engine, control, (lambda: feed(ctls, rng, 1024)), fly
+
+
+def _timed_first(r, engine, before, k=10):
+    """``k`` one-block calls, each after ``before()``: the median dispatch
+    host ms of one (the render call's host time, ended before any wait for
+    the card, less host_prepare's)."""
+    ms = []
+    with _prepare_time(engine) as spent:
+        for _ in range(k):
+            before()
+            torch.cuda.synchronize()
+            spent[0] = 0.0
+            t0 = time.perf_counter()
+            _frames(r, BLOCK)
+            ms.append(1e3 * (time.perf_counter() - t0 - spent[0]))
+            torch.cuda.synchronize()
+    return float(np.median(ms))
+
+
+def host_pool_graphs(pt, dev, kern, tag):
+    """Phase 41: the host-pool scene, the host-pool pack and the Mixer's
+    host pools, graph replay against eager dispatch (see the module
+    docstring)."""
+    totals = {"captures": 0, "recaptures": 0, "replays": 0, "eager": 0}
+    for kind in ("hostpools", "hostpack", "mixerhost"):
+        runs = {}
+        for mode in ("eager", "graph"):
+            t0 = time.perf_counter()
+            r, engine, control, feed, fly = _host_graph_scene(pt, kind, dev)
+            built = time.perf_counter() - t0
+            if not engine.graph_capture:
+                raise AssertionError(f"phase 41 {kind}: the engine does not declare "
+                                     f"graph_capture")
+            reset_launches()
+            out = []
+            with _mode(mode):
+                for h in fly:  # a fly-by: K5's strip gate off, on, off inside single calls
+                    h.set_motion([-30.0, 5.0, 0.0], [60.0, 0.0, 0.0], True)
+                for _ in range(6):
+                    control()
+                    feed()
+                    out += _frames(r, BLOCK * 16)
+            torch.cuda.synchronize()
+            launches = all_launches()
+            x = torch.cat([o.reshape(-1) for o in out]).cpu().numpy()
+            if not np.isfinite(x).all() or np.abs(x).max() <= 1e-3:
+                raise AssertionError(f"phase 41 {kind} {mode}: non-finite or silent output")
+            counts = dict(r.graph_counts)
+            with _mode(mode):
+                for h in fly:  # the fly-by stops 11 m out: K5's strip route again
+                    h.set_motion([10.0, 5.0, 0.0], [0.0, 0.0, 0.0], True)
+                host_ms, prep_ms, wall = _timed_idle(r, engine)
+                ctl_ms = _timed_first(r, engine, control)
+                ing_ms = _timed_first(r, engine, feed)
+            runs[mode] = (x, launches, counts, host_ms, prep_ms, wall, ctl_ms, ing_ms, built,
+                          dict(r.graph_counts))
+            BLOCK_PROFILES.append((41, f"the {kind} {mode} (8 blocks)",
+                                   (lambda r=r, m=mode: _render8(r, m)), 8))
+        (xe, le, ce, he, pe, we, cte, ie, be, _), \
+            (xg, lg, cg, hg, pg, wg, ctg, ig, bg, total) = runs["eager"], runs["graph"]
+        nb = 96
+        err = float(np.abs(xg - xe).max())
+        if err != 0.0 or xg.shape != xe.shape:
+            raise AssertionError(f"phase 41 {kind}: graph replay differs from eager dispatch "
+                                 f"by {err}")
+        if lg != le:
+            raise AssertionError(f"phase 41 {kind}: launches eager {le} graph {lg}")
+        missing = [k for k in HOST_GRAPH_PATH[kind] if not lg.get(HOST_GRAPH_KERNELS[k])]
+        if missing:
+            raise AssertionError(f"phase 41 {kind}: {missing} never launched: {lg}")
+        calls = total["replays"] + total["eager"]
+        share = total["replays"] / calls
+        if total["recaptures"] or share < 0.9:
+            raise AssertionError(f"phase 41 {kind}: graph_counts {total}, replays {share:.3f} "
+                                 f"of the calls")
+        for k, v in total.items():
+            totals[k] += v
+        for name in HOST_GRAPH_PATH[kind]:
+            kern[name].setdefault("graph_launches", {})[kind] = (
+                lg[HOST_GRAPH_KERNELS[name]] / nb)
+        xrt = lambda w: 188 * BLOCK / RATE / w  # noqa: E731
+        scenes = " per scene" if kind == "hostpack" else ""
+        print(f"phase 41 {kind}: built in {be:.2f}/{bg:.2f} s, {nb} blocks (6 periods of 16: "
+              f"64 set_speed, 64 set_motion and PCM on every stream before each; "
+              f"{len(fly)} fly-by), graph vs eager max|diff| {err:.3e} (bit-equal); launches a "
+              f"block { {k: round(v / nb, 3) for k, v in lg.items()} } (equal); graph_counts "
+              f"over the script {cg}, with the timed runs {total}: replays {share:.3f} of "
+              f"{calls} calls, recaptures 0 (eager run {ce['eager']} op-by-op calls); dispatch "
+              f"host ms a block, idle: eager {he:.4f} graph {hg:.4f}, control: eager {cte:.4f} "
+              f"graph {ctg:.4f}, ingest: eager {ie:.4f} graph {ig:.4f}; host_prepare ms a block "
+              f"eager {pe:.4f} graph {pg:.4f}; 188 idle blocks xRT{scenes} eager "
+              f"{xrt(we):.2f}x graph {xrt(wg):.2f}x {tag}")
+    calls = totals["replays"] + totals["eager"]
+    print(f"phase 41: graph runs {totals}, replays {totals['replays'] / calls:.3f} of {calls} "
+          f"calls {tag}")
+
+
 def _control_period(control, render, mode):
     """A block profile's call: one control period of 8 blocks in
     ``mode``."""
@@ -3642,6 +3814,8 @@ def main():
     strip_select_scene_kernel(dev, kern, tag)
     host_pools_pack_path(pt, dev, kern, tag)
     new_pack_reference(pt, dev, tag)
+    # -- 41. the host-pool scene's, pack's and Mixer's block steps as CUDA graphs ------
+    host_pool_graphs(pt, dev, kern, tag)
 
     # -- 21-24, 26. configs 4 and 2, the wavetable, the seek sampler; 27. their steps --
     step_paths(dev, kern, tag)

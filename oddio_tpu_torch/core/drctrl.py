@@ -174,18 +174,19 @@ def _upload(x, device, dtype=None):
     return t.to(device, non_blocking=True) if torch.device(device).type == "cuda" else t
 
 
-def device_param(x, device, dtype=None):
+def device_param(x, device, dtype=None, upload=None):
     """A per-block parameter as a tensor on ``device``: a Renderer's block
     step hands the render tensors unpacked from its one row on the device
     (returned as they are, cast where ``dtype`` asks); a numpy value (an
-    engine or pack dispatched op by op) is uploaded.  Inside a block step
+    engine or pack dispatched op by op) is uploaded, through ``upload``
+    where given (a ``PinnedUpload``).  Inside a block step
     (``block_step``; a CUDA graph may replay it) no parameter may come
     from the host: a numpy value there raises."""
     if isinstance(x, torch.Tensor):
         return x if dtype is None or x.dtype == dtype else x.to(dtype)
     if in_block_step():
         raise RuntimeError("a block step took a per-block value from the host")
-    return _upload(x, device, dtype)
+    return _upload(x, device, dtype) if upload is None else upload(x)
 
 
 class PinnedUpload:

@@ -43,7 +43,7 @@ import torch
 
 from ..ops import stream_kernels as SK
 from ..ops._dev import device_split_ds, exact_positions, split_ds, top12
-from .drctrl import _upload
+from .drctrl import device_param
 from .hostmath import EPS32, f32, f64, full
 from .signal import ControlBlock, Signal
 
@@ -340,7 +340,7 @@ class FramesSignal(Signal):
         return {"arena": a.device(self.device), "garena": a.device_rows(self.device)}
 
     def render_host(self, dstate, ddata, params, n):
-        col = {k: _upload(params[k], self.device)
+        col = {k: device_param(params[k], self.device)
                for k in ("base", "offset0", "ds_int", "f_hi", "f_lo", "off", "length")}
         tr, fr = exact_positions(col["offset0"], col["ds_int"], col["f_hi"], col["f_lo"], n,
                                  signed=True)

@@ -10,11 +10,12 @@ passes ``device``).
 The JAX package compiles one donated program per ``(archetype, kind, pack
 spec)``: ``"single"`` (one block), ``"scan"`` (a run of equal-archetype
 blocks) and ``("multi", nb)`` (fused idle groups).  Here a signal that
-declares ``graph_capture`` (the main path's SpatialScene and the seek
-sampler; a Mixer of BASELINE config 5's, config 4's, config 2's or the
-wavetable's voices; a wrapper chain of Reinhard, Tanh, MonoToStereo or
-Downmix around either, which forwards it) gets one block step per such
-key, in ``_steps``; the
+declares ``graph_capture`` (the main path's SpatialScene, the seek
+sampler and the host-pool scene; a Mixer of BASELINE config 5's, config
+4's, config 2's or the wavetable's voices, of host pools of such chains
+or of capturing submixes; a wrapper chain of Reinhard, Tanh, MonoToStereo
+or Downmix around either, which forwards it) gets one block step per
+such key, in ``_steps``; the
 protocol (``BlockSteps``) is the
 Renderer's and a 1 x 1 ScenePack's (``parallel/sharded.py``), which
 drives it over its stacked state:
@@ -51,7 +52,9 @@ other signal, a dispatch is a Python loop over the same blocks, op by op,
 with numpy parameters that pools upload where they use them, and the state
 the render returns stored as it is.  Both ways keep the same block
 boundaries, structure-event flushes and fused multi-block groups on idle
-runs.
+runs, and both render a run as of its own archetype (an engine's
+``render_archetype``: the run is dispatched after the next block's
+prepare).
 """
 
 from __future__ import annotations
@@ -590,13 +593,12 @@ class Renderer(BlockSteps):
         """Render a run of prepared blocks of equal archetype: idle runs of
         at least MULTI_MIN_BLOCKS go as fused nb-block groups where the
         signal allows (``host_multiblock``), the rest block by block.  A
-        signal that declares ``graph_capture`` renders the run as of its
-        own archetype (``render_archetype``), so the step is the key's."""
-        sig = self.signal
-        if getattr(sig, "graph_capture", False):
-            with sig.render_archetype(arch):
-                self._dispatch_run(pend, arch, block_size, consume)
-        else:
+        signal that defines ``render_archetype`` (an engine, a wrapper
+        root) renders the run as of its own archetype, stepped or op by
+        op: the run is dispatched after the next block's prepare, whose
+        flags its pools then hold, so a step is its key's."""
+        ra = getattr(self.signal, "render_archetype", None)
+        with (ra(arch) if ra is not None else contextlib.nullcontext()):
             self._dispatch_run(pend, arch, block_size, consume)
 
     def _dispatch_run(self, pend, arch, block_size, consume):

@@ -31,13 +31,15 @@ device given, the port runs on the CUDA card (``default_device``).
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
 from ..parallel.context import RenderDevice
 from ..utils.tree import tree_fill, tree_map
 
-__all__ = ["Signal", "Engine", "ControlBlock", "default_device", "same_device"]
+__all__ = ["Signal", "Engine", "ControlBlock", "default_device", "same_device", "render_as"]
 
 
 def default_device(device=None):
@@ -145,6 +147,10 @@ class Signal:
     #: keep every in-place state leaf where it is.  An engine that sets it
     #: declares its state leaves written in place in ``GRAPH_INPLACE``.
     graph_capture = False
+    #: host attributes a batched render reads that ``host_prepare`` sets
+    #: per block, each with its index in ``_arch_extra``: ``render_as``
+    #: sets them from a block's archetype
+    ARCH_FLAGS = ()
 
     def __init__(self):
         self.batch = ()
@@ -523,3 +529,41 @@ class Engine(Signal):
             tree_map(lambda x: x[0], params), n,
         )
         return tree_map(lambda x: x[None], d2), block[None]
+
+
+_UNSET = object()
+
+
+def _restore(node, name, value):
+    if value is _UNSET:
+        node.__dict__.pop(name, None)
+    else:
+        setattr(node, name, value)
+
+
+def _enter_arch(sig, arch, stack):
+    if isinstance(sig, Engine):
+        stack.enter_context(sig.render_archetype(arch))
+        return
+    own = vars(sig)
+    for name, i in sig.ARCH_FLAGS:
+        stack.callback(_restore, sig, name, own.get(name, _UNSET))
+        setattr(sig, name, arch[2][i])
+    kids = sig.children()
+    if kids:  # a leaf's archetype may be a user signal's own
+        for child, (_, sub) in zip(kids.values(), arch[3]):
+            _enter_arch(child, sub, stack)
+
+
+@contextlib.contextmanager
+def render_as(sig, arch):
+    """Render ``sig`` (a host pool's batched template, a submix's signal,
+    a wrapper's inner) as of the block that prepared ``arch``, its
+    ``archetype()`` then: an engine through its own ``render_archetype``,
+    every other node taking its ``ARCH_FLAGS`` from its ``_arch_extra`` in
+    ``arch``, and its children theirs; all put back after.  A Renderer
+    dispatches a run only after preparing the next block, whose flags the
+    nodes then hold."""
+    with contextlib.ExitStack() as stack:
+        _enter_arch(sig, arch, stack)
+        yield

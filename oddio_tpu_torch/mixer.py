@@ -12,16 +12,18 @@ on the mixer's device; the host ships sparse play, stop and control-field
 deltas (every lane applied on the device, padding lanes dropped:
 ``core/drctrl.drop_lanes``) and each stream's queued PCM, and observes
 handle state at sync points with the reference's one-scan-late
-reclamation (mixer.rs:129-147).  A Mixer whose pools are all
-device-resident with chains of BASELINE config 5's, config 4's, config
-2's or the wavetable's nodes (``_GRAPH_NODES``) declares
+reclamation (mixer.rs:129-147).  Other chains (a Speed over a Stream, a
+user signal) play in a host ``Pool``: a batched template whose host
+columns the host advances and whose device leaves the block renders at
+once (``render_host``).  A non-batchable signal (a submix: an engine
+played into the mixer) plays alone in a ``PoolSingleton``.  A Mixer
+whose pools all hold chains of BASELINE config 5's, config 4's, config
+2's or the wavetable's nodes (``_GRAPH_NODES``; a host pool's Speed over
+a Stream included) or submixes whose engine captures declares
 ``graph_capture``: its Renderer, or one of a wrapper chain around it,
 replays each block as a CUDA graph (``core/run.py``), the sampler's fade
-lanes and FramesSignal play rows in its packed row.  Other chains (a Speed over
-a Stream, a user signal) play in a host ``Pool``: a batched template whose
-host columns the host advances and whose device leaves the block renders
-at once (``render_host``).  A non-batchable signal (a submix: an engine
-played into the mixer) plays alone in a ``PoolSingleton``.  Capacity
+lanes, FramesSignal play rows and host pools' per-voice params in its
+packed row.  Capacity
 doubles on demand (set.rs:57-63); bulk plays beyond ``k_play`` apply
 eagerly.  The voice sum is a masked ``where`` + ``sum``, accumulated in
 float64 so that it does not depend on the device's reduction order.
@@ -38,7 +40,7 @@ from .core.drctrl import (DRCtrlMixin, _upload, device_param, drop_lanes, scatte
                           scatter_rows_drop_)
 from .core.frames import FramesSignal
 from .core.hostmath import f32
-from .core.signal import Engine, default_device
+from .core.signal import Engine, default_device, render_as
 from .ops._dev import masked_voice_sum
 from .ops.adapt import Adapt
 from .ops.channels import Downmix, MonoToStereo
@@ -50,8 +52,8 @@ from .ops.limit import Reinhard, Tanh
 from .ops.sine import Sine
 from .ops.speed import Speed
 from .ops.stream import Stream
-from .parallel.context import (RenderDevice, add_block, current_scenes, in_block_step,
-                               localize_index, scene_offset, voice_partials)
+from .parallel.context import (RenderDevice, add_block, current_scenes, localize_index,
+                               voice_partials)
 from .utils.tree import tree_fill, tree_map, tree_stack
 
 __all__ = ["Mixer", "MixerControl", "Mixed", "Pool", "PoolSingleton", "PoolDR",
@@ -450,24 +452,13 @@ class PoolDR(DRCtrlMixin):
 
     #: set by a ScenePack whose scenes' pools advance different frame
     #: counts this block (submixes at their rings' write counts): one per
-    #: scene of the pack, else None
+    #: scene of the pack, else None; the pack then ships each scene's
+    #: count in the params (``pack_counts``)
     _pack_counts = None
 
     def _count_tensor(self, V):
         """The (V,) frames each row advances: one tensor per (V, count)
-        for the pool's life (a pack's S·V rows get theirs), or a pack's
-        counts per scene, uploaded; a block step may not upload them
-        (every scene of a stepped pack advances the same count)."""
-        pc, S = self._pack_counts, current_scenes()
-        if pc is not None and in_block_step():
-            raise RuntimeError(f"pool {self.name}: a block step read the pack's per-scene "
-                               "counts from the host")
-        if pc is not None and S is not None:
-            # the pack's scenes this render holds (a mesh's scene group)
-            pc = pc[scene_offset():scene_offset() + S]
-        if pc is not None and S == len(pc):
-            counts = np.repeat(np.asarray(pc, np.int32), V // len(pc))
-            return _upload(counts, self.device, torch.int32)
+        for the pool's life (a graph reads it by address)."""
         key = (V, self._count, self.device)
         t = self._count_t.get(key)
         if t is None:
@@ -500,10 +491,14 @@ class PoolDR(DRCtrlMixin):
         S["mask"] = S["mask"] & ~S["stopped"]
         # 4. render + masked sum (where, so garbage in free slots never
         # reaches the output); mono chains return (V, n), others (V, C, n)
+        if "pack_counts" in params:
+            # a pack's scenes advancing different counts: each scene's, per row
+            pc = device_param(params["pack_counts"], self.device, torch.int32)
+            count = pc[:, None].expand(pc.shape[0], V // pc.shape[0]).reshape(V)
+        else:
+            count = self._count_tensor(V)
         inner2, samples = self.proto.dr_render(
-            S["inner"], ddata.get("inner", {}), self._interval, n,
-            self._count_tensor(V),
-        )
+            S["inner"], ddata.get("inner", {}), self._interval, n, count)
         S["inner"] = inner2
         if samples.dim() == 2:
             samples = samples[:, None, :]
@@ -511,19 +506,21 @@ class PoolDR(DRCtrlMixin):
         return S, masked_voice_sum(S["mask"], samples, current_scenes())
 
 
-#: the nodes of a device-resident chain whose renders read every per-block
-#: value from the params, the state or the pool's archetype entry: config
-#: 5's Adapt, Stream and Sine, config 4's gains, channel maps and limiters,
-#: the wavetable's Speed and Cycle, and config 2's FramesSignal and Fader
-#: (K6's arena form, its interval the key's; the fade lanes apply on the
-#: device, and a FramesSignal row's float64 cursor rides in the packed row)
+#: the nodes of a chain whose renders read every per-block value from the
+#: params, the state or the pool's archetype entry: config 5's Adapt,
+#: Stream and Sine, config 4's gains, channel maps and limiters, the
+#: wavetable's Speed and Cycle, and config 2's FramesSignal and Fader (K6's
+#: arena form, its interval the key's; the fade lanes apply on the device,
+#: and a FramesSignal row's float64 cursor rides in the packed row); in a
+#: host pool their ``render_host`` takes each param through
+#: ``device_param`` and a Stream's read flags from the key
 _GRAPH_NODES = (Adapt, Stream, Sine, Gain, FixedGain, Constant, MonoToStereo, Downmix,
                 Reinhard, Tanh, Speed, Cycle, FramesSignal, Fader)
 
 
 def _graph_chain(node):
-    """Whether a pool's proto chain is all ``_GRAPH_NODES`` (a Speed over a
-    Stream plays in a host pool, ROADMAP D4)."""
+    """Whether a pool's chain (a device-resident pool's proto, a host
+    pool's batched template) is all ``_GRAPH_NODES``."""
     return type(node) in _GRAPH_NODES and all(
         _graph_chain(c) for c in node.children().values())
 
@@ -619,46 +616,56 @@ class Mixer(Engine):
 
     @property
     def graph_capture(self):
-        """True while every pool is device-resident with a chain of
-        ``_GRAPH_NODES`` (BASELINE config 5's Adapt, Stream and Sine;
-        config 4's Gain, FixedGain, Constant, MonoToStereo, Downmix,
-        Reinhard and Tanh; the wavetable's Speed and Cycle; config 2's
-        Fader(Speed(FramesSignal))): their renders read every per-block
-        value from the params, the state or the key, so a Renderer
-        captures the block step as a CUDA graph, and so does a wrapper
-        root over this mixer.  A host pool (Speed(Stream)) or a submix
-        keeps op-by-op dispatch."""
-        return all(p.is_dr and _graph_chain(p.proto) for p in self._all_pools())
+        """True while every pool renders from the params, the state or the
+        key alone: a device-resident pool or a host ``Pool`` (a Speed over
+        a Stream, a Fader over one) with a chain of ``_GRAPH_NODES``
+        (BASELINE config 5's Adapt, Stream and Sine; config 4's Gain,
+        FixedGain, Constant, MonoToStereo, Downmix, Reinhard and Tanh; the
+        wavetable's Speed and Cycle; config 2's Fader(Speed(FramesSignal))),
+        or a submix whose engine captures: a Renderer then captures the
+        block step as a CUDA graph, and so does a wrapper root over this
+        mixer.  A user signal keeps op-by-op dispatch."""
+        return all(
+            bool(getattr(p.sig, "graph_capture", False)) if getattr(p, "is_singleton", False)
+            else _graph_chain(p.proto if p.is_dr else p.sig)
+            for p in self._all_pools())
 
     @contextlib.contextmanager
     def render_archetype(self, arch):
         """Render as of the blocks that prepared ``arch`` (as
         ``SpatialScene.render_archetype``): a Renderer dispatches a run
         only after preparing the next block, whose interval, frame count
-        and route flags the pools then hold.  For the dispatch each pool
-        takes its entry's ``_interval`` and ``_count`` (the host interval
-        K6 and K7 take as an argument, the count tensor) and its route
-        flags are stamped on its proto chain, a Fader's both banks
-        included (K6's window tier and gate, the arena step or the
-        gather, K7 or the scan); all are put back after."""
+        and route flags the pools then hold.  For the dispatch each
+        device-resident pool takes its entry's ``_interval`` and
+        ``_count`` (the host interval K6 and K7 take as an argument, the
+        count tensor) and its route flags are stamped on its proto chain,
+        a Fader's both banks included (K6's window tier and gate, the
+        arena step or the gather, K7 or the scan); a host pool's template
+        takes its nodes' flags from its own archetype in the entry, and a
+        submix renders as of its engine's (``core.signal.render_as``); all
+        are put back after."""
         field = {a: 2 + i for i, (a, _) in enumerate(self.POOL_ARCH)}
         default = dict(self.POOL_ARCH)
         flags = ("_ds_small", "_ds_tier", "_ema_fast")
         saved = []
-        for p, entry in zip(self._all_pools(), arch[2]):
-            if entry[0] != p.name:
-                raise ValueError(f"archetype entry {entry[0]} for pool {p.name}")
-            # a pool opened after the block's prepare has no flags yet
-            saved.append((p, getattr(p, "_interval", None), getattr(p, "_count", None),
-                          tuple(getattr(p, a, default[a]) for a in flags)))
-            p._interval, p._count = entry[field["_interval"]], entry[field["_count"]]
-            p._stamp_flags(*(entry[field[a]] for a in flags))
-        try:
-            yield
-        finally:
-            for p, interval, count, own in saved:
-                p._interval, p._count = interval, count
-                p._stamp_flags(*own)
+        with contextlib.ExitStack() as stack:
+            for p, entry in zip(self._all_pools(), arch[2]):
+                if entry[0] != p.name:
+                    raise ValueError(f"archetype entry {entry[0]} for pool {p.name}")
+                if not p.is_dr:
+                    stack.enter_context(render_as(p.sig, entry[1]))
+                    continue
+                # a pool opened after the block's prepare has no flags yet
+                saved.append((p, getattr(p, "_interval", None), getattr(p, "_count", None),
+                              tuple(getattr(p, a, default[a]) for a in flags)))
+                p._interval, p._count = entry[field["_interval"]], entry[field["_count"]]
+                p._stamp_flags(*(entry[field[a]] for a in flags))
+            try:
+                yield
+            finally:
+                for p, interval, count, own in saved:
+                    p._interval, p._count = interval, count
+                    p._stamp_flags(*own)
 
     def host_structure_event(self):
         for p in self._all_pools():
@@ -809,7 +816,7 @@ class Mixer(Engine):
             else:
                 dsub, blocks = pool.sig.render_host(dstate[pool.name], dd, ps["p"], n)
             d2[pool.name] = dsub
-            mask = _upload(ps["mask"], self.device)
+            mask = device_param(ps["mask"], self.device)
             out = add_block(out, masked_voice_sum(mask, blocks, S), pool.name)
         return d2, out
 

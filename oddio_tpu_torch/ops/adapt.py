@@ -27,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.drctrl import _upload
+from ..core.drctrl import device_param
 from ..core.hostmath import f32, full
 from ..core.signal import Signal
 from .agc import _alpha, _apply, _gain, _level, agc_fits, agc_step
@@ -159,7 +159,7 @@ class Adapt(Signal):
             dstate.get("inner", {}), ddata.get("inner", {}), params["inner"], n
         )
         s = torch.sum(block, dim=1)  # (V, n) sum of channels (adapt.rs:73)
-        col = {k: _upload(params[k], self.device)
+        col = {k: device_param(params[k], self.device)
                for k in ("alpha", "count", "low", "high", "max_gain")}
         gain, avg = _ema_gain(
             dstate["avg"], s, col["alpha"], col["count"], col["low"],

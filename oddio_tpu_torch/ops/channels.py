@@ -15,7 +15,7 @@ import contextlib
 
 import torch
 
-from ..core.signal import Signal
+from ..core.signal import Signal, render_as
 
 __all__ = ["MonoToStereo", "Downmix"]
 
@@ -76,7 +76,7 @@ class _Wrapper(Signal):
     def render_archetype(self, arch):
         """Render as of ``arch``: the inner signal's, as of its entry of
         the key (``Signal.archetype`` nests it under "inner")."""
-        with self.inner.render_archetype(dict(arch[3])["inner"]):
+        with render_as(self.inner, dict(arch[3])["inner"]):
             yield
 
     def _inner_render(self, dstate, ddata, params, n):

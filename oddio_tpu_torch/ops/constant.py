@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.drctrl import _upload
+from ..core.drctrl import device_param
 from ..core.hostmath import f32, full
 from ..core.signal import Signal
 
@@ -50,7 +50,7 @@ class Constant(Signal):
         pass  # constant.rs:21-23
 
     def render_host(self, dstate, ddata, params, n):
-        v = _upload(params["value"], self.device, torch.float32)  # (V, C)
+        v = device_param(params["value"], self.device, torch.float32)  # (V, C)
         return dstate, v[:, :, None].expand(v.shape + (n,))
 
     # -- device-resident mode ------------------------------------------------

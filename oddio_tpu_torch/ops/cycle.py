@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.drctrl import _upload
+from ..core.drctrl import device_param
 from ..core.frames import _arena, _lerp, _pool_ds_small
 from ..core.hostmath import f32, f64, full, rem_euclid
 from ..core.signal import Signal
@@ -122,7 +122,7 @@ class Cycle(Signal):
         return d
 
     def render_host(self, dstate, ddata, params, n):
-        col = {k: _upload(params[k], self.device)
+        col = {k: device_param(params[k], self.device)
                for k in ("base", "offset0", "ds_int", "f_hi", "f_lo", "off", "length")}
         tr, fr = exact_positions(col["offset0"], col["ds_int"], col["f_hi"], col["f_lo"], n)
         length = col["length"][:, None]

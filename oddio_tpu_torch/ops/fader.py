@@ -31,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.drctrl import _upload
+from ..core.drctrl import device_param
 from ..core.hostmath import f32, full
 from ..core.signal import ControlBlock, Signal
 from ..utils.tree import tree_map
@@ -307,14 +307,14 @@ class Fader(Signal):
         d2b, new = self.b.render_host(dstate.get("b", {}), ddata.get("b", {}), params["b"], n)
         out["b"] = d2b
         dev = old.device
-        p = fade_ramp(_upload(params["progress0"], dev, torch.float32),
-                      _upload(params["inc"], dev, torch.float32), n)[:, None, :]
+        p = fade_ramp(device_param(params["progress0"], dev, torch.float32),
+                      device_param(params["inc"], dev, torch.float32), n)[:, None, :]
         return out, old * torch.sqrt(1.0 - p) + new * torch.sqrt(p)
 
     def _render_pooled(self, dstate, ddata, params, n):
         dev = self.device
-        swap = _upload(params["swap"], dev, torch.bool)
-        breset = _upload(params["breset"], dev, torch.bool)
+        swap = device_param(params["swap"], dev, torch.bool)
+        breset = device_param(params["breset"], dev, torch.bool)
         da, db = dstate["a"], dstate["b"]
         da, db = (
             tree_map(lambda x, y: torch.where(_voice_mask(swap, x), y, x), da, db),
@@ -326,9 +326,9 @@ class Fader(Signal):
         dda = ddata.get("a", {})
         d2a, old = self.a.render_host(da, dda, params["a"], n)
         d2b, new = self.b.render_host(db, dda, params["b"], n)
-        fading = _upload(params["fading"], dev, torch.bool)[:, None]
-        p = fade_ramp(_upload(params["progress0"], dev, torch.float32),
-                      _upload(params["inc"], dev, torch.float32), n)
+        fading = device_param(params["fading"], dev, torch.bool)[:, None]
+        p = fade_ramp(device_param(params["progress0"], dev, torch.float32),
+                      device_param(params["inc"], dev, torch.float32), n)
         wa = torch.where(fading, torch.sqrt(1.0 - p), 1.0)
         wb = torch.where(fading, torch.sqrt(p), 0.0)
         out = dict(dstate)

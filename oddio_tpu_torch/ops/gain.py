@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.drctrl import _upload
+from ..core.drctrl import device_param
 from ..core.hostmath import f32, full
 from ..core.signal import ControlBlock, Signal
 
@@ -90,7 +90,7 @@ class FixedGain(Signal):
         d2, block = self.inner.render_host(
             dstate.get("inner", {}), ddata.get("inner", {}), params["inner"], n
         )
-        g = _upload(params["gain"], block.device, torch.float32)
+        g = device_param(params["gain"], block.device, torch.float32)
         out = dict(dstate)
         out["inner"] = d2
         return out, block * g[:, None, None]
@@ -210,7 +210,7 @@ class Gain(Signal):
             dstate.get("inner", {}), ddata.get("inner", {}), params["inner"], n
         )
         dev = block.device
-        col = {k: _upload(params[k], dev, torch.float32)[:, None]
+        col = {k: device_param(params[k], dev, torch.float32)[:, None]
                for k in ("prev", "next", "progress0", "inc")}
         pr = torch.clamp_max(col["progress0"] + _frames(n, dev) * col["inc"], 1.0)
         gains = col["prev"] + pr * (col["next"] - col["prev"])

@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.drctrl import _upload
+from ..core.drctrl import device_param
 from ..core.hostmath import TAU32, f32, full, rust_rem
 from ..core.signal import Signal
 from ._dev import (
@@ -109,7 +109,7 @@ class Sine(Signal):
 
     def render_host(self, dstate, ddata, params, n):
         # sine.rs:34-40: sin(TAU * frac(c0 + i*dc)), near-exact positions
-        t = {k: _upload(params[k], self.device) for k in ("c0", "dc_int", "f_hi", "f_lo")}
+        t = {k: device_param(params[k], self.device) for k in ("c0", "dc_int", "f_hi", "f_lo")}
         _, frac = exact_positions(t["c0"], t["dc_int"], t["f_hi"], t["f_lo"], n)
         return dstate, sin_turns(frac)[:, None, :]
 

@@ -37,7 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.drctrl import _upload, device_param
+from ..core.drctrl import device_param
 from ..core.hostmath import f32, full
 from ..core.signal import ControlBlock, Signal
 from .stream_kernels import (
@@ -55,6 +55,8 @@ __all__ = ["Stream", "StreamControl"]
 
 class Stream(Signal):
     _host_fields = ("rate", "t", "buflen", "closed", "stopping", "start")
+    #: the write flag and the read flags of ``_arch_extra``
+    ARCH_FLAGS = (("_has_write", 3), ("_ds_small", 4), ("_ds_tier", 5))
 
     def __init__(self, rate, size, max_write_per_block=None, channels=1):
         """``rate``: stream sample rate; ``size``: max buffered frames
@@ -306,11 +308,11 @@ class Stream(Signal):
         return a + (s - torch.trunc(s))[:, None, :] * (b - a)
 
     def _placed(self, ring, params):
-        """Params as tensors on the ring's device, with a host pool's
-        shipped chunk (Receiver::update) placed first through K4."""
+        """Params as tensors on the ring's device (``device_param``: a
+        block step's views of its row), with a host pool's shipped chunk
+        (Receiver::update) placed first through K4."""
         dev = ring.device
-        p = {k: v if isinstance(v, torch.Tensor) else _upload(v, dev)
-             for k, v in params.items()}
+        p = {k: device_param(v, dev) for k, v in params.items()}
         if "chunk" in p:
             self._write(ring, p["chunk"], p["wpos"].to(torch.int32),
                         p["wcount"].to(torch.int32))

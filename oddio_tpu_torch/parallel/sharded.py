@@ -48,7 +48,9 @@ numpy state and prepares its own parameters; per block the pack merges
 them per cell.  Where the scenes' per-block choices differ, the pack takes
 one for the whole pack, so that every cell takes the route a 1 x 1 pack
 takes: the widest read tier and step flags, and the host buffered pool's
-exact elementwise read when any scene leaves its strip gate.  The stacked
+exact elementwise read when any scene leaves its strip gate (stamped on
+scene 0's pool before its archetype is read: the route is part of the
+step's key).  The stacked
 state is built once and carried; pool growth and eager plays pull it back
 into the scenes first (the pools' ``_unpack_hook``) and the next block
 restacks.  A host pool's play resets its slot in place: where every
@@ -62,8 +64,9 @@ one-voice state along a new scene axis: the wrappers render their S/a rows
 batched, and the engine under them its scenes stacked.
 
 On a 1 x 1 mesh whose scenes all declare ``graph_capture`` (config-5
-Mixers, samplers, main-path and seek-sampler SpatialScenes) the pack
-takes block steps, as the JAX
+Mixers, samplers, main-path, seek-sampler and host-pool SpatialScenes,
+Mixers of host pools and submixes) the pack takes block steps, as the
+JAX
 pack compiles its programs (``oddio_tpu/parallel/sharded.py``): the
 Renderer's protocol (``core/run.BlockSteps``) over the carried stack, a
 ``"single"`` key for ``render_block`` and ``"scan"`` keys of
@@ -218,10 +221,12 @@ class ScenePack(BlockSteps):
     def graph_capture(self):
         """True on a 1 x 1 mesh whose scenes all declare ``graph_capture``
         (config-5 Mixers, samplers of Fader(Speed(FramesSignal)) voices,
-        main-path and seek-sampler SpatialScenes): the pack then renders
-        through block steps (CUDA graphs on a card), its merged fade lanes
-        and float64 cursors in the packed row.  Larger meshes, and packs
-        of host pools or submixes, render op by op."""
+        main-path, seek-sampler and host-pool SpatialScenes, Mixers of host
+        pools and submixes): the pack then renders through block steps
+        (CUDA graphs on a card), its merged fade lanes, float64 cursors,
+        host pools' per-voice params (K4/K5's records end to end, K5's
+        scene form reading them), submixes' params and per-scene frame
+        counts in the packed row.  Larger meshes render op by op."""
         return self.A == self.B == 1 and all(
             getattr(s, "graph_capture", False) for s in self.scenes)
 
@@ -439,7 +444,8 @@ class ScenePack(BlockSteps):
                     )
                 if hasattr(group[0], "_count"):
                     counts = tuple(p._count for p in group)
-                    group[0]._pack_counts = counts if len(set(counts)) > 1 else None
+                    for p in group:
+                        p._pack_counts = counts if len(set(counts)) > 1 else None
             elif not _is_submix(group[0]):
                 _stamp_host_flags([p.sig for p in group])
 
@@ -500,6 +506,9 @@ class ScenePack(BlockSteps):
                     [stack_index(v, s, V, S, k, b) for s, v in enumerate(vals)])
             else:
                 out[key] = tree_map(lambda *xs: np.concatenate(xs), *vals)
+        if getattr(pool, "_pack_counts", None) is not None:
+            # the scenes advance different frame counts: each scene's ships
+            out["pack_counts"] = np.asarray([p._count for p in group], np.int32)
         return out
 
     def _merge_chain(self, sigs, ps):

@@ -27,10 +27,14 @@ uploaded where a render uses them (a Renderer's block step hands them over
 as tensors unpacked from one row on the device, ``core/drctrl.
 device_param``); every lane of the delta arrays is applied on the device,
 padding lanes dropped (``core/drctrl.scatter_drop_``).  Rings are updated
-in place.  A scene whose every pool is device-resident with Sine voices,
-or a seek pool of mono FramesSignal voices (the seek sampler, K6's
-``arena_warp`` inside), declares ``graph_capture``: its Renderer then
-replays each block (or idle group) as one CUDA graph.
+in place.  A scene whose every pool reads its per-block values from the
+params, the state or its archetype entry (device-resident pools of Sine
+voices or stream chains, seek pools of mono FramesSignal voices, host
+buffered pools of ``mixer._GRAPH_NODES`` chains with K4/K5's operand
+record in the packed row, submixes whose engine captures) declares
+``graph_capture``: its Renderer then replays each block (or idle group)
+as one CUDA graph.  Every render, stepped or op by op, reads the host
+values of its run's own archetype (``render_archetype``).
 """
 
 from __future__ import annotations
@@ -53,8 +57,8 @@ from .core.hostmath import (
     v3_dot,
     v3_norm,
 )
-from .core.signal import Engine, default_device
-from .mixer import render_submix
+from .core.signal import Engine, default_device, render_as
+from .mixer import _graph_chain, render_submix
 from .ops._dev import (
     device_split_ds,
     exact_positions,
@@ -87,7 +91,7 @@ from .ops.ring_kernels import (
     voice_record,
 )
 from .ops.sine import Sine
-from .ops.stream_kernels import ring_place_record
+from .ops.stream_kernels import ring_place_plain, ring_place_record
 from .parallel.context import (RenderDevice, add_block, current_scenes, in_block_step,
                                localize_index)
 from .utils.tree import tree_fill, tree_map, tree_stack
@@ -547,7 +551,12 @@ class _BufferedPool(_VoicePool):
 
     def render(self, dstate, ddata, params, n):
         n_inner = self._n_inner
-        up = self._upload
+        dev = self.device
+
+        def up(x, dtype=None):
+            # a block step's views of its row, or numpy uploaded (eager)
+            return device_param(x, dev, dtype)
+
         dsub, blocks = self._inner_render(dstate, ddata, params, n_inner)
         samples = blocks[:, 0, :].contiguous()  # (V, n_inner) mono
         ring = dstate["ring"]  # (V, L), updated in place
@@ -555,13 +564,10 @@ class _BufferedPool(_VoicePool):
         S = current_scenes()  # a pack's rows: S scenes, mixed apart
 
         if not self._use_strips:
-            # exact elementwise write and read (any ratio, any walk)
-            n_write = up(params["n_write"], _I32)
-            j = torch.arange(n_inner, dtype=torch.int64, device=self.device)
-            idx = torch.remainder(up(params["start"], torch.int64)[:, None] + j, L)
-            keep = j[None, :] < n_write[:, None]
-            rows = torch.arange(V, device=self.device)[:, None].expand(V, n_inner)
-            ring[rows[keep], idx[keep]] = samples[keep]
+            # exact elementwise write and read (any ratio, any walk): the
+            # write a masked scatter at start mod L, as K4's plain version
+            ring_place_plain(ring, samples, up(params["start"], _I32),
+                             up(params["n_write"], _I32))
             whole, fr = exact_positions(
                 up(params["ofrac"]), up(params["ds_int"]), up(params["f_hi"]),
                 up(params["f_lo"]), n,
@@ -574,15 +580,17 @@ class _BufferedPool(_VoicePool):
             a = look(x)
             b = look(torch.remainder(x + 1, L))
             s = a + fr * (b - a)
-            jn = torch.arange(n, dtype=_F32, device=self.device)
+            jn = torch.arange(n, dtype=_F32, device=dev)
             gains = up(params["gain0"])[:, :, None] + jn * up(params["d_gain"])[:, :, None]
             out = masked_voice_sum(up(params["mask"]), s * gains, S)
             return {"ring": ring, "inner": dsub}, out
 
         # ring write (ring.rs:18-41) through K4 at start mod L, then the
         # two-ear read through K5 (ring.rs:51-79, spatial.rs:409-431), both
-        # on the block's operand record, shipped with one copy
-        rec = self._records(params["rec"])
+        # on the block's operand record: in a block step a view of its row
+        # (no cast: its int32 fields are float32 bit patterns), op by op
+        # shipped with one copy
+        rec = device_param(params["rec"], dev, upload=self._records)
         ring_place_record(ring, samples, rec)
         out = strip_select_record(ring, rec, n=n, K=K_DOPPLER, scenes=S)
         return {"ring": ring, "inner": dsub}, out
@@ -2037,6 +2045,25 @@ class _BufferedPoolDR(_DRPoolBase):
                                 FP=self.W_CHUNK, cap=self.cap_pool, **kw)
 
 
+def _pool_captures(p):
+    """Whether a scene's pool reads every per-block value from the params,
+    the state or its archetype entry (``SpatialScene.graph_capture``)."""
+    if isinstance(p, _SeekPoolDR):
+        return type(p.proto) is Sine or (type(p.proto) is FramesSignal
+                                          and p.proto.dr_seek_supported())
+    if isinstance(p, _BufferedPoolDR):
+        return _graph_chain(p.proto) and not _arena_reader(p.proto)
+    if isinstance(p, _BufferedPoolSingleton):
+        return bool(getattr(p.sig, "graph_capture", False))
+    return isinstance(p, _BufferedPool) and _graph_chain(p.sig)
+
+
+def _arena_reader(node):
+    """Whether a chain reads a sample arena (FramesSignal, Cycle)."""
+    return getattr(node, "arena_kind", None) is not None or any(
+        _arena_reader(c) for c in node.children().values())
+
+
 def _next_pow2(x):
     p = 1
     while p < x:
@@ -2179,59 +2206,73 @@ class SpatialScene(Engine):
         return list(self._buffered_pools.values()) + list(self._seek_pools.values())
 
     #: a pool's entry of ``archetype()`` after its name and its template's
-    #: archetype: these attributes, each with its default
+    #: archetype: these attributes, each with its default.  ``_ema_fast``
+    #: (an Adapt's K7-or-scan route) is in Adapt's ``_arch_extra`` too; it
+    #: stands here as well so that ``render_archetype`` reads it from the
+    #: entry, and adds no key
     POOL_ARCH = (("ring_len", 0), ("_n_inner", 0), ("is_dr", False), ("_elapsed", 0.0),
                  ("_has_play", False), ("_has_mot", False), ("_w_aligned", 0),
                  ("_w_free", False), ("_ds_small", True), ("_ds_tier", 4),
-                 ("_read_cfg", None), ("_sub_cfg", None), ("_use_strips", True))
+                 ("_read_cfg", None), ("_sub_cfg", None), ("_use_strips", True),
+                 ("_ema_fast", False))
     #: those of them a block's render reads
-    RENDER_ATTRS = ("_n_inner", "_elapsed", "_w_aligned", "_read_cfg", "_sub_cfg")
+    RENDER_ATTRS = ("_n_inner", "_elapsed", "_w_aligned", "_read_cfg", "_sub_cfg",
+                    "_use_strips")
 
     @contextlib.contextmanager
     def render_archetype(self, arch):
         """Render as of the blocks that prepared ``arch``: a Renderer
         dispatches a run only after preparing the next block, whose plan
-        (its read tier, say) the pools now hold, so every attribute a
-        render reads is set from the run's own archetype for the dispatch
-        and put back after; a device-resident pool's route flags (a
-        FramesSignal's arena step or gather) are stamped on its proto
-        chain from the entry too.  A block step so depends on its key
-        alone."""
+        (its read tier, a host pool's strip gate, say) the pools now hold,
+        so every attribute a render reads is set from the run's own
+        archetype for the dispatch and put back after: a device-resident
+        pool's route flags (a FramesSignal's arena step or gather, K7 or
+        the scan) are stamped on its proto chain from the entry, a host
+        pool's template takes its nodes' flags (a Stream's read flags)
+        from its own archetype in the entry, and a submix renders as of
+        its engine's (``core.signal.render_as``).  A block, stepped or op
+        by op, so depends on its key alone."""
         field = {a: 2 + i for i, (a, _) in enumerate(self.POOL_ARCH)}
         saved = []
-        for p, entry in zip(self._all_pools(), arch[2]):
-            if entry[0] != p.name:
-                raise ValueError(f"archetype entry {entry[0]} for pool {p.name}")
-            own = vars(p)
-            # a pool's tier is set at its first prepare
-            flags = (p._ds_small, getattr(p, "_ds_tier", 4), p._ema_fast) if p.is_dr else None
-            saved.append((p, {a: own[a] for a in self.RENDER_ATTRS if a in own}, flags))
-            for a in self.RENDER_ATTRS:
-                if a in own:
-                    setattr(p, a, entry[field[a]])
-            if p.is_dr:
-                p._stamp_flags(entry[field["_ds_small"]], entry[field["_ds_tier"]], p._ema_fast)
-        try:
-            yield
-        finally:
-            for p, attrs, flags in saved:
-                for a, v in attrs.items():
-                    setattr(p, a, v)
-                if flags is not None:
-                    p._stamp_flags(*flags)
+        with contextlib.ExitStack() as stack:
+            for p, entry in zip(self._all_pools(), arch[2]):
+                if entry[0] != p.name:
+                    raise ValueError(f"archetype entry {entry[0]} for pool {p.name}")
+                own = vars(p)
+                # a pool's tier is set at its first prepare
+                flags = ((p._ds_small, getattr(p, "_ds_tier", 4), p._ema_fast) if p.is_dr
+                         else None)
+                saved.append((p, {a: own[a] for a in self.RENDER_ATTRS if a in own}, flags))
+                for a in self.RENDER_ATTRS:
+                    if a in own:
+                        setattr(p, a, entry[field[a]])
+                if p.is_dr:
+                    p._stamp_flags(*(entry[field[a]] for a in ("_ds_small", "_ds_tier",
+                                                               "_ema_fast")))
+                else:
+                    stack.enter_context(render_as(p.sig, entry[1]))
+            try:
+                yield
+            finally:
+                for p, attrs, flags in saved:
+                    for a, v in attrs.items():
+                        setattr(p, a, v)
+                    if flags is not None:
+                        p._stamp_flags(*flags)
 
     @property
     def graph_capture(self):
-        """True while every pool is a device-resident seek or buffered pool
-        of Sine voices (the main path's scene) or a device-resident seek
-        pool of mono FramesSignal voices (the seek sampler): their renders
-        read every per-block value from the params, the state or the key,
-        so a Renderer captures the block step as a CUDA graph.  Buffered
-        pools of FramesSignal voices, host pools and submixes keep op-by-op
-        dispatch."""
-        return all(p.is_dr and (type(p.proto) is Sine or (
-            isinstance(p, _SeekPoolDR) and type(p.proto) is FramesSignal
-            and p.proto.dr_seek_supported())) for p in self._all_pools())
+        """True while every pool renders from the params, the state or the
+        key alone (``_pool_captures``): device-resident seek and buffered
+        pools of the main path's Sine voices, seek pools of mono
+        FramesSignal voices (the seek sampler), buffered pools of stream
+        chains (Adapt(Stream), Stream; their ingest chunk in the row), host
+        buffered pools of ``mixer._GRAPH_NODES`` chains (Speed(Stream):
+        K4/K5's operand record in the row) and submixes whose engine
+        captures.  A Renderer then captures the block step as a CUDA
+        graph.  Host seek pools and buffered pools of FramesSignal or
+        Cycle voices keep op-by-op dispatch."""
+        return all(_pool_captures(p) for p in self._all_pools())
 
     def archetype(self):
         """Structural key: equal keys on consecutive blocks let the Renderer

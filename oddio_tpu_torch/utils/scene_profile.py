@@ -1,16 +1,16 @@
 """Where a block's time goes on a CUDA card: the bench scenes at 4096 voices
 through ``Renderer.render_frames_device``, timed and traced.
 
-    python -m oddio_tpu_torch.utils.scene_profile [buffered|seek|buffered_mixed|subpass|mixer|hostpools|pack|pack256|spatialpack|densemix|sampler|wavetable|seek_sampler|sampler_pack|hostpack|seek_eager|buffered_eager|buffered_mixed_eager|subpass_eager|mixer_eager|pack_eager|pack256_eager|spatialpack_eager|densemix_eager|wavetable_eager|sampler_eager|seek_sampler_eager|sampler_pack_eager ...]
+    python -m oddio_tpu_torch.utils.scene_profile [buffered|seek|buffered_mixed|subpass|mixer|hostpools|pack|pack256|spatialpack|densemix|sampler|wavetable|seek_sampler|sampler_pack|hostpack|seek_eager|buffered_eager|buffered_mixed_eager|subpass_eager|mixer_eager|hostpools_eager|pack_eager|pack256_eager|spatialpack_eager|densemix_eager|wavetable_eager|sampler_eager|seek_sampler_eager|sampler_pack_eager|hostpack_eager ...]
 
 For the main path's four scenes (``build_main_path``: bench.py's seek,
 buffered, buffered_mixed and subpass scenes at 4096 voices), the AGC
 mixer scene (``build_mixer_agc``, BASELINE config 5's scene at 4096
-voices; these Renderers, and the config-5 and spatial packs below,
-replay CUDA graphs, and the ``_eager`` twins run under
-``core.run.eager()``, op by op) and the host-pool scene (``build_host_pools``:
-4096 Speed(Stream) voices in the host buffered pool, 512 Adapt(Stream) in
-the device-resident one and a 256-voice config-5 submix), and the
+voices) and the host-pool scene (``build_host_pools``: 4096
+Speed(Stream) voices in the host buffered pool, 512 Adapt(Stream) in
+the device-resident one and a 256-voice config-5 submix; these
+Renderers, and the packs below, replay CUDA graphs, and the ``_eager``
+twins run under ``core.run.eager()``, op by op), and the
 ScenePacks (``build_config5_pack``: BASELINE config 5's 256 x 256 pack at
 16 scenes, bench.py's ``scenepack_xrt`` line, as ``pack``, and at its
 stated 256 scenes as ``pack256``; ``build_spatial_pack``: 16 scenes of 64
@@ -27,7 +27,7 @@ of one session each (``build_sampler_pack``: 16 sampler scenes of 64
 voices, each on its own script, as ``sampler_pack``, replaying graphs,
 and ``sampler_pack_eager``;
 ``build_host_pools_pack``: 16 host-pool scenes of 256 voices, as
-``hostpack``) it prints, for each of three timed 188-block
+``hostpack``, replaying graphs, and ``hostpack_eager``) it prints, for each of three timed 188-block
 runs, the wall time per 512-frame block, the host time per block spent in
 the engine's ``host_prepare`` and the real-time factor (xRT, after
 ``torch.cuda.synchronize()``; for a pack, per scene: one scene's audio
@@ -59,7 +59,8 @@ __all__ = ["build_spatial", "build_main_path", "MAIN_PATH", "BUCKETS", "build_mi
            "build_pack_scene", "build_spatial_pack", "build_densemix", "densemix_voice",
            "build_wavetable", "wavetable_frames", "wavetable_voice",
            "build_sampler", "SamplerDriver", "build_seek_sampler", "build_sampler_pack",
-           "build_host_pools_pack", "PackDriver", "build_checkpoint_scene", "feed", "card_line", "main"]
+           "build_host_pools_pack", "build_mixer_host_pools", "PackDriver",
+           "build_checkpoint_scene", "feed", "card_line", "main"]
 
 RATE = 48000
 BLOCK = 512
@@ -154,7 +155,8 @@ def build_mixer_agc(voices, device, seed=0):
     return control, mixer, ctls, rng
 
 
-def build_host_pools(voices, device, seed=0, dr_voices=None, submix_voices=None):
+def build_host_pools(voices, device, seed=0, dr_voices=None, submix_voices=None,
+                     handles=None):
     """A scene that exercises every buffered pool kind at once, at 48 kHz:
     ``voices`` ``Speed(Stream)`` voices (speeds uniform in [0.8, 1.25];
     Speed over a Stream is not device-resident capable, so they take the
@@ -169,7 +171,8 @@ def build_host_pools(voices, device, seed=0, dr_voices=None, submix_voices=None)
     All drawn from ``seed``.  Returns ``(control, scene, stream_controls,
     speed_controls, rng)``; ``stream_controls`` covers every stream,
     the submix's included, and ``rng`` continues the draws (for
-    ``feed``)."""
+    ``feed``).  A list given as ``handles`` receives the Speed(Stream)
+    voices' ``Spatial`` handles, then the Adapt(Stream) voices'."""
     rng = np.random.default_rng(seed)
     nd = voices // 8 if dr_voices is None else dr_voices
     ns = max(voices // 16, 64) if submix_voices is None else submix_voices
@@ -187,19 +190,50 @@ def build_host_pools(voices, device, seed=0, dr_voices=None, submix_voices=None)
         stream = pt.Stream(8000, FILL + 128, max_write_per_block=FILL)
         sc, sp = pt.Speed.new(stream)
         sc.set_speed(rng.uniform(0.8, 1.25))
-        control.play_buffered(sp, opts(), **kw)
+        h = control.play_buffered(sp, opts(), **kw)
         ctls.append(stream.control)
         speeds.append(sc)
+        if handles is not None:
+            handles.append(h)
     for _ in range(nd):
         stream = pt.Stream(8000, FILL + 128, max_write_per_block=FILL)
-        control.play_buffered(
+        h = control.play_buffered(
             pt.Adapt(stream, 0.1, pt.AdaptOptions(tau=0.1, max_gain=4.0)), opts(), **kw
         )
         ctls.append(stream.control)
+        if handles is not None:
+            handles.append(h)
     feed(ctls, rng, FILL)
     _, mixer, mctls, _ = build_mixer_agc(ns, device, seed + 1)  # prefilled
     control.play_buffered(mixer, opts(), **kw)
     return control, scene, ctls + mctls, speeds, rng
+
+
+def build_mixer_host_pools(voices, device, seed=0, submix_voices=256):
+    """The Mixer's host pools: ``voices`` ``Speed(Stream)`` voices in a mono
+    Mixer's host ``Pool`` (speeds uniform in [0.8, 1.25]; config 5's
+    streams, ``Stream(8000, FILL + 128, max_write_per_block=FILL)``
+    prefilled with FILL samples of N(0, 0.1²) PCM) and one
+    ``build_mixer_agc`` mixer of ``submix_voices`` voices played as a
+    submix (its ``PoolSingleton``), all drawn from ``seed``, at 48 kHz.
+    Returns ``(control, mixer, stream_controls, speed_controls, rng)``;
+    ``stream_controls`` covers the submix's streams too, and ``rng``
+    continues the draws (for ``feed``)."""
+    rng = np.random.default_rng(seed)
+    mixer = pt.Mixer(1, initial_capacity=max(voices, 1), device=device)
+    control = pt.MixerControl(mixer)
+    ctls, speeds = [], []
+    for _ in range(voices):
+        stream = pt.Stream(8000, FILL + 128, max_write_per_block=FILL)
+        sc, sp = pt.Speed.new(stream)
+        sc.set_speed(rng.uniform(0.8, 1.25))
+        control.play(sp)
+        ctls.append(stream.control)
+        speeds.append(sc)
+    feed(ctls, rng, FILL)
+    _, sub, mctls, _ = build_mixer_agc(submix_voices, device, seed + 1)  # prefilled
+    control.play(sub)
+    return control, mixer, ctls + mctls, speeds, rng
 
 
 def _pack(scenes, device, mesh, **kw):
@@ -226,17 +260,19 @@ def build_config5_pack(scenes, device, voices=256, seed=0, mesh=None):
     return _pack(mixers, device, mesh, scan_unroll=8), ctls, rng
 
 
-def build_host_pools_pack(scenes, voices, device, seed=0, mesh=None):
+def build_host_pools_pack(scenes, voices, device, seed=0, mesh=None, handles=None):
     """Every buffered pool kind per session: a ScenePack of ``scenes``
     ``build_host_pools(voices, dr_voices=voices // 8, submix_voices=64)``
     scenes, scene s drawn from ``seed + s``, on ``mesh`` (default 1 x 1 on
     ``device``) at 48 kHz.  Returns ``(pack, stream_controls,
     speed_controls, rng)`` (the last scene's ``rng``, which continues its
-    draws, for ``feed``)."""
+    draws, for ``feed``); a list given as ``handles`` receives each
+    scene's voice handles in turn (``build_host_pools``)."""
     out, ctls, speeds = [], [], []
     for s in range(scenes):
         _, scene, c, sp, rng = build_host_pools(voices, device, seed + s,
-                                                dr_voices=voices // 8, submix_voices=64)
+                                                dr_voices=voices // 8, submix_voices=64,
+                                                handles=handles)
         out.append(scene)
         ctls.extend(c)
         speeds.extend(sp)
@@ -598,10 +634,10 @@ def _run(renderer, nblocks):
 
 
 def profile_scene(label):
-    """Profile one scene; a main-path, mixer, pack, dense-mix, wavetable or
-    sampler label with ``_eager`` (``buffered_eager``, ``mixer_eager``,
-    ``pack_eager``, ``densemix_eager``, ``wavetable_eager``,
-    ``sampler_eager``, ``seek_sampler_eager``, ``sampler_pack_eager``)
+    """Profile one scene; a label with ``_eager`` (``buffered_eager``,
+    ``mixer_eager``, ``hostpools_eager``, ``pack_eager``,
+    ``densemix_eager``, ``wavetable_eager``, ``sampler_eager``,
+    ``seek_sampler_eager``, ``sampler_pack_eager``, ``hostpack_eager``)
     runs it under ``core.run.eager()``, op by op, where the plain label
     replays the Renderer's or the pack's CUDA graphs."""
     if label.endswith("_eager"):
@@ -706,9 +742,10 @@ def _profile_scene(label, shown):
 SCENES = ("buffered", "seek", "buffered_mixed", "subpass", "mixer", "hostpools", "pack",
           "pack256", "spatialpack", "densemix", "sampler", "wavetable", "seek_sampler",
           "sampler_pack", "hostpack") + tuple(
-              f"{k}_eager" for k in MAIN_PATH + ("mixer", "pack", "pack256", "spatialpack",
-                                                 "densemix", "wavetable", "sampler",
-                                                 "seek_sampler", "sampler_pack"))
+              f"{k}_eager" for k in MAIN_PATH + ("mixer", "hostpools", "pack", "pack256",
+                                                 "spatialpack", "densemix", "wavetable",
+                                                 "sampler", "seek_sampler", "sampler_pack",
+                                                 "hostpack"))
 
 
 def main(argv=None):

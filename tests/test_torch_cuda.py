@@ -16,7 +16,8 @@ K6's arena form exact (the sampler reads), and as whole steps
 (``arena_step``, ``arena_warp``, ``fader_step``) exact against their
 plain versions (the Fader's but for the sign of an exact zero), and the
 dense-mix, sampler, wavetable and seek-sampler scenes and a 2 s sampler
-render within 1e-5 of the CPU;
+render within 1e-5 of the CPU; the host-pool scene and pack graph
+against eager bit for bit through a fly-by across K5's strip gate;
 K7, the whole Adapt step, within ``agc.agc_tolerance`` elementwise
 (another order of the prefix sum) at every block length up to 1024; K5 within ``ring_kernels.strip_tolerance``
 elementwise (its voice sum in another, fixed order); K8 within
@@ -1816,3 +1817,80 @@ def test_sampler_graph_fade_after_capture_replays(cuda):
     np.testing.assert_array_equal(bg, mg)
     np.testing.assert_array_equal(bg, be)
     assert bg.any() and np.array_equal(me, mg)
+
+
+def _host_graph_run(kind, mode, flybys=1, voices=256):
+    """The host-pool scene (``build_host_pools``: ``voices`` Speed(Stream)
+    voices, ``voices // 8`` Adapt(Stream), a config-5 submix) or the
+    host-pool pack 2 x ``voices`` (``build_host_pools_pack``) under
+    ``eager()`` or replaying graphs, through ``flybys`` passes of a script:
+    voice 0 jumps to a fly-by (10 m left, 60 m/s right: its pool leaves
+    K5's strip gate, takes it and leaves it again inside one call), 8
+    speed writes, PCM on every stream, 32 blocks.  Returns (audio,
+    launches, the renderer or pack, its graph_counts after the first
+    pass)."""
+    import contextlib
+
+    from oddio_tpu_torch.core.run import eager
+    from oddio_tpu_torch.utils.scene_profile import build_host_pools_pack
+
+    hs = []
+    if kind == "hostpools":
+        _, engine, ctls, speeds, rng = build_host_pools(voices, "cuda", handles=hs)
+        r = pt.Renderer(engine, 48000)
+    else:
+        r, ctls, speeds, rng = build_host_pools_pack(2, voices, "cuda", handles=hs)
+        engine = r
+    assert engine.graph_capture
+    for m in (RK, SK, A, FK):
+        m.reset_launches()
+    out, first = [], None
+    with eager() if mode == "eager" else contextlib.nullcontext():
+        for _ in range(flybys):
+            hs[0].set_motion([-10.0, 5.0, 0.0], [60.0, 0.0, 0.0], True)
+            for sc in speeds[:8]:
+                sc.set_speed(float(rng.uniform(0.8, 1.25)))
+            feed(ctls, rng, 1024)
+            got = r.render_frames_device(512 * 32) if kind == "hostpack" else \
+                r.render_frames_device(512 * 32, sync=False)
+            out.append(torch.cat([x.reshape(-1) for x in got]).cpu().numpy())
+            if first is None:
+                first = dict(r.graph_counts)
+    torch.cuda.synchronize()
+    return np.concatenate(out), _all_launches(), r, first
+
+
+@pytest.mark.parametrize("kind", ["hostpools", "hostpack"])
+def test_host_pool_graph_replay_matches_eager(cuda, kind):
+    """The 256-voice host-pool scene and the host-pool pack 2 x 256 through
+    a fly-by: graph replay bit-equal to ``eager()``, every kernel's
+    launches equal (K1, K2, K4, K5, K6 and K7 among them), no
+    recapture."""
+    (xe, le, re, _), (xg, lg, rg, _) = [_host_graph_run(kind, mode)
+                                        for mode in ("eager", "graph")]
+    assert np.abs(xe).max() > 1e-3
+    np.testing.assert_array_equal(xg, xe)
+    assert lg == le
+    for k in ("append", "select_ears", "strip_select"):
+        assert lg.get(f"{RK.__name__}.{k}"), lg
+    for k in ("ring_place", "ring_resample"):
+        assert lg.get(f"{SK.__name__}.{k}"), lg
+    assert lg.get(f"{A.__name__}.agc_gains"), lg
+    c = rg.graph_counts
+    assert re.graph_counts["replays"] == 0 and c["recaptures"] == 0
+    assert c["replays"] > c["captures"] > 0
+
+
+def test_host_pool_graph_flyby_replays_without_recapture(cuda):
+    """A second fly-by after the first captured its keys (the strip gate
+    off, on, off): its blocks replay captured steps (its first block, the
+    ingest block without the first's plays, is a key of its own; at most
+    one key first met once in the first pass is captured now), no step is
+    captured again, and the audio equals ``eager()``'s."""
+    (xe, _, _, _), (xg, _, rg, first) = [_host_graph_run("hostpools", mode, flybys=2)
+                                         for mode in ("eager", "graph")]
+    np.testing.assert_array_equal(xg, xe)
+    c = rg.graph_counts
+    assert c["recaptures"] == 0 and first["captures"] > 0
+    assert c["captures"] - first["captures"] <= 1
+    assert c["replays"] - first["replays"] >= 30

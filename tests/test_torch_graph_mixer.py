@@ -393,8 +393,9 @@ def test_mixer_graph_capture_declared():
     Gain(Sine), a FramesSignal, a Fader(Sine) and config 2's
     Fader(Speed(FramesSignal)) declare ``graph_capture``, and so does a
     wrapper chain around a capturing Mixer (it renders the mixer
-    directly); a host pool (Speed(Stream)) and a submix keep op-by-op
-    dispatch."""
+    directly); so do a host pool of Speed(Stream) voices (its params in
+    the row) and a submix whose engine captures.  A host pool of a user
+    signal (a Sine with its own finish rule) keeps op-by-op dispatch."""
     control, mixer = pt.Mixer.new(channels=1, device="cpu")
     assert mixer.graph_capture
     control.play(pt.Sine(0.0, 440.0))
@@ -407,8 +408,20 @@ def test_mixer_graph_capture_declared():
     r.render_frames(BLOCK * 2)
     assert chain.graph_capture and r._steps and r.graph_counts["eager"] == 2
     frames = pt.Frames.from_slice(RATE, np.zeros(64, np.float32))
-    for spec, captured in ((lambda: pt.Speed(pt.Stream(8000, 256)), False),
-                           (lambda: pt.Mixer(1, device="cpu"), False),
+
+    class FiniteSine(pt.Sine):
+        def host_is_finished(self):
+            return np.asarray(self.phase) > 2.0
+
+    def submix():
+        inner = pt.Mixer(1, device="cpu")
+        pt.MixerControl(inner).play(_voice(pt))
+        return inner
+
+    for spec, captured in ((lambda: pt.Speed(pt.Stream(8000, 256)), True),
+                           (lambda: pt.Mixer(1, device="cpu"), True),
+                           (submix, True),
+                           (lambda: FiniteSine(0.0, 220.0), False),
                            (lambda: pt.FramesSignal(frames, 0.0), True),
                            (lambda: pt.Fader(pt.Sine(0.0, 220.0)), True),
                            (lambda: pt.Fader(pt.Speed(pt.FramesSignal(frames, 0.0))), True),

@@ -475,27 +475,54 @@ def test_pack_sync_and_handles_after_steps():
 
 
 def test_other_packs_stay_op_by_op():
-    """A 2 x 2 mesh, a host-pool pack and a submix pack render op by op:
-    no step, every block counted as an op-by-op call."""
+    """A 2 x 2 mesh and a pack of scenes with a host seek pool
+    (``_SeekPool``) render op by op: no step, every block counted as an
+    op-by-op call.  The host-pool pack and the submix pack take block
+    steps on a 1 x 1 mesh, bit for bit ``eager()``'s."""
     from oddio_tpu_torch.utils.scene_profile import build_config5_pack, build_host_pools_pack
+
+    class FiniteSine(pt.Sine):
+        def host_is_finished(self):
+            return np.asarray(self.phase) > 2.0
+
+    def seek_scene(s):
+        control, scene = pt.SpatialScene.new(device="cpu")
+        control.play(FiniteSine(0.1 * s, 300.0 + s), pt.SpatialOptions(position=[2.0, 1.0, 0.0]))
+        return scene
+
+    def subs():
+        out = []
+        for s in range(2):
+            control, mixer = pt.Mixer.new(channels=1, device="cpu")
+            control.play(_adapt_sine(pt, 300.0 + s))
+            inner = pt.Mixer(1, device="cpu")
+            pt.MixerControl(inner).play(_adapt_sine(pt, 500.0 + s))
+            control.play(inner)
+            out.append(mixer)
+        return ScenePack(out, RATE, make_mesh(1, 1, ["cpu"]))
 
     mesh = make_mesh(2, 2, ["cpu"] * 4)
     p22, _, _ = build_config5_pack(2, "cpu", voices=16, mesh=mesh)
-    hp, _, _, _ = build_host_pools_pack(2, 16, "cpu")
-    subs = []
-    for s in range(2):
-        control, mixer = pt.Mixer.new(channels=1, device="cpu")
-        control.play(_adapt_sine(pt, 300.0 + s))
-        inner = pt.Mixer(1, device="cpu")
-        pt.MixerControl(inner).play(_adapt_sine(pt, 500.0 + s))
-        control.play(inner)
-        subs.append(mixer)
-    sp = ScenePack(subs, RATE, make_mesh(1, 1, ["cpu"]))
+    ps = ScenePack([seek_scene(s) for s in range(2)], RATE, make_mesh(1, 1, ["cpu"]))
     one, _, _ = build_config5_pack(2, "cpu", voices=16)
     assert one.graph_capture
-    for p in (p22, hp, sp):
+    for p in (p22, ps):
         assert not p.graph_capture
         p.render_block(BLOCK)
         out = p.render_frames_device(BLOCK * 3)
         assert len(out) == 1 and out[0].shape[0] == 3
         assert p._steps == {} and p.graph_counts["eager"] == 4
+    runs = []
+    for ctx in (contextlib.nullcontext(), prun.eager()):
+        with ctx:
+            hp, _, _, _ = build_host_pools_pack(2, 16, "cpu")
+            sp = subs()
+            got = []
+            for p in (hp, sp):
+                assert p.graph_capture
+                got.append(torch.from_numpy(p.render_block(BLOCK)))
+                got.extend(p.render_frames_device(BLOCK * 3))
+                assert bool(p._steps) is not prun.eager_mode()
+            runs.append(got)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

@@ -475,9 +475,11 @@ def test_state_leaves_stay_put():
 
 def test_other_engines_dispatch_eagerly():
     """A Mixer of MonoToStereo(Sine) voices declares ``graph_capture`` and
-    renders through block steps; a scene with a pool of Speed(Sine) voices
-    keeps op-by-op dispatch (``SpatialScene.graph_capture`` admits Sine
-    voices only)."""
+    renders through block steps, and so does a scene with a
+    device-resident buffered pool of Speed(Sine) voices (a chain of
+    ``mixer._GRAPH_NODES``); a scene with a host seek pool (a seekable
+    Sine with its own finish rule, ``_SeekPool``) keeps op-by-op
+    dispatch."""
     control, mixer = pt.Mixer.new(channels=2, device="cpu")
     control.play(pt.MonoToStereo(pt.Sine(0.0, 440.0)))
     r = pt.Renderer(mixer, RATE)
@@ -487,6 +489,17 @@ def test_other_engines_dispatch_eagerly():
     assert scene.graph_capture
     control.play_buffered(pt.Speed(pt.Sine(0.0, 220.0)), pt.SpatialOptions(
         position=[1.0, 0.0, 0.0]), max_distance=10.0, rate=RATE, buffer_duration=0.1)
+    assert scene.graph_capture
+    r = pt.Renderer(scene, RATE)
+    r.render_frames(BLOCK * 2)
+    assert r._steps
+
+    class FiniteSine(pt.Sine):
+        def host_is_finished(self):
+            return np.asarray(self.phase) > 2.0
+
+    control.play(FiniteSine(0.0, 330.0), pt.SpatialOptions(position=[0.0, 2.0, 0.0]))
+    assert "_SeekPool" in [type(p).__name__ for p in scene._seek_pools.values()]
     assert not scene.graph_capture
     r = pt.Renderer(scene, RATE)
     r.render_frames(BLOCK * 2)
