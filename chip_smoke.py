@@ -5,7 +5,8 @@ AGC mixer path (BASELINE config 5's scene) and the host-pool path at 4096
 voices, the dense mix (config 4), the sampler (config 2), the wavetable
 and a seek sampler at 1024, checkpoints and resumes four of them, drives
 the RealtimeDriver and the example twins, renders ScenePacks on (scene,
-voice) meshes against their 1 x 1 packs, and times them.
+voice) meshes against their 1 x 1 packs and, replaying graphs per cell,
+against their own op-by-op render, and times them.
 
     python3 chip_smoke.py
 
@@ -168,7 +169,9 @@ Phases (each prints one or more lines; any failure exits non-zero):
     bits gathered from the shards) on 2 x 2, within 2e-6; (d) the spatial
     and config-5 packs on a 1 x 2 mesh over [card, CPU] within 2e-6, and
     (a) and (b) over distinct cards where the machine has them; (b)'s
-    1 x 1 pack replays graphs and its 2 x 2 pack runs op by op.
+    1 x 1 pack and its 2 x 2 pack both replay graphs, every cell of the
+    2 x 2 its own (replays >= 0.9 of the calls, no recapture; xRT over
+    752 blocks).
 36. (after 6) the Renderer's block steps as CUDA graphs (``core/run.py``):
     bench.py's four SpatialScenes of 4096 Sine voices (seek, buffered,
     buffered_mixed, subpass) with its dispatch buckets, each twice from
@@ -266,6 +269,26 @@ Phases (each prints one or more lines; any failure exits non-zero):
     pack) and the dispatch host ms of a control block and of an ingest
     block (median of 10); at the end of the run, device kernels per block
     of each way.
+42. (after 35) the ScenePack's block steps on meshes of the card's
+    logical devices, each cell replaying CUDA graphs of its own and the
+    voice shards' partial mixes summed after the replays: BASELINE config
+    5 at 256 scenes x 256 voices on 2 x 2 (phase 38's script: ingest,
+    plays and stops, stream closes, idle runs), the host-pool pack 16 x
+    256 on 2 x 2 (4 periods of phase 41's script, no fly-by), the sampler pack
+    16 x 64 on 2 x 2 (phase 40's) and the dry-run twin on 2 x 4 (its
+    plays and moves, then 48 idle blocks), each twice from one seed, once
+    under ``core.run.eager()`` and once replaying graphs: bit-equal, every
+    kernel's launches equal (the kernels line's K1, K2, K4, K5 and its
+    scene form, K6, its arena form and K7 gain ``mesh_graph_launches`` a
+    block), every cell captured, replays >= 90% of each pack's calls, no
+    recapture; then 188 idle blocks (94 on the host-pool pack, 47 on the
+    dry run), 5 control blocks and 5 ingest blocks each way (dispatch
+    host ms a block, host_prepare ms a block, xRT per scene, beside the
+    same idle blocks' xRT per scene of the pack on a 1 x 1 mesh, replaying
+    graphs); the config-5 pack 4 x 64 on [card, CPU] graph against eager,
+    the card cell replaying; at the end of the run each graph pack's
+    device ms a block over its untraced wall ms a block on 8 idle blocks,
+    the device's busy share.
 Phases 28-35 count launches with the wrappers' counters, never a tracer
 session; the packs' block profiles (phases 29 and 30) only print.
 The profiles run at the end in this order: the one-kernel checks
@@ -547,7 +570,7 @@ def kernel_line(name, k):
             "library_host_ms": lib.get("host_ms")}
     return {**line, **{key: k[key] for key in ("other_form", "cold", "library_cold", "host_pool",
                                                "pack_launches", "graph_launches",
-                                               "mesh_launches",
+                                               "mesh_launches", "mesh_graph_launches",
                                                "resume_launches", "realtime_launches",
                                                "shapes")
                      if key in k}}
@@ -2663,7 +2686,8 @@ def _mesh_config5(dev, mesh, nb0=4, nb1=28):
     """Phase 35(b)'s run: BASELINE config 5 at full width (256 scenes x 256
     voices) on ``mesh`` (None: 1 x 1), 1024 new samples per stream before
     the run and another 1024 after ``nb0`` blocks; returns (out, launches
-    per block, xRT per scene, ms a block, build seconds)."""
+    per block, xRT per scene over 752 blocks, ms a block, build seconds,
+    (graph_capture, step keys, graph_counts, every cell captured))."""
     from oddio_tpu_torch.utils.scene_profile import build_config5_pack, feed
 
     t0 = time.perf_counter()
@@ -2677,8 +2701,9 @@ def _mesh_config5(dev, mesh, nb0=4, nb1=28):
     torch.cuda.synchronize()
     per = _mesh_launches("the config-5 pack", nb0 + nb1)
     feed(ctls, rng, 1024)
-    xrt = _mesh_xrt(lambda k: pack.render_frames_device(BLOCK * k))
-    steps = (pack.graph_capture, len(pack._steps), dict(pack.graph_counts))
+    xrt = _mesh_xrt(lambda k: pack.render_frames_device(BLOCK * k), 752)
+    steps = (pack.graph_capture, len(pack._steps), dict(pack.graph_counts),
+             _cells_captured(pack) == set(pack._cells))
     del pack
     torch.cuda.empty_cache()
     return (out, per, *xrt, built, steps)
@@ -2784,12 +2809,16 @@ def mesh_paths(pt, dev, kern, tag):
     print(f"phase 35(b) config 5: 256 scenes x 256 voices (65,536), 48 kHz, 512-frame blocks; "
           f"built 1 x 1 in {one[4]:.2f} s, 2 x 2 over [cuda:0] * 4 in {mesh[4]:.2f} s {tag}")
     _mesh_compare("(b) config 5 256 x 256, 2 x 2", one, mesh, tag, factor=4)
-    (g1, k1, c1), (g2, k2, c2) = one[5], mesh[5]
+    (g1, k1, c1, _), (g2, k2, c2, every) = one[5], mesh[5]
+    share = c2["replays"] / (c2["replays"] + c2["eager"])
     print(f"phase 35(b) block steps: 1 x 1 graph_capture {g1}, {k1} step keys, graph_counts "
-          f"{c1}; 2 x 2 graph_capture {g2}, {k2} step keys, graph_counts {c2} {tag}")
-    if not g1 or not c1["replays"] or g2 or k2 or c2["captures"] or c2["replays"]:
-        raise AssertionError(f"phase 35(b): the 1 x 1 pack must replay graphs and the 2 x 2 "
-                             f"pack run op by op: {one[5]}, {mesh[5]}")
+          f"{c1}; 2 x 2 graph_capture {g2}, {k2} step keys (one set per cell), graph_counts "
+          f"{c2}: replays {share:.3f} of the calls, every cell captured {every} {tag}")
+    if (not g1 or not c1["replays"] or not g2 or not every or c2["recaptures"]
+            or share < 0.9):
+        raise AssertionError(f"phase 35(b): the 1 x 1 and the 2 x 2 pack must replay graphs, "
+                             f"every cell of the 2 x 2 its own, replays >= 0.9 of the calls, "
+                             f"no recapture: {one[5]}, {mesh[5]}")
     runs["config5 256x256 2x2"] = mesh[1]
 
     one, mesh = _mesh_host(dev, None), _mesh_host(dev, logical(2, 2))
@@ -2826,6 +2855,250 @@ def mesh_paths(pt, dev, kern, tag):
         if name in kern:
             kern[name]["mesh_launches"] = {run: per[key] for run, per in runs.items()
                                            if key in per}
+
+
+def _cells_captured(pack):
+    """The cells of ``pack`` that captured a CUDA graph of their own."""
+    return {key[-1] for key, steps in pack._steps.items()
+            if any(st.graph is not None for st in steps.values())}
+
+
+#: the ones each of phase 42's packs runs
+MESH_GRAPH_PATH = {"config5": ("ring_place", "ring_resample", "agc_gains"),
+                   "hostpack": ("rows_append", "window_select_ears", "ring_place",
+                                "strip_select", "strip_select_scenes", "ring_resample",
+                                "agc_gains"),
+                   "sampler": ("arena_step",),
+                   "dryrun": ("rows_append", "window_select_ears")}
+#: (label, 8-block render) of phase 42's graph packs, profiled at the end
+#: of the run for the device's busy share
+MESH_BUSY = []
+#: phase 42's idle blocks timed per pack (the 2 x 4 dry run renders its
+#: eight cells op by op at ~80 ms a block: fewer keep the phase short)
+MESH_IDLE = {"config5": 188, "hostpack": 94, "sampler": 188, "dryrun": 47}
+
+
+def _mesh_graph_pack(pt, kind, dev, mesh):
+    """Phase 42's pack ``kind`` on ``mesh``, from seed 0, at its full
+    width: (pack, script, control, ingest, block frames, rate).
+    ``script()`` runs control blocks, ingest blocks and idle runs and
+    returns the audio (S, N, C); ``control()`` writes one control block's
+    events, ``ingest()`` new PCM on every stream (None: no streams)."""
+    from oddio_tpu_torch.parallel import dryrun as D
+    from oddio_tpu_torch.parallel.sharded import ScenePack
+    from oddio_tpu_torch.utils.scene_profile import (build_config5_pack, build_host_pools_pack,
+                                                     build_sampler_pack, feed)
+
+    if kind == "config5":
+        pack, ctls, rng = build_config5_pack(256, dev, mesh=mesh)
+        hs, turn = [], [0]
+
+        def control():  # a play in the next scene and the stop of the last one
+            if hs:
+                hs.pop().stop()
+            hs.append(pt.MixerControl(pack.scenes[turn[0] % pack.S]).play(_adapt_sine(rng)))
+            turn[0] += 1
+
+        return (pack, lambda: _pack_script(pack, ctls, rng), control,
+                lambda: feed(ctls, rng, 256), BLOCK, RATE)
+    if kind == "hostpack":
+        pack, ctls, speeds, rng = build_host_pools_pack(16, 256, dev, mesh=mesh, handles=(hs := []))
+        turn = [0]
+
+        def control():  # phase 41's: 64 set_speed, 64 discontinuous moves
+            t = turn[0]
+            for j in range(64):
+                speeds[(64 * t + j) % len(speeds)].set_speed(float(rng.uniform(0.8, 1.25)))
+                hs[(64 * t + j + 1) % len(hs)].set_motion(rng.uniform(-15, 15, 3),
+                                                          rng.uniform(-0.2, 0.2, 3), True)
+            turn[0] = t + 1
+
+        def script():
+            out = []
+            for _ in range(4):
+                control()
+                feed(ctls, rng, 1024)
+                out.append(drain(pack.render_frames_device(BLOCK * 16)))
+            return np.concatenate(out, axis=1)
+
+        return pack, script, control, lambda: feed(ctls, rng, 256), BLOCK, RATE
+    if kind == "sampler":
+        drv = build_sampler_pack(16, 64, dev, mesh=mesh)
+
+        def control():
+            for d in drv.drivers:
+                d.control()
+
+        def script():  # 12 periods of 8 blocks, each period's control first
+            out = []
+            for _ in range(12):
+                control()
+                out += drv.pack.render_frames_device(BLOCK * 8)
+            return drain(out)
+
+        return drv.pack, script, control, None, BLOCK, RATE
+    # the dry-run twin: 2 x 4, 2 scenes of 64 buffered + 1984 seek Sine
+    # voices at 8 kHz, its three blocks of 256 (plays and moves), then 48
+    # idle blocks
+    cap = 512 * 4
+    built = [D._build_scene(64, cap - 64, mesh.first, cap) for _ in range(2)]
+    pack = ScenePack([b[1] for b in built], D.RATE, mesh)
+    rng = np.random.default_rng(42)
+    hs = [pt.Spatial(pool, i, int(pool.slot_gen[i]))
+          for b in built for pool in b[1]._seek_pools.values() for i in range(16)]
+
+    def control():  # 16 discontinuous moves
+        for h in hs[:16]:
+            h.set_motion(rng.uniform(-30, 30, 3), rng.uniform(-5, 5, 3), True)
+        hs.append(hs.pop(0))
+
+    def script():
+        got, _ = D._run([b[0] for b in built], lambda: pack.render_block(D.BLOCK))
+        idle = pack.render_frames_device(D.BLOCK * 48, block_size=D.BLOCK)
+        return np.concatenate([got, drain(idle)], axis=1)
+
+    return pack, script, control, None, D.BLOCK, D.RATE
+
+
+def _mesh_card_cpu_graphs(pt, dev, tag):
+    """Phase 42's [card, CPU] run: the config-5 pack 4 x 64 on a 1 x 2 mesh
+    over [card, CPU], graph against ``eager()`` through ingest blocks and
+    idle runs: bit-equal, the card cell replaying graphs of its own, the
+    CPU cell running the same steps uncaptured."""
+    from oddio_tpu_torch.parallel.mesh import make_mesh
+    from oddio_tpu_torch.utils.scene_profile import build_config5_pack
+
+    runs = {}
+    for mode in ("eager", "graph"):
+        pack, ctls, _ = build_config5_pack(4, dev, voices=64, mesh=make_mesh(1, 2, [dev, "cpu"]))
+        pcm = np.full((len(ctls), 1024), 0.05, np.float32)
+        reset_launches()
+        with _mode(mode):
+            out = np.concatenate([config5_pack_run(pack, ctls, pcm, 6, 10),
+                                  drain(pack.render_frames_device(BLOCK * 16))], axis=1)
+        torch.cuda.synchronize()
+        runs[mode] = (out, all_launches(), dict(pack.graph_counts), _cells_captured(pack))
+    (xe, le, _, _), (xg, lg, cg, cells) = runs["eager"], runs["graph"]
+    err = float(np.abs(xg - xe).max())
+    print(f"phase 42 [cuda:0, cpu] 1 x 2, config-5 pack 4 x 64: graph vs eager max|diff| "
+          f"{err:.3e}; launches {lg} (eager {le}); cells captured {sorted(cells)}; "
+          f"graph_counts {cg} (the CPU cell's calls run uncaptured) {tag}")
+    if err != 0.0 or lg != le or cells != {(0, 0)} or cg["recaptures"] or not cg["replays"]:
+        raise AssertionError(f"phase 42 [card, CPU]: max|diff| {err}, launches {lg} vs {le}, "
+                             f"cells captured {cells}, graph_counts {cg}")
+
+
+def mesh_graphs(pt, dev, kern, tag):
+    """Phase 42: the ScenePack's block steps on meshes of the card's
+    logical devices (see the module docstring)."""
+    from oddio_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    totals = {"captures": 0, "recaptures": 0, "replays": 0, "eager": 0}
+    for kind, (a, b) in (("config5", (2, 2)), ("hostpack", (2, 2)), ("sampler", (2, 2)),
+                         ("dryrun", (2, 4))):
+        t_kind = time.perf_counter()
+        runs = {}
+        for mode in ("eager", "graph"):
+            t0 = time.perf_counter()
+            pack, script, control, ingest, block, rate = _mesh_graph_pack(
+                pt, kind, dev, make_mesh(a, b, [dev] * (a * b)))
+            built = time.perf_counter() - t0
+            if not pack.graph_capture:
+                raise AssertionError(f"phase 42 {kind}: the pack does not declare graph_capture")
+            reset_launches()
+            with _mode(mode):
+                x = script()
+            torch.cuda.synchronize()
+            launches = all_launches()
+            nb = x.shape[1] // block
+            if not np.isfinite(x).all() or np.abs(x).max() <= 1e-3:
+                raise AssertionError(f"phase 42 {kind} {mode}: non-finite or silent output")
+            with _mode(mode):
+                # config 5's runs meet the most step keys: a longer warm run
+                # keeps its replays >= 0.9 of its calls
+                idle_ms, prep_ms, wall = _timed_idle(
+                    pack, pack, MESH_IDLE[kind], warm=(8, 188) if kind == "config5" else (8,),
+                    block=block)
+                ctl_ms = _timed_first(pack, pack, control, 5, block)
+                ing_ms = None if ingest is None else _timed_first(pack, pack, ingest, 5, block)
+            runs[mode] = (x, launches, nb, idle_ms, prep_ms, wall, ctl_ms, ing_ms, built,
+                          dict(pack.graph_counts), _cells_captured(pack))
+            if mode == "graph":
+                MESH_BUSY.append((f"{kind} {a} x {b}", (lambda p=pack, k=block: _frames(
+                    p, 8 * k, k))))
+            del pack, script, control, ingest
+            torch.cuda.empty_cache()
+        (xe, le, nb, ie, pe, we, ce, ge, be, _, _), \
+            (xg, lg, _, ig, pg, wg, cg, gg, bg, total, cells) = runs["eager"], runs["graph"]
+        err = float(np.abs(xg - xe).max())
+        if err != 0.0 or xg.shape != xe.shape:
+            raise AssertionError(f"phase 42 {kind}: graph replay differs from eager dispatch "
+                                 f"by {err}")
+        if lg != le:
+            raise AssertionError(f"phase 42 {kind}: launches eager {le} graph {lg}")
+        missing = [k for k in MESH_GRAPH_PATH[kind] if not lg.get(MESH_GRAPH_KERNELS[k])]
+        if missing:
+            raise AssertionError(f"phase 42 {kind}: {missing} never launched: {lg}")
+        calls = total["replays"] + total["eager"]
+        share = total["replays"] / calls
+        if total["recaptures"] or share < 0.9 or cells != {(g, k) for g in range(a)
+                                                           for k in range(b)}:
+            raise AssertionError(f"phase 42 {kind}: graph_counts {total}, replays {share:.3f} "
+                                 f"of the calls, cells captured {sorted(cells)}")
+        for k, v in total.items():
+            totals[k] += v
+        # the same pack on a 1 x 1 mesh, replaying graphs, timed the same way
+        one, _, _, _, _, _ = _mesh_graph_pack(pt, kind, dev, make_mesh(1, 1, [dev]))
+        w1 = _timed_idle(one, one, MESH_IDLE[kind], warm=(8, 188) if kind == "config5" else (8,),
+                         block=block)[2]
+        del one
+        torch.cuda.empty_cache()
+        per = {k: round(v / nb, 3) for k, v in lg.items()}
+        for name in MESH_GRAPH_PATH[kind]:
+            kern[name].setdefault("mesh_graph_launches", {})[f"{kind} {a}x{b}"] = (
+                lg[MESH_GRAPH_KERNELS[name]] / nb)
+        S, idle = xe.shape[0], MESH_IDLE[kind]
+        xrt = lambda w: idle * block / rate / w  # noqa: E731
+        ingest = "" if ge is None else f", ingest: eager {ge:.4f} graph {gg:.4f}"
+        print(f"phase 42 {kind} {S} scenes on {a} x {b} over [cuda:0] * {a * b}: built in "
+              f"{be:.2f}/{bg:.2f} s, {nb} blocks of {block}, graph vs eager max|diff| "
+              f"{err:.3e} (bit-equal); launches a block {per} (equal); every cell captured; "
+              f"graph_counts with the timed runs {total}: replays {share:.3f} of {calls} "
+              f"calls, recaptures 0; dispatch host ms a block, idle: eager {ie:.4f} graph "
+              f"{ig:.4f}, control: eager {ce:.4f} graph {cg:.4f}{ingest}; host_prepare ms a "
+              f"block eager {pe:.4f} graph {pg:.4f}; {idle} idle blocks xRT per scene eager "
+              f"{xrt(we):.2f}x graph {xrt(wg):.2f}x, the 1 x 1 pack's graph {xrt(w1):.2f}x "
+              f"({time.perf_counter() - t_kind:.1f} s) {tag}")
+    _mesh_card_cpu_graphs(pt, dev, tag)
+    calls = totals["replays"] + totals["eager"]
+    print(f"phase 42: graph runs {totals}, replays {totals['replays'] / calls:.3f} of {calls} "
+          f"calls ({time.perf_counter() - t_phase:.1f} s) {tag}")
+
+
+def mesh_busy(tag):
+    """Phase 42's profiles, at the end of the run: for each pack's graph
+    run, 8 idle blocks' untraced wall ms a block (the median of three runs,
+    each ended by a synchronize) and the device ms a block of the same 8
+    blocks under ``torch.profiler``: the device's busy share."""
+    from oddio_tpu_torch.utils import kernel_bench as KB
+
+    for label, render in MESH_BUSY:
+        render()
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0) / 8)
+        wall_ms = float(np.median(walls))
+        split, kernels = KB.device_profile(render, reps=1)
+        dev_ms = sum(split.values()) / 8
+        print(f"phase 42 profile: {label} graph, 8 idle blocks: device {dev_ms:.4f} ms a "
+              f"block, {kernels / 8:.1f} device kernels a block, untraced wall {wall_ms:.4f} ms "
+              f"a block: busy share {dev_ms / wall_ms:.3f} {tag}")
+    MESH_BUSY.clear()
 
 def example_twins(tag):
     """Phase 34: the seven example twins on the card, each in its own
@@ -2936,25 +3209,25 @@ def _prepare_time(engine):
             del e.host_prepare
 
 
-def _frames(r, total):
+def _frames(r, total, block=BLOCK):
     """``render_frames_device`` of a Renderer (no handle readback) or of a
-    ScenePack (which starts none)."""
+    ScenePack (which starts none), in blocks of ``block`` frames."""
     if hasattr(r, "scenes"):
-        return r.render_frames_device(total)
-    return r.render_frames_device(total, sync=False)
+        return r.render_frames_device(total, block)
+    return r.render_frames_device(total, block, sync=False)
 
 
-def _timed_idle(r, scene, nblk=188, warm=(47,)):
-    """``nblk`` idle blocks after warm runs of ``warm`` blocks: (dispatch
-    host ms a block, host_prepare ms a block, wall s).  The host time is
-    the render call's, ended before any wait for the card, less
-    host_prepare's."""
+def _timed_idle(r, scene, nblk=188, warm=(47,), block=BLOCK):
+    """``nblk`` idle blocks of ``block`` frames after warm runs of ``warm``
+    blocks: (dispatch host ms a block, host_prepare ms a block, wall s).
+    The host time is the render call's, ended before any wait for the
+    card, less host_prepare's."""
     for k in warm:
-        _frames(r, BLOCK * k)
+        _frames(r, block * k, block)
     torch.cuda.synchronize()
     with _prepare_time(scene) as spent:
         t0 = time.perf_counter()
-        _frames(r, BLOCK * nblk)
+        _frames(r, block * nblk, block)
         host = time.perf_counter() - t0
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -3525,6 +3798,9 @@ HOST_GRAPH_PATH = {"hostpools": tuple(HOST_GRAPH_KERNELS)[:-1],
                    "hostpack": tuple(HOST_GRAPH_KERNELS),
                    "mixerhost": ("ring_place", "ring_resample", "agc_gains")}
 
+#: phase 42's kernels: phase 41's and K6's arena form
+MESH_GRAPH_KERNELS = {**HOST_GRAPH_KERNELS, "arena_step": "stream_kernels.arena_step"}
+
 
 def _host_graph_scene(pt, kind, dev):
     """Phase 41's engine ``kind`` at full width, from seed 0: the
@@ -3564,7 +3840,7 @@ def _host_graph_scene(pt, kind, dev):
     return r, engine, control, (lambda: feed(ctls, rng, 1024)), fly
 
 
-def _timed_first(r, engine, before, k=10):
+def _timed_first(r, engine, before, k=10, block=BLOCK):
     """``k`` one-block calls, each after ``before()``: the median dispatch
     host ms of one (the render call's host time, ended before any wait for
     the card, less host_prepare's)."""
@@ -3575,7 +3851,7 @@ def _timed_first(r, engine, before, k=10):
             torch.cuda.synchronize()
             spent[0] = 0.0
             t0 = time.perf_counter()
-            _frames(r, BLOCK)
+            _frames(r, block, block)
             ms.append(1e3 * (time.perf_counter() - t0 - spent[0]))
             torch.cuda.synchronize()
     return float(np.median(ms))
@@ -3833,6 +4109,8 @@ def main():
 
     # -- 35. ScenePacks on (scene, voice) meshes -----------------------------------------
     mesh_paths(pt, dev, kern, tag)
+    # -- 42. the mesh packs' block steps as CUDA graphs, one per cell -------------------
+    mesh_graphs(pt, dev, kern, tag)
 
     # the one-kernel checks first, then the heavy path profiles
     read_kernel_counts(captured, tag)
@@ -3841,6 +4119,7 @@ def main():
     print(f"profiler: {KB.PROFILE_RETAKES['sessions']} one-kernel check sessions retaken "
           f"{tag}")
     block_profiles(tag)
+    mesh_busy(tag)
     profile_device(tag)
     print(json.dumps({"kernels": [kernel_line(name, k) for name, k in kern.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -17,8 +17,8 @@ or of capturing submixes; a wrapper chain of Reinhard, Tanh, MonoToStereo
 or Downmix around either, which forwards it) gets one block step per
 such key, in ``_steps``; the
 protocol (``BlockSteps``) is the
-Renderer's and a 1 x 1 ScenePack's (``parallel/sharded.py``), which
-drives it over its stacked state:
+Renderer's and a ScenePack's (``parallel/sharded.py``), which drives it
+over each mesh cell's stacked state:
 
 * a block's parameters ship as ONE packed float32 row (``_pack_row``, the
   JAX package's row: equal bit for bit for every leaf it packs; a
@@ -31,16 +31,18 @@ drives it over its stacked state:
 * on a CUDA device a key's first dispatch runs the step eagerly (the
   warm-up: it builds the kernels, sizes their scratch, creates state keys,
   and renders its block); the second captures it as one
-  ``torch.cuda.CUDAGraph`` (all of a Renderer's graphs share one memory
-  pool) and replays it, and later dispatches only replay.  A graph renders
+  ``torch.cuda.CUDAGraph`` (all of a driver's graphs on one card share
+  one memory pool: a pack's cells replay in turn) and replays it, and
+  later dispatches only replay.  A graph renders
   ``scan_unroll`` blocks of a run, or one fused idle group;
   ``scan_buckets`` quantises runs as the JAX package does;
 * the counterpart of donation: every dispatch leaves each state leaf in
   the tensor ``device_collect`` handed out.  Leaves the step rebuilds are
   copied back inside the step; leaves it writes in place
   (``GRAPH_INPLACE``: the delay rings, the streams' rings) must stay where
-  they are.  Each call's audio is copied out of the step's buffer before
-  the next call.
+  they are.  Each call's output is copied out of the step's buffers before
+  the next call: the audio, and in a voice shard of a pack's mesh each
+  pool's partial mix beside it (``parallel.context.voice_partials``).
   Before a replay the Renderer checks that ``device_collect`` still hands
   out the captured leaves; a leaf replaced outside the step (a bulk play,
   a restore, growth) makes it capture again (``graph_counts
@@ -65,8 +67,8 @@ import threading
 import numpy as np
 import torch
 
-from ..parallel.context import block_step
-from ..utils.tree import tree_flatten, tree_leaves, tree_unflatten
+from ..parallel.context import block_step, voice_partials
+from ..utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .hostmath import f32
 from .signal import default_device, same_device
 
@@ -196,23 +198,32 @@ def _unpack_row(buf, treedef, spec):
     return tree_unflatten(treedef, out)
 
 
-def step_body(sig, kind, pack, n, k, dstate, ddata, rows):
+def step_body(sig, kind, pack, n, k, dstate, ddata, rows, partials=False):
     """The block step of one key: ``k`` blocks whose packed rows are
     ``rows`` (k, R) (None when the params have no leaf), or with ``kind`` =
     ("multi", nb) one fused idle group.  Returns (state, (k, ...)) or
     (state, (1, ..., nb*n)): a block is (C, n), or a ScenePack's (S, C,
-    n).  Renders under ``block_step()``: no per-block value may come from
-    the host."""
+    n).  With ``partials`` (a voice shard of a pack's mesh) each block
+    renders under ``voice_partials`` and the output is ``{"mix": (k, S,
+    C, n), "parts": {pool name: (k, S, C, n)}}``, each pool's partial mix
+    in render order.  Renders under ``block_step()``: no per-block value
+    may come from the host."""
     with block_step():
         if isinstance(kind, tuple):
             d, block = sig.render_multi(dstate, ddata, n, kind[1])
             return d, block[None]
-        d, blocks = dstate, []
+        d, blocks, parts = dstate, [], []
         for i in range(k):
             params = _unpack_row(rows[i] if rows is not None else None, *pack)
-            d, block = sig.render(d, ddata, params, n)
+            part = {} if partials else None
+            with voice_partials(part):
+                d, block = sig.render(d, ddata, params, n)
             blocks.append(block)
-        return d, torch.stack(blocks)
+            parts.append(part)
+        if not partials:
+            return d, torch.stack(blocks)
+        return d, {"mix": torch.stack(blocks),
+                   "parts": {name: torch.stack([p[name] for p in parts]) for name in parts[0]}}
 
 
 def _same_storage(a, b):
@@ -319,7 +330,7 @@ class _Step:
         self.captures = 0
         self.graph = None
         self.stale = False  # the graph reads leaves the state no longer holds
-        self.out = None  # the graph's output buffer
+        self.out = None  # the graph's output buffers (a tensor, or partials' tree)
         self.leaves = None  # the state and data tensors of its warm-up or capture
         self.launches = None  # kernel launches per replay, per counter dict
 
@@ -334,28 +345,42 @@ class BlockSteps:
     the state (``_step_get``, and ``_step_set``, which stores a state tree
     after each dispatch), the read-only data (``_step_data``) and the
     signal whose ``render``/``render_multi`` a step calls (``_step_sig``,
-    set in its constructor, which calls ``_init_steps``)."""
+    set in its constructor, which calls ``_init_steps``).  A driver that
+    renders several lanes (a ScenePack's mesh cells, each over its own
+    stack on its own device) names the one in progress (``_lane``): each
+    lane has its own steps and staging buffers, and with
+    ``step_partials`` its steps also return each pool's partial mix."""
+
+    #: whether the steps render voice shards (``step_body``'s ``partials``)
+    step_partials = False
+
+    def _lane(self):
+        """The lane whose steps a dispatch runs, a suffix of their keys:
+        ``()``, one lane; a ScenePack's is its mesh cell in progress."""
+        return ()
 
     def _init_steps(self, scan_unroll):
         #: blocks one block step renders per call (one graph replay): a
         #: run of equal-archetype blocks goes as calls of this many
         self.scan_unroll = max(1, int(scan_unroll))
-        #: block steps: (archetype, kind, pack spec) -> {(k, n): _Step}
+        #: block steps: (archetype, kind, pack spec) + lane -> {(k, n): _Step}
         self._steps = {}
         #: calls of a block step: captured, captured again after a state
         #: leaf was replaced, replayed, and run op by op (CPU, warm-ups,
         #: ``eager()``, signals that are not captured; counted per block
         #: or fused group)
         self.graph_counts = {"captures": 0, "recaptures": 0, "replays": 0, "eager": 0}
-        self._graph_pool = None
-        self._uploads = None
-        self._run_rows = None  # device staging for a run's rows
+        self._graph_pools = {}  # CUDA device index -> the graphs' memory pool there
+        self._uploads = {}  # lane -> its pinned row uploads
+        self._run_rows = {}  # lane -> device staging for a run's rows
 
     def _run_key(self, arch, kind, pend, n):
         """Dispatch the blocks ``pend`` (their params) of one archetype
-        through the block step of key ``(arch, kind, pack)``, or with
-        ``kind`` = ("multi", nb) ``len(pend)`` fused idle groups.  Returns
-        the audio, (B, ...) blocks or groups, a tensor of its own."""
+        through the block step of key ``(arch, kind, pack)`` in the lane in
+        progress, or with ``kind`` = ("multi", nb) ``len(pend)`` fused idle
+        groups.  Returns the audio, (B, ...) blocks or groups, a tensor of
+        its own (with ``step_partials``, the step's output tree of such
+        tensors)."""
         dev = self._step_sig.device
         if isinstance(kind, tuple):
             pack, k = None, 1
@@ -366,7 +391,7 @@ class BlockSteps:
                                  "its params do not pack into one float32 row")
             k = self.scan_unroll if kind == "scan" else 1
         R = 0 if pack is None else _row_len(pack[1])
-        steps = self._steps.setdefault((arch, kind, pack), {})
+        steps = self._steps.setdefault((arch, kind, pack) + self._lane(), {})
         total = len(pend)
         staged = None
         if R and total > k:
@@ -385,9 +410,9 @@ class BlockSteps:
                 self._rows_to(pend[i:i + kc], step.rows)
             block = self._call(step)
             if out is None:
-                out = torch.empty((total,) + tuple(block.shape[1:]), dtype=block.dtype,
-                                  device=block.device)
-            out[i:i + kc].copy_(block)
+                out = tree_map(lambda b: torch.empty((total,) + tuple(b.shape[1:]),
+                                                     dtype=b.dtype, device=b.device), block)
+            tree_map(lambda o, b, i=i, kc=kc: o[i:i + kc].copy_(b), out, block)
             i += kc
         self._step_set(self._step_get())
         return out
@@ -400,26 +425,29 @@ class BlockSteps:
             for row, params in zip(dst.numpy(), pend):
                 _pack_into(params, row)
             return
-        if self._uploads is None:
-            self._uploads = _RowUpload()
-        self._uploads(pend, dst)
+        up = self._uploads.get(self._lane())
+        if up is None:
+            up = self._uploads[self._lane()] = _RowUpload()
+        up(pend, dst)
 
     def _stage(self, pend, R, dev):
         """A run's rows on the device, one copy: a view of a staging buffer
         that grows to the longest run."""
         need = len(pend) * R
-        if self._run_rows is None or self._run_rows.numel() < need:
-            self._run_rows = torch.empty(max(need, 2 * (0 if self._run_rows is None
-                                                        else self._run_rows.numel())),
-                                         dtype=torch.float32, device=dev)
-        dst = self._run_rows[:need].view(len(pend), R)
+        buf = self._run_rows.get(self._lane())
+        if buf is None or buf.numel() < need:
+            buf = self._run_rows[self._lane()] = torch.empty(
+                max(need, 2 * (0 if buf is None else buf.numel())), dtype=torch.float32,
+                device=dev)
+        dst = buf[:need].view(len(pend), R)
         self._rows_to(pend, dst)
         return dst
 
     def _eager_call(self, step, d0, dd):
         """One call of ``step`` op by op through the static-state protocol."""
         sig = self._step_sig
-        d2, out = step_body(sig, step.kind, step.pack, step.n, step.k, d0, dd, step.rows)
+        d2, out = step_body(sig, step.kind, step.pack, step.n, step.k, d0, dd, step.rows,
+                            self.step_partials)
         if not _copy_back(d0, d2, getattr(sig, "GRAPH_INPLACE", ()), False):
             # the state's structure changed (new keys or shapes): it is
             # stored as returned, and graphs on the old leaves recapture
@@ -468,13 +496,16 @@ class BlockSteps:
         (no work runs); its launches per replay are recorded and taken off
         the counters, which each replay adds them to."""
         sig = self._step_sig
-        if self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
+        card = torch.cuda.current_device()  # the lane's card (``mesh_cell`` sets it)
+        if card not in self._graph_pools:
+            self._graph_pools[card] = torch.cuda.graph_pool_handle()
         counters = _launch_counters()
         before = [dict(c) for c in counters]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._graph_pool, capture_error_mode="thread_local"):
-            d2, out = step_body(sig, step.kind, step.pack, step.n, step.k, d0, dd, step.rows)
+        with torch.cuda.graph(graph, pool=self._graph_pools[card],
+                              capture_error_mode="thread_local"):
+            d2, out = step_body(sig, step.kind, step.pack, step.n, step.k, d0, dd, step.rows,
+                                self.step_partials)
             _copy_back(d0, d2, getattr(sig, "GRAPH_INPLACE", ()), True)
         step.launches = []
         for c, b in zip(counters, before):

@@ -10,8 +10,10 @@ scene holds 64 buffered and ``512*voice - 64`` seek Sine voices at 8 kHz
 than ``k_play``, so the eager path runs too) and motion deltas before the
 third.  Every block is held against the same scripts through per-scene
 one-device ``Renderer``s, within ``TOL``; after ``sync`` the first play's
-handle must not be finished.  ``dryrun_multichip(8, ["cpu"] * 8)`` runs
-it on a logical 8-cell mesh on the CPU.
+handle must not be finished.  The scenes declare ``graph_capture``, so the
+pack takes block steps, each cell its own (on a card, CUDA graphs).
+``dryrun_multichip(8, ["cpu"] * 8)`` runs it on a logical 8-cell mesh on
+the CPU.
 """
 
 from __future__ import annotations

@@ -63,25 +63,33 @@ A submix under wrappers (an Adapt over a Mixer) stacks its wrappers'
 one-voice state along a new scene axis: the wrappers render their S/a rows
 batched, and the engine under them its scenes stacked.
 
-On a 1 x 1 mesh whose scenes all declare ``graph_capture`` (config-5
+On any mesh whose scenes all declare ``graph_capture`` (config-5
 Mixers, samplers, main-path, seek-sampler and host-pool SpatialScenes,
 Mixers of host pools and submixes) the pack takes block steps, as the
-JAX
-pack compiles its programs (``oddio_tpu/parallel/sharded.py``): the
-Renderer's protocol (``core/run.BlockSteps``) over the carried stack, a
-``"single"`` key for ``render_block`` and ``"scan"`` keys of
-``scan_unroll`` blocks a call for the runs of ``render_frames_device``,
-each block's merged params one packed row, and on a card each step one
-CUDA graph, replayed.  The runs are the JAX pack's: blocks of one
-archetype (scene 0's, read after the pack-wide flags are stamped) are
-prepared before any is rendered, a run is flushed before a scene's
-structure event and on an archetype change, and an idle run's remaining
-blocks go as replays of the idle key.  A run renders as of its own
-archetype (``render_archetype``), inside ``scene_stack`` and
-``mesh_cell``.  The stack's leaves stay put (rebuilt leaves are copied
-back, rings written in place); a stack rebuilt by ``_ensure_state``
-(growth, an unpack, a restored state) makes the steps capture again.
-Under ``eager()``, and on every other pack, blocks render op by op.
+JAX pack compiles one ``shard_map``ped program whatever its mesh
+(``oddio_tpu/parallel/sharded.py``): the Renderer's protocol
+(``core/run.BlockSteps``) over each cell's carried stack, one lane per
+cell (its own steps, staging buffers and, on a card, graphs, which share
+the card's memory pool), a ``"single"`` key for ``render_block`` and
+``"scan"`` keys of ``scan_unroll`` blocks a call for the runs of
+``render_frames_device``, each block's merged params of the cell one
+packed row, and on a card each cell's step one CUDA graph, replayed (a
+cell on the CPU runs the same step uncaptured).  In a voice-sharded cell
+the step also returns each pool's partial mix; after the replays of a
+call the pack sums them as op by op (``_join``) over the call's (k, S/a,
+C, n) outputs.  The runs are the JAX pack's: blocks of one archetype
+(scene 0's, read after the pack-wide flags are stamped) are prepared
+before any is rendered, a run is flushed before a scene's structure
+event and on an archetype change, and an idle run's remaining blocks go
+as replays of the idle key.  A run renders as of its own archetype
+(``render_archetype``), inside ``scene_stack`` and ``mesh_cell``.  The
+stacks' leaves stay put (rebuilt leaves are copied back, rings written
+in place); a stack rebuilt by ``_ensure_state`` (growth, an unpack, a
+restored state, a host pool's play on a voice-sharded mesh) makes the
+steps capture again.  After a dispatch the scenes take views of the
+stack where they can (``_views_ok``); elsewhere they get the gathered
+state at ``sync()`` and before the stack drops.  Under ``eager()``, and
+on every other pack, blocks render op by op.
 """
 
 from __future__ import annotations
@@ -210,6 +218,8 @@ class ScenePack(BlockSteps):
         self.rate = int(rate)
         self.interval = np.float32(1.0) / np.float32(self.rate)
         self._dstate = None  # (group, shard) -> the cell's stacked state, scene 0's layout
+        self._cell = None  # the cell whose block steps a dispatch runs
+        self.step_partials = self.B > 1
         self._flush = None  # dispatches the run render_frames_device holds, if any
         self._names = None
         self._check_structure()
@@ -219,43 +229,56 @@ class ScenePack(BlockSteps):
 
     @property
     def graph_capture(self):
-        """True on a 1 x 1 mesh whose scenes all declare ``graph_capture``
-        (config-5 Mixers, samplers of Fader(Speed(FramesSignal)) voices,
-        main-path, seek-sampler and host-pool SpatialScenes, Mixers of host
-        pools and submixes): the pack then renders through block steps
-        (CUDA graphs on a card), its merged fade lanes, float64 cursors,
-        host pools' per-voice params (K4/K5's records end to end, K5's
-        scene form reading them), submixes' params and per-scene frame
-        counts in the packed row.  Larger meshes render op by op."""
-        return self.A == self.B == 1 and all(
-            getattr(s, "graph_capture", False) for s in self.scenes)
+        """True where the scenes all declare ``graph_capture`` (config-5
+        Mixers, samplers of Fader(Speed(FramesSignal)) voices, main-path,
+        seek-sampler and host-pool SpatialScenes, Mixers of host pools and
+        submixes), on any mesh: the pack then renders through block steps
+        (CUDA graphs on a card, one per cell and key), its merged fade
+        lanes, float64 cursors, host pools' per-voice params (K4/K5's
+        records end to end, K5's scene form reading them), submixes'
+        params and per-scene frame counts in each cell's packed row."""
+        return all(getattr(s, "graph_capture", False) for s in self.scenes)
 
     def _stepped(self):
         return self.graph_capture and not eager_mode()
 
-    # the block-step protocol's three things: the carried stack, scene 0's
-    # data and scene 0's render (``_step_sig``)
+    # the block-step protocol's three things, for the cell in progress (a
+    # lane of its own): its carried stack, scene 0's data on the cell's
+    # device and scene 0's render (``_step_sig``)
+    def _lane(self):
+        return (self._cell,)
+
     def _step_get(self):
-        return self._dstate[0, 0]
+        return self._dstate[self._cell]
 
     def _step_set(self, d):
-        """Store the stack after a dispatch (or as a step returned it, where
-        its structure changed); the scenes take views of it, which bumps
-        their store counts (the handle readback's key: a replay leaves the
-        tensors' versions alone)."""
-        self._dstate[0, 0] = d
-        self._store()
+        """Keep the cell's stack after a dispatch (or as a step returned
+        it, where its structure changed); ``_dispatch_steps`` stores the
+        stacks in the scenes once every cell has run."""
+        self._dstate[self._cell] = d
 
     def _step_data(self):
         return self.scenes[0].device_data()
 
     def _dispatch_steps(self, arch, kind, pend, n):
-        """A run of merged params ``pend`` through the block steps of key
-        ``(arch, kind)``, rendered as of ``arch`` by scene 0's pools over
-        the stack: (B, S, C, n)."""
-        with self.scenes[0].render_archetype(arch), scene_stack(self.S, 0), \
-                mesh_cell((0, 0), self._cells[0, 0]):
-            return self._run_key(arch, kind, pend, n)
+        """A run of merged params ``pend`` (each block's, by cell) through
+        every cell's block steps of key ``(arch, kind)``, rendered as of
+        ``arch`` by scene 0's pools over the cell's stack; then the
+        voice shards' partial mixes summed (``_join``): (B, S, C, n).
+        Where the scenes can hold views of the stacks (``_views_ok``) they
+        take them, which bumps their store counts (the handle readback's
+        key: a replay leaves the tensors' versions alone); elsewhere the
+        gather waits for ``sync()``."""
+        outs = {}
+        with self.scenes[0].render_archetype(arch):
+            for (g, k), dev in self._cells.items():
+                self._cell = (g, k)
+                with scene_stack(self.Sa, g * self.Sa), mesh_cell((g, k), dev):
+                    outs[g, k] = self._run_key(arch, kind, [p[g, k] for p in pend], n)
+            self._cell = None
+        if self._views_ok():
+            self._store()
+        return self._join(outs)
 
     # -- structure ---------------------------------------------------------------
 
@@ -431,9 +454,12 @@ class ScenePack(BlockSteps):
         hold for every scene: where the scenes differ, stamp the pack-wide
         ones (every step fits the stream kernel, the widest step tier,
         every tau fits the closed-form AGC) onto scene 0's pool, and on a
-        host pool's template; a device-resident Mixer pool whose scenes
-        advance different frame counts (a submix's, at its ring's write
-        count) takes them per scene."""
+        host pool's template; a host buffered pool takes the exact route in
+        every scene where any scene's block left the strip gate (each
+        scene group's cells merge their scenes' params by it); a
+        device-resident Mixer pool whose scenes advance different frame
+        counts (a submix's, at its ring's write count) takes them per
+        scene."""
         for group in self._pool_groups():
             if group[0].is_dr:
                 flags = {(p._ds_small, p._ds_tier, p._ema_fast) for p in group}
@@ -446,8 +472,15 @@ class ScenePack(BlockSteps):
                     counts = tuple(p._count for p in group)
                     for p in group:
                         p._pack_counts = counts if len(set(counts)) > 1 else None
-            elif not _is_submix(group[0]):
-                _stamp_host_flags([p.sig for p in group])
+            else:
+                if not _is_submix(group[0]):
+                    _stamp_host_flags([p.sig for p in group])
+                if len({getattr(p, "_use_strips", True) for p in group}) > 1:
+                    # one read for the stack, whichever scene group a cell
+                    # holds: the exact route, if any scene's block left the
+                    # strip gate
+                    for p in group:
+                        p._use_strips = False
 
     def _merge_ingest(self, vals):
         """Per-voice ingest chunks end to end; a scene with no queued PCM
@@ -467,11 +500,9 @@ class ScenePack(BlockSteps):
         pool = group[0]
         V, (k, b) = pool.capacity, shard
         if not pool.is_dr:
-            if len({getattr(p, "_use_strips", True) for p in group}) > 1:
-                # one read for the stack: the exact route, if any scene's
-                # block left the strip gate
+            if not getattr(pool, "_use_strips", True):
+                # the pack reads on the exact route (``_pack_flags``)
                 ps = [p.exact_params(q) for p, q in zip(group, ps)]
-                pool._use_strips = False
             if not _is_submix(pool):
                 if b > 1:
                     ps = [_shard_rows(q, pool.params_voice_axes(q), V, k, b) for q in ps]
@@ -553,44 +584,55 @@ class ScenePack(BlockSteps):
                 for g, k in self._cells}
 
     def _render(self, params, n):
-        """One block of every cell; returns (S, C, n) on the mesh's first
-        device.  Where a scene group has several voice shards, each cell
-        keeps its pools' partial mixes apart (``voice_partials``; float64
-        where the pool sums in float64), the pack sums each pool's shards
-        on the group's first device in shard order (the JAX package's
-        voice-axis ``psum``), rounds it and adds the pools in their render
-        order, as one cell holding all the rows would."""
+        """One block of every cell op by op; returns (S, C, n) on the
+        mesh's first device.  Where a scene group has several voice
+        shards, each cell keeps its pools' partial mixes apart
+        (``voice_partials``; float64 where the pool sums in float64) for
+        ``_join``."""
         scene0 = self.scenes[0]
         self.graph_counts["eager"] += 1
+        outs = {}
+        for (g, k), dev in self._cells.items():
+            part = {} if self.B > 1 else None
+            with scene_stack(self.Sa, g * self.Sa), mesh_cell((g, k), dev), \
+                    voice_partials(part):
+                self._dstate[g, k], block = scene0.render(
+                    self._dstate[g, k], scene0.device_data(), params[g, k], n)
+            outs[g, k] = block if part is None else {"mix": block, "parts": part}
+        return self._join(outs)
+
+    def _join(self, outs):
+        """The cells' outputs, ``outs[g, k]`` (a cell's (..., S/a, C, n)
+        mix, or in a voice-sharded cell ``{"mix", "parts"}`` with each
+        pool's partial mix in render order), as the pack's (..., S, C, n)
+        on the mesh's first device: each group's pools' shards summed on
+        the group's first device in shard order (the JAX package's
+        voice-axis ``psum``), rounded and added to shard 0's mix in render
+        order, as one cell holding all the rows would.  The adds are
+        elementwise, so a block and a run's (k, ...) outputs sum alike."""
         blocks = []
         for g in range(self.A):
-            parts = []
-            for k in range(self.B):
-                part = {} if self.B > 1 else None
-                with scene_stack(self.Sa, g * self.Sa), mesh_cell((g, k), self._cells[g, k]), \
-                        voice_partials(part):
-                    self._dstate[g, k], block = scene0.render(
-                        self._dstate[g, k], scene0.device_data(), params[g, k], n)
-                if k == 0:
-                    out = block  # the whole mix, or where the shards' partials add up
-                parts.append(part)
-            if self.B > 1:
-                for name, x in parts[0].items():  # shard 0 holds every pool
-                    for part in parts[1:]:
-                        if name in part:
-                            x = x + part[name].to(x.device)
-                    out = out + x.to(torch.float32)
+            if self.B == 1:
+                blocks.append(outs[g, 0])
+                continue
+            parts = [outs[g, k]["parts"] for k in range(self.B)]
+            out = outs[g, 0]["mix"]
+            for name, x in parts[0].items():  # shard 0 holds every pool
+                for part in parts[1:]:
+                    if name in part:
+                        x = x + part[name].to(x.device)
+                out = out + x.to(torch.float32)
             blocks.append(out)
         if len(blocks) == 1:
             return blocks[0]
-        return torch.cat([b.to(self.mesh.first) for b in blocks])
+        return torch.cat([b.to(self.mesh.first) for b in blocks], dim=-3)
 
     def render_block(self, n):
         """Render one block for every scene; returns float32 numpy (S, n, C)."""
         params = self._block_params(n)
         if self._stepped():
             block = self._dispatch_steps(self.scenes[0].archetype(), "single",
-                                         [params[0, 0]], n)[0]
+                                         [params], n)[0]
         else:
             block = self._render(params, n)
         return np.moveaxis(block.cpu().numpy(), 1, 2)
@@ -655,7 +697,7 @@ class ScenePack(BlockSteps):
             for bi in range(nblocks):
                 if pend and any(s.host_structure_event() for s in self.scenes):
                     flush()
-                params = self._block_params(n)[0, 0]
+                params = self._block_params(n)  # every cell's
                 arch = self.scenes[0].archetype()
                 if pend and arch != pend_arch:
                     flush()

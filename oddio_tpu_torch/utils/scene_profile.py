@@ -1,7 +1,7 @@
 """Where a block's time goes on a CUDA card: the bench scenes at 4096 voices
 through ``Renderer.render_frames_device``, timed and traced.
 
-    python -m oddio_tpu_torch.utils.scene_profile [buffered|seek|buffered_mixed|subpass|mixer|hostpools|pack|pack256|spatialpack|densemix|sampler|wavetable|seek_sampler|sampler_pack|hostpack|seek_eager|buffered_eager|buffered_mixed_eager|subpass_eager|mixer_eager|hostpools_eager|pack_eager|pack256_eager|spatialpack_eager|densemix_eager|wavetable_eager|sampler_eager|seek_sampler_eager|sampler_pack_eager|hostpack_eager ...]
+    python -m oddio_tpu_torch.utils.scene_profile [buffered|seek|buffered_mixed|subpass|mixer|hostpools|pack|pack256|pack2x2|spatialpack|densemix|sampler|wavetable|seek_sampler|sampler_pack|hostpack|hostpack2x2|seek_eager|buffered_eager|buffered_mixed_eager|subpass_eager|mixer_eager|hostpools_eager|pack_eager|pack256_eager|pack2x2_eager|spatialpack_eager|densemix_eager|wavetable_eager|sampler_eager|seek_sampler_eager|sampler_pack_eager|hostpack_eager|hostpack2x2_eager ...]
 
 For the main path's four scenes (``build_main_path``: bench.py's seek,
 buffered, buffered_mixed and subpass scenes at 4096 voices), the AGC
@@ -27,7 +27,11 @@ of one session each (``build_sampler_pack``: 16 sampler scenes of 64
 voices, each on its own script, as ``sampler_pack``, replaying graphs,
 and ``sampler_pack_eager``;
 ``build_host_pools_pack``: 16 host-pool scenes of 256 voices, as
-``hostpack``, replaying graphs, and ``hostpack_eager``) it prints, for each of three timed 188-block
+``hostpack``, replaying graphs, and ``hostpack_eager``), and two packs on
+a logical 2 x 2 mesh of the card (``[cuda] * 4``; each cell replays its
+own graphs): config 5 at its stated 256 scenes as ``pack2x2`` and the
+host-pool pack 16 x 256 as ``hostpack2x2``, with their ``_eager`` twins,
+it prints, for each of three timed 188-block
 runs, the wall time per 512-frame block, the host time per block spent in
 the engine's ``host_prepare`` and the real-time factor (xRT, after
 ``torch.cuda.synchronize()``; for a pack, per scene: one scene's audio
@@ -636,8 +640,9 @@ def _run(renderer, nblocks):
 def profile_scene(label):
     """Profile one scene; a label with ``_eager`` (``buffered_eager``,
     ``mixer_eager``, ``hostpools_eager``, ``pack_eager``,
-    ``densemix_eager``, ``wavetable_eager``, ``sampler_eager``,
-    ``seek_sampler_eager``, ``sampler_pack_eager``, ``hostpack_eager``)
+    ``pack2x2_eager``, ``densemix_eager``, ``wavetable_eager``,
+    ``sampler_eager``, ``seek_sampler_eager``, ``sampler_pack_eager``,
+    ``hostpack_eager``, ``hostpack2x2_eager``)
     runs it under ``core.run.eager()``, op by op, where the plain label
     replays the Renderer's or the pack's CUDA graphs."""
     if label.endswith("_eager"):
@@ -648,12 +653,20 @@ def profile_scene(label):
     return _profile_scene(label, label)
 
 
+def _logical_2x2():
+    """A 2 x 2 mesh of logical devices on the card."""
+    from ..parallel.mesh import make_mesh
+
+    return make_mesh(2, 2, ["cuda"] * 4)
+
+
 def _profile_scene(label, shown):
     nblocks = BLOCKS
     before = None
     kw = {}  # the Renderer's dispatch options
-    if label in ("pack", "pack256"):
-        r, ctls, rng = build_config5_pack(16 if label == "pack" else 256, "cuda")
+    if label in ("pack", "pack256", "pack2x2"):
+        r, ctls, rng = build_config5_pack(16 if label == "pack" else 256, "cuda",
+                                          mesh=_logical_2x2() if label == "pack2x2" else None)
 
         def before():
             feed(ctls, rng, 1024)
@@ -662,8 +675,9 @@ def _profile_scene(label, shown):
     elif label == "sampler_pack":
         r = build_sampler_pack(16, 64, "cuda")
         scene = None
-    elif label == "hostpack":
-        r, ctls, _, rng = build_host_pools_pack(16, 256, "cuda")
+    elif label in ("hostpack", "hostpack2x2"):
+        r, ctls, _, rng = build_host_pools_pack(
+            16, 256, "cuda", mesh=_logical_2x2() if label == "hostpack2x2" else None)
 
         def before():
             feed(ctls, rng, 1024)
@@ -693,7 +707,7 @@ def _profile_scene(label, shown):
     if label == "sampler_pack":
         # the scenes' control scripts run inside the timed window
         spent = _timed_prepare(r.pack.scenes)
-    elif label in ("pack", "pack256", "spatialpack", "hostpack"):
+    elif label in ("pack", "pack256", "pack2x2", "spatialpack", "hostpack", "hostpack2x2"):
         spent = _timed_prepare(r.scenes)
     else:
         spent = _timed_prepare([scene])
@@ -740,12 +754,12 @@ def _profile_scene(label, shown):
 
 
 SCENES = ("buffered", "seek", "buffered_mixed", "subpass", "mixer", "hostpools", "pack",
-          "pack256", "spatialpack", "densemix", "sampler", "wavetable", "seek_sampler",
-          "sampler_pack", "hostpack") + tuple(
+          "pack256", "pack2x2", "spatialpack", "densemix", "sampler", "wavetable",
+          "seek_sampler", "sampler_pack", "hostpack", "hostpack2x2") + tuple(
               f"{k}_eager" for k in MAIN_PATH + ("mixer", "hostpools", "pack", "pack256",
-                                                 "spatialpack", "densemix", "wavetable",
-                                                 "sampler", "seek_sampler", "sampler_pack",
-                                                 "hostpack"))
+                                                 "pack2x2", "spatialpack", "densemix",
+                                                 "wavetable", "sampler", "seek_sampler",
+                                                 "sampler_pack", "hostpack", "hostpack2x2"))
 
 
 def main(argv=None):

@@ -1426,21 +1426,22 @@ def test_mixer_graph_growth_between_warmup_and_capture(cuda, monkeypatch):
 # -- ScenePacks under CUDA graphs (a 1 x 1 pack of graph-capturing scenes) -----------
 
 
-def _pack_graph_run(kind, mode, script, S=4):
+def _pack_graph_run(kind, mode, script, S=4, mesh=None):
     """A config-5 pack (S x 64 voices) or a spatial pack (S scenes of 16
-    buffered + 48 seek voices) on the card, under ``eager()`` or replaying
-    graphs: one render_block (which stacks the scenes), then ``script(pack,
-    ctls, rng)``: (the audio (S, N, C), launches, the pack, the rings'
-    addresses after the first block and at the end)."""
+    buffered + 48 seek voices) on the card (on ``mesh``, default 1 x 1),
+    under ``eager()`` or replaying graphs: one render_block (which stacks
+    the scenes), then ``script(pack, ctls, rng)``: (the audio (S, N, C),
+    launches, the pack, the rings' addresses after the first block and at
+    the end)."""
     import contextlib
 
     from oddio_tpu_torch.core.run import eager
 
     with eager() if mode == "eager" else contextlib.nullcontext():
         if kind == "config5":
-            pack, ctls, rng = build_config5_pack(S, "cuda", voices=64)
+            pack, ctls, rng = build_config5_pack(S, "cuda", voices=64, mesh=mesh)
         else:
-            pack, ctls, rng = build_spatial_pack(S, "cuda", 16, 48), [], None
+            pack, ctls, rng = build_spatial_pack(S, "cuda", 16, 48, mesh=mesh), [], None
         assert pack.graph_capture
         for m in (RK, SK, A, FK):
             m.reset_launches()
@@ -1819,10 +1820,11 @@ def test_sampler_graph_fade_after_capture_replays(cuda):
     assert bg.any() and np.array_equal(me, mg)
 
 
-def _host_graph_run(kind, mode, flybys=1, voices=256):
+def _host_graph_run(kind, mode, flybys=1, voices=256, mesh=None):
     """The host-pool scene (``build_host_pools``: ``voices`` Speed(Stream)
     voices, ``voices // 8`` Adapt(Stream), a config-5 submix) or the
-    host-pool pack 2 x ``voices`` (``build_host_pools_pack``) under
+    host-pool pack 2 x ``voices`` (``build_host_pools_pack``, on ``mesh``,
+    default 1 x 1) under
     ``eager()`` or replaying graphs, through ``flybys`` passes of a script:
     voice 0 jumps to a fly-by (10 m left, 60 m/s right: its pool leaves
     K5's strip gate, takes it and leaves it again inside one call), 8
@@ -1839,7 +1841,7 @@ def _host_graph_run(kind, mode, flybys=1, voices=256):
         _, engine, ctls, speeds, rng = build_host_pools(voices, "cuda", handles=hs)
         r = pt.Renderer(engine, 48000)
     else:
-        r, ctls, speeds, rng = build_host_pools_pack(2, voices, "cuda", handles=hs)
+        r, ctls, speeds, rng = build_host_pools_pack(2, voices, "cuda", handles=hs, mesh=mesh)
         engine = r
     assert engine.graph_capture
     for m in (RK, SK, A, FK):
@@ -1894,3 +1896,68 @@ def test_host_pool_graph_flyby_replays_without_recapture(cuda):
     assert c["recaptures"] == 0 and first["captures"] > 0
     assert c["captures"] - first["captures"] <= 1
     assert c["replays"] - first["replays"] >= 30
+
+
+# -- ScenePacks on meshes under CUDA graphs (one graph per cell and key) ----------------
+
+
+def _cells_captured(pack):
+    """The cells that captured a graph of their own."""
+    return {key[-1] for key, steps in pack._steps.items()
+            if any(st.graph is not None for st in steps.values())}
+
+
+@pytest.mark.parametrize("kind", ["config5", "hostpack"])
+def test_mesh_pack_graph_replay_matches_eager(cuda, kind):
+    """A 4 x 64-voice config-5 pack under control traffic and the host-pool
+    pack 2 x 64 through a fly-by, each on a logical 2 x 2 mesh of the card:
+    every cell replays graphs of its own, bit-equal to the same mesh's
+    ``eager()``, every kernel's launches equal, no recapture."""
+    from oddio_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(2, 2, [cuda] * 4)
+    if kind == "config5":
+        (xe, le, pe, _), (xg, lg, pg, rg) = [
+            _pack_graph_run("config5", mode, _pack_control_script, mesh=mesh)
+            for mode in ("eager", "graph")]
+        keys = (f"{SK.__name__}.ring_place", f"{SK.__name__}.ring_resample",
+                f"{A.__name__}.agc_gains")
+        assert rg[0] == rg[1]
+    else:
+        (xe, le, pe, _), (xg, lg, pg, _) = [
+            _host_graph_run("hostpack", mode, voices=64, mesh=mesh)
+            for mode in ("eager", "graph")]
+        keys = (f"{RK.__name__}.append", f"{RK.__name__}.select_ears",
+                f"{RK.__name__}.strip_select_scenes", f"{SK.__name__}.ring_place",
+                f"{SK.__name__}.ring_resample", f"{A.__name__}.agc_gains")
+    assert np.abs(xe).max() > 1e-3
+    np.testing.assert_array_equal(xg, xe)
+    assert lg == le and all(lg.get(k) for k in keys), lg
+    assert pg.graph_capture and _cells_captured(pg) == set(pg._cells)
+    c = pg.graph_counts
+    assert pe.graph_counts["replays"] == 0 and c["recaptures"] == 0
+    assert c["replays"] > c["captures"] > 0
+
+
+def test_mesh_card_cpu_graph_matches_eager(cuda):
+    """A 2 x 64-voice config-5 pack on a 1 x 2 mesh over ``[cuda, "cpu"]``:
+    the card cell replays its graphs, the CPU cell runs the same steps
+    uncaptured, and the audio is bit-equal to the same mesh's ``eager()``
+    and within 2e-6 of the 1 x 1 card pack."""
+    from oddio_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, 2, [cuda, "cpu"])
+    (xe, le, _, _), (xg, lg, pg, _), (x1, _, _, _) = [
+        _pack_graph_run("config5", mode, _pack_control_script, S=2, mesh=m)
+        for mode, m in (("eager", mesh), ("graph", mesh), ("graph", None))]
+    assert np.abs(xe).max() > 0.1
+    np.testing.assert_array_equal(xg, xe)
+    assert lg == le
+    assert np.abs(xg - x1).max() <= 2e-6
+    assert _cells_captured(pg) == {(0, 0)}
+    c = pg.graph_counts
+    assert c["recaptures"] == 0 and c["replays"] > c["captures"] > 0
+    # each card step: one warm-up op by op, then replays; the CPU cell's
+    # calls, all uncaptured, are as many
+    warm = sum(len(steps) for key, steps in pg._steps.items() if key[-1] == (0, 0))
+    assert c["eager"] - warm == warm + c["replays"]

@@ -44,10 +44,13 @@ torch.set_num_threads(1)
 RATE, BLOCK, TOL = 8000, 512, 1e-5
 
 
-def _pack(m, scenes, unroll=1):
+def _pack(m, scenes, unroll=1, shape=(1, 1)):
+    """The JAX pack on its CPU mesh of ``shape``, or the port's on a
+    logical CPU mesh of ``shape``."""
     if m is ot:
-        return JaxPack(scenes, RATE, jax_mesh(1, 1), scan_unroll=unroll)
-    return ScenePack(scenes, RATE, make_mesh(1, 1, ["cpu"]), scan_unroll=unroll)
+        return JaxPack(scenes, RATE, jax_mesh(*shape), scan_unroll=unroll)
+    return ScenePack(scenes, RATE, make_mesh(*shape, ["cpu"] * (shape[0] * shape[1])),
+                     scan_unroll=unroll)
 
 
 def _frames(p, nblocks):
@@ -114,19 +117,19 @@ def _between_blocks(p, act):
     scene.host_structure_event = once
 
 
-def config5_script(m, unroll=1, grow="all"):
+def config5_script(m, unroll=1, grow="all", shape=(1, 1)):
     """Two config-5 mini mixers (``test_torch_pack.config5_mini``) through
     render_block and render_frames_device: stream writes, a play and a
     stop, a stream close, twelve plays (a bulk play, past the Adapt(Sine)
     pool's 8 slots) in scene 1 (``grow`` "one") or in every scene (the JAX
     pack stacks only equal capacities), and a play in scene 0, then nine
     plays in every scene between the first two blocks of the next call (a
-    bulk play: a structure event, which flushes the run).  Returns (audio
-    (S, N, C), pack, run lengths)."""
+    bulk play: a structure event, which flushes the run); on a mesh of
+    ``shape``.  Returns (audio (S, N, C), pack, run lengths)."""
     built = [config5_mini(m, s) for s in range(2)]
     scenes = [b[0] for b in built]
     flat = [c for b in built for c in b[1]]
-    p = _pack(m, scenes, unroll)
+    p = _pack(m, scenes, unroll, shape)
     runs = _spy_runs(p, m)
     controls = [m.MixerControl(s) for s in scenes]
     out = [p.render_block(BLOCK) for _ in range(2)]
@@ -159,13 +162,14 @@ def config5_script(m, unroll=1, grow="all"):
     return np.concatenate(out, axis=1), p, runs
 
 
-def spatial_script(m, unroll=1):
-    """Three spatial scenes (8 buffered and 8 seek Sine voices at 8 kHz)
+def spatial_script(m, unroll=1, shape=(1, 1), S=3):
+    """``S`` spatial scenes (8 buffered and 8 seek Sine voices at 8 kHz)
     through render_block and render_frames_device: a smoothed move near a
     buffered voice and a discontinuous jump of a seek voice in scene 0, a
-    listener rotation in scene 1.  Returns (audio, pack, run lengths)."""
-    built = [build_spatial_scene(m, s) for s in range(3)]
-    p = _pack(m, [b[1] for b in built], unroll)
+    listener rotation in scene 1; on a mesh of ``shape``.  Returns (audio,
+    pack, run lengths)."""
+    built = [build_spatial_scene(m, s) for s in range(S)]
+    p = _pack(m, [b[1] for b in built], unroll, shape)
     runs = _spy_runs(p, m)
     out = [p.render_block(BLOCK) for _ in range(2)]
     out.append(_frames(p, 5))
@@ -272,12 +276,12 @@ def _scheduled(p, actions):
     return count
 
 
-def _flip_config5(log):
+def _flip_config5(log, shape=(1, 1)):
     """Two config-5 mini mixers on K7 (tau 0.1 s everywhere); a tiny-tau
     voice played in scene 1 between two blocks of one call sends the pack
-    to the scan.  ``log`` gets the pack."""
+    to the scan.  ``log`` gets the pack (on a mesh of ``shape``)."""
     built = [config5_mini(pt, s) for s in range(2)]
-    p = _pack(pt, [b[0] for b in built])
+    p = _pack(pt, [b[0] for b in built], shape=shape)
     log.append(p)
     out = [_frames(p, 3)]
     control = pt.MixerControl(built[1][0])
@@ -292,11 +296,11 @@ def _flip_config5(log):
     return np.concatenate(out, axis=1)
 
 
-def _flip_spatial(log):
+def _flip_spatial(log, shape=(1, 1)):
     """Two spatial scenes; a fast move in scene 1 between two blocks of one
     call changes the pack's read tier."""
     built = [build_spatial_scene(pt, s) for s in range(2)]
-    p = _pack(pt, [b[1] for b in built])
+    p = _pack(pt, [b[1] for b in built], shape=shape)
     log.append(p)
     out = [_frames(p, 3)]
     h = built[1][2][1]
@@ -393,14 +397,14 @@ def test_pack_stack_leaves_stay_put():
     assert any(a is not b for a, b in zip(tree_leaves(p._dstate[0, 0]), grown))
 
 
-def _grow_mid_run(mode):
+def _grow_mid_run(mode, shape=(1, 1)):
     """Two config-5 mini mixers: 4 blocks, a play in scene 0, then 10
     blocks in one call, between whose first two blocks three plays grow
     scene 1's Adapt(Sine) pool (8 slots, 6 voices: no bulk play, so no
     structure event).  Returns (audio, pack)."""
     with prun.eager() if mode == "eager" else contextlib.nullcontext():
         scenes = [config5_mini(pt, s)[0] for s in range(2)]
-        p = _pack(pt, scenes, 4)
+        p = _pack(pt, scenes, 4, shape)
         out = [_frames(p, 4)]
         pt.MixerControl(scenes[0]).play(_adapt_sine(pt, 620.0))
         control = pt.MixerControl(scenes[1])
@@ -424,7 +428,7 @@ def test_pack_growth_between_two_blocks_of_a_run():
     assert p._flush is None and p._steps
 
 
-def _drain_pack(mode, per_block_sync):
+def _drain_pack(mode, per_block_sync, shape=(1, 1)):
     """Two mixers of two Adapt(Sine) voices and a closed Adapt(Stream) of
     1200 and 2000 samples (2.3 and 3.9 blocks): the handles' ``is_stopped()`` after
     each render (with ``per_block_sync``, after ``pack.sync()``), and the
@@ -439,7 +443,7 @@ def _drain_pack(mode, per_block_sync):
         ctl.close()
         hs.append(control.play(pt.Adapt(st, 0.1, pt.AdaptOptions(tau=0.1, max_gain=4.0))))
         mixers.append(mixer)
-    p = _pack(pt, mixers)
+    p = _pack(pt, mixers, shape=shape)
     seq = []
     with prun.eager() if mode == "eager" else contextlib.nullcontext():
         for k in range(8):
@@ -475,10 +479,10 @@ def test_pack_sync_and_handles_after_steps():
 
 
 def test_other_packs_stay_op_by_op():
-    """A 2 x 2 mesh and a pack of scenes with a host seek pool
-    (``_SeekPool``) render op by op: no step, every block counted as an
-    op-by-op call.  The host-pool pack and the submix pack take block
-    steps on a 1 x 1 mesh, bit for bit ``eager()``'s."""
+    """A pack of scenes with a host seek pool (``_SeekPool``), on a 1 x 1
+    and on a 2 x 2 mesh, renders op by op: no step, every block counted as
+    an op-by-op call.  The config-5 pack on a 2 x 2 mesh, the host-pool
+    pack and the submix pack take block steps, bit for bit ``eager()``'s."""
     from oddio_tpu_torch.utils.scene_profile import build_config5_pack, build_host_pools_pack
 
     class FiniteSine(pt.Sine):
@@ -502,11 +506,11 @@ def test_other_packs_stay_op_by_op():
         return ScenePack(out, RATE, make_mesh(1, 1, ["cpu"]))
 
     mesh = make_mesh(2, 2, ["cpu"] * 4)
-    p22, _, _ = build_config5_pack(2, "cpu", voices=16, mesh=mesh)
     ps = ScenePack([seek_scene(s) for s in range(2)], RATE, make_mesh(1, 1, ["cpu"]))
+    ps22 = ScenePack([seek_scene(s) for s in range(2)], RATE, mesh)
     one, _, _ = build_config5_pack(2, "cpu", voices=16)
     assert one.graph_capture
-    for p in (p22, ps):
+    for p in (ps, ps22):
         assert not p.graph_capture
         p.render_block(BLOCK)
         out = p.render_frames_device(BLOCK * 3)
@@ -515,14 +519,18 @@ def test_other_packs_stay_op_by_op():
     runs = []
     for ctx in (contextlib.nullcontext(), prun.eager()):
         with ctx:
+            p22, _, _ = build_config5_pack(2, "cpu", voices=16, mesh=mesh)
             hp, _, _, _ = build_host_pools_pack(2, 16, "cpu")
             sp = subs()
             got = []
-            for p in (hp, sp):
+            for p in (p22, hp, sp):
                 assert p.graph_capture
                 got.append(torch.from_numpy(p.render_block(BLOCK)))
                 got.extend(p.render_frames_device(BLOCK * 3))
                 assert bool(p._steps) is not prun.eager_mode()
+            # every cell of the 2 x 2 has steps of its own
+            assert {k[-1] for k in p22._steps} == (
+                set() if prun.eager_mode() else set(p22._cells))
             runs.append(got)
     for a, b in zip(*runs):
         assert torch.equal(a, b)
