@@ -289,6 +289,31 @@ Phases (each prints one or more lines; any failure exits non-zero):
     the card cell replaying; at the end of the run each graph pack's
     device ms a block over its untraced wall ms a block on 8 idle blocks,
     the device's busy share.
+43. (after 42) the Renderer's and the pack's block steps as CUDA graphs
+    on the last two built-in spatial pools: the spatial sampler (4096
+    voices played with ``play_buffered``: 2048 FramesSignal, 1024
+    Speed(FramesSignal), 512 Fader(Speed(FramesSignal)) and 512 Cycle
+    voices in device-resident buffered pools; K1, K2, K3, ``arena_step``
+    and ``fader_step`` inside the graphs), the seek chains (4096 voices
+    played with ``play``: 2048 Cycle, 1024 FixedGain(FramesSignal), 1024
+    Tanh(FixedGain(Sine)) in device-resident seek pools; ``arena_warp``)
+    and a 1 x 1 pack of 16 spatial samplers of 256 voices, each twice
+    from one seed, once under ``core.run.eager()`` and once replaying
+    graphs, through one script (every 4 blocks ``set_motion`` on 64
+    voices, one a discontinuity; every 8 blocks ``set_speed`` on 64 Speed
+    voices and ``fade_to`` on 64 Fader voices; one speed past
+    ``RESAMPLE_DSMAX`` and back; 64 plays that grow a full pool; a new
+    ``Frames`` between two runs; then 64 blocks; the pack 20 blocks):
+    bit-equal (-0.0 as 0.0), every kernel's launches equal over the script
+    and the timed runs (the kernels line's K1, K2, K3 and K6's arena form
+    gain ``graph_launches`` a block), the arena step's forms captured
+    inside the graphs, handles' ``is_finished`` equal, rings unmoved after
+    the script, recaptures > 0 and no more than the graphs held at the
+    growth and at the new arena, replays >= 90% of the calls; then 188
+    idle blocks each way and the dispatch host ms of a block after 64
+    moves and after 64 speed writes and fades (median of 10), xRT; at the
+    end of the run each graph engine's device ms and kernels a block over
+    its untraced wall ms on 8 idle blocks, the device's busy share.
 Phases 28-35 count launches with the wrappers' counters, never a tracer
 session; the packs' block profiles (phases 29 and 30) only print.
 The profiles run at the end in this order: the one-kernel checks
@@ -3077,13 +3102,19 @@ def mesh_graphs(pt, dev, kern, tag):
 
 
 def mesh_busy(tag):
-    """Phase 42's profiles, at the end of the run: for each pack's graph
-    run, 8 idle blocks' untraced wall ms a block (the median of three runs,
-    each ended by a synchronize) and the device ms a block of the same 8
-    blocks under ``torch.profiler``: the device's busy share."""
+    """Phase 42's profiles, at the end of the run (``graph_busy``)."""
+    graph_busy(42, MESH_BUSY, tag)
+
+
+def graph_busy(phase, items, tag):
+    """A phase's busy profiles, at the end of the run: for each (label,
+    render) of ``items``, a graph engine's 8 idle blocks' untraced wall ms a
+    block (the median of three runs, each ended by a synchronize) and the
+    device ms a block of the same 8 blocks under ``torch.profiler``: the
+    device's busy share."""
     from oddio_tpu_torch.utils import kernel_bench as KB
 
-    for label, render in MESH_BUSY:
+    for label, render in items:
         render()
         walls = []
         for _ in range(3):
@@ -3095,10 +3126,10 @@ def mesh_busy(tag):
         wall_ms = float(np.median(walls))
         split, kernels = KB.device_profile(render, reps=1)
         dev_ms = sum(split.values()) / 8
-        print(f"phase 42 profile: {label} graph, 8 idle blocks: device {dev_ms:.4f} ms a "
+        print(f"phase {phase} profile: {label} graph, 8 idle blocks: device {dev_ms:.4f} ms a "
               f"block, {kernels / 8:.1f} device kernels a block, untraced wall {wall_ms:.4f} ms "
               f"a block: busy share {dev_ms / wall_ms:.3f} {tag}")
-    MESH_BUSY.clear()
+    items.clear()
 
 def example_twins(tag):
     """Phase 34: the seven example twins on the card, each in its own
@@ -3935,6 +3966,199 @@ def host_pool_graphs(pt, dev, kern, tag):
           f"calls {tag}")
 
 
+#: phase 43's kernels (K1, K2, K3, K6's arena form): kernels-line name ->
+#: ``all_launches`` key
+ARENA_GRAPH_KERNELS = {"rows_append": "ring_kernels.append",
+                       "window_select_ears": "ring_kernels.select_ears",
+                       "window_select_multi": "ring_kernels.select_multi",
+                       "arena_step": "stream_kernels.arena_step"}
+#: each of phase 43's engines: the kernels it runs and the arena step's
+#: forms it launches (0 a leaf's step, ``arena_step``; 1 a seek read,
+#: ``arena_warp``; 2 a Fader, ``fader_step``).  Packs fuse no idle groups
+ARENA_GRAPH_PATH = {"spatial_sampler": (tuple(ARENA_GRAPH_KERNELS), {0, 2}),
+                    "seek_chains": (("arena_step",), {1}),
+                    "spatial_pack": (("rows_append", "window_select_ears", "arena_step"),
+                                     {0, 2})}
+#: (label, 8-block render) of phase 43's graph engines, profiled at the end
+ARENA_BUSY = []
+
+
+def _arena_graph_scene(pt, kind, dev):
+    """Phase 43's engine ``kind`` from seed 0: the 4096-voice spatial
+    sampler or seek chains (``scene_profile.build_spatial_sampler``,
+    ``build_seek_chains``), or a 1 x 1 ScenePack of 16 spatial samplers of
+    256 voices (scene s from seed s).  Returns (Renderer or pack, the
+    engine whose prepare is timed, the control scripts (``SpatialDriver``),
+    a renderer of ``nb`` blocks to device tensors)."""
+    from oddio_tpu_torch.parallel.mesh import make_mesh
+    from oddio_tpu_torch.parallel.sharded import ScenePack
+    from oddio_tpu_torch.utils.scene_profile import build_seek_chains, build_spatial_sampler
+
+    if kind == "spatial_pack":
+        drvs = [build_spatial_sampler(256, dev, seed=s, capacity=32, k=16) for s in range(16)]
+        pack = ScenePack([d.scene for d in drvs], RATE, make_mesh(1, 1, [dev]))
+        return pack, pack, drvs, lambda nb: pack.render_frames_device(BLOCK * nb)
+    build = build_spatial_sampler if kind == "spatial_sampler" else build_seek_chains
+    drv = build(VOICES, dev)
+    r = pt.Renderer(drv.scene, RATE, scan_buckets=BENCH_BUCKETS)
+    return r, drv.scene, [drv], lambda nb: r.render_frames_device(BLOCK * nb, sync=False)
+
+
+def _new_frames(pt):
+    """A new sound and a FramesSignal over it: the global sample arena's
+    device tensors (plain and guarded) are replaced."""
+    pt.FramesSignal(pt.Frames.from_slice(44100, np.linspace(-0.1, 0.1, 4000,
+                                                            dtype=np.float32)))
+
+
+def _captured(r):
+    """The steps of ``r`` that hold a CUDA graph."""
+    return sum(st.graph is not None for steps in r._steps.values() for st in steps.values())
+
+
+def _arena_script(pt, kind, r, drvs, render, mode):
+    """Phase 43's control script: 8 blocks, then 8 ticks each followed by 4
+    blocks (every tick 64 moves, one discontinuous; every second tick 64
+    speed writes and 64 fades; Speed voice 0 past the arena step's bound at
+    tick 2 and back at tick 4; 64 plays that grow a full pool at tick 3),
+    a new ``Frames``, then 64 blocks (idle once the moves' 0.5 s smoothing
+    has passed: fused groups); the pack: 4 blocks, then the same as 3 ticks
+    each followed by 4 blocks, a new ``Frames`` and 4 blocks.  Returns
+    (the blocks, the graphs that growth and the new arena may recapture)."""
+    pack = kind == "spatial_pack"
+    ticks, after = (3, 4) if pack else (8, 64)
+    bound, grow = ({1: 5.0, 2: 1.0}, 1) if pack else ({2: 5.0, 4: 1.0}, 3)
+    forced = 0
+    with _mode(mode):
+        out = list(render(4 if pack else 8))
+        for t in range(ticks):
+            for d in drvs:
+                d.tick()
+                if d.speeds and t in bound:
+                    d.speeds[0].set_speed(bound[t])
+            if t == grow:
+                forced += _captured(r) if mode == "graph" else 0
+                for d in drvs:
+                    d.play(d.k)
+            out += render(4)
+        forced += _captured(r) if mode == "graph" else 0
+        _new_frames(pt)
+        out += render(after)
+    return out, forced
+
+
+def spatial_arena_graphs(pt, dev, kern, tag):
+    """Phase 43: the spatial sampler, the seek chains and the spatial
+    sampler pack, graph replay against eager dispatch (see the module
+    docstring)."""
+    from oddio_tpu_torch.ops import stream_kernels as SK
+
+    totals = {"captures": 0, "recaptures": 0, "replays": 0, "eager": 0}
+    launch = SK._step_launch
+    for kind in ARENA_GRAPH_PATH:
+        runs = {}
+        for mode in ("eager", "graph"):
+            t0 = time.perf_counter()
+            r, engine, drvs, render = _arena_graph_scene(pt, kind, dev)
+            built = time.perf_counter() - t0
+            if not engine.graph_capture:
+                raise AssertionError(f"phase 43 {kind}: the engine does not declare "
+                                     f"graph_capture")
+            forms = {"eager": set(), "captured": set()}
+
+            def spy(garena, kind_, form, *a, _forms=forms, **kw):
+                _forms["captured" if torch.cuda.is_current_stream_capturing()
+                       else "eager"].add(form)
+                return launch(garena, kind_, form, *a, **kw)
+
+            SK._step_launch = spy
+            try:
+                reset_launches()
+                out, forced = _arena_script(pt, kind, r, drvs, render, mode)
+                torch.cuda.synchronize()
+                x = torch.cat([o.reshape(-1) for o in out]).cpu().numpy() + np.float32(0.0)
+                scenes = getattr(engine, "scenes", [engine])
+                rings = [p.dr_state()["ring"].data_ptr() for sc in scenes
+                         for p in sc._buffered_pools.values()]
+                counts = dict(r.graph_counts)
+                # the timed runs count too: their idle runs fuse groups (K3)
+                with _mode(mode):
+                    host_ms, prep_ms, wall = _timed_idle(r, engine)
+                    ctl_ms = _timed_first(r, engine, lambda: [d.move() for d in drvs])
+                    fade_ms = (_timed_first(r, engine, lambda: [d.retune() for d in drvs])
+                               if drvs[0].faders else None)
+                torch.cuda.synchronize()
+                launches = all_launches()
+            finally:
+                SK._step_launch = launch
+            if not np.isfinite(x).all() or np.abs(x).max() <= 1e-3:
+                raise AssertionError(f"phase 43 {kind} {mode}: non-finite or silent output")
+            moved = [p.dr_state()["ring"].data_ptr() for sc in scenes
+                     for p in sc._buffered_pools.values()]
+            if moved != rings:
+                raise AssertionError(f"phase 43 {kind} {mode}: a ring moved after the script")
+            engine.sync()
+            fin = [h.is_finished() for h in drvs[0].voices]
+            runs[mode] = (x, launches, counts, host_ms, prep_ms, wall, ctl_ms, fade_ms, built,
+                          dict(r.graph_counts), forms, forced, fin)
+            with _mode(mode):  # the moves' 0.5 s smoothing passes: the profiles see idle blocks
+                _frames(r, BLOCK * 48)
+            if mode == "graph":
+                ARENA_BUSY.append((kind, lambda r=r: _render8(r, "graph")))
+            BLOCK_PROFILES.append((43, f"the {kind} {mode} (8 idle blocks)",
+                                   (lambda r=r, m=mode: _render8(r, m)), 8))
+        (xe, le, ce, he, pe, we, cte, fe, be, _, fme, _, fine), \
+            (xg, lg, cg, hg, pg, wg, ctg, fg, bg, total, fmg, forced, fing) = (
+                runs["eager"], runs["graph"])
+        # the script's blocks, then the timed runs': 47 + 188 idle, 10 + 10 one-block
+        nscript = 20 if kind == "spatial_pack" else 104
+        nb = nscript + 235 + (20 if fe is not None else 10)
+        err = float(np.abs(xg - xe).max()) if xg.shape == xe.shape else float("inf")
+        if err != 0.0:
+            raise AssertionError(f"phase 43 {kind}: graph replay differs from eager dispatch "
+                                 f"by {err} (-0.0 taken as 0.0)")
+        if lg != le:
+            raise AssertionError(f"phase 43 {kind}: launches eager {le} graph {lg}")
+        names, want_forms = ARENA_GRAPH_PATH[kind]
+        missing = [k for k in names if not lg.get(ARENA_GRAPH_KERNELS[k])]
+        if missing or fmg["captured"] != want_forms or fme["eager"] != want_forms:
+            raise AssertionError(f"phase 43 {kind}: {missing} never launched ({lg}); arena "
+                                 f"step forms captured {fmg['captured']}, eager "
+                                 f"{fme['eager']}, want {want_forms}")
+        if fing != fine:
+            raise AssertionError(f"phase 43 {kind}: handles' is_finished differ from eager")
+        calls = total["replays"] + total["eager"]
+        share = total["replays"] / calls
+        if share < 0.9 or not 0 < total["recaptures"] <= forced:
+            raise AssertionError(f"phase 43 {kind}: graph_counts over the script {cg}, with "
+                                 f"the timed runs {total}: replays {share:.3f} of the calls, "
+                                 f"recaptures allowed by growth and the new arena {forced}")
+        for k, v in total.items():
+            totals[k] += v
+        for name in names:
+            kern[name].setdefault("graph_launches", {})[kind] = (
+                lg[ARENA_GRAPH_KERNELS[name]] / nb)
+        xrt = lambda w: 188 * BLOCK / RATE / w  # noqa: E731
+        per = " per scene" if kind == "spatial_pack" else ""
+        fades = "" if fe is None else f", fade: eager {fe:.4f} graph {fg:.4f}"
+        print(f"phase 43 {kind}: built in {be:.2f}/{bg:.2f} s, {nscript} "
+              f"blocks, graph vs eager max|diff| {err:.3e} (bit-equal, -0.0 as 0.0); launches "
+              f"a block over them and the timed runs ({nb} blocks) "
+              f"{ {k: round(v / nb, 3) for k, v in lg.items()} } (equal), arena step forms "
+              f"in the graphs {sorted(fmg['captured'])}; is_finished equal "
+              f"({sum(fing)} of {len(fing)} finished); graph_counts over the script {cg}, with "
+              f"the timed runs {total} (recaptures <= {forced}, the graphs held at the growth "
+              f"and at the new arena): replays {share:.3f} of {calls} calls (eager run "
+              f"{ce['eager']} op-by-op calls); rings unmoved; dispatch host ms a block, idle: "
+              f"eager {he:.4f} graph {hg:.4f}, control ({drvs[0].k} moves{per}): eager "
+              f"{cte:.4f} graph "
+              f"{ctg:.4f}{fades}; host_prepare ms a block eager {pe:.4f} graph {pg:.4f}; 188 "
+              f"idle blocks xRT{per} eager {xrt(we):.2f}x graph {xrt(wg):.2f}x {tag}")
+    calls = totals["replays"] + totals["eager"]
+    print(f"phase 43: graph runs {totals}, replays {totals['replays'] / calls:.3f} of {calls} "
+          f"calls {tag}")
+
+
 def _control_period(control, render, mode):
     """A block profile's call: one control period of 8 blocks in
     ``mode``."""
@@ -4111,6 +4335,8 @@ def main():
     mesh_paths(pt, dev, kern, tag)
     # -- 42. the mesh packs' block steps as CUDA graphs, one per cell -------------------
     mesh_graphs(pt, dev, kern, tag)
+    # -- 43. the last spatial pools' block steps as CUDA graphs --------------------------
+    spatial_arena_graphs(pt, dev, kern, tag)
 
     # the one-kernel checks first, then the heavy path profiles
     read_kernel_counts(captured, tag)
@@ -4120,6 +4346,7 @@ def main():
           f"{tag}")
     block_profiles(tag)
     mesh_busy(tag)
+    graph_busy(43, ARENA_BUSY, tag)
     profile_device(tag)
     print(json.dumps({"kernels": [kernel_line(name, k) for name, k in kern.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,9 @@ passes ``device``).
 The JAX package compiles one donated program per ``(archetype, kind, pack
 spec)``: ``"single"`` (one block), ``"scan"`` (a run of equal-archetype
 blocks) and ``("multi", nb)`` (fused idle groups).  Here a signal that
-declares ``graph_capture`` (the main path's SpatialScene, the seek
-sampler and the host-pool scene; a Mixer of BASELINE config 5's, config
+declares ``graph_capture`` (a SpatialScene of built-in chains in any
+pool kind: the main path's, the samplers', the seek chains' and the
+host-pool scene; a Mixer of BASELINE config 5's, config
 4's, config 2's or the wavetable's voices, of host pools of such chains
 or of capturing submixes; a wrapper chain of Reinhard, Tanh, MonoToStereo
 or Downmix around either, which forwards it) gets one block step per

@@ -28,13 +28,14 @@ as tensors unpacked from one row on the device, ``core/drctrl.
 device_param``); every lane of the delta arrays is applied on the device,
 padding lanes dropped (``core/drctrl.scatter_drop_``).  Rings are updated
 in place.  A scene whose every pool reads its per-block values from the
-params, the state or its archetype entry (device-resident pools of Sine
-voices or stream chains, seek pools of mono FramesSignal voices, host
-buffered pools of ``mixer._GRAPH_NODES`` chains with K4/K5's operand
-record in the packed row, submixes whose engine captures) declares
-``graph_capture``: its Renderer then replays each block (or idle group)
-as one CUDA graph.  Every render, stepped or op by op, reads the host
-values of its run's own archetype (``render_archetype``).
+params, the state or its archetype entry (device-resident seek and
+buffered pools of ``mixer._GRAPH_NODES`` chains: Sine, stream and sampler
+voices, Cycle, Constant, FixedGain, Speed, Fader and the limiters, the
+arena steps inside; host buffered pools of such chains with K4/K5's
+operand record in the packed row; submixes whose engine captures)
+declares ``graph_capture``: its Renderer then replays each block (or
+idle group) as one CUDA graph.  Every render, stepped or op by op, reads
+the host values of its run's own archetype (``render_archetype``).
 """
 
 from __future__ import annotations
@@ -46,7 +47,6 @@ import torch
 
 from .core.drctrl import (DRCtrlMixin, PinnedUpload, _upload, device_param, drop_lanes,
                           scatter_drop_, scatter_rows_drop_)
-from .core.frames import FramesSignal
 from .core.hostmath import (
     f32,
     full,
@@ -90,7 +90,6 @@ from .ops.ring_kernels import (
     strip_select_record,
     voice_record,
 )
-from .ops.sine import Sine
 from .ops.stream_kernels import ring_place_plain, ring_place_record
 from .parallel.context import (RenderDevice, add_block, current_scenes, in_block_step,
                                localize_index)
@@ -2048,20 +2047,11 @@ class _BufferedPoolDR(_DRPoolBase):
 def _pool_captures(p):
     """Whether a scene's pool reads every per-block value from the params,
     the state or its archetype entry (``SpatialScene.graph_capture``)."""
-    if isinstance(p, _SeekPoolDR):
-        return type(p.proto) is Sine or (type(p.proto) is FramesSignal
-                                          and p.proto.dr_seek_supported())
-    if isinstance(p, _BufferedPoolDR):
-        return _graph_chain(p.proto) and not _arena_reader(p.proto)
+    if isinstance(p, (_SeekPoolDR, _BufferedPoolDR)):
+        return _graph_chain(p.proto)
     if isinstance(p, _BufferedPoolSingleton):
         return bool(getattr(p.sig, "graph_capture", False))
     return isinstance(p, _BufferedPool) and _graph_chain(p.sig)
-
-
-def _arena_reader(node):
-    """Whether a chain reads a sample arena (FramesSignal, Cycle)."""
-    return getattr(node, "arena_kind", None) is not None or any(
-        _arena_reader(c) for c in node.children().values())
 
 
 def _next_pow2(x):
@@ -2264,14 +2254,18 @@ class SpatialScene(Engine):
     def graph_capture(self):
         """True while every pool renders from the params, the state or the
         key alone (``_pool_captures``): device-resident seek and buffered
-        pools of the main path's Sine voices, seek pools of mono
-        FramesSignal voices (the seek sampler), buffered pools of stream
-        chains (Adapt(Stream), Stream; their ingest chunk in the row), host
-        buffered pools of ``mixer._GRAPH_NODES`` chains (Speed(Stream):
+        pools of ``mixer._GRAPH_NODES`` chains (the main path's Sine
+        voices; buffered FramesSignal, Speed(FramesSignal),
+        Fader(Speed(FramesSignal)) and Cycle voices, ``arena_step`` and
+        ``fader_step`` writing their rings; seek Cycle, Constant, FixedGain,
+        Reinhard and Tanh chains, ``arena_warp`` reading a Cycle or
+        FramesSignal leaf under them; stream chains with their ingest chunk
+        in the row), host buffered pools of such chains (Speed(Stream):
         K4/K5's operand record in the row) and submixes whose engine
         captures.  A Renderer then captures the block step as a CUDA
-        graph.  Host seek pools and buffered pools of FramesSignal or
-        Cycle voices keep op-by-op dispatch."""
+        graph.  Host seek pools (user signals with a finish rule of their
+        own) and pools of any chain holding a user signal keep op-by-op
+        dispatch."""
         return all(_pool_captures(p) for p in self._all_pools())
 
     def archetype(self):

@@ -247,17 +247,23 @@ def carry_mixer(src, dst):
 def _carry_fades(a, b, pairs):
     """A device-resident pool's fade mirrors, and its released fade
     targets: ``b``'s script issued the same ``fade_to`` calls, which wait
-    in its queue; each moves into the bank ``a`` released it into (its
-    handles rebound there) and pairs its sampler offsets."""
+    in its queue, or which ``b`` released into the same bank itself (a
+    spatial scene's pools step through the same block preparations); each
+    moves into the bank ``a`` released it into (its handles rebound there)
+    and pairs its sampler offsets."""
     for name in ("_fade_prog", "_fade_inc", "_fade_fading", "_fade_flip", "_fade_dur"):
         setattr(b, name, {p: v.copy() for p, v in getattr(a, name).items()})
+    released = b._extra_specs
     b._extra_specs, b._extra_by_slot = {}, {}
     for (slot, path, bank), spec_a in a._extra_specs.items():
         queued = b.pending_fades[path].pop(slot, None)
-        if queued is None:
+        if queued is not None:
+            spec_b = queued[0]
+        elif (slot, path, bank) in released:
+            spec_b = released[(slot, path, bank)]
+        else:
             raise ValueError(f"slot {slot}: the port's script did not issue the fade "
                              f"the JAX pool released")
-        spec_b = queued[0]
         _pair_offsets(pairs, spec_a, spec_b)
         b._set_extra(slot, path, bank, spec_b)
         b._rebind_ctrl(spec_b, slot, int(a.slot_gen[slot]), path + (bank,))

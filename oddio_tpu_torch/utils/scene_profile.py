@@ -1,7 +1,7 @@
 """Where a block's time goes on a CUDA card: the bench scenes at 4096 voices
 through ``Renderer.render_frames_device``, timed and traced.
 
-    python -m oddio_tpu_torch.utils.scene_profile [buffered|seek|buffered_mixed|subpass|mixer|hostpools|pack|pack256|pack2x2|spatialpack|densemix|sampler|wavetable|seek_sampler|sampler_pack|hostpack|hostpack2x2|seek_eager|buffered_eager|buffered_mixed_eager|subpass_eager|mixer_eager|hostpools_eager|pack_eager|pack256_eager|pack2x2_eager|spatialpack_eager|densemix_eager|wavetable_eager|sampler_eager|seek_sampler_eager|sampler_pack_eager|hostpack_eager|hostpack2x2_eager ...]
+    python -m oddio_tpu_torch.utils.scene_profile [buffered|seek|buffered_mixed|subpass|mixer|hostpools|pack|pack256|pack2x2|spatialpack|densemix|sampler|wavetable|seek_sampler|sampler_pack|hostpack|hostpack2x2|spatial_sampler|seek_chains|LABEL_eager ...]
 
 For the main path's four scenes (``build_main_path``: bench.py's seek,
 buffered, buffered_mixed and subpass scenes at 4096 voices), the AGC
@@ -21,8 +21,13 @@ writes and fades every 8 blocks, ``build_wavetable``; the dense mix and
 the wavetable with bench.py's dispatch, ``scan_unroll`` 4 and
 ``BUCKETS`` for the dense mix, ``BUCKETS`` for the wavetable), the seek
 sampler (``build_seek_sampler``: 1024 mono FramesSignal voices in a
-SpatialScene's seek pool), all replaying CUDA graphs, with their
-``_eager`` twins op by op, and the two packs
+SpatialScene's seek pool), the 4096-voice spatial sampler
+(``build_spatial_sampler``: FramesSignal, Speed, Fader and Cycle voices
+in device-resident buffered pools) and seek chains
+(``build_seek_chains``: Cycle, FixedGain(FramesSignal) and
+Tanh(FixedGain(Sine)) voices in device-resident seek pools), all
+replaying CUDA graphs, with their ``_eager`` twins op by op, and the two
+packs
 of one session each (``build_sampler_pack``: 16 sampler scenes of 64
 voices, each on its own script, as ``sampler_pack``, replaying graphs,
 and ``sampler_pack_eager``;
@@ -63,6 +68,7 @@ __all__ = ["build_spatial", "build_main_path", "MAIN_PATH", "BUCKETS", "build_mi
            "build_pack_scene", "build_spatial_pack", "build_densemix", "densemix_voice",
            "build_wavetable", "wavetable_frames", "wavetable_voice",
            "build_sampler", "SamplerDriver", "build_seek_sampler", "build_sampler_pack",
+           "build_spatial_sampler", "build_seek_chains", "SpatialDriver",
            "build_host_pools_pack", "build_mixer_host_pools", "PackDriver",
            "build_checkpoint_scene", "feed", "card_line", "main"]
 
@@ -414,6 +420,25 @@ def _sampler_scene(frames, rng, voices, device, seconds, **script):
     return drv
 
 
+#: the spatial samplers' sounds: mono, 44.1 kHz, 2.5 s, voices starting
+#: in their first 2 s (they end, linger and are reclaimed inside a run)
+SPATIAL_SECONDS, SPATIAL_START = 2.5, 2.0
+
+
+def _mono_sounds(rng, sounds, seconds):
+    """``sounds`` mono ``Frames`` of ``seconds`` at 44.1 kHz drawn from
+    ``rng``: a few partials and noise."""
+    n = int(seconds * SAMPLER_RATE)
+    t = np.arange(n, dtype=np.float64) / SAMPLER_RATE
+    frames = []
+    for _ in range(sounds):
+        f = rng.uniform(80, 2000, 3)
+        x = sum(np.sin(2 * np.pi * fk * t + rng.uniform(0, 6)) for fk in f) / 3
+        frames.append(pt.Frames.from_slice(SAMPLER_RATE, (0.4 * x + 0.05 * rng.standard_normal(n))
+                                           .astype(np.float32)))
+    return frames
+
+
 def build_seek_sampler(voices, device, seed=0, sounds=8, seconds=10.0):
     """Sound effects placed in the world: ``voices`` mono ``FramesSignal``
     voices over ``sounds`` mono sounds of ``seconds`` at 44.1 kHz (a few
@@ -423,14 +448,7 @@ def build_seek_sampler(voices, device, seed=0, sounds=8, seconds=10.0):
     warped read is 2*voices rows).  Returns ``(control, scene, handles,
     rng)``."""
     rng = np.random.default_rng(seed)
-    n = int(seconds * 44100)
-    t = np.arange(n, dtype=np.float64) / 44100
-    frames = []
-    for _ in range(sounds):
-        f = rng.uniform(80, 2000, 3)
-        x = sum(np.sin(2 * np.pi * fk * t + rng.uniform(0, 6)) for fk in f) / 3
-        frames.append(pt.Frames.from_slice(44100, (0.4 * x + 0.05 * rng.standard_normal(n))
-                                           .astype(np.float32)))
+    frames = _mono_sounds(rng, sounds, seconds)
     control, scene = pt.SpatialScene.new(initial_capacity=voices, device=device)
     hs = []
     for _ in range(voices):
@@ -439,6 +457,154 @@ def build_seek_sampler(voices, device, seed=0, sounds=8, seconds=10.0):
         hs.append(control.play(sig, pt.SpatialOptions(position=rng.uniform(-15, 15, 3),
                                                       velocity=rng.uniform(-5, 5, 3))))
     return control, scene, hs, rng
+
+
+class SpatialDriver:
+    """A spatial scene of sampler voices and its control script (``tick``
+    every 4 blocks): ``move``, ``set_motion`` on the next ``k`` voices (a
+    smoothed move of up to 1 m, the first of them a discontinuous jump
+    within 30 m), and every second tick ``retune``, ``set_speed`` on the
+    next ``k`` Speed voices (uniform in [0.8, 1.25]) and ``fade_to`` a
+    fresh ``Speed(FramesSignal)`` on the next ``k`` Fader voices over 0.05
+    s; ``play(k)`` plays ``k`` more voices of the scene's growth kind.
+    ``voices`` are the motion handles, ``pos`` their positions, ``speeds``
+    the Speed handles (a speed of 5.0 steps past ``RESAMPLE_DSMAX``: the
+    whole-arena gather)."""
+
+    def __init__(self, scene, frames, rng, k, play):
+        self.scene, self.frames, self.rng, self.k, self._play = scene, frames, rng, k, play
+        self.voices, self.pos, self.speeds, self.faders = [], [], [], []
+        self._next = {"voices": 0, "speeds": 0, "faders": 0}
+        self.ticks = 0
+
+    def add(self, handle, pos):
+        self.voices.append(handle)
+        self.pos.append(np.asarray(pos, np.float64))
+
+    def source(self):
+        """A ``Speed(FramesSignal)`` on a sound drawn uniformly, starting
+        uniform in [0, SPATIAL_START) s, at a speed uniform in [0.8, 1.25]."""
+        fr = self.frames[int(self.rng.integers(len(self.frames)))]
+        sc, sp = pt.Speed.new(pt.FramesSignal(fr, float(self.rng.uniform(0, SPATIAL_START))))
+        sc.set_speed(float(self.rng.uniform(0.8, 1.25)))
+        return sc, sp
+
+    def _take(self, name):
+        items = getattr(self, name)
+        if not items:
+            return []
+        i0 = self._next[name]
+        idx = [(i0 + j) % len(items) for j in range(min(self.k, len(items)))]
+        self._next[name] = (i0 + len(idx)) % len(items)
+        return idx
+
+    def move(self):
+        rng = self.rng
+        for j, i in enumerate(self._take("voices")):
+            if j == 0:
+                self.pos[i] = rng.uniform(-30, 30, 3)
+                self.voices[i].set_motion(self.pos[i], rng.uniform(-5, 5, 3), True)
+            else:
+                self.pos[i] = self.pos[i] + rng.uniform(-1, 1, 3)
+                self.voices[i].set_motion(self.pos[i], rng.uniform(-5, 5, 3), False)
+
+    def retune(self):
+        for i in self._take("speeds"):
+            self.speeds[i].set_speed(float(self.rng.uniform(0.8, 1.25)))
+        for i in self._take("faders"):
+            self.faders[i].fade_to(self.source()[1], 0.05)
+
+    def tick(self):
+        self.move()
+        if self.ticks % 2 == 0:
+            self.retune()
+        self.ticks += 1
+
+    def play(self, k):
+        for _ in range(k):
+            self._play(self)
+
+
+def build_spatial_sampler(voices, device, seed=0, sounds=8, capacity=512, k=64):
+    """Sound effects placed in the world with propagation delay and
+    doppler, at bench.py's spatial width: ``voices`` voices played with
+    ``play_buffered(max_distance=100, rate=48000, buffer_duration=0.1)``
+    into a SpatialScene's device-resident buffered pools, opened at
+    ``capacity`` voices each: half ``FramesSignal``, a quarter
+    ``Speed(FramesSignal)``, an eighth ``Fader(Speed(FramesSignal))`` and an
+    eighth ``Cycle`` over bench.py's wavetable (``wavetable_frames``,
+    seeked uniform in [0, 0.04) s).  The FramesSignal voices draw from
+    ``sounds`` mono sounds of 2.5 s at 44.1 kHz (from ``seed``), each
+    starting uniform in [0, 2) s at a speed uniform in [0.8, 1.25] (Speed
+    voices); positions uniform within 30 m, velocities within 5 m/s a
+    component.  Returns a ``SpatialDriver`` (``k`` handles a tick; its
+    ``play`` adds Cycle voices)."""
+    rng = np.random.default_rng(seed)
+    frames = _mono_sounds(rng, sounds, SPATIAL_SECONDS)
+    table = wavetable_frames()
+    control, scene = pt.SpatialScene.new(initial_capacity=capacity, device=device)
+
+    def play(drv, kind="cycle"):
+        pos, vel = rng.uniform(-30, 30, 3), rng.uniform(-5, 5, 3)
+        if kind == "frames":
+            fr = frames[int(rng.integers(sounds))]
+            sig = pt.FramesSignal(fr, float(rng.uniform(0, SPATIAL_START)))
+        elif kind == "speed":
+            sc, sig = drv.source()
+            drv.speeds.append(sc)
+        elif kind == "fader":
+            sc, sp = drv.source()
+            drv.speeds.append(sc)
+            fc, sig = pt.Fader.new(sp)
+            drv.faders.append(fc)
+        else:
+            sig = pt.Cycle(table)
+            sig.seek(float(rng.uniform(0, 0.04)))
+        drv.add(control.play_buffered(sig, pt.SpatialOptions(position=pos, velocity=vel),
+                                      max_distance=100.0, rate=RATE, buffer_duration=0.1), pos)
+
+    drv = SpatialDriver(scene, frames, rng, k, play)
+    for kind, share in (("frames", 2), ("speed", 4), ("fader", 8), ("cycle", 8)):
+        for _ in range(voices // share):
+            play(drv, kind)
+    return drv
+
+
+def build_seek_chains(voices, device, seed=0, sounds=8, capacity=1024, k=64):
+    """Wavetable and limited voices placed with ``play()``: ``voices``
+    voices in a SpatialScene's device-resident seek pools, opened at
+    ``capacity`` voices each: half ``Cycle`` over bench.py's wavetable
+    (seeked uniform in [0, 0.04) s), a quarter ``FixedGain(FramesSignal)``
+    (-12 to 0 dB, on ``sounds`` mono sounds of 2.5 s at 44.1 kHz from
+    ``seed``, starting uniform in [0, 2) s) and a quarter
+    ``Tanh(FixedGain(Sine))`` (0 to 12 dB into the limiter, 50-2000 Hz);
+    positions uniform within 30 m, velocities within 5 m/s a component.
+    Returns a ``SpatialDriver`` (``k`` handles a tick; its ``play`` adds
+    Tanh voices)."""
+    rng = np.random.default_rng(seed)
+    frames = _mono_sounds(rng, sounds, SPATIAL_SECONDS)
+    table = wavetable_frames()
+    control, scene = pt.SpatialScene.new(initial_capacity=capacity, device=device)
+
+    def play(drv, kind="tanh"):
+        pos, vel = rng.uniform(-30, 30, 3), rng.uniform(-5, 5, 3)
+        if kind == "cycle":
+            sig = pt.Cycle(table)
+            sig.seek(float(rng.uniform(0, 0.04)))
+        elif kind == "frames":
+            fr = frames[int(rng.integers(sounds))]
+            sig = pt.FixedGain(pt.FramesSignal(fr, float(rng.uniform(0, SPATIAL_START))),
+                               float(rng.uniform(-12, 0)))
+        else:
+            sig = pt.Tanh(pt.FixedGain(pt.Sine(rng.uniform(0, 6), rng.uniform(50, 2000)),
+                                       float(rng.uniform(0, 12))))
+        drv.add(control.play(sig, pt.SpatialOptions(position=pos, velocity=vel)), pos)
+
+    drv = SpatialDriver(scene, frames, rng, k, play)
+    for kind, share in (("cycle", 2), ("frames", 4), ("tanh", 4)):
+        for _ in range(voices // share):
+            play(drv, kind)
+    return drv
 
 
 def build_sampler_pack(scenes, voices, device, seed=0, sounds=8, seconds=10.0, mesh=None):
@@ -642,7 +808,8 @@ def profile_scene(label):
     ``mixer_eager``, ``hostpools_eager``, ``pack_eager``,
     ``pack2x2_eager``, ``densemix_eager``, ``wavetable_eager``,
     ``sampler_eager``, ``seek_sampler_eager``, ``sampler_pack_eager``,
-    ``hostpack_eager``, ``hostpack2x2_eager``)
+    ``hostpack_eager``, ``hostpack2x2_eager``, ``spatial_sampler_eager``,
+    ``seek_chains_eager``)
     runs it under ``core.run.eager()``, op by op, where the plain label
     replays the Renderer's or the pack's CUDA graphs."""
     if label.endswith("_eager"):
@@ -702,6 +869,10 @@ def _profile_scene(label, shown):
         scene = drv.mixer
     elif label == "seek_sampler":
         _, scene, _, _ = build_seek_sampler(1024, "cuda")
+    elif label == "spatial_sampler":
+        scene = build_spatial_sampler(VOICES, "cuda").scene
+    elif label == "seek_chains":
+        scene = build_seek_chains(VOICES, "cuda").scene
     else:
         _, scene, _ = build_main_path(label, VOICES, "cuda")
     if label == "sampler_pack":
@@ -755,11 +926,13 @@ def _profile_scene(label, shown):
 
 SCENES = ("buffered", "seek", "buffered_mixed", "subpass", "mixer", "hostpools", "pack",
           "pack256", "pack2x2", "spatialpack", "densemix", "sampler", "wavetable",
-          "seek_sampler", "sampler_pack", "hostpack", "hostpack2x2") + tuple(
+          "seek_sampler", "sampler_pack", "hostpack", "hostpack2x2", "spatial_sampler",
+          "seek_chains") + tuple(
               f"{k}_eager" for k in MAIN_PATH + ("mixer", "hostpools", "pack", "pack256",
                                                  "pack2x2", "spatialpack", "densemix",
                                                  "wavetable", "sampler", "seek_sampler",
-                                                 "sampler_pack", "hostpack", "hostpack2x2"))
+                                                 "sampler_pack", "hostpack", "hostpack2x2",
+                                                 "spatial_sampler", "seek_chains"))
 
 
 def main(argv=None):

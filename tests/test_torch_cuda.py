@@ -17,7 +17,9 @@ K6's arena form exact (the sampler reads), and as whole steps
 plain versions (the Fader's but for the sign of an exact zero), and the
 dense-mix, sampler, wavetable and seek-sampler scenes and a 2 s sampler
 render within 1e-5 of the CPU; the host-pool scene and pack graph
-against eager bit for bit through a fly-by across K5's strip gate;
+against eager bit for bit through a fly-by across K5's strip gate; the
+spatial sampler and the seek chains graph against eager bit for bit, and
+their steps captured again after a new ``Frames``;
 K7, the whole Adapt step, within ``agc.agc_tolerance`` elementwise
 (another order of the prefix sum) at every block length up to 1024; K5 within ``ring_kernels.strip_tolerance``
 elementwise (its voice sum in another, fixed order); K8 within
@@ -1961,3 +1963,94 @@ def test_mesh_card_cpu_graph_matches_eager(cuda):
     # calls, all uncaptured, are as many
     warm = sum(len(steps) for key, steps in pg._steps.items() if key[-1] == (0, 0))
     assert c["eager"] - warm == warm + c["replays"]
+
+
+# -- the last spatial pools under CUDA graphs ---------------------------------------------
+
+
+def _arena_graph_run(kind, mode, script):
+    """``script(r, drv)`` on the spatial sampler (``build_spatial_sampler``:
+    FramesSignal, Speed, Fader and Cycle voices in device-resident buffered
+    pools) or the seek chains (``build_seek_chains``: Cycle,
+    FixedGain(FramesSignal) and Tanh(FixedGain(Sine)) voices in
+    device-resident seek pools) at 256 voices, pools opened at 32 voices,
+    under ``eager()`` or replaying graphs: (its result, launches, the
+    Renderer, the control script's ``SpatialDriver``)."""
+    import contextlib
+
+    from oddio_tpu_torch.core.run import eager
+    from oddio_tpu_torch.utils.scene_profile import build_seek_chains, build_spatial_sampler
+
+    build = build_spatial_sampler if kind == "spatial_sampler" else build_seek_chains
+    drv = build(256, "cuda", sounds=2, capacity=32, k=16)
+    r = pt.Renderer(drv.scene, 48000)
+    assert drv.scene.graph_capture
+    for m in (RK, SK, A, FK):
+        m.reset_launches()
+    with eager() if mode == "eager" else contextlib.nullcontext():
+        out = script(r, drv)
+    torch.cuda.synchronize()
+    return out, _all_launches(), r, drv
+
+
+def _arena_script(r, drv):
+    """8 blocks; 6 ticks of 16 moves (every second tick 16 speed writes and
+    16 fades), each followed by 4 blocks, Speed voice 0 past the arena
+    step's bound at tick 1 and back at tick 3, 16 plays that grow a pool at
+    tick 2; 96 blocks (idle after the moves' smoothing: fused groups).
+    Returns (the audio, the graph counts before the last run)."""
+    out = [r.render_frames(512 * 8)]
+    for t in range(6):
+        drv.tick()
+        if drv.speeds and t in (1, 3):
+            drv.speeds[0].set_speed(5.0 if t == 1 else 1.0)
+        if t == 2:
+            drv.play(16)
+        out.append(r.render_frames(512 * 4))
+    before = dict(r.graph_counts)
+    out.append(r.render_frames(512 * 96))
+    return np.concatenate(out), before
+
+
+@pytest.mark.parametrize("kind", ["spatial_sampler", "seek_chains"])
+def test_spatial_arena_graph_replay_matches_eager(cuda, kind):
+    """The 256-voice spatial sampler and seek chains through their script:
+    graph replay bit-equal to ``eager()`` (-0.0 as 0.0), every kernel's
+    launches equal (K1, K2, K3 and the arena step in the buffered pools'
+    scene, the arena step alone in the seek pools'), recaptures only up to
+    the growth, replays in the idle run, the handles' ``is_finished``
+    equal."""
+    (xe, le, re, de), (xg, lg, rg, dg) = [
+        _arena_graph_run(kind, mode, lambda r, d: _arena_script(r, d)[0])
+        for mode in ("eager", "graph")]
+    assert np.abs(xe).max() > 1e-2
+    np.testing.assert_array_equal(xg + np.float32(0.0), xe + np.float32(0.0))
+    assert lg == le
+    keys = ([f"{RK.__name__}.{k}" for k in ("append", "select_ears", "select_multi")]
+            if kind == "spatial_sampler" else []) + [f"{SK.__name__}.arena_step"]
+    assert all(lg.get(k) for k in keys), lg
+    c = rg.graph_counts
+    assert re.graph_counts["replays"] == 0 and c["replays"] > c["captures"] > 0
+    assert [h.is_finished() for h in dg.voices] == [h.is_finished() for h in de.voices]
+
+
+@pytest.mark.parametrize("kind", ["spatial_sampler", "seek_chains"])
+def test_spatial_arena_graph_recaptures_after_a_new_frames(cuda, kind):
+    """A new ``Frames`` (and a FramesSignal over it) after the scene's steps
+    were captured replaces the sample arena's tensors: every step that
+    reads it warms up and captures again before it replays, never reading
+    the old arena's address; bit-equal to ``eager()``."""
+
+    def script(r, drv):
+        out = [r.render_frames(512 * 24)]
+        before = dict(r.graph_counts)
+        pt.FramesSignal(pt.Frames.from_slice(44100, np.linspace(-0.1, 0.1, 3000,
+                                                                dtype=np.float32)))
+        out.append(r.render_frames(512 * 24))
+        return np.concatenate(out), before
+
+    ((xe, _), _, _, _), ((xg, before), _, rg, _) = [
+        _arena_graph_run(kind, mode, script) for mode in ("eager", "graph")]
+    np.testing.assert_array_equal(xg + np.float32(0.0), xe + np.float32(0.0))
+    assert before["recaptures"] == 0 and before["replays"] > 0
+    assert rg.graph_counts["recaptures"] > 0

@@ -1,5 +1,7 @@
 """The port's SpatialScene against the exact numpy oracle
-(tests/reference_impl.py) on a flyby and on bench.py's buffered scene, and
+(tests/reference_impl.py) on a flyby (a Sine source, and test_golden.py's
+FramesSignal source, through the Renderer's block step, also against the
+JAX package) and on bench.py's buffered scene, and
 on a scene whose host plan lists family
 sub-pass voices, against the JAX package — both to max |err| <= 1e-5 (the
 PARITY.md contract)."""
@@ -67,6 +69,68 @@ def test_golden_spatial_flyby_sine(buffered):
         t += BLOCK / RATE
     assert np.abs(buf).max() > 1e-3
     assert max(errs) <= TOL, errs
+
+
+def _flyby_frames(m, buffered):
+    """test_golden.py:159-206's fly-by in package ``m`` (``ot``, ``pt`` or
+    ``ref``, the exact oracle): a 500 Hz FramesSignal boop at 8 kHz flying
+    past a rotated listener at 30 m/s, a motion update at block 4 and a
+    discontinuous jump at block 8, played with ``play`` or
+    ``play_buffered``; 12 blocks of 512 frames, one ``render_block`` each
+    (the port: its Renderer's block step).  Returns (audio, renderer)."""
+    RATE, BLOCK, NBLK = 8000, 512, 12
+    tt = np.arange(RATE, dtype=F) / F(RATE)
+    boop = np.sin(tt * F(500 * 2 * np.pi), dtype=F)
+    pos, vel = [-20.0, 5.0, 0.0], [30.0, 0.0, 0.0]
+    rot = [np.cos(0.15), 0.0, np.sin(0.15), 0.0]
+    if m is ref:
+        scene = ref.OSpatialScene(exact=True)
+        sig = ref.OFramesSignal(ref.OFrames(RATE, boop), 0.0, exact=True)
+        h = (scene.play_buffered(sig, pos, vel, 0.1, max_distance=60.0, rate=RATE,
+                                 buffer_duration=0.1) if buffered
+             else scene.play(sig, pos, vel, 0.1))
+        r = None
+    else:
+        control, scene = m.SpatialScene.new(**({"device": "cpu"} if m is pt else {}))
+        sig = m.FramesSignal(m.Frames.from_slice(RATE, boop), 0.0)
+        opts = m.SpatialOptions(position=pos, velocity=vel)
+        h = (control.play_buffered(sig, opts, max_distance=60.0, rate=RATE,
+                                   buffer_duration=0.1) if buffered
+             else control.play(sig, opts))
+        control.set_listener_rotation(rot)
+        r = m.Renderer(scene, RATE)
+    if m is ref:
+        scene.set_listener_rotation(rot)
+    out, t = [], 0.0
+    for i in range(NBLK):
+        if i == 4:
+            h.set_motion([-20.0 + 30.0 * t, 5.0, 0.0], vel, False)
+        if i == 8:  # discontinuity jump
+            h.set_motion([10.0, 2.0, -3.0], [5.0, 0.0, 0.0], True)
+        if m is ref:
+            buf = np.zeros((BLOCK, 2), F)
+            ref.oddio_run(scene, RATE, buf)
+            out.append(buf)
+        else:
+            out.append(r.render_block(BLOCK))
+        t += BLOCK / RATE
+    return np.concatenate(out), r
+
+
+@pytest.mark.parametrize("buffered", [False, True])
+def test_golden_spatial_flyby_frames(buffered):
+    """test_golden.py:159-206's FramesSignal fly-by, both spatialization
+    paths, through the Renderer's block step (the scene declares
+    ``graph_capture``): within 1e-5 of the exact oracle, and of the JAX
+    Renderer within the JAX side's own distance from the oracle + 1e-5."""
+    want, _ = _flyby_frames(ref, buffered)
+    a, _ = _flyby_frames(ot, buffered)
+    b, r = _flyby_frames(pt, buffered)
+    assert r.signal.graph_capture and r._steps and r.dispatch_counts == {"single": 12}
+    assert np.abs(want).max() > 1e-3
+    err_jax = float(np.abs(a - want).max())
+    assert np.abs(b - want).max() <= TOL, (np.abs(b - want).max(), err_jax)
+    assert np.abs(b - a).max() <= err_jax + TOL
 
 
 def test_golden_bench_scene_buffered():
