@@ -674,17 +674,24 @@ def read_geometry(pool):
     return dict(DMAX=pool.emax2, FP=pool.W_CHUNK, cap=pool.cap_pool)
 
 
-def held(RK, key, label, call, plain, tol):
-    """Two calls of a K2/K3 wrapper: one launch each, bit-equal, within
-    ``tol`` of ``plain``; returns (max |diff|, share of the tolerance)."""
-    before = RK.LAUNCHES[key]
+def held(M, key, label, call, plain, tol):
+    """Two calls of a K2/K3 or K8/K10 wrapper (``M`` its module, ``key``
+    its ``LAUNCHES`` entry): one launch each, bit-equal, the cluster sum's
+    tickets left zeroed, within ``tol`` of ``plain``; returns (max |diff|,
+    share of the tolerance)."""
+    from oddio_tpu_torch.ops import ring_kernels as RK
+
+    before = M.LAUNCHES[key]
     got = call()
     again = call()
     torch.cuda.synchronize()
-    if RK.LAUNCHES[key] != before + 2:
-        raise AssertionError(f"{label}: {RK.LAUNCHES[key] - before} launches for 2 calls")
+    if M.LAUNCHES[key] != before + 2:
+        raise AssertionError(f"{label}: {M.LAUNCHES[key] - before} launches for 2 calls")
     if not torch.equal(got, again):
         raise AssertionError(f"{label}: two runs differ")
+    ticket = RK._CLUSTER_SCRATCH.get(got.device, (None, None))[1]
+    if ticket is not None and bool(ticket.any()):
+        raise AssertionError(f"{label}: a cluster ticket left set")
     if not float(plain.abs().max()) > 1e-3:
         raise AssertionError(f"{label}: a silent read")
     return within(got, plain, tol, label)
@@ -1284,20 +1291,6 @@ def within(got, plain, tol, label):
     return err, share
 
 
-def flat_select_operands(rng, dev, V, n, K, emax2):
-    """K8/K10 operands: scal (V, 2, 4) for |ds - 1| <= K/n, gains, a 0/1
-    mask, staggers below ``emax2``."""
-    def t(x, dtype=np.float32):
-        return torch.tensor(np.asarray(x, dtype), device=dev)
-
-    from oddio_tpu_torch.ops._dev import device_split_ds
-
-    di, fh, fl = device_split_ds(t(rng.uniform(1 - K / n, 1 + K / n, (V, 2))))
-    scal = torch.stack([t(rng.uniform(0, 1, (V, 2))), fh, fl, di.float()], -1).contiguous()
-    return (scal, t(rng.uniform(0, 0.1, (V, 2))), t(rng.uniform(-1e-4, 1e-4, (V, 2))),
-            t(rng.uniform(0, 1, V) > 0.2), t(rng.integers(0, emax2, (V, 2)), np.int32))
-
-
 def flat_read_span(RK, base, scal, extra, n, K):
     """Bytes K8/K10 must read: each voice's span over both ears' reads
     from ``base`` (V,) plus the lerp's next sample."""
@@ -1362,13 +1355,30 @@ def flat_append_check(dev, tag):
     return rec
 
 
+#: K8's and K10's figures before their redesign (PERF.md §6, chip_smoke.py
+#: on an NVIDIA H100 80GB HBM3 at 700 W): per call ms and device ms
+FLAT_BEFORE = {"window_select": "ms 0.1451-0.2321, device 0.0397-0.0406",
+               "dma_window_select": "ms 0.1640-0.1916, device 0.0283-0.0284"}
+#: (label, call) of phase 15's K8 and K10 calls, each one device kernel
+#: (``one_kernel``)
+FLAT_ONE = []
+
+
 def flat_kernels(dev, kern, tag):
     """Phase 15: K8, K9 and K10 against their plain versions at V = 4096,
-    n = 512.  No path of the package calls them (nor of the JAX package:
-    K2's test reference, a superseded append, a probe): their launches are
-    those counted on the path runs (``read_flat_launches``), not these."""
+    n = 512.  K8 and K10 take operands that are not contiguous (read in
+    place); two calls bit-equal with one launch each and the cluster
+    tickets left zeroed (``held``); one device kernel a call (the
+    profiler's count, ``one_kernel`` at the run's end); timed warm and
+    cold (each call on the next of 8 operand sets: K8's windows 12.6-14.7
+    MB each, K10's read starts over one 268 MB ring), beside their figures
+    before the redesign.  No path of the package calls them (nor of the
+    JAX package: K2's test reference, a superseded append, a probe): their
+    launches are those counted on the path runs (``read_flat_launches``),
+    not these."""
     from oddio_tpu_torch.ops import flat_kernels as FK
     from oddio_tpu_torch.ops import ring_kernels as RK
+    from oddio_tpu_torch.utils import kernel_bench as KB
 
     rng = np.random.default_rng(15)
     V, n, K = VOICES, BLOCK, 64
@@ -1378,26 +1388,31 @@ def flat_kernels(dev, kern, tag):
     errs = []
     for emax2 in (36, 163):
         win = torch.randn((V, RK.select_window(n, emax2, K)), device=dev)
-        ops = (win,) + flat_select_operands(rng, dev, V, n, K, emax2)
+        ops = (win,) + KB.flat_operands(dev, rng, V, n, K, emax2, strided=True)
         kw = dict(n=n, K=K, emax2=emax2)
-        plain = FK.window_select_plain(*ops, **kw)
-        got = FK.window_select(*ops, **kw)
-        torch.cuda.synchronize()
-        err, share = within(got, plain, FK.window_select_tolerance(*ops, n=n, K=K),
-                            f"window_select emax2={emax2}")
+        label = f"K8 window_select emax2={emax2}"
+        err, share = held(FK, "window_select", label, lambda: FK.window_select(*ops, **kw),
+                          FK.window_select_plain(*ops, **kw),
+                          FK.window_select_tolerance(*ops, n=n, K=K))
         errs.append(err)
-        tk = timed(f"K8 window_select emax2={emax2}", lambda: FK.window_select(*ops, **kw))
+        FLAT_ONE.append((label, lambda ops=ops, kw=kw: FK.window_select(*ops, **kw)))
+        tk = timed(label, lambda: FK.window_select(*ops, **kw))
+        tc = timed(f"{label}, cold", KB.cycling(KB.k8_sets(dev, rng, KB.SETS, K, emax2),
+                                                lambda *o, kw=kw: FK.window_select(*o, **kw)))
         pms = time_ms(lambda: FK.window_select_plain(*ops, **kw))
         # read spans, 60 bytes of operands per voice, the (2, n) output;
         # 21 f32 operations per (voice, ear, frame), as K2
         bms, by = bound(flat_read_span(RK, zero, ops[1], ops[5], n, K) + 60 * V + 8 * n,
                         21 * V * 2 * n)
-        print(f"K8 window_select emax2={emax2} V={V} n={n} K={K}: max|diff| {err:.3e} "
-              f"({share:.3f} of its tolerance); {times_str(tk)} vs plain {pms:.4f} ms, bound "
-              f"{bms:.4f} ms ({by}); launches: no path {tag}")
+        print(f"{label} V={V} n={n} K={K}: max|diff| {err:.3e} ({share:.3f} of its "
+              f"tolerance), operands not contiguous, one launch, two runs bit-equal, tickets "
+              f"zero; {times_str(tk)}, cold {times_str(tc)} [before the redesign: "
+              f"{FLAT_BEFORE['window_select']}] vs plain {pms:.4f} ms, bound {bms:.4f} ms "
+              f"({by}); launches: no path {tag}")
     kern["window_select"] = record("oddio_tpu/ops/pallas_ring.py:604",
                                    "oddio_tpu_torch/csrc/ring_kernels.cu", max(errs), tk, pms,
                                    bms, by)
+    kern["window_select"]["cold"] = tc
 
     kern["flat_append_aligned"] = flat_append_check(dev, tag)
 
@@ -1405,15 +1420,19 @@ def flat_kernels(dev, kern, tag):
     # the next row, as the TPU's fetch from the flat ring does)
     emax2, rowlen = 36, 4096
     ring = torch.randn((V, rowlen), device=dev)
-    rstart = torch.tensor(rng.integers(0, rowlen - 2048 + 600, V).astype(np.int32), device=dev)
-    rstart[-1] = 0
-    ops = (ring, rstart) + flat_select_operands(rng, dev, V, n, K, emax2)
+    rstart = KB.flat_rstart(dev, rng, V, rowlen)
+    ops = (ring, torch.stack([rstart, rstart], dim=1)[:, 0]) + KB.flat_operands(
+        dev, rng, V, n, K, emax2, strided=True)
     kw = dict(n=n, K=K, emax2=emax2)
-    plain = FK.dma_window_select_plain(*ops, **kw)
-    got = FK.dma_window_select(*ops, **kw)
-    torch.cuda.synchronize()
-    err, share = within(got, plain, FK.dma_tolerance(*ops, n=n, K=K), "dma_window_select")
-    tk = timed("K10 dma_window_select", lambda: FK.dma_window_select(*ops, **kw))
+    label = "K10 dma_window_select"
+    err, share = held(FK, "dma_window_select", label, lambda: FK.dma_window_select(*ops, **kw),
+                      FK.dma_window_select_plain(*ops, **kw),
+                      FK.dma_tolerance(*ops, n=n, K=K))
+    FLAT_ONE.append((label, lambda: FK.dma_window_select(*ops, **kw)))
+    tk = timed(label, lambda: FK.dma_window_select(*ops, **kw))
+    cring, csets = KB.k10_sets(dev, rng, KB.SETS, K, emax2)
+    tc = timed(f"{label}, cold", KB.cycling(
+        csets, lambda *o, kw=kw: FK.dma_window_select(cring, *o, **kw)))
     pms = time_ms(lambda: FK.dma_window_select_plain(*ops, **kw))
     base = torch.arange(V, device=dev) * rowlen + rstart.long()
     # read spans, 64 bytes of operands per voice, the (2, n) output; 23 f32
@@ -1422,8 +1441,11 @@ def flat_kernels(dev, kern, tag):
                     23 * V * 2 * n)
     kern["dma_window_select"] = record("oddio_tpu/ops/pallas_ring.py:1039",
                                        "oddio_tpu_torch/csrc/flat_kernels.cu", err, tk, pms, bms, by)
-    print(f"K10 dma_window_select V={V} n={n} K={K} emax2={emax2}: max|diff| {err:.3e} "
-          f"({share:.3f} of its tolerance); {times_str(tk)} vs plain {pms:.4f} ms, bound "
+    kern["dma_window_select"]["cold"] = tc
+    print(f"{label} V={V} n={n} K={K} emax2={emax2}: max|diff| {err:.3e} ({share:.3f} of its "
+          f"tolerance), operands not contiguous, windows past their row end, one launch, two "
+          f"runs bit-equal, tickets zero; {times_str(tk)}, cold {times_str(tc)} [before the "
+          f"redesign: {FLAT_BEFORE['dma_window_select']}] vs plain {pms:.4f} ms, bound "
           f"{bms:.4f} ms ({by}); launches: no path {tag}")
 
 
@@ -1886,19 +1908,20 @@ def step_paths(dev, kern, tag):
 
 
 #: (label, call) of one captured whole step per path, each one device
-#: kernel (``step_one_kernel``)
+#: kernel (``one_kernel``)
 STEP_ONE = []
 
 
-def step_one_kernel(tag):
-    """One device kernel for each path's whole arena step on its captured
-    state (the profiler's count, beside the launch counts)."""
+def one_kernel(phase, what, calls, tag):
+    """One device kernel for each ``(label, call)`` of ``calls`` (the
+    profiler's count, beside the launch counts): phase 27's whole arena
+    steps on their captured states, phase 15's K8 and K10 calls."""
     from oddio_tpu_torch.utils import kernel_bench as KB
 
-    counts = {label: KB.device_profile(fn, reps=1, exact=True)[1] for label, fn in STEP_ONE}
-    print(f"phase 27 profile: device kernels per arena step {counts} {tag}")
+    counts = {label: KB.device_profile(fn, reps=1, exact=True)[1] for label, fn in calls}
+    print(f"phase {phase} profile: device kernels per {what} {counts} {tag}")
     if any(k != 1 for k in counts.values()):
-        raise AssertionError(f"an arena step is not one device kernel: {counts}")
+        raise AssertionError(f"a {what} is not one device kernel: {counts}")
 
 
 def _sampler_launches(SK, label, nblk):
@@ -4220,10 +4243,12 @@ def main():
 
     # -- 3. kernels vs plain at main-path shapes -------------------------------------
     kern = {}
-    # phases 20 and 25, K6's arena form and its whole steps, run first: a
-    # fault in them shows in seconds
+    # phases 20 and 25, K6's arena form and its whole steps, and phase 15
+    # run first: a fault in them shows in seconds
     arena_kernel(dev, kern, tag)
     step_kernel(dev, tag)
+    # phase 15, K8-K10 (no path), too
+    flat_kernels(dev, kern, tag)
 
     kern["rows_append"] = rows_append_check(dev, tag)
 
@@ -4298,8 +4323,7 @@ def main():
     strip_select_kernel(dev, kern, tag)
     host_pool_path(pt, dev, kern, tag)
 
-    # -- 15-19. K8-K10, the scene axis, the ScenePack paths ----------------------------
-    flat_kernels(dev, kern, tag)
+    # -- 16-19. the scene axis, the ScenePack paths (15, K8-K10, ran first) ------------
     scene_axis_kernels(dev, tag)
     packs = pack_path(pt, dev, tag)
     for key, name in FLAT_KERNELS.items():
@@ -4341,7 +4365,8 @@ def main():
     # the one-kernel checks first, then the heavy path profiles
     read_kernel_counts(captured, tag)
     step_kernel_counts(tag)
-    step_one_kernel(tag)
+    one_kernel(27, "arena step", STEP_ONE, tag)
+    one_kernel(15, "K8/K10 call", FLAT_ONE, tag)
     print(f"profiler: {KB.PROFILE_RETAKES['sessions']} one-kernel check sessions retaken "
           f"{tag}")
     block_profiles(tag)

@@ -63,6 +63,7 @@ prepare).
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 
 import numpy as np
@@ -503,11 +504,21 @@ class BlockSteps:
         counters = _launch_counters()
         before = [dict(c) for c in counters]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._graph_pools[card],
-                              capture_error_mode="thread_local"):
-            d2, out = step_body(sig, step.kind, step.pack, step.n, step.k, d0, dd, step.rows,
-                                self.step_partials)
-            _copy_back(d0, d2, getattr(sig, "GRAPH_INPLACE", ()), True)
+        # no cyclic collection inside the capture: one that frees another
+        # engine's graphs (an engine or pack dropped in a reference cycle)
+        # destroys them mid-capture, which invalidates this capture
+        # (cudaErrorStreamCaptureInvalidated, ROADMAP Q3.12)
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._graph_pools[card],
+                                  capture_error_mode="thread_local"):
+                d2, out = step_body(sig, step.kind, step.pack, step.n, step.k, d0, dd,
+                                    step.rows, self.step_partials)
+                _copy_back(d0, d2, getattr(sig, "GRAPH_INPLACE", ()), True)
+        finally:
+            if gc_on:
+                gc.enable()
         step.launches = []
         for c, b in zip(counters, before):
             step.launches.append({name: c[name] - b[name] for name in c if c[name] != b[name]})

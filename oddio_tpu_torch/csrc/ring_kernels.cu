@@ -20,11 +20,11 @@
 #include <stdint.h>
 
 #include "append.cuh"
+#include "select_read.cuh"
 
 namespace cg = cooperative_groups;
 
-#define SB 128  // frames per CUDA block (threads) in the select kernels
-#define VC 16   // K8's voices per CUDA block: one partial sum per chunk
+#define SB 128  // frames per CUDA block (threads) in K2/K3
 
 // ---------------------------------------------------------------------------
 // K1: rows_append, rows_append_cursor
@@ -106,34 +106,6 @@ extern "C" int rows_append_cursor(float* ring, const float* slab,
     return (int)cudaErrorInvalidValue;
   const append::Slab s{slab, slab_stride, ring, RPV * 128LL, V, nr * 128};
   return append::launch(s, CursorLegs{start, FP, cap, M, vps, RPV, nr}, stream);
-}
-
-// floor(x) for |x| < 2^22 with two full-rate adds instead of a quarter-rate
-// FRND: x + 1.5*2^23 lies in [2^23, 2^24), where floats are the integers,
-// so rounding it down and taking 1.5*2^23 away again is exactly floor(x).
-#define MAGIC 12582912.0f  // 1.5 * 2^23, bits 0x4B400000
-__device__ __forceinline__ float floor_small(float x) {
-  return __fsub_rn(__fadd_rd(x, MAGIC), MAGIC);
-}
-
-// The exact read offset kk = clip(whole - j + K, 0, 2K) and fraction fr of
-// frame t (< 4096) from a cursor's packed scalars: oddio_tpu/ops/_dev.py's
-// split-ds math (_positions_sb, pallas_ring.py:265), rounded op by op.  H <
-// 4096 and u in (-1, 2) (o0 in [0, 1)), so floor_small is floorf there; kk
-// is an integer-valued float in [0, 2K], so its int is the low mantissa bits
-// of kk + 1.5*2^23 (no quarter-rate F2I).
-__device__ __forceinline__ void position(float o0, float f_hi, float f_lo,
-                                         float dsm1, int K, float t, int* kk,
-                                         float* fr) {
-  const float H = __fmul_rn(t, f_hi);  // exact: 12-bit f_hi, t < 4096
-  const float Hf = floor_small(H);
-  const float u = __fadd_rn(__fsub_rn(H, Hf), __fadd_rn(o0, __fmul_rn(t, f_lo)));
-  const float fl_u = floor_small(u);
-  *fr = __fsub_rn(u, fl_u);
-  float k = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(t, dsm1), Hf), fl_u),
-                      (float)K);
-  k = fminf(fmaxf(k, 0.0f), (float)(2 * K));
-  *kk = __float_as_int(__fadd_rn(k, MAGIC)) - 0x4B400000;
 }
 
 // ---------------------------------------------------------------------------
@@ -483,108 +455,25 @@ extern "C" int ring_select(const float* ring, long long rowlen, int rows,
   return (int)cudaGetLastError();
 }
 
+
 // ---------------------------------------------------------------------------
 // K8: window_select_flat (no path)
 //
 // Replaces oddio_tpu/ops/pallas_ring.py::window_select (_select_flat_kernel):
 // both ears' reads from one flat window per voice, starting at column 0,
-// the mask folded into the gains.  For each voice v, ear e and frame j:
-//   s = a + fr*(b - a),  a = win[v, extra_e + j + kk_j],  b = the next sample
-//   out[e, j] = (sum_v g0*s) + j*(sum_v dg*s)
-// Bound on the H100: the window sits in L2; load latency and ~30 scalar
-// operations per sample.  Design (the port's first K2 body, kept for K8
-// alone): one thread per frame walks the VC voices of its block, the
-// per-voice scalars staged once in shared memory; each block writes its
-// chunk's two partial sums per (ear, frame) and a second small kernel adds
-// the chunks in a fixed order (no atomics).
+// the mask folded into the gains, mixed as sum_v g0m·s + j*sum_v dgm·s.
+// It is K2's wide-window form with no realign, no cursor advance and no
+// frozen flags, and runs K2's design: select_read.cuh's flat_select_kernel
+// (its note has the bound and the design), one launch per call.
 // ---------------------------------------------------------------------------
 
-__global__ void flat_partial_kernel(
-    const float* __restrict__ win, long long stride, int S2,
-    const float* __restrict__ sc0, const float* __restrict__ sc1,
-    const float* __restrict__ g0, const float* __restrict__ g1,
-    const int* __restrict__ e0, const int* __restrict__ e1,
-    float* __restrict__ part, int V, int n, int K) {
-  __shared__ float4 s_pos[2][VC];
-  __shared__ float2 s_g[2][VC];
-  __shared__ int s_ex[2][VC];
-
-  const int chunk = blockIdx.y;
-  const int v0 = chunk * VC;
-  const int nv = min(VC, V - v0);
-  const int t = threadIdx.x;
-  if (t < 2 * VC) {
-    const int e = t / VC;
-    const int i = t % VC;
-    if (i < nv) {
-      const long long v = v0 + i;
-      const float* sc = (e ? sc1 : sc0) + 4 * v;
-      const float* g = (e ? g1 : g0) + 2 * v;
-      s_pos[e][i] = make_float4(sc[0], sc[1], sc[2], __fsub_rn(sc[3], 1.0f));
-      s_g[e][i] = make_float2(g[0], g[1]);
-      s_ex[e][i] = (e ? e1 : e0)[v];
-    }
-  }
-  __syncthreads();
-
-  const int j = blockIdx.x * SB + t;
-  if (j >= n) return;
-  float m0[2] = {0.0f, 0.0f};
-  float m1[2] = {0.0f, 0.0f};
-  for (int i = 0; i < nv; ++i) {
-    const float* row = win + (long long)(v0 + i) * stride;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float4 P = s_pos[e][i];
-      int kk;
-      float fr;
-      position(P.x, P.y, P.z, P.w, K, (float)j, &kk, &fr);
-      const int m = s_ex[e][i] + j + kk;
-      assert(m >= 0 && m <= S2 - 2);  // the plain version's gather raises
-      const float a = row[m];
-      const float s = __fadd_rn(a, __fmul_rn(fr, __fsub_rn(row[m + 1], a)));
-      m0[e] = __fadd_rn(m0[e], __fmul_rn(s_g[e][i].x, s));
-      m1[e] = __fadd_rn(m1[e], __fmul_rn(s_g[e][i].y, s));
-    }
-  }
-  // part layout: [chunk][ear][m0 | m1][n]
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    float* p = part + ((long long)chunk * 2 + e) * 2 * n;
-    p[j] = m0[e];
-    p[n + j] = m1[e];
-  }
-}
-
-__global__ void flat_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                   int n, int nchunks) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= 2 * n) return;
-  const int e = idx / n;
-  const int j = idx % n;
-  float m0 = 0.0f;
-  float m1 = 0.0f;
-  for (int c = 0; c < nchunks; ++c) {
-    const float* p = part + ((long long)c * 2 + e) * 2 * n;
-    m0 = __fadd_rn(m0, p[j]);
-    m1 = __fadd_rn(m1, p[n + j]);
-  }
-  out[idx] = __fadd_rn(m0, __fmul_rn((float)j, m1));
-}
-
-// K8.  part holds ceil(V / VC) * 4 * n floats; out (2, n).
-extern "C" int window_select_flat(const float* windows, long long stride, int S,
-                                  const float* sc0, const float* sc1,
-                                  const float* g0, const float* g1,
-                                  const int* e0, const int* e1, float* part,
-                                  float* out, int V, int n, int K,
-                                  cudaStream_t stream) {
-  if (V < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  const int nchunks = (V + VC - 1) / VC;
-  flat_partial_kernel<<<dim3((n + SB - 1) / SB, nchunks), SB, 0, stream>>>(
-      windows, stride, S, sc0, sc1, g0, g1, e0, e1, part, V, n, K);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flat_reduce_kernel<<<(2 * n + 255) / 256, 256, 0, stream>>>(part, out, n, nchunks);
-  return (int)cudaGetLastError();
+// windows: (V, >= select_window) rows at stride (unit columns); ptrs,
+// strides: flat_ops's host arrays (rstart null); part/ticket:
+// _cluster_scratch's, 4*128 floats per (sub-block, cluster); out (2, n).
+extern "C" int window_select_flat(const float* windows, long long stride,
+                                  const void* const* ptrs, const long long* strides,
+                                  float* part, unsigned* ticket, float* out, int V,
+                                  int n, int K, int emax2, cudaStream_t stream) {
+  return flat_select_launch<false>(flat_ops(windows, stride, 0, ptrs, strides, emax2),
+                                   part, ticket, out, V, n, K, stream);
 }

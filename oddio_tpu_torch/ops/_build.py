@@ -55,28 +55,20 @@ _SIGNATURES = {
             _i32, _i32, _i32, _i32, _i32,  # DMAX, FP, cap, wrap, nb
             _vp,                           # stream
         ],
-        "window_select_flat": [
-            _vp, _i64, _i32,               # windows, stride, S
-            _vp, _vp, _vp, _vp,            # scal0, scal1, g0, g1
-            _vp, _vp,                      # e0, e1
-            _vp, _vp,                      # part, out
-            _i32, _i32, _i32,              # V, n, K
-            _vp,                           # stream
-        ],
+        # windows, stride, ptrs, strides (host arrays), part, ticket (or
+        # null), out, V, n, K, emax2, stream
+        "window_select_flat": [_vp, _i64, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32,
+                               _vp],
     },
     "flat_kernels": {
         # ring, rowlen, samples, stride, p0p, p1p (or null), p0, p1, V, W,
         # stream
         "flat_append": [_vp, _i64, _vp, _i64, _vp, _vp, _i32, _i32, _i32, _i32,
                         _vp],
-        "dma_window_select": [
-            _vp, _i64, _vp,                # ring, rowlen, rstart
-            _vp, _vp, _vp, _vp, _vp,       # scal0, scal1, g0, g1, maskf
-            _vp, _vp,                      # e0, e1
-            _vp, _vp,                      # part, out
-            _i32, _i32, _i32,              # V, n, K
-            _vp,                           # stream
-        ],
+        # ring, rowlen, ptrs, strides (host arrays), part, ticket (or null),
+        # out, V, n, K, emax2, stream
+        "dma_window_select": [_vp, _i64, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32,
+                              _vp],
     },
     "stream_kernels": {
         # ring, chunk, chunk_stride, wrow, wadd (or null), row_mul, s_pos,

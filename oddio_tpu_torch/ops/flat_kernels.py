@@ -9,8 +9,9 @@ append and a probe).
   ``fr_j`` (the exact split-ds positions of K2), the ramp ``g0 + j·dg``
   with the mask folded in, summed over voices into (2, n).  It is K2's
   wide-window form with no realign (``rowshift`` 0, the window at column
-  0) and no frozen flags; its CUDA kernel is the port's first K2 body,
-  kept for K8 alone (``window_select_flat`` in ``csrc/ring_kernels.cu``).
+  0), no cursor advance and no frozen flags, and its CUDA kernel runs K2's
+  design (``window_select_flat`` in ``csrc/ring_kernels.cu`` on the
+  flat-window select of ``csrc/select_read.cuh``).
 * ``flat_append_aligned`` (K9): the (V, W) slab, W a multiple of
   ``APPEND_PW`` = 512, copied into every row of a flat ring (V, rowlen) at
   page ``pcol`` and again at page ``pmir``, in place
@@ -20,13 +21,23 @@ append and a probe).
   voice's window itself from the flat ring, at ``v*rowlen + rstart_v +
   extra_e + j + kk_j`` of ``ring.reshape(-1)``; the mask multiplies
   after the ramp, ``(s·(g0 + j·dg))·mask``, summed in voice order with
-  no matvec (``csrc/flat_kernels.cu``).  The TPU kernel fetches two
-  1024-sample pages from ``v*rowlen + 1024*floor(rstart_v/1024)`` of the
-  flat ring, so a window past the end of row v reads row v+1; the port
-  reads the same flat addresses.  Where that fetch leaves the tensor (the
-  last voice's window past its row end, a negative start) the plain
-  version raises and the kernel trips a device-side assert: a host check
-  would read ``rstart`` back every call.
+  no matvec (``csrc/flat_kernels.cu``, on the same flat-window select as
+  K8).  The TPU kernel fetches two 1024-sample pages from ``v*rowlen +
+  1024*floor(rstart_v/1024)`` of the flat ring, so a window past the end
+  of row v reads row v+1; the port reads the same flat addresses.  Where
+  that fetch leaves the tensor (the last voice's window past its row end,
+  a negative start) the plain version raises and the kernel trips a
+  device-side assert: a host check would read ``rstart`` back every
+  call.
+
+K8 and K10 are one launch each: the wrapper passes every operand's
+pointer and strides, so a view that is not contiguous is read in place,
+and allocates only the output (the cluster sum's scratch and tickets are
+``ring_kernels._cluster_scratch``'s, shared with K2/K3 and K5).  Their
+voices are summed in a fixed order (32-voice blocks, the blocks of a
+cluster in rank order, then the clusters), so two calls on the same
+inputs are bit-equal; the plain versions sum in another order, which the
+tolerances (``window_select_tolerance``, ``dma_tolerance``) state.
 
 The TPU layout helpers (``_pad_v``, ``_tile_for``, the 128-lane gathers,
 the MXU matvec, the DMA semaphores) have no counterpart.  A wrapper runs
@@ -37,20 +48,22 @@ launch adds one to ``LAUNCHES[name]``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ._build import lib
 from .ring_kernels import (
     MIX_TOL_SIGMAS,
     SELECT_SB,
-    VOICE_CHUNK,
     _check,
     _check_contig,
+    _cluster_scratch,
     _cuda_device,
     _mix_rows,
     _positions,
     _ptr,
     _raise_rc,
+    _signature,
     _stream_ptr,
     ear_samples,
     mix_tolerance,
@@ -131,6 +144,33 @@ def window_select_tolerance(windows, scal, gain0, d_gain, maskf, extra, *, n, K)
     return mix_tolerance(window_select_samples(windows, scal, extra, n, K), g01, n)
 
 
+def _flat_strides(scal, gain0, d_gain, maskf, extra, rstart=None):
+    """The operands' element strides in the kernel's order (select_read.cuh
+    ``flat_ops``), as the int64 host array it takes."""
+    return np.array([*scal.stride(), *gain0.stride(), *d_gain.stride(), *maskf.stride(),
+                     *extra.stride(), 0 if rstart is None else rstart.stride(0)], np.int64)
+
+
+def _flat_launch(name, entry, src, row, ops, strides, V, n, K, emax2, words):
+    """Launch K8 or K10 (``entry``) on ``src`` with row stride ``row`` and
+    ``ops`` = (scal, gain0, d_gain, maskf, extra, rstart or None) read
+    where they lie; the one allocation is the (2, n) output."""
+    dev = src.device
+    part, ticket = _cluster_scratch(dev, V, -(-n // SELECT_SB), words)
+    out = torch.empty((2, n), dtype=torch.float32, device=dev)
+    ptrs = np.array([0 if x is None else x.data_ptr() for x in ops], dtype=np.uint64)
+    rc = entry(src.data_ptr(), row, ptrs.ctypes.data, strides.ctypes.data, _ptr(part),
+               _ptr(ticket), out.data_ptr(), V, n, K, emax2, _stream_ptr(dev))
+    LAUNCHES[name] += 1
+    _raise_rc(rc, name)
+    return out
+
+
+#: the K8/K10 calls checked so far, by (kernel, operand signatures, n, K,
+#: emax2): the operands' strides as the kernel takes them
+_CHECKED = {}
+
+
 def window_select(windows, scal, gain0, d_gain, maskf, extra, *, n, K,
                   emax2=None):
     """K8 (oddio_tpu/ops/pallas_ring.py ``window_select``).
@@ -139,39 +179,41 @@ def window_select(windows, scal, gain0, d_gain, maskf, extra, *, n, K,
     2, 4) packed cursor scalars [frac, f_hi, f_lo, ds_int]; gain0, d_gain
     (V, 2) f32; maskf (V,) f32 (0/1, folded into the gains); extra (V, 2)
     int32 staggers below ``emax2`` (default ``SELECT_W - 128 - 2K - 1``).
-    Returns the mixed (2, n)."""
-    if not isinstance(windows, torch.Tensor) or windows.dim() != 2:
-        raise ValueError("windows must be a (V, S) tensor")
-    V, S = windows.shape
-    dev = windows.device
-    _check(windows, "windows", torch.float32, (V, S), dev)
-    _check(scal, "scal", torch.float32, (V, 2, 4), dev)
-    _check(gain0, "gain0", torch.float32, (V, 2), dev)
-    _check(d_gain, "d_gain", torch.float32, (V, 2), dev)
-    _check(maskf, "maskf", torch.float32, (V,), dev)
-    _check(extra, "extra", torch.int32, (V, 2), dev)
-    if not 1 <= n <= 4096 or V < 1:
-        raise ValueError(f"empty select or n={n} outside [1, 4096]")
-    WIN = select_window(n, _k8_emax2(emax2, K), K)
-    if S < WIN:
-        raise ValueError(f"window width {S} < select window {WIN}")
-    if dev.type == "cpu":
+    Returns the mixed (2, n).  On the card any strides are read in place
+    (the windows' rows unit-stride), in one launch; a stagger outside
+    ``[0, emax2)`` trips a device-side assert.  The checks run once per
+    (shapes, strides, dtypes, devices, n, K, emax2)."""
+    ops = (windows, scal, gain0, d_gain, maskf, extra)
+    E2 = _k8_emax2(emax2, K)
+    key = ("window_select", _signature(*ops), n, K, E2)
+    strides = _CHECKED.get(key)
+    if strides is None:
+        if windows.dim() != 2:
+            raise ValueError("windows must be a (V, S) tensor")
+        V, S = windows.shape
+        dev = windows.device
+        _check(windows, "windows", torch.float32, (V, S), dev)
+        _check(scal, "scal", torch.float32, (V, 2, 4), dev)
+        _check(gain0, "gain0", torch.float32, (V, 2), dev)
+        _check(d_gain, "d_gain", torch.float32, (V, 2), dev)
+        _check(maskf, "maskf", torch.float32, (V,), dev)
+        _check(extra, "extra", torch.int32, (V, 2), dev)
+        if not 1 <= n <= 4096 or V < 1:
+            raise ValueError(f"empty select or n={n} outside [1, 4096]")
+        WIN = select_window(n, E2, K)
+        if S < WIN:
+            raise ValueError(f"window width {S} < select window {WIN}")
+        if dev.type != "cpu":
+            _cuda_device(windows)
+            if windows.stride(1) != 1 or S >= 2**31:
+                raise ValueError("windows rows must be unit-stride, narrower than 2^31")
+        strides = _CHECKED[key] = _flat_strides(*ops[1:])
+    if windows.device.type == "cpu":
         return window_select_plain(windows, scal, gain0, d_gain, maskf, extra,
                                    n=n, K=K, emax2=emax2)
-    _cuda_device(windows)
-    if windows.stride(1) != 1:
-        raise ValueError("windows rows must be unit-stride")
-    scal01, g01, e01 = _k8_operands(scal, gain0, d_gain, maskf, extra)
-    part = torch.empty(-(-V // VOICE_CHUNK) * 4 * n, dtype=torch.float32, device=dev)
-    out = torch.empty((1, 2, n), dtype=torch.float32, device=dev)
-    rc = lib("ring_kernels").window_select_flat(
-        _ptr(windows), windows.stride(0), S, _ptr(scal01[0]), _ptr(scal01[1]),
-        _ptr(g01[0]), _ptr(g01[1]), _ptr(e01[0]), _ptr(e01[1]),
-        _ptr(part), _ptr(out), V, n, K, _stream_ptr(dev),
-    )
-    LAUNCHES["window_select"] += 1
-    _raise_rc(rc, "window_select_flat")
-    return out[0]
+    return _flat_launch("window_select", lib("ring_kernels").window_select_flat, windows,
+                        windows.stride(0), (*ops[1:], None), strides, windows.shape[0], n,
+                        K, E2, 4 * SELECT_SB)
 
 
 # --- K9: aligned flat append ------------------------------------------------------
@@ -337,42 +379,40 @@ def dma_window_select(ring, rstart, scal, gain0, d_gain, maskf, extra, *, n, K,
     voice's window base column; extra (V, 2) int32 per-ear staggers below
     ``emax2``; scal (V, 2, 4), gain0/d_gain (V, 2), maskf (V,) as
     ``window_select``.  Requires ``7*128 + select_window(n, 127 + emax2,
-    K) <= 2048`` (the window fits the two-page fetch).  Returns (2, n)."""
-    if not isinstance(ring, torch.Tensor) or ring.dim() != 2:
-        raise ValueError("ring must be a (V, rowlen) tensor")
-    V, rowlen = ring.shape
-    dev = ring.device
-    if rowlen % 1024:
-        raise ValueError(f"rowlen {rowlen} must be a multiple of 1024")
-    _check(ring, "ring", torch.float32, (V, rowlen), dev)
-    _check(rstart, "rstart", torch.int32, (V,), dev)
-    _check(scal, "scal", torch.float32, (V, 2, 4), dev)
-    _check(gain0, "gain0", torch.float32, (V, 2), dev)
-    _check(d_gain, "d_gain", torch.float32, (V, 2), dev)
-    _check(maskf, "maskf", torch.float32, (V,), dev)
-    _check(extra, "extra", torch.int32, (V, 2), dev)
-    if not 1 <= n <= 4096 or V < 1:
-        raise ValueError(f"empty select or n={n} outside [1, 4096]")
-    WR = select_window(n, 127 + emax2, K)
-    if 128 * 7 + WR > DMA_FETCH:
-        raise ValueError(f"window {WR} too wide for the {DMA_FETCH}-sample fetch")
-    if dev.type == "cpu":
+    K) <= 2048`` (the window fits the two-page fetch).  Returns (2, n).  On
+    the card the ring must be contiguous, the other operands may have any
+    strides (read in place), in one launch; a fetch outside the ring or a
+    stagger outside ``[0, emax2)`` trips a device-side assert.  The checks
+    run once per (shapes, strides, dtypes, devices, n, K, emax2)."""
+    ops = (ring, rstart, scal, gain0, d_gain, maskf, extra)
+    key = ("dma_window_select", _signature(*ops), n, K, emax2)
+    strides = _CHECKED.get(key)
+    if strides is None:
+        if ring.dim() != 2:
+            raise ValueError("ring must be a (V, rowlen) tensor")
+        V, rowlen = ring.shape
+        dev = ring.device
+        if rowlen % 1024:
+            raise ValueError(f"rowlen {rowlen} must be a multiple of 1024")
+        _check(ring, "ring", torch.float32, (V, rowlen), dev)
+        _check(rstart, "rstart", torch.int32, (V,), dev)
+        _check(scal, "scal", torch.float32, (V, 2, 4), dev)
+        _check(gain0, "gain0", torch.float32, (V, 2), dev)
+        _check(d_gain, "d_gain", torch.float32, (V, 2), dev)
+        _check(maskf, "maskf", torch.float32, (V,), dev)
+        _check(extra, "extra", torch.int32, (V, 2), dev)
+        if not 1 <= n <= 4096 or V < 1:
+            raise ValueError(f"empty select or n={n} outside [1, 4096]")
+        WR = select_window(n, 127 + emax2, K)
+        if 128 * 7 + WR > DMA_FETCH:
+            raise ValueError(f"window {WR} too wide for the {DMA_FETCH}-sample fetch")
+        if dev.type != "cpu":
+            _cuda_device(ring)
+            _check_contig(ring, "ring")
+        strides = _CHECKED[key] = _flat_strides(*ops[2:], rstart)
+    if ring.device.type == "cpu":
         return dma_window_select_plain(ring, rstart, scal, gain0, d_gain, maskf,
                                        extra, n=n, K=K, emax2=emax2)
-    _cuda_device(ring)
-    _check_contig(ring, "ring")
-    _check_contig(rstart, "rstart")
-    _check_contig(maskf, "maskf")
-    scal01 = [scal[:, e].contiguous() for e in range(2)]
-    g01 = [torch.stack([gain0[:, e], d_gain[:, e]], dim=-1).contiguous() for e in range(2)]
-    e01 = [extra[:, e].contiguous() for e in range(2)]
-    part = torch.empty(-(-V // VOICE_CHUNK) * 2 * n, dtype=torch.float32, device=dev)
-    out = torch.empty((2, n), dtype=torch.float32, device=dev)
-    rc = lib("flat_kernels").dma_window_select(
-        _ptr(ring), rowlen, _ptr(rstart), _ptr(scal01[0]), _ptr(scal01[1]),
-        _ptr(g01[0]), _ptr(g01[1]), _ptr(maskf), _ptr(e01[0]), _ptr(e01[1]),
-        _ptr(part), _ptr(out), V, n, K, _stream_ptr(dev),
-    )
-    LAUNCHES["dma_window_select"] += 1
-    _raise_rc(rc, "dma_window_select")
-    return out
+    return _flat_launch("dma_window_select", lib("flat_kernels").dma_window_select, ring,
+                        ring.shape[1], (*ops[2:], rstart), strides, ring.shape[0], n, K,
+                        emax2, 2 * SELECT_SB)

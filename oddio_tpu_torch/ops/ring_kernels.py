@@ -38,8 +38,8 @@ K1, K2 and K5's record form also take a ScenePack's scene axis: the V rows
 are S scenes of V/S voices each, K1 writes each scene at its own row pair
 and K2 and K5 mix each scene apart into (S, 2, n); one launch per call
 whatever S is.  K8
-(``window_select``, ``ops/flat_kernels.py``) keeps the port's first K2
-body in ``csrc/ring_kernels.cu``.
+(``window_select``, ``ops/flat_kernels.py``) and K10 run K2's design on
+flat windows (``csrc/select_read.cuh``).
 
 A wrapper runs the plain version for tensors on the CPU and launches the
 kernel for tensors on a CUDA device; it never falls back from one to the
@@ -113,11 +113,9 @@ __all__ = [
 
 PAGE = 1024  # ring page size (samples)
 SELECT_SB = 128  # frames per sub-block in the read kernels
-#: K8's voices per CUDA block before its fixed-order chunk reduction (VC
-#: in csrc/ring_kernels.cu)
-VOICE_CHUNK = 16
-#: K2/K3's and K5's voices per CUDA block (RS_VC in csrc/ring_kernels.cu,
-#: VC in csrc/select_kernel.cu)
+#: K2/K3's, K5's and K8/K10's voices per CUDA block (RS_VC in
+#: csrc/ring_kernels.cu, VC in csrc/select_kernel.cu, FS_VC in
+#: csrc/select_read.cuh)
 SELECT_CHUNK = 32
 #: most blocks one K3 read may fuse (MAX_NB in csrc/ring_kernels.cu)
 MAX_NB = 8
@@ -125,12 +123,13 @@ MAX_NB = 8
 #: (``mix_tolerance``)
 MIX_TOL_SIGMAS = 8.0
 
-#: CUDA blocks per thread block cluster along the voice axis of K2/K3 and
-#: K5 (RS_CL in csrc/ring_kernels.cu, CL_MAX in csrc/select_kernel.cu)
+#: CUDA blocks per thread block cluster along the voice axis of K2/K3, K5
+#: and K8/K10 (RS_CL in csrc/ring_kernels.cu, CL_MAX in
+#: csrc/select_kernel.cu, FS_CL in csrc/select_read.cuh)
 CLUSTER_MAX = 8
-#: per device: the cluster-partial scratch and zeroed tickets that K2/K3
-#: and K5 share (their launches are ordered on the stream, and the last
-#: cluster of each sum leaves its ticket zeroed)
+#: per device: the cluster-partial scratch and zeroed tickets that K2/K3,
+#: K5 and K8/K10 share (their launches are ordered on the stream, and the
+#: last cluster of each sum leaves its ticket zeroed)
 _CLUSTER_SCRATCH = {}
 
 #: K5's residual doppler-walk clamp per sub-block (``SELECT_R``,
@@ -155,7 +154,7 @@ def reset_launches():
 
 def _cluster_scratch(dev, vps, slots, words):
     """(part, ticket) for a launch whose voice sum runs over thread block
-    clusters of ``SELECT_CHUNK``-voice blocks (K2/K3, K5): ``slots``
+    clusters of ``SELECT_CHUNK``-voice blocks (K2/K3, K5, K8/K10): ``slots``
     (scene, sub-block) sums of ``words`` floats per cluster and a zeroed
     ticket each; None, None when one cluster holds each scene's ``vps``
     voices (the kernel then writes its output directly)."""

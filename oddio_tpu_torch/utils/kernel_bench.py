@@ -64,8 +64,9 @@ sampler reads) alone at the three paths' shapes (``ARENA_SHAPES``), warm
 and cold over ``ARENA_SETS`` operand sets in a ~43 MB guarded arena, and
 its plain version, beside the byte bound of each shape.
 
-``chip_smoke.py`` builds its cold operands and K5's and K6's arena-form
-cases here.
+``chip_smoke.py`` builds its cold operands, K5's and K6's arena-form
+cases and K8/K10's operands (``flat_operands``, ``k8_sets``, ``k10_sets``)
+here.
 """
 
 from __future__ import annotations
@@ -173,6 +174,64 @@ def k9_sets(dev, n):
         slab = torch.randn((V, W), device=dev)
         out.append((torch.randn((V, ROWLEN), device=dev), slab, torch.cat([slab, slab], dim=1)))
     return out
+
+
+#: K10's cold ring row: 16 pages of 1024, so calls on other read starts
+#: touch other samples (a (V, FLAT_COLD_ROW) ring is 268 MB)
+FLAT_COLD_ROW = 16384
+
+
+def flat_operands(dev, rng, Vs, n, K, emax2, strided=False):
+    """K8/K10's per-voice operands (scal, gain0, d_gain, maskf, extra):
+    steps with |ds - 1|*n <= K, fractions, gains at frame 0 in [0, 0.5)
+    and steps in +-1e-3, a 0/1 mask (a fifth off, voice 0 on), staggers below
+    ``emax2``.  ``strided``: each a view that is not contiguous, as a
+    caller may hand them over: scal ``[:, :, :4]`` of a (Vs, 2, 8) tensor,
+    gain0 and d_gain the two halves of one (Vs, 2, 2), maskf a column of a
+    (Vs, 2), extra column-major."""
+    from oddio_tpu_torch.ops._dev import device_split_ds
+
+    di, fh, fl = device_split_ds(_t(rng.uniform(1 - K / n, 1 + K / n, (Vs, 2)), dev))
+    scal = torch.stack([_t(rng.uniform(0, 1, (Vs, 2)), dev), fh, fl, di.float()], -1)
+    gains = _t(np.stack([rng.uniform(0, 0.5, (Vs, 2)), rng.uniform(-1e-3, 1e-3, (Vs, 2))],
+                        -1), dev)
+    maskf = _t((rng.uniform(0, 1, Vs) > 0.2) | (np.arange(Vs) == 0), dev)
+    extra = _t(rng.integers(0, emax2, (Vs, 2)), dev, np.int32)
+    if not strided:
+        return (scal.contiguous(), gains[..., 0].contiguous(), gains[..., 1].contiguous(),
+                maskf, extra)
+    wide = torch.zeros((Vs, 2, 8), device=dev)
+    wide[:, :, :4] = scal
+    m2 = torch.zeros((Vs, 2), device=dev)
+    m2[:, 1] = maskf
+    return wide[:, :, :4], gains[..., 0], gains[..., 1], m2[:, 1], extra.t().contiguous().t()
+
+
+def flat_rstart(dev, rng, Vs, rowlen, past=600):
+    """K10's window base columns: anywhere in a ``rowlen`` row, up to
+    ``past`` of the two-page fetch past its end (reading the next row), the
+    last voice's inside its row (its fetch stays in the ring)."""
+    rs = rng.integers(0, rowlen - 2048 + past, Vs)
+    rs[-1] = min(rs[-1], rowlen - 2048)
+    return _t(rs, dev, np.int32)
+
+
+def k8_sets(dev, rng, n_sets, K, emax2, n=W):
+    """K8's cold sets: ``n_sets`` (windows (V, select_window), operands),
+    12.6 MB of windows each at emax2 36, 14.7 MB at 163."""
+    from oddio_tpu_torch.ops.ring_kernels import select_window
+
+    return [(torch.randn((V, select_window(n, emax2, K)), device=dev),)
+            + flat_operands(dev, rng, V, n, K, emax2) for _ in range(n_sets)]
+
+
+def k10_sets(dev, rng, n_sets, K, emax2, n=W):
+    """K10's cold sets: one (V, FLAT_COLD_ROW) ring and ``n_sets``
+    (rstart, operands) reading other places of it."""
+    ring = torch.randn((V, FLAT_COLD_ROW), device=dev)
+    return ring, [(flat_rstart(dev, rng, V, FLAT_COLD_ROW),) + flat_operands(dev, rng, V, n, K,
+                                                                           emax2)
+                  for _ in range(n_sets)]
 
 
 def select_operands(dev, rng, Vs, L, lo, hi, ring=None):

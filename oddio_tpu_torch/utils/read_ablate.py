@@ -139,8 +139,9 @@ VARIANTS = {
 
 
 def variant_source(src, edits):
-    """``src`` with ``edits`` applied; an edit whose old text is None
-    replaces the body of ``position()``."""
+    """``src`` (ring_kernels.cu with select_read.cuh inlined) with
+    ``edits`` applied; an edit whose old text is None replaces the body of
+    ``position()``."""
     for old, new in edits:
         if old is None:
             old = src[src.index(_POS0):src.index(_POS1) + len(_POS1)]
@@ -198,7 +199,9 @@ def main(argv=None):
     tol2 = RK.ring_select_ears_tolerance(*ears[0], **kw2)
     plain3 = RK.ring_select_multi_plain(*groups[0], **kw3)
     tol3 = RK.ring_select_multi_tolerance(*groups[0], **kw3)
-    src = SRC.read_text()
+    # the position math lives in select_read.cuh: inlined, so edits reach it
+    header = SRC.with_name("select_read.cuh").read_text().replace("#pragma once\n", "")
+    src = SRC.read_text().replace('#include "select_read.cuh"\n', header)
     chunk, cl_max, lib = RK.SELECT_CHUNK, RK.CLUSTER_MAX, _build._libs.get("ring_kernels")
     with tempfile.TemporaryDirectory() as tmp:
         try:

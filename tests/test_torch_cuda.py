@@ -24,7 +24,9 @@ K7, the whole Adapt step, within ``agc.agc_tolerance`` elementwise
 (another order of the prefix sum) at every block length up to 1024; K5 within ``ring_kernels.strip_tolerance``
 elementwise (its voice sum in another, fixed order); K8 within
 ``flat_kernels.window_select_tolerance`` (K2's), K9 exact (a copy), K10
-within ``flat_kernels.dma_tolerance`` (as K5's); K1/K2 with a ScenePack's
+within ``flat_kernels.dma_tolerance`` (as K5's), K8 and K10 one device
+kernel a call, bit-equal twice, operands read where they lie, their
+cluster tickets left zeroed beside K2's; K1/K2 with a ScenePack's
 scene axis as without it, per scene; the scenes and packs within the
 PARITY.md 1e-5.
 """
@@ -552,32 +554,64 @@ def test_host_pool_scene_on_card_matches_cpu(cuda):
 # --- K8-K10 and the ScenePack ---------------------------------------------------
 
 
-def _flat_operands(rng, dev, V, n, K, emax2):
-    def t(x, dtype=np.float32):
-        return torch.tensor(np.asarray(x, dtype), device=dev)
-
-    di, fh, fl = device_split_ds(t(rng.uniform(1 - K / n, 1 + K / n, (V, 2))))
-    scal = torch.stack([t(rng.uniform(0, 1, (V, 2))), fh, fl, di.float()], -1).contiguous()
-    return (scal, t(rng.uniform(0, 1, (V, 2))), t(rng.uniform(-1e-3, 1e-3, (V, 2))),
-            t(rng.uniform(0, 1, V) > 0.3), t(rng.integers(0, emax2, (V, 2)), np.int32))
+def _tickets_zero(dev):
+    """The cluster sum's tickets (shared by K2/K3, K5, K8/K10) all zero."""
+    _, ticket = RK._CLUSTER_SCRATCH.get(dev, (None, None))
+    return ticket is None or not bool(ticket.any())
 
 
-@pytest.mark.parametrize("V", [1, 1000])
-@pytest.mark.parametrize("emax2", [36, 163])
-def test_window_select_flat_within_tolerance(cuda, V, emax2):
-    """K8 (K2's body on flat windows) against its plain version."""
-    rng = np.random.default_rng(80 + V + emax2)
-    n, K = 512, 64
-    win = torch.tensor(rng.standard_normal((V, RK.select_window(n, emax2, K))).astype(np.float32),
-                       device=cuda)
-    ops = (win,) + _flat_operands(rng, cuda, V, n, K, emax2)
-    plain = FK.window_select_plain(*ops, n=n, K=K, emax2=emax2)
-    before = FK.LAUNCHES["window_select"]
-    got = FK.window_select(*ops, n=n, K=K, emax2=emax2)
+def _flat_held(key, call, plain, tol):
+    """Two calls of K8 or K10: one launch each, bit-equal, within ``tol``
+    of ``plain``, the tickets left zeroed."""
+    before = FK.LAUNCHES[key]
+    got = call()
+    again = call()
     torch.cuda.synchronize()
-    assert FK.LAUNCHES["window_select"] == before + 1
-    tol = FK.window_select_tolerance(*ops, n=n, K=K)
+    assert FK.LAUNCHES[key] == before + 2
+    assert torch.equal(got, again)
+    assert got.shape == plain.shape and float(plain.abs().max()) > 1e-3
     assert bool(((got - plain).abs().double() <= tol).all())
+    assert _tickets_zero(got.device)
+
+
+def _k8_case(dev, V, n, emax2, strided, K=64):
+    rng = np.random.default_rng(80 + V + n + emax2)
+    win = torch.tensor(rng.standard_normal((V, RK.select_window(n, emax2, K) + 3))
+                       .astype(np.float32), device=dev)[:, 3:]  # rows at a stride
+    return (win,) + KB.flat_operands(dev, rng, V, n, K, emax2, strided), dict(n=n, K=K,
+                                                                           emax2=emax2)
+
+
+#: K10's (n, K): the two-page fetch holds 7*128 + select_window(n, 127 +
+#: emax2, K) <= 2048, so n = 896 at K = 32 is the longest read it takes
+K10_NK = ((200, 64), (512, 64), (896, 32))
+
+
+def _k10_case(dev, V, n, K, strided, emax2=36, rowlen=4096):
+    """K10 operands, windows anywhere in the row and past its end (they
+    read the next row of the flat ring); rstart a column of a (V, 2)
+    tensor when ``strided``."""
+    rng = np.random.default_rng(100 + V + n)
+    ring = torch.tensor(rng.standard_normal((V, rowlen)).astype(np.float32), device=dev)
+    rs = KB.flat_rstart(dev, rng, V, rowlen)
+    if strided:
+        rs = torch.stack([rs, rs + 7], dim=1)[:, 0]
+    return (ring, rs) + KB.flat_operands(dev, rng, V, n, K, emax2, strided), dict(
+        n=n, K=K, emax2=emax2)
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("emax2", [36, 163])
+@pytest.mark.parametrize("n", [200, 512, 1024])
+@pytest.mark.parametrize("V", [1, 33, 256, 1000, 4096])
+def test_window_select_flat_within_tolerance(cuda, V, n, emax2, strided):
+    """K8 against its plain version: one block (V = 1), a partial block,
+    one full cluster (256), several clusters through the ticket; operands
+    as they lie (``strided``: views that are not contiguous, read in
+    place); two calls bit-equal, the tickets left zeroed."""
+    ops, kw = _k8_case(cuda, V, n, emax2, strided)
+    _flat_held("window_select", lambda: FK.window_select(*ops, **kw),
+               FK.window_select_plain(*ops, **kw), FK.window_select_tolerance(*ops, n=n, K=64))
 
 
 @pytest.mark.parametrize("W", [512, 1024])
@@ -600,22 +634,48 @@ def test_flat_append_aligned_exact(cuda, form, W):
     assert torch.equal(got, plain)
 
 
-def test_dma_window_select_within_tolerance(cuda):
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("n,K", K10_NK)
+@pytest.mark.parametrize("V", [1, 33, 256, 1000, 4096])
+def test_dma_window_select_within_tolerance(cuda, V, n, K, strided):
     """K10 against its plain version, windows past their row end included
-    (they read the next row of the flat ring)."""
-    rng = np.random.default_rng(100)
-    V, rowlen, n, K, emax2 = 1000, 4096, 512, 64, 36
-    ring = torch.tensor(rng.standard_normal((V, rowlen)).astype(np.float32), device=cuda)
-    rs = rng.integers(0, rowlen - 2048 + 600, V).astype(np.int32)
-    rs[-1] = 0
-    ops = (ring, torch.tensor(rs, device=cuda)) + _flat_operands(rng, cuda, V, n, K, emax2)
-    plain = FK.dma_window_select_plain(*ops, n=n, K=K, emax2=emax2)
-    before = FK.LAUNCHES["dma_window_select"]
-    got = FK.dma_window_select(*ops, n=n, K=K, emax2=emax2)
+    (they read the next row of the flat ring), at the block and cluster
+    counts of K8's cases; two calls bit-equal, the tickets left zeroed."""
+    ops, kw = _k10_case(cuda, V, n, K, strided)
+    _flat_held("dma_window_select", lambda: FK.dma_window_select(*ops, **kw),
+               FK.dma_window_select_plain(*ops, **kw), FK.dma_tolerance(*ops, n=n, K=K))
+
+
+@pytest.mark.parametrize("kernel", ["window_select", "dma_window_select"])
+def test_flat_select_is_one_device_kernel(cuda, kernel):
+    """K8 and K10 at 4096 voices, operands not contiguous: one device
+    kernel a call (the profiler's count; the wrapper issues nothing else
+    but the output's allocation)."""
+    if kernel == "window_select":
+        ops, kw = _k8_case(cuda, 4096, 512, 36, True)
+    else:
+        ops, kw = _k10_case(cuda, 4096, 512, 64, True)
+    fn = getattr(FK, kernel)
+    fn(*ops, **kw)
+    assert KB.device_profile(lambda: fn(*ops, **kw), reps=1, exact=True)[1] == 1
+
+
+def test_ring_select_between_two_k8_calls(cuda):
+    """A K2 read (several clusters: the same tickets) between two K8 calls
+    on the same stream leaves both K8 results bit-equal, and K2's equal to
+    its own call alone."""
+    ops, kw = _k8_case(cuda, 4096, 512, 36, False)
+    rng = np.random.default_rng(7)
+    ring = KB.read_ring(cuda, 4096, seed=7)
+    ro = KB.read_operands(cuda, rng, 4096, 64, 512)
+    kw2 = dict(n=512, K=64, R=512, **READ_GEOM)
+    alone = RK.ring_select_ears(ring, ro, **kw2)
+    first = FK.window_select(*ops, **kw)
+    between = RK.ring_select_ears(ring, ro, **kw2)
+    second = FK.window_select(*ops, **kw)
     torch.cuda.synchronize()
-    assert FK.LAUNCHES["dma_window_select"] == before + 1
-    tol = FK.dma_tolerance(*ops, n=n, K=K)
-    assert bool(((got - plain).abs().double() <= tol).all())
+    assert torch.equal(first, second) and torch.equal(alone, between)
+    assert _tickets_zero(first.device)
 
 
 def test_rows_append_scene_axis_exact(cuda):
@@ -1191,6 +1251,48 @@ def test_graph_replay_matches_eager(cuda, kind):
     assert re.graph_counts["replays"] == 0 and c["recaptures"] == 0
     assert c["replays"] > c["captures"] > 0
     assert c["eager"] == sum(len(s) for s in rg._steps.values())
+
+
+def test_graph_capture_with_graphs_left_to_the_cyclic_gc(cuda):
+    """ROADMAP Q3.12: a cyclic collection that fell inside a capture and
+    freed another pack's graphs destroyed them mid-capture, which
+    invalidated the capture (cudaErrorStreamCaptureInvalidated).  Here a
+    captured host-pool pack becomes cyclic garbage inside a sampler pack's
+    capture with the collector at its most eager: the capture runs with
+    the cyclic GC off, and the render completes."""
+    import gc
+
+    from oddio_tpu_torch.core import run
+    from oddio_tpu_torch.utils.scene_profile import build_host_pools_pack, build_sampler_pack
+
+    hp, ctls, _, rng = build_host_pools_pack(2, 16, cuda)
+    feed(ctls, rng, 700)
+    for _ in range(3):
+        hp.render_frames_device(512 * 8)
+    assert hp.graph_counts["captures"] >= 1
+    cyc = {"pack": hp}
+    cyc["self"] = cyc
+    keep = [cyc]  # the last reference: dropped inside the next capture
+    del hp, ctls, cyc
+    body, thresholds, seen = run.step_body, gc.get_threshold(), []
+
+    def step_body(*a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+            keep.clear()
+            gc.set_threshold(1, 1, 1)
+        return body(*a, **k)
+
+    run.step_body = step_body
+    try:
+        drv = build_sampler_pack(2, 16, cuda, sounds=2, seconds=1.0)
+        out = np.concatenate(drv.render(16, device_out=False), axis=1)
+        torch.cuda.synchronize()
+    finally:
+        run.step_body = body
+        gc.set_threshold(*thresholds)
+    assert seen and not any(seen) and not keep
+    assert drv.pack.graph_counts["captures"] >= 1 and np.isfinite(out).all()
 
 
 def test_graph_recaptures_after_restore_and_growth(cuda):

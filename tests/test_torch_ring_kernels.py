@@ -368,21 +368,21 @@ def test_strip_select_clamp_departs_from_the_exact_read_like_pallas():
 
 
 def _chunk_order_sum(x, drop=None):
-    """The CUDA K5's voice sum in torch: float32 summands added voice by
-    voice within 32-voice chunks, the chunks of a cluster (up to
+    """The CUDA K5's and K10's voice sum in torch: float32 summands added
+    voice by voice within 32-voice chunks, the chunks of a cluster (up to
     ``CLUSTER_MAX``) in rank order, then the clusters in order; ``drop``
     zeroes one voice, as a kernel that skips it would."""
     x = x.clone()
     if drop is not None:
         x[drop] = 0.0
     V = x.shape[0]
-    chunks = -(-V // RK.VOICE_CHUNK)
+    chunks = -(-V // RK.SELECT_CHUNK)
     cl = min(RK.CLUSTER_MAX, 1 << (chunks - 1).bit_length())
-    pad = -(-chunks // cl) * cl * RK.VOICE_CHUNK - V
+    pad = -(-chunks // cl) * cl * RK.SELECT_CHUNK - V
     xc = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])]).reshape(
-        -1, cl, RK.VOICE_CHUNK, *x.shape[1:])
+        -1, cl, RK.SELECT_CHUNK, *x.shape[1:])
     part = torch.zeros_like(xc[:, :, 0])
-    for i in range(RK.VOICE_CHUNK):
+    for i in range(RK.SELECT_CHUNK):
         part = part + xc[:, :, i]
     cluster = torch.zeros_like(part[:, 0])
     for r in range(cl):
@@ -419,6 +419,7 @@ def test_strip_tolerance_fails_planted_faults(fault):
 # --- K8-K10: the flat-window and flat-ring kernels ----------------------------------
 
 from oddio_tpu_torch.ops import flat_kernels as FK  # noqa: E402
+from oddio_tpu_torch.utils import kernel_bench as KB  # noqa: E402
 
 
 def _flat_select_operands(rng, V, emax2, ds_lo, ds_hi):
@@ -546,6 +547,90 @@ def test_dma_window_select_fetch_past_the_ring_raises():
         FK.dma_window_select(*_t(ops), n=n, K=K, emax2=emax2)
     with pytest.raises(ValueError, match="too wide"):
         FK.dma_window_select(*_t(ops), n=n, K=K, emax2=500)
+
+
+def _views(V, n, K, emax2, seed):
+    """K8/K10 operands as views that are not contiguous (``kernel_bench.
+    flat_operands``: scal ``[:, :, :4]`` of a (V, 2, 8), gains halves of
+    one (V, 2, 2), the mask a column, extra column-major), and their
+    contiguous numpy copies for the JAX package."""
+    ops = KB.flat_operands("cpu", np.random.default_rng(seed), V, n, K, emax2, strided=True)
+    assert not any(x.is_contiguous() for x in ops)
+    return ops, [np.ascontiguousarray(x.numpy()) for x in ops]
+
+
+@pytest.mark.parametrize("emax2", [36, 163])
+def test_window_select_views_match_pallas(emax2):
+    """K8 on operand views that are not contiguous, at V = 33 (a partial
+    block of 32) and n = 200 (a partial sub-block), against the
+    interpreted ``window_select`` (<= 1e-6)."""
+    V, n, K = 33, 200, 64
+    rng = np.random.default_rng(220 + emax2)
+    win = rng.standard_normal((V, PR.select_window(n, emax2, K) + 5)).astype(np.float32)
+    ops, arrs = _views(V, n, K, emax2, emax2)
+    ref = np.asarray(PR.window_select(
+        *(jnp.asarray(x) for x in [win[:, 5:]] + arrs), n=n, K=K, emax2=emax2,
+        interpret=True))
+    got = FK.window_select(torch.tensor(win)[:, 5:], *ops, n=n, K=K, emax2=emax2).numpy()
+    assert got.shape == (2, n) and np.abs(ref).max() > 0.1
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+
+
+def test_dma_window_select_views_match_pallas():
+    """K10 on operand views that are not contiguous (``rstart`` a column of
+    a (V, 2)), at V = 33 and n = 200, windows past their row end (the
+    next row of the flat ring), against the interpreted
+    ``dma_window_select`` (<= 1e-6)."""
+    V, n, K, emax2, rowlen = 33, 200, 64, 36, 2048
+    rng = np.random.default_rng(221)
+    ring = rng.standard_normal((V, rowlen)).astype(np.float32)
+    rs = rng.integers(0, 800, V).astype(np.int32)
+    rs[::4] = rowlen - 2048 + 700  # past the row end: reads of the next row
+    rs[-1] = 0
+    ops, arrs = _views(V, n, K, emax2, 222)
+    rs2 = torch.tensor(np.stack([rs, rs + 1], 1))[:, 0]
+    ref = _pallas_dma([ring, rs] + arrs, n, K, emax2)
+    got = FK.dma_window_select(torch.tensor(ring), rs2, *ops, n=n, K=K, emax2=emax2).numpy()
+    assert got.shape == (2, n) and np.abs(ref).max() > 0.1
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+
+
+def _refused(kernel, fault):
+    """A K8 or K10 call with one operand broken as ``fault`` says."""
+    V, n, K, emax2 = 4, 128, 64, 36
+    ops = list(KB.flat_operands("cpu", np.random.default_rng(5), V, n, K, emax2))
+    if fault == "scal_shape":
+        ops[0] = ops[0][:, :, :3]
+    elif fault == "scal_dtype":
+        ops[0] = ops[0].double()
+    elif fault == "extra_dtype":
+        ops[4] = ops[4].long()
+    if kernel == "window_select":
+        width = RK.select_window(n, emax2, K) - (128 if fault == "narrow" else 0)
+        return FK.window_select(torch.zeros((V, width)), *ops, n=n, K=K, emax2=emax2)
+    rowlen = 3000 if fault == "rowlen" else 4096
+    return FK.dma_window_select(torch.zeros((V, rowlen)), torch.zeros(V, dtype=torch.int32),
+                                *ops, n=n, K=K, emax2=1000 if fault == "too_wide" else emax2)
+
+
+@pytest.mark.parametrize("kernel,fault,error", [
+    ("window_select", "scal_shape", ValueError),
+    ("window_select", "scal_dtype", TypeError),
+    ("window_select", "extra_dtype", TypeError),
+    ("window_select", "narrow", ValueError),
+    ("dma_window_select", "scal_shape", ValueError),
+    ("dma_window_select", "scal_dtype", TypeError),
+    ("dma_window_select", "rowlen", ValueError),
+    ("dma_window_select", "too_wide", ValueError),
+])
+def test_flat_select_wrappers_refuse(kernel, fault, error):
+    """The K8 and K10 wrappers refuse a scal of the wrong shape or dtype, a
+    stagger tensor of another dtype, a window narrower than the select
+    window, a ring row not a multiple of 1024, and a window too wide for
+    K10's two-page fetch; the same call without the fault runs."""
+    assert _refused(kernel, None).shape == (2, 128)
+    with pytest.raises(error):
+        _refused(kernel, fault)
 
 
 @pytest.mark.parametrize("fault", [None, "drop_voice"])
