@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..parallel.context import RenderDevice, current_cell, in_block_step
+from ..utils.profiler import count
 from ..utils.tree import tree_fill, tree_stack
 
 __all__ = ["DRCtrlMixin", "PinnedUpload", "walk_ctrl_keys", "walk_fade_paths", "host_lanes",
@@ -171,7 +172,10 @@ def _upload(x, device, dtype=None):
     before the call returns, and the stream orders the copy before the
     kernels that read it, so the host does not wait for the device."""
     t = torch.tensor(np.asarray(x), dtype=dtype)
-    return t.to(device, non_blocking=True) if torch.device(device).type == "cuda" else t
+    if torch.device(device).type != "cuda":
+        return t
+    count("h2d.bytes.pageable", t.nbytes)
+    return t.to(device, non_blocking=True)
 
 
 def device_param(x, device, dtype=None, upload=None):
@@ -228,6 +232,7 @@ class PinnedUpload:
         host.numpy()[...] = arr
         out.copy_(host, non_blocking=True)
         done.record()
+        count("h2d.bytes.pinned", host.nbytes)
         return out
 
 

@@ -70,6 +70,7 @@ import numpy as np
 import torch
 
 from ..parallel.context import block_step, voice_partials
+from ..utils.profiler import count, span
 from ..utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .hostmath import f32
 from .signal import default_device, same_device
@@ -313,11 +314,13 @@ class _RowUpload:
                             torch.cuda.Event()) for _ in range(self.DEPTH)]
         host, done = self._slots[self._next]
         self._next = (self._next + 1) % self.DEPTH
-        done.synchronize()
+        with span("steps.slot_wait"):
+            done.synchronize()
         for row, params in zip(host.numpy()[:size].reshape(dst.shape), pend):
             _pack_into(params, row)
         dst.view(-1).copy_(host[:size], non_blocking=True)
         done.record()
+        count("h2d.bytes.rows", 4 * size)
 
 
 class _Step:
@@ -422,15 +425,17 @@ class BlockSteps:
     def _rows_to(self, pend, dst):
         """Pack the params ``pend`` into the rows of the device tensor
         ``dst``: on a card through a pinned buffer and one copy, on the
-        CPU in place."""
-        if dst.device.type != "cuda":
-            for row, params in zip(dst.numpy(), pend):
-                _pack_into(params, row)
-            return
-        up = self._uploads.get(self._lane())
-        if up is None:
-            up = self._uploads[self._lane()] = _RowUpload()
-        up(pend, dst)
+        CPU in place (the span ``steps.rows``, a run's staged rows
+        included)."""
+        with span("steps.rows"):
+            if dst.device.type != "cuda":
+                for row, params in zip(dst.numpy(), pend):
+                    _pack_into(params, row)
+                return
+            up = self._uploads.get(self._lane())
+            if up is None:
+                up = self._uploads[self._lane()] = _RowUpload()
+            up(pend, dst)
 
     def _stage(self, pend, R, dev):
         """A run's rows on the device, one copy: a view of a staging buffer
@@ -457,10 +462,20 @@ class BlockSteps:
         return out
 
     def _call(self, step):
+        """One call of ``step``, in the span of the way it ran:
+        ``steps.eager``, ``steps.capture`` (a capture and its first replay)
+        or ``steps.replay``."""
+        with span("steps.call") as sp:
+            out, how = self._step_call(step)
+            if sp is not None:
+                sp.name = "steps." + how
+            return out
+
+    def _step_call(self, step):
         d0, dd = self._step_get(), self._step_data()
         if self._step_sig.device.type != "cuda":
             self.graph_counts["eager"] += 1
-            return self._eager_call(step, d0, dd)
+            return self._eager_call(step, d0, dd), "eager"
         leaves = tree_leaves(d0) + tree_leaves(dd)
         if step.leaves is not None and not (
                 len(leaves) == len(step.leaves)
@@ -482,16 +497,18 @@ class BlockSteps:
             step.calls += 1
             step.leaves = [(x, x.shape) for x in leaves]
             self.graph_counts["eager"] += 1
-            return self._eager_call(step, d0, dd)
+            return self._eager_call(step, d0, dd), "eager"
+        how = "replay"
         if step.graph is None or step.stale:
             self._capture(step, d0, dd, leaves)
+            how = "capture"
         step.graph.replay()
         for counters, delta in zip(_launch_counters(), step.launches):
             for name, v in delta.items():
                 counters[name] += v
         step.calls += 1
         self.graph_counts["replays"] += 1
-        return step.out
+        return step.out, how
 
     def _capture(self, step, d0, dd, leaves):
         """Capture ``step`` on the collected state ``d0`` as one CUDA graph
@@ -586,8 +603,13 @@ class Renderer(BlockSteps):
 
     def render_block(self, n, interval=None):
         """Render one block of ``n`` frames; returns float32 numpy (n, C)."""
+        with span("render.call"):
+            return self._render_block(n, interval)
+
+    def _render_block(self, n, interval):
         sig = self.signal
-        params = sig.host_prepare(self.interval if interval is None else f32(interval), n)
+        with span("render.prepare"):
+            params = sig.host_prepare(self.interval if interval is None else f32(interval), n)
         self._count("single")
         if self._stepped():
             block = self._run_key(sig.archetype(), "single", [params], n)[0]
@@ -708,7 +730,8 @@ class Renderer(BlockSteps):
         for bi in range(nblocks):
             if pend and event is not None and event():
                 flush()
-            p = sig.host_prepare(self.interval, block_size)
+            with span("render.prepare"):
+                p = sig.host_prepare(self.interval, block_size)
             a = sig.archetype()
             if pend and a != pend_arch:
                 flush()
@@ -729,6 +752,10 @@ class Renderer(BlockSteps):
     def render_frames(self, total, block_size=512):
         """Offline render of ``total`` frames in fixed blocks; returns
         float32 numpy (total, C)."""
+        with span("render.call"):
+            return self._render_frames(total, block_size)
+
+    def _render_frames(self, total, block_size):
         nblocks, rem = divmod(total, block_size)
         pieces = []
 
@@ -743,7 +770,7 @@ class Renderer(BlockSteps):
         if nblocks:
             self._run_blocks(nblocks, block_size, consume)
         if rem:
-            pieces.append(self.render_block(rem))
+            pieces.append(self._render_block(rem, None))
         # device-resident engines sync handle-visible state once per batch
         sync = getattr(self.signal, "sync", None)
         if sync is not None:
@@ -763,12 +790,13 @@ class Renderer(BlockSteps):
         if rem:
             raise ValueError("total must be a multiple of block_size")
         out = []
-        self._run_blocks(nblocks, block_size, out.append)
-        if sync:
-            prefetch = getattr(self.signal, "sync_prefetch", None)
-            if prefetch is not None:
-                prefetch()
-                self._since_sync = 0
+        with span("render.call"):
+            self._run_blocks(nblocks, block_size, out.append)
+            if sync:
+                prefetch = getattr(self.signal, "sync_prefetch", None)
+                if prefetch is not None:
+                    prefetch()
+                    self._since_sync = 0
         return out
 
 

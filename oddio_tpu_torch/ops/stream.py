@@ -40,6 +40,7 @@ import torch
 from ..core.drctrl import device_param
 from ..core.hostmath import f32, full
 from ..core.signal import ControlBlock, Signal
+from ..utils.profiler import count, recording
 from .stream_kernels import (
     RESAMPLE_DSMAX,
     RESAMPLE_NMAX,
@@ -221,6 +222,10 @@ class Stream(Signal):
                 chunk[v, :, : len(flat)] = flat.T
                 counts[v] = len(flat)
         self._dirty = {v for v in self._dirty if self._pending.flat[v]}
+        if recording():
+            # the written samples this block ships, and the chunk's slots
+            count("ingest.samples", C * int(counts.sum()))
+            count("ingest.slots", chunk.size)
         return chunk, counts
 
     def host_prepare(self, interval, n, count=None):

@@ -101,6 +101,7 @@ from ..core.drctrl import read_handle_state
 from ..core.run import BlockSteps, eager_mode
 from ..core.signal import Engine, same_device
 from ..ops.geometry import HEAD_RADIUS, SPEED_OF_SOUND
+from ..utils.profiler import count, span
 from ..utils.tree import tree_leaves, tree_map
 from .context import mesh_cell, scene_stack, stack_index, voice_partials
 from .mesh import SCENE_AXIS, VOICE_AXIS
@@ -486,10 +487,13 @@ class ScenePack(BlockSteps):
         """Per-voice ingest chunks end to end; a scene with no queued PCM
         this block ships zero rows (its zero-termination lands past its
         buffered data, where no read looks)."""
-        tmpl = next(v for v in vals if v is not None)
-        zero = tree_map(np.zeros_like, tmpl)
-        return tree_map(lambda *xs: np.concatenate(xs),
-                        *[zero if v is None else v for v in vals])
+        with span("pack.merge_ingest"):
+            tmpl = next(v for v in vals if v is not None)
+            zero = tree_map(np.zeros_like, tmpl)
+            # the zero rows ship too: slots of the chunk that carry nothing
+            count("ingest.slots", tmpl["chunk"].size * sum(v is None for v in vals))
+            return tree_map(lambda *xs: np.concatenate(xs),
+                            *[zero if v is None else v for v in vals])
 
     def _merge_pool(self, group, ps, shard):
         """One pool's params over a cell's scenes, by the layout the pool
@@ -572,16 +576,22 @@ class ScenePack(BlockSteps):
     def _block_params(self, n):
         """Prepare every scene for one block; returns the merged params of
         each cell, keyed (scene group, voice shard)."""
-        self._check_structure()
-        self._tier_floors(n)
-        self._equalize()
-        force = self._pack_force()
-        per_scene = [s.host_prepare(self.interval, n, force=force) for s in self.scenes]
-        self._pack_flags()
-        self._ensure_state()
-        return {(g, k): self._merge(self._group(g), per_scene[g * self.Sa:(g + 1) * self.Sa],
-                                    (k, self.B))
-                for g, k in self._cells}
+        with span("pack.coordinate"):
+            self._check_structure()
+            self._tier_floors(n)
+            self._equalize()
+            force = self._pack_force()
+        with span("pack.prepare"):
+            per_scene = [s.host_prepare(self.interval, n, force=force) for s in self.scenes]
+        with span("pack.coordinate"):
+            self._pack_flags()
+            self._ensure_state()
+        out = {}
+        for g, k in self._cells:
+            with span("pack.merge"):
+                out[g, k] = self._merge(self._group(g), per_scene[g * self.Sa:(g + 1) * self.Sa],
+                                        (k, self.B))
+        return out
 
     def _render(self, params, n):
         """One block of every cell op by op; returns (S, C, n) on the
@@ -610,32 +620,34 @@ class ScenePack(BlockSteps):
         voice-axis ``psum``), rounded and added to shard 0's mix in render
         order, as one cell holding all the rows would.  The adds are
         elementwise, so a block and a run's (k, ...) outputs sum alike."""
-        blocks = []
-        for g in range(self.A):
-            if self.B == 1:
-                blocks.append(outs[g, 0])
-                continue
-            parts = [outs[g, k]["parts"] for k in range(self.B)]
-            out = outs[g, 0]["mix"]
-            for name, x in parts[0].items():  # shard 0 holds every pool
-                for part in parts[1:]:
-                    if name in part:
-                        x = x + part[name].to(x.device)
-                out = out + x.to(torch.float32)
-            blocks.append(out)
-        if len(blocks) == 1:
-            return blocks[0]
-        return torch.cat([b.to(self.mesh.first) for b in blocks], dim=-3)
+        with span("pack.join"):
+            blocks = []
+            for g in range(self.A):
+                if self.B == 1:
+                    blocks.append(outs[g, 0])
+                    continue
+                parts = [outs[g, k]["parts"] for k in range(self.B)]
+                out = outs[g, 0]["mix"]
+                for name, x in parts[0].items():  # shard 0 holds every pool
+                    for part in parts[1:]:
+                        if name in part:
+                            x = x + part[name].to(x.device)
+                    out = out + x.to(torch.float32)
+                blocks.append(out)
+            if len(blocks) == 1:
+                return blocks[0]
+            return torch.cat([b.to(self.mesh.first) for b in blocks], dim=-3)
 
     def render_block(self, n):
         """Render one block for every scene; returns float32 numpy (S, n, C)."""
-        params = self._block_params(n)
-        if self._stepped():
-            block = self._dispatch_steps(self.scenes[0].archetype(), "single",
-                                         [params], n)[0]
-        else:
-            block = self._render(params, n)
-        return np.moveaxis(block.cpu().numpy(), 1, 2)
+        with span("pack.call"):
+            params = self._block_params(n)
+            if self._stepped():
+                block = self._dispatch_steps(self.scenes[0].archetype(), "single",
+                                             [params], n)[0]
+            else:
+                block = self._render(params, n)
+            return np.moveaxis(block.cpu().numpy(), 1, 2)
 
     def _idle_bulk(self, n, remaining):
         """Advance every scene ``remaining`` idle blocks in O(1) where all
@@ -660,8 +672,13 @@ class ScenePack(BlockSteps):
         nblocks, rem = divmod(total, block_size)
         if rem:
             raise ValueError("total must be a multiple of block_size")
-        if self._stepped():
-            return self._run_frames(nblocks, block_size)
+        with span("pack.call"):
+            if self._stepped():
+                return self._run_frames(nblocks, block_size)
+            return self._eager_frames(nblocks, block_size)
+
+    def _eager_frames(self, nblocks, block_size):
+        """``render_frames_device`` op by op."""
         blocks = []
         for bi in range(nblocks):
             params = self._block_params(block_size)
@@ -775,12 +792,13 @@ class ScenePack(BlockSteps):
         where a scene's rows lie in several cells or on another device,
         store a gathered copy instead (``_gather``)."""
         views = self._views_ok()
-        for g in range(self.A):
-            eng = self._group(g)
-            parts = [self._unstack_engines(eng, self._dstate[g, k]) for k in range(self.B)]
-            for s, scene in enumerate(eng):
-                scene.device_store(parts[0][s] if views
-                                   else self._gather(scene, [p[s] for p in parts]))
+        with span("pack.join"):
+            for g in range(self.A):
+                eng = self._group(g)
+                parts = [self._unstack_engines(eng, self._dstate[g, k]) for k in range(self.B)]
+                for s, scene in enumerate(eng):
+                    scene.device_store(parts[0][s] if views
+                                       else self._gather(scene, [p[s] for p in parts]))
 
     def _gather(self, scene, parts):
         """One scene's device tree from its voice shards' trees, on the

@@ -93,6 +93,7 @@ from .ops.ring_kernels import (
 from .ops.stream_kernels import ring_place_plain, ring_place_record
 from .parallel.context import (RenderDevice, add_block, current_scenes, in_block_step,
                                localize_index)
+from .utils.profiler import count, span
 from .utils.tree import tree_fill, tree_map, tree_stack
 
 __all__ = [
@@ -992,6 +993,8 @@ class _DRPoolBase(DRCtrlMixin):
             params["mot_pos"] = mot_pos
             params["mot_vel"] = mot_vel
             params["mot_disc"] = mot_disc
+        # reports the channel could not take this block (``k_motion``)
+        count("motion.deferred", len(self.pending_motion))
         return params
 
     def _walk_device(self, S, params, elapsed):
@@ -1591,7 +1594,8 @@ class _BufferedPoolDR(_DRPoolBase):
         self._w_last = dict(params)
         # deltas ship (and mirror-update) BEFORE the tier choice: shipped
         # motion applies on this block
-        params = self._delta_params(params, force)
+        with span("pool.deltas", pool=self.name):
+            params = self._delta_params(params, force)
         # fader bookkeeping rides the inner timebase (faders advance by the
         # ring-write frame count, like every inner node), before the flag
         # sync: a released fade's target renders this block
@@ -1614,7 +1618,8 @@ class _BufferedPoolDR(_DRPoolBase):
         if self._has_play:
             # delta blocks skip the tight tier (pinned at the K=64 class)
             tiers = tiers[1:]
-        self._sub_plan(n, ratio, elapsed, rot_sin_half, params, tiers)
+        with span("pool.plan", pool=self.name):
+            self._sub_plan(n, ratio, elapsed, rot_sin_half, params, tiers)
         # mirror the walk's smoothing-clock advance (step 3)
         self._g_smdt = self._g_smdt + np.float32(elapsed)
         self._t_scene += elapsed

@@ -37,15 +37,17 @@ a logical 2 x 2 mesh of the card (``[cuda] * 4``; each cell replays its
 own graphs): config 5 at its stated 256 scenes as ``pack2x2`` and the
 host-pool pack 16 x 256 as ``hostpack2x2``, with their ``_eager`` twins,
 it prints, for each of three timed 188-block
-runs, the wall time per 512-frame block, the host time per block spent in
-the engine's ``host_prepare`` and the real-time factor (xRT, after
-``torch.cuda.synchronize()``; for a pack, per scene: one scene's audio
-seconds per wall second, as bench.py counts it); then, for one 47-block run under
-``torch.profiler``, the device kernel time per block, the device's busy
-share of the wall time (kernel time / wall time), the device kernels per
-block, the host-to-device copies from pageable memory per block, the
-kernels with the most device time and the host-side torch ops with the
-most self time.  The mixer and host-pool scenes' streams get 1024
+runs, the wall time per 512-frame block and the real-time factor (xRT,
+after ``torch.cuda.synchronize()``; for a pack, per scene: one scene's
+audio seconds per wall second, as bench.py counts it); then, for one
+47-block run under ``torch.profiler``, the device kernel time per block,
+the device's busy share of the wall time (kernel time / wall time), the
+device kernels per block, the host time per block in the engine's
+prepare (the program's spans ``render.prepare`` / ``pack.prepare``), the
+bytes per block copied to the card from pageable memory (the counter
+``h2d.bytes.pageable``), the device's idle time per block split by the
+program's innermost span (``profiler.idle_split``), the kernels with the
+most device time and the host-side torch ops with the most self time.  The mixer and host-pool scenes' streams get 1024
 new samples before each run, so the traced run includes an ingest block.
 The card's name and power limit head the output.  With no arguments every
 scene runs.
@@ -62,6 +64,7 @@ import torch
 
 import oddio_tpu_torch as pt
 from oddio_tpu_torch.mixer import DEFAULT_CAPACITY
+from oddio_tpu_torch.utils import profiler as prof_mod
 
 __all__ = ["build_spatial", "build_main_path", "MAIN_PATH", "BUCKETS", "build_mixer_agc",
            "build_host_pools", "build_config5_pack",
@@ -764,24 +767,6 @@ def card_line():
     return out[0].strip()
 
 
-def _timed_prepare(scenes):
-    """Wrap each scene's ``host_prepare`` to add its host seconds to one
-    list."""
-    spent = [0.0]
-    for scene in scenes:
-        inner = scene.host_prepare
-
-        def host_prepare(*a, _inner=inner, **kw):
-            t0 = time.perf_counter()
-            try:
-                return _inner(*a, **kw)
-            finally:
-                spent[0] += time.perf_counter() - t0
-
-        scene.host_prepare = host_prepare
-    return spent
-
-
 class _Driven:
     """A Renderer whose ``render_frames_device`` runs a driver's control
     script (``SamplerDriver.render``)."""
@@ -841,7 +826,6 @@ def _profile_scene(label, shown):
         r = build_spatial_pack(16, "cuda")
     elif label == "sampler_pack":
         r = build_sampler_pack(16, 64, "cuda")
-        scene = None
     elif label in ("hostpack", "hostpack2x2"):
         r, ctls, _, rng = build_host_pools_pack(
             16, 256, "cuda", mesh=_logical_2x2() if label == "hostpack2x2" else None)
@@ -875,32 +859,28 @@ def _profile_scene(label, shown):
         scene = build_seek_chains(VOICES, "cuda").scene
     else:
         _, scene, _ = build_main_path(label, VOICES, "cuda")
-    if label == "sampler_pack":
-        # the scenes' control scripts run inside the timed window
-        spent = _timed_prepare(r.pack.scenes)
-    elif label in ("pack", "pack256", "pack2x2", "spatialpack", "hostpack", "hostpack2x2"):
-        spent = _timed_prepare(r.scenes)
-    else:
-        spent = _timed_prepare([scene])
+    if label not in ("sampler_pack", "pack", "pack256", "pack2x2", "spatialpack", "hostpack",
+                     "hostpack2x2"):
         r = pt.Renderer(scene, RATE, **kw)
     if label == "sampler":
         # the control script runs inside the timed window (every 8 blocks)
         r = _Driven(r, drv)
     _run(r, nblocks // 2)  # warm-up
     for _ in range(RUNS):
-        spent[0] = 0.0
         if before is not None:
             before()
         wall = _run(r, nblocks)
         print(f"{shown}: wall/block {1e3 * wall / nblocks:.3f} ms, "
-              f"host_prepare/block {1e3 * spent[0] / nblocks:.3f} ms, "
               f"xRT {nblocks * BLOCK / RATE / wall:.2f}")
     ntr = max(nblocks // 4, 1)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     if before is not None:
         before()
     with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.time_ns()
         wall = _run(r, ntr)
+        t1 = time.time_ns()
+    spans = prof_mod.recorded(t0, t1)
     kern_us = collections.Counter()
     kern_n = collections.Counter()
     for ev in prof.events():
@@ -908,13 +888,22 @@ def _profile_scene(label, shown):
             kern_us[ev.name] += ev.time_range.elapsed_us()
             kern_n[ev.name] += 1
     dev_ms = sum(kern_us.values()) / 1e3
-    pageable = sum(v for k, v in kern_n.items() if "Pageable" in k)
+    prepare = sum(prof_mod.span_seconds(k, spans)[0] for k in ("render.prepare", "pack.prepare"))
+    pageable = prof_mod.counted("h2d.bytes.pageable", spans) or 0
     print(f"{shown} traced: wall {1e3 * wall:.1f} ms for {ntr} blocks; device kernel "
           f"time {dev_ms:.3f} ms ({dev_ms / ntr:.4f} ms/block), busy share "
           f"{dev_ms / (1e3 * wall):.3f}, device kernels/block "
-          f"{sum(kern_n.values()) / ntr:.1f}, pageable uploads/block {pageable / ntr:.1f}")
+          f"{sum(kern_n.values()) / ntr:.1f}, host_prepare/block "
+          f"{1e3 * prepare / ntr:.3f} ms, pageable upload bytes/block {pageable / ntr:.0f}")
     if not kern_n:
         print(f"{shown} traced: the profiler saw no device kernels")
+    busy = [(ev.start_ns(), ev.start_ns() + ev.duration_ns())
+            for ev in prof.profiler.kineto_results.events()
+            if ev.device_type() == torch.autograd.DeviceType.CUDA]
+    idle = prof_mod.idle_split(busy, spans, t0, t1)
+    print(f"{shown} traced: device idle ms/block by the program's innermost span: "
+          + ", ".join(f"{k} {1e3 * v / ntr:.3f}" for k, v in
+                      sorted(idle.items(), key=lambda kv: -kv[1])))
     for name, us in kern_us.most_common(TOP):
         print(f"  {us / ntr:10.2f} us/block  x{kern_n[name] / ntr:5.1f}  {name[:90]}")
     cpu = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]

@@ -3,6 +3,7 @@
 (utils/profiler.py), the public names, and the carry of a host-pool
 Fader mid-fade with fades queued (utils/convert.py)."""
 
+import json
 import os
 import time
 
@@ -81,6 +82,13 @@ def test_torch_device_trace_writes_a_trace_on_the_cpu(tmp_path):
     path = tmp_path / "trace" / "trace.json"
     assert path.exists() and os.path.getsize(path) > 0
     assert len(prof.key_averages()) > 0
+    # the program's spans ride in the file, on the timeline of its events
+    events = json.loads(path.read_text())["traceEvents"]
+    calls = [e for e in events if e.get("cat") == "oddio_tpu_torch" and e["name"] == "render.call"]
+    assert len(calls) == 1
+    a, b = calls[0]["ts"], calls[0]["ts"] + calls[0]["dur"]
+    ops = [e for e in events if e.get("cat") == "cpu_op" and e.get("ph") == "X"]
+    assert ops and all(a <= e["ts"] <= e["ts"] + e["dur"] <= b for e in ops)
 
 
 def _host_sine(m):
