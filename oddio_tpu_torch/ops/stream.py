@@ -197,30 +197,36 @@ class Stream(Signal):
         else:
             self._dirty.discard(int(i))
 
+    #: where the next ``_drain`` writes: a zeroed (V, C, mw+1) view of a
+    #: ScenePack's persistent ingest chunk, set around the pack's prepares
+    #: (``parallel/sharded.py``), else None (a chunk of its own)
+    _ing_out = None
+
     def _drain(self, V):
         """Drain the dirty voices' producer queues into a (V, C, mw+1)
-        chunk (one spare zero-termination column) and (V,) counts."""
+        chunk (one spare zero-termination column) and (V,) counts: the
+        written spans land in ``_ing_out`` where a pack set it (zero past
+        each count already), else in a fresh zero chunk."""
         C = self.channels
-        chunk = np.zeros((V, C, self.max_write + 1), np.float32)
+        chunk = self._ing_out
+        if chunk is None or chunk.shape[0] != V:
+            chunk = np.zeros((V, C, self.max_write + 1), np.float32)
         counts = np.zeros(V, np.int32)
         for v in sorted(self._dirty):
             q = self._pending.flat[v]
             room = self.max_write
-            got = []
+            k = 0
             while q and room > 0:
                 c = q[0]
                 if len(c) <= room:
-                    got.append(c)
-                    room -= len(c)
                     q.pop(0)
                 else:
-                    got.append(c[:room])
                     q[0] = c[room:]
-                    room = 0
-            if got:
-                flat = np.concatenate(got).astype(np.float32)  # (k, C)
-                chunk[v, :, : len(flat)] = flat.T
-                counts[v] = len(flat)
+                    c = c[:room]
+                chunk[v, :, k:k + len(c)] = c.T  # (k, C) frames
+                k += len(c)
+                room -= len(c)
+            counts[v] = k
         self._dirty = {v for v in self._dirty if self._pending.flat[v]}
         if recording():
             # the written samples this block ships, and the chunk's slots

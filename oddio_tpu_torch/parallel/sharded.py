@@ -98,7 +98,7 @@ import numpy as np
 import torch
 
 from ..core.drctrl import read_handle_state
-from ..core.run import BlockSteps, eager_mode
+from ..core.run import BlockSteps, _pack_spec, eager_mode
 from ..core.signal import Engine, same_device
 from ..ops.geometry import HEAD_RADIUS, SPEED_OF_SOUND
 from ..utils.profiler import count, span
@@ -171,6 +171,116 @@ def _concat(vals):
     return np.concatenate(vals)
 
 
+def _stream_leaf(pool):
+    """The Stream leaf of a device-resident pool's batched template, whose
+    drains ship the pool's ingest chunk, or None."""
+    leaves = pool._ingest_leaves if pool.is_dr else ()
+    return leaves[0] if leaves else None
+
+
+class _IngestChunks:
+    """A pack's merged ingest chunks where each cell holds every voice of
+    its scenes (one voice shard): one persistent (S/a·V, C, mw+1) float32
+    chunk per cell and device-resident stream pool, reused from block to
+    block.  Before the prepares each dirty Stream leaf's drain is pointed
+    at its scene's rows (``Stream._ing_out``), so the written spans land
+    there once: no chunk per scene, no zero chunk for a silent scene, no
+    concatenation.  Taking a chunk again zeroes the spans it carried, so
+    it holds what the concatenated chunks would, zeros past each count
+    included.  A chunk stays out of use from its block's prepare until
+    that block's rows are packed (``release``): two ingest blocks in one
+    run take two."""
+
+    #: free chunks kept per cell and pool
+    KEEP = 2
+
+    def __init__(self):
+        self.free = {}  # (scene group, pool) -> [[chunk, wcount], ...]
+        self.open = {}  # id(chunk) -> [key, chunk, wcount] of the block in prepare
+        self.held = []  # (block params, [entry, ...]): prepared, rows not packed
+
+    def arm(self, pack):
+        """Take this block's chunks and point the dirty stream leaves'
+        drains at their rows; returns the leaves pointed, whose
+        ``_ing_out`` the caller resets after the prepares.  A voice-sharded
+        pack takes none: ``_shard_rows`` cuts each scene's chunk."""
+        self.open = {}
+        armed = []
+        if pack.B > 1:
+            return armed
+        for g in range(pack.A):
+            groups = [grp for _, gs in pack._engine_groups(pack._group(g)) for grp in gs]
+            for i, group in enumerate(groups):
+                if _stream_leaf(group[0]) is None:
+                    continue
+                leaves = [_stream_leaf(p) for p in group]
+                dirty = [s for s, leaf in enumerate(leaves) if leaf._dirty]
+                if not dirty:
+                    continue
+                V = group[0].capacity  # one across the pack (``_equalize``)
+                entry = self._take((g, i), (len(group) * V, leaves[0].channels,
+                                            leaves[0].max_write + 1))
+                self.open[id(entry[1])] = entry
+                for s in dirty:
+                    leaves[s]._ing_out = entry[1][s * V:(s + 1) * V]
+                    armed.append(leaves[s])
+        return armed
+
+    def _take(self, key, shape):
+        """A free chunk of ``shape`` with the spans it carried zeroed (the
+        cost of the written samples, not of the chunk), or a new one."""
+        free = self.free.get(key, [])
+        while free:
+            chunk, wcount = free.pop()
+            if chunk.shape == shape:
+                rows = np.flatnonzero(wcount)
+                if rows.size:
+                    chunk[rows, :, :wcount[rows].max()] = 0
+                return [key, chunk, None]
+        return [key, np.zeros(shape, np.float32), None]
+
+    def merge(self, vals):
+        """One pool's ingest over a cell's scenes (``vals``, None for a
+        scene that shipped none) as the chunk its drains wrote, or None
+        where they wrote into chunks of their own."""
+        tmpl = next(v for v in vals if v is not None)
+        base = tmpl["chunk"].base
+        entry = None if base is None else self.open.get(id(base))
+        if entry is None:
+            return None
+        chunk = entry[1]
+        V = tmpl["chunk"].shape[0]
+        for s, v in enumerate(vals):
+            if v is not None and v["chunk"].base is not chunk:
+                # a stream first written (by a producer thread) after the arm
+                chunk[s * V:(s + 1) * V] = v["chunk"]
+        zero = np.zeros_like(tmpl["wcount"])
+        entry[2] = np.concatenate([zero if v is None else v["wcount"] for v in vals])
+        return {"chunk": chunk, "wcount": entry[2]}
+
+    def close(self, params):
+        """After a block's merges: the chunks they handed out stay out of
+        use with the block's ``params`` until ``release``."""
+        held = [e for e in self.open.values() if e[2] is not None]
+        self.open = {}
+        if held:
+            self.held.append((params, held))
+
+    def release(self, pend=None):
+        """Return the chunks of the blocks ``pend`` (their params, whose
+        rows are packed; every block's with None) to use."""
+        keep = []
+        for params, entries in self.held:
+            if pend is not None and not any(params is p for p in pend):
+                keep.append((params, entries))
+                continue
+            for key, chunk, wcount in entries:
+                free = self.free.setdefault(key, [])
+                if len(free) < self.KEEP:
+                    free.append([chunk, wcount])
+        self.held = keep
+
+
 def _stamp_host_flags(sigs):
     """Scene 0's host template renders every scene's voices: give each of
     its nodes the pack-wide read flags a host prepare set per scene (a
@@ -222,6 +332,8 @@ class ScenePack(BlockSteps):
         self._cell = None  # the cell whose block steps a dispatch runs
         self.step_partials = self.B > 1
         self._flush = None  # dispatches the run render_frames_device holds, if any
+        #: the drains' persistent ingest chunks (where a cell holds whole scenes)
+        self._ingest = _IngestChunks()
         self._names = None
         self._check_structure()
         self._check_split()
@@ -277,6 +389,7 @@ class ScenePack(BlockSteps):
                 with scene_stack(self.Sa, g * self.Sa), mesh_cell((g, k), dev):
                     outs[g, k] = self._run_key(arch, kind, [p[g, k] for p in pend], n)
             self._cell = None
+        self._ingest.release(pend)  # their rows are packed
         if self._views_ok():
             self._store()
         return self._join(outs)
@@ -486,12 +599,19 @@ class ScenePack(BlockSteps):
     def _merge_ingest(self, vals):
         """Per-voice ingest chunks end to end; a scene with no queued PCM
         this block ships zero rows (its zero-termination lands past its
-        buffered data, where no read looks)."""
+        buffered data, where no read looks).  Where the drains wrote into
+        the cell's persistent chunk (``_IngestChunks``) it is the merged
+        chunk; elsewhere (voice shards) the chunks are concatenated."""
         with span("pack.merge_ingest"):
             tmpl = next(v for v in vals if v is not None)
-            zero = tree_map(np.zeros_like, tmpl)
             # the zero rows ship too: slots of the chunk that carry nothing
             count("ingest.slots", tmpl["chunk"].size * sum(v is None for v in vals))
+            out = self._ingest.merge(vals)
+            if out is not None:
+                count("ingest.merged_inplace")
+                return out
+            count("ingest.merged_concat")
+            zero = tree_map(np.zeros_like, tmpl)
             return tree_map(lambda *xs: np.concatenate(xs),
                             *[zero if v is None else v for v in vals])
 
@@ -582,7 +702,12 @@ class ScenePack(BlockSteps):
             self._equalize()
             force = self._pack_force()
         with span("pack.prepare"):
-            per_scene = [s.host_prepare(self.interval, n, force=force) for s in self.scenes]
+            armed = self._ingest.arm(self)
+            try:
+                per_scene = [s.host_prepare(self.interval, n, force=force) for s in self.scenes]
+            finally:
+                for leaf in armed:
+                    leaf._ing_out = None
         with span("pack.coordinate"):
             self._pack_flags()
             self._ensure_state()
@@ -591,6 +716,7 @@ class ScenePack(BlockSteps):
             with span("pack.merge"):
                 out[g, k] = self._merge(self._group(g), per_scene[g * self.Sa:(g + 1) * self.Sa],
                                         (k, self.B))
+        self._ingest.close(out)
         return out
 
     def _render(self, params, n):
@@ -609,6 +735,7 @@ class ScenePack(BlockSteps):
                 self._dstate[g, k], block = scene0.render(
                     self._dstate[g, k], scene0.device_data(), params[g, k], n)
             outs[g, k] = block if part is None else {"mix": block, "parts": part}
+        self._ingest.release([params])
         return self._join(outs)
 
     def _join(self, outs):
@@ -641,6 +768,7 @@ class ScenePack(BlockSteps):
     def render_block(self, n):
         """Render one block for every scene; returns float32 numpy (S, n, C)."""
         with span("pack.call"):
+            self._ingest.release()  # no block of an earlier call is pending
             params = self._block_params(n)
             if self._stepped():
                 block = self._dispatch_steps(self.scenes[0].archetype(), "single",
@@ -673,6 +801,7 @@ class ScenePack(BlockSteps):
         if rem:
             raise ValueError("total must be a multiple of block_size")
         with span("pack.call"):
+            self._ingest.release()  # no block of an earlier call is pending
             if self._stepped():
                 return self._run_frames(nblocks, block_size)
             return self._eager_frames(nblocks, block_size)
@@ -696,8 +825,10 @@ class ScenePack(BlockSteps):
         the ``"scan"`` steps, flushed before any scene's structure event
         (its prepare applies state eagerly) and on an archetype change
         (after the next block's prepare: the run renders as of its own
-        archetype)."""
-        out, pend, pend_arch = [], [], None
+        archetype) or a change of the merged params' layout (a stream
+        write in a scene but scene 0, whose archetype does not show it:
+        a run's rows share one layout)."""
+        out, pend, pend_arch, pend_spec = [], [], None, None
 
         def flush():
             nonlocal pend, pend_arch
@@ -716,10 +847,11 @@ class ScenePack(BlockSteps):
                     flush()
                 params = self._block_params(n)  # every cell's
                 arch = self.scenes[0].archetype()
-                if pend and arch != pend_arch:
+                spec = [_pack_spec(p) for p in params.values()]
+                if pend and (arch != pend_arch or spec != pend_spec):
                     flush()
                 pend.append(params)
-                pend_arch = arch
+                pend_arch, pend_spec = arch, spec
                 remaining = nblocks - bi - 1
                 if remaining and not tree_leaves(params) and self._idle_bulk(n, remaining):
                     pend.extend([params] * remaining)

@@ -58,7 +58,7 @@ from .core.hostmath import (
     v3_norm,
 )
 from .core.signal import Engine, default_device, render_as
-from .mixer import _graph_chain, render_submix
+from .mixer import _graph_chain, _ingest_leaves, render_submix
 from .ops._dev import (
     device_split_ds,
     exact_positions,
@@ -741,6 +741,8 @@ class _DRPoolBase(DRCtrlMixin):
         self.device = torch.device(device)
         # the chain's read-only device data (sample arenas) on this device
         self.proto._set_device(self.device)
+        #: ingest leaves of the batched proto (identity survives growth)
+        self._ingest_leaves = _ingest_leaves(self.proto) if self.proto.batch else []
         self.capacity = capacity
         self.k_motion = k_motion
         self.k_play = k_play

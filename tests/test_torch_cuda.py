@@ -1625,6 +1625,43 @@ def test_pack_graph_replay_matches_eager(cuda, kind):
     assert c["eager"] == sum(len(s) for s in pg._steps.values())
 
 
+def _ingest_script(pack, ctls, rng):
+    """The prefill drained, then calls of 24 blocks whose writes alternate
+    between the even and the odd scenes (two streams a scene), the first
+    2500 samples a stream: past ``max_write_per_block`` (2400), two ingest
+    blocks in one run."""
+    S = len(pack.scenes)
+    ns = len(ctls) // S
+    out = [_pack_frames(pack, 32)]
+    for call in range(4):
+        feed([c for s in range(call % 2, S, 2) for c in ctls[s * ns:s * ns + 2]], rng,
+             2048 if call else 2500)
+        out.append(_pack_frames(pack, 24))
+    return np.concatenate(out, axis=1)
+
+
+def test_pack_graph_in_place_ingest_matches_eager(cuda):
+    """The config-5 pack's persistent ingest chunks (``_IngestChunks``)
+    under graph replay, over ``_ingest_script``: bit-equal to ``eager()``
+    and to the replays of the concatenating path, every kernel's launches
+    equal."""
+
+    def concat(pack, ctls, rng):
+        pack._ingest.arm = lambda pack: []
+        return _ingest_script(pack, ctls, rng)
+
+    (xe, le, _, _), (xg, lg, pg, _), (xc, lc, _, _) = [
+        _pack_graph_run("config5", mode, script)
+        for mode, script in (("eager", _ingest_script), ("graph", _ingest_script),
+                             ("graph", concat))]
+    assert np.abs(xe).max() > 1e-2
+    np.testing.assert_array_equal(xg, xe)
+    np.testing.assert_array_equal(xc, xg)
+    assert lg == le == lc
+    assert pg.graph_counts["replays"] > 0 and pg._ingest.held == []
+    assert all(pg._ingest.free.values())
+
+
 def test_pack_graph_recaptures_after_growth_and_drop_stack(cuda):
     """Plays that grow one scene's pool (every scene grows with it) and a
     ``sync()`` + ``drop_stack()`` both rebuild the stack: the next call of
