@@ -31,12 +31,16 @@ one uint8 bit array on the device (shifts and a sum; torch has no
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
 from ..parallel.context import RenderDevice, current_cell, in_block_step
-from ..utils.profiler import count
+from ..utils.profiler import count, span
 from ..utils.tree import tree_fill, tree_stack
+
+_NULL = contextlib.nullcontext()
 
 __all__ = ["DRCtrlMixin", "PinnedUpload", "walk_ctrl_keys", "walk_fade_paths", "host_lanes",
            "drop_lanes", "scatter_drop_", "scatter_rows_drop_", "device_param",
@@ -318,21 +322,35 @@ class DRCtrlMixin:
     # -- packed handle-state sync ------------------------------------------
 
     def sync(self):
-        """Pull mask/stopped back from the device; reclaim freed slots."""
+        """Pull mask/stopped back from the device; reclaim freed slots.  A
+        pool that counts its plays (``_played``) reclaims from the newest
+        prefetched digest (``_sync_start``) even where the state has moved
+        on since, so the calls queued after it are not waited for: finishes
+        show up to one prefetch late (``is_finished`` may turn true late,
+        never early), and a slot played after that digest keeps its claim.
+        Without a prefetched digest, or in a pool that does not count its
+        plays, it reads the current state."""
         if self.state is None:
             return
         self._sync_apply(*self._sync_read())
 
-    def _sync_apply(self, mask, stopped):
+    def _sync_apply(self, mask, stopped, epochs=None):
         """Reclaim the slots whose voice the device has stopped and
         dropped (mixer.rs:129-147: one scan late); slots with a play
-        still queued keep their claim.  ``mask``/``stopped`` are numpy
-        bool columns of at least ``capacity`` rows."""
+        still queued keep their claim, and so do slots played since the
+        digest was taken (``epochs``, the digest's copy of ``_played``,
+        -1 where a play was queued).  ``mask``/``stopped`` are numpy bool
+        columns of the digest's rows (a pool may have grown since)."""
         cap = self.capacity
-        free = self.mask_host & stopped[:cap] & ~mask[:cap]
+        V = min(cap, mask.shape[0])
+        free = np.zeros(cap, bool)
+        free[:V] = self.mask_host[:V] & stopped[:V] & ~mask[:V]
+        if epochs is not None:
+            free[:V] &= epochs[:V] == self._played[:V]
         for i, _ in self.pending_plays:
             free[i] = False
         idx = np.nonzero(free)[0]
+        count("voices.reclaimed", int(idx.size))
         if idx.size:
             self.mask_host[idx] = False
             self.stopped_host[idx] = True
@@ -347,13 +365,18 @@ class DRCtrlMixin:
     #: rewrites the state in place without touching the tensors' versions
     _store_epoch = 0
 
+    #: plays queued into each slot so far (a pool that tracks them: the
+    #: spatial device-resident pools), which a digest copies at its start
+    _played = None
+
     def _state_key(self):
         m = self.state["mask"]
         return (id(m), m._version, self._store_epoch)
 
     def _sync_start(self):
         """Begin the device->host copy of the packed (mask, stopped) digest
-        for the CURRENT state version (asynchronous on CUDA)."""
+        for the CURRENT state version (asynchronous on CUDA), with the
+        slots' play counts as of now (queued plays marked -1)."""
         st = self.state
         if st is None:
             return
@@ -365,21 +388,28 @@ class DRCtrlMixin:
             event = torch.cuda.Event()
             event.record()
             packed = host
-        self._sync_pack = (self._state_key(), packed, event)
+        epochs = None
+        if self._played is not None:
+            epochs = self._played.copy()
+            for i, _ in self.pending_plays:
+                epochs[i] = -1
+        self._sync_pack = (self._state_key(), packed, event, epochs, st["mask"].shape[0])
 
     def _sync_read(self):
-        """(mask, stopped) numpy bool columns of the current state, via the
-        packed digest (reusing a prefetched one when still current)."""
+        """(mask, stopped, epochs) of the packed digest: a prefetched one
+        with play counts, or one still current, else one of the current
+        state."""
         pk = getattr(self, "_sync_pack", None)
-        if pk is None or pk[0] != self._state_key():
+        if pk is None or (pk[3] is None and pk[0] != self._state_key()):
             self._sync_start()
             pk = self._sync_pack
         self._sync_pack = None
         if pk[2] is not None:
-            pk[2].synchronize()
+            with span("scene.sync_wait"):
+                pk[2].synchronize()
         bits = np.unpackbits(pk[1].numpy())
-        V = self.state["mask"].shape[0]
-        return bits[:V].astype(bool), bits[V : 2 * V].astype(bool)
+        V = pk[4]
+        return bits[:V].astype(bool), bits[V : 2 * V].astype(bool), pk[3]
 
     def _init_ctrl(self, proto):
         self.ctrl_keys = walk_ctrl_keys(proto)
@@ -539,43 +569,8 @@ class DRCtrlMixin:
                 inc[pend_dur] = iv / np.maximum(dur[pend_dur], iv)
                 dur[pend_dur] = -1.0
             if params is not None:
-                idx = np.full(self.k_fade, self.capacity, np.int32)
-                incv = np.zeros(self.k_fade, np.float32)
-                rows = []
-                pend = self.pending_fades[path]
-                t = 0
-                for slot in sorted(pend):
-                    if t >= self.k_fade:
-                        break
-                    if pend[slot][2] != self.slot_gen[slot]:
-                        del pend[slot]  # the voice died; the command drops
-                        continue
-                    if fading[slot] and prog[slot] < 1.0:
-                        continue  # waits until idle (fader.rs:38-47)
-                    spec, dur_s, _ = pend.pop(slot)
-                    # the device's targeted-slot resolution of a completed
-                    # but unflipped fade (_fade_apply)
-                    if fading[slot]:
-                        flip[slot] = ~flip[slot]
-                        fading[slot] = False
-                    inc_s = np.float32(iv / max(np.float32(dur_s), iv))
-                    # the target lands in the INACTIVE bank and its handles
-                    # bind there for good: completion only flips the bit
-                    bank = "a" if flip[slot] else "b"
-                    self._rebind_ctrl(spec, slot, int(self.slot_gen[slot]), path + (bank,))
-                    idx[t] = slot
-                    incv[t] = inc_s
-                    rows.append(spec.dr_slot_row(interval))
-                    self._set_extra(slot, path, bank, spec)
-                    prog[slot] = 0.0
-                    inc[slot] = inc_s
-                    fading[slot] = True
-                    t += 1
-                default = _at_path(self.proto, path).a.dr_default_row(interval)
-                rows = rows + [default] * (self.k_fade - len(rows))
-                params[f"fade_idx{j}"] = idx
-                params[f"fade_inc{j}"] = incv
-                params[f"fade_row{j}"] = tree_stack(rows)
+                with span("pool.fades") if self.pending_fades[path] else _NULL:
+                    self._fade_release(j, path, params, interval)
             # start-of-block completion flips for untargeted slots, then the
             # end-of-block progress advance (as Fader.dr_render)
             done = fading & (prog >= 1.0)
@@ -587,6 +582,57 @@ class DRCtrlMixin:
             or (self._fade_dur[p] >= 0.0).any()
             for p in self.fade_paths
         )
+
+    def _fade_release(self, j, path, params, interval):
+        """Release the waiting fades of fader ``path`` whose voice is idle
+        into this block's ``k_fade`` lanes, slot order (``fades.released``);
+        idle ones beyond the lanes wait for a later block
+        (``fades.held``)."""
+        prog = self._fade_prog[path]
+        inc = self._fade_inc[path]
+        fading = self._fade_fading[path]
+        flip = self._fade_flip[path]
+        iv = np.float32(interval)
+        idx = np.full(self.k_fade, self.capacity, np.int32)
+        incv = np.zeros(self.k_fade, np.float32)
+        rows = []
+        pend = self.pending_fades[path]
+        t = held = 0
+        for slot in sorted(pend):
+            if pend[slot][2] != self.slot_gen[slot]:
+                del pend[slot]  # the voice died; the command drops
+                continue
+            if fading[slot] and prog[slot] < 1.0:
+                continue  # waits until idle (fader.rs:38-47)
+            if t >= self.k_fade:
+                held += 1  # idle, but every lane of this block is taken
+                continue
+            spec, dur_s, _ = pend.pop(slot)
+            # the device's targeted-slot resolution of a completed
+            # but unflipped fade (_fade_apply)
+            if fading[slot]:
+                flip[slot] = ~flip[slot]
+                fading[slot] = False
+            inc_s = np.float32(iv / max(np.float32(dur_s), iv))
+            # the target lands in the INACTIVE bank and its handles
+            # bind there for good: completion only flips the bit
+            bank = "a" if flip[slot] else "b"
+            self._rebind_ctrl(spec, slot, int(self.slot_gen[slot]), path + (bank,))
+            idx[t] = slot
+            incv[t] = inc_s
+            rows.append(spec.dr_slot_row(interval))
+            self._set_extra(slot, path, bank, spec)
+            prog[slot] = 0.0
+            inc[slot] = inc_s
+            fading[slot] = True
+            t += 1
+        count("fades.released", t)
+        count("fades.held", held)
+        default = _at_path(self.proto, path).a.dr_default_row(interval)
+        rows = rows + [default] * (self.k_fade - len(rows))
+        params[f"fade_idx{j}"] = idx
+        params[f"fade_inc{j}"] = incv
+        params[f"fade_row{j}"] = tree_stack(rows)
 
     def _fade_apply(self, inner_state, params):
         """Write released fade starts into the fader nodes' state subtrees
@@ -699,7 +745,9 @@ class DRCtrlMixin:
 
     def _ctrl_delta_params(self, params):
         """Pack one (idx, val) pair per controllable field (padded; overflow
-        beyond k_ctrl carries to the next block)."""
+        beyond k_ctrl carries to the next block, counted as
+        ``ctrl.deferred``)."""
+        deferred = 0
         for j, key in enumerate(self.ctrl_keys):
             pend = self.pending_ctrl[key]
             items = list(pend.items())[: self.k_ctrl]
@@ -712,6 +760,8 @@ class DRCtrlMixin:
                 val[t] = v
             params[f"ctrl_idx{j}"] = idx
             params[f"ctrl_val{j}"] = val
+            deferred += len(pend)
+        count("ctrl.deferred", deferred)
         return params
 
     def _ctrl_apply(self, inner_state, params):

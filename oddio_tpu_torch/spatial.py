@@ -57,6 +57,7 @@ from .core.hostmath import (
     v3_dot,
     v3_norm,
 )
+from .core.frames import FramesSignal
 from .core.signal import Engine, default_device, render_as
 from .mixer import _graph_chain, _ingest_leaves, render_submix
 from .ops._dev import (
@@ -124,25 +125,39 @@ def _emax(rate):
     return RING_ROW + int(np.ceil(0.215 / float(SPEED_OF_SOUND) * rate)) + 2
 
 
-def voice_read_cursors(vcur, vbase, max_delay, adv, offsets, rate, cap):
-    """The reference's delay-ring cursor (ring.rs:18-79) for each voice of a
-    buffered pool whose rings share one modulus ``cap``, advanced one block
-    and read at each ear, in float32 as the reference rounds it.
+def voice_cursor_advance(vcur, vbase, max_delay, adv, rate, cap):
+    """The reference's delay-ring write cursor (ring.rs:18-41) for each
+    voice of a buffered pool whose rings share one modulus ``cap``,
+    advanced one block in float32 as the reference rounds it.
 
     A voice's own ring holds ``c = ceil(max_delay*rate) + 1`` samples and
     its write cursor ``vcur`` in [0, c) advances by ``adv`` (the block's
     f32 ``elapsed*rate``) modulo c; ``vbase`` is the pool ring index of the
-    voice ring's index 0 in the current lap.  An ear at offset ``t``
-    seconds reads from ``(vcur + t*rate) rem_euclid c``.  The pool's
-    shared cursor rounds the same sums at another magnitude, which moved
-    the reads by up to ~1e-3 samples from the reference's (ROADMAP Q3.1).
-    Returns (vcur', vbase', [(base int32 pool index, frac in [0, 1)) per
-    offset])."""
-    ratef = float(np.float32(rate))
-    c = torch.ceil(max_delay * ratef) + 1.0
+    voice ring's index 0 in the current lap.  Returns (vcur', vbase', c,
+    the unwrapped sum ``vcur + adv``)."""
+    c = torch.ceil(max_delay * float(np.float32(rate))) + 1.0
     un = vcur + float(np.float32(adv))
-    vcur = torch.fmod(un, c)
-    vbase = torch.remainder(vbase + (un - vcur).to(_I32), cap)
+    nxt = torch.fmod(un, c)
+    return nxt, torch.remainder(vbase + (un - nxt).to(_I32), cap), c, un
+
+
+def voice_write_count(vcur, nxt, un):
+    """What a block writes by a voice's own cursor, from ``vcur`` to
+    ``nxt`` (``voice_cursor_advance``'s, with its unwrapped sum ``un``):
+    ``ceil(end) - ceil(start)`` samples (ring.rs:18-41), int32.  That is
+    the pool's count but in the one block where a first-lap cursor's
+    fraction rounds away as it grows past a power of two: 511 of 512 at
+    48 kHz, in ~0.1% of voices."""
+    return (torch.ceil(nxt) - torch.ceil(vcur) + (un - nxt)).to(_I32)
+
+
+def voice_reads(vcur, vbase, c, offsets, rate, cap):
+    """The reads of each voice's advanced cursor (ring.rs:51-79): an ear at
+    offset ``t`` seconds reads from ``(vcur + t*rate) rem_euclid c``, one
+    (base int32 pool index, frac in [0, 1)) per offset.  The pool's shared
+    cursor rounds the same sums at another magnitude, which moved the
+    reads by up to ~1e-3 samples from the reference's (ROADMAP Q3.1)."""
+    ratef = float(np.float32(rate))
     ci = c.to(_I32)
     out = []
     for t in offsets:
@@ -152,7 +167,43 @@ def voice_read_cursors(vcur, vbase, max_delay, adv, offsets, rate, cap):
         fl = torch.floor(off)
         out.append((torch.remainder(vbase - torch.where(lap, ci, 0) + fl.to(_I32), cap),
                     off - fl))
-    return vcur, vbase, out
+    return out
+
+
+def _host_write_counts(vcur, max_delay, adv, rate):
+    """``voice_write_count`` on the host, in the same float32 operations:
+    (count int32, the advanced cursors)."""
+    c = (np.ceil((max_delay * np.float32(rate)).astype(np.float32)) + np.float32(1.0))
+    un = (vcur + np.float32(adv)).astype(np.float32)
+    end = np.fmod(un, c.astype(np.float32)).astype(np.float32)
+    return (np.ceil(end) - np.ceil(vcur) + (un - end)).astype(np.int32), end
+
+
+def _blockwise(node):
+    """Whether what a chain renders can depend on where its blocks start:
+    True unless every node is seekable (a pure function of time) and none
+    can finish (a FramesSignal reads its end block by block)."""
+    if not node.seekable or isinstance(node, FramesSignal):
+        return True
+    return any(_blockwise(c) for c in node.children().values())
+
+
+_BEFORE_LEGS = {}
+
+
+def _before_legs(FP, cap, M, device):
+    """(cap, 2) int64: for a write cursor ``s``, the flat ring columns of
+    pool index ``s - 1`` (wrapping), primary and mirror (the dump slack
+    past the mirror where the index lies outside it).  A constant of the
+    layout, made once a device, outside any graph capture (the pool's
+    first state makes it)."""
+    key = (FP, cap, M, str(device))
+    legs = _BEFORE_LEGS.get(key)
+    if legs is None:
+        p = (np.arange(cap, dtype=np.int64) - 1) % cap
+        legs = np.stack([FP + p, FP + cap + np.minimum(p, M)], axis=1)
+        legs = _BEFORE_LEGS[key] = torch.as_tensor(legs, device=device)
+    return legs
 
 
 def _rot_rows(rot, V):
@@ -752,6 +803,9 @@ class _DRPoolBase(DRCtrlMixin):
         self.mask_host = np.zeros(capacity, dtype=bool)
         self.stopped_host = np.zeros(capacity, dtype=bool)
         self.pending_plays = []  # (slot, row tree)
+        #: plays queued into each slot so far: a digest keeps a copy, so a
+        #: sync from it never frees a slot played after it was taken
+        self._played = np.zeros(capacity, dtype=np.int64)
         self.pending_motion = {}  # slot -> (pos, vel, disc); last-wins
         self.state = None
         # exact host mirrors of the device walk's geometry inputs (same f32
@@ -813,6 +867,7 @@ class _DRPoolBase(DRCtrlMixin):
         self.slot_gen = np.concatenate([self.slot_gen, np.zeros(old, np.int64)])
         self.mask_host = np.concatenate([self.mask_host, np.zeros(old, bool)])
         self.stopped_host = np.concatenate([self.stopped_host, np.zeros(old, bool)])
+        self._played = np.concatenate([self._played, np.zeros(old, np.int64)])
         self._free = list(range(new - 1, old - 1, -1)) + self._free
         self._g_prev = np.concatenate([self._g_prev, np.zeros((old, 3), np.float32)])
         self._g_mpos = np.concatenate([self._g_mpos, np.zeros((old, 3), np.float32)])
@@ -877,6 +932,7 @@ class _DRPoolBase(DRCtrlMixin):
 
     def _queue_play(self, i, row):
         self.pending_plays.append((i, row))
+        self._played[i] += 1
         self.mask_host[i] = True
         self.stopped_host[i] = False
         self._g_prev[i] = row["prev_position"]
@@ -899,7 +955,11 @@ class _DRPoolBase(DRCtrlMixin):
         """Refresh handle-visible state at most once per rendered block."""
         if getattr(self, "_sync_seen", -1) != getattr(self, "_prep_count", 0):
             self.sync()
-            self._sync_seen = getattr(self, "_prep_count", 0)
+
+    def sync(self):
+        super().sync()
+        # handle queries until the next block read what this sync applied
+        self._sync_seen = getattr(self, "_prep_count", 0)
 
     def _clear_rows(self, S, lanes):
         """Reset layout-sensitive per-slot state (delay rings) for the
@@ -921,13 +981,15 @@ class _DRPoolBase(DRCtrlMixin):
         idx = np.array([i for i, _ in self.pending_plays], np.int64)
         rows = tree_stack([r for _, r in self.pending_plays])
         self.pending_plays = []
+        count("plays.eager", len(idx))
         S = dict(self.state)
         self._scatter_rows(S, idx, rows)
         self.state = S
 
     def sync_prefetch(self):
         """Start the (asynchronous on CUDA) device->host copy of the packed
-        handle-visible state so a following sync() need not stall."""
+        handle-visible state so a following sync() need not stall, nor
+        wait for what is queued after it."""
         self._sync_start()
 
     def _on_freed(self):
@@ -1192,6 +1254,15 @@ class _BufferedPoolDR(_DRPoolBase):
         self._read_cfg = None  # set per block by host_prepare
         #: per-voice max_delay host column (offset-clamp checks)
         self._md_host = np.zeros(capacity, np.float32)
+        #: host twin of the voices' own ring cursors ("vcur"), for the
+        #: mirrors that advance by each voice's write count (fade progress,
+        #: stream cursors); None in a pool that keeps neither
+        self._vc_host = (np.zeros(capacity, np.float32)
+                         if self.fade_paths or self.proto.batch else None)
+        #: whether each source advances by its own ring cursor's count (a
+        #: chain whose samples do not depend on where blocks start keeps
+        #: the pool's count, and the work that takes)
+        self._own_counts = _blockwise(self.proto)
         #: family sub-pass: the shipped wide-voice list, its tier for this
         #: block, and the ship-pending flag
         self._sub_list = np.zeros(0, np.int64)
@@ -1215,6 +1286,7 @@ class _BufferedPoolDR(_DRPoolBase):
 
     def _extra_zero(self, V):
         dev = self.device
+        _before_legs(self.W_CHUNK, self.cap_pool, self.M_PAD, torch.empty(0, device=dev).device)
         return {
             "ring": torch.zeros(self._ring_shape(V), dtype=_F32, device=dev),
             "max_delay": torch.zeros(V, dtype=_F32, device=dev),
@@ -1224,6 +1296,9 @@ class _BufferedPoolDR(_DRPoolBase):
             # pool ring index of the voice ring's index 0 in its current lap
             "vcur": torch.zeros(V, dtype=_F32, device=dev),
             "vbase": torch.zeros(V, dtype=_I32, device=dev),
+            # samples the voice's source runs ahead of the pool's cursor:
+            # 1 from the block after its cursor wrote one short, else 0
+            "lag": torch.zeros(V, dtype=_I32, device=dev),
             # device twin of the pool write cursor: idle blocks derive the
             # ring cursor on the device and ship no params at all
             "wcur": torch.zeros(1, dtype=_F32, device=dev),
@@ -1251,6 +1326,8 @@ class _BufferedPoolDR(_DRPoolBase):
         old = self.capacity
         super().grow()
         self._md_host = np.concatenate([self._md_host, np.zeros(old, np.float32)])
+        if self._vc_host is not None:
+            self._vc_host = np.concatenate([self._vc_host, np.zeros(old, np.float32)])
 
     def play(self, spec, options, max_delay):
         i, gen = self._claim_slot(spec)
@@ -1277,6 +1354,8 @@ class _BufferedPoolDR(_DRPoolBase):
         row["tight"] = np.float32(1.0)  # reused slots rejoin the main pass
         row["inner"] = spec.dr_slot_row(self.interval_inner)
         self._md_host[i] = np.float32(max_delay)
+        if self._vc_host is not None:
+            self._vc_host[i] = w0
         self._queue_play(i, row)
         return i, gen
 
@@ -1290,8 +1369,10 @@ class _BufferedPoolDR(_DRPoolBase):
         return row
 
     def _clear_rows(self, S, lanes):
-        """Zero the delay rings of newly played slots, in place."""
+        """Zero the delay rings and lags of newly played slots, in place."""
         scatter_drop_(S["ring"], lanes, S["ring"].new_zeros(()))
+        if "lag" in S:
+            scatter_drop_(S["lag"], lanes, S["lag"].new_zeros(()))
 
     # -- per block: host plan ------------------------------------------------------
 
@@ -1601,7 +1682,13 @@ class _BufferedPoolDR(_DRPoolBase):
         # fader bookkeeping rides the inner timebase (faders advance by the
         # ring-write frame count, like every inner node), before the flag
         # sync: a released fade's target renders this block
-        self._fade_tick(params if self._has_play else None, self.interval_inner, n_write)
+        counts = n_write
+        if self._vc_host is not None:
+            # the device's per-voice write counts (voice_write_count)
+            vc, self._vc_host = _host_write_counts(self._vc_host, self._md_host, advf, self.rate)
+            if self._w_aligned:
+                counts = vc
+        self._fade_tick(params if self._has_play else None, self.interval_inner, counts)
         # the chain's read-path flags (stream step bound, AGC gate) at the
         # inner timebase, after this block's plays and control writes
         self._ds_small = self._ds_flag_sync(self.interval_inner, self._n_inner)
@@ -1633,15 +1720,13 @@ class _BufferedPoolDR(_DRPoolBase):
             ing = self.proto.dr_ingest_params()
             if ing is not None:
                 params["ing"] = ing
-            if self.mask_host.all():
+            live = np.where(self.mask_host, counts, np.int32(0)).astype(np.int32)
+            if self.mask_host.all() and (live == n_write).all():
                 # uniform tick: deferred as O(1) debt, replayed exactly at
                 # the first mirror read
                 self.proto.dr_host_tick(self.interval_inner, int(n_write))
             else:
-                self.proto.dr_host_tick(
-                    self.interval_inner,
-                    np.where(self.mask_host, np.int32(n_write), np.int32(0)),
-                )
+                self.proto.dr_host_tick(self.interval_inner, live)
         # param-free idle blocks: on the integer fast path with an aligned
         # append whose advance divides the modulus, the device derives
         # (w, nw, wstart) from its cursor and the block ships nothing
@@ -1849,8 +1934,25 @@ class _BufferedPoolDR(_DRPoolBase):
             start_i = torch.ceil(w0).to(_I32)
             nw_s = torch.ceil(w_un).to(_I32) - start_i
         S["wcur"] = w_end
+        # each voice's own ring cursor (ring.rs:18-41), advanced; on the
+        # aligned path its source advances by what that cursor writes, and
+        # a voice whose cursor wrote one short runs a sample ahead of the
+        # pool's cursor from then on (``late``)
+        vc0 = S["vcur"]
+        S["vcur"], S["vbase"], c_v, un = voice_cursor_advance(
+            vc0, S["vbase"], S["max_delay"], self._adv(), self.rate, cap)
+        late = None
+        if self._w_aligned and self._own_counts:
+            nw_v = voice_write_count(vc0, S["vcur"], un)
+            lag = S.get("lag")
+            if lag is None:  # a state carried from the JAX package
+                lag = torch.zeros_like(S["vbase"])
+            late = lag > 0
+            S["lag"] = lag + per_voice(nw_s, V) - nw_v
+        else:
+            nw_v = per_voice(nw_s, V)
         # dead/unplayed slots do not advance their inner cursors
-        n_write = torch.where(mask, per_voice(nw_s, V), 0)
+        n_write = torch.where(mask, nw_v, 0)
 
         # 6. inner source render; slab append (ring.rs:18-41).  All n_inner
         # frames are written every block; the <=1-frame overlap past
@@ -1871,7 +1973,14 @@ class _BufferedPoolDR(_DRPoolBase):
             # row-aligned slab: primary + mirror-maintenance legs, in place,
             # at rows K1 derives from the write cursor itself
             nw = self._w_aligned
-            ring = rows_append_cursor(ring, samples[:, :nw], start_i, FP, cap, M)
+            slab = samples[:, :nw]
+            if late is not None:
+                # a late voice's block starts one sample before the pool's
+                # cursor: its first sample lands there, the rest one on
+                slab = torch.where(late[:, None], samples[:, 1 : nw + 1], slab)
+            ring = rows_append_cursor(ring, slab, start_i, FP, cap, M)
+            if late is not None:
+                self._write_before(ring, samples[:, :1], late, start_i, FP, cap, M)
         else:
             # general (unaligned/wrapping) path, exotic block configs only:
             # each <=W_CHUNK-wide sub-slab lands twice on the flat view —
@@ -1902,10 +2011,7 @@ class _BufferedPoolDR(_DRPoolBase):
         d_gain_c = [(n_gain_c[e] - p_gain_c[e]) / nf for e in range(2)]
         # the read cursor as the reference rounds it: each voice's own ring
         # cursor, not the pool's shared one (ROADMAP Q3.1)
-        S["vcur"], S["vbase"], cursors = voice_read_cursors(
-            S["vcur"], S["vbase"], S["max_delay"], self._adv(), p_off_c,
-            self.rate, cap,
-        )
+        cursors = voice_reads(S["vcur"], S["vbase"], c_v, p_off_c, self.rate, cap)
         base_c = [c[0] for c in cursors]
         frac_c = [c[1] for c in cursors]
         split_c = [
@@ -2005,6 +2111,19 @@ class _BufferedPoolDR(_DRPoolBase):
         if md * self.rate + (nb - 1) * advf + cfg[1] + 1152 > self.cap_pool:
             return 0
         return nb
+
+    def _write_before(self, ring, col, late, start_i, FP, cap, M):
+        """Write ``col`` (V, 1) at the pool ring index just before the write
+        cursor ``start_i``, primary and mirror, for the ``late`` voices;
+        the others' land in the dump slack past the mirror.  The two flat
+        columns of each cursor come from a table, one lookup a block."""
+        V = col.shape[0]
+        dump = FP + cap + M
+        at = _before_legs(FP, cap, M, ring.device)[start_i.to(torch.int64)]
+        if at.shape[0] > 1:
+            at = at.repeat_interleave(V // at.shape[0], dim=0)
+        at = torch.where(late[:, None], at, dump)
+        ring.view(V, self.rowlen).scatter_(1, at, col.expand(V, 2))
 
     def _voice_cursors_from_phase(self, S, wcur):
         """``vcur``/``vbase`` of a state carried from the JAX package
@@ -2157,9 +2276,14 @@ class SpatialScene(Engine):
 
     def sync(self):
         """Pull device-resident voice state back to the host so handles
-        observe finishes and freed slots become reusable."""
-        for p in self._all_pools():
-            p.sync()
+        observe finishes and freed slots become reusable.  Each pool
+        reclaims from its newest prefetched digest (``sync_prefetch``)
+        where there is one, without waiting for the calls queued after it:
+        a game that prefetches at each call's control sees a finish at most
+        one call late, and never waits for the call in flight."""
+        with span("scene.sync"):
+            for p in self._all_pools():
+                p.sync()
 
     def sync_prefetch(self):
         for p in self._all_pools():
@@ -2440,6 +2564,15 @@ class SpatialScene(Engine):
         return d2, out
 
 
+def _played(sp, handle):
+    """Tag the ``scene.play`` span ``sp`` with the pool the voice went to
+    and count it (``voices.played``)."""
+    if sp is not None:
+        sp.attrs["pool"] = handle._pool.name
+    count("voices.played")
+    return handle
+
+
 class SpatialSceneControl:
     """Control for modifying a SpatialScene (spatial.rs:267-350)."""
 
@@ -2447,13 +2580,14 @@ class SpatialSceneControl:
         self._scene = scene
 
     def play(self, signal, options=None):
-        return self._scene._play(signal, options or SpatialOptions())
+        with span("scene.play") as sp:
+            return _played(sp, self._scene._play(signal, options or SpatialOptions()))
 
     def play_buffered(self, signal, options=None, max_distance=100.0, rate=48000,
                       buffer_duration=0.1):
-        return self._scene._play_buffered(
-            signal, options or SpatialOptions(), max_distance, rate, buffer_duration
-        )
+        with span("scene.play") as sp:
+            return _played(sp, self._scene._play_buffered(
+                signal, options or SpatialOptions(), max_distance, rate, buffer_duration))
 
     def set_listener_rotation(self, rotation):
         """Listener rotation as quaternion (s, x, y, z); an unrotated listener

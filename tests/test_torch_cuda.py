@@ -2193,3 +2193,26 @@ def test_spatial_arena_graph_recaptures_after_a_new_frames(cuda, kind):
     np.testing.assert_array_equal(xg + np.float32(0.0), xe + np.float32(0.0))
     assert before["recaptures"] == 0 and before["replays"] > 0
     assert rg.graph_counts["recaptures"] > 0
+
+
+def test_no_wait_sync_leaves_the_call_in_flight(cuda):
+    """A game's per-call sync from the digest it prefetched at the last
+    call returns while the call it just dispatched still runs; with no
+    digest prefetched, the sync reads the current state and so waits for
+    that call.  The 4096-voice spatial sampler, 47-block calls."""
+    from oddio_tpu_torch.utils.scene_profile import build_spatial_sampler
+
+    drv = build_spatial_sampler(4096, cuda)
+    r = pt.Renderer(drv.scene, 48000)
+    for _ in range(3):  # warm-up, capture, replay
+        r.render_frames_device(47 * 512, sync=False)
+    torch.cuda.synchronize()
+    for prefetch in (True, False):
+        if prefetch:
+            drv.scene.sync_prefetch()
+        r.render_frames_device(47 * 512, sync=False)
+        in_flight = torch.cuda.Event()
+        in_flight.record()
+        drv.scene.sync()
+        assert in_flight.query() is not prefetch, prefetch
+        torch.cuda.synchronize()

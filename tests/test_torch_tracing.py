@@ -251,3 +251,137 @@ def test_h2d_bytes_of_a_call_are_its_rows_on_the_card(cuda):
     assert len(rows) == 4 and sum(rows) > 0
     assert P.counted("h2d.bytes") == P.counted("h2d.bytes.rows") == 4 * sum(rows)
     assert {sp.name for sp in P.recorded()} >= {"render.call", "steps.rows", "steps.replay"}
+
+
+# -- the voice lifecycle and the control lanes (the spatial sampler) -----------------
+
+LIFECYCLE_SPANS = ("scene.play", "scene.sync", "pool.fades")
+LIFECYCLE_COUNTS = ("voices.played", "voices.reclaimed", "plays.eager", "fades.released",
+                    "fades.held", "ctrl.deferred")
+
+
+def _sampler(device="cpu", voices=4, capacity=16):
+    """A SpatialScene of short FramesSignal, Speed(FramesSignal) and
+    Fader(Speed(FramesSignal)) voices: (control, scene, renderer, the
+    Speed controls, the Fader controls, the sounds)."""
+    t = np.arange(int(0.05 * 44100)) / 44100
+    frames = pt.Frames.from_slice(44100, (0.5 * np.sin(2 * np.pi * 440 * t)).astype(np.float32))
+    control, scene = pt.SpatialScene.new(initial_capacity=capacity, device=device)
+    speeds, faders = [], []
+    for k in range(voices):
+        _play_frames(control, frames)
+        sc, sig = pt.Speed.new(pt.FramesSignal(frames, 0.0))
+        speeds.append(sc)
+        _play_sig(control, sig)
+        sc, sig = pt.Speed.new(pt.FramesSignal(frames, 0.0))
+        fc, sig = pt.Fader.new(sig)
+        faders.append(fc)
+        _play_sig(control, sig)
+    return control, scene, pt.Renderer(scene, 48000), speeds, faders, frames
+
+
+def _play_sig(control, sig, pos=(1.0, 0.0, 0.0)):
+    return control.play_buffered(sig, pt.SpatialOptions(position=pos), max_distance=100.0,
+                                 rate=48000, buffer_duration=0.1)
+
+
+def _play_frames(control, frames):
+    return _play_sig(control, pt.FramesSignal(frames, 0.0))
+
+
+def _fresh_source(frames):
+    return pt.Speed.new(pt.FramesSignal(frames, 0.0))[1]
+
+
+def test_lifecycle_spans_and_counters_record_only_under_a_session():
+    control, scene, r, speeds, faders, frames = _sampler()
+    r.render_frames_device(12 * BLOCK, sync=False)
+    speeds[0].set_speed(1.1)
+    faders[0].fade_to(_fresh_source(frames), 0.02)
+    scene.sync()
+    _play_frames(control, frames)
+    r.render_frames_device(2 * BLOCK, sync=False)
+    assert P.recorded() == []
+    for c in LIFECYCLE_COUNTS:
+        assert P.counted(c) is None
+    with profile(activities=CPU):
+        speeds[1].set_speed(1.2)
+        faders[1].fade_to(_fresh_source(frames), 0.02)
+        scene.sync()
+        h = _play_frames(control, frames)
+        for _ in range(9):  # past the play lanes: the bulk path
+            _play_frames(control, frames)
+        r.render_frames_device(2 * BLOCK, sync=False)
+    names = {sp.name for sp in P.recorded()}
+    assert set(LIFECYCLE_SPANS) <= names
+    play = [sp for sp in P.recorded() if sp.name == "scene.play"]
+    assert len(play) == 10 and play[0].attrs == {"pool": h._pool.name}
+    assert all(sp.counts["voices.played"] == 1 for sp in play)
+    for c in LIFECYCLE_COUNTS:
+        assert P.counted(c) is not None, c
+
+
+def test_played_and_reclaimed_count_the_plays_and_the_freed_slots():
+    control, scene, r, _, _, frames = _sampler()
+    r.render_frames_device(16 * BLOCK, sync=False)  # the one-shots end and stop
+    pools = scene._buffered_pools.values()
+    live = sum(int(p.mask_host.sum()) for p in pools)
+    with profile(activities=CPU):
+        scene.sync()
+        freed = live - sum(int(p.mask_host.sum()) for p in pools)
+        for _ in range(3):
+            _play_frames(control, frames)
+        r.render_frames_device(BLOCK, sync=False)
+    assert freed == 8  # every FramesSignal and Speed voice; the Faders never finish
+    assert P.counted("voices.reclaimed") == freed
+    assert P.counted("voices.played") == 3
+    assert P.counted("plays.eager") is None  # within the 8 play lanes
+
+
+def test_plays_eager_counts_the_bulk_path():
+    control, scene, r, _, _, frames = _sampler()
+    r.render_frames_device(BLOCK, sync=False)
+    with profile(activities=CPU):
+        for _ in range(11):  # past the pool's k_play = 8 lanes
+            _play_frames(control, frames)
+        r.render_frames_device(BLOCK, sync=False)
+    assert P.counted("voices.played") == 11
+    assert P.counted("plays.eager") == 11
+
+
+@pytest.mark.parametrize("k,held", [(4, 0), (8, 0), (11, 3)])
+def test_fades_held_counts_idle_fades_past_the_lanes(k, held):
+    control, scene, r, _, faders, frames = _sampler(voices=12)
+    r.render_frames_device(BLOCK, sync=False)
+    with profile(activities=CPU):
+        for fc in faders[:k]:
+            fc.fade_to(_fresh_source(frames), 0.02)
+        r.render_frames_device(BLOCK, sync=False)
+    assert P.counted("fades.released") == min(k, 8)
+    assert P.counted("fades.held") == held
+
+
+@pytest.mark.parametrize("k,deferred", [(4, 0), (64, 0), (70, 6)])
+def test_ctrl_deferred_counts_writes_left_for_later_blocks(k, deferred):
+    control, scene, r, speeds, _, _ = _sampler(voices=70, capacity=128)
+    r.render_frames_device(BLOCK, sync=False)
+    with profile(activities=CPU):
+        for sc in speeds[:k]:
+            sc.set_speed(1.1)
+        r.render_frames_device(BLOCK, sync=False)
+    assert P.counted("ctrl.deferred") == deferred
+
+
+def test_sync_wait_nests_in_the_scene_sync_on_the_card(cuda):
+    control, scene, r, _, _, frames = _sampler(device=cuda)
+    r.render_frames_device(4 * BLOCK, sync=False)
+    scene.sync_prefetch()
+    r.render_frames_device(4 * BLOCK, sync=False)
+    with profile(activities=CPU):
+        scene.sync()  # the prefetched digest
+        scene.sync()  # the current state
+    spans = P.recorded()
+    ids = _by_id(spans)
+    waits = [sp for sp in spans if sp.name == "scene.sync_wait"]
+    assert len(waits) >= 2
+    assert all(ids[sp.parent].name == "scene.sync" for sp in waits)

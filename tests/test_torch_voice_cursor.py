@@ -112,17 +112,18 @@ def test_read_cursor_matches_the_reference_ring(monkeypatch, dist):
 
 
 def test_voice_read_cursors_wrap_and_previous_lap():
-    """``voice_read_cursors`` alone at the edges: a cursor that wraps its
-    capacity this block, reads that fall in the previous lap, and a lap
-    base that wraps the pool modulus."""
+    """``voice_cursor_advance`` and ``voice_reads`` alone at the edges: a
+    cursor that wraps its capacity this block, reads that fall in the
+    previous lap, and a lap base that wraps the pool modulus."""
     md = F(F(50.0) / SP.SPEED_OF_SOUND + F(0.1))
     c = F(np.ceil(md * F(RATE)) + 1)
     ci = int(c)
     vcur = torch.tensor([c - F(100.25), F(3.5), F(11000.0)])
     vbase = torch.tensor([CAP - ci + 3, 5, 7], dtype=torch.int32)
     t = torch.tensor([F(-0.001), F(-0.02), F(-0.2)])
-    vc, vb, reads = SP.voice_read_cursors(vcur, vbase, torch.full((3,), md), 512.0, [t],
-                                          RATE, CAP)
+    vc, vb, cv, _ = SP.voice_cursor_advance(vcur, vbase, torch.full((3,), md), 512.0, RATE,
+                                            CAP)
+    reads = SP.voice_reads(vc, vb, cv, [t], RATE, CAP)
     un = (vcur.numpy() + F(512)).astype(F)
     np.testing.assert_array_equal(vc.numpy(), np.fmod(un, c))
     lap = (np.array([CAP - ci + 3, 5, 7]) + np.where(un >= c, ci, 0)) % CAP
@@ -134,3 +135,83 @@ def test_voice_read_cursors_wrap_and_previous_lap():
     want = (lap - np.where(x < 0, ci, 0) + np.floor(off).astype(np.int64)) % CAP
     np.testing.assert_array_equal(base.numpy(), want)
     assert (x < 0).any() and (un >= c).any() and (lap < 10).any()
+
+
+def test_voice_write_counts_follow_the_reference_cursor():
+    """``voice_write_count`` (and its host twin) against
+    ``ORing``'s ``ceil(end) - ceil(start)`` over 40 blocks of 20000
+    cursors, 100 m and 0.1 s as the sampler plays them: 512 a block, 511
+    once in the voices whose first-lap cursor rounds to a whole sample;
+    the pool's lag (512 a block less the count, summed) is 1 in every
+    block after that one."""
+    md = F(F(100.0) / SP.SPEED_OF_SOUND + F(0.1))
+    c = F(np.ceil(md * F(RATE)) + 1)
+    rng = np.random.default_rng(2)
+    w = np.fmod((F(RATE) * rng.uniform(0, 0.29, 20000).astype(F)).astype(F), c).astype(F)
+    vcur, vbase, hc = torch.as_tensor(w), torch.zeros(len(w), dtype=torch.int32), w.copy()
+    maxd = torch.full((len(w),), md)
+    lag = torch.zeros(len(w), dtype=torch.int32)
+    short = np.zeros(len(w), np.int64)
+    for _ in range(40):
+        np.testing.assert_array_equal(lag.numpy(), (short > 0).astype(np.int32))
+        vc0 = vcur
+        vcur, vbase, _, un = SP.voice_cursor_advance(vc0, vbase, maxd, 512.0, RATE, CAP)
+        cnt = SP.voice_write_count(vc0, vcur, un)
+        un = (w + F(512)).astype(F)
+        end = np.fmod(un, c).astype(F)
+        want = (np.ceil(end) - np.ceil(w)).astype(np.int64) + np.where(un >= c, int(c), 0)
+        np.testing.assert_array_equal(cnt.numpy(), want)
+        np.testing.assert_array_equal(vcur.numpy(), end)
+        h, hc = SP._host_write_counts(hc, np.full(len(w), md, F), 512.0, RATE)
+        np.testing.assert_array_equal(h, want)
+        lag = lag + 512 - cnt
+        short += want == 511
+        w = end
+    assert set(np.unique(short)) == {0, 1} and 5 < short.sum() < 100
+
+
+@pytest.mark.parametrize("start", [0, 100 * 128, 3 * 128])
+def test_write_before_lands_one_sample_before_the_cursor(start):
+    """``_write_before``: a late voice's first sample lands at the pool
+    index before the write cursor, primary and (inside the mirror's
+    width) mirror, wrapping the modulus at 0; every other leg, and the
+    other voices' rows, land in the dump slack past the mirror."""
+    control, scene = pt.SpatialScene.new(initial_capacity=4, device="cpu")
+    control.play_buffered(pt.Sine(0.0, 440.0), pt.SpatialOptions(position=[1.0, 0.0, 0.0]))
+    (pool,) = scene._buffered_pools.values()
+    V, FP, cap, M = 4, pool.W_CHUNK, pool.cap_pool, pool.M_PAD
+    ring = torch.zeros(pool._ring_shape(V))
+    col = torch.arange(1.0, V + 1.0)[:, None]
+    late = torch.tensor([True, False, True, False])
+    pool._write_before(ring, col, late, torch.tensor([start], dtype=torch.int32), FP, cap, M)
+    flat = ring.view(V, pool.rowlen)
+    p = (start - 1) % cap
+    for v in range(V):
+        hit = torch.nonzero(flat[v]).flatten().tolist()
+        if late[v]:
+            want = [FP + p, FP + p + cap if p < M else FP + cap + M]
+            assert hit == want and flat[v, hit].eq(v + 1.0).all()
+        else:
+            assert hit == [FP + cap + M]
+
+
+@pytest.mark.parametrize("chain,own", [
+    ("sine", False), ("cycle", False), ("fixed_sine", False),
+    ("frames", True), ("speed", True), ("fader", True), ("fixed_frames", True)])
+def test_only_blockwise_chains_advance_by_their_own_counts(chain, own):
+    """A pool's sources advance by their own ring cursors' counts where
+    what they render can depend on where a block starts (a control, a
+    fade, a FramesSignal's end); a seekable chain that never finishes
+    keeps the pool's count and skips that work."""
+    fr = pt.Frames.from_slice(44100, np.zeros(1000, F))
+    sig = {"sine": lambda: pt.Sine(0.0, 440.0),
+           "cycle": lambda: pt.Cycle(fr),
+           "fixed_sine": lambda: pt.FixedGain(pt.Sine(0.0, 440.0), -6.0),
+           "frames": lambda: pt.FramesSignal(fr, 0.0),
+           "speed": lambda: pt.Speed.new(pt.FramesSignal(fr, 0.0))[1],
+           "fader": lambda: pt.Fader.new(pt.Speed.new(pt.FramesSignal(fr, 0.0))[1])[1],
+           "fixed_frames": lambda: pt.FixedGain(pt.FramesSignal(fr, 0.0), -6.0)}[chain]()
+    control, scene = pt.SpatialScene.new(initial_capacity=2, device="cpu")
+    control.play_buffered(sig, pt.SpatialOptions(position=[1.0, 0.0, 0.0]))
+    (pool,) = scene._buffered_pools.values()
+    assert pool._own_counts is own
