@@ -40,7 +40,7 @@ import torch
 from ..core.drctrl import device_param
 from ..core.hostmath import f32, full
 from ..core.signal import ControlBlock, Signal
-from ..utils.profiler import count, recording
+from ..utils.profiler import count, recording, span
 from .stream_kernels import (
     RESAMPLE_DSMAX,
     RESAMPLE_NMAX,
@@ -51,7 +51,79 @@ from .stream_kernels import (
     stream_step,
 )
 
-__all__ = ["Stream", "StreamControl"]
+__all__ = ["Stream", "StreamControl", "TickGroup"]
+
+
+def _step(interval, counts, rate):
+    """The f32 cursor advance of a block of ``counts`` frames at the
+    float32 ``rate``s: interval·count·rate, in the device's order."""
+    return np.float32(interval) * counts.astype(np.float32) * rate
+
+
+def _release(t, buflen, step):
+    """One block's release of consumed whole samples (stream.rs:63-69) on
+    the (t, buflen) mirrors, the device's f32 math term for term: the
+    cursor advanced by ``step``, clamped to the buffered length, its whole
+    samples released.  Returns the advanced (t, buflen)."""
+    tc = np.minimum((t + step).astype(np.float32, copy=False), buflen.astype(np.float32))
+    whole = np.trunc(tc)
+    return ((tc - whole).astype(np.float32, copy=False),  # exact: tc's fraction
+            (buflen - whole.astype(np.int32)).astype(np.int32, copy=False))
+
+
+def _ring_start(start, before, after, size_pad):
+    """The ring start moved past the samples released, the drop in the
+    buffered length from ``before`` to ``after``: one modulus for any
+    number of blocks (an integer sum, exact in int64)."""
+    moved = before.astype(np.int64) - after
+    return ((start + moved) % size_pad).astype(np.int32)
+
+
+def _replay_ticks(t, buflen, start, rate, debt, size_pad):
+    """Replay ``debt`` ([interval, count, times] runs of uniform idle
+    ticks) on the mirrors, tick by tick in order; ``rate`` is float32."""
+    before = buflen
+    for iv, cnt, times in debt:
+        step = _step(iv, np.broadcast_to(np.int32(cnt), np.shape(t)), rate)
+        for _ in range(times):
+            t, buflen = _release(t, buflen, step)
+    return t, buflen, _ring_start(start, before, buflen, size_pad)
+
+
+class TickGroup:
+    """Stream leaves whose deferred idle ticks replay together: a
+    ScenePack's scenes' leaves of one pool, to which its O(1) idle runs
+    give equal debts.  The first flush of any member replays every member
+    whose debt, batch and ring modulus equal its own in one pass a tick
+    over their stacked mirrors (elementwise and of one dtype each, as
+    ``_alloc_host`` makes them, so each leaf's result is its own
+    replay's); the others keep their debts."""
+
+    def __init__(self, leaves):
+        self.leaves = list(leaves)
+        for leaf in self.leaves:
+            leaf._tick_group = self
+
+    def flush(self, leaf):
+        """Replay ``leaf``'s debt over every member that shares it."""
+        debt, batch, size_pad = leaf._tick_debt, leaf.batch, leaf.size_pad
+        same = [m for m in self.leaves
+                if m._tick_debt == debt and m.batch == batch and m.size_pad == size_pad]
+        for m in same:
+            m._tick_debt = []
+        if len(same) == 1:
+            leaf._replay(debt)
+            return
+        ticks = len(same) * sum(times for _, _, times in debt)
+        count("ticks.replayed", ticks)
+        count("ticks.batched", ticks)
+        col = {f: np.concatenate([getattr(m, f) for m in same]) for f in Stream._host_fields}
+        stopping = col["stopping"] | col["closed"]  # stream.rs:76-78
+        t, buflen, start = _replay_ticks(col["t"], col["buflen"], col["start"],
+                                         col["rate"].astype(np.float32), debt, size_pad)
+        rows = [x.reshape(len(same), -1) for x in (t, buflen, start, stopping)]
+        for m, mt, mb, ms, mst in zip(same, *rows):
+            m.t, m.buflen, m.start, m.stopping = mt, mb, ms, mst
 
 
 class Stream(Signal):
@@ -102,6 +174,10 @@ class Stream(Signal):
         # replays exactly (the same per-block f32 chain) at the first read
         self._tick_debt = []
 
+    #: the ``TickGroup`` whose members replay their debts with this
+    #: leaf's (set by a ScenePack), or None: the leaf replays alone
+    _tick_group = None
+
     def _copy_static_from(self, other):
         self.size = other.size
         self.size_pad = other.size_pad
@@ -134,16 +210,23 @@ class Stream(Signal):
 
     def _flush_tick_debt(self):
         """Replay deferred idle-block cursor ticks (the per-block f32
-        release math, in order) before any mirror read or write."""
-        debt = self._tick_debt
-        if not debt:
+        release math, in order) before any mirror read or write: with
+        the leaves of its tick group that owe the same, else alone."""
+        if not self._tick_debt:
             return
-        self._tick_debt = []
-        shape = self.batch if self.batch else ()
-        for iv, cnt, times in debt:
-            counts = np.broadcast_to(np.int32(cnt), shape)
-            for _ in range(times):
-                self._tick_math(iv, counts)
+        with span("stream.ticks"):
+            if self._tick_group is not None:
+                self._tick_group.flush(self)
+                return
+            debt, self._tick_debt = self._tick_debt, []
+            self._replay(debt)
+
+    def _replay(self, debt):
+        count("ticks.replayed", sum(times for _, _, times in debt))
+        self.stopping = self.stopping | self.closed  # stream.rs:76-78
+        self.t, self.buflen, self.start = _replay_ticks(
+            self.t, self.buflen, self.start, self.rate.astype(np.float32), debt,
+            self.size_pad)
 
     def host_aux_snapshot(self):
         """The producer queues (PCM written but not yet shipped), the dirty
@@ -473,20 +556,11 @@ class Stream(Signal):
             debt.append([iv, cnt, times])
 
     def _tick_math(self, interval, counts):
-        self.stopping = self.stopping | self.closed
-        interval = np.float32(interval)
-        cnt = counts.astype(np.float32)
-        nxt = (self.t + (interval * cnt * self.rate.astype(np.float32))).astype(
-            np.float32
-        )
-        lenf = self.buflen.astype(np.float32)
-        tc = np.minimum(nxt, lenf)
-        released = np.trunc(tc).astype(np.int32)
-        self.t = (tc - released).astype(np.float32)
-        self.buflen = (self.buflen - released).astype(np.int32)
-        self.start = ((self.start + released) % np.int32(self.size_pad)).astype(
-            np.int32
-        )
+        self.stopping = self.stopping | self.closed  # stream.rs:76-78
+        before = self.buflen
+        self.t, self.buflen = _release(
+            self.t, self.buflen, _step(interval, counts, self.rate.astype(np.float32)))
+        self.start = _ring_start(self.start, before, self.buflen, self.size_pad)
 
     def dr_ingest(self, state, ing):
         """Receiver::update on the device: place each voice's shipped chunk

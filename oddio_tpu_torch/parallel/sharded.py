@@ -45,7 +45,10 @@ recursively, and the inner engine renders them under the same
 
 The host control plane stays per scene: each scene keeps its handles and
 numpy state and prepares its own parameters; per block the pack merges
-them per cell.  Where the scenes' per-block choices differ, the pack takes
+them per cell.  The scenes' Stream leaves of each pool form one tick
+group (``ops/stream.TickGroup``): the idle ticks the pack's O(1) idle
+runs defer on them replay in one stacked pass at the first mirror read
+of any.  Where the scenes' per-block choices differ, the pack takes
 one for the whole pack, so that every cell takes the route a 1 x 1 pack
 takes: the widest read tier and step flags, and the host buffered pool's
 exact elementwise read when any scene leaves its strip gate (stamped on
@@ -101,6 +104,7 @@ from ..core.drctrl import read_handle_state
 from ..core.run import BlockSteps, _pack_spec, eager_mode
 from ..core.signal import Engine, same_device
 from ..ops.geometry import HEAD_RADIUS, SPEED_OF_SOUND
+from ..ops.stream import TickGroup
 from ..utils.profiler import count, span
 from ..utils.tree import tree_leaves, tree_map
 from .context import mesh_cell, scene_stack, stack_index, voice_partials
@@ -449,6 +453,10 @@ class ScenePack(BlockSteps):
         for group in self._pool_groups():
             for p in group:
                 p._unpack_hook = self._unpack
+            # the scenes' stream leaves of the pool replay the idle ticks
+            # the pack's O(1) idle runs leave them in one pass
+            for leaves in zip(*[getattr(p, "_ingest_leaves", ()) for p in group]):
+                TickGroup(leaves)
         self._names = names
 
     def _equalize(self):
