@@ -37,7 +37,7 @@
 // 512: 0.005 ms at 3.35 TB/s); the work is one expf, one division and a
 // short dependent chain per frame.  Design: a warp per voice, AGC_WARPS
 // voices per CUDA block (1, 4 and 8 measure within about 10% of each
-// other at 4096 voices, utils/agc_ablate.py).  The warp copies its
+// other at 4096 voices, PERF.md section 6).  The warp copies its
 // voice's C*n samples into shared memory with coalesced scalar loads
 // (rows of 513 floats are not 16-byte aligned), then each lane owns F
 // consecutive frames (F odd, so the lanes' strided shared-memory reads
@@ -48,7 +48,7 @@
 // pass; the gains never reach device memory.  One expf per frame: the
 // prev factor expf(min(i, lim)*lg) is the previous frame's M (the same
 // argument, so the same value); the lane's first frame computes its own.
-// What bounds it (utils/agc_ablate.py): instruction issue, not bytes: the
+// What bounds it (PERF.md section 6): instruction issue, not bytes: the
 // divisions are about a fifth of its time, the loads within the run's
 // noise; at a few hundred voices a CUDA block per voice is faster (more
 // warps in flight), at 4096 slower.  Tensor cores do not apply: the

@@ -164,9 +164,9 @@ extern "C" int rows_append_cursor(float* ring, const float* slab,
 //   touches one or two 128-byte lines, and the lerp's b tap hits the
 //   line the a tap brought in.  Staging each voice's window in shared
 //   memory first (K5's design) took three times as long here, and 16 or
-//   64 voices per block were slower too (utils/read_ablate.py).
-// * Issue-bound: the loads are a quarter of the time (read_ablate's
-//   no_reads), so the voice loop is unrolled 8 deep and the position math
+//   64 voices per block were slower too (PERF.md section 6).
+// * Issue-bound: the loads are a quarter of the time (a variant with
+//   no reads), so the voice loop is unrolled 8 deep and the position math
 //   takes no quarter-rate floor or conversion (floor_small).
 // * K5's fixed-order voice sum (select_kernel.cu): a CUDA block owns 32
 //   voices and one 128-frame sub-block, one thread per frame, and adds

@@ -88,7 +88,7 @@ __device__ __forceinline__ void position(float o0, float f_hi, float f_lo,
 //   On an H100 at 4096 voices that kept the warm device time of one thread
 //   a frame (within the runs' spread) and took 19-30% off the cold one; 4
 //   threads a frame and 16 voices a block were slower, 64 voices a block
-//   (cold) too, clusters of 4 no faster (utils/flat_ablate.py, PERF.md).
+//   (cold) too, clusters of 4 no faster (PERF.md section 6).
 // ---------------------------------------------------------------------------
 
 #define FS_SB 128     // frames per CUDA block and per sub-block

@@ -394,7 +394,7 @@ extern "C" int arena_resample(const float* arena, long long arena_len,
 // per frame are near-contiguous for ds <= 4 and its stores coalesced, and
 // the unrolled frame loop keeps its few frames' load pairs in flight
 // together.  Neither the reads nor the stores bound it at the paths'
-// sizes (utils/step_ablate.py: without either the time barely moves, and
+// sizes (PERF.md section 6: without either the time barely moves, and
 // the grid's launch alone takes ~2 us): the instructions do, each
 // thread's row setup and each frame's floors and conversions (the slow
 // conversion pipe), so the frame loops count in floats, the read

@@ -1,184 +1,32 @@
-"""Kernels timed alone on the card, with their operands warm in the L2
-cache and cold: K1 (``rows_append``) and K9 (``flat_append_aligned``),
-the appends; K4 (``ring_place``) and K5 (``strip_select``), the host
-buffered pool's ring write and two-ear read; and the device-resident
-buffered pool's whole read (K2, K3 and whatever the pool launches around
-them), through pool methods every tree of the port has.
+"""Operand and capture builders for the kernel tests: operands at the
+pools' shapes for K2/K3 (``read_*``, ``group_operands``), K8/K10
+(``flat_*``) and K6's arena form and whole steps (``arena_*``,
+``step_*``, ``fade_columns``, ``seek_offsets``); the captured arguments
+of a buffered pool's reads (``capture_states``, ``block_reads``) and of
+the device-resident pools' steps (``dr_pools``, ``capture_steps``,
+``arena_states``), replayed through the kernels or their plain versions
+(``step_call``); and ``device_profile``, the device kernels a call
+launches, as ``torch.profiler`` counts them on the card.
 
-Fifty back-to-back calls on the same operands find what they read in the
-card's 50 MB L2, so they can run under the HBM byte bound; on a path, a
-block's other kernels run between two calls and evict them.  A cold case
-cycles each call over operand sets whose bytes together pass the L2:
-
-* K1/K9: ``SETS`` rings and slabs, 25.2 MB each;
-* K5 at 4096 voices: ``SETS`` sets of read rows over one 268 MB ring
-  (each call reads about 9.5 MB at other places of every voice's ring);
-  its scene form the same at the host-pool pack's 16 scenes x 256, beside
-  the (2, n) form on the same rows;
-* K4 at the mixer's shape: ``PLACE_RINGS`` rings of 5.8 MB; at the host
-  pool's, ``SETS`` chunks of 8.4 MB written at other cursors of one
-  268 MB ring;
-* the pool's read (``read``): the states of ``SETS`` consecutive blocks
-  (or fused groups) of one 4096-voice scene, each reading ~10 MB (~40 MB
-  a group) at other places of its 318 MB ring.
-
-``read`` builds ``scene_profile.build_spatial(True, 4096)`` (the buffered
-scene: K2 on single blocks, K3 on fused idle groups of 4), renders it
-through a ``Renderer`` while it captures the arguments of the pool's
-``render`` and ``render_multi``, and replays them: ``render`` (a block's
-control walk, append, read operands and read), ``render_multi`` (four
-blocks' and one fused read) and ``_advance_block`` alone (all but the
-read).  The read's own numbers are the differences, ``read K2`` and
-``read K3`` (device kernels included), beside its byte bound; its host
-time also as ``paired_host_ms``, the median over ``PAIRS`` alternated
-calls of render's host time less advance's (a replay takes ~6 ms of
-host time, whose drift between two separate 50-call clocks is larger
-than the read's share).
-
-``agc`` and ``resample`` time a device-resident pool's whole Adapt step
-(K7 and whatever the step launches around it) and whole Stream step (K6
-and the same) on captured states (``step_states``): the 4096-voice
-config-5 mixer's two Adapt pools at n = 512, and a host-pool scene's
-device-resident Adapt(Stream) pool (512 voices) at n = 513.  ``agc``'s
-``...: render`` is the Adapt pool's ``dr_render`` and ``...: advance``
-its inner's alone, so the differences are the Adapt step; ``resample``'s
-``...: render`` is the Stream's ``dr_render`` and its advance does
-nothing.  Warm: one block's state, 50 calls; cold: ``SETS`` consecutive
-blocks' states in turn.  Both run on any tree of the port (pool methods
-only), so two trees of the port are timed in turns.
-
-Each case prints ``ms`` (CUDA events around 50 calls, host issue
-included), ``host_ms`` (their wall clock, no synchronise) and
-``device_ms`` (the device work they launched, from ``torch.profiler``,
-taken after every clock), per call, with the device time of each kernel
-the calls launched, beside a one-call library yardstick where there is
-one.  K4 and K5 are timed through their tensor forms and their record
-forms; the same file times another tree's kernels from that tree's
-root::
-
-    python3 -m oddio_tpu_torch.utils.kernel_bench [append] [place] [select] [read] [agc] [resample] [arena]
-    cd OTHER_TREE && PYTHONPATH=. python3 PATH/TO/kernel_bench.py place select read agc resample
-
-``arena`` times K6's arena form (the FramesSignal, Cycle and seek-pool
-sampler reads) alone at the three paths' shapes (``ARENA_SHAPES``), warm
-and cold over ``ARENA_SETS`` operand sets in a ~43 MB guarded arena, and
-its plain version, beside the byte bound of each shape.
-
-``chip_smoke.py`` builds its cold operands, K5's and K6's arena-form
-cases and K8/K10's operands (``flat_operands``, ``k8_sets``, ``k10_sets``)
-here.
+Timing lives in ``benchmark/``: its traced slice reads each kernel's
+device time on the cells and its ``*_roofline_pct`` metrics hold it
+against the card's byte bound.
 """
 
 from __future__ import annotations
 
-import collections
-import itertools
-import json
-import subprocess
-import sys
-import time
-
 import numpy as np
 import torch
 
-V, W = 4096, 512
-#: the buffered pool's ring rows at 48 kHz: front pad, ring modulus,
-#: mirror (spatial.py W_CHUNK, cap_pool, M_PAD) and 1024 floats of slack
-RPV = (1024 + 16384 + 1024 + 1024) // 128
-#: K9's flat ring row: 8 pages of 512 floats
-ROWLEN = 4096
-#: operand sets a cold run cycles over: 8 x 25.2 MB of traffic for the
-#: appends, four times the L2
-SETS = 8
-#: K4's mixer-shape rings a cold run cycles over: 10 x 5.8 MB
-PLACE_RINGS = 10
-REPS = 50
-#: alternated (render, advance) calls of ``paired_host``
-PAIRS = 100
-HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
-F32_OPS = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
-
-#: K5's cases (label, voices, ring length, |ds - 1| range): the host
-#: pool, the singleton (a submix), and near the strip gate where the
-#: SELECT_R walk clamp binds
-SELECT_CASES = (("main", 4096, 16384, 0.0, 0.09),
-                ("singleton", 1, 2048, 0.0, 0.09),
-                ("near-gate", 1024, 16384, 0.119, 0.125))
-SELECT_N, SELECT_K = 512, 64
-#: K5's scene-form cases (label, scenes, voices per scene, ring length):
-#: the host-pool pack's 16 x 256 host rows, one scene of 4096, and 3
-#: scenes of 17 (a scene boundary inside a block of 32 voices)
-SELECT_SCENES = (("pack", 16, 256, 16384), ("one", 1, 4096, 16384),
-                 ("boundary", 3, 17, 2048))
-#: K4 at the config-5 mixer (V rows of size_pad 2816, a 2401-wide prefill
-#: chunk and a 128-wide steady one) and at the host pool (4096 rings of
-#: 16384, n_inner = 513 frames, n_write 512 or 513)
-PLACE_MIXER = (512, 2816, (2401, 128))
-PLACE_HOST = (4096, 16384, 513)
-
-
-def bound(nbytes, nops=0):
-    """(ms, "bytes" or "operations"): the least time the card could take."""
-    tb, to = 1e3 * nbytes / HBM_BPS, 1e3 * nops / F32_OPS
-    return (tb, "bytes") if tb >= to else (to, "operations")
-
-
-def span_bytes(idx):
-    """Bytes a gather must read: per row of the (R, ...) int index tensor,
-    the span from its smallest index to its largest plus the lerp's next
-    sample."""
-    flat = idx.reshape(idx.shape[0], -1)
-    return 4 * int((flat.max(dim=1).values - flat.min(dim=1).values + 2).sum())
-
-
-def union_bytes(idx):
-    """Bytes a gather whose rows may share samples must read: the union,
-    over the rows of the (R, ...) int index tensor, of each row's span from
-    its smallest index to its largest plus the lerp's next sample (rows that
-    read the same samples fetch them once)."""
-    flat = idx.reshape(idx.shape[0], -1)
-    lo = flat.min(dim=1).values.cpu().numpy()
-    hi = flat.max(dim=1).values.cpu().numpy() + 2
-    order = np.argsort(lo, kind="stable")
-    lo, hi = lo[order], hi[order]
-    # spans sorted by start: each adds what lies past every earlier end
-    reach = np.concatenate(([lo[0]], np.maximum.accumulate(hi)[:-1]))
-    return 4 * int(np.maximum(hi - np.maximum(lo, reach), 0).sum())
+#: the paths' block
+W = 512
 
 
 def _t(x, dev, dtype=np.float32):
     return torch.tensor(np.asarray(x, dtype), device=dev)
 
 
-# --- operands ------------------------------------------------------------------
-
-
-def k1_sets(dev, n):
-    """``n`` (ring, slab, slab2) sets at the buffered pool's shapes: a (V,
-    RPV, 128) ring, the 512 frames K1 takes of a (V, 513) render (rows not
-    16-byte aligned), and ``index_copy_``'s operand, the slab twice as (V,
-    8, 128)."""
-    out = []
-    for _ in range(n):
-        slab = torch.randn((V, W + 1), device=dev)[:, :W]
-        out.append((torch.randn((V, RPV, 128), device=dev), slab,
-                    torch.cat([slab.reshape(V, W // 128, 128)] * 2, dim=1)))
-    return out
-
-
-def k9_sets(dev, n):
-    """``n`` (ring, slab, slab2) sets: a (V, ROWLEN) flat ring, a (V, W)
-    slab and ``index_copy_``'s operand, the slab twice as (V, 2W)."""
-    out = []
-    for _ in range(n):
-        slab = torch.randn((V, W), device=dev)
-        out.append((torch.randn((V, ROWLEN), device=dev), slab, torch.cat([slab, slab], dim=1)))
-    return out
-
-
-#: K10's cold ring row: 16 pages of 1024, so calls on other read starts
-#: touch other samples (a (V, FLAT_COLD_ROW) ring is 268 MB)
-FLAT_COLD_ROW = 16384
+# --- K8/K10 ----------------------------------------------------------------------
 
 
 def flat_operands(dev, rng, Vs, n, K, emax2, strided=False):
@@ -216,343 +64,65 @@ def flat_rstart(dev, rng, Vs, rowlen, past=600):
     return _t(rs, dev, np.int32)
 
 
-def k8_sets(dev, rng, n_sets, K, emax2, n=W):
-    """K8's cold sets: ``n_sets`` (windows (V, select_window), operands),
-    12.6 MB of windows each at emax2 36, 14.7 MB at 163."""
-    from oddio_tpu_torch.ops.ring_kernels import select_window
+# --- device kernels a call launches --------------------------------------------------
 
-    return [(torch.randn((V, select_window(n, emax2, K)), device=dev),)
-            + flat_operands(dev, rng, V, n, K, emax2) for _ in range(n_sets)]
-
-
-def k10_sets(dev, rng, n_sets, K, emax2, n=W):
-    """K10's cold sets: one (V, FLAT_COLD_ROW) ring and ``n_sets``
-    (rstart, operands) reading other places of it."""
-    ring = torch.randn((V, FLAT_COLD_ROW), device=dev)
-    return ring, [(flat_rstart(dev, rng, V, FLAT_COLD_ROW),) + flat_operands(dev, rng, V, n, K,
-                                                                           emax2)
-                  for _ in range(n_sets)]
-
-
-def select_operands(dev, rng, Vs, L, lo, hi, ring=None):
-    """K5's operands at the host pool's layout: (ring (Vs, L), rrow,
-    extra (< 161: emax at 48 kHz), scal for |ds - 1| in [lo, hi], gain0,
-    d_gain, maskf with a fifth of the voices masked).  ``ring`` reuses a
-    ring (cold sets)."""
-    from oddio_tpu_torch.ops._dev import device_split_ds
-
-    mag = rng.uniform(lo, hi, (Vs, 2)) * rng.choice([-1.0, 1.0], (Vs, 2))
-    di, fh, fl = device_split_ds(_t(1.0 + mag, dev))
-    scal = torch.stack([_t(rng.uniform(0, 1, (Vs, 2)), dev), fh, fl, di.float()], -1).contiguous()
-    if ring is None:
-        ring = _t(rng.standard_normal((Vs, L)), dev)
-    return (ring, _t(rng.integers(0, L // 128, Vs), dev, np.int32),
-            _t(rng.integers(0, 161, (Vs, 2)), dev, np.int32), scal,
-            _t(rng.uniform(0, 0.1, (Vs, 2)), dev), _t(rng.uniform(-1e-4, 1e-4, (Vs, 2)), dev),
-            _t(rng.uniform(0, 1, Vs) > 0.2, dev))
-
-
-def select_scene_operands(dev, rng, V, L, ring=None):
-    """K5's operands for a scene-form case: ``select_operands`` with steps
-    up to the strip gate (|ds - 1| <= 0.125, where the SELECT_R clamp
-    binds), every other voice's read windows across the ring's end, and
-    every seventh voice frozen (ds = 0, a fully clamped offset)."""
-    ops = list(select_operands(dev, rng, V, L, 0.0, 0.125, ring))
-    ops[1][::2] = L // 128 - 1
-    ops[3][::7, :, 1:] = 0.0
-    return ops
-
-
-def select_bytes(RK, ops, n=SELECT_N, K=SELECT_K, scenes=1):
-    """Bytes K5 must move: each voice's read span over both ears, its
-    operands (44 bytes), the (2, n) output (one per scene)."""
-    ring, rrow, extra, scal = ops[:4]
-    idx = []
-    for e in range(2):
-        off, _ = RK.strip_positions(scal[:, e], n, K)
-        idx.append(128 * rrow.long()[:, None] + extra[:, e:e + 1].long()
-                   + torch.arange(n, device=ring.device) + off)
-    return span_bytes(torch.stack(idx, 1)) + 44 * ring.shape[0] + 8 * n * scenes
-
-
-def place_operands(dev, rng, rows, size, mw, host_pool):
-    """K4's (chunk, wpos, wcount): at the mixer's shape cursors anywhere,
-    every other row's write wrapping, counts uniform in [0, mw]; at the
-    host pool's, cursors anywhere and n_write 512 or 513 (``host_prepare``
-    at 48 kHz, 512-frame blocks)."""
-    chunk = torch.randn((rows, mw), device=dev)
-    if host_pool:
-        wpos = rng.integers(0, size, rows)
-        wcount = rng.integers(mw - 1, mw + 1, rows)
-    else:
-        wpos = np.where(np.arange(rows) % 2, rng.integers(size - mw + 1, size, rows),
-                        rng.integers(0, size - mw, rows))
-        wcount = rng.integers(0, mw + 1, rows)
-    return chunk, _t(wpos, dev, np.int32), _t(wcount, dev, np.int32)
-
-
-def place_library(ring, chunk, wpos, wcount):
-    """``index_put_``'s operands for K4's function: the written lanes'
-    flat indices and values."""
-    rows, size = ring.shape
-    mw = chunk.shape[1]
-    dev = ring.device
-    j = torch.arange(mw, device=dev)
-    keep = j[None, :] < wcount.long()[:, None]
-    flat = (torch.arange(rows, device=dev)[:, None] * size
-            + torch.remainder(wpos.long()[:, None] + j, size))[keep]
-    return flat, chunk[keep]
-
-
-def place_record(RK, wpos, wcount):
-    """A voice record carrying K4's cursor (``wrow``, ``extra_w``) and
-    count (``n_write``); the read fields are zero."""
-    Vs = wpos.shape[0]
-    dev = wpos.device
-    z2i = torch.zeros((Vs, 2), dtype=torch.int32, device=dev)
-    z2 = torch.zeros((Vs, 2), device=dev)
-    return RK.voice_record(
-        torch.zeros(Vs, dtype=torch.int32, device=dev), z2i,
-        torch.zeros((Vs, 2, 4), device=dev), z2, z2, torch.zeros(Vs, device=dev),
-        wpos // 128, wpos % 128, wcount)
-
-
-# --- clocks --------------------------------------------------------------------
-
-
-def cycling(sets, call):
-    """A no-argument function that calls ``call(*set)`` on the next of
-    ``sets`` each time."""
-    it = itertools.cycle(sets)
-    return lambda: call(*next(it))
-
-
-def clocks(fn, reps=REPS):
-    """(ms, host_ms) per call of ``reps`` back-to-back calls after a
-    warm-up: CUDA events around them, and their wall clock without a
-    synchronise."""
-    fn()
-    torch.cuda.synchronize()
-    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    ms = t0.elapsed_time(t1) / reps
-    h0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    host = 1e3 * (time.perf_counter() - h0) / reps
-    torch.cuda.synchronize()
-    return ms, host
-
-
-#: profiled sessions of a call before ``device_profile`` reports that the
-#: profiler saw no device work at all
-PROFILE_TRIES = 3
-#: sessions ``device_profile(..., exact=True)`` may take to find two
-#: consecutive ones that agree before it raises
+#: sessions ``device_profile`` may take to find two consecutive ones that
+#: agree before it raises
 EXACT_TRIES = 8
-#: sessions ``device_profile`` has taken again since the process started
-PROFILE_RETAKES = {"sessions": 0}
 #: the range each profiled session wraps its calls in: device records that
 #: start before it belong to an earlier session
 _MARK = "kernel_bench.device_profile"
 
 
-def _session(fn, reps):
-    """({kernel name: ms per call}, device kernels, stale records) of one
-    ``torch.profiler`` session of ``reps`` calls: copies and memsets count
-    in the split, not as kernels; device records that start before the
-    session's own range (an earlier session's, delivered late) count in
-    neither, only in ``stale``."""
+def _session(fn):
+    """(device kernels, stale records) of one ``torch.profiler`` session of
+    one call: copies and memsets are not kernels; device records that
+    start before the session's own range (an earlier session's, delivered
+    late) count only in ``stale``."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         with torch.profiler.record_function(_MARK):
-            for _ in range(reps):
-                fn()
+            fn()
             torch.cuda.synchronize()
     events = list(prof.events())
     t0 = min((ev.time_range.start for ev in events
               if ev.name == _MARK and ev.device_type != torch.autograd.DeviceType.CUDA),
              default=float("-inf"))
-    split = collections.Counter()
     kernels = stale = 0
     for ev in events:
         if ev.device_type != torch.autograd.DeviceType.CUDA or ev.name == _MARK:
             continue
         if ev.time_range.start < t0:
             stale += 1
-            continue
-        split[ev.name] += ev.time_range.elapsed_us() / 1e3 / reps
-        kernels += not ev.name.startswith(("Memcpy", "Memset"))
-    return dict(split), kernels, stale
+        else:
+            kernels += not ev.name.startswith(("Memcpy", "Memset"))
+    return kernels, stale
 
 
-def device_profile(fn, reps=REPS, exact=False):
-    """({kernel name: ms per call}, device kernels per call) of the device
-    work ``reps`` calls launch (``torch.profiler``; copies and memsets
-    count in the split, not as kernels); empty where it saw none.
+def device_profile(fn):
+    """The device kernels one call of ``fn`` launches, as ``torch.profiler``
+    counts them (copies and memsets are not kernels).
 
     The tracer on the card loses records now and then (ROADMAP Q3.6): a
     session has come back empty, or short of a kernel, for calls that
-    launched (the kernels' launch counters said so).  By default a session
-    that records no device activity at all is taken again, up to
-    ``PROFILE_TRIES`` sessions (three empty sessions still read 0).  With
-    ``exact`` (the one-kernel checks, whose counts are compared exactly)
+    launched (the kernels' launch counters said so), and most sessions
+    come back empty once a process has taken a dozen heavy ones.  So
     sessions are taken until two consecutive ones count the same nonzero
-    number of kernels and hold no stale record, up to ``EXACT_TRIES``,
-    and a ``RuntimeError`` says what each session counted where none did;
-    the count is never 0, so it cannot hide a call that launches nothing.
-    Every session taken beyond the first (two with ``exact``) counts in
-    ``PROFILE_RETAKES``."""
-    if exact:
-        seen = []
-        for _ in range(EXACT_TRIES):
-            split, kernels, stale = _session(fn, reps)
-            seen.append((kernels, stale))
-            if kernels and not stale and len(seen) > 1 and seen[-2] == (kernels, 0):
-                PROFILE_RETAKES["sessions"] += len(seen) - 2
-                return split, kernels / reps
-        raise RuntimeError(f"no two consecutive profiled sessions agreed in {EXACT_TRIES} "
-                           f"(device kernels, stale records) of each: {seen}")
-    for attempt in range(PROFILE_TRIES):
-        PROFILE_RETAKES["sessions"] += attempt > 0
-        split, kernels, _ = _session(fn, reps)
-        if split:
-            break
-    return split, kernels / reps
+    number of kernels and hold no stale record, up to ``EXACT_TRIES``, and
+    a ``RuntimeError`` says what each session counted where none did; the
+    count is never 0, so it cannot hide a call that launches nothing."""
+    seen = []
+    for _ in range(EXACT_TRIES):
+        seen.append(_session(fn))
+        kernels, stale = seen[-1]
+        if kernels and not stale and len(seen) > 1 and seen[-2] == (kernels, 0):
+            return kernels
+    raise RuntimeError(f"no two consecutive profiled sessions agreed in {EXACT_TRIES} "
+                       f"(device kernels, stale records) of each: {seen}")
 
 
-def device_split(fn, reps=REPS):
-    """{kernel name: ms per call} of the device work ``reps`` calls launch
-    (``torch.profiler``); empty where it saw none."""
-    return device_profile(fn, reps)[0]
-
-
-def device_ms(fn, reps=REPS):
-    """The summed duration of the device work ``reps`` calls launch, per
-    call; None where the profiler saw none."""
-    split = device_split(fn, reps)
-    return sum(split.values()) if split else None
-
-
-# --- cases ---------------------------------------------------------------------
-
-
-def append_cases(dev):
-    """{name: (call, bound ms)} of K1/K9 and ``index_copy_``, warm and
-    cold."""
-    from oddio_tpu_torch.ops import flat_kernels as FK
-    from oddio_tpu_torch.ops import ring_kernels as RK
-
-    rows = torch.tensor([48, 144], dtype=torch.int32, device=dev)
-    legs = torch.cat([torch.arange(4, device=dev) + 48, torch.arange(4, device=dev) + 144])
-    pages = torch.tensor([2, 6], dtype=torch.int32, device=dev)
-    cols = torch.cat([torch.arange(W, device=dev) + 2 * 512, torch.arange(W, device=dev) + 6 * 512])
-    k1, k9 = k1_sets(dev, SETS), k9_sets(dev, SETS)
-    bms = bound(12 * V * W)[0]
-    out = {}
-    for heat, s1, s9 in (("warm", k1[:1], k9[:1]), ("cold", k1, k9)):
-        out[f"K1 rows_append, device rows, {heat}"] = (cycling(
-            s1, lambda ring, slab, _: RK.rows_append(ring, slab, rows[0], rows[1])), bms)
-        out[f"index_copy_ (K1), {heat}"] = (cycling(
-            s1, lambda ring, _, slab2: ring.index_copy_(1, legs, slab2)), bms)
-        out[f"K9 flat_append_aligned, device pair, {heat}"] = (cycling(
-            s9, lambda ring, slab, _: FK.flat_append_aligned(ring, slab, pages)), bms)
-        out[f"K9 flat_append_aligned, host ints, {heat}"] = (cycling(
-            s9, lambda ring, slab, _: FK.flat_append_aligned(ring, slab, 2, 6)), bms)
-        out[f"index_copy_ (K9), {heat}"] = (cycling(
-            s9, lambda ring, _, slab2: ring.index_copy_(1, cols, slab2)), bms)
-    return out
-
-
-def select_cases(dev):
-    """{name: (call, bound ms)} of K5 at its three shapes, warm, and at
-    4096 voices cold (``SETS`` read-row sets); through ``strip_select``
-    and ``strip_select_record``; and its scene form at ``SELECT_SCENES``,
-    beside the (2, n) form on the same rows, warm and (the pack's 16 x
-    256) cold."""
-    from oddio_tpu_torch.ops import ring_kernels as RK
-
-    rng = np.random.default_rng(11)
-    kw = dict(n=SELECT_N, K=SELECT_K)
-    out = {}
-    for label, Vs, L, lo, hi in SELECT_CASES:
-        sets = [select_operands(dev, rng, Vs, L, lo, hi)]
-        if label == "main":
-            sets += [select_operands(dev, rng, Vs, L, lo, hi, ring=sets[0][0])
-                     for _ in range(SETS - 1)]
-        bms = bound(select_bytes(RK, sets[0]), 22 * Vs * 2 * SELECT_N)[0]
-        recs = [(s[0], RK.voice_record(*s[1:])) for s in sets]
-        for heat, n_sets in (("warm", 1), ("cold", len(sets))):
-            if heat == "cold" and n_sets == 1:
-                continue
-            out[f"K5 strip_select {label} V={Vs}, {heat}"] = (cycling(
-                sets[:n_sets], lambda *ops: RK.strip_select(*ops, **kw)), bms)
-            out[f"K5 strip_select_record {label} V={Vs}, {heat}"] = (cycling(
-                recs[:n_sets], lambda ring, rec: RK.strip_select_record(ring, rec, **kw)), bms)
-    # the scene form at the host-pool pack's shapes, beside the (2, n) form
-    # on the same rows
-    for label, S, vps, L in SELECT_SCENES:
-        sets = [select_scene_operands(dev, rng, S * vps, L)]
-        if label == "pack":
-            sets += [select_scene_operands(dev, rng, S * vps, L, ring=sets[0][0])
-                     for _ in range(SETS - 1)]
-        bms = bound(select_bytes(RK, sets[0], scenes=S), 22 * S * vps * 2 * SELECT_N)[0]
-        recs = [(s[0], RK.voice_record(*s[1:])) for s in sets]
-        for heat, n_sets in (("warm", 1), ("cold", len(sets))):
-            if heat == "cold" and n_sets == 1:
-                continue
-            out[f"K5 scene form {label} S={S} x {vps}, {heat}"] = (cycling(
-                recs[:n_sets], lambda ring, rec, S=S: RK.strip_select_record(
-                    ring, rec, scenes=S, **kw)), bms)
-            out[f"K5 (2, n) form {label} {S * vps} rows, {heat}"] = (cycling(
-                recs[:n_sets], lambda ring, rec: RK.strip_select_record(ring, rec, **kw)), bms)
-    return out
-
-
-def place_cases(dev):
-    """{name: (call, bound ms)} of K4 and ``index_put_`` at the mixer's
-    shape (mw = 2401 and 128) and the host pool's, warm and cold; at the
-    host pool's also through ``ring_place_record``."""
-    from oddio_tpu_torch.ops import ring_kernels as RK
-    from oddio_tpu_torch.ops import stream_kernels as SK
-
-    rng = np.random.default_rng(4)
-    out = {}
-    rows, size, mws = PLACE_MIXER
-    for mw in mws:
-        sets = []
-        for _ in range(PLACE_RINGS):
-            ring = torch.randn((rows, size), device=dev)
-            chunk, wpos, wcount = place_operands(dev, rng, rows, size, mw, False)
-            sets.append((ring, chunk, wpos, wcount) + place_library(ring, chunk, wpos, wcount))
-        bms = bound(8 * int(sets[0][3].sum()) + 8 * rows)[0]
-        for heat, ss in (("warm", sets[:1]), ("cold", sets)):
-            out[f"K4 ring_place mixer mw={mw}, {heat}"] = (cycling(
-                ss, lambda r, c, p, k, *_: SK.ring_place(r, c, p, k)), bms)
-            out[f"index_put_ (K4 mixer mw={mw}), {heat}"] = (cycling(
-                ss, lambda r, c, p, k, fi, vals: r.view(-1).index_put_((fi,), vals)), bms)
-    rows, size, mw = PLACE_HOST
-    ring = torch.randn((rows, size), device=dev)
-    sets = []
-    for _ in range(SETS):
-        chunk, wpos, wcount = place_operands(dev, rng, rows, size, mw, True)
-        sets.append((ring, chunk, wpos, wcount, place_record(RK, wpos, wcount))
-                    + place_library(ring, chunk, wpos, wcount))
-    bms = bound(8 * int(sets[0][3].sum()) + 12 * rows)[0]
-    for heat, ss in (("warm", sets[:1]), ("cold", sets)):
-        out[f"K4 ring_place host-pool mw={mw}, {heat}"] = (cycling(
-            ss, lambda r, c, p, k, *_: SK.ring_place(r, c, p, k)), bms)
-        out[f"K4 ring_place_record host-pool mw={mw}, {heat}"] = (cycling(
-            ss, lambda r, c, p, k, rec, *_: SK.ring_place_record(r, c, rec)), bms)
-        out[f"index_put_ (K4 host-pool mw={mw}), {heat}"] = (cycling(
-            ss, lambda r, c, p, k, rec, fi, vals: r.view(-1).index_put_((fi,), vals)), bms)
-    return out
-
+# --- K2/K3: the buffered pool's reads ----------------------------------------------
 
 #: the device-resident buffered pool's row at 48 kHz: front pad, the
 #: ring modulus, the mirror and the dump slack (spatial.py W_CHUNK,
@@ -604,16 +174,17 @@ def group_operands(dev, rng, Vs, K, n, base0, nb=4, walk=0.9, cap=READ_CAP):
     return (ros,) + multi_rows(n, K, nb)
 
 
-def capture_states(scene, sets=SETS):
+def capture_states(scene):
     """Render the buffered ``scene`` (one device-resident pool) through a
     ``Renderer`` and capture its pool's ``render`` and ``render_multi``
-    arguments: the first, delta block's, ``sets`` idle single blocks' and
-    the last ``sets`` fused groups'.  Returns (pool, delta, singles,
+    arguments: the first, delta block's, two idle single blocks' and the
+    last two fused groups'.  Returns (pool, delta, singles,
     groups); each state replays with ``pool.render(*state)`` or
     ``pool.render_multi(*group)``."""
     import oddio_tpu_torch as pt
     from oddio_tpu_torch.core.run import eager
 
+    sets = 2
     pool = next(iter(scene._buffered_pools.values()))
     caps = {"render": [], "render_multi": []}
     for kind in caps:
@@ -649,84 +220,7 @@ def block_reads(pool, dstate, ddata, params, n, nb=1):
     return dstate, ros
 
 
-def read_bytes(ros, n):
-    """Bytes the pool's read must move for blocks ``ros`` (``_advance_block``'s
-    read operands): per voice and block the span of both ears' positions
-    ``base + frac + j*ds`` over the n frames plus the lerp's next sample,
-    17 words of operands, the (2, n) output."""
-    total = 0
-    for ro in ros:
-        lo = hi = None
-        for e in range(2):
-            ds, fh, fl = (x.double() for x in ro["split_c"][e])
-            p0 = ro["base_c"][e].double() + ro["frac_c"][e].double()
-            p1 = p0 + (n - 1) * (ds + fh + fl)
-            a, b = torch.minimum(p0, p1), torch.maximum(p0, p1)
-            lo = a if lo is None else torch.minimum(lo, a)
-            hi = b if hi is None else torch.maximum(hi, b)
-        total += 4 * int((hi.floor() - lo.floor() + 2).sum()) + 68 * lo.shape[0] + 8 * n
-    return total
-
-
-def read_cases(dev):
-    """{name: (call, bound ms)} of the buffered pool's read at 4096 voices:
-    ``render``, ``render_multi`` and their ``_advance_block`` chains
-    replayed on captured states, warm (one state) and cold (``SETS``
-    states), and the first, delta block's ``render`` (plays and motion
-    shipped) warm."""
-    from oddio_tpu_torch.utils.scene_profile import build_spatial
-
-    pool, delta, singles, groups = capture_states(build_spatial(True, V, dev)[1])
-
-    def advance(*state):
-        return block_reads(pool, *state)
-
-    out = {}
-    bd = bound(read_bytes(advance(*delta)[1], W))[0]
-    out["read K2 delta block, warm: render"] = (lambda: pool.render(*delta), bd)
-    out["read K2 delta block, warm: advance"] = (lambda: advance(*delta), bd)
-    b2 = bound(read_bytes(advance(*singles[0])[1], W))[0]
-    b3 = bound(read_bytes(advance(*groups[0])[1], W))[0]
-    for heat, k in (("warm", 1), ("cold", SETS)):
-        out[f"read K2 idle block, {heat}: render"] = (cycling(singles[:k], pool.render), b2)
-        out[f"read K2 idle block, {heat}: advance"] = (cycling(singles[:k], advance), b2)
-        out[f"read K3 group nb=4, {heat}: render"] = (cycling(groups[:k], pool.render_multi), b3)
-        out[f"read K3 group nb=4, {heat}: advance"] = (cycling(groups[:k], advance), b3)
-    return out
-
-
-def paired_host(fa, fb, pairs=PAIRS):
-    """Median over ``pairs`` alternated calls of fa's host time (wall clock,
-    no synchronise) less fb's, in ms; the device work queues behind."""
-    d = []
-    for _ in range(pairs):
-        t0 = time.perf_counter()
-        fa()
-        t1 = time.perf_counter()
-        fb()
-        d.append((t1 - t0) - (time.perf_counter() - t1))
-    torch.cuda.synchronize()
-    return 1e3 * float(np.median(d))
-
-
-def read_differences(res):
-    """The read's own numbers: each ``...: render`` entry less its
-    ``...: advance`` entry (ms, host_ms, device_ms, device kernels)."""
-    out = {}
-    for name, r in res.items():
-        if not name.endswith(": render"):
-            continue
-        a = dict(res[name[:-len("render")] + "advance"])
-        if a["kernels"] == 0 and a["device_ms"] is None:
-            a["device_ms"] = 0.0  # a call that launches nothing
-        d = {k: (None if r[k] is None or a[k] is None else r[k] - a[k])
-             for k in ("ms", "host_ms", "device_ms", "kernels")}
-        out[name[:-len(": render")]] = dict(d, bound_ms=r["bound_ms"],
-                                            paired_host_ms=r.get("paired_host_ms"))
-    return out
-
-
-# --- the device-resident Adapt and Stream steps (K7, K6) ------------------------
+# --- the device-resident pools' steps (K6, K7) -------------------------------------
 
 
 def dr_pools(engine):
@@ -768,140 +262,19 @@ def capture_steps(pools, render, method="dr_render"):
     return caps
 
 
-def adapt_step(proto, args):
-    """(the whole Adapt(inner) render, the inner's render alone) as
-    no-argument calls on captured ``args``: their difference is the Adapt
-    step."""
-    state, ddata, rest = args[0], args[1], args[2:]
-    return (lambda: proto.dr_render(*args),
-            lambda: proto.inner.dr_render(state["inner"], ddata.get("inner", {}), *rest))
-
-
 def step_kernels(proto, args):
     """Device kernels of one Adapt step (the whole render less the
     inner's) and of one Stream step on captured ``args`` of an Adapt pool
     (the Stream's None where the inner is no Stream)."""
-    whole, inner = adapt_step(proto, args)
-    k_inner = device_profile(inner, reps=1, exact=True)[1]
-    k_adapt = device_profile(whole, reps=1, exact=True)[1] - k_inner
+    state, ddata, rest = args[0], args[1], args[2:]
+    k_inner = device_profile(
+        lambda: proto.inner.dr_render(state["inner"], ddata.get("inner", {}), *rest))
+    k_adapt = device_profile(lambda: proto.dr_render(*args)) - k_inner
     is_stream = type(proto.inner).__name__ == "Stream"
     return k_adapt, (k_inner if is_stream else None)
 
 
-#: blocks captured for the step modes: one warm state, SETS cold ones
-STEP_BLOCKS = SETS + 2
-_STEP_STATES = {}
-
-
-def step_states(dev):
-    """Captured Adapt-pool states: the 4096-voice config-5 mixer's two
-    pools (512 Adapt(Stream), 3584 Adapt(Sine); n = 512, a write before
-    the capture so one block ingests) and a host-pool scene's
-    device-resident Adapt(Stream) pool (512 voices at n = 513).  Returns
-    [(label, proto, [args per block])], built once per device."""
-    if dev in _STEP_STATES:
-        return _STEP_STATES[dev]
-    import oddio_tpu_torch as pt
-    from oddio_tpu_torch.utils.scene_profile import build_host_pools, build_mixer_agc, feed
-
-    out = []
-    _, mixer, ctls, rng = build_mixer_agc(V, dev)
-    r = pt.Renderer(mixer, 48000)
-    r.render_frames(W * 4)
-    feed(ctls, rng, 1024)
-    pools = dr_pools(mixer)
-    caps = capture_steps(pools, lambda: [r.render_block(W) for _ in range(STEP_BLOCKS)])
-    for p in pools:
-        out.append((f"{type(p.proto.inner).__name__} V={p.capacity} n={W}", p.proto,
-                    caps[p][-STEP_BLOCKS:]))
-    _, scene, ctls, _, rng = build_host_pools(64, dev, dr_voices=512, submix_voices=64)
-    r = pt.Renderer(scene, 48000)
-    r.render_frames(W * 4)
-    feed(ctls, rng, 1024)
-    pools = [p for p in scene._buffered_pools.values() if p.is_dr]
-    caps = capture_steps(pools, lambda: [r.render_block(W) for _ in range(STEP_BLOCKS)])
-    for p in pools:
-        args = caps[p][-STEP_BLOCKS:]
-        out.append((f"{type(p.proto.inner).__name__} V={p.capacity} n={args[0][3]} "
-                    "(host-pool scene)", p.proto, args))
-    _STEP_STATES[dev] = out
-    return out
-
-
-def agc_bytes(args):
-    """Bytes the Adapt step must move: the inner's samples in, the output
-    out, 24 bytes of per-voice columns in (avg, tau, count, low, high,
-    max_gain) and the carry out."""
-    state, n = args[0], args[3]
-    Vs = state["avg"].shape[0]
-    return 8 * Vs * n + 28 * Vs
-
-
-def agc_cases(dev):
-    """{name: (call, bound ms)} of the whole Adapt step on captured pool
-    states (``step_states``), warm (one block's state) and cold (``SETS``
-    blocks' states in turn): ``...: render`` the Adapt pool's
-    ``dr_render``, ``...: advance`` its inner's alone."""
-    out = {}
-    for label, proto, states in step_states(dev):
-        bms = bound(agc_bytes(states[0]), 20 * states[0][0]["avg"].shape[0] * states[0][3])[0]
-        for heat, ss in (("warm", states[:1]), ("cold", states[1:1 + SETS])):
-            out[f"agc step {label}, {heat}: render"] = (
-                cycling([adapt_step(proto, a) for a in ss], lambda w, i: w()), bms)
-            out[f"agc step {label}, {heat}: advance"] = (
-                cycling([adapt_step(proto, a) for a in ss], lambda w, i: i()), bms)
-    return out
-
-
-def resample_bytes(SK, state, n):
-    """Bytes the Stream step must move: each voice's read span, the (V, n)
-    output, 40 bytes of cursors (t, rate, start, len, count in; t', len',
-    start' out)."""
-    from oddio_tpu_torch.ops._dev import device_split_ds
-
-    t, rate = state["t"], state["rate"]
-    ds = rate * float(np.float32(1.0 / 48000.0))
-    _, pos, _ = SK._positions(t, *device_split_ds(ds), n)
-    Vs = t.shape[0]
-    return span_bytes(pos) + 4 * Vs * n + 40 * Vs
-
-
-def resample_cases(dev):
-    """{name: (call, bound ms)} of the whole Stream step (``Stream.dr_render``
-    of the Adapt(Stream) pools' captured inner states), warm and cold;
-    ``...: advance`` does nothing, so the differences are the step."""
-    from oddio_tpu_torch.ops import stream_kernels as SK
-
-    out = {}
-    for label, proto, states in step_states(dev):
-        if type(proto.inner).__name__ != "Stream":
-            continue
-        inner = [adapt_step(proto, a)[1] for a in states]
-        n = states[0][3]
-        bms = bound(resample_bytes(SK, states[0][0]["inner"], n))[0]
-        for heat, fs in (("warm", inner[:1]), ("cold", inner[1:1 + SETS])):
-            out[f"stream step {label}, {heat}: render"] = (cycling([(f,) for f in fs],
-                                                                   lambda f: f()), bms)
-            out[f"stream step {label}, {heat}: advance"] = (lambda: None, bms)
-    return out
-
-
-# --- K6's arena form: the sampler reads ----------------------------------------
-
-#: operand sets of a "cold" arena case: a sampler or seek set reads ~3.6 MB
-#: (the union of its rows' spans) at other places of a ~43 MB arena; the
-#: arena fits the 50 MB L2, so no set's reads are cold-cache reads (the
-#: wavetable's sets all read one 10 KB table, as its path does)
-ARENA_SETS = 16
-#: the arena form's shapes on the three paths, one launch each: (label,
-#: rows, region kind, per-frame step range).  The sampler's rows are one
-#: fader bank of 1024 stereo voices (44.1 kHz sounds at 48 kHz, speeds
-#: 0.8-1.25); the wavetable's 1024 Speed(Cycle) voices at ratio 1; the
-#: seek pool's 1024 voices x 2 ears at doppler-warped ratio ~1
-ARENA_SHAPES = (("sampler", 2048, "stereo", (0.735, 1.149)),
-                ("wavetable", 1024, "looped", (1.0, 1.0)),
-                ("seek", 2048, "mono", (0.98, 1.02)))
-ARENA_N = 512
+# --- K6's arena form: the sampler reads and whole steps ------------------------------
 
 
 def arena_setup(seed=0, sounds=8, seconds=10.0, table=2048):
@@ -973,42 +346,6 @@ def arena_operands(dev, rng, regions, rows, kind, ds_range, edges=True):
         (fh, np.float32), (fl, np.float32)))
 
 
-def arena_bytes(SK, ops, n):
-    """Bytes K6's arena form must move: the union of the rows' read spans
-    (rows reading one sound, or the one table, share their samples), the
-    (R, n) output and 28 bytes of operands a row."""
-    xg, lo, hi, o0, di, fh, fl = ops
-    _, p, _ = SK._positions(o0, di, fh, fl, n)
-    idx = torch.clamp(xg - 1, lo, hi).to(torch.int64)[:, None] + 1 + p
-    R = xg.shape[0]
-    return union_bytes(idx) + 4 * R * n + 28 * R
-
-
-def arena_cases(dev):
-    """{name: (call, bound ms)} of K6's arena form at the three paths'
-    shapes (``ARENA_SHAPES``, n = 512) on the paths' own operands (no edge
-    cases), warm (one operand set) and cold (``ARENA_SETS`` sets in turn),
-    and its plain version warm."""
-    from oddio_tpu_torch.ops import stream_kernels as SK
-
-    host, regions = arena_setup()
-    garena = torch.tensor(host, device=dev)
-    rng = np.random.default_rng(6)
-    out = {}
-    for label, rows, kind, dsr in ARENA_SHAPES:
-        sets = [arena_operands(dev, rng, regions, rows, kind, dsr, edges=False)
-                for _ in range(ARENA_SETS)]
-        bms = bound(arena_bytes(SK, sets[0], ARENA_N))[0]
-        for heat, ss in (("warm", sets[:1]), ("cold", sets)):
-            out[f"arena {label} {rows} rows, {heat}"] = (
-                cycling(ss, lambda *o: SK.arena_resample(garena, *o, ARENA_N)), bms)
-        out[f"arena {label} {rows} rows, plain"] = (
-            lambda o=sets[0]: SK.arena_resample_plain(garena, *o, ARENA_N), bms)
-    return out
-
-
-# --- K6's arena form, whole steps: the sampler, wavetable and seek steps --------
-
 #: the interval of the 48 kHz paths
 STEP_IV = float(np.float32(1.0 / 48000.0))
 #: per-frame step ranges of the tiers 1, 2 and 4, as Speed factors of a
@@ -1016,184 +353,47 @@ STEP_IV = float(np.float32(1.0 / 48000.0))
 STEP_TIERS = {1: (0.3, 1.05), 2: (1.1, 2.1), 4: (2.2, 4.3)}
 
 
-def _unwrap(state):
-    """A Speed chain's leaf state and its Speed factors, outer first."""
-    speeds = []
-    while "speed" in state and "inner" in state:
-        speeds.append(state["speed"])
-        state = state["inner"]
-    return state, speeds
+#: the captured sampler paths' voices and blocks
+ARENA_VOICES, ARENA_BLOCKS = 1024, 10
 
 
-def _leaf_reads(kind, st, split, n, C, cur=None):
-    """The (rows, n) arena indices a leaf's first <= 512-frame chunk reads
-    (each row's span ends one past its last index), from the chains'
-    position math: rows of a C-channel FramesSignal at goff +
-    c*guard_stride(len), Cycle at loff."""
-    from oddio_tpu_torch.core.frames import ARENA_GUARD as guard
-    from oddio_tpu_torch.core.frames import ARENA_ROW as row
-    from oddio_tpu_torch.ops import stream_kernels as SK
-
-    b, o = cur if cur is not None else (st["base"], st["frac"])
-    if kind == "cycle":
-        roff, length = st["loff"], st["length"]
-        lo, hi = roff - 1, roff + length - 1
-    else:
-        length = st["length"]
-        stride = 2 * guard + length + torch.remainder(-length, row)
-        c = torch.arange(C, dtype=torch.int32, device=length.device)
-        roff = (st["goff"][:, None] + c * stride[:, None]).reshape(-1)
-        length = length.repeat_interleave(C)
-        lo, hi = roff - guard, roff + length
-        b, o = b.repeat_interleave(C), o.repeat_interleave(C)
-        split = tuple(x.repeat_interleave(C) for x in split)
-    _, p, _ = SK._positions(o, *split, min(n, 512))
-    xc = torch.clamp(roff + b - 1, lo, hi).to(torch.int64)
-    return xc[:, None] + 1 + p
-
-
-def _leaf_split(kind, st, interval, speeds):
-    """The step split the chain derives (Speed factors applied outer
-    first), written out here so that the bench runs on an older tree."""
-    from oddio_tpu_torch.ops._dev import device_split_ds
-
-    for sp in speeds:
-        interval = (interval * sp if isinstance(interval, torch.Tensor)
-                    else sp * float(np.float32(interval)))
-    if not isinstance(interval, torch.Tensor):
-        return st["ds_int"], st["f_hi"], st["f_lo"]
-    ds = st["rate"] * interval
-    if kind == "frames":
-        ds = torch.where(torch.abs(ds - 1.0) <= float(np.finfo(np.float32).eps), 1.0, ds)
-    return device_split_ds(ds)
-
-
-#: bytes of a leaf's per-voice state a step reads (t, base, frac, region,
-#: length, rate, one Speed factor) and writes (its cursor)
-_LEAF_IN = {"frames": 8 + 4 * 6, "cycle": 4 * 6}
-_LEAF_OUT = {"frames": 16, "cycle": 8}
-
-
-def step_bytes(method, kind, C, args):
-    """Bytes a whole step must move on captured ``args``: the union of the
-    rows' read spans (a Fader's non-fading voices read their active bank
-    only), the output, and the per-voice state in and out (a Fader's own
-    prog, inc, fading and flip too; the count)."""
-    if method == "dr_warp_render":
-        from oddio_tpu_torch.ops._dev import device_split_ds
-
-        st, _, t0, dt, n = args
-        V, E = t0.shape
-        if kind == "frames":
-            s0 = (st["t"][:, None] + t0.to(torch.float64)) * st["rate"][:, None].double()
-            bt = torch.trunc(s0)
-            b, o = bt.to(torch.int32).reshape(-1), (s0 - bt).float().reshape(-1)
-        else:  # the warp's cursor shifts stay within the rows' spans to an ulp
-            b = st["base"].repeat_interleave(E)
-            o = st["frac"].repeat_interleave(E)
-        split = tuple(x.reshape(-1) for x in device_split_ds(dt * st["rate"][:, None]))
-        rows = {k: st[k].repeat_interleave(E) for k in ("goff", "loff", "length") if k in st}
-        idx = _leaf_reads(kind, rows, split, n, 1, (b, o))
-        per_voice = _LEAF_IN[kind] - 4 + 8 * E  # no split; t0 and dt per ear
-        return union_bytes(idx) + 4 * V * E * n + per_voice * V
-    state, ddata, interval, n, count = args
-    if "prog" in state:  # a Fader: each bank as its chain, the active bank where idle
-        done = state["fading"] & (state["prog"] >= 1.0)
-        flip = state["flip"] ^ done
-        fading = state["fading"] & ~done
-        reads = []
-        for bank, need in (("a", fading | ~flip), ("b", fading | flip)):
-            st, sp = _unwrap(state[bank])
-            idx = _leaf_reads(kind, st, _leaf_split(kind, st, interval, sp), n, C)
-            reads.append(idx[need.repeat_interleave(C)])
-        V = state["prog"].shape[0]
-        idx = torch.cat(reads)
-        return (union_bytes(idx) + 4 * V * C * n
-                + V * (2 * (_LEAF_IN[kind] + _LEAF_OUT[kind]) + 10 + 6 + 4))
-    st, sp = _unwrap(state)
-    V = st["base"].shape[0]
-    idx = _leaf_reads(kind, st, _leaf_split(kind, st, interval, sp), n, C)
-    return union_bytes(idx) + 4 * V * C * n + V * (_LEAF_IN[kind] + _LEAF_OUT[kind] + 4)
-
-
-_ARENA_STATES = {}
-
-
-#: voices of each captured arena-step scene
-STEP_VOICES = 1024
-
-
-def arena_states(dev):
-    """Captured arguments of the three paths' steps, ``STEP_BLOCKS`` blocks
-    each after a 1 s warm-up: the sampler's Fader pool (``build_sampler``,
-    its control script of speed writes and fades every 8 blocks), the
-    wavetable's Speed(Cycle) pool (``build_wavetable``, 64 speed writes
-    before the capture) and the seek sampler's seek pool
-    (``build_seek_sampler``, its ``dr_warp_render``).  Returns [(label,
-    proto, method, kind, C, [args per block])], built once per device."""
-    if dev in _ARENA_STATES:
-        return _ARENA_STATES[dev]
+def arena_states(dev, path):
+    """Captured arguments of one path's whole arena steps at
+    ``ARENA_VOICES`` voices, ``ARENA_BLOCKS`` blocks after a warm-up:
+    ``path`` "sampler" (``build_sampler``'s Fader
+    pool, its control script of speed writes and fades every 8 blocks),
+    "wavetable" (``build_wavetable``'s Speed(Cycle) pool, 64 speed writes
+    before the capture) or "seek" (``build_seek_sampler``'s seek pool, its
+    ``dr_warp_render``).  Returns (proto, method, kind, channels, [args per
+    block])."""
     import oddio_tpu_torch as pt
     from oddio_tpu_torch.utils.scene_profile import (build_sampler, build_seek_sampler,
                                                      build_wavetable)
 
-    voices = STEP_VOICES
-    out = []
-    drv = build_sampler(voices, dev)
-    r = pt.Renderer(drv.mixer, 48000)
-    drv.render(r, 96)
-    pools = dr_pools(drv.mixer)
-    caps = capture_steps(pools, lambda: drv.render(r, STEP_BLOCKS))
-    out.append((f"sampler Fader(Speed(FramesSignal)) V={voices} stereo", pools[0].proto,
-                "dr_render", "frames", 2, caps[pools[0]][-STEP_BLOCKS:]))
-    mixer, scs, rng = build_wavetable(voices, dev)
-    r = pt.Renderer(mixer, 48000)
-    r.render_frames(48000)
-    for sc in scs[:64]:
-        sc.set_speed(float(rng.uniform(0.8, 1.25)))
-    pools = dr_pools(mixer)
-    caps = capture_steps(pools, lambda: [r.render_block(W) for _ in range(STEP_BLOCKS)])
-    out.append((f"wavetable Speed(Cycle) V={voices}", pools[0].proto, "dr_render", "cycle", 1,
-                caps[pools[0]][-STEP_BLOCKS:]))
+    voices, blocks = ARENA_VOICES, ARENA_BLOCKS
+    if path == "sampler":
+        drv = build_sampler(voices, dev)
+        r = pt.Renderer(drv.mixer, 48000)
+        drv.render(r, 96)
+        pools = dr_pools(drv.mixer)
+        caps = capture_steps(pools, lambda: drv.render(r, blocks))
+        return pools[0].proto, "dr_render", "frames", 2, caps[pools[0]][-blocks:]
+    if path == "wavetable":
+        mixer, scs, rng = build_wavetable(voices, dev)
+        r = pt.Renderer(mixer, 48000)
+        r.render_frames(48000)
+        for sc in scs[:64]:
+            sc.set_speed(float(rng.uniform(0.8, 1.25)))
+        pools = dr_pools(mixer)
+        caps = capture_steps(pools, lambda: [r.render_block(W) for _ in range(blocks)])
+        return pools[0].proto, "dr_render", "cycle", 1, caps[pools[0]][-blocks:]
     _, scene, _, _ = build_seek_sampler(voices, dev)
     r = pt.Renderer(scene, 48000)
     r.render_frames(48000)
     pools = [p for p in scene._seek_pools.values() if p.is_dr]
-    caps = capture_steps(pools, lambda: [r.render_block(W) for _ in range(STEP_BLOCKS)],
+    caps = capture_steps(pools, lambda: [r.render_block(W) for _ in range(blocks)],
                          method="dr_warp_render")
-    out.append((f"seek FramesSignal V={voices} E=2", pools[0].proto, "dr_warp_render",
-                "frames", 1, caps[pools[0]][-STEP_BLOCKS:]))
-    _ARENA_STATES[dev] = out
-    return out
-
-
-def arena_step_cases(dev):
-    """{name: (call, bound ms)} of the three paths' whole steps on captured
-    states (``arena_states``), warm (one block's state) and cold
-    (``SETS`` blocks' states in turn): the sampler's whole Fader step and
-    one bank's step (its ``a`` chain's ``dr_render``), the wavetable's
-    Speed(Cycle) step and the seek pool's warped read.  ``...: advance``
-    does nothing, so each difference is the step; both run on any tree of
-    the port (pool methods only)."""
-    out = {}
-    for label, proto, method, kind, C, calls in arena_states(dev):
-        fn = getattr(proto, method)
-        steps = [(label, lambda a, fn=fn: fn(*a), calls, step_bytes(method, kind, C, calls[0]))]
-        if method == "dr_render" and "prog" in calls[0][0]:
-            def bank(a, proto=proto):
-                st, dd, iv, n, cnt = a
-                return proto.a.dr_render(st["a"], dd.get("a", {}), iv, n, cnt)
-
-            one = (calls[0][0]["a"],) + calls[0][1:]
-            steps.append((f"{label} bank a", bank, calls,
-                          step_bytes(method, kind, C, one)))
-        for name, call, cs, nbytes in steps:
-            bms = bound(nbytes)[0]
-            for heat, ss in (("warm", cs[:1]), ("cold", cs[1:1 + SETS])):
-                out[f"arena step {name}, {heat}: render"] = (
-                    cycling([(a,) for a in ss], call), bms)
-                out[f"arena step {name}, {heat}: advance"] = (lambda: None, bms)
-    return out
+    return pools[0].proto, "dr_warp_render", "frames", 1, caps[pools[0]][-blocks:]
 
 
 def step_call(proto, method, kind, C, args, plain=False):
@@ -1304,54 +504,3 @@ def seek_offsets(dev, rng, V, E=2):
     dt = (np.float32(STEP_IV) * rng.uniform(0.8, 1.25, (V, E))).astype(np.float32)
     dt[0] = np.float32(1.0 / 44100.0)
     return torch.tensor(t0, device=dev), torch.tensor(dt, device=dev)
-
-
-MODES = {"append": append_cases, "place": place_cases, "select": select_cases,
-         "read": read_cases, "agc": agc_cases, "resample": resample_cases,
-         "arena": arena_cases, "arena_step": arena_step_cases}
-
-
-def main(argv=None):
-    modes = (sys.argv[1:] if argv is None else argv) or list(MODES)
-    for m in modes:
-        if m not in MODES:
-            raise SystemExit(f"kernel_bench: unknown mode {m!r}; one of {list(MODES)}")
-    if not torch.cuda.is_available():
-        raise SystemExit("kernel_bench: needs a CUDA card")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=False).stdout.strip().splitlines()[0]
-    dev = torch.device("cuda")
-    res = {}
-    for m in modes:
-        fns = MODES[m](dev)
-        res.update({name: dict(zip(("ms", "host_ms"), clocks(fn)), bound_ms=b)
-                    for name, (fn, b) in fns.items()})
-        for name, (fn, _) in fns.items():  # the read's host time, paired
-            if name.endswith(": render"):
-                other = fns[name[:-len("render")] + "advance"][0]
-                res[name]["paired_host_ms"] = paired_host(fn, other)
-        for name, (fn, _) in fns.items():  # the profiler last: it slows later host calls
-            split, kernels = device_profile(fn)
-            res[name]["device_ms"] = sum(split.values()) if split else None
-            res[name]["device_split"] = split
-            res[name]["kernels"] = kernels
-        del fns
-        torch.cuda.empty_cache()
-    for name, r in res.items():
-        dev_ms = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f}"
-        split = sorted(r["device_split"].items(), key=lambda kv: -kv[1])
-        split = ", ".join(f"{k[:40]} {v:.4f}" for k, v in split[:8])
-        print(f"{name}: ms {r['ms']:.4f}, device_ms {dev_ms} ({r['kernels']:.1f} kernels: "
-              f"{split}), host_ms {r['host_ms']:.4f} (bound {r['bound_ms']:.4f}) [{card}]")
-    reads = read_differences(res)
-    for name, d in reads.items():
-        fmt = {k: "not measured" if v is None else f"{v:.4f}" for k, v in d.items()}
-        print(f"{name} (render less advance): ms {fmt['ms']}, device_ms {fmt['device_ms']}, "
-              f"host_ms {fmt['host_ms']}, paired host_ms {fmt['paired_host_ms']}, device "
-              f"kernels {fmt['kernels']} (bound {fmt['bound_ms']}) [{card}]")
-    print(json.dumps({"card": card, "kernels": res, "reads": reads}))
-
-
-if __name__ == "__main__":
-    main()

@@ -1,70 +1,28 @@
-"""Where a block's time goes on a CUDA card: the bench scenes at 4096 voices
-through ``Renderer.render_frames_device``, timed and traced.
+"""The port's scene recipes: the bench scenes and packs of the CUDA card
+tests and of README's examples, each built from a seed on a given device.
 
-    python -m oddio_tpu_torch.utils.scene_profile [buffered|seek|buffered_mixed|subpass|mixer|hostpools|pack|pack256|pack2x2|spatialpack|densemix|sampler|wavetable|seek_sampler|sampler_pack|hostpack|hostpack2x2|spatial_sampler|seek_chains|LABEL_eager ...]
-
-For the main path's four scenes (``build_main_path``: bench.py's seek,
-buffered, buffered_mixed and subpass scenes at 4096 voices), the AGC
-mixer scene (``build_mixer_agc``, BASELINE config 5's scene at 4096
-voices) and the host-pool scene (``build_host_pools``: 4096
-Speed(Stream) voices in the host buffered pool, 512 Adapt(Stream) in
-the device-resident one and a 256-voice config-5 submix; these
-Renderers, and the packs below, replay CUDA graphs, and the ``_eager``
-twins run under ``core.run.eager()``, op by op), and the
-ScenePacks (``build_config5_pack``: BASELINE config 5's 256 x 256 pack at
-16 scenes, bench.py's ``scenepack_xrt`` line, as ``pack``, and at its
-stated 256 scenes as ``pack256``; ``build_spatial_pack``: 16 scenes of 64
-buffered + 192 seek Sine voices, as ``spatialpack``), and the 1024-voice
-scenes of BASELINE configs 4 and 2 and the wavetable line
-(``build_densemix``, ``build_sampler`` with its control script of speed
-writes and fades every 8 blocks, ``build_wavetable``; the dense mix and
-the wavetable with bench.py's dispatch, ``scan_unroll`` 4 and
-``BUCKETS`` for the dense mix, ``BUCKETS`` for the wavetable), the seek
-sampler (``build_seek_sampler``: 1024 mono FramesSignal voices in a
-SpatialScene's seek pool), the 4096-voice spatial sampler
-(``build_spatial_sampler``: FramesSignal, Speed, Fader and Cycle voices
-in device-resident buffered pools) and seek chains
-(``build_seek_chains``: Cycle, FixedGain(FramesSignal) and
-Tanh(FixedGain(Sine)) voices in device-resident seek pools), all
-replaying CUDA graphs, with their ``_eager`` twins op by op, and the two
-packs
-of one session each (``build_sampler_pack``: 16 sampler scenes of 64
-voices, each on its own script, as ``sampler_pack``, replaying graphs,
-and ``sampler_pack_eager``;
-``build_host_pools_pack``: 16 host-pool scenes of 256 voices, as
-``hostpack``, replaying graphs, and ``hostpack_eager``), and two packs on
-a logical 2 x 2 mesh of the card (``[cuda] * 4``; each cell replays its
-own graphs): config 5 at its stated 256 scenes as ``pack2x2`` and the
-host-pool pack 16 x 256 as ``hostpack2x2``, with their ``_eager`` twins,
-it prints, for each of three timed 188-block
-runs, the wall time per 512-frame block and the real-time factor (xRT,
-after ``torch.cuda.synchronize()``; for a pack, per scene: one scene's
-audio seconds per wall second, as bench.py counts it); then, for one
-47-block run under ``torch.profiler``, the device kernel time per block,
-the device's busy share of the wall time (kernel time / wall time), the
-device kernels per block, the host time per block in the engine's
-prepare (the program's spans ``render.prepare`` / ``pack.prepare``), the
-bytes per block copied to the card from pageable memory (the counter
-``h2d.bytes.pageable``), the device's idle time per block split by the
-program's innermost span (``profiler.idle_split``), the kernels with the
-most device time and the host-side torch ops with the most self time.  The mixer and host-pool scenes' streams get 1024
-new samples before each run, so the traced run includes an ingest block.
-The card's name and power limit head the output.  With no arguments every
-scene runs.
+``build_main_path`` gives bench.py's four SpatialScenes of Sine voices
+(``build_spatial`` the buffered and seek ones); ``build_mixer_agc`` the
+config-5 mixer (BASELINE config 5's scene) and ``build_host_pools`` the
+host-pool scene (Speed(Stream) voices in the host buffered pool,
+Adapt(Stream) in the device-resident one and a config-5 submix), with
+``build_mixer_host_pools`` its Mixer form; ``build_config5_pack``,
+``build_spatial_pack``, ``build_host_pools_pack`` and
+``build_sampler_pack`` the ScenePacks; ``build_densemix``,
+``build_sampler`` and ``build_wavetable`` BASELINE configs 4 and 2 and
+the wavetable line; ``build_seek_sampler``, ``build_spatial_sampler``
+and ``build_seek_chains`` the sampler scenes of the seek and buffered
+pools; ``build_checkpoint_scene`` a scene with control events queued for
+a snapshot.  ``feed`` writes stream PCM.  Timing lives in
+``benchmark/``.
 """
 
 from __future__ import annotations
 
-import collections
-import subprocess
-import time
-
 import numpy as np
-import torch
 
 import oddio_tpu_torch as pt
 from oddio_tpu_torch.mixer import DEFAULT_CAPACITY
-from oddio_tpu_torch.utils import profiler as prof_mod
 
 __all__ = ["build_spatial", "build_main_path", "MAIN_PATH", "BUCKETS", "build_mixer_agc",
            "build_host_pools", "build_config5_pack",
@@ -73,14 +31,10 @@ __all__ = ["build_spatial", "build_main_path", "MAIN_PATH", "BUCKETS", "build_mi
            "build_sampler", "SamplerDriver", "build_seek_sampler", "build_sampler_pack",
            "build_spatial_sampler", "build_seek_chains", "SpatialDriver",
            "build_host_pools_pack", "build_mixer_host_pools", "PackDriver",
-           "build_checkpoint_scene", "feed", "card_line", "main"]
+           "build_checkpoint_scene", "feed"]
 
 RATE = 48000
 BLOCK = 512
-VOICES = 4096
-BLOCKS = 188  # 2.005 s of audio per timed run
-RUNS = 3
-TOP = 12  # kernels and host ops listed per scene
 #: bench.py's dispatch-size buckets (``bench.py:75``: 1504, CHUNK = 47, 46,
 #: 12, 3, 1), with which it renders the dense mix and the wavetable
 BUCKETS = (1504, 47, 46, 12, 3, 1)
@@ -704,13 +658,12 @@ class SamplerDriver:
 
 
 def build_checkpoint_scene(kind, voices, device, **sampler_kw):
-    """A scene of ``chip_smoke.py``'s phase 32 with control events queued
-    for a snapshot: ``kind`` is "buffered" (``build_spatial``; a
-    ``play_buffered`` and a ``set_motion`` queued), "mixer"
-    (``build_mixer_agc``; stream PCM written, not ingested), "hostpools"
-    (``build_host_pools``; a ``set_speed`` and PCM queued) or "sampler"
-    (``build_sampler`` with ``sampler_kw``; fades in flight and fades
-    queued behind them).  Renders 2 blocks, issues the first controls,
+    """A scene with control events queued for a snapshot: ``kind`` is
+    "buffered" (``build_spatial``; a ``play_buffered`` and a
+    ``set_motion`` queued), "mixer" (``build_mixer_agc``; stream PCM
+    written, not ingested), "hostpools" (``build_host_pools``; a
+    ``set_speed`` and PCM queued) or "sampler" (``build_sampler`` with
+    ``sampler_kw``; fades in flight and fades queued behind them).  Renders 2 blocks, issues the first controls,
     renders 1 block, queues the rest; returns ``(engine, renderer)``."""
     if kind == "buffered":
         control, eng = build_spatial(True, voices, device)
@@ -756,187 +709,3 @@ def feed(ctls, rng, k):
     has room for); returns the samples each took."""
     pcm = (rng.standard_normal((len(ctls), k)) * 0.1).astype(np.float32)
     return [c.write(x) for c, x in zip(ctls, pcm)]
-
-
-def card_line():
-    """``name, power limit`` of card 0, as nvidia-smi reports them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()
-    return out[0].strip()
-
-
-class _Driven:
-    """A Renderer whose ``render_frames_device`` runs a driver's control
-    script (``SamplerDriver.render``)."""
-
-    def __init__(self, renderer, driver):
-        self.renderer, self.driver = renderer, driver
-
-    def render_frames_device(self, total, sync=False):
-        return self.driver.render(self.renderer, total // BLOCK)
-
-
-def _run(renderer, nblocks):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    # a Renderer skips its handle readback; a ScenePack starts none
-    kw = {"sync": False} if isinstance(renderer, (pt.Renderer, _Driven)) else {}
-    renderer.render_frames_device(BLOCK * nblocks, **kw)
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0
-
-
-def profile_scene(label):
-    """Profile one scene; a label with ``_eager`` (``buffered_eager``,
-    ``mixer_eager``, ``hostpools_eager``, ``pack_eager``,
-    ``pack2x2_eager``, ``densemix_eager``, ``wavetable_eager``,
-    ``sampler_eager``, ``seek_sampler_eager``, ``sampler_pack_eager``,
-    ``hostpack_eager``, ``hostpack2x2_eager``, ``spatial_sampler_eager``,
-    ``seek_chains_eager``)
-    runs it under ``core.run.eager()``, op by op, where the plain label
-    replays the Renderer's or the pack's CUDA graphs."""
-    if label.endswith("_eager"):
-        from ..core.run import eager
-
-        with eager():
-            return _profile_scene(label[: -len("_eager")], label)
-    return _profile_scene(label, label)
-
-
-def _logical_2x2():
-    """A 2 x 2 mesh of logical devices on the card."""
-    from ..parallel.mesh import make_mesh
-
-    return make_mesh(2, 2, ["cuda"] * 4)
-
-
-def _profile_scene(label, shown):
-    nblocks = BLOCKS
-    before = None
-    kw = {}  # the Renderer's dispatch options
-    if label in ("pack", "pack256", "pack2x2"):
-        r, ctls, rng = build_config5_pack(16 if label == "pack" else 256, "cuda",
-                                          mesh=_logical_2x2() if label == "pack2x2" else None)
-
-        def before():
-            feed(ctls, rng, 1024)
-    elif label == "spatialpack":
-        r = build_spatial_pack(16, "cuda")
-    elif label == "sampler_pack":
-        r = build_sampler_pack(16, 64, "cuda")
-    elif label in ("hostpack", "hostpack2x2"):
-        r, ctls, _, rng = build_host_pools_pack(
-            16, 256, "cuda", mesh=_logical_2x2() if label == "hostpack2x2" else None)
-
-        def before():
-            feed(ctls, rng, 1024)
-    elif label == "mixer":
-        _, scene, ctls, rng = build_mixer_agc(VOICES, "cuda")
-
-        def before():
-            feed(ctls, rng, 1024)
-    elif label == "hostpools":
-        _, scene, ctls, _, rng = build_host_pools(VOICES, "cuda")
-
-        def before():
-            feed(ctls, rng, 1024)
-    elif label == "densemix":
-        scene, _, _, _ = build_densemix(1024, "cuda")
-        kw = {"scan_unroll": 4, "scan_buckets": BUCKETS}
-    elif label == "wavetable":
-        scene, _, _ = build_wavetable(1024, "cuda")
-        kw = {"scan_buckets": BUCKETS}
-    elif label == "sampler":
-        drv = build_sampler(1024, "cuda")
-        scene = drv.mixer
-    elif label == "seek_sampler":
-        _, scene, _, _ = build_seek_sampler(1024, "cuda")
-    elif label == "spatial_sampler":
-        scene = build_spatial_sampler(VOICES, "cuda").scene
-    elif label == "seek_chains":
-        scene = build_seek_chains(VOICES, "cuda").scene
-    else:
-        _, scene, _ = build_main_path(label, VOICES, "cuda")
-    if label not in ("sampler_pack", "pack", "pack256", "pack2x2", "spatialpack", "hostpack",
-                     "hostpack2x2"):
-        r = pt.Renderer(scene, RATE, **kw)
-    if label == "sampler":
-        # the control script runs inside the timed window (every 8 blocks)
-        r = _Driven(r, drv)
-    _run(r, nblocks // 2)  # warm-up
-    for _ in range(RUNS):
-        if before is not None:
-            before()
-        wall = _run(r, nblocks)
-        print(f"{shown}: wall/block {1e3 * wall / nblocks:.3f} ms, "
-              f"xRT {nblocks * BLOCK / RATE / wall:.2f}")
-    ntr = max(nblocks // 4, 1)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    if before is not None:
-        before()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.time_ns()
-        wall = _run(r, ntr)
-        t1 = time.time_ns()
-    spans = prof_mod.recorded(t0, t1)
-    kern_us = collections.Counter()
-    kern_n = collections.Counter()
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            kern_us[ev.name] += ev.time_range.elapsed_us()
-            kern_n[ev.name] += 1
-    dev_ms = sum(kern_us.values()) / 1e3
-    prepare = sum(prof_mod.span_seconds(k, spans)[0] for k in ("render.prepare", "pack.prepare"))
-    pageable = prof_mod.counted("h2d.bytes.pageable", spans) or 0
-    print(f"{shown} traced: wall {1e3 * wall:.1f} ms for {ntr} blocks; device kernel "
-          f"time {dev_ms:.3f} ms ({dev_ms / ntr:.4f} ms/block), busy share "
-          f"{dev_ms / (1e3 * wall):.3f}, device kernels/block "
-          f"{sum(kern_n.values()) / ntr:.1f}, host_prepare/block "
-          f"{1e3 * prepare / ntr:.3f} ms, pageable upload bytes/block {pageable / ntr:.0f}")
-    if not kern_n:
-        print(f"{shown} traced: the profiler saw no device kernels")
-    busy = [(ev.start_ns(), ev.start_ns() + ev.duration_ns())
-            for ev in prof.profiler.kineto_results.events()
-            if ev.device_type() == torch.autograd.DeviceType.CUDA]
-    idle = prof_mod.idle_split(busy, spans, t0, t1)
-    print(f"{shown} traced: device idle ms/block by the program's innermost span: "
-          + ", ".join(f"{k} {1e3 * v / ntr:.3f}" for k, v in
-                      sorted(idle.items(), key=lambda kv: -kv[1])))
-    for name, us in kern_us.most_common(TOP):
-        print(f"  {us / ntr:10.2f} us/block  x{kern_n[name] / ntr:5.1f}  {name[:90]}")
-    cpu = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
-    cpu.sort(key=lambda e: e.self_cpu_time_total, reverse=True)
-    for e in cpu[:TOP]:
-        print(f"  cpu {e.self_cpu_time_total / ntr:10.2f} us/block  "
-              f"x{e.count / ntr:5.1f}  {e.key}")
-
-
-SCENES = ("buffered", "seek", "buffered_mixed", "subpass", "mixer", "hostpools", "pack",
-          "pack256", "pack2x2", "spatialpack", "densemix", "sampler", "wavetable",
-          "seek_sampler", "sampler_pack", "hostpack", "hostpack2x2", "spatial_sampler",
-          "seek_chains") + tuple(
-              f"{k}_eager" for k in MAIN_PATH + ("mixer", "hostpools", "pack", "pack256",
-                                                 "pack2x2", "spatialpack", "densemix",
-                                                 "wavetable", "sampler", "seek_sampler",
-                                                 "sampler_pack", "hostpack", "hostpack2x2",
-                                                 "spatial_sampler", "seek_chains"))
-
-
-def main(argv=None):
-    import sys
-
-    labels = (sys.argv[1:] if argv is None else argv) or SCENES
-    for label in labels:
-        if label not in SCENES:
-            raise SystemExit(f"scene_profile: unknown scene {label!r}; one of {SCENES}")
-    if not torch.cuda.is_available():
-        raise SystemExit("scene_profile: needs a CUDA card")
-    print(f"card: {card_line()}")
-    for label in labels:
-        profile_scene(label)
-
-
-if __name__ == "__main__":
-    main()

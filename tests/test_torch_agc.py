@@ -203,7 +203,7 @@ def _worst(got, ref, tol):
 @pytest.mark.parametrize("n,C", [(512, 1), (513, 2)])
 def test_agc_tolerance_fails_planted_faults(n, C):
     """The kernel's own summation order sits inside the tolerance; each
-    planted fault lands far outside it (at the smoke's tau = 0.1 s)."""
+    planted fault lands far outside it (at the card tests' tau = 0.1 s)."""
     V = 256
     alpha = np.float32(1.0) - np.exp(-IV / np.float32(0.1), dtype=np.float32)
     step, args = _step_args(_inputs(V, n, 11, alpha=alpha))

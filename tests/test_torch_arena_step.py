@@ -6,8 +6,8 @@ pool's warped reads of the port before the whole-step kernel), bit for bit;
 the Fader's fused two-bank route against two bank renders and the torch
 crossfade; the routes in scenes against the JAX package.
 
-Cases, at small sizes (the smoke runs them at the paths' widths on the
-card): mono and stereo FramesSignal, Cycle, seek reads with E = 2, the
+Cases, at small sizes (``test_torch_cuda.py`` runs them at the paths'
+widths on the card): mono and stereo FramesSignal, Cycle, seek reads with E = 2, the
 Fader with fading, done, flipped and idle voices mixed; n = 512, 513, 128
 and 100; a static interval (the slot rows' split) and a per-voice one with
 speeds across the step tiers 1, 2 and 4; negative fractions, cursors

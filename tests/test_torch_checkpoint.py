@@ -517,7 +517,7 @@ def test_torch_restore_refuses_a_different_structure():
         pck.restore(other, snap)
 
 
-# --- the card's scenes (chip_smoke.py phase 32) at a CPU size --------------------------------
+# --- the card tests' checkpoint scenes (test_torch_cuda.py) at a CPU size -----------------
 
 
 def _bench_prepared(kind, voices):

@@ -164,7 +164,7 @@ def test_torch_realtime_driver_roundtrip():
 
 
 def test_torch_realtime_driver_matches_a_renderer_bit_for_bit():
-    """Phase 33(a) of chip_smoke.py at 64 voices: the config-5 mixer, its
+    """``test_torch_cuda.py``'s driver test at 64 voices: the config-5 mixer, its
     PCM fed before start(); the callback side reads 512 frames whenever
     512*C are readable, 32 blocks in all; their concatenation is a second,
     identically built mixer's render_block loop."""

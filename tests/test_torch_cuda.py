@@ -28,11 +28,30 @@ within ``flat_kernels.dma_tolerance`` (as K5's), K8 and K10 one device
 kernel a call, bit-equal twice, operands read where they lie, their
 cluster tickets left zeroed beside K2's; K1/K2 with a ScenePack's
 scene axis as without it, per scene; the scenes and packs within the
-PARITY.md 1e-5.
+PARITY.md 1e-5.  K2/K3 also on the 4096-voice buffered scene's own read
+operands; one device kernel (the profiler's count) for each pool read,
+each Adapt step (K7) and Stream step (K6) of the config-5 mixer, the
+host-pool scene and the config-5 pack, and each whole arena step of the
+sampler paths, also exact against their plain versions on the paths'
+captured states; every path's kernels and no other launched, as often a
+block at 4 as at 16 scenes; checkpoints, the realtime driver and the
+example twins; ScenePacks on meshes against their 1 x 1 packs.  Every path
+also at its full width (4096-voice scenes, 1024-voice samplers, config-5
+packs of 16, 64 and 256 scenes): its launches a block, every kernel call
+of each block step's first run held against its plain version on the
+same operands, replays at least 90% of the calls.  This file is the
+port's only check on the card; ``benchmark/`` times it.
 """
 
+import collections
+import concurrent.futures
+import contextlib
+import functools
+import importlib
+import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -40,15 +59,20 @@ import pytest
 import torch
 
 import oddio_tpu_torch as pt
+from oddio_tpu_torch import spatial as SPATIAL
+from oddio_tpu_torch.ops import adapt as ADAPT
 from oddio_tpu_torch.ops import agc as A
 from oddio_tpu_torch.ops import flat_kernels as FK
 from oddio_tpu_torch.ops import ring_kernels as RK
+from oddio_tpu_torch.ops import stream as STREAM
 from oddio_tpu_torch.ops import stream_kernels as SK
 from oddio_tpu_torch.ops._dev import device_split_ds, split_ds
 from oddio_tpu_torch.utils import kernel_bench as KB
+from oddio_tpu_torch.core.run import eager
 from oddio_tpu_torch.utils.scene_profile import (build_config5_pack, build_host_pools,
-                                                 build_mixer_agc, build_seek_sampler,
-                                                 build_spatial_pack, feed)
+                                                 build_host_pools_pack, build_mixer_agc,
+                                                 build_sampler_pack, build_seek_sampler,
+                                                 build_spatial, build_spatial_pack, feed)
 
 torch.set_num_threads(1)
 
@@ -57,11 +81,71 @@ torch.set_num_threads(1)
 STREAM_RING = ("ring_place", "ring_resample")
 
 
-@pytest.fixture
-def cuda():
+def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: runs the CUDA kernels")
+
+
+@pytest.fixture
+def cuda():
+    _need_card()
     return torch.device("cuda")
+
+
+def _reset_all():
+    for m in (RK, SK, A, FK):
+        m.reset_launches()
+
+
+def _all_launches():
+    return {f"{m.__name__}.{k}": v for m in (RK, SK, A, FK) for k, v in m.LAUNCHES.items() if v}
+
+
+#: the one-device-kernel checks (a function of this module and its
+#: argument) that ``device_kernel_counts`` runs
+DEVICE_KERNEL_CASES = (
+    [("_pool_read_kernels", r) for r in ("alone", "delta block", "idle block", "idle group")]
+    + [("_adapt_step_kernels", e) for e in ("mixer", "hostpools", "pack")]
+    + [("_flat_kernels", k) for k in ("window_select", "dma_window_select")]
+    + [("_arena_step_states", p) for p in ("sampler", "wavetable", "seek")])
+
+
+@pytest.fixture(scope="module")
+def device_kernel_counts():
+    """Every one-device-kernel check's outcome ("ok" or its output), each
+    run in a Python process of its own, four at a time: ``torch.profiler``
+    on the card loses every device record of most sessions once a process
+    has taken a dozen heavy ones (ROADMAP Q3.6), and a fresh process
+    starts a fresh tracer."""
+    _need_card()
+    here = Path(__file__).resolve().parent
+
+    def run(case):
+        code = (f"import sys; sys.path.insert(0, {str(here)!r}); import test_torch_cuda as T; "
+                f"T.{case[0]}({case[1]!r})")
+        r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                           timeout=900, cwd=here.parent)
+        return "ok" if r.returncode == 0 else r.stdout[-1000:] + r.stderr[-3000:]
+
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        return dict(zip(DEVICE_KERNEL_CASES, pool.map(run, DEVICE_KERNEL_CASES)))
+
+
+def _one_device_kernel(counts, fn, arg):
+    assert counts[fn, arg] == "ok", counts[fn, arg]
+
+
+def _mode(mode):
+    """``eager()`` for "eager", else replaying graphs (the default)."""
+    return eager() if mode == "eager" else contextlib.nullcontext()
+
+
+def _drain(batches):
+    """A pack's ``render_frames_device`` list of (B, S, C, n) tensors as
+    numpy (S, B*n, C)."""
+    b = torch.cat(list(batches)).cpu().numpy()
+    B, S, C, n = b.shape
+    return b.transpose(1, 0, 3, 2).reshape(S, B * n, C)
 
 
 def test_rows_append_exact(cuda):
@@ -147,7 +231,8 @@ READ_GEOM = dict(DMAX=KB.READ_DMAX, FP=KB.READ_FP, cap=KB.READ_CAP)
 
 
 def _held(key, call, tol, plain):
-    """Two calls: one launch each, bit-equal, within ``tol`` of ``plain``."""
+    """Two calls: one launch each, bit-equal, within ``tol`` of ``plain``,
+    the cluster sum's tickets left zeroed."""
     before = RK.LAUNCHES[key]
     got = call()
     again = call()
@@ -156,6 +241,7 @@ def _held(key, call, tol, plain):
     assert torch.equal(got, again)
     assert got.shape == plain.shape and float(plain.abs().max()) > 1e-3
     assert bool(((got - plain).abs().double() <= tol).all())
+    assert _tickets_zero(got.device)
 
 
 @pytest.mark.parametrize("S", [1, 16])
@@ -213,6 +299,110 @@ def test_ring_select_multi(cuda, V, wrap):
           RK.ring_select_multi_tolerance(ring, ros, **kw), RK.ring_select_multi_plain(ring, ros, **kw))
 
 
+@pytest.fixture(scope="module")
+def buffered_scene():
+    """The 4096-voice buffered scene's pool and its captured ``render`` and
+    ``render_multi`` arguments, rendered op by op through a Renderer: (pool,
+    the delta block's, idle single blocks', fused groups of 4)."""
+    _need_card()
+    return _buffered_states()
+
+
+@functools.lru_cache(maxsize=1)
+def _buffered_states():
+    return KB.capture_states(build_spatial(True, 4096, "cuda")[1])
+
+
+def _read_geometry(pool):
+    """The pool's ring geometry as the K2/K3 wrappers take it."""
+    return dict(DMAX=pool.emax2, FP=pool.W_CHUNK, cap=pool.cap_pool)
+
+
+@pytest.mark.parametrize("case", ["idle block", "delta block", "frozen ears", "mirror", "tight",
+                                  "sub-pass 256", "sub-pass 192", "three chunks",
+                                  "captured group", "group across the modulus"])
+def test_ring_reads_on_the_buffered_scene_operands(buffered_scene, case):
+    """K2 and K3 on the 4096-voice buffered scene's own ring and read
+    operands (``_advance_block``'s, at the pool's read tier): an idle
+    block's read, the delta block's, the same with a third of the ears
+    frozen, with every window ending in the mirror, the main pass with
+    ``tight`` at K = 128, the family sub-pass at its two tiers, three
+    512-frame chunks; a captured fused group and one that wraps the ring's
+    modulus.  One launch a call, two runs bit-equal, within the
+    tolerance."""
+    pool, delta, singles, groups = buffered_scene
+    dev, V = torch.device("cuda"), 4096
+    rng = np.random.default_rng(3)
+    geo = _read_geometry(pool)
+    R, K = pool._read_cfg
+    state, ros = KB.block_reads(pool, *singles[0])
+    ring, ro = state["ring"], ros[0]
+    if case.endswith("group") or case.endswith("modulus"):
+        nb = groups[0][4]
+        if case == "captured group":
+            ros = KB.block_reads(pool, *groups[0])[1]
+            row0s, hs = RK.multi_rows(pool._adv(), K, nb)
+        else:
+            K = 64
+            ros, row0s, hs = KB.group_operands(dev, rng, V, K, 512,
+                                               pool.cap_pool - rng.integers(200, 900, V), nb=nb)
+        kw = dict(n=512, K=K, row0s=row0s, hs=hs, **geo)
+        _held("select_multi", lambda: RK.ring_select_multi(ring, ros, **kw),
+              RK.ring_select_multi_tolerance(ring, ros, **kw),
+              RK.ring_select_multi_plain(ring, ros, **kw))
+        return
+    kw = dict(n=512, K=K, R=R, **geo)
+    if case == "delta block":
+        ro = KB.block_reads(pool, *delta)[1][0]
+    elif case == "frozen ears":
+        ro = dict(ro, frz_c=[torch.tensor(rng.uniform(0, 1, V) < 0.3, device=dev).float()
+                             for _ in range(2)])
+    elif case == "mirror":
+        end = pool.cap_pool + K - torch.tensor(rng.integers(1, 48, V), dtype=torch.int32,
+                                               device=dev)
+        ro = dict(ro, base_c=[b + end - ro["base_c"][0] for b in ro["base_c"]])
+    elif case == "tight":
+        ro = KB.read_operands(dev, rng, V, 128, 512, frozen=0.3)
+        kw.update(K=128, tight=torch.tensor(rng.uniform(0, 1, V) > 0.1, device=dev).float())
+    elif case.startswith("sub-pass"):
+        R, K = (256, 256) if case.endswith("256") else (128, 192)
+        idx = np.zeros(256, np.int32)
+        idx[:200] = rng.choice(V, 200, replace=False)
+        ro = KB.read_operands(dev, rng, V, K, R)
+        kw.update(K=K, R=R, sub_idx=torch.tensor(idx, device=dev), sub_on=torch.tensor(
+            (np.arange(256) < 200).astype(np.float32), device=dev))
+    elif case == "three chunks":
+        ro = KB.read_operands(dev, rng, V, 64, 512)
+        kw.update(n=3 * 512, K=64)
+    _held("select_ears", lambda: RK.ring_select_ears(ring, ro, **kw),
+          RK.ring_select_ears_tolerance(ring, ro, **kw), RK.ring_select_ears_plain(ring, ro, **kw))
+
+
+@pytest.mark.parametrize("read", ["alone", "delta block", "idle block", "idle group"])
+def test_pool_read_is_one_device_kernel(device_kernel_counts, read):
+    """The 4096-voice buffered pool's read is one device kernel: K2 called
+    alone on an idle block's operands, and a delta block's, an idle
+    block's and an idle fused group's read within the pool's render (its
+    ``render`` less ``_advance_block`` on the same captured state)."""
+    _one_device_kernel(device_kernel_counts, "_pool_read_kernels", read)
+
+
+def _pool_read_kernels(read):
+    pool, delta, singles, groups = _buffered_states()
+    if read == "alone":
+        state, ros = KB.block_reads(pool, *singles[0])
+        R, K = pool._read_cfg
+        kw = dict(n=512, K=K, R=R, **_read_geometry(pool))
+        count = KB.device_profile(lambda: RK.ring_select_ears(state["ring"], ros[0], **kw))
+    else:
+        state, whole = {"delta block": (delta, pool.render),
+                        "idle block": (singles[1], pool.render),
+                        "idle group": (groups[1], pool.render_multi)}[read]
+        count = (KB.device_profile(lambda: whole(*state))
+                 - KB.device_profile(lambda: KB.block_reads(pool, *state)))
+    assert count == 1, count
+
+
 def _entry_scene(device, n_buffered=64, n_seek=32):
     rng = np.random.default_rng(0)
     control, scene = pt.SpatialScene.new(device=device)
@@ -233,12 +423,15 @@ def _entry_scene(device, n_buffered=64, n_seek=32):
 
 def test_entry_scene_on_card_matches_cpu(cuda):
     """The entry() scene on the card (CUDA kernels) against the same scene
-    on the CPU (plain versions): every kernel launches, and the renders
-    agree within the contract."""
+    on the CPU (plain versions): every kernel launches, K1 always through
+    its cursor form, no K8-K10, and the renders agree within the
+    contract."""
     a = pt.Renderer(_entry_scene("cpu"), 48000).render_frames(512 * 20)
-    RK.reset_launches()
+    _reset_all()
     b = pt.Renderer(_entry_scene(cuda), 48000).render_frames(512 * 20)
     assert all(RK.LAUNCHES[k] > 0 for k in ("append", "select_ears", "select_multi")), RK.LAUNCHES
+    assert RK.LAUNCHES["append_cursor"] == RK.LAUNCHES["append"]
+    assert not any(FK.LAUNCHES.values()), FK.LAUNCHES
     assert np.abs(a - b).max() <= 1e-5
 
 
@@ -382,19 +575,20 @@ def test_agc_step_any_block_within_tolerance(cuda, V, n, C, per_voice):
 
 
 def test_mixer_agc_scene_on_card_matches_cpu(cuda):
-    """BASELINE config 5's scene at 256 voices on the card (K4, K6, K7)
-    against the same scene on the CPU (plain versions), with a feed."""
+    """BASELINE config 5's scene at 256 voices on the card (K4, K6, K7; no
+    ring, arena or flat kernel) against the same scene on the CPU (plain
+    versions), with a feed."""
     outs = []
     for device in ("cpu", cuda):
-        SK.reset_launches()
-        A.reset_launches()
+        _reset_all()
         _, mixer, ctls, rng = build_mixer_agc(256, device)
         r = pt.Renderer(mixer, 48000)
         a = r.render_frames(512 * 24)
         feed(ctls, rng, 1024)
         outs.append(np.concatenate([a, r.render_frames(512 * 24)]))
     assert min(SK.LAUNCHES[k] for k in STREAM_RING) > 0 and A.LAUNCHES["agc_gains"] > 0
-    assert SK.LAUNCHES["arena_resample"] == 0
+    assert SK.LAUNCHES["arena_resample"] == SK.LAUNCHES["arena_step"] == 0
+    assert not any(RK.LAUNCHES.values()) and not any(FK.LAUNCHES.values())
     assert np.abs(outs[0]).max() > 0.1
     assert np.abs(outs[0] - outs[1]).max() <= 1e-5
 
@@ -451,7 +645,8 @@ def test_strip_select_record_within_tolerance(cuda, V, n, L, lo, hi):
     """K5's record form, as the host pool calls it, and the tensor form on
     the same operands: one launch each, windows crossing the ring's end
     included, within ``strip_tolerance`` of the plain version; two runs of
-    the record form are bit-equal (the voice sum's order is fixed)."""
+    the record form are bit-equal (the voice sum's order is fixed); the
+    walk clamp binds near the gate only."""
     ops = _wrapping_strip_operands(np.random.default_rng(80 + V), cuda, V, n, L, lo, hi)
     rec = RK.voice_record(*ops[1:])
     plain = RK.strip_select_plain(*ops, n=n, K=64)
@@ -465,6 +660,10 @@ def test_strip_select_record_within_tolerance(cuda, V, n, L, lo, hi):
     assert torch.equal(got, again)
     for out in (got, tensor_form):
         assert bool(((out - plain).abs().double() <= tol).all())
+    # the SELECT_R walk clamp binds on the near-gate case's reads, no other's
+    binds = sum(int((RK.strip_positions(ops[3][:, e], n, 64)[0]
+                     != RK._positions(ops[3][:, e], n, 64)[0].long()).sum()) for e in range(2))
+    assert (binds > 0) == (lo > 0.1), binds
 
 
 def test_strip_select_redoes_a_sub_block_whose_walk_is_not_monotone(cuda):
@@ -530,13 +729,13 @@ def test_ring_place_record_and_channel_map_exact(cuda, C):
 
 def test_host_pool_scene_on_card_matches_cpu(cuda):
     """The host-pool scene at 256 Speed(Stream) voices, 32 Adapt(Stream)
-    and a 64-voice submix on the card (K1, K2, K4, K5, K6) against the
-    same scene on the CPU (plain versions), over 48 blocks with a feed and
-    a set_speed between."""
+    and a 64-voice submix on the card (K1, K2, K4, K5, K6; K7 once a block
+    in each of its three Adapt pools) against the same scene on the CPU
+    (plain versions), over 48 blocks with a feed and a set_speed
+    between."""
     outs = []
     for device in ("cpu", cuda):
-        RK.reset_launches()
-        SK.reset_launches()
+        _reset_all()
         _, scene, ctls, speeds, rng = build_host_pools(256, device, dr_voices=32,
                                                        submix_voices=64)
         r = pt.Renderer(scene, 48000)
@@ -547,8 +746,50 @@ def test_host_pool_scene_on_card_matches_cpu(cuda):
         outs.append(np.concatenate([a, r.render_frames(512 * 24)]))
     assert RK.LAUNCHES["strip_select"] > 0 and RK.LAUNCHES["append"] > 0
     assert min(SK.LAUNCHES[k] for k in STREAM_RING) > 0 and SK.LAUNCHES["arena_resample"] == 0
+    assert SK.LAUNCHES["arena_step"] == 0 and not any(FK.LAUNCHES.values())
+    assert A.LAUNCHES["agc_gains"] == 3 * 48  # three 513-frame Adapt pools, each once a block
     assert np.abs(outs[0]).max() > 1e-2
     assert np.abs(outs[0] - outs[1]).max() <= 1e-5
+
+
+@pytest.mark.parametrize("engine", ["mixer", "hostpools", "pack"])
+def test_adapt_and_stream_steps_are_one_device_kernel(device_kernel_counts, engine):
+    """Each Adapt pool's step (its whole render less its inner's) is one
+    device kernel, K7, and an Adapt(Stream) pool's Stream step one, K6,
+    on the pools' own captured steps (the profiler's count, in a fresh
+    process): the 4096-voice config-5 mixer (its Adapt(Stream) and
+    Adapt(Sine) pools at n = 512), the 4096-voice host-pool scene (its
+    three 513-frame Adapt pools, the submix's among them) and the 16 x 256
+    config-5 pack (the stack's pools)."""
+    _one_device_kernel(device_kernel_counts, "_adapt_step_kernels", engine)
+
+
+def _adapt_step_kernels(engine):
+    cuda = torch.device("cuda")
+    if engine == "pack":
+        pack, ctls, rng = build_config5_pack(16, cuda)
+        owner, render = pack.scenes[0], lambda: pack.render_block(512)
+        pack.render_block(512)
+    else:
+        if engine == "mixer":
+            _, owner, ctls, rng = build_mixer_agc(4096, cuda)
+        else:
+            _, owner, ctls, _, rng = build_host_pools(4096, cuda)
+        r = pt.Renderer(owner, 48000)
+        r.render_frames(512 * 8)
+        render = lambda: r.render_frames(512 * 2)  # noqa: E731
+    feed(ctls, rng, 1024)
+    caps = KB.capture_steps(KB.dr_pools(owner), render)
+    steps = [(p, calls[-1]) for p, calls in caps.items()
+             if calls and type(p.proto).__name__ == "Adapt"]
+    assert len(steps) == {"mixer": 2, "hostpools": 3, "pack": 2}[engine], steps
+    for p, args in steps:
+        n = args[3]
+        assert getattr(p.proto, "_pool_ema_fast", False) and n <= A.AGC_NMAX, (p.capacity, n)
+        k_adapt, k_stream = KB.step_kernels(p.proto, args)
+        assert k_adapt == 1, (p.capacity, n, k_adapt)
+        if k_stream is not None and p.proto.inner._kernel_ok(n):
+            assert k_stream == 1, (p.capacity, n, k_stream)
 
 
 # --- K8-K10 and the ScenePack ---------------------------------------------------
@@ -647,17 +888,22 @@ def test_dma_window_select_within_tolerance(cuda, V, n, K, strided):
 
 
 @pytest.mark.parametrize("kernel", ["window_select", "dma_window_select"])
-def test_flat_select_is_one_device_kernel(cuda, kernel):
+def test_flat_select_is_one_device_kernel(device_kernel_counts, kernel):
     """K8 and K10 at 4096 voices, operands not contiguous: one device
-    kernel a call (the profiler's count; the wrapper issues nothing else
-    but the output's allocation)."""
+    kernel a call (the profiler's count, in a fresh process; the wrapper
+    issues nothing else but the output's allocation)."""
+    _one_device_kernel(device_kernel_counts, "_flat_kernels", kernel)
+
+
+def _flat_kernels(kernel):
+    cuda = torch.device("cuda")
     if kernel == "window_select":
         ops, kw = _k8_case(cuda, 4096, 512, 36, True)
     else:
         ops, kw = _k10_case(cuda, 4096, 512, 64, True)
     fn = getattr(FK, kernel)
     fn(*ops, **kw)
-    assert KB.device_profile(lambda: fn(*ops, **kw), reps=1, exact=True)[1] == 1
+    assert KB.device_profile(lambda: fn(*ops, **kw)) == 1
 
 
 def test_ring_select_between_two_k8_calls(cuda):
@@ -704,7 +950,10 @@ def _pack_run(pack, ctls, pcm, nb0=4, nb1=8):
 
 def test_pack_on_card_matches_cpu(cuda):
     """A 3 x 64-voice config-5 pack (K4, K6, K7) and a 3-scene spatial pack
-    (K1, K2) on the card against the same packs on the CPU."""
+    (K1, K2) on the card against the same packs on the CPU and against
+    per-scene Renderers on the card."""
+    from oddio_tpu_torch.utils.scene_profile import build_pack_scene
+
     outs, pcm = [], None
     for device in ("cpu", cuda):
         SK.reset_launches()
@@ -715,30 +964,92 @@ def test_pack_on_card_matches_cpu(cuda):
         outs.append(_pack_run(pack, ctls, pcm))
     assert min(SK.LAUNCHES[k] for k in STREAM_RING) > 0 and A.LAUNCHES["agc_gains"] > 0
     assert SK.LAUNCHES["arena_resample"] == 0
+    singles = []
+    for s in range(3):
+        _, mixer, ctls, _ = build_mixer_agc(64, cuda, s)
+        r = pt.Renderer(mixer, 48000)
+        a = [r.render_block(512) for _ in range(4)]
+        for c, x in zip(ctls, pcm[len(ctls) * s:]):
+            c.write(x)
+        singles.append(np.concatenate(a + [r.render_frames(512 * 8)]))
     assert np.abs(outs[0]).max() > 0.1
     assert np.abs(outs[0] - outs[1]).max() <= 1e-5
+    assert np.abs(outs[1] - np.stack(singles)).max() <= 1e-5
     outs = []
     for device in ("cpu", cuda):
         RK.reset_launches()
         outs.append(_pack_run(build_spatial_pack(3, device, 16, 48), [], []))
     assert RK.LAUNCHES["append"] > 0 and RK.LAUNCHES["select_ears"] > 0
+    rs = [pt.Renderer(build_pack_scene(cuda, s, 16, 48), 48000) for s in range(3)]
+    singles = np.concatenate([np.stack([r.render_block(512) for r in rs]) for _ in range(12)],
+                             axis=1)
     assert np.abs(outs[0]).max() > 1e-2
     assert np.abs(outs[0] - outs[1]).max() <= 1e-5
+    assert np.abs(outs[1] - singles).max() <= 1e-5
 
 
-def test_pack_launches_per_block_do_not_grow_with_scenes(cuda):
-    """One launch per pool per block whatever S is: the config-5 pack
-    launches K4/K6/K7 as often at 4 scenes as at 16."""
+def _pack_fade_bits(pack):
+    """(scenes whose device bank bits equal their host fade mirrors,
+    scenes with a flipped voice) of a sampler pack, after ``sync``."""
+    from oddio_tpu_torch.core.drctrl import _state_at
+
+    pack.sync()
+    same = flipped = 0
+    for scene in pack.scenes:
+        pool = next(iter(scene._pools.values()))
+        path = pool.fade_paths[0]
+        bits = _state_at(pool.state["inner"], path)["flip"].cpu().numpy()
+        same += int(np.array_equal(bits, pool._fade_flip[path]))
+        flipped += int(bits.any())
+    return same, flipped
+
+
+@pytest.mark.parametrize("kind", ["config5", "sampler", "hostpack"])
+def test_pack_launches_per_block_do_not_grow_with_scenes(cuda, kind):
+    """One launch per pool per block whatever S is: every kernel launches
+    as often at 4 scenes as at 16 (and at 64 in the config-5 pack), and
+    every scene is audible.  The config-5 pack (64 voices a scene):
+    K4/K6/K7, no ring, arena or flat
+    kernel; the sampler pack (64 Fader(Speed(FramesSignal)) voices a
+    scene, each on its own script of speed writes and fades): one
+    ``arena_step`` a block and no other kernel, every scene's fades
+    released on the device (its bank bits equal its host mirrors and have
+    flipped); the host-pool pack (256 Speed(Stream) host voices, 32
+    Adapt(Stream) and a 64-voice submix a scene, with stream writes and
+    speed writes): K5 twice a block, both in its scene form."""
     counts = []
-    for S in (4, 16):
-        pack, ctls, rng = build_config5_pack(S, cuda, voices=64)
-        pcm = (rng.standard_normal((len(ctls), 1024)) * 0.1).astype(np.float32)
-        SK.reset_launches()
-        A.reset_launches()
-        _pack_run(pack, ctls, pcm)
+    for S in (4, 16, 64) if kind == "config5" else (4, 16):
+        _reset_all()
+        if kind == "config5":
+            pack, ctls, rng = build_config5_pack(S, cuda, voices=64)
+            pcm = (rng.standard_normal((len(ctls), 1024)) * 0.1).astype(np.float32)
+            out, nblk = _pack_run(pack, ctls, pcm), 12
+        elif kind == "sampler":
+            drv = build_sampler_pack(S, 64, cuda, sounds=2, seconds=2.0)
+            out = np.concatenate(drv.render(8, device_out=False) + [_drain(drv.render(40))],
+                                 axis=1)
+            nblk = 48
+            assert _pack_fade_bits(drv.pack) == (S, S)
+        else:
+            pack, ctls, speeds, rng = build_host_pools_pack(S, 256, cuda)
+            a = np.concatenate([pack.render_block(512) for _ in range(8)], axis=1)
+            feed(ctls, rng, 1024)
+            for sc in speeds[:64]:
+                sc.set_speed(float(rng.uniform(0.8, 1.25)))
+            out, nblk = np.concatenate([a, _pack_frames(pack, 24)], axis=1), 32
         torch.cuda.synchronize()
-        counts.append({**{k: SK.LAUNCHES[k] for k in STREAM_RING}, **A.LAUNCHES})
-    assert counts[0] == counts[1] and min(counts[0].values()) > 0, counts
+        assert np.isfinite(out).all() and np.abs(out).max(axis=(1, 2)).min() > 1e-3
+        counts.append(_all_launches())
+    assert all(c == counts[0] for c in counts), counts
+    got = counts[0]
+    if kind == "config5":
+        assert set(got) == {f"{SK.__name__}.{k}" for k in STREAM_RING} | {f"{A.__name__}.agc_gains"}
+    elif kind == "sampler":
+        assert got == {f"{SK.__name__}.arena_step": nblk}
+    else:
+        assert (got[f"{RK.__name__}.strip_select"] == got[f"{RK.__name__}.strip_select_scenes"]
+                == 2 * nblk), got
+        assert not any(k.startswith(FK.__name__) or ".arena" in k for k in got), got
 
 
 @pytest.mark.parametrize("S,vps,L", [(16, 256, 16384), (1, 4096, 16384), (3, 17, 2048)])
@@ -764,32 +1075,67 @@ def test_strip_select_scene_form_within_tolerance(cuda, S, vps, L):
         assert torch.equal(got[0], RK.strip_select_record(ops[0], rec, n=512, K=64))
 
 
-def test_host_and_sampler_packs_on_card_match_cpu_and_renderers(cuda):
-    """The host-pool pack (host buffered Speed(Stream) voices through K4
-    and K5's scene form, Adapt(Stream) voices, config-5 submixes) and the
-    config-2 sampler pack at 4 scenes, on the card against the same packs
-    on the CPU and against per-scene Renderers on the card, <= 1e-5."""
-    from oddio_tpu_torch.utils.scene_profile import (RATE, build_host_pools_pack,
-                                                     build_sampler_pack)
+def _mixer_host_scene(device, seed):
+    """A Mixer of 8 Speed(Stream) host-pool voices, a Sine and a submix
+    Mixer (a Speed(Stream) and a Sine) at 48 kHz, its streams prefilled
+    from ``seed``."""
+    rng = np.random.default_rng(seed)
+    control, mixer = pt.Mixer.new(channels=1, device=device)
+    ctls = []
+    for _ in range(8):
+        st = pt.Stream(8000, 4096)
+        sc, sp = pt.Speed.new(st)
+        sc.set_speed(float(rng.uniform(0.7, 1.3)))
+        control.play(sp)
+        ctls.append(st.control)
+    control.play(pt.Sine(0.2, 330.0 + 20 * seed))
+    ic, inner = pt.Mixer.new(channels=1, device=device)
+    st = pt.Stream(8000, 4096)
+    ic.play(pt.Speed(st))
+    ic.play(pt.Sine(0.0, 520.0))
+    ctls.append(st.control)
+    control.play(inner)
+    for c in ctls:
+        c.write((np.sin(np.arange(3000) * rng.uniform(0.01, 0.1)) * 0.5).astype(np.float32))
+    return mixer
 
-    outs = []
-    for device in ("cpu", cuda, "single"):
-        dev = cuda if device == "single" else device
-        pack, ctls, _, _ = build_host_pools_pack(4, 32, dev)
-        if device == "single":
-            rs = [pt.Renderer(s, RATE) for s in pack.scenes]
-            outs.append(np.concatenate(
-                [np.stack([r.render_block(512) for r in rs]) for _ in range(6)], axis=1))
-        else:
-            outs.append(np.concatenate([pack.render_block(512) for _ in range(6)], axis=1))
-    assert np.abs(outs[0]).max() > 0.01
-    assert max(np.abs(outs[0] - o).max() for o in outs[1:]) <= 1e-5
-    outs = []
-    for device in ("cpu", cuda):
-        drv = build_sampler_pack(4, 64, device, sounds=2, seconds=1.0)
-        outs.append(np.concatenate(drv.render(16, device_out=False), axis=1))
-    assert np.abs(outs[0]).max() > 0.1
-    assert np.abs(outs[0] - outs[1]).max() <= 1e-5
+
+@pytest.mark.parametrize("kind", ["hostpack", "sampler", "mixerpack"])
+def test_host_and_sampler_packs_on_card_match_cpu_and_renderers(cuda, kind):
+    """At 4 scenes, 16 blocks: the host-pool pack (host buffered
+    Speed(Stream) voices through K4 and K5's scene form, Adapt(Stream)
+    voices, config-5 submixes), the config-2 sampler pack (each scene on
+    its own script) and a pack of Mixers of host-pool voices with a
+    Mixer-in-Mixer submix, on the card against the same packs on the CPU
+    and against per-scene Renderers on the card, <= 1e-5."""
+    from oddio_tpu_torch.parallel.mesh import make_mesh
+    from oddio_tpu_torch.parallel.sharded import ScenePack
+    from oddio_tpu_torch.utils.scene_profile import RATE
+
+    def build(device):
+        if kind == "hostpack":
+            return build_host_pools_pack(4, 32, device)[0]
+        if kind == "sampler":
+            return build_sampler_pack(4, 64, device, sounds=2, seconds=1.0)
+        return ScenePack([_mixer_host_scene(device, s) for s in range(4)], RATE,
+                         make_mesh(1, 1, [device]))
+
+    def run(device, per_scene=False):
+        p = build(device)
+        if kind == "sampler" and per_scene:
+            return np.stack([np.concatenate(d.render(pt.Renderer(d.mixer, RATE), 16,
+                                                     device_out=False)) for d in p.drivers])
+        if kind == "sampler":
+            return np.concatenate(p.render(16, device_out=False), axis=1)
+        if per_scene:
+            rs = [pt.Renderer(s, RATE) for s in p.scenes]
+            return np.concatenate([np.stack([r.render_block(512) for r in rs])
+                                   for _ in range(16)], axis=1)
+        return np.concatenate([p.render_block(512) for _ in range(16)], axis=1)
+
+    cpu, card, own = run("cpu"), run(cuda), run(cuda, per_scene=True)
+    assert np.abs(cpu).max() > (0.1 if kind == "sampler" else 0.01)
+    assert np.abs(card - cpu).max() <= 1e-5 and np.abs(card - own).max() <= 1e-5
 
 
 def test_pack_host_stream_tiers_on_card(cuda):
@@ -834,7 +1180,7 @@ def test_pack_host_stream_tiers_on_card(cuda):
 @pytest.mark.parametrize("rows,n", [(1024, 512), (4096, 513), (1, 128), (17, 100)])
 def test_arena_resample_exact(cuda, kind, rows, n):
     """K6's arena form against its plain version, exactly (the same f32
-    operations, each rounded once), over the smoke's shapes: every step
+    operations, each rounded once), at the paths' shapes: every step
     tier and 44.1 -> 48 kHz at speed 1.2, cursors before, past and far
     outside a sound, negative fractions, stereo channel rows, a looped
     table; one launch per call, two runs bit-equal."""
@@ -984,6 +1330,42 @@ def test_fader_step_exact(cuda, kind, C, V, n, mode):
     assert _trees_equal(core, pc) and _trees_equal(a2, pa) and _trees_equal(b2, pb)
 
 
+def _same(got, want, signed_zero=True):
+    """Two step results (tensors, or dicts and tuples of them) equal: bit
+    for bit, or with ``signed_zero`` False equal values whose bits differ
+    at most in the sign of an exact zero."""
+    if isinstance(got, dict):
+        return got.keys() == want.keys() and all(_same(got[k], want[k]) for k in got)
+    if isinstance(got, tuple):
+        return all(_same(g, w, signed_zero) for g, w in zip(got, want))
+    if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+        return False
+    if got.dtype != torch.float32:
+        return True
+    bits = (lambda x: x.view(torch.int32)) if signed_zero else _bits
+    return torch.equal(bits(got), bits(want))
+
+
+@pytest.mark.parametrize("path", ["sampler", "wavetable", "seek"])
+def test_arena_step_on_the_paths_captured_states(device_kernel_counts, path):
+    """K6's whole step on each sampler path's own captured states (1024
+    voices, 10 blocks: the sampler's Fader pool under its speed writes and
+    fades, the wavetable's Speed(Cycle) pool after speed writes, the seek
+    sampler's seek pool): equal to its plain version on every block (the
+    Fader's output but for the sign of an exact zero), one device kernel a
+    step (the profiler's count, in a fresh process)."""
+    _one_device_kernel(device_kernel_counts, "_arena_step_states", path)
+
+
+def _arena_step_states(path):
+    proto, method, kind, C, calls = KB.arena_states(torch.device("cuda"), path)
+    signed = method != "dr_render" or "prog" not in calls[0][0]
+    for args in calls:
+        assert _same(KB.step_call(proto, method, kind, C, args)(),
+                     KB.step_call(proto, method, kind, C, args, plain=True)(), signed)
+    assert KB.device_profile(KB.step_call(proto, method, kind, C, calls[0])) == 1
+
+
 def test_sampler_chain_two_seconds_card_vs_cpu(cuda):
     """188 blocks of the config-2 sampler (fades, speed writes) on the card
     against the CPU: the f64 cursors released in the step keep the two
@@ -1016,32 +1398,52 @@ def test_seek_sampler_scene_on_card_matches_cpu(cuda):
     assert np.abs(outs[0] - outs[1]).max() <= 1e-5
 
 
-# --- checkpoints and the realtime driver on the card (chip_smoke.py 32-33) ---------------
+# --- checkpoints, the realtime driver and the example twins on the card -----------------
+
+#: the kernels each checkpoint scene's blocks launch
+CHECKPOINT_KERNELS = {
+    "buffered": [f"{RK.__name__}.{k}" for k in ("append", "select_ears", "select_multi")],
+    "mixer": [f"{SK.__name__}.{k}" for k in STREAM_RING] + [f"{A.__name__}.agc_gains"],
+    "hostpools": ([f"{RK.__name__}.{k}" for k in ("append", "select_ears", "strip_select")]
+                  + [f"{SK.__name__}.{k}" for k in STREAM_RING] + [f"{A.__name__}.agc_gains"]),
+    "sampler": [f"{SK.__name__}.arena_step"],
+}
 
 
 @pytest.mark.parametrize("kind", ["buffered", "mixer", "hostpools", "sampler"])
 def test_checkpoint_round_trip_on_card(cuda, kind):
-    """Phase 32's scenes at 256 voices, their events queued at the
+    """The checkpoint scenes at 256 voices, their events queued at the
     snapshot: after a restore, and after a second one, the same blocks bit
-    for bit (an exact zero's sign aside)."""
+    for bit (an exact zero's sign aside), every kernel launched as often
+    (the buffered scene's 64 blocks reach K3's fused groups)."""
     from oddio_tpu_torch.utils import checkpoint as CK
     from oddio_tpu_torch.utils.scene_profile import BLOCK, build_checkpoint_scene
 
     eng, r = build_checkpoint_scene(kind, 256, "cuda")
     snap = CK.snapshot(eng)
     nblk = 64 if kind == "buffered" else 16
-    a = r.render_frames(BLOCK * nblk)
+
+    def run():
+        _reset_all()
+        x = r.render_frames(BLOCK * nblk)
+        torch.cuda.synchronize()
+        return x, _all_launches()
+
+    a, la = run()
     assert np.isfinite(a).all() and np.abs(a).max() > 1e-3
+    assert all(la.get(k) for k in CHECKPOINT_KERNELS[kind]), la
+    assert not any(k.startswith(FK.__name__) for k in la), la
     for _ in range(2):
         CK.restore(eng, snap)
-        b = r.render_frames(BLOCK * nblk)
+        b, lb = run()
         np.testing.assert_array_equal(np.where(a == 0, 0.0, a), np.where(b == 0, 0.0, b))
+        assert lb == la
 
 
 @pytest.mark.parametrize("kind", ["buffered", "mixer", "hostpools", "sampler"])
 def test_checkpoint_card_to_cpu(cuda, kind, tmp_path):
     """A snapshot saved on the card loads into the same scene built on the
-    CPU: 8 blocks within the PARITY.md 1e-5."""
+    CPU: 8 audible blocks within the PARITY.md 1e-5."""
     from oddio_tpu_torch.utils import checkpoint as CK
     from oddio_tpu_torch.utils.scene_profile import BLOCK, build_checkpoint_scene
 
@@ -1051,19 +1453,20 @@ def test_checkpoint_card_to_cpu(cuda, kind, tmp_path):
         eng, r = build_checkpoint_scene(kind, 256, device)
         (CK.save if device == "cuda" else CK.load)(eng, path)
         got.append(r.render_frames(BLOCK * 8))
+    assert np.isfinite(got[1]).all() and np.abs(got[1]).max() > 1e-3
     assert np.abs(got[0] - got[1]).max() <= 1e-5
 
 
 def test_realtime_driver_exact_on_card(cuda):
-    """Phase 33(a) at 256 voices: 32 blocks through the driver equal a
-    second mixer's render_block loop bit for bit; the thread lives."""
-    import time
-
+    """The config-5 mixer at 256 voices, its PCM fed before start(): 32
+    blocks read through the driver whenever 512 frames are readable equal
+    a second mixer's render_block loop bit for bit; the thread lives and
+    the render launched K4, K6 and K7."""
     from oddio_tpu_torch.control.realtime import RealtimeDriver
-    from oddio_tpu_torch.utils.scene_profile import build_mixer_agc
 
     _, mixer, _, _ = build_mixer_agc(256, "cuda")
     _, twin, _, _ = build_mixer_agc(256, "cuda")
+    _reset_all()
     drv = RealtimeDriver(mixer, 48000, block_size=512, lead_blocks=4).start()
     got = []
     try:
@@ -1076,78 +1479,198 @@ def test_realtime_driver_exact_on_card(cuda):
         assert drv.alive() and drv.error is None and drv.blocks >= 32
     finally:
         drv.stop()
+    assert min(SK.LAUNCHES[k] for k in STREAM_RING) > 0 and A.LAUNCHES["agc_gains"] > 0
     r = pt.Renderer(twin, 48000)
     want = np.concatenate([r.render_block(512) for _ in range(32)])
     np.testing.assert_array_equal(np.concatenate(got), want)
 
 
+@pytest.mark.parametrize("kind", ["buffered", "mixer"])
+def test_realtime_driver_keeps_its_thread_on_card(cuda, kind):
+    """The 4096-voice buffered scene and config-5 mixer under the
+    RealtimeDriver, pulled a block at a time at a real-time pace for 3 s
+    after the first audible block: the audio arrives and the render thread
+    lives to the end."""
+    from oddio_tpu_torch.control.realtime import RealtimeDriver
+
+    eng = build_spatial(True, 4096, cuda)[1] if kind == "buffered" else build_mixer_agc(
+        4096, cuda)[1]
+    drv = RealtimeDriver(eng, 48000, block_size=512, lead_blocks=4).start()
+    try:
+        t0 = time.perf_counter()
+        while np.abs(drv.read(512)).max() == 0:
+            assert drv.alive() and time.perf_counter() - t0 < 300, drv.error
+            time.sleep(0.005)
+        period = 512 / 48000
+        t_next = time.perf_counter()
+        for _ in range(int(3.0 / period)):
+            t_next += period
+            drv.read(512)
+            time.sleep(max(0.0, t_next - time.perf_counter()))
+        assert drv.alive() and drv.error is None
+    finally:
+        drv.stop()
+
+
+#: the WAV each offline example twin writes (game_mix and simple print
+#: their peak, realtime_spatial returns its audio)
+EXAMPLE_WAVS = {"offline": "offline.wav", "wav_playback": "wav_playback.wav",
+                "adapt_agc": "adapt.wav", "crossfade_beds": "crossfade_beds.wav"}
+
+
+@pytest.mark.parametrize("name", ["offline", "wav_playback", "adapt_agc", "crossfade_beds",
+                                  "game_mix", "simple", "realtime_spatial"])
+def test_example_twin_on_card(cuda, name, tmp_path, monkeypatch, capsys):
+    """Each example twin (``oddio_tpu_torch.examples``) on the card, in a
+    directory of its own at its own constants: its audio is finite and not
+    silent."""
+    from oddio_tpu_torch.utils.wav import read_wav
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(sys, "argv", [sys.argv[0]])  # wav_playback reads argv[1]
+    ret = importlib.import_module(f"oddio_tpu_torch.examples.{name}").main()
+    torch.cuda.synchronize()
+    if name in EXAMPLE_WAVS or name == "realtime_spatial":
+        audio = read_wav(EXAMPLE_WAVS[name])[0] if name in EXAMPLE_WAVS else ret[1]
+        assert np.isfinite(audio).all() and np.abs(audio).max() > 1e-3
+    else:
+        m = re.search(r"peak (\d+\.\d+)", capsys.readouterr().out)
+        assert m and float(m.group(1)) > 1e-3
+
+
 # --- ScenePacks on (scene, voice) meshes ---------------------------------------------
 
 
-def _launch_counts():
-    return {"append": RK.LAUNCHES["append"], "select_ears": RK.LAUNCHES["select_ears"],
-            "strip_select": RK.LAUNCHES["strip_select"],
-            **{k: SK.LAUNCHES[k] for k in STREAM_RING}, **A.LAUNCHES}
+#: each mesh pack: its recipe, scenes and voices a scene
+MESH_PACKS = {"config5": ("config5", 4, 64), "spatial": ("spatial", 4, None),
+              "hostpack": ("hostpack", 4, 64), "sampler": ("sampler", 4, 64),
+              "config5_256x256": ("config5", 256, 256), "hostpack_16x256": ("hostpack", 16, 256),
+              "sampler_16x64": ("sampler", 16, 64)}
 
 
-def _reset_all():
-    for m in (RK, SK, A):
-        m.reset_launches()
-
-
-def test_mesh_packs_on_card_match_one_card_pack(cuda):
-    """A 4 x 64-voice config-5 pack (K4, K6, K7) and a 4-scene spatial pack
-    (K1, K2) on a 2 x 2 logical mesh of the card (``[cuda] * 4``) against
-    the 1 x 1 pack of the same scripts within 2e-6, with every kernel's
-    launches exactly 4x (one per cell)."""
+@pytest.mark.parametrize("kind", list(MESH_PACKS))
+def test_mesh_packs_on_card_match_one_card_pack(cuda, kind):
+    """A pack on a 2 x 2 logical mesh of the card (``[cuda] * 4``) against
+    the 1 x 1 pack of the same script within 2e-6, every cell replaying
+    graphs of its own, each key warmed up once, no recapture: the config-5
+    pack (K4, K6, K7) of 4 x 64 and at its full width, 256 x 256; the
+    spatial pack of 4 scenes (K1, K2); the sampler pack of 4 and of 16
+    scenes of 64 Fader voices (each scene's bank bits, gathered from its
+    shards, equal its host mirrors and have flipped), each with every
+    kernel's launches exactly 4x (one per cell); and the host-pool pack of
+    4 x 64 and of 16 x 256 through stream and speed writes, whose submixes
+    run on voice shard 0 only: K5's scene form once a block per host pool
+    and cell, once per submix pool and scene group."""
     from oddio_tpu_torch.parallel.mesh import make_mesh
 
+    recipe, S, V = MESH_PACKS[kind]
     mesh = make_mesh(2, 2, [cuda] * 4)
-    outs, counts, pcm = [], [], None
+    outs, counts, pools, pcm = [], [], None, None
     for m in (None, mesh):
-        pack, ctls, rng = build_config5_pack(4, cuda, voices=64, mesh=m)
-        if pcm is None:
-            pcm = (rng.standard_normal((len(ctls), 1024)) * 0.1).astype(np.float32)
         _reset_all()
-        outs.append(_pack_run(pack, ctls, pcm))
+        if recipe == "config5":
+            pack, ctls, rng = build_config5_pack(S, cuda, voices=V, mesh=m)
+            if pcm is None:
+                pcm = (rng.standard_normal((len(ctls), 1024)) * 0.1).astype(np.float32)
+            outs.append(_pack_run(pack, ctls, pcm))
+        elif recipe == "spatial":
+            pack = build_spatial_pack(S, cuda, 16, 48, mesh=m)
+            outs.append(_pack_run(pack, [], []))
+        elif recipe == "hostpack":
+            pack, ctls, speeds, rng = build_host_pools_pack(S, V, cuda, mesh=m)
+            out = []
+            for k in range(2):
+                feed(ctls, rng, 1024)
+                for sc in speeds[V * k:V * k + V:4]:
+                    sc.set_speed(float(rng.uniform(0.8, 1.25)))
+                out.append(_pack_run(pack, [], [], nb0=4, nb1=4))
+            outs.append(np.concatenate(out, axis=1))
+            kinds = [type(p).__name__ for p in pack.scenes[0]._all_pools()]
+            pools = (kinds.count("_BufferedPool"), kinds.count("_BufferedPoolSingleton"))
+        else:
+            drv = build_sampler_pack(S, V, cuda, sounds=2, seconds=2.0, mesh=m)
+            outs.append(np.concatenate(drv.render(32, device_out=False), axis=1))
+            pack = drv.pack
+            assert _pack_fade_bits(pack) == (S, S)
         torch.cuda.synchronize()
-        counts.append(_launch_counts())
-    assert np.abs(outs[0]).max() > 0.1
-    assert np.abs(outs[0] - outs[1]).max() <= 2e-6
-    assert min(counts[0][k] for k in (*STREAM_RING, "agc_gains")) > 0
-    assert counts[1] == {k: 4 * v for k, v in counts[0].items()}, counts
-    outs, counts = [], []
-    for m in (None, mesh):
-        pack = build_spatial_pack(4, cuda, 16, 48, mesh=m)
-        _reset_all()
-        outs.append(_pack_run(pack, [], []))
-        torch.cuda.synchronize()
-        counts.append(_launch_counts())
+        counts.append(_all_launches())
     assert np.abs(outs[0]).max() > 1e-2
     assert np.abs(outs[0] - outs[1]).max() <= 2e-6
-    assert counts[0]["append"] > 0 and counts[0]["select_ears"] > 0
-    assert counts[1] == {k: 4 * v for k, v in counts[0].items()}, counts
+    if recipe == "hostpack":
+        h, u = pools
+        key = f"{RK.__name__}.strip_select_scenes"
+        assert (counts[0][key], counts[1][key]) == (16 * (h + u), 16 * (4 * h + 2 * u)), counts
+    else:
+        assert counts[0] and counts[1] == {k: 4 * v for k, v in counts[0].items()}, counts
+    c = pack.graph_counts
+    assert _cells_captured(pack) == set(pack._cells) and c["recaptures"] == 0, c
+    assert c["eager"] == sum(len(s) for s in pack._steps.values()), c
 
 
 def test_mesh_card_and_cpu_cells_match_the_card_pack(cuda):
     """A 1 x 2 mesh over ``[cuda, "cpu"]``: voice shard 1 renders on the
     CPU (the plain versions), so no cell may read its scenes' device; the
-    spatial and config-5 packs match the 1 x 1 card pack within 2e-6."""
+    spatial and config-5 packs match the 1 x 1 card pack within 2e-6, the
+    card cell launching every kernel as often as the 1 x 1 pack."""
     from oddio_tpu_torch.parallel.mesh import make_mesh
 
     mesh = make_mesh(1, 2, [cuda, "cpu"])
-    outs = [_pack_run(build_spatial_pack(2, cuda, 16, 48, mesh=m), [], [])
-            for m in (None, mesh)]
+    outs, counts = [], []
+    for m in (None, mesh):
+        _reset_all()
+        outs.append(_pack_run(build_spatial_pack(2, cuda, 16, 48, mesh=m), [], []))
+        counts.append(_all_launches())
     assert np.abs(outs[0]).max() > 1e-2
     assert np.abs(outs[0] - outs[1]).max() <= 2e-6
-    outs, pcm = [], None
+    assert counts[0] and counts[1] == counts[0], counts
+    outs, counts, pcm = [], [], None
     for m in (None, mesh):
         pack, ctls, rng = build_config5_pack(2, cuda, voices=64, mesh=m)
         if pcm is None:
             pcm = (rng.standard_normal((len(ctls), 1024)) * 0.1).astype(np.float32)
+        _reset_all()
         outs.append(_pack_run(pack, ctls, pcm))
+        counts.append(_all_launches())
     assert np.abs(outs[0]).max() > 0.1
     assert np.abs(outs[0] - outs[1]).max() <= 2e-6
+    assert counts[0] and counts[1] == counts[0], counts
+
+
+@pytest.mark.xfail(strict=True, raises=torch.AcceleratorError,
+                   reason="ROADMAP Q3.18: a cell on a second card cannot be captured "
+                          "(cudaErrorStreamCaptureUnsupported inside the capture, then "
+                          "cudaErrorStreamCaptureInvalidated at its end)")
+def test_mesh_packs_over_distinct_cards(cuda):
+    """Where the machine has two cards or more: the dry run on a mesh over
+    distinct cards within its TOL of per-scene Renderers, and the config-5
+    pack (4 x 64) on a 1 x 2 or 2 x 2 mesh of them within 2e-6 of the one-card
+    pack, every kernel's launches one per cell.  Expected to fail with the
+    capture error until the program captures such cells; strict, so it
+    fails once it passes; one card skips it."""
+    from oddio_tpu_torch.parallel.dryrun import TOL, dryrun_multichip
+    from oddio_tpu_torch.parallel.mesh import make_mesh
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards or more: a mesh over distinct cards")
+    cards = [torch.device("cuda", i) for i in range(n)]
+    k = min(8, 2 * (n // 2))
+    out = dryrun_multichip(k, cards[:k])
+    assert out["max_abs_diff"] <= TOL and out["pack_launches"]["append"] > 0
+    a = 2 if n >= 4 else 1
+    outs, counts, pcm = [], [], None
+    for m in (None, make_mesh(a, 2, cards[:2 * a])):
+        pack, ctls, rng = build_config5_pack(4, cards[0], voices=64, mesh=m)
+        if pcm is None:
+            pcm = (rng.standard_normal((len(ctls), 1024)) * 0.1).astype(np.float32)
+        _reset_all()
+        outs.append(_pack_run(pack, ctls, pcm))
+        for c in cards:
+            torch.cuda.synchronize(c)
+        counts.append(_all_launches())
+    assert np.abs(outs[0]).max() > 0.1
+    assert np.abs(outs[0] - outs[1]).max() <= 2e-6
+    assert counts[0] and counts[1] == {key: 2 * a * v for key, v in counts[0].items()}, counts
 
 
 def test_mesh_dryrun_on_card(cuda):
@@ -1196,22 +1719,13 @@ def test_mesh_pack_checkpoint_resumes_bit_equal_on_card(cuda, shape):
 # -- the Renderer's block steps as CUDA graphs (core/run.py) ------------------------
 
 
-def _all_launches():
-    return {f"{m.__name__}.{k}": v for m in (RK, SK, A, FK) for k, v in m.LAUNCHES.items() if v}
-
-
 def _graph_run(scene, control, hs, mode, script, **kw):
     """``script(r, control, hs)`` through a Renderer of ``scene`` (``kw``
     its options) under ``eager()`` or replaying graphs: (blocks (N, 2)
     numpy, launches, the Renderer)."""
-    import contextlib
-
-    from oddio_tpu_torch.core.run import eager
-
-    for m in (RK, SK, A, FK):
-        m.reset_launches()
+    _reset_all()
     r = pt.Renderer(scene, 48000, **kw)
-    with eager() if mode == "eager" else contextlib.nullcontext():
+    with _mode(mode):
         out = script(r, control, hs)
     torch.cuda.synchronize()
     x = torch.cat([o.permute(0, 2, 1).reshape(-1, 2) for o in out]).cpu().numpy()
@@ -1350,16 +1864,11 @@ def _mixer_graph_run(mode, script, voices=256, **kw):
     """``script(r, control, ctls, rng)`` on the config-5 mixer of
     ``voices`` voices under ``eager()`` or replaying graphs: (its result,
     launches, the Renderer, the mixer)."""
-    import contextlib
-
-    from oddio_tpu_torch.core.run import eager
-
     control, mixer, ctls, rng = build_mixer_agc(voices, "cuda")
     assert mixer.graph_capture
-    for m in (RK, SK, A, FK):
-        m.reset_launches()
+    _reset_all()
     r = pt.Renderer(mixer, 48000, **kw)
-    with eager() if mode == "eager" else contextlib.nullcontext():
+    with _mode(mode):
         out = script(r, control, ctls, rng)
     torch.cuda.synchronize()
     return out, _all_launches(), r, mixer
@@ -1441,10 +1950,6 @@ def test_mixer_graph_handle_readback_after_replay(cuda):
     scan late, the same block as under ``eager()``, also when a readback
     was started one block before the query (a replay leaves the state
     tensors' versions unchanged: the readback keys on the store count)."""
-    import contextlib
-
-    from oddio_tpu_torch.core.run import eager
-
     def drain(mode, lead):
         control, mixer = pt.Mixer.new(channels=1, device=cuda)
         for f in (220.0, 330.0):
@@ -1455,7 +1960,7 @@ def test_mixer_graph_handle_readback_after_replay(cuda):
         h = control.play(pt.Adapt(s, 0.1, pt.AdaptOptions(tau=0.1, max_gain=4.0)))
         r = pt.Renderer(mixer, 48000)
         seq = []
-        with eager() if mode == "eager" else contextlib.nullcontext():
+        with _mode(mode):
             r.render_frames_device(512 * lead)
             for _ in range(6):
                 r.render_frames_device(512)  # starts the readback
@@ -1476,15 +1981,12 @@ def test_graph_warms_up_again_after_growth(cuda):
     the read kernels' cluster scratch, which a capture must not grow)
     before it captures; bit-equal to ``eager()``.  The scratch cache starts
     empty, as in a fresh process."""
-    import contextlib
-
-    from oddio_tpu_torch.core.run import eager
     from oddio_tpu_torch.utils.scene_profile import BLOCK, build_checkpoint_scene
 
     outs = []
     for mode in ("eager", "graph"):
         RK._CLUSTER_SCRATCH.clear()
-        with eager() if mode == "eager" else contextlib.nullcontext():
+        with _mode(mode):
             eng, r = build_checkpoint_scene("buffered", 256, "cuda")
             outs.append(r.render_frames(BLOCK * 24))
     np.testing.assert_array_equal(outs[1], outs[0])
@@ -1537,18 +2039,13 @@ def _pack_graph_run(kind, mode, script, S=4, mesh=None):
     the scenes), then ``script(pack, ctls, rng)``: (the audio (S, N, C),
     launches, the pack, the rings' addresses after the first block and at
     the end)."""
-    import contextlib
-
-    from oddio_tpu_torch.core.run import eager
-
-    with eager() if mode == "eager" else contextlib.nullcontext():
+    with _mode(mode):
         if kind == "config5":
             pack, ctls, rng = build_config5_pack(S, "cuda", voices=64, mesh=mesh)
         else:
             pack, ctls, rng = build_spatial_pack(S, "cuda", 16, 48, mesh=mesh), [], None
         assert pack.graph_capture
-        for m in (RK, SK, A, FK):
-            m.reset_launches()
+        _reset_all()
         out = [pack.render_block(512)]
         rings = _pack_rings(pack)
         out.append(script(pack, ctls, rng))
@@ -1572,9 +2069,7 @@ def _pack_rings(pack):
 
 
 def _pack_frames(pack, nb):
-    b = torch.cat(pack.render_frames_device(512 * nb)).cpu().numpy()  # (B, S, C, n)
-    B, S, C, n = b.shape
-    return b.transpose(1, 0, 3, 2).reshape(S, B * n, C)
+    return _drain(pack.render_frames_device(512 * nb))
 
 
 def _pack_control_script(pack, ctls, rng):
@@ -1605,12 +2100,14 @@ def _pack_control_script(pack, ctls, rng):
 
 @pytest.mark.parametrize("kind", ["config5", "spatial"])
 def test_pack_graph_replay_matches_eager(cuda, kind):
-    """A 4-scene config-5 pack (K4, K6, K7) and a 4-scene spatial pack (K1,
-    K2) under control traffic: graph replay bit-equal to ``eager()``, every
+    """A 4-scene config-5 pack (K4, K6, K7, no ring kernel) and a 4-scene
+    spatial pack (K1, K2, no other ring kernel) under control traffic,
+    every scene audible: graph replay bit-equal to ``eager()``, every
     kernel's launches equal, the rings where they were, every call after a
     key's warm-up and capture a replay."""
     (xe, le, pe, re), (xg, lg, pg, rg) = [_pack_graph_run(kind, mode, _pack_control_script)
                                           for mode in ("eager", "graph")]
+    assert np.abs(xe).max(axis=(1, 2)).min() > 1e-3  # every scene audible
     assert np.abs(xe).max() > 1e-2
     np.testing.assert_array_equal(xg, xe)
     assert lg == le
@@ -1619,6 +2116,10 @@ def test_pack_graph_replay_matches_eager(cuda, kind):
              f"{A.__name__}.agc_gains") if kind == "config5"
             else (f"{RK.__name__}.append", f"{RK.__name__}.select_ears"))
     assert all(lg.get(k) for k in keys)
+    # no other ring kernel: none on config 5, K1 (its cursor form) and K2 on the spatial pack
+    ring = {k for k in lg if k.startswith(RK.__name__)}
+    assert ring <= ({f"{RK.__name__}.{k}" for k in ("append", "append_cursor", "select_ears")}
+                    if kind == "spatial" else set()), lg
     c = pg.graph_counts
     assert pe.graph_counts["replays"] == 0 and c["recaptures"] == 0
     assert c["replays"] > c["captures"] > 0
@@ -1693,9 +2194,6 @@ def test_pack_graph_handle_readback_after_replay(cuda):
     stopped on the same blocks as under ``eager()``; without a sync they
     read the stack the replays left (a replay leaves tensor versions alone:
     the scenes' store counts key the readback)."""
-    import contextlib
-
-    from oddio_tpu_torch.core.run import eager
     from oddio_tpu_torch.parallel.mesh import make_mesh
     from oddio_tpu_torch.parallel.sharded import ScenePack
 
@@ -1713,7 +2211,7 @@ def test_pack_graph_handle_readback_after_replay(cuda):
             mixers.append(mixer)
         pack = ScenePack(mixers, 8000, make_mesh(1, 1, [cuda]))
         seq = []
-        with eager() if mode == "eager" else contextlib.nullcontext():
+        with _mode(mode):
             for k in range(8):
                 pack.render_frames_device(512) if k % 2 else pack.render_block(512)
                 if synced:
@@ -1736,9 +2234,6 @@ def _dense_graph_run(kind, mode, script, voices=256, capacity=512):
     ``Tanh(Reinhard(mixer))`` root, scan_unroll 4) or the wavetable of
     ``voices`` voices with bench.py's buckets, under ``eager()`` or
     replaying graphs: (its result, launches, the Renderer)."""
-    import contextlib
-
-    from oddio_tpu_torch.core.run import eager
     from oddio_tpu_torch.utils.scene_profile import (BUCKETS, build_densemix,
                                                      build_wavetable, wavetable_frames)
 
@@ -1752,9 +2247,8 @@ def _dense_graph_run(kind, mode, script, voices=256, capacity=512):
         root = mixer
         r = pt.Renderer(root, 48000, scan_buckets=BUCKETS)
     assert root.graph_capture
-    for m in (RK, SK, A, FK):
-        m.reset_launches()
-    with eager() if mode == "eager" else contextlib.nullcontext():
+    _reset_all()
+    with _mode(mode):
         out = script(r, mixer, ctls, rng, frames)
     torch.cuda.synchronize()
     return out, _all_launches(), r
@@ -1787,8 +2281,9 @@ def test_dense_graph_replay_matches_eager(cuda, kind):
     wavetable's across the arena step's bound and back) and plays: graph
     replay bit-equal to ``eager()``, every kernel's launches equal (the
     wavetable's ``arena_step`` on its arena blocks, no kernel on the dense
-    mix, no ring or AGC kernel), every call after a key's warm-up and
-    capture a replay, no recapture."""
+    mix, whose limiters keep it within tanh(1); no ring or AGC kernel),
+    every call after a key's warm-up and capture a replay, no
+    recapture."""
     (xe, le, re), (xg, lg, rg) = [_dense_graph_run(kind, mode, _dense_control_script)
                                   for mode in ("eager", "graph")]
     assert np.abs(xe).max() > 0.1
@@ -1799,9 +2294,11 @@ def test_dense_graph_replay_matches_eager(cuda, kind):
         assert 0 < lg[f"{SK.__name__}.arena_step"] < xg.shape[0] // 512  # the gather's blocks
     else:
         assert lg == {}
+        assert np.abs(xg).max() <= np.tanh(1.0) + 1e-6  # the limiters hold
     c = rg.graph_counts
     assert re.graph_counts["replays"] == 0 and c["recaptures"] == 0
     assert c["replays"] > c["captures"] > 0
+    assert c["eager"] == sum(len(s) for s in rg._steps.values())
 
 
 def test_wavetable_graph_recaptures_after_a_new_table(cuda):
@@ -1874,26 +2371,28 @@ def test_dense_graph_growth_between_warmup_and_capture(cuda, kind, monkeypatch):
 
 def _sampler_graph_run(kind, mode, script, voices=256):
     """``script(r, engine, ctl)`` on config 2's sampler (``build_sampler``:
-    Fader(Speed(FramesSignal)) voices, ``ctl`` its ``SamplerDriver``) or
-    the seek sampler (``build_seek_sampler``, ``ctl`` its handles and rng)
-    of ``voices`` voices with bench.py's buckets, under ``eager()`` or
-    replaying graphs: (its result, launches, the Renderer, the engine)."""
-    import contextlib
-
-    from oddio_tpu_torch.core.run import eager
+    Fader(Speed(FramesSignal)) voices, ``ctl`` its ``SamplerDriver``), the
+    seek sampler (``build_seek_sampler``, ``ctl`` its handles and rng) of
+    ``voices`` voices with bench.py's buckets, or the sampler pack 4 x 64
+    (``build_sampler_pack``, ``ctl`` its ``PackDriver``, ``r`` the pack),
+    under ``eager()`` or replaying graphs: (its result, launches, the
+    Renderer or pack, the engine)."""
     from oddio_tpu_torch.utils.scene_profile import BUCKETS, build_sampler
 
-    if kind == "sampler":
-        drv = build_sampler(voices, "cuda", sounds=2, seconds=2.0)
-        engine, ctl = drv.mixer, drv
+    if kind == "sampler_pack":
+        ctl = build_sampler_pack(4, 64, "cuda", sounds=2, seconds=2.0)
+        engine = r = ctl.pack
     else:
-        _, engine, hs, rng = build_seek_sampler(voices, "cuda", sounds=2, seconds=2.0)
-        ctl = (hs, rng)
-    r = pt.Renderer(engine, 48000, scan_buckets=BUCKETS)
+        if kind == "sampler":
+            drv = build_sampler(voices, "cuda", sounds=2, seconds=2.0)
+            engine, ctl = drv.mixer, drv
+        else:
+            _, engine, hs, rng = build_seek_sampler(voices, "cuda", sounds=2, seconds=2.0)
+            ctl = (hs, rng)
+        r = pt.Renderer(engine, 48000, scan_buckets=BUCKETS)
     assert engine.graph_capture
-    for m in (RK, SK, A, FK):
-        m.reset_launches()
-    with eager() if mode == "eager" else contextlib.nullcontext():
+    _reset_all()
+    with _mode(mode):
         out = script(r, engine, ctl)
     torch.cuda.synchronize()
     return out, _all_launches(), r, engine
@@ -1901,9 +2400,10 @@ def _sampler_graph_run(kind, mode, script, voices=256):
 
 def _sampler_script(r, engine, ctl):
     """The sampler's control script (speed writes on 32 voices and 0.05 s
-    fades on 32 others every 8 blocks) over 48 blocks; the seek sampler's
-    24 blocks, set_motion on 16 voices, 24 blocks, on 16 others, 16
-    blocks."""
+    fades on 32 others every 8 blocks) over 48 blocks; the pack's, every
+    scene's own script (8 and 8) before each of 6 periods of 8 blocks,
+    through render_frames_device; the seek sampler's 24 blocks, set_motion
+    on 16 voices, 24 blocks, on 16 others, 16 blocks."""
     if isinstance(ctl, tuple):
         hs, rng = ctl
         out = [r.render_frames(512 * 24)]
@@ -1912,25 +2412,29 @@ def _sampler_script(r, engine, ctl):
                 h.set_motion(rng.uniform(-15, 15, 3), rng.uniform(-5, 5, 3), False)
             out.append(r.render_frames(512 * (24 - 8 * t)))
         return np.concatenate(out)
+    if hasattr(ctl, "drivers"):
+        return _drain(ctl.render(48))
     ctl.k = 32
     return np.concatenate(ctl.render(r, 48, device_out=False))
 
 
-@pytest.mark.parametrize("kind", ["sampler", "seek_sampler"])
+@pytest.mark.parametrize("kind", ["sampler", "seek_sampler", "sampler_pack"])
 def test_sampler_graph_replay_matches_eager(cuda, kind):
-    """The 256-voice sampler and seek sampler through their scripts: graph
-    replay bit-equal to ``eager()``, every kernel's launches equal (one
-    ``arena_step`` launch a block: the Fader's ``fader_step`` or the seek
-    pool's ``arena_warp``; no ring or AGC kernel), every call after a
-    key's warm-up and capture a replay, no recapture."""
+    """The 256-voice sampler and seek sampler and the sampler pack 4 x 64
+    through their scripts: graph replay bit-equal to ``eager()``, every
+    kernel's launches equal (one ``arena_step`` launch a block: the
+    Fader's ``fader_step``, over the pack's stack too, or the seek pool's
+    ``arena_warp``; no ring or AGC kernel), every call after a key's
+    warm-up and capture a replay, no recapture."""
     (xe, le, re, _), (xg, lg, rg, _) = [_sampler_graph_run(kind, mode, _sampler_script)
                                         for mode in ("eager", "graph")]
     assert np.abs(xe).max() > 1e-2
     np.testing.assert_array_equal(xg, xe)
-    assert lg == le == {f"{SK.__name__}.arena_step": xg.shape[0] // 512}
+    assert lg == le == {f"{SK.__name__}.arena_step": xg.shape[-2] // 512}
     c = rg.graph_counts
     assert re.graph_counts["replays"] == 0 and c["recaptures"] == 0
     assert c["replays"] > c["captures"] > 0
+    assert c["eager"] == sum(len(s) for s in rg._steps.values())
 
 
 def test_sampler_graph_fade_after_capture_replays(cuda):
@@ -1963,34 +2467,37 @@ def test_sampler_graph_fade_after_capture_replays(cuda):
 
 def _host_graph_run(kind, mode, flybys=1, voices=256, mesh=None):
     """The host-pool scene (``build_host_pools``: ``voices`` Speed(Stream)
-    voices, ``voices // 8`` Adapt(Stream), a config-5 submix) or the
+    voices, ``voices // 8`` Adapt(Stream), a config-5 submix), the
     host-pool pack 2 x ``voices`` (``build_host_pools_pack``, on ``mesh``,
-    default 1 x 1) under
-    ``eager()`` or replaying graphs, through ``flybys`` passes of a script:
+    default 1 x 1) or a Mixer of ``voices`` Speed(Stream) voices in its
+    host ``Pool`` with a 64-voice config-5 submix
+    (``build_mixer_host_pools``) under ``eager()`` or replaying graphs,
+    through ``flybys`` passes of a script: in the scene and the pack,
     voice 0 jumps to a fly-by (10 m left, 60 m/s right: its pool leaves
-    K5's strip gate, takes it and leaves it again inside one call), 8
+    K5's strip gate, takes it and leaves it again inside one call); 8
     speed writes, PCM on every stream, 32 blocks.  Returns (audio,
     launches, the renderer or pack, its graph_counts after the first
     pass)."""
-    import contextlib
-
-    from oddio_tpu_torch.core.run import eager
-    from oddio_tpu_torch.utils.scene_profile import build_host_pools_pack
+    from oddio_tpu_torch.utils.scene_profile import build_mixer_host_pools
 
     hs = []
-    if kind == "hostpools":
-        _, engine, ctls, speeds, rng = build_host_pools(voices, "cuda", handles=hs)
-        r = pt.Renderer(engine, 48000)
-    else:
+    if kind == "hostpack":
         r, ctls, speeds, rng = build_host_pools_pack(2, voices, "cuda", handles=hs, mesh=mesh)
         engine = r
+    else:
+        if kind == "hostpools":
+            _, engine, ctls, speeds, rng = build_host_pools(voices, "cuda", handles=hs)
+        else:
+            _, engine, ctls, speeds, rng = build_mixer_host_pools(voices, "cuda",
+                                                                  submix_voices=64)
+        r = pt.Renderer(engine, 48000)
     assert engine.graph_capture
-    for m in (RK, SK, A, FK):
-        m.reset_launches()
+    _reset_all()
     out, first = [], None
-    with eager() if mode == "eager" else contextlib.nullcontext():
+    with _mode(mode):
         for _ in range(flybys):
-            hs[0].set_motion([-10.0, 5.0, 0.0], [60.0, 0.0, 0.0], True)
+            if hs:
+                hs[0].set_motion([-10.0, 5.0, 0.0], [60.0, 0.0, 0.0], True)
             for sc in speeds[:8]:
                 sc.set_speed(float(rng.uniform(0.8, 1.25)))
             feed(ctls, rng, 1024)
@@ -2003,18 +2510,20 @@ def _host_graph_run(kind, mode, flybys=1, voices=256, mesh=None):
     return np.concatenate(out), _all_launches(), r, first
 
 
-@pytest.mark.parametrize("kind", ["hostpools", "hostpack"])
+@pytest.mark.parametrize("kind", ["hostpools", "hostpack", "hostmixer"])
 def test_host_pool_graph_replay_matches_eager(cuda, kind):
     """The 256-voice host-pool scene and the host-pool pack 2 x 256 through
-    a fly-by: graph replay bit-equal to ``eager()``, every kernel's
-    launches equal (K1, K2, K4, K5, K6 and K7 among them), no
-    recapture."""
+    a fly-by, and the Mixer of 256 host Speed(Stream) voices with a
+    submix: graph replay bit-equal to ``eager()``, every kernel's launches
+    equal (K1, K2, K4, K5, K6 and K7 among them; K4, K6 and K7 in the
+    Mixer, which has no delay ring), every call after a key's warm-up and
+    capture a replay, no recapture."""
     (xe, le, re, _), (xg, lg, rg, _) = [_host_graph_run(kind, mode)
                                         for mode in ("eager", "graph")]
     assert np.abs(xe).max() > 1e-3
     np.testing.assert_array_equal(xg, xe)
     assert lg == le
-    for k in ("append", "select_ears", "strip_select"):
+    for k in ("append", "select_ears", "strip_select") if kind != "hostmixer" else ():
         assert lg.get(f"{RK.__name__}.{k}"), lg
     for k in ("ring_place", "ring_resample"):
         assert lg.get(f"{SK.__name__}.{k}"), lg
@@ -2022,6 +2531,7 @@ def test_host_pool_graph_replay_matches_eager(cuda, kind):
     c = rg.graph_counts
     assert re.graph_counts["replays"] == 0 and c["recaptures"] == 0
     assert c["replays"] > c["captures"] > 0
+    assert c["eager"] == sum(len(s) for s in rg._steps.values())
 
 
 def test_host_pool_graph_flyby_replays_without_recapture(cuda):
@@ -2048,15 +2558,44 @@ def _cells_captured(pack):
             if any(st.graph is not None for st in steps.values())}
 
 
-@pytest.mark.parametrize("kind", ["config5", "hostpack"])
+def _mesh_script_run(kind, mode, mesh):
+    """On ``mesh``, under ``eager()`` or replaying graphs: the sampler pack
+    4 x 64 (every scene's script before each of 6 periods of 8 blocks) or
+    the dry-run twin (2 scenes of 64 buffered and 1984 seek Sine voices at
+    8 kHz: its three blocks of 256 with plays and moves, then 48 idle
+    blocks).  Returns (the audio (S, N, C), launches, the pack)."""
+    from oddio_tpu_torch.parallel import dryrun as D
+    from oddio_tpu_torch.parallel.sharded import ScenePack
+
+    with _mode(mode):
+        if kind == "sampler":
+            drv = build_sampler_pack(4, 64, "cuda", sounds=2, seconds=2.0, mesh=mesh)
+            pack = drv.pack
+            _reset_all()
+            x = _drain(drv.render(48))
+        else:
+            cap = 512 * 4
+            built = [D._build_scene(64, cap - 64, mesh.first, cap) for _ in range(2)]
+            pack = ScenePack([b[1] for b in built], D.RATE, mesh)
+            _reset_all()
+            got, _ = D._run([b[0] for b in built], lambda: pack.render_block(D.BLOCK))
+            idle = pack.render_frames_device(D.BLOCK * 48, block_size=D.BLOCK)
+            x = np.concatenate([got, _drain(idle)], axis=1)
+        torch.cuda.synchronize()
+    return x, _all_launches(), pack
+
+
+@pytest.mark.parametrize("kind", ["config5", "hostpack", "sampler", "dryrun"])
 def test_mesh_pack_graph_replay_matches_eager(cuda, kind):
-    """A 4 x 64-voice config-5 pack under control traffic and the host-pool
-    pack 2 x 64 through a fly-by, each on a logical 2 x 2 mesh of the card:
-    every cell replays graphs of its own, bit-equal to the same mesh's
-    ``eager()``, every kernel's launches equal, no recapture."""
+    """A 4 x 64-voice config-5 pack under control traffic, the host-pool
+    pack 2 x 64 through a fly-by and the sampler pack 4 x 64 through its
+    scripts, each on a logical 2 x 2 mesh of the card, and the dry-run
+    twin on 2 x 4: every cell replays graphs of its own, bit-equal to the
+    same mesh's ``eager()``, every kernel's launches equal, every call
+    after a key's warm-up and capture a replay, no recapture."""
     from oddio_tpu_torch.parallel.mesh import make_mesh
 
-    mesh = make_mesh(2, 2, [cuda] * 4)
+    mesh = make_mesh(2, 4, [cuda] * 8) if kind == "dryrun" else make_mesh(2, 2, [cuda] * 4)
     if kind == "config5":
         (xe, le, pe, _), (xg, lg, pg, rg) = [
             _pack_graph_run("config5", mode, _pack_control_script, mesh=mesh)
@@ -2064,13 +2603,18 @@ def test_mesh_pack_graph_replay_matches_eager(cuda, kind):
         keys = (f"{SK.__name__}.ring_place", f"{SK.__name__}.ring_resample",
                 f"{A.__name__}.agc_gains")
         assert rg[0] == rg[1]
-    else:
+    elif kind == "hostpack":
         (xe, le, pe, _), (xg, lg, pg, _) = [
             _host_graph_run("hostpack", mode, voices=64, mesh=mesh)
             for mode in ("eager", "graph")]
         keys = (f"{RK.__name__}.append", f"{RK.__name__}.select_ears",
                 f"{RK.__name__}.strip_select_scenes", f"{SK.__name__}.ring_place",
                 f"{SK.__name__}.ring_resample", f"{A.__name__}.agc_gains")
+    else:
+        (xe, le, pe), (xg, lg, pg) = [_mesh_script_run(kind, mode, mesh)
+                                      for mode in ("eager", "graph")]
+        keys = ((f"{SK.__name__}.arena_step",) if kind == "sampler"
+                else (f"{RK.__name__}.append", f"{RK.__name__}.select_ears"))
     assert np.abs(xe).max() > 1e-3
     np.testing.assert_array_equal(xg, xe)
     assert lg == le and all(lg.get(k) for k in keys), lg
@@ -2078,6 +2622,7 @@ def test_mesh_pack_graph_replay_matches_eager(cuda, kind):
     c = pg.graph_counts
     assert pe.graph_counts["replays"] == 0 and c["recaptures"] == 0
     assert c["replays"] > c["captures"] > 0
+    assert c["eager"] == sum(len(s) for s in pg._steps.values())
 
 
 def test_mesh_card_cpu_graph_matches_eager(cuda):
@@ -2107,70 +2652,117 @@ def test_mesh_card_cpu_graph_matches_eager(cuda):
 # -- the last spatial pools under CUDA graphs ---------------------------------------------
 
 
-def _arena_graph_run(kind, mode, script):
-    """``script(r, drv)`` on the spatial sampler (``build_spatial_sampler``:
-    FramesSignal, Speed, Fader and Cycle voices in device-resident buffered
-    pools) or the seek chains (``build_seek_chains``: Cycle,
-    FixedGain(FramesSignal) and Tanh(FixedGain(Sine)) voices in
-    device-resident seek pools) at 256 voices, pools opened at 32 voices,
-    under ``eager()`` or replaying graphs: (its result, launches, the
-    Renderer, the control script's ``SpatialDriver``)."""
-    import contextlib
+#: the arena step's forms each engine launches: 0 a leaf's step
+#: (``arena_step``), 1 a seek read (``arena_warp``), 2 a Fader
+#: (``fader_step``)
+ARENA_FORMS = {"spatial_sampler": {0, 2}, "seek_chains": {1}, "spatial_pack": {0, 2}}
 
-    from oddio_tpu_torch.core.run import eager
+
+def _arena_graph_run(kind, mode, script):
+    """``script(r, render, drvs)`` on the spatial sampler
+    (``build_spatial_sampler``: FramesSignal, Speed, Fader and Cycle voices
+    in device-resident buffered pools) or the seek chains
+    (``build_seek_chains``: Cycle, FixedGain(FramesSignal) and
+    Tanh(FixedGain(Sine)) voices in device-resident seek pools) at 256
+    voices, or a 1 x 1 pack of 4 spatial samplers of 64 voices (scene s
+    from seed s), pools opened at 32 voices, under ``eager()`` or
+    replaying graphs; ``render(nb)`` renders nb blocks to numpy, ``r`` is
+    the Renderer or pack.  Returns (its result, launches, ``r``, the
+    control scripts' ``SpatialDriver``s, the arena step's forms launched
+    inside a capture and outside one)."""
+    from oddio_tpu_torch.parallel.mesh import make_mesh
+    from oddio_tpu_torch.parallel.sharded import ScenePack
     from oddio_tpu_torch.utils.scene_profile import build_seek_chains, build_spatial_sampler
 
-    build = build_spatial_sampler if kind == "spatial_sampler" else build_seek_chains
-    drv = build(256, "cuda", sounds=2, capacity=32, k=16)
-    r = pt.Renderer(drv.scene, 48000)
-    assert drv.scene.graph_capture
-    for m in (RK, SK, A, FK):
-        m.reset_launches()
-    with eager() if mode == "eager" else contextlib.nullcontext():
-        out = script(r, drv)
-    torch.cuda.synchronize()
-    return out, _all_launches(), r, drv
+    if kind == "spatial_pack":
+        drvs = [build_spatial_sampler(64, "cuda", seed=s, sounds=2, capacity=32, k=16)
+                for s in range(4)]
+        r = ScenePack([d.scene for d in drvs], 48000, make_mesh(1, 1, ["cuda"]))
+        render = lambda nb: _pack_frames(r, nb)  # noqa: E731
+    else:
+        build = build_spatial_sampler if kind == "spatial_sampler" else build_seek_chains
+        drvs = [build(256, "cuda", sounds=2, capacity=32, k=16)]
+        r = pt.Renderer(drvs[0].scene, 48000)
+        render = lambda nb: r.render_frames(512 * nb)  # noqa: E731
+    assert all(d.scene.graph_capture for d in drvs)
+    forms, launch = {"eager": set(), "captured": set()}, SK._step_launch
+
+    def spy(garena, kind_, form, *a, **kw):
+        forms["captured" if torch.cuda.is_current_stream_capturing() else "eager"].add(form)
+        return launch(garena, kind_, form, *a, **kw)
+
+    _reset_all()
+    SK._step_launch = spy
+    try:
+        with _mode(mode):
+            out = script(r, render, drvs)
+        torch.cuda.synchronize()
+    finally:
+        SK._step_launch = launch
+    if kind == "spatial_pack":
+        r.sync()
+    return out, _all_launches(), r, drvs, forms
 
 
-def _arena_script(r, drv):
-    """8 blocks; 6 ticks of 16 moves (every second tick 16 speed writes and
-    16 fades), each followed by 4 blocks, Speed voice 0 past the arena
-    step's bound at tick 1 and back at tick 3, 16 plays that grow a pool at
-    tick 2; 96 blocks (idle after the moves' smoothing: fused groups).
-    Returns (the audio, the graph counts before the last run)."""
-    out = [r.render_frames(512 * 8)]
+def _arena_rings(r):
+    """Addresses of the buffered pools' rings of a Renderer's scene or of a
+    pack's stack."""
+    if hasattr(r, "scenes"):
+        return _pack_rings(r)
+    return [p.dr_state()["ring"].data_ptr() for p in r.signal._buffered_pools.values()]
+
+
+def _arena_script(r, render, drvs):
+    """8 blocks; 6 ticks of 16 moves a scene (every second tick 16 speed
+    writes and 16 fades), each followed by 4 blocks, Speed voice 0 past the
+    arena step's bound at tick 1 and back at tick 3, 16 plays that grow a
+    pool at tick 2; 96 blocks (idle after the moves' smoothing: fused
+    groups in a Renderer).  Returns (the audio, whether the rings stayed
+    where they were over the idle run, the graphs held at the growth: the
+    most it may recapture)."""
+    out, held = [render(8)], 0
     for t in range(6):
-        drv.tick()
-        if drv.speeds and t in (1, 3):
-            drv.speeds[0].set_speed(5.0 if t == 1 else 1.0)
         if t == 2:
-            drv.play(16)
-        out.append(r.render_frames(512 * 4))
-    before = dict(r.graph_counts)
-    out.append(r.render_frames(512 * 96))
-    return np.concatenate(out), before
+            held = sum(st.graph is not None for steps in r._steps.values()
+                       for st in steps.values())
+        for d in drvs:
+            d.tick()
+            if d.speeds and t in (1, 3):
+                d.speeds[0].set_speed(5.0 if t == 1 else 1.0)
+            if t == 2:
+                d.play(16)
+        out.append(render(4))
+    rings = _arena_rings(r)
+    out.append(render(96))
+    return np.concatenate(out, axis=-2), _arena_rings(r) == rings, held
 
 
-@pytest.mark.parametrize("kind", ["spatial_sampler", "seek_chains"])
+@pytest.mark.parametrize("kind", ["spatial_sampler", "seek_chains", "spatial_pack"])
 def test_spatial_arena_graph_replay_matches_eager(cuda, kind):
-    """The 256-voice spatial sampler and seek chains through their script:
-    graph replay bit-equal to ``eager()`` (-0.0 as 0.0), every kernel's
-    launches equal (K1, K2, K3 and the arena step in the buffered pools'
-    scene, the arena step alone in the seek pools'), recaptures only up to
-    the growth, replays in the idle run, the handles' ``is_finished``
-    equal."""
-    (xe, le, re, de), (xg, lg, rg, dg) = [
-        _arena_graph_run(kind, mode, lambda r, d: _arena_script(r, d)[0])
-        for mode in ("eager", "graph")]
+    """The 256-voice spatial sampler and seek chains and the spatial
+    sampler pack 4 x 64 through their script: graph replay bit-equal to
+    ``eager()`` (-0.0 as 0.0), every kernel's launches equal (K1, K2, K3
+    and the arena step in the buffered pools' scene, K1, K2 and the arena
+    step in the pack, the arena step alone in the seek pools'), the arena
+    step's forms captured inside the graphs, the rings unmoved over the
+    idle run, recaptures after the growth and no more than the graphs it
+    held, replays in the idle run, the handles' ``is_finished`` equal."""
+    ((xe, ue, _), le, re, de, fe), ((xg, ug, held), lg, rg, dg, fg) = [
+        _arena_graph_run(kind, mode, _arena_script) for mode in ("eager", "graph")]
     assert np.abs(xe).max() > 1e-2
     np.testing.assert_array_equal(xg + np.float32(0.0), xe + np.float32(0.0))
     assert lg == le
-    keys = ([f"{RK.__name__}.{k}" for k in ("append", "select_ears", "select_multi")]
-            if kind == "spatial_sampler" else []) + [f"{SK.__name__}.arena_step"]
+    ring = {"spatial_sampler": ("append", "select_ears", "select_multi"),
+            "spatial_pack": ("append", "select_ears")}.get(kind, ())
+    keys = [f"{RK.__name__}.{k}" for k in ring] + [f"{SK.__name__}.arena_step"]
     assert all(lg.get(k) for k in keys), lg
+    assert fg["captured"] == fe["eager"] == ARENA_FORMS[kind], (fg, fe)
+    assert ue and ug
     c = rg.graph_counts
     assert re.graph_counts["replays"] == 0 and c["replays"] > c["captures"] > 0
-    assert [h.is_finished() for h in dg.voices] == [h.is_finished() for h in de.voices]
+    assert 0 < c["recaptures"] <= held, (c, held)
+    assert ([h.is_finished() for d in dg for h in d.voices]
+            == [h.is_finished() for d in de for h in d.voices])
 
 
 @pytest.mark.parametrize("kind", ["spatial_sampler", "seek_chains"])
@@ -2180,15 +2772,15 @@ def test_spatial_arena_graph_recaptures_after_a_new_frames(cuda, kind):
     reads it warms up and captures again before it replays, never reading
     the old arena's address; bit-equal to ``eager()``."""
 
-    def script(r, drv):
-        out = [r.render_frames(512 * 24)]
+    def script(r, render, drvs):
+        out = [render(24)]
         before = dict(r.graph_counts)
         pt.FramesSignal(pt.Frames.from_slice(44100, np.linspace(-0.1, 0.1, 3000,
                                                                 dtype=np.float32)))
-        out.append(r.render_frames(512 * 24))
+        out.append(render(24))
         return np.concatenate(out), before
 
-    ((xe, _), _, _, _), ((xg, before), _, rg, _) = [
+    ((xe, _), _, _, _, _), ((xg, before), _, rg, _, _) = [
         _arena_graph_run(kind, mode, script) for mode in ("eager", "graph")]
     np.testing.assert_array_equal(xg + np.float32(0.0), xe + np.float32(0.0))
     assert before["recaptures"] == 0 and before["replays"] > 0
@@ -2216,3 +2808,218 @@ def test_no_wait_sync_leaves_the_call_in_flight(cuda):
         drv.scene.sync()
         assert in_flight.query() is not prefetch, prefetch
         torch.cuda.synchronize()
+
+
+# -- every path at its full width ---------------------------------------------------------
+
+
+#: each kernel wrapper a path may call: its module, the modules that
+#: import it by name, its plain version, its bound (None: bit for bit;
+#: "zero sign": bit for bit but for the sign of an exact zero; else its
+#: elementwise tolerance) and the operand it writes in place (or None)
+PATH_KERNELS = {
+    "rows_append": (RK, (), RK.rows_append_plain, None, 0),
+    "rows_append_cursor": (RK, (SPATIAL,), RK.rows_append_cursor_plain, None, 0),
+    "ring_select_ears": (RK, (SPATIAL,), RK.ring_select_ears_plain,
+                         RK.ring_select_ears_tolerance, None),
+    "ring_select_multi": (RK, (SPATIAL,), RK.ring_select_multi_plain,
+                          RK.ring_select_multi_tolerance, None),
+    "strip_select": (RK, (), RK.strip_select_plain, RK.strip_tolerance, None),
+    "strip_select_record": (RK, (SPATIAL,), RK.strip_select_record_plain,
+                            RK.strip_record_tolerance, None),
+    "ring_place": (SK, (STREAM,), SK.ring_place_plain, None, 0),
+    "ring_place_record": (SK, (SPATIAL,), SK.ring_place_record_plain, None, 0),
+    "ring_resample": (SK, (STREAM,), SK.ring_resample_plain, None, None),
+    "stream_step": (SK, (STREAM,), SK.stream_step_plain, None, None),
+    "arena_step": (SK, (), SK.arena_step_plain, None, None),
+    "arena_warp": (SK, (), SK.arena_warp_plain, None, None),
+    "fader_step": (SK, (), SK.fader_step_plain, "zero sign", None),
+    "agc_step": (A, (ADAPT,), A.agc_step_plain, A.agc_tolerance, None),
+}
+
+#: each launch counter and the wrappers that count in it
+COUNTED_BY = {
+    "append": ("rows_append", "rows_append_cursor"), "append_cursor": ("rows_append_cursor",),
+    "select_ears": ("ring_select_ears",), "select_multi": ("ring_select_multi",),
+    "strip_select": ("strip_select", "strip_select_record"),
+    "strip_select_scenes": ("strip_select_record",),
+    "ring_place": ("ring_place", "ring_place_record"),
+    "ring_resample": ("ring_resample", "stream_step"),
+    "arena_step": ("arena_step", "arena_warp", "fader_step"), "agc_gains": ("agc_step",),
+}
+
+
+def _tensors(x):
+    return list(x) if isinstance(x, tuple) else [x]
+
+
+def _hold_path_kernels(monkeypatch):
+    """Hold every kernel wrapper call made outside a graph capture against
+    its plain version on the same operands: a key's first call runs its
+    block step op by op, so each step's kernels are held once, at the
+    path's own shapes and state.  Returns the calls held, per wrapper."""
+    held = collections.Counter()
+    for name, (home, users, plain, bound, inplace) in PATH_KERNELS.items():
+        kernel = getattr(home, name)
+
+        def spy(*a, _name=name, _kernel=kernel, _plain=plain, _bound=bound, _inplace=inplace,
+                **kw):
+            if torch.cuda.is_current_stream_capturing():
+                return _kernel(*a, **kw)
+            pa = list(a)
+            if _inplace is not None:
+                pa[_inplace] = a[_inplace].clone()
+            got = _kernel(*a, **kw)
+            want = _plain(*pa, **kw)
+            if callable(_bound):
+                tol = _bound(*pa, **kw)
+                for g, w, t in zip(*(_tensors(x) for x in (got, want, tol))):
+                    assert bool(((g - w).abs().double() <= t).all()), _name
+            else:
+                assert _same(got, want, _bound is None), _name
+            held[_name] += 1
+            return got
+
+        for m in (home, *users):
+            monkeypatch.setattr(m, name, spy)
+    return held
+
+
+def _device_audio(out):
+    """A render_frames_device list of (k, C, n) tensors as numpy (k*n, C)."""
+    return torch.cat([o.permute(0, 2, 1).reshape(-1, o.shape[1]) for o in out]).cpu().numpy()
+
+
+def _renderer_path(r, between, blocks=94):
+    """1 s through render_frames, ``between()``, ``blocks`` blocks through
+    render_frames_device: (audio (1, N, C), blocks rendered)."""
+    a = r.render_frames(48000)
+    between()
+    b = _device_audio(r.render_frames_device(512 * blocks))
+    return np.concatenate([a, b])[None], -(-48000 // 512) + blocks
+
+
+def _full_width_path(kind, dev):
+    """``kind``'s engine at its full width and its script: (the Renderer
+    or pack, ``script()`` -> (audio (scenes, N, C), blocks rendered))."""
+    from oddio_tpu_torch.utils.scene_profile import (BUCKETS, build_densemix, build_sampler,
+                                                     build_spatial_sampler, build_wavetable)
+
+    if kind in ("buffered", "seek"):
+        r = pt.Renderer(build_spatial(kind == "buffered", 4096, dev)[1], 48000)
+        return r, lambda: _renderer_path(r, lambda: None)
+    if kind == "mixer":
+        _, mixer, ctls, rng = build_mixer_agc(4096, dev)
+        r = pt.Renderer(mixer, 48000)
+        return r, lambda: _renderer_path(r, lambda: feed(ctls, rng, 1024))
+    if kind == "hostpools":
+        _, scene, ctls, speeds, rng = build_host_pools(4096, dev)
+        r = pt.Renderer(scene, 48000)
+
+        def between():
+            feed(ctls, rng, 1024)
+            for sc in speeds[:64]:
+                sc.set_speed(float(rng.uniform(0.8, 1.25)))
+
+        return r, lambda: _renderer_path(r, between)
+    if kind == "spatial_sampler":
+        drv = build_spatial_sampler(4096, dev)
+        r = pt.Renderer(drv.scene, 48000)
+        return r, lambda: _renderer_path(r, drv.tick)
+    if kind == "sampler":
+        drv = build_sampler(1024, dev)
+        r = pt.Renderer(drv.mixer, 48000, scan_buckets=BUCKETS)
+
+        def script():
+            a = np.concatenate(drv.render(r, 96, device_out=False))
+            return np.concatenate([a, _device_audio(drv.render(r, 96))])[None], 192
+
+        return r, script
+    if kind == "wavetable":
+        mixer, ctls, rng = build_wavetable(1024, dev)
+        r = pt.Renderer(mixer, 48000, scan_buckets=BUCKETS)
+        return r, lambda: _renderer_path(r, lambda: [c.set_speed(1.1) for c in ctls[:64]])
+    if kind == "seek_sampler":
+        _, engine, hs, rng = build_seek_sampler(1024, dev)
+        r = pt.Renderer(engine, 48000, scan_buckets=BUCKETS)
+        return r, lambda: _renderer_path(r, lambda: [
+            h.set_motion(rng.uniform(-15, 15, 3), rng.uniform(-5, 5, 3), False) for h in hs[:64]])
+    if kind == "densemix":
+        root, _, ctls, rng = build_densemix(1024, dev)
+        r = pt.Renderer(root, 48000, scan_unroll=4, scan_buckets=BUCKETS)
+        return r, lambda: _renderer_path(r, lambda: [c.set_gain(float(rng.uniform(-20, 0)))
+                                                     for c in ctls[:64]])
+    if kind == "spatial_pack":
+        pack = build_spatial_pack(16, dev)
+        return pack, lambda: (_pack_run(pack, [], [], 4, 60), 64)
+    S = int(kind.removeprefix("config5_pack"))
+    pack, ctls, rng = build_config5_pack(S, dev)
+    pcm = (rng.standard_normal((len(ctls), 1024)) * 0.1).astype(np.float32)
+    return pack, lambda: (_pack_run(pack, ctls, pcm, 4, 60), 64)
+
+
+#: each path's kernels (launch counter -> launches a block; None: some);
+#: a config-5 pack's as its Mixer's, whatever its scenes
+FULL_WIDTH = {
+    "buffered": {"append": None, "append_cursor": None, "select_ears": None,
+                 "select_multi": None},
+    "seek": {},
+    "mixer": {"ring_place": None, "ring_resample": 1, "agc_gains": 2},
+    "hostpools": {"append": None, "append_cursor": None, "select_ears": 1,
+                  "strip_select": 2, "ring_place": None, "ring_resample": 2, "agc_gains": 3},
+    "spatial_sampler": {"append": None, "append_cursor": None, "select_ears": None,
+                        "select_multi": None, "arena_step": None},
+    "sampler": {"arena_step": 1}, "wavetable": {"arena_step": 1},
+    "seek_sampler": {"arena_step": 1}, "densemix": {},
+    "spatial_pack": {"append": 1, "append_cursor": 1, "select_ears": 1},
+    **{f"config5_pack{S}": {"ring_place": None, "ring_resample": 1, "agc_gains": 2}
+       for S in (16, 64, 256)},
+}
+
+
+@pytest.mark.parametrize("kind", list(FULL_WIDTH))
+def test_path_at_full_width(cuda, kind, monkeypatch):
+    """Each path at its full width (the 4096-voice buffered, seek,
+    config-5 mixer, host-pool and spatial-sampler scenes over 1 s and 94
+    blocks with their control between; config 2's sampler, the
+    wavetable, the seek sampler and config 4's dense mix at 1024 voices;
+    the 16-scene spatial pack and the config-5 pack of 16, 64 and 256
+    scenes of 256 voices over 64 blocks), replaying graphs: bit-equal to
+    the same script under ``eager()`` (-0.0 as 0.0), every kernel's
+    launches equal; finite and audible in every scene (the dense mix
+    within tanh(1)); its kernels and no other launched, K1 only through
+    its cursor form, as often a block as ``FULL_WIDTH`` says; every
+    kernel call outside a capture (each block step's first run, every
+    eager call) held against its plain version on the same operands
+    (within the kernel's tolerance, or bit for bit); no recapture; then 32
+    single-block calls, replays at least 90% of them."""
+    held = _hold_path_kernels(monkeypatch)
+    runs = []
+    for mode in ("eager", "graph"):
+        engine, script = _full_width_path(kind, cuda)
+        _reset_all()
+        with _mode(mode):
+            x, nblk = script()
+        torch.cuda.synchronize()
+        runs.append((x + np.float32(0.0), {k.rsplit(".", 1)[1]: v
+                                           for k, v in _all_launches().items()}))
+    (xe, le), (x, got) = runs
+    assert np.isfinite(x).all() and np.abs(x).max(axis=(1, 2)).min() > 1e-3, kind
+    np.testing.assert_array_equal(x, xe)
+    assert got == le, (got, le)
+    if kind == "densemix":
+        assert np.abs(x).max() <= np.tanh(1.0) + 1e-6
+    want = FULL_WIDTH[kind]
+    assert set(got) == set(want), got
+    assert all(got[k] == v * nblk for k, v in want.items() if v is not None), (nblk, got)
+    assert got.get("append_cursor") == got.get("append"), got
+    for counter in got:
+        assert any(held[w] for w in COUNTED_BY[counter]), (counter, dict(held))
+    before = dict(engine.graph_counts)
+    for _ in range(32):
+        engine.render_frames_device(512)
+    torch.cuda.synchronize()
+    c = engine.graph_counts
+    replays, calls = (c["replays"] - before["replays"],
+                      c["replays"] + c["eager"] - before["replays"] - before["eager"])
+    assert c["recaptures"] == 0 and replays >= 0.9 * calls, (before, c)

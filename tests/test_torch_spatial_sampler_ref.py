@@ -1,7 +1,7 @@
-"""The spatial sampler's plain reference (``reference_torch_spatial_sampler``,
-the benchmark's ``benchmark/reference/spatial_sampler.py`` byte for byte)
-against the port and against the exact oracle, on the CPU, at a small
-size: a SpatialScene of ``FramesSignal``, ``Speed(FramesSignal)``,
+"""The spatial sampler's plain reference (the benchmark's
+``benchmark/reference/spatial_sampler.py``, loaded by path) against the
+port and against the exact oracle, on the CPU, at a small size: a
+SpatialScene of ``FramesSignal``, ``Speed(FramesSignal)``,
 ``Fader(Speed(FramesSignal))`` and ``Cycle`` voices in delay-ring pools,
 driven as a game drives it (one-shots replayed as their handles show
 them finished, walking-size motion reports, speed writes, fades), and
@@ -16,6 +16,8 @@ crossfade, a speed write ignored, a replay dropped) moves the PCM by far
 more.  Needs no JAX.
 """
 
+import importlib.util
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -24,9 +26,24 @@ import torch
 
 import oddio_tpu_torch as pt
 import reference_impl as oracle
-import reference_torch_spatial_sampler as R
 
 torch.set_num_threads(1)
+
+#: the benchmark's plain references (``benchmark/`` is not a package)
+REFERENCE = Path(__file__).resolve().parents[1] / "benchmark" / "reference"
+
+
+def _load(name):
+    """``benchmark/reference/<name>.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(f"_benchmark_reference_{name}",
+                                                  REFERENCE / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+R = _load("spatial_sampler")
 
 F = np.float32
 RATE, BLOCK, SR = 48000, 512, 44100
@@ -144,15 +161,12 @@ def _err(have, inp, blocks=40):
     return float((have - R.render(inp, list(range(blocks)))).abs().max())
 
 
-def test_the_benchmark_copy_is_this_file_byte_for_byte():
-    here = Path(__file__).resolve().parent
-    a = (here / "reference_torch_spatial_sampler.py").read_bytes()
-    b = (here.parent / "benchmark" / "reference" / "spatial_sampler.py").read_bytes()
-    assert a == b
-
-
-def test_reference_imports_neither_jax_nor_the_program():
-    src = Path(R.__file__).read_text()
+@pytest.mark.parametrize("name", ["spatial", "mixer_agc", "spatial_sampler"])
+def test_reference_imports_neither_jax_nor_the_program(name):
+    """Each of the benchmark's plain references imports only the standard
+    library's math, numpy and torch, and loading it leaves TF32 off."""
+    _load(name)
+    src = (REFERENCE / f"{name}.py").read_text()
     imports = [ln.split()[1].split(".")[0] for ln in src.splitlines()
                if ln.startswith(("import ", "from "))]
     assert set(imports) <= {"__future__", "math", "numpy", "torch"}
