@@ -287,10 +287,10 @@ def _own_leaves(d0, d2):
 def _launch_counters():
     """Every kernel wrapper's launch counter dict (their wrappers count on
     the host; a replayed graph calls none of them)."""
-    from ..ops import agc, flat_kernels, ring_kernels, stream_kernels
+    from ..ops import agc, flat_kernels, ring_kernels, stream_kernels, walk
 
     return (ring_kernels.LAUNCHES, stream_kernels.LAUNCHES, agc.LAUNCHES,
-            flat_kernels.LAUNCHES)
+            flat_kernels.LAUNCHES, walk.LAUNCHES)
 
 
 class _RowUpload:

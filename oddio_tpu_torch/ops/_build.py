@@ -107,6 +107,11 @@ _SIGNATURES = {
             _vp,                           # stream
         ],
     },
+    "walk_kernel": {
+        # ptrs (host array), scalars (host array), V, voices per rot_prev
+        # row, per rot row, per nw entry, motion lanes, cap, stream
+        "voice_walk": [_vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _vp],
+    },
     "select_kernel": {
         "strip_select": [
             _vp, _i32, _i32,               # ring, L, can_stage

@@ -61,7 +61,6 @@ from .core.frames import FramesSignal
 from .core.signal import Engine, default_device, render_as
 from .mixer import _graph_chain, _ingest_leaves, render_submix
 from .ops._dev import (
-    device_split_ds,
     exact_positions,
     masked_voice_sum,
     per_voice,
@@ -92,6 +91,7 @@ from .ops.ring_kernels import (
     voice_record,
 )
 from .ops.stream_kernels import ring_place_plain, ring_place_record
+from .ops.walk import WALK_KEYS, voice_walk, walk_geometry
 from .parallel.context import (RenderDevice, add_block, current_scenes, in_block_step,
                                localize_index)
 from .utils.profiler import count, span
@@ -123,51 +123,6 @@ def _emax(rate):
     row granularity + the inter-ear distance in samples (|d_L - d_R| <=
     0.215 m, spatial.rs:571-598) + slack."""
     return RING_ROW + int(np.ceil(0.215 / float(SPEED_OF_SOUND) * rate)) + 2
-
-
-def voice_cursor_advance(vcur, vbase, max_delay, adv, rate, cap):
-    """The reference's delay-ring write cursor (ring.rs:18-41) for each
-    voice of a buffered pool whose rings share one modulus ``cap``,
-    advanced one block in float32 as the reference rounds it.
-
-    A voice's own ring holds ``c = ceil(max_delay*rate) + 1`` samples and
-    its write cursor ``vcur`` in [0, c) advances by ``adv`` (the block's
-    f32 ``elapsed*rate``) modulo c; ``vbase`` is the pool ring index of the
-    voice ring's index 0 in the current lap.  Returns (vcur', vbase', c,
-    the unwrapped sum ``vcur + adv``)."""
-    c = torch.ceil(max_delay * float(np.float32(rate))) + 1.0
-    un = vcur + float(np.float32(adv))
-    nxt = torch.fmod(un, c)
-    return nxt, torch.remainder(vbase + (un - nxt).to(_I32), cap), c, un
-
-
-def voice_write_count(vcur, nxt, un):
-    """What a block writes by a voice's own cursor, from ``vcur`` to
-    ``nxt`` (``voice_cursor_advance``'s, with its unwrapped sum ``un``):
-    ``ceil(end) - ceil(start)`` samples (ring.rs:18-41), int32.  That is
-    the pool's count but in the one block where a first-lap cursor's
-    fraction rounds away as it grows past a power of two: 511 of 512 at
-    48 kHz, in ~0.1% of voices."""
-    return (torch.ceil(nxt) - torch.ceil(vcur) + (un - nxt)).to(_I32)
-
-
-def voice_reads(vcur, vbase, c, offsets, rate, cap):
-    """The reads of each voice's advanced cursor (ring.rs:51-79): an ear at
-    offset ``t`` seconds reads from ``(vcur + t*rate) rem_euclid c``, one
-    (base int32 pool index, frac in [0, 1)) per offset.  The pool's shared
-    cursor rounds the same sums at another magnitude, which moved the
-    reads by up to ~1e-3 samples from the reference's (ROADMAP Q3.1)."""
-    ratef = float(np.float32(rate))
-    ci = c.to(_I32)
-    out = []
-    for t in offsets:
-        x = vcur + t * ratef
-        lap = x < 0.0  # the read lies in the previous lap
-        off = torch.where(lap, x + c, x)
-        fl = torch.floor(off)
-        out.append((torch.remainder(vbase - torch.where(lap, ci, 0) + fl.to(_I32), cap),
-                    off - fl))
-    return out
 
 
 def _host_write_counts(vcur, max_delay, adv, rate):
@@ -204,12 +159,6 @@ def _before_legs(FP, cap, M, device):
         legs = np.stack([FP + p, FP + cap + np.minimum(p, M)], axis=1)
         legs = _BEFORE_LEGS[key] = torch.as_tensor(legs, device=device)
     return legs
-
-
-def _rot_rows(rot, V):
-    """The listener rotation a walk applies: one shared (4,) quaternion, or
-    a ScenePack's (S, 4), one per scene, repeated for its V/S voice rows."""
-    return rot if rot.dim() == 1 else rot.repeat_interleave(V // rot.shape[0], dim=0)
 
 
 def _smooth_host(prev, smdt, dt_extra, mpos, mvel):
@@ -1061,70 +1010,29 @@ class _DRPoolBase(DRCtrlMixin):
         count("motion.deferred", len(self.pending_motion))
         return params
 
-    def _walk_device(self, S, params, elapsed):
-        """Device control walk: apply play/motion deltas, smooth + rotate
-        positions, lingering reclamation (spatial.rs:204-261).  Returns
-        (S, mask, prev_pos, next_pos), positions as (V,) component tuples."""
-        V = S["mask"].shape[0]
-        dev = self.device
-
+    def _walk_controls(self, S, params):
+        """The walk's first step on the device, in place in the dict ``S``:
+        plays, control-field deltas and fade starts."""
         # 1. plays (set.rs insert semantics: applied before the walk)
         if "play_idx" in params:
-            self._scatter_rows(S, localize_index(params["play_idx"], V), params["play"])
-
+            self._scatter_rows(S, localize_index(params["play_idx"], S["mask"].shape[0]),
+                               params["play"])
         # 1b. control-field deltas (set_gain/set_speed/..., gain.rs:103-108)
         S["inner"] = self._ctrl_apply(S["inner"], params)
         # 1c. fade starts (fader.rs:86-93 swap-channel delivery)
         S["inner"] = self._fade_apply(S["inner"], params)
 
-        # 2. motion refresh (swap-channel drain + smoothing, spatial.rs:216-227);
-        # a block whose lanes are all padding leaves every column as it was
-        if "mot_idx" in params:
-            lanes = drop_lanes(device_param(localize_index(params["mot_idx"], V), dev), V)
-            upd = scatter_drop_(torch.zeros(V, dtype=torch.bool, device=dev), lanes,
-                                torch.ones((), dtype=torch.bool, device=dev))
-            pend_pos = scatter_drop_(S["motion_pos"].clone(), lanes,
-                                     device_param(params["mot_pos"], dev, _F32))
-            pend_vel = scatter_drop_(S["motion_vel"].clone(), lanes,
-                                     device_param(params["mot_vel"], dev, _F32))
-            pend_disc = scatter_drop_(torch.zeros(V, dtype=torch.bool, device=dev), lanes,
-                                      device_param(params["mot_disc"], dev, torch.bool))
-            sm_orig = smoothed_position(
-                S["prev_position"], S["smdt"], 0.0, S["motion_pos"],
-                S["motion_vel"],
-            )
-            new_prev = torch.where(pend_disc[:, None], pend_pos, sm_orig)
-            S["prev_position"] = torch.where(
-                upd[:, None], new_prev, S["prev_position"]
-            )
-            S["smdt"] = torch.where(upd, 0.0, S["smdt"])
-            S["motion_pos"] = torch.where(upd[:, None], pend_pos, S["motion_pos"])
-            S["motion_vel"] = torch.where(upd[:, None], pend_vel, S["motion_vel"])
-
-        # 3. geometry (spatial.rs:228-238), component-split
-        prev3 = unstack3(S["prev_position"])
-        mp3 = unstack3(S["motion_pos"])
-        mv3 = unstack3(S["motion_vel"])
-        sm0 = smoothed_position_c(prev3, S["smdt"], 0.0, mp3, mv3)
-        sm1 = smoothed_position_c(prev3, S["smdt"], elapsed, mp3, mv3)
-        # a pack's rotations are per scene, (S, 4): one per voice row
-        prev_pos = quat_rotate_c(_rot_rows(params["rot_prev"], V), sm0)
-        next_pos = quat_rotate_c(_rot_rows(params["rot"], V), sm1)
-        ef = float(np.float32(elapsed))
-        S["smdt"] = S["smdt"] + ef
-
-        # 4. lingering reclamation (spatial.rs:241-261)
-        dist = v3_norm_c(prev_pos)
-        inner_fin = self.proto.dr_is_finished(S["inner"])
-        ff = S["finished_for"]
-        lingering = ~torch.isnan(ff)
-        expire = lingering & (ff > dist / float(SPEED_OF_SOUND))
-        S["stopped"] = S["stopped"] | (expire & S["mask"])
-        ff = torch.where(lingering & ~expire, ff + ef, ff)
-        newly = S["mask"] & ~lingering & inner_fin
-        S["finished_for"] = torch.where(newly, ef, ff)
-        S["mask"] = S["mask"] & ~S["stopped"]
-        return S, S["mask"], prev_pos, next_pos
+    def _motion_lanes(self, params, V):
+        """The block's motion lanes as ``ops.walk`` takes them (slots, their
+        positions, velocities and discontinuity flags, on the device), or
+        None on a block that ships none."""
+        if "mot_idx" not in params:
+            return None
+        dev = self.device
+        return (device_param(localize_index(params["mot_idx"], V), dev, _I32),
+                device_param(params["mot_pos"], dev, _F32),
+                device_param(params["mot_vel"], dev, _F32),
+                device_param(params["mot_disc"], dev, torch.bool))
 
     def render_multi(self, dstate, ddata, params, n, nb):
         """Default fused idle group: loop the per-block render.  Returns
@@ -1170,7 +1078,12 @@ class _SeekPoolDR(_DRPoolBase):
     def render(self, dstate, ddata, params, n):
         S = dict(dstate)
         elapsed = np.float32(self._elapsed)
-        S, mask, prev_pos, next_pos = self._walk_device(S, params, elapsed)
+        # the walk (spatial.rs:204-261) op by op: plays, control and fade
+        # lanes, motion, smoothed and rotated positions, lingering
+        self._walk_controls(S, params)
+        mask, prev_pos, next_pos = walk_geometry(
+            S, self._motion_lanes(params, S["mask"].shape[0]), params["rot_prev"],
+            params["rot"], elapsed, self.proto.dr_is_finished(S["inner"]))
 
         # per-ear offsets/gains and warp rates (spatial.rs:445-453)
         p_off_c, p_gain_c = ear_states_c(prev_pos, S["radius"])
@@ -1210,7 +1123,9 @@ class _BufferedPoolDR(_DRPoolBase):
     (``rows_append_cursor``, K1) into every voice, primary and mirror
     legs, in place.  Each read is one kernel launch straight from the ring
     (``ring_select_ears``, K2; ``ring_select_multi``, K3, for fused idle
-    groups), on the operands ``_advance_block`` leaves on the device.
+    groups), on the operands ``_advance_block`` leaves on the device: the
+    walk, the voices' own cursors and the read preparation are one launch
+    too (``ops.walk.voice_walk``), after the plays and control lanes.
     """
 
     ROW_KEYS = _DRPoolBase.GEOM_KEYS + ("max_delay", "phase", "tight", "vcur", "vbase")
@@ -1636,6 +1551,9 @@ class _BufferedPoolDR(_DRPoolBase):
             self._prep_inv = (elapsed, n_inner, advf, ratio)
         self._elapsed = elapsed
         self._n_inner = n_inner
+        # the render's walk route: the hand kernel on a card, the torch
+        # chain (its plain version) elsewhere
+        count("walk.fused" if self.device.type == "cuda" else "walk.chain")
         # shared ring cursor bookkeeping (ring.rs:18-41), host-authoritative
         cap = self.cap_pool
         w0f = float(self._w_host)
@@ -1903,8 +1821,6 @@ class _BufferedPoolDR(_DRPoolBase):
         S = dict(dstate)
         dev = self.device
         elapsed = np.float32(self._elapsed)
-        ef = float(elapsed)
-        ratef = float(np.float32(self.rate))
         n_inner = self._n_inner
         if "vcur" not in S:
             # a state carried from the JAX package: the voice cursors from
@@ -1912,8 +1828,9 @@ class _BufferedPoolDR(_DRPoolBase):
             # write their own
             S.update(self._voice_cursors_from_phase(S, S["wcur"]))
 
-        # 1-4. control walk (plays, motion, geometry, lingering)
-        S, mask, prev_pos, next_pos = self._walk_device(S, params, elapsed)
+        # 1. plays, control and fade lanes
+        self._walk_controls(S, params)
+        V = S["mask"].shape[0]
 
         # 5. shared ring cursor: host scalars on delta blocks (resyncing the
         # device cursor), derived on the device from "wcur" on param-free
@@ -1921,7 +1838,6 @@ class _BufferedPoolDR(_DRPoolBase):
         # scene: (1,), or a ScenePack's (S,)
         cap = self.cap_pool
         capf = float(cap)
-        V = mask.shape[0]
         if "w" in params:
             w_end = device_param(params["w"], dev, _F32).reshape(-1)
             nw_s = device_param(params["nw"], dev, _I32).reshape(-1)
@@ -1934,25 +1850,21 @@ class _BufferedPoolDR(_DRPoolBase):
             start_i = torch.ceil(w0).to(_I32)
             nw_s = torch.ceil(w_un).to(_I32) - start_i
         S["wcur"] = w_end
-        # each voice's own ring cursor (ring.rs:18-41), advanced; on the
-        # aligned path its source advances by what that cursor writes, and
-        # a voice whose cursor wrote one short runs a sample ahead of the
-        # pool's cursor from then on (``late``)
-        vc0 = S["vcur"]
-        S["vcur"], S["vbase"], c_v, un = voice_cursor_advance(
-            vc0, S["vbase"], S["max_delay"], self._adv(), self.rate, cap)
-        late = None
-        if self._w_aligned and self._own_counts:
-            nw_v = voice_write_count(vc0, S["vcur"], un)
-            lag = S.get("lag")
-            if lag is None:  # a state carried from the JAX package
-                lag = torch.zeros_like(S["vbase"])
-            late = lag > 0
-            S["lag"] = lag + per_voice(nw_s, V) - nw_v
-        else:
-            nw_v = per_voice(nw_s, V)
-        # dead/unplayed slots do not advance their inner cursors
-        n_write = torch.where(mask, nw_v, 0)
+
+        # 2-4, the voices' own ring cursors of 5, and 7: the walk (motion,
+        # geometry, lingering), each voice's cursor advance (ring.rs:18-41;
+        # on the aligned path its source advances by what that cursor
+        # writes, and a voice whose cursor wrote one short runs a sample
+        # ahead of the pool's cursor from then on: ``late``) and the
+        # per-ear read operands (spatial.rs:409-431), one kernel on a card
+        own = bool(self._w_aligned and self._own_counts)
+        if own and "lag" not in S:  # a state carried from the JAX package
+            S["lag"] = torch.zeros_like(S["vbase"])
+        cols, ro, n_write, late = voice_walk(
+            {k: S[k] for k in WALK_KEYS if k in S}, self._motion_lanes(params, V),
+            params["rot_prev"], params["rot"], self.proto.dr_is_finished(S["inner"]), nw_s,
+            elapsed=elapsed, adv=self._adv(), rate=self.rate, cap=cap, n=n, late=own)
+        S.update(cols)
 
         # 6. inner source render; slab append (ring.rs:18-41).  All n_inner
         # frames are written every block; the <=1-frame overlap past
@@ -2000,39 +1912,7 @@ class _BufferedPoolDR(_DRPoolBase):
                 )
                 flat.scatter_(1, c2[:, None] + lanes, chunk)
         S["ring"] = ring
-
-        # 7. per-ear read operands (spatial.rs:409-431), component-split
-        p_off_c, p_gain_c = ear_states_c(prev_pos, S["radius"])
-        n_off_c, n_gain_c = ear_states_c(next_pos, S["radius"])
-        nmd = -S["max_delay"]
-        p_off_c = [torch.maximum(po - ef, nmd) for po in p_off_c]
-        n_off_c = [torch.maximum(no, nmd) for no in n_off_c]
-        nf = float(np.float32(n)) if n > 0 else 1.0
-        d_gain_c = [(n_gain_c[e] - p_gain_c[e]) / nf for e in range(2)]
-        # the read cursor as the reference rounds it: each voice's own ring
-        # cursor, not the pool's shared one (ROADMAP Q3.1)
-        cursors = voice_reads(S["vcur"], S["vbase"], c_v, p_off_c, self.rate, cap)
-        base_c = [c[0] for c in cursors]
-        frac_c = [c[1] for c in cursors]
-        split_c = [
-            device_split_ds(((n_off_c[e] - p_off_c[e]) / nf) * ratef)
-            for e in range(2)
-        ]
-        maskf = mask.to(_F32)
-        # per-ear FROZEN flags: a fully offset-clamped voice (spatial.rs:
-        # 414-416) has n_off == p_off exactly, so its read step is exactly
-        # zero and the select kernel repeats its j = 0 sample
-        frz_c = [(n_off_c[e] == p_off_c[e]).to(_F32) for e in range(2)]
-        return S, {
-            "mask": mask,
-            "maskf": maskf,
-            "p_gain_c": p_gain_c,
-            "d_gain_c": d_gain_c,
-            "base_c": base_c,
-            "frac_c": frac_c,
-            "split_c": split_c,
-            "frz_c": frz_c,
-        }
+        return S, ro
 
     def render(self, dstate, ddata, params, n):
         S, ro = self._advance_block(dstate, ddata, params, n)

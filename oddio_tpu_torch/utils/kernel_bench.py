@@ -5,8 +5,9 @@ pools' shapes for K2/K3 (``read_*``, ``group_operands``), K8/K10
 of a buffered pool's reads (``capture_states``, ``block_reads``) and of
 the device-resident pools' steps (``dr_pools``, ``capture_steps``,
 ``arena_states``), replayed through the kernels or their plain versions
-(``step_call``); and ``device_profile``, the device kernels a call
-launches, as ``torch.profiler`` counts them on the card.
+(``step_call``); the buffered pool's walk (``walk_operands``); and
+``device_profile``, the device kernels a call launches, as
+``torch.profiler`` counts them on the card.
 
 Timing lives in ``benchmark/``: its traced slice reads each kernel's
 device time on the cells and its ``*_roofline_pct`` metrics hold it
@@ -174,6 +175,16 @@ def group_operands(dev, rng, Vs, K, n, base0, nb=4, walk=0.9, cap=READ_CAP):
     return (ros,) + multi_rows(n, K, nb)
 
 
+def _walk_copy(dstate):
+    """``dstate`` with its walked columns (``ops.walk.WALK_KEYS``) copied: on
+    a card the walk writes them in place, and a captured block replays
+    from its own.  The ring stays shared, as every append writes it in
+    place."""
+    from oddio_tpu_torch.ops.walk import WALK_KEYS
+
+    return {k: v.clone() if k in WALK_KEYS else v for k, v in dstate.items()}
+
+
 def capture_states(scene):
     """Render the buffered ``scene`` (one device-resident pool) through a
     ``Renderer`` and capture its pool's ``render`` and ``render_multi``
@@ -188,9 +199,9 @@ def capture_states(scene):
     pool = next(iter(scene._buffered_pools.values()))
     caps = {"render": [], "render_multi": []}
     for kind in caps:
-        def spy(*a, _inner=getattr(pool, kind), _kind=kind):
-            caps[_kind].append(a)
-            return _inner(*a)
+        def spy(dstate, *a, _inner=getattr(pool, kind), _kind=kind):
+            caps[_kind].append((_walk_copy(dstate),) + a)
+            return _inner(dstate, *a)
         setattr(pool, kind, spy)
     r = pt.Renderer(scene, 48000)
     try:
@@ -211,13 +222,97 @@ def capture_states(scene):
 
 def block_reads(pool, dstate, ddata, params, n, nb=1):
     """The read operands ``_advance_block`` leaves for a captured state's
-    ``nb`` blocks (their appends land in the ring, as in the render):
-    (the last block's state, [ro per block])."""
+    ``nb`` blocks (their appends land in the ring, as in the render; the
+    captured columns stay as they were): (the last block's state, [ro per
+    block])."""
     ros = []
+    dstate = _walk_copy(dstate)
     for _ in range(nb):
         dstate, ro = pool._advance_block(dstate, ddata, params, n)
         ros.append(ro)
     return dstate, ros
+
+
+# --- the buffered pool's walk ------------------------------------------------------
+
+#: ``walk_operands``' cases: (voices, scenes, motion lanes a scene, late
+#: path, share of lingering voices, share of voices out past max_delay*c)
+WALK_CASES = {
+    "4096 voices": (4096, 1, 64, False, 0.0, 0.0),
+    "pack 16 x 256": (4096, 16, 64, True, 0.02, 0.02),
+    "late": (1000, 1, 0, True, 0.0, 0.0),
+    "motion lanes": (1000, 1, 200, False, 0.0, 0.0),
+    "lingering": (1000, 1, 0, False, 0.3, 0.0),
+    "frozen": (1000, 1, 16, True, 0.0, 0.3),
+}
+
+
+def _unit_quats(rng, k):
+    q = rng.standard_normal((k, 4))
+    return q / np.linalg.norm(q, axis=1, keepdims=True)
+
+
+def walk_operands(dev, rng, case, rate=48000, cap=16384, n=W):
+    """One block's ``ops.walk.voice_walk`` operands for a ``WALK_CASES``
+    case, on ``dev``: voices within +-15 m moving at up to 2 m/s, a third
+    still smoothing toward a 1 m jump; the ``far`` share 100-150 m out
+    (offset-clamped: frozen); a 5% share of slots free; a ``linger``
+    share finished 0 to 0.3 s ago (many expire: 15 m is 44 ms of sound)
+    and as many whose source finished this block; cursors anywhere in
+    their rings, a third of the late path's lags 1.  Motion lanes per
+    scene: its distinct slots, a fifth padding (slot V), one lane
+    repeating another's slot and values, discontinuities on a third.
+    Returns (args, kwargs) as ``voice_walk`` takes them."""
+    V, S, k, late, linger, far = WALK_CASES[case]
+    F = np.float32
+    vps = V // S
+    pos = rng.uniform(-15, 15, (V, 3))
+    out = rng.uniform(0, 1, V) < far
+    pos[out] = rng.uniform(100, 150, (int(out.sum()), 3)) * rng.choice([-1.0, 1.0], (int(out.sum()), 3))
+    vel = np.where(out[:, None], 0.0, rng.uniform(-2, 2, (V, 3)))
+    smoothing = rng.uniform(0, 1, V) < 1 / 3
+    prev = pos + np.where(smoothing[:, None], rng.uniform(-1, 1, (V, 3)), 0.0)
+    smdt = np.where(smoothing, rng.uniform(0, 0.5, V), rng.uniform(0.5, 4, V))
+    md = np.full(V, F(F(50.0) / F(343.0)) + F(0.1), F)
+    mask = rng.uniform(0, 1, V) > 0.05
+    ff = np.full(V, np.nan, F)
+    lingering = mask & (rng.uniform(0, 1, V) < linger)
+    ff[lingering] = rng.uniform(0, 0.3, int(lingering.sum()))
+    fin = mask & ~lingering & (rng.uniform(0, 1, V) < linger)
+    c = np.ceil(md * F(rate)) + 1
+    st = {"mask": mask, "stopped": ~mask, "finished_for": ff, "smdt": smdt,
+          "prev_position": prev, "motion_pos": pos, "motion_vel": vel,
+          "vcur": rng.uniform(0, 1, V) * (c - 1), "vbase": rng.integers(0, cap, V),
+          "radius": rng.uniform(0.1, 1.0, V), "max_delay": md}
+    st = {key: _t(x, dev, np.int32 if key == "vbase" else bool if key in ("mask", "stopped")
+                  else np.float32) for key, x in st.items()}
+    if late:
+        st["lag"] = _t(rng.uniform(0, 1, V) < 1 / 3, dev, np.int32)
+    motion = None
+    if k:
+        idx, mpos, mvel, disc = [], [], [], []
+        for s in range(S):
+            slots = s * vps + rng.choice(vps, k, replace=False)
+            slots[rng.uniform(0, 1, k) < 0.2] = V  # padding
+            p = rng.uniform(-15, 15, (k, 3))
+            v = rng.uniform(-2, 2, (k, 3))
+            d = rng.uniform(0, 1, k) < 1 / 3
+            slots[-1], p[-1], v[-1], d[-1] = slots[0], p[0], v[0], d[0]  # a repeat
+            idx.append(slots)
+            mpos.append(p)
+            mvel.append(v)
+            disc.append(d)
+        motion = (_t(np.concatenate(idx), dev, np.int32), _t(np.concatenate(mpos), dev),
+                  _t(np.concatenate(mvel), dev), _t(np.concatenate(disc), dev, bool))
+    rots = [_t(_unit_quats(rng, S), dev) for _ in range(2)]
+    if S == 1:
+        rots = [r[0].contiguous() for r in rots]
+    elapsed = F(F(F(1.0) / F(rate)) * F(n))
+    kw = dict(elapsed=elapsed, adv=float(F(elapsed * F(rate))), rate=rate, cap=cap, n=n,
+              late=late)
+    nw = _t(np.full(S, n), dev, np.int32)
+    inner_fin = _t(fin, dev, bool)
+    return (st, motion, rots[0], rots[1], inner_fin, nw), kw
 
 
 # --- the device-resident pools' steps (K6, K7) -------------------------------------

@@ -20,6 +20,8 @@ render within 1e-5 of the CPU; the host-pool scene and pack graph
 against eager bit for bit through a fly-by across K5's strip gate; the
 spatial sampler and the seek chains graph against eager bit for bit, and
 their steps captured again after a new ``Frames``;
+the buffered pool's walk (``ops/walk.py``) bit-equal to the torch chain
+run on the same CUDA tensors, in a graph too, one device kernel;
 K7, the whole Adapt step, within ``agc.agc_tolerance`` elementwise
 (another order of the prefix sum) at every block length up to 1024; K5 within ``ring_kernels.strip_tolerance``
 elementwise (its voice sum in another, fixed order); K8 within
@@ -66,6 +68,7 @@ from oddio_tpu_torch.ops import flat_kernels as FK
 from oddio_tpu_torch.ops import ring_kernels as RK
 from oddio_tpu_torch.ops import stream as STREAM
 from oddio_tpu_torch.ops import stream_kernels as SK
+from oddio_tpu_torch.ops import walk as WALK
 from oddio_tpu_torch.ops._dev import device_split_ds, split_ds
 from oddio_tpu_torch.utils import kernel_bench as KB
 from oddio_tpu_torch.core.run import eager
@@ -93,12 +96,13 @@ def cuda():
 
 
 def _reset_all():
-    for m in (RK, SK, A, FK):
+    for m in (RK, SK, A, FK, WALK):
         m.reset_launches()
 
 
 def _all_launches():
-    return {f"{m.__name__}.{k}": v for m in (RK, SK, A, FK) for k, v in m.LAUNCHES.items() if v}
+    return {f"{m.__name__}.{k}": v for m in (RK, SK, A, FK, WALK)
+            for k, v in m.LAUNCHES.items() if v}
 
 
 #: the one-device-kernel checks (a function of this module and its
@@ -107,7 +111,8 @@ DEVICE_KERNEL_CASES = (
     [("_pool_read_kernels", r) for r in ("alone", "delta block", "idle block", "idle group")]
     + [("_adapt_step_kernels", e) for e in ("mixer", "hostpools", "pack")]
     + [("_flat_kernels", k) for k in ("window_select", "dma_window_select")]
-    + [("_arena_step_states", p) for p in ("sampler", "wavetable", "seek")])
+    + [("_arena_step_states", p) for p in ("sampler", "wavetable", "seek")]
+    + [("_walk_kernels", c) for c in ("4096 voices", "pack 16 x 256")])
 
 
 @pytest.fixture(scope="module")
@@ -400,6 +405,88 @@ def _pool_read_kernels(read):
                         "idle group": (groups[1], pool.render_multi)}[read]
         count = (KB.device_profile(lambda: whole(*state))
                  - KB.device_profile(lambda: KB.block_reads(pool, *state)))
+    assert count == 1, count
+
+
+# --- the buffered pool's walk ------------------------------------------------------------
+
+
+def _walk_clone(st):
+    return {k: v.clone() for k, v in st.items()}
+
+
+def _differ(got, want, path="out"):
+    """The leaves of two results that are not bit-equal (NaN bits
+    included), each with its count of differing elements."""
+    if isinstance(got, dict):
+        return [d for k in got for d in _differ(got[k], want[k], f"{path}.{k}")]
+    if isinstance(got, (tuple, list)):
+        return [d for i, (g, w) in enumerate(zip(got, want))
+                for d in _differ(g, w, f"{path}[{i}]")]
+    if got is None or want is None:
+        return [] if got is want else [(path, "None")]
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return [(path, (got.dtype, tuple(got.shape), want.dtype, tuple(want.shape)))]
+    a, b = ((x.view(torch.int32) if x.dtype == torch.float32 else x) for x in (got, want))
+    n = int((a != b).sum())
+    return [(path, n)] if n else []
+
+
+@pytest.mark.parametrize("case", list(KB.WALK_CASES))
+def test_voice_walk_exact(cuda, case):
+    """The walk kernel bit-equal to its plain version, the torch chain run
+    on the same CUDA tensors: every column it writes in place, every read
+    operand, the frames each source renders and the late flags.  Cases
+    (``kernel_bench.WALK_CASES``): 4096 voices with 64 motion lanes; a 16
+    x 256 pack with (S, 4) rotations, per-scene write counts, lanes per
+    scene, lingering and frozen voices on the late path; the late path
+    alone; 200 lanes of distinct, padding and repeated slots, a third
+    discontinuous; a third of the voices lingering (many expire) and as
+    many newly finished; a third offset-clamped (frozen ears).  One
+    launch a call, the columns written where they lie, two runs
+    bit-equal."""
+    (st, *rest), kw = KB.walk_operands(cuda, np.random.default_rng(11), case)
+    cols = _walk_clone(st)
+    before = WALK.LAUNCHES["voice_walk"]
+    got = WALK.voice_walk(cols, *rest, **kw)
+    again = WALK.voice_walk(_walk_clone(st), *rest, **kw)
+    want = WALK.voice_walk_plain(_walk_clone(st), *rest, **kw)
+    torch.cuda.synchronize()
+    assert WALK.LAUNCHES["voice_walk"] == before + 2
+    assert not _differ(got, want), _differ(got, want)
+    assert not _differ(got, again), _differ(got, again)
+    assert all(got[0][k] is cols[k] for k in got[0])
+    assert got[1]["mask"] is cols["mask"]
+
+
+def test_voice_walk_replays_in_a_graph(cuda):
+    """The walk captures in a CUDA graph (no host read, fixed shapes, the
+    block's scalars as kernel arguments): capturing runs nothing, and a
+    replay writes what an eager call writes, bit for bit."""
+    (st, *rest), kw = KB.walk_operands(cuda, np.random.default_rng(12), "pack 16 x 256")
+    want = WALK.voice_walk(_walk_clone(st), *rest, **kw)
+    cols = _walk_clone(st)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = WALK.voice_walk(cols, *rest, **kw)
+    torch.cuda.synchronize()
+    assert not _differ(cols, st)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert not _differ(got, want), _differ(got, want)
+
+
+@pytest.mark.parametrize("case", ["4096 voices", "pack 16 x 256"])
+def test_voice_walk_is_one_device_kernel(device_kernel_counts, case):
+    """The walk is one device kernel (the profiler's count), at 4096 voices
+    and in the 16 x 256 pack."""
+    _one_device_kernel(device_kernel_counts, "_walk_kernels", case)
+
+
+def _walk_kernels(case):
+    (st, *rest), kw = KB.walk_operands(torch.device("cuda"), np.random.default_rng(13), case)
+    WALK.voice_walk(st, *rest, **kw)  # builds the library
+    count = KB.device_profile(lambda: WALK.voice_walk(st, *rest, **kw))
     assert count == 1, count
 
 
@@ -1336,12 +1423,15 @@ def _same(got, want, signed_zero=True):
     at most in the sign of an exact zero."""
     if isinstance(got, dict):
         return got.keys() == want.keys() and all(_same(got[k], want[k]) for k in got)
-    if isinstance(got, tuple):
-        return all(_same(g, w, signed_zero) for g, w in zip(got, want))
-    if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+    if isinstance(got, (tuple, list)):
+        return len(got) == len(want) and all(_same(g, w, signed_zero) for g, w in zip(got, want))
+    if got is None or want is None:
+        return got is want
+    if got.dtype != want.dtype or got.shape != want.shape:
         return False
     if got.dtype != torch.float32:
-        return True
+        return torch.equal(got, want)
+    # compared as bits: NaN columns (a playing voice's finished_for) too
     bits = (lambda x: x.view(torch.int32)) if signed_zero else _bits
     return torch.equal(bits(got), bits(want))
 
@@ -2835,6 +2925,7 @@ PATH_KERNELS = {
     "arena_warp": (SK, (), SK.arena_warp_plain, None, None),
     "fader_step": (SK, (), SK.fader_step_plain, "zero sign", None),
     "agc_step": (A, (ADAPT,), A.agc_step_plain, A.agc_tolerance, None),
+    "voice_walk": (WALK, (SPATIAL,), WALK.voice_walk_plain, None, 0),
 }
 
 #: each launch counter and the wrappers that count in it
@@ -2846,6 +2937,7 @@ COUNTED_BY = {
     "ring_place": ("ring_place", "ring_place_record"),
     "ring_resample": ("ring_resample", "stream_step"),
     "arena_step": ("arena_step", "arena_warp", "fader_step"), "agc_gains": ("agc_step",),
+    "voice_walk": ("voice_walk",),
 }
 
 
@@ -2868,7 +2960,9 @@ def _hold_path_kernels(monkeypatch):
                 return _kernel(*a, **kw)
             pa = list(a)
             if _inplace is not None:
-                pa[_inplace] = a[_inplace].clone()
+                x = a[_inplace]
+                pa[_inplace] = ({k: v.clone() for k, v in x.items()} if isinstance(x, dict)
+                                else x.clone())
             got = _kernel(*a, **kw)
             want = _plain(*pa, **kw)
             if callable(_bound):
@@ -2962,16 +3056,17 @@ def _full_width_path(kind, dev):
 #: a config-5 pack's as its Mixer's, whatever its scenes
 FULL_WIDTH = {
     "buffered": {"append": None, "append_cursor": None, "select_ears": None,
-                 "select_multi": None},
+                 "select_multi": None, "voice_walk": 1},
     "seek": {},
     "mixer": {"ring_place": None, "ring_resample": 1, "agc_gains": 2},
     "hostpools": {"append": None, "append_cursor": None, "select_ears": 1,
-                  "strip_select": 2, "ring_place": None, "ring_resample": 2, "agc_gains": 3},
+                  "strip_select": 2, "ring_place": None, "ring_resample": 2, "agc_gains": 3,
+                  "voice_walk": 1},
     "spatial_sampler": {"append": None, "append_cursor": None, "select_ears": None,
-                        "select_multi": None, "arena_step": None},
+                        "select_multi": None, "arena_step": None, "voice_walk": 4},
     "sampler": {"arena_step": 1}, "wavetable": {"arena_step": 1},
     "seek_sampler": {"arena_step": 1}, "densemix": {},
-    "spatial_pack": {"append": 1, "append_cursor": 1, "select_ears": 1},
+    "spatial_pack": {"append": 1, "append_cursor": 1, "select_ears": 1, "voice_walk": 1},
     **{f"config5_pack{S}": {"ring_place": None, "ring_resample": 1, "agc_gains": 2}
        for S in (16, 64, 256)},
 }

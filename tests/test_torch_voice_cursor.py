@@ -19,6 +19,7 @@ import torch
 
 import oddio_tpu_torch as pt
 from oddio_tpu_torch import spatial as SP
+from oddio_tpu_torch.ops import walk as WALK
 
 torch.set_num_threads(1)
 
@@ -52,7 +53,7 @@ def _record_reads(monkeypatch, scene, pool, nblocks):
     pool computed (``ear_states_c`` on the previous positions) and the
     (base, frac) operands its read received."""
     offs, reads = [], []
-    ear_states = SP.ear_states_c
+    ear_states = WALK.ear_states_c
 
     def spy_ears(p3, radius):
         o, g = ear_states(p3, radius)
@@ -65,7 +66,7 @@ def _record_reads(monkeypatch, scene, pool, nblocks):
         reads.append(([b.clone() for b in ro["base_c"]], [f.clone() for f in ro["frac_c"]]))
         return ring_read(ring, ro, *a, **kw)
 
-    monkeypatch.setattr(SP, "ear_states_c", spy_ears)
+    monkeypatch.setattr(WALK, "ear_states_c", spy_ears)
     monkeypatch.setattr(pool, "_ring_read", spy_read)
     r = pt.Renderer(scene, RATE)
     out = np.concatenate([r.render_block(BLOCK) for _ in range(nblocks)])
@@ -121,9 +122,9 @@ def test_voice_read_cursors_wrap_and_previous_lap():
     vcur = torch.tensor([c - F(100.25), F(3.5), F(11000.0)])
     vbase = torch.tensor([CAP - ci + 3, 5, 7], dtype=torch.int32)
     t = torch.tensor([F(-0.001), F(-0.02), F(-0.2)])
-    vc, vb, cv, _ = SP.voice_cursor_advance(vcur, vbase, torch.full((3,), md), 512.0, RATE,
+    vc, vb, cv, _ = WALK.voice_cursor_advance(vcur, vbase, torch.full((3,), md), 512.0, RATE,
                                             CAP)
-    reads = SP.voice_reads(vc, vb, cv, [t], RATE, CAP)
+    reads = WALK.voice_reads(vc, vb, cv, [t], RATE, CAP)
     un = (vcur.numpy() + F(512)).astype(F)
     np.testing.assert_array_equal(vc.numpy(), np.fmod(un, c))
     lap = (np.array([CAP - ci + 3, 5, 7]) + np.where(un >= c, ci, 0)) % CAP
@@ -155,8 +156,8 @@ def test_voice_write_counts_follow_the_reference_cursor():
     for _ in range(40):
         np.testing.assert_array_equal(lag.numpy(), (short > 0).astype(np.int32))
         vc0 = vcur
-        vcur, vbase, _, un = SP.voice_cursor_advance(vc0, vbase, maxd, 512.0, RATE, CAP)
-        cnt = SP.voice_write_count(vc0, vcur, un)
+        vcur, vbase, _, un = WALK.voice_cursor_advance(vc0, vbase, maxd, 512.0, RATE, CAP)
+        cnt = WALK.voice_write_count(vc0, vcur, un)
         un = (w + F(512)).astype(F)
         end = np.fmod(un, c).astype(F)
         want = (np.ceil(end) - np.ceil(w)).astype(np.int64) + np.where(un >= c, int(c), 0)
